@@ -7,6 +7,10 @@ numpy leaves. The classes are recognised by name, so this module imports
 nothing of JAX and both packages can compute from the same weights. bf16
 leaves arrive as numpy arrays of the ml_dtypes `bfloat16` type and are
 reinterpreted bit for bit.
+
+`paged_cache_from_jax(cache, device)` does the same for a JAX serving
+`PagedKVCache` (as numpy), so that both packages can start from the same
+page pool.
 """
 
 from __future__ import annotations
@@ -60,3 +64,17 @@ def params_from_jax(tree: dict[str, Any], config: ModelConfig, device="cuda") ->
     """The port's params dict for a dense-family JAX param tree of numpy leaves."""
     _unsupported(config)
     return _convert(tree, resolve_device(device))
+
+
+def paged_cache_from_jax(cache, device="cuda"):
+    """The port's PagedKVCache holding the same pool as a JAX PagedKVCache
+    whose leaves are numpy arrays (k/v [Lf, P, ps, Hkv, D], int8 scales
+    [Lf, P, Hkv, ps]). Hybrid (delta-net) slot states are a later slice."""
+    from ..serve.paged import PagedKVCache
+
+    if getattr(cache, "conv", None) is not None or getattr(cache, "rec", None) is not None:
+        raise NotImplementedError("hybrid (qwen3_next) paged caches come with slice 3 of the port")
+    dev = resolve_device(device)
+    ks = None if cache.k_scale is None else to_torch(cache.k_scale, dev)
+    vs = None if cache.v_scale is None else to_torch(cache.v_scale, dev)
+    return PagedKVCache(to_torch(cache.k, dev), to_torch(cache.v, dev), ks, vs)

@@ -249,6 +249,37 @@ def merge_projections(params: dict, config: ModelConfig) -> dict:
     return out
 
 
+def qkv_rope(p: dict, x: torch.Tensor, config: ModelConfig, cos, sin, quant_mode: str):
+    """Input norm, q/k/v projections, qk-norm and RoPE of one layer:
+    q [B, T, Hq, D], k/v [B, T, Hkv, D]."""
+    norm, eps = config.zero_centered_norm, config.rms_norm_eps
+    h = rms_norm(x, p["input_layernorm"], eps, norm)
+    q, k, v = qkv_forward(p, h, config, quant_mode)
+    if config.qk_norm:
+        q = rms_norm(q, p["q_norm"], eps, norm)
+        k = rms_norm(k, p["k_norm"], eps, norm)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def layer_tail(p: dict, x: torch.Tensor, attn_out: torch.Tensor, config: ModelConfig,
+               quant_mode: str) -> torch.Tensor:
+    """o_proj, residuals, norms and MLP after a layer's attention output
+    attn_out [B, T, Hq * D]."""
+    norm, eps = config.zero_centered_norm, config.rms_norm_eps
+    attn_out = apply_linear(p["o_proj"], attn_out, quant_mode=quant_mode)
+    if config.post_norms:
+        attn_out = rms_norm(attn_out, p["post_attention_layernorm"], eps, norm)
+        x = x + attn_out
+        h2 = rms_norm(x, p["pre_feedforward_layernorm"], eps, norm)
+    else:
+        x = x + attn_out
+        h2 = rms_norm(x, p["post_attention_layernorm"], eps, norm)
+    mlp_out = mlp_forward(p["mlp"], h2, quant_mode, config.hidden_act)
+    if config.post_norms:
+        mlp_out = rms_norm(mlp_out, p["post_feedforward_layernorm"], eps, norm)
+    return x + mlp_out
+
+
 def layer_forward(
     p: dict,
     x: torch.Tensor,
@@ -264,15 +295,7 @@ def layer_forward(
 ):
     B, T, _ = x.shape
     Hq, D = config.num_attention_heads, config.head_dim
-    norm = config.zero_centered_norm
-
-    h = rms_norm(x, p["input_layernorm"], config.rms_norm_eps, norm)
-    q, k, v = qkv_forward(p, h, config, quant_mode)
-    if config.qk_norm:
-        q = rms_norm(q, p["q_norm"], config.rms_norm_eps, norm)
-        k = rms_norm(k, p["k_norm"], config.rms_norm_eps, norm)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    q, k, v = qkv_rope(p, x, config, cos, sin, quant_mode)
 
     kh = k.transpose(1, 2)
     vh = v.transpose(1, 2)
@@ -308,23 +331,22 @@ def layer_forward(
             q, k_all, v_all, q_positions, valid, scale=config.attn_scale,
             sliding_window=window, logit_softcap=config.attn_logit_softcap,
         )
-    attn_out = apply_linear(p["o_proj"], attn_out.reshape(B, T, Hq * D), quant_mode=quant_mode)
-    if config.post_norms:
-        attn_out = rms_norm(attn_out, p["post_attention_layernorm"], config.rms_norm_eps, norm)
-        x = x + attn_out
-        h2 = rms_norm(x, p["pre_feedforward_layernorm"], config.rms_norm_eps, norm)
-    else:
-        x = x + attn_out
-        h2 = rms_norm(x, p["post_attention_layernorm"], config.rms_norm_eps, norm)
-    mlp_out = mlp_forward(p["mlp"], h2, quant_mode, config.hidden_act)
-    if config.post_norms:
-        mlp_out = rms_norm(mlp_out, p["post_feedforward_layernorm"], config.rms_norm_eps, norm)
-    return x + mlp_out, new_cache
+    return layer_tail(p, x, attn_out.reshape(B, T, Hq * D), config, quant_mode), new_cache
 
 
 # ---------------------------------------------------------------------------
 # Full model
 # ---------------------------------------------------------------------------
+
+
+def embed(params: dict, config: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Token embeddings [..., H] (scaled by sqrt(H) for Gemma-class models)."""
+    x = params["embed_tokens"][tokens.to(torch.int64)]
+    if config.gemma_norm:
+        # sqrt(H) rounded to x's dtype, as JAX's; a Python number needs no
+        # host-to-device copy
+        x = x * float(torch.tensor(math.sqrt(config.hidden_size), dtype=x.dtype))
+    return x
 
 
 def lm_head_logits(params: dict, config: ModelConfig, x: torch.Tensor, quant_mode="xla"):
@@ -356,11 +378,7 @@ def model_forward(
     return_hidden=True, and the updated cache)."""
     _unsupported(config)
     B, T = tokens.shape
-    x = params["embed_tokens"][tokens.to(torch.int64)]
-    if config.gemma_norm:
-        # sqrt(H) rounded to x's dtype, as JAX's; a Python number needs no
-        # host-to-device copy
-        x = x * float(torch.tensor(math.sqrt(config.hidden_size), dtype=x.dtype))
+    x = embed(params, config, tokens)
     if cache is not None:
         offset = cache.length
     else:

@@ -1,8 +1,10 @@
 """Single-stream generator: prefill, then sample -> decode_step per token.
 
 Counterpart of `paroquant_tpu/serve/generator.py:129-333, 434-476` (the
-plain loop). Burst decode, prompt-lookup speculation and the VLM prefill
-wait for later slices. The tokenizer is optional.
+plain loop) and of its prompt-lookup drafter `_lookup_draft` (`:105-125`),
+which the engine's speculative ticks use. The Generator's burst decode,
+its speculative streams and the VLM prefill wait for later slices. The
+tokenizer is optional.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ import time
 from pathlib import Path
 from typing import Any, Iterator
 
+import numpy as np
 import torch
 
 from ..models.config import ModelConfig
@@ -20,6 +23,26 @@ from ..utils.device import resolve_device
 from .sampling import SamplingParams, sample_token
 
 CACHE_ROWS_MULTIPLE = 128
+
+
+def _lookup_draft(ctx: list[int], k: int, max_ngram: int = 3) -> list[int]:
+    """Prompt-lookup drafting: find the most recent earlier occurrence of the
+    longest suffix n-gram (n <= max_ngram) of the context and propose the k
+    tokens that followed it; [] when no n-gram recurs. The JAX package scans
+    contexts over 512 tokens in C++ (native/paropack.cpp) and shorter ones in
+    Python, with the same result; here one numpy scan serves every length."""
+    L = len(ctx)
+    if L < 2:
+        return []
+    arr = np.asarray(ctx, np.int64)
+    for n in range(min(max_ngram, L - 1), 0, -1):
+        # windows starting at i = 0 .. L-n-1 (the suffix itself excluded)
+        win = np.lib.stride_tricks.sliding_window_view(arr[: L - 1], n)
+        hits = np.flatnonzero((win == arr[L - n :]).all(axis=1))
+        if hits.size:
+            i = int(hits[-1])
+            return ctx[i + n : i + n + k]
+    return []
 
 
 @dataclasses.dataclass

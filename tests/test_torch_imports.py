@@ -51,8 +51,10 @@ def _entry_points():
     from paroquant_tpu_torch.convert.checkpoint import load_checkpoint
     from paroquant_tpu_torch.convert.rtn import quantize_model_rtn
     from paroquant_tpu_torch.models import PRESETS, KVCache, init_params
-    from paroquant_tpu_torch.serve import Generator
+    from paroquant_tpu_torch.convert.interop import paged_cache_from_jax
+    from paroquant_tpu_torch.serve import Engine, Generator, PagedKVCache
     from paroquant_tpu_torch.utils.device import resolve_device
+    from paroquant_tpu_torch.utils.profiling import profile_paged_decode
 
     cfg = PRESETS["tiny"]
     return {
@@ -62,13 +64,19 @@ def _entry_points():
         "Generator": lambda: Generator({}, cfg),
         "load_checkpoint": lambda: load_checkpoint("/nonexistent"),
         "quantize_model_rtn": lambda: quantize_model_rtn({"layers": []}, cfg),
+        "Engine": lambda: Engine({}, cfg),
+        "PagedKVCache.create": lambda: PagedKVCache.create(cfg, 4, 8),
+        "paged_cache_from_jax": lambda: paged_cache_from_jax(
+            type("C", (), dict(k=None, v=None, k_scale=None, v_scale=None))()),
+        "profile_paged_decode": lambda: profile_paged_decode({}, cfg),
     }
 
 
 @pytest.mark.parametrize(
     "name",
     ["resolve_device", "init_params", "KVCache.create", "Generator", "load_checkpoint",
-     "quantize_model_rtn"],
+     "quantize_model_rtn", "Engine", "PagedKVCache.create", "paged_cache_from_jax",
+     "profile_paged_decode"],
 )
 def test_cuda_default_raises_without_cuda(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
