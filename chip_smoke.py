@@ -11,9 +11,16 @@ Phases, each printing one or more lines:
      after warm-up, L2 flushed before each timed launch) beside the bound
      and one library call: K1/K2 (W4 GEMV), K3 (flash prefill), K4/K5
      (paged decode / verify over 8 slots of mixed lengths, bf16 and int8
-     pools; each query row held to its own output's scale); then their
-     other branches (f32, ragged M, head_dim 64, softcap, window, page
-     sizes, ...) at small shapes, checked and not timed;
+     pools; each query row held to its own output's scale), K6-K9 (the
+     kernel benchmarks' W4 variants, at their 4096 x 4096 shape with each
+     scale/zero dtype pair and at o_proj); then their other branches (f32,
+     ragged M, head_dim 64, softcap, window, page sizes, K1/K2 at group
+     sizes 1024/2048 and one row-spanning group of 96/320 with f32, f16
+     and uint8 scales/zeros, ...) at small shapes, checked and not timed;
+     then slice 3's path, the ported kernel benchmarks (kernel_bench3 in
+     its three modes, kernel_bench4, the kernel-speedup sweep, K9 at the
+     benchmarks' shape) with the launch counts reset just before and read
+     just after: K1 (on f32 and uint8 scales/zeros) and K6-K9 must run;
   4. slice 1's path at full width: Qwen3-0.6B (28 layers, hidden 1024,
      vocab 151936) with random weights from a seeded torch.Generator,
      Hadamard RTN W4 with a W4 lm_head and merged projections, served by
@@ -53,12 +60,13 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}  # dense tensor-core rates, H100 SXM
 FLUSH_BYTES = 256 << 20  # > the 50 MB L2
-SPIN_CYCLES = 2_000_000  # ~1 ms of device spin ahead of each timed call
 KERNEL_REPS, PLAIN_REPS = 30, 5
 TOL_KERNEL = 2e-2  # max abs error / max |plain output|; for K4/K5 per query row (slot, w, head)
 TOL_E2E = 5e-2  # relative Frobenius error of the logits, kernel path vs reference path
 TOL_LOGPROB = 0.25  # nats: an engine request's logprobs against a contiguous prefill's
 ROT_SRC = "paroquant_tpu_torch/kernels/csrc/rot_w4_matmul.cu"
+VARIANTS_SRC = "paroquant_tpu_torch/kernels/csrc/w4_variants.cu"
+SLICE1_W4 = ("rot_w4_matmul", "merged_rot_w4_matmul")  # the W4 kernels of slices 1 and 2
 FLASH_SRC = "paroquant_tpu_torch/kernels/csrc/flash_attention.cu"
 PAGED_SRC = "paroquant_tpu_torch/kernels/csrc/paged_attention.cu"
 
@@ -70,23 +78,11 @@ def emit(obj) -> None:
 def median_ms(fn, reps, flush):
     """Median device time of one call of fn: the L2 is flushed first, and a
     spin kernel keeps the device busy while the host enqueues the call, so
-    the events time the device work, not the host's Python overhead."""
-    import torch
+    the events time the device work, not the host's Python overhead
+    (`paroquant_tpu_torch/utils/profiling.py::kernel_time_ms`)."""
+    from paroquant_tpu_torch.utils.profiling import kernel_time_ms
 
-    fn()
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        torch.cuda._sleep(SPIN_CYCLES)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return kernel_time_ms(fn, reps, flush)
 
 
 def bound(bytes_moved, ops, kind):
@@ -292,11 +288,212 @@ def check_edges(gen, dev):
             record("flash_attention", f"{case} {dt} D={D}", at.flash_attention(q, k, v, lens, **kw),
                    at.flash_attention_plain(q, k, v, lens, **kw))
     paged_edges(gen, dev, record)
+    w4_edges(gen, dev, record)
     torch.cuda.synchronize()
     emit({"phase": "kernel_edges", "cases": len(rows),
           "worst_err_over_tol": max(r["err_over_tol"] for r in rows),
           "failed": [r for r in rows if not r["ok"]]})
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: the W4 variants of the kernel benchmarks (K6-K9)
+# ---------------------------------------------------------------------------
+
+W4_VARIANTS = ("w4_matmul", "butterfly_w4_matmul", "rot_w4_matmul_mg", "rot_w4_matmul_i4")
+SZ_DTYPES = {"bf16/bf16": ("bfloat16", "bfloat16"), "bf16/u8": ("bfloat16", "uint8"),
+             "f32/f32": ("float32", "float32")}
+
+
+def w4_variant_inputs(kernel, I, O, gen, dev, S=128, K=8, sz="bf16/bf16"):
+    """Random operands of one W4 variant at group size S: (call, plain, the
+    rotation map as a function of x [n, I] -> [n, I] f32 (None for K6), the
+    dequantized weight [I, O] f32, the bytes the call must move beyond x and
+    out, and the extra operations of its rotation per row)."""
+    import torch
+
+    from paroquant_tpu_torch.kernels import rot_matmul as rm
+    from paroquant_tpu_torch.ops.butterfly import butterfly_tables
+    from paroquant_tpu_torch.ops.packing import pack_w4_i4, pack_w4_tpu
+
+    G = I // S
+    sdt, zdt = (getattr(torch, n) for n in SZ_DTYPES[sz])
+    q = torch.randint(0, 16, (I, O), generator=gen, device=dev, dtype=torch.int32)
+    scales = (torch.rand(G, O, generator=gen, device=dev) * 0.04 + 0.01).to(sdt)
+    zeros = torch.randint(0, 16, (G, O), generator=gen, device=dev).to(zdt)
+    if kernel == "rot_w4_matmul_mg":  # the kernel rounds them to bf16
+        scales, zeros = scales.to(torch.bfloat16), zeros.to(torch.bfloat16)
+    wd = ((q.reshape(G, S, O).float() - zeros[:, None].float()) * scales[:, None].float()).reshape(I, O)
+    extra = I * O // 2 + G * O * (scales.element_size() + zeros.element_size())
+    if kernel == "w4_matmul":
+        qw = pack_w4_tpu(q, S)
+        return (lambda x: rm.w4_matmul(x, qw, scales, zeros, group_size=S),
+                lambda x: rm.w4_matmul_plain(x, qw, scales, zeros, group_size=S),
+                None, wd, extra, 0)
+    if kernel == "butterfly_w4_matmul":
+        qw = pack_w4_tpu(q, S)
+        inv_s = torch.rand(I, generator=gen, device=dev) * 1.5 + 0.5
+        theta = torch.randn(K, I // 2, generator=gen, device=dev) * 0.3
+        cos_t, sin_t = (torch.from_numpy(a).to(dev) for a in butterfly_tables(theta.cpu().numpy(), S))
+        args = (inv_s, cos_t, sin_t, qw, scales, zeros)
+        return (lambda x: rm.butterfly_w4_matmul(x, *args, group_size=S),
+                lambda x: rm.butterfly_w4_matmul_plain(x, *args, group_size=S),
+                lambda x: rm.butterfly_rotate_plain(x, inv_s, cos_t, sin_t, S).reshape(x.shape[0], I),
+                wd, extra + I * 4 + 2 * K * I * 4, 6 * I * K)
+    rot = (torch.randn(G, S, S, generator=gen, device=dev) / S**0.5).to(torch.bfloat16)
+    rotate = lambda x: torch.einsum("mgj,gij->mgi", x.float().reshape(-1, G, S),
+                                    rot.float()).reshape(x.shape[0], I)
+    extra += G * S * S * 2
+    if kernel == "rot_w4_matmul_mg":
+        qw = pack_w4_tpu(q, S)
+        return (lambda x: rm.rot_w4_matmul_mg(x, rot, qw, scales, zeros),
+                lambda x: rm.rot_w4_matmul_mg_plain(x, rot, qw, scales, zeros),
+                rotate, wd, extra, 2 * I * S)
+    qw = pack_w4_i4(q)
+    return (lambda x: rm.rot_w4_matmul_i4(x, rot, qw, scales, zeros),
+            lambda x: rm.rot_w4_matmul_i4_plain(x, rot, qw, scales, zeros),
+            rotate, wd, extra, 2 * I * S)
+
+
+def effective_weight(rotate, wd, I, dev):
+    """The pre-rotated bf16 weight [I, O] of the library yardstick: x @ it
+    is rotate(x) @ wd."""
+    import torch
+
+    if rotate is None:
+        return wd.to(torch.bfloat16)
+    return (rotate(torch.eye(I, device=dev)) @ wd).to(torch.bfloat16)
+
+
+def check_w4_variants(flush, gen, dev):
+    """K6-K9 against their plain versions at the benchmarks' shape (4096 x
+    4096, g128, K = 8) with each scale/zero dtype pair of the callers
+    (bf16/bf16, bf16/uint8, f32/f32; K8 rounds them to bf16), and at
+    Qwen3-0.6B's o_proj (2048 -> 1024), M = 1, 16, 128, timed beside the
+    bound and torch.matmul on the pre-rotated, dequantized bf16 weight."""
+    import torch
+
+    shapes = [("bench", 4096, 4096, sz) for sz in SZ_DTYPES] + [("o_proj", 2048, 1024, "bf16/bf16")]
+    rows = []
+    for kernel in W4_VARIANTS:
+        for layer, I, O, sz in shapes:
+            if kernel == "rot_w4_matmul_mg" and sz != "bf16/bf16":
+                continue
+            run, plain, rotate, wd, extra, rot_ops = w4_variant_inputs(kernel, I, O, gen, dev, sz=sz)
+            w_eff = effective_weight(rotate, wd, I, dev)
+            for M in (1, 16, 128):
+                x = torch.randn(M, I, generator=gen, device=dev).to(torch.bfloat16)
+                y, y_ref = run(x).float(), plain(x).float()
+                torch.cuda.synchronize()
+                err = (y - y_ref).abs().max().item()
+                tol = TOL_KERNEL * y_ref.abs().max().item()
+                ms = median_ms(lambda: run(x), KERNEL_REPS, flush)
+                plain_ms = median_ms(lambda: plain(x), PLAIN_REPS, flush)
+                lib_ms = median_ms(lambda: torch.matmul(x, w_eff), KERNEL_REPS, flush)
+                b_ms, b_by = bound(extra + M * I * 2 + M * O * 2, 2 * M * I * O + M * rot_ops, "bf16")
+                row = dict(kernel=kernel, layer=layer, sz=sz, M=M, max_abs_err=err, tol=tol,
+                           us=ms * 1e3, plain_us=plain_ms * 1e3, library_us=lib_ms * 1e3,
+                           bound_us=b_ms * 1e3, bound_by=b_by, ok=err <= tol)
+                emit({"phase": "kernel_check", **row})
+                rows.append(row)
+            del run, plain, rotate, wd, w_eff
+    return rows
+
+
+def w4_edges(gen, dev, record):
+    """K6-K9 at small shapes (ragged M, f32 x, K = 1..8 stages, a partial last
+    block of groups, group sizes 256 and 512, a width that is not a multiple
+    of 4) and K1/K2 at the layouts beyond 128-512: S = 1024 and 2048 with one
+    and two groups, one row-spanning group of 96 and of 320 channels, with
+    f32, f16 and uint8 scales and zeros, P = 2, a8 on and off."""
+    import torch
+
+    from paroquant_tpu_torch.kernels import rot_matmul as rm
+
+    def check(kernel, case, I, O, S=128, K=8, sz="bf16/bf16", Ms=(5, 17, 33), xdt=torch.bfloat16):
+        run, plain, _, _, _, _ = w4_variant_inputs(kernel, I, O, gen, dev, S=S, K=K, sz=sz)
+        for M in Ms:
+            x = torch.randn(M, I, generator=gen, device=dev).to(xdt)
+            record(kernel, f"{case} M={M} x={xdt}", run(x), plain(x))
+
+    for kernel in W4_VARIANTS:
+        check(kernel, "ragged", 256, 160)
+        check(kernel, "f32 x", 256, 160, Ms=(1, 17), xdt=torch.float32)
+        for S in (256, 512):
+            check(kernel, f"S={S}", 2 * S, 128, S=S, Ms=(1, 9))
+        if kernel != "rot_w4_matmul_mg":
+            check(kernel, "f32/f32 O=130", 256, 130, sz="f32/f32", Ms=(3,))
+    for K in (1, 2, 4, 8):
+        check("butterfly_w4_matmul", f"K={K}", 256, 128, K=K, Ms=(1, 9))
+    check("rot_w4_matmul_mg", "G=20 gps=16", 20 * 128, 128, Ms=(1, 9))
+
+    for S, G in ((1024, 1), (1024, 2), (2048, 1), (2048, 2), (96, 1), (320, 1)):
+        splits = (128, 96) if S >= 128 else (66, 62)
+        rot, qweight, scales, zeros, _ = random_merged(G * S, splits, gen, dev, S)
+        for sdt, zdt in ((torch.float32, torch.float32), (torch.float16, torch.uint8)):
+            s, z = scales.to(sdt), zeros.to(zdt)
+            x = torch.randn(5, G * S, generator=gen, device=dev).to(torch.bfloat16)
+            for a8 in (False, True):
+                case = f"S={S} G={G} s/z={sdt}/{zdt} a8={a8}"
+                one = (x, rot[0], qweight[:, :splits[0]], s[:, :splits[0]], z[:, :splits[0]])
+                record("rot_w4_matmul", case, rm.rot_w4_matmul(*one, a8=a8),
+                       rm.rot_w4_matmul_plain(*one, a8=a8))
+                record("merged_rot_w4_matmul", case,
+                       rm.merged_rot_w4_matmul(x, rot, qweight, s, z, out_splits=splits, a8=a8),
+                       rm.merged_rot_w4_matmul_plain(x, rot, qweight, s, z, out_splits=splits,
+                                                     a8=a8))
+
+
+def kernel_bench(dev):
+    """The ported kernel benchmarks, in this process: kernel_bench3 in its
+    three modes, kernel_bench4, the kernel-speedup sweep, and K9 (which has
+    no caller) at the benchmarks' shape. The launch counts are reset just
+    before and read just after: K6-K9 must have run, and K1 on f32 and on
+    uint8 scales/zeros."""
+    import numpy as np
+    import torch
+
+    from paroquant_tpu_torch.experiments import plot_kernel_speedup
+    from paroquant_tpu_torch.kernels import rot_matmul as rm
+    from paroquant_tpu_torch.ops.packing import pack_w4_i4
+    from paroquant_tpu_torch.scripts import kernel_bench3, kernel_bench4
+    from paroquant_tpu_torch.scripts.bench_common import Case, tensor, time_cases
+
+    M, I, O, GS = 1, 4096, 4096, 128
+    G = I // GS
+    rng = np.random.default_rng(2)
+    bf = torch.bfloat16
+    x = tensor(rng.normal(size=(M, I)), bf, dev)
+    qw_i4 = pack_w4_i4(rng.integers(0, 16, (I, O), dtype=np.int32)).to(dev)
+    scales = tensor(rng.uniform(0.01, 0.05, (G, O)), bf, dev)
+    zeros = tensor(rng.integers(0, 16, (G, O)), torch.uint8, dev)
+    rot = tensor(rng.normal(size=(G, GS, GS)), bf, dev)
+    k9 = Case("rot_w4_matmul_i4", lambda xv: rm.rot_w4_matmul_i4(xv, rot, qw_i4, scales, zeros),
+              x, I * O // 2 + G * O * 3 + G * GS * GS * 2)
+    torch.cuda.synchronize()
+
+    rm.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = {f"kernel_bench3 {mode}": kernel_bench3.main(dev, mode) for mode in kernel_bench3.MODES}
+    rows["kernel_bench4"] = kernel_bench4.main(dev)
+    sweep = plot_kernel_speedup.main(dev)
+    rows["rot_w4_matmul_i4 (no caller)"] = time_cases([k9], dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: rm.launch_counts[k] for k in ("rot_w4_matmul", *W4_VARIANTS)}
+    sz = {k: dict(rm.sz_counts[k]) for k in counts}
+
+    for script, script_rows in rows.items():
+        for row in script_rows:
+            emit({"phase": "kernel_bench", "script": script, **row})
+    emit({"phase": "kernel_speedup", **sweep})
+    emit({"phase": "kernel_bench_launches", "counts": counts, "sz_dtypes": sz, "wall_s": wall})
+    missing = [k for k, c in counts.items() if c == 0]
+    missing += [f"rot_w4_matmul on {k}" for k in ("float32/float32", "bfloat16/uint8")
+                if k not in sz["rot_w4_matmul"]]
+    if missing:
+        raise SystemExit(f"kernel_bench: not launched: {missing}")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -414,7 +611,8 @@ def main_path(qparams, cfg, dev):
         res = gen.generate(prompt, sp, torch.Generator(device=dev).manual_seed(2))
         results.append(res)
     torch.cuda.synchronize()
-    counts = {**rm.launch_counts, "flash_attention": at.launch_counts["flash_attention"]}
+    counts = {k: rm.launch_counts[k] for k in SLICE1_W4}
+    counts["flash_attention"] = at.launch_counts["flash_attention"]
     variants = {k: {"w4a16": v[0], "a8": v[1]} for k, v in rm.variant_counts.items()}
     for (n, sp), res in zip(requests, results):
         toks = res.token_ids
@@ -739,7 +937,7 @@ def serve(qparams, cfg, dev, *, kv_quant=None):
             break
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(rm.launch_counts, **at.launch_counts)
+    counts = dict({k: rm.launch_counts[k] for k in SLICE1_W4}, **at.launch_counts)
     variants = {k: {"w4a16": v[0], "a8": v[1]} for k, v in rm.variant_counts.items()}
     variants.update({k: {"float": v[0], "int8": v[1]} for k, v in at.variant_counts.items()})
     bad, greedy = [], []
@@ -909,11 +1107,13 @@ def main() -> int:
     mm_rows = check_matmuls(flush, gen, dev)
     fa_rows = check_flash(flush, gen, dev)
     pa_rows = check_paged(flush, gen, dev)
+    w4_rows = check_w4_variants(flush, gen, dev)
     edge_rows = check_edges(gen, dev)
-    bad = [r for r in mm_rows + fa_rows + pa_rows + edge_rows if not r["ok"]]
+    bad = [r for r in mm_rows + fa_rows + pa_rows + w4_rows + edge_rows if not r["ok"]]
     if bad:
         raise SystemExit(f"{len(bad)} kernel checks missed their tolerance")
     del flush
+    bench_counts = kernel_bench(dev)  # slice 3: the kernel benchmarks (K1, K6-K9)
 
     qparams, cfg = qwen3_model(dev)
     counts = main_path(qparams, cfg, dev)  # slice 1: the Generator (K1-K3)
@@ -928,13 +1128,15 @@ def main() -> int:
     emit({"phase": "paged_decode_profile", "batch": 8, "context": 256, "quant_mode": "auto",
           **profile_paged_decode(qparams, cfg, batch=8, context=256, steps=16, device=dev)})
 
+    counts.update({k: bench_counts[k] for k in W4_VARIANTS})  # their launches: the kernel_bench phase
+
     def entry(name, src, replaces, row):
         return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": counts[name], "max_abs_err": row["max_abs_err"],
                 "ms": row["us"] / 1e3, "plain_ms": row["plain_us"] / 1e3,
                 "bound_ms": row["bound_us"] / 1e3, "bound_by": row["bound_by"],
                 "library_ms": row["library_us"] / 1e3,
-                "at": {k: row[k] for k in ("layer", "M", "a8", "case", "T", "S", "B", "W")
+                "at": {k: row[k] for k in ("layer", "M", "a8", "sz", "case", "T", "S", "B", "W")
                        if k in row}}
 
     def pick(rows, **kw):
@@ -951,6 +1153,12 @@ def main() -> int:
               pick(pa_rows, kernel="paged_decode_attention", case="bf16")),
         entry("paged_window_attention_kernel", PAGED_SRC, "paroquant_tpu/kernels/attention.py:337",
               pick(pa_rows, kernel="paged_window_attention_kernel", case="bf16")),
+        *(entry(name, VARIANTS_SRC, f"paroquant_tpu/kernels/rot_matmul.py:{line}",
+                pick(w4_rows, kernel=name, layer="bench", sz=sz, M=1))
+          for name, line, sz in (("w4_matmul", 387, "bf16/u8"),
+                                 ("butterfly_w4_matmul", 285, "bf16/u8"),
+                                 ("rot_w4_matmul_mg", 564, "bf16/bf16"),
+                                 ("rot_w4_matmul_i4", 464, "bf16/u8"))),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -11,6 +11,11 @@ reinterpreted bit for bit.
 `paged_cache_from_jax(cache, device)` does the same for a JAX serving
 `PagedKVCache` (as numpy), so that both packages can start from the same
 page pool.
+
+`w4_i4_from_jax(qweight, device)` takes the numpy view of the weight of
+JAX's native-int4 kernel (`jnp.uint4 [I, O]`, one ml_dtypes `uint4` per
+element) to the port's interleaved uint8 [I//2, O] layout
+(`ops/packing.py::pack_w4_i4`).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 
 from ..models.config import ModelConfig
 from ..models.decoder import DenseLinear, _unsupported
+from ..ops.packing import pack_w4_i4
 from ..ops.qlinear import MergedQuantizedLinear, QuantizedLinear
 from ..utils.device import resolve_device
 
@@ -78,3 +84,9 @@ def paged_cache_from_jax(cache, device="cuda"):
     ks = None if cache.k_scale is None else to_torch(cache.k_scale, dev)
     vs = None if cache.v_scale is None else to_torch(cache.v_scale, dev)
     return PagedKVCache(to_torch(cache.k, dev), to_torch(cache.v, dev), ks, vs)
+
+
+def w4_i4_from_jax(qweight, device="cuda") -> torch.Tensor:
+    """JAX's uint4 [I, O] weight (as numpy) -> interleaved uint8 [I//2, O]."""
+    q = np.asarray(qweight).astype(np.uint8)
+    return pack_w4_i4(torch.from_numpy(q)).to(resolve_device(device))

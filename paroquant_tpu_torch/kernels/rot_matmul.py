@@ -1,16 +1,28 @@
-"""Rotated W4 matmul: CUDA kernels (csrc/rot_w4_matmul.cu) and their plain versions.
+"""W4 matmuls: CUDA kernels (csrc/rot_w4_matmul.cu, csrc/w4_variants.cu) and
+their plain versions.
 
-Port of `paroquant_tpu/kernels/rot_matmul.py::rot_w4_matmul` (K1) and
-`::merged_rot_w4_matmul` (K2), each with the int8-activation branch (`a8`):
+Port of the six kernels of `paroquant_tpu/kernels/rot_matmul.py`:
 
-    xr_g = bf16(x_g @ M_g^T)
-    out  = sum_g (xr_g @ q_g - rowsum(xr_g) * z_g) * s_g              (W4A16)
-    out  = sum_g (xq_g @ q_g - rowsum(xq_g) * z_g) * s_g * sx_g       (a8)
+    K1 rot_w4_matmul, K2 merged_rot_w4_matmul (P <= 4 partitions), each with
+       the int8-activation branch (`a8`):
+         xr_g = bf16(x_g @ M_g^T)
+         out  = sum_g (xr_g @ q_g - rowsum(xr_g) * z_g) * s_g              (W4A16)
+         out  = sum_g (xq_g @ q_g - rowsum(xq_g) * z_g) * s_g * sx_g       (a8)
+    K6 w4_matmul: K1 without the rotation, xr_g = bf16(x_g)
+    K7 butterfly_w4_matmul: xr_g = bf16(K butterfly Givens stages of x_g * inv_s)
+    K8 rot_w4_matmul_mg: xr_g = bf16(bf16(x_g) @ bf16(M_g)^T), the weight
+       dequantized in bf16, w = bf16((q - z) * s), out = sum_g xr_g @ w_g
+    K9 rot_w4_matmul_i4: K1 on the interleaved weight layout of
+       `ops/packing.py::pack_w4_i4`
 
-A wrapper launches the CUDA kernel for tensors on a CUDA device and runs the
-plain PyTorch version for tensors on the CPU (the counterpart of the Pallas
-interpreter). A failed build or launch raises; nothing falls back. Each
-CUDA call adds one to `launch_counts[name]`.
+The group size S of K1/K2/K6/K9 is any even divisor of I, and scales and
+zeros come in float32, bfloat16, float16 or uint8 (K8 rounds them to
+bfloat16 first, as JAX's wrapper does). A wrapper launches the CUDA kernel
+for tensors on a CUDA device and runs the plain PyTorch version for tensors
+on the CPU (the counterpart of the Pallas interpreter). A failed build or
+launch raises; nothing falls back. Each CUDA call adds one to
+`launch_counts[name]`, and to `sz_counts[name]` under its scales' and
+zeros' dtypes.
 """
 
 from __future__ import annotations
@@ -19,26 +31,34 @@ import ctypes
 
 import torch
 
+from ..ops.butterfly import butterfly_distances
 from .build import load
 
-MAX_S = 512  # the CUDA kernel takes group sizes 128, 256, 384 and 512
 MAX_PARTS = 4
 ROWS_PER_TILE = 8
 COLS_PER_TILE = 128
+MAX_BUTTERFLY_S = 32768  # K7 stages a group's rows in shared memory
+SZ_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.uint8: 3}
 
-launch_counts = {"rot_w4_matmul": 0, "merged_rot_w4_matmul": 0}
-# per-variant split of the counts above (W4A16 vs a8)
+KERNELS = ("rot_w4_matmul", "merged_rot_w4_matmul", "w4_matmul", "butterfly_w4_matmul",
+           "rot_w4_matmul_mg", "rot_w4_matmul_i4")
+launch_counts = {name: 0 for name in KERNELS}
+# per-variant split of K1/K2's counts (W4A16 vs a8)
 variant_counts = {"rot_w4_matmul": [0, 0], "merged_rot_w4_matmul": [0, 0]}
+# launches by "scales dtype/zeros dtype", e.g. "float32/uint8"
+sz_counts: dict[str, dict[str, int]] = {name: {} for name in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
+    for name in KERNELS:
         launch_counts[name] = 0
+        sz_counts[name] = {}
+    for name in variant_counts:
         variant_counts[name] = [0, 0]
 
 
 # ---------------------------------------------------------------------------
-# Plain versions (same decomposition as the kernel)
+# Plain versions (the kernels' decompositions)
 # ---------------------------------------------------------------------------
 
 
@@ -48,25 +68,32 @@ def _unpack_groups(qweight: torch.Tensor, G: int, S: int) -> torch.Tensor:
     return torch.cat([p & 0xF, p >> 4], dim=1).to(torch.float32)
 
 
+def _unpack_interleaved(qweight: torch.Tensor, G: int, S: int) -> torch.Tensor:
+    """uint8 [I//2, O] (byte row k: channels 2k, 2k+1) -> float32 [G, S, O]."""
+    p = qweight.to(torch.int32)
+    q = torch.stack([p & 0xF, p >> 4], dim=1).reshape(G, S, -1)
+    return q.to(torch.float32)
+
+
+def _w4_epilogue(xb, q, scales, zeros):
+    """sum_g (xb_g @ q_g - rowsum(xb_g) * z_g) * s_g in f32: xb [M, G, S]
+    (bf16 or int8 values in f32), q [G, S, O]."""
+    acc = torch.einsum("mgk,gko->mgo", xb, q)
+    return (acc - xb.sum(-1, keepdim=True) * zeros.to(torch.float32)) * scales.to(torch.float32)
+
+
 def _rot_w4_plain_part(x, rot, q, scales, zeros, a8):
     """One partition: x [M, I]; rot [G, S, S]; q [G, S, O] f32; scales/zeros [G, O]."""
     M = x.shape[0]
     G, S, _ = rot.shape
     xg = x.to(rot.dtype).to(torch.float32).reshape(M, G, S)
     xr = torch.einsum("mgj,gij->mgi", xg, rot.to(torch.float32))  # [M, G, S] f32
-    s = scales.to(torch.float32)
-    z = zeros.to(torch.float32)
     if a8:
         amax = xr.abs().amax(dim=-1, keepdim=True)
         sx = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
-        xq = torch.round(xr / sx)
-        acc = torch.einsum("mgk,gko->mgo", xq, q)  # integer-valued, exact in f32
-        contrib = (acc - xq.sum(-1, keepdim=True) * z) * s * sx
-    else:
-        xb = xr.to(torch.bfloat16).to(torch.float32)
-        acc = torch.einsum("mgk,gko->mgo", xb, q)
-        contrib = (acc - xb.sum(-1, keepdim=True) * z) * s
-    return contrib.sum(dim=1)
+        xq = torch.round(xr / sx)  # integer-valued, so the dot is exact in f32
+        return (_w4_epilogue(xq, q, scales, zeros) * sx).sum(dim=1)
+    return _w4_epilogue(xr.to(torch.bfloat16).to(torch.float32), q, scales, zeros).sum(dim=1)
 
 
 def rot_w4_matmul_plain(x, rot, qweight, scales, zeros, *, a8: bool = False) -> torch.Tensor:
@@ -91,95 +118,254 @@ def merged_rot_w4_matmul_plain(
     return torch.cat(outs, dim=-1).to(x.dtype)
 
 
+def w4_matmul_plain(x, qweight, scales, zeros, *, group_size: int = 128) -> torch.Tensor:
+    """Plain PyTorch version of K6 (`_kernel_plain`): [M, I] -> [M, O] in x.dtype."""
+    M, I = x.shape
+    G = I // group_size
+    xb = x.to(torch.bfloat16).to(torch.float32).reshape(M, G, group_size)
+    q = _unpack_groups(qweight, G, group_size)
+    return _w4_epilogue(xb, q, scales, zeros).sum(dim=1).to(x.dtype)
+
+
+def butterfly_rotate_plain(x, inv_channel_scales, cos_table, sin_table, group_size: int):
+    """K7's rotation in f32: x * inv_s, then stage r sets each lane l of a
+    group to cos[r, l] x[l] + sin[r, l] x[l ^ d_r]. [M, I] -> [M, G, S]."""
+    M, I = x.shape
+    G, S = I // group_size, group_size
+    xg = (x.to(torch.float32) * inv_channel_scales.to(torch.float32)).reshape(M, G, S)
+    K = cos_table.shape[0]
+    cos = cos_table.to(torch.float32).reshape(K, G, S)
+    sin = sin_table.to(torch.float32).reshape(K, G, S)
+    lane = torch.arange(S, device=x.device)
+    for r, d in enumerate(butterfly_distances(K, S)):
+        xg = cos[r] * xg + sin[r] * xg[..., lane ^ d]
+    return xg
+
+
+def butterfly_w4_matmul_plain(x, inv_channel_scales, cos_table, sin_table, qweight, scales,
+                              zeros, *, group_size: int = 128) -> torch.Tensor:
+    """Plain PyTorch version of K7 (`_kernel`): [M, I] -> [M, O] in x.dtype."""
+    _check_butterfly_group(group_size)
+    xr = butterfly_rotate_plain(x, inv_channel_scales, cos_table, sin_table, group_size)
+    xb = xr.to(torch.bfloat16).to(torch.float32)
+    q = _unpack_groups(qweight, xb.shape[1], group_size)
+    return _w4_epilogue(xb, q, scales, zeros).sum(dim=1).to(x.dtype)
+
+
+def rot_w4_matmul_mg_plain(x, rot, qweight, scales, zeros) -> torch.Tensor:
+    """Plain PyTorch version of K8 (`_kernel_dense_rot_mg`): x and rot in
+    bf16, xr = bf16(x_g @ rot_g^T), the weight w = bf16((q - z) * s) with
+    bf16 scales and zeros, out = xr @ w summed in f32."""
+    M = x.shape[0]
+    G, S, _ = rot.shape
+    xb = x.to(torch.bfloat16).to(torch.float32).reshape(M, G, S)
+    xr = torch.einsum("mgj,gij->mgi", xb, rot.to(torch.bfloat16).to(torch.float32))
+    xr = xr.to(torch.bfloat16).to(torch.float32)
+    q = _unpack_groups(qweight, G, S)
+    s = scales.to(torch.bfloat16).to(torch.float32)[:, None, :]
+    z = zeros.to(torch.bfloat16).to(torch.float32)[:, None, :]
+    w = ((q - z) * s).to(torch.bfloat16).to(torch.float32)
+    return torch.einsum("mgk,gko->mo", xr, w).to(x.dtype)
+
+
+def rot_w4_matmul_i4_plain(x, rot, qweight_i4, scales, zeros) -> torch.Tensor:
+    """Plain PyTorch version of K9 (`_kernel_dense_rot_i4`): K1's numerics
+    on the interleaved layout."""
+    G, S, _ = rot.shape
+    q = _unpack_interleaved(qweight_i4, G, S)
+    return _rot_w4_plain_part(x, rot, q, scales, zeros, False).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # CUDA launch
 # ---------------------------------------------------------------------------
 
-_fn = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {  # entry point: (source stem, argument types)
+    "paro_rot_w4_matmul": ("rot_w4_matmul", [_P] * 11 + [_I] * 4 + [ctypes.POINTER(_I)] + [_I] * 6),
+    "paro_butterfly_w4_matmul": ("w4_variants", [_P] * 4 + [_I] + [_P] * 7 + [_I] * 8),
+    "paro_dense_rot_w4_variant": ("w4_variants", [_P] * 9 + [_I] * 10),
+}
+_fns: dict[str, object] = {}
 
 
-def _lib_fn():
-    global _fn
-    if _fn is None:
-        fn = load("rot_w4_matmul").paro_rot_w4_matmul
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [
-            ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+def _lib_fn(entry: str):
+    if entry not in _fns:
+        stem, argtypes = _SIGNATURES[entry]
+        fn = getattr(load(stem), entry)
+        fn.argtypes = argtypes + [_P]  # the stream last
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[entry] = fn
+    return _fns[entry]
 
 
-def _group_splits(n_col_tiles: int, n_row_tiles: int, G: int, device) -> int:
+def _group_splits(n_col_tiles: int, n_row_tiles: int, G: int, device,
+                  max_groups: int | None = None) -> int:
     """Split the groups across blocks only when the column tiles cannot fill
-    the SMs twice over; returns KS with every split non-empty."""
+    the SMs twice over (and so that no block takes more than `max_groups`);
+    returns KS with every split non-empty."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     want = max(1, -(-2 * sms // (n_col_tiles * n_row_tiles)))
-    ks = min(G, want)
-    gps = -(-G // ks)
+    gps = -(-G // min(G, want))
+    if max_groups:
+        gps = min(gps, max(1, max_groups))
     return -(-G // gps)
 
 
-def _launch(name, x, rot, qweight, scales, zeros, out_splits, a8):
+def _check_butterfly_group(S: int) -> None:
+    if S < 2 or S & (S - 1):
+        raise ValueError(f"butterfly stages need a power-of-two group size, got {S}")
+
+
+def _sz_code(t: torch.Tensor, what: str) -> int:
+    if t.dtype not in SZ_CODES:
+        raise TypeError(f"{what} must be float32, bfloat16, float16 or uint8, got {t.dtype}")
+    return SZ_CODES[t.dtype]
+
+
+def _check_operands(x, qweight, scales, zeros, S: int, G: int, others=()):
+    """The checks every launch makes; returns the operands contiguous, the
+    weight 4-byte aligned."""
+    M, I = x.shape
+    O = qweight.shape[1]
+    if S < 2 or S % 2 or I != G * S:
+        raise ValueError(f"groups of {S} channels do not tile x {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if qweight.dtype != torch.uint8 or qweight.shape[0] * 2 != I:
+        raise TypeError(f"qweight must be uint8 [I/2, O], got {qweight.dtype} {tuple(qweight.shape)}")
+    for t, what in ((scales, "scales"), (zeros, "zeros")):
+        _sz_code(t, what)
+        if tuple(t.shape) != (G, O):
+            raise ValueError(f"{what} must be [{G}, {O}], got {tuple(t.shape)}")
+    tensors = (x, qweight, scales, zeros, *others)
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("all operands must be on the same device")
+    x, qweight, scales, zeros, *others = (t.contiguous() for t in tensors)
+    if qweight.data_ptr() % 4:
+        qweight = qweight.clone()
+    return x, qweight, scales, zeros, others
+
+
+def _scratch(M, I, G, O, KS, dev, P=1):
+    f32 = torch.float32
+    return (torch.empty((P, M, I), dtype=f32, device=dev),
+            torch.empty((P, M, G), dtype=f32, device=dev),
+            torch.empty((KS, M, O) if KS > 1 else (0,), dtype=f32, device=dev))
+
+
+def _count(name: str, scales, zeros) -> None:
+    launch_counts[name] += 1
+    key = f"{scales.dtype}/{zeros.dtype}".replace("torch.", "")
+    sz_counts[name][key] = sz_counts[name].get(key, 0) + 1
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+
+
+def _launch_rot(name, x, rot, qweight, scales, zeros, out_splits, a8):
+    """K1 / K2 on the card."""
     M, I = x.shape
     P, G, S, _ = rot.shape
     O = qweight.shape[1]
+    if P > MAX_PARTS or sum(out_splits) != O or min(out_splits) < 1:
+        raise ValueError(f"out_splits {out_splits} must be at most {MAX_PARTS} positive widths summing to {O}")
+    if rot.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"rot must be float32 or bfloat16, got {rot.dtype}")
+    x, qweight, scales, zeros, (rot,) = _check_operands(x, qweight, scales, zeros, S, G, (rot,))
+    fn = _lib_fn("paro_rot_w4_matmul")
     dev = x.device
-    if I != G * S:
-        raise ValueError(f"rot {tuple(rot.shape)} does not cover x {tuple(x.shape)}")
-    if S % 128 or S > MAX_S:
-        # the TPU kernel also takes one group narrower than 128 and groups
-        # wider than 512; the CUDA kernel does not yet (ROADMAP, section B 1)
-        raise NotImplementedError(
-            f"the CUDA kernel takes group sizes 128 to {MAX_S} in steps of 128, not {S}")
-    if P > MAX_PARTS or sum(out_splits) != O or any(n % 4 for n in out_splits):
-        raise ValueError(f"out_splits {out_splits} must sum to {O}, be multiples of 4, at most {MAX_PARTS}")
-    if x.dtype not in (torch.float32, torch.bfloat16) or rot.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"x {x.dtype} and rot {rot.dtype} must be float32 or bfloat16")
-    if qweight.dtype != torch.uint8 or qweight.shape[0] * 2 != I:
-        raise TypeError(f"qweight must be uint8 [I/2, O], got {qweight.dtype} {tuple(qweight.shape)}")
-    if scales.dtype != torch.bfloat16 or zeros.dtype != torch.bfloat16:
-        raise TypeError("scales and zeros must be bfloat16")
-    tensors = (x, rot, qweight, scales, zeros)
-    if any(t.device != dev for t in tensors):
-        raise ValueError("all operands must be on the same device")
-    x, rot, qweight, scales, zeros = (t.contiguous() for t in tensors)
-    if qweight.data_ptr() % 4 or rot.data_ptr() % 16:
-        raise ValueError("qweight must be 4-byte and rot 16-byte aligned")
-
     n_tiles = sum(-(-n // COLS_PER_TILE) for n in out_splits)
     KS = _group_splits(n_tiles, -(-M // ROWS_PER_TILE), G, dev)
     out = torch.empty((M, O), dtype=x.dtype, device=dev)
-    if a8:
-        xr = torch.empty(0, dtype=torch.float32, device=dev)
-        xq = torch.empty((P, M, I), dtype=torch.int8, device=dev)
-    else:
-        xr = torch.empty((P, M, I), dtype=torch.float32, device=dev)
-        xq = torch.empty(0, dtype=torch.int8, device=dev)
-    xsum = torch.empty((P, M, G), dtype=torch.float32, device=dev)
+    xr, xsum, partial = _scratch(M, I, G, O, KS, dev, P)
+    xq = torch.empty((P, M, I) if a8 else (0,), dtype=torch.int8, device=dev)
     sx = torch.empty((P, M, G), dtype=torch.float32, device=dev)
-    partial = torch.empty((KS, M, O) if KS > 1 else (0,), dtype=torch.float32, device=dev)
     splits = (ctypes.c_int * P)(*out_splits)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib_fn()(
+    err = fn(
         x.data_ptr(), rot.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
         out.data_ptr(), xr.data_ptr(), xq.data_ptr(), xsum.data_ptr(), sx.data_ptr(),
         partial.data_ptr(), M, I, S, P, splits, KS, int(x.dtype == torch.bfloat16),
-        int(rot.dtype == torch.bfloat16), int(a8), stream,
+        int(rot.dtype == torch.bfloat16), int(a8), SZ_CODES[scales.dtype], SZ_CODES[zeros.dtype],
+        torch.cuda.current_stream(dev).cuda_stream,
     )
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
-    launch_counts[name] += 1
+    _raise_on(err, name)
+    _count(name, scales, zeros)
     variant_counts[name][int(a8)] += 1
     return out
 
 
+def _launch_butterfly(name, x, inv_s, cos_t, sin_t, qweight, scales, zeros, S):
+    """K6 (no tables) / K7 on the card."""
+    M, I = x.shape
+    G, O = I // S if S else 0, qweight.shape[1]
+    tables = () if cos_t is None else (inv_s.to(torch.float32), cos_t.to(torch.float32),
+                                        sin_t.to(torch.float32))
+    x, qweight, scales, zeros, tables = _check_operands(x, qweight, scales, zeros, S, G, tables)
+    K = 0
+    if tables:
+        inv_s, cos_t, sin_t = tables
+        K = cos_t.shape[0]
+        if inv_s.shape != (I,) or cos_t.shape != (K, I) or sin_t.shape != (K, I):
+            raise ValueError("inv_channel_scales must be [I] and the tables [K, I]")
+    fn = _lib_fn("paro_butterfly_w4_matmul")
+    dev = x.device
+    KS = _group_splits(-(-O // COLS_PER_TILE), -(-M // ROWS_PER_TILE), G, dev)
+    out = torch.empty((M, O), dtype=x.dtype, device=dev)
+    xr, xsum, partial = _scratch(M, I, G, O, KS, dev)
+    ptr = (lambda t: t.data_ptr()) if tables else (lambda t: None)
+    err = fn(
+        x.data_ptr(), ptr(inv_s), ptr(cos_t), ptr(sin_t), K, qweight.data_ptr(),
+        scales.data_ptr(), zeros.data_ptr(), out.data_ptr(), xr.data_ptr(), xsum.data_ptr(),
+        partial.data_ptr(), M, I, S, O, KS, int(x.dtype == torch.bfloat16),
+        SZ_CODES[scales.dtype], SZ_CODES[zeros.dtype], torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(err, name)
+    _count(name, scales, zeros)
+    return out
+
+
+def _launch_dense_variant(name, x, rot, qweight, scales, zeros, interleaved, max_groups=None):
+    """K8 (interleaved=False; bf16 rot, scales and zeros) / K9 on the card."""
+    M, I = x.shape
+    G, S, _ = rot.shape
+    O = qweight.shape[1]
+    if rot.shape != (G, S, S):
+        raise ValueError(f"rot must be [G, S, S], got {tuple(rot.shape)}")
+    if rot.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"rot must be float32 or bfloat16, got {rot.dtype}")
+    x, qweight, scales, zeros, (rot,) = _check_operands(x, qweight, scales, zeros, S, G, (rot,))
+    fn = _lib_fn("paro_dense_rot_w4_variant")
+    dev = x.device
+    KS = _group_splits(-(-O // COLS_PER_TILE), -(-M // ROWS_PER_TILE), G, dev, max_groups)
+    out = torch.empty((M, O), dtype=x.dtype, device=dev)
+    xr, xsum, partial = _scratch(M, I, G, O, KS, dev)
+    err = fn(
+        x.data_ptr(), rot.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
+        out.data_ptr(), xr.data_ptr(), xsum.data_ptr(), partial.data_ptr(), M, I, S, O, KS,
+        int(x.dtype == torch.bfloat16), int(rot.dtype == torch.bfloat16),
+        SZ_CODES[scales.dtype], SZ_CODES[zeros.dtype], int(interleaved),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(err, name)
+    _count(name, scales, zeros)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Wrappers (JAX's signatures without the TPU-only knobs)
+# ---------------------------------------------------------------------------
+
+
 def rot_w4_matmul(x, rot, qweight, scales, zeros, *, a8: bool = False) -> torch.Tensor:
     """K1: x [M, I]; rot [G, S, S]; qweight uint8 [I//2, O]; scales, zeros
-    bf16 [G, O] -> [M, O] in x.dtype."""
+    [G, O] -> [M, O] in x.dtype."""
     if x.device.type == "cpu":
         return rot_w4_matmul_plain(x, rot, qweight, scales, zeros, a8=a8)
-    return _launch("rot_w4_matmul", x, rot[None], qweight, scales, zeros,
-                   (qweight.shape[1],), a8)
+    return _launch_rot("rot_w4_matmul", x, rot[None], qweight, scales, zeros,
+                       (qweight.shape[1],), a8)
 
 
 def merged_rot_w4_matmul(x, rot, qweight, scales, zeros, *, out_splits: tuple,
@@ -189,4 +375,46 @@ def merged_rot_w4_matmul(x, rot, qweight, scales, zeros, *, out_splits: tuple,
     if x.device.type == "cpu":
         return merged_rot_w4_matmul_plain(x, rot, qweight, scales, zeros,
                                           out_splits=out_splits, a8=a8)
-    return _launch("merged_rot_w4_matmul", x, rot, qweight, scales, zeros, out_splits, a8)
+    return _launch_rot("merged_rot_w4_matmul", x, rot, qweight, scales, zeros, out_splits, a8)
+
+
+def w4_matmul(x, qweight, scales, zeros, *, group_size: int = 128) -> torch.Tensor:
+    """K6: x [M, I]; qweight uint8 [I//2, O] half-split; scales, zeros
+    [I//group_size, O] -> [M, O] in x.dtype."""
+    if x.device.type == "cpu":
+        return w4_matmul_plain(x, qweight, scales, zeros, group_size=group_size)
+    return _launch_butterfly("w4_matmul", x, None, None, None, qweight, scales, zeros, group_size)
+
+
+def butterfly_w4_matmul(x, inv_channel_scales, cos_table, sin_table, qweight, scales, zeros, *,
+                        group_size: int = 128) -> torch.Tensor:
+    """K7: inv_channel_scales [I]; cos_table, sin_table [K, I] (the
+    per-channel cos and signed sin of `ops/butterfly.py::butterfly_tables`);
+    the rest as K6. group_size must be a power of two."""
+    _check_butterfly_group(group_size)
+    if x.device.type == "cpu":
+        return butterfly_w4_matmul_plain(x, inv_channel_scales, cos_table, sin_table, qweight,
+                                         scales, zeros, group_size=group_size)
+    if group_size > MAX_BUTTERFLY_S:
+        raise ValueError(f"the CUDA kernel stages groups of at most {MAX_BUTTERFLY_S} channels")
+    return _launch_butterfly("butterfly_w4_matmul", x, inv_channel_scales, cos_table, sin_table,
+                             qweight, scales, zeros, group_size)
+
+
+def rot_w4_matmul_mg(x, rot, qweight, scales, zeros, *, groups_per_step: int = 16) -> torch.Tensor:
+    """K8: K1's operands; x, rot, scales and zeros are rounded to bf16.
+    On the card `groups_per_step` caps the groups one block takes; the
+    result moves only by the order of f32 sums."""
+    if x.device.type == "cpu":  # groups_per_step only groups the sums
+        return rot_w4_matmul_mg_plain(x, rot, qweight, scales, zeros)
+    bf = torch.bfloat16
+    return _launch_dense_variant("rot_w4_matmul_mg", x, rot.to(bf), qweight, scales.to(bf),
+                                 zeros.to(bf), False, groups_per_step)
+
+
+def rot_w4_matmul_i4(x, rot, qweight_i4, scales, zeros) -> torch.Tensor:
+    """K9: K1 with qweight_i4 uint8 [I//2, O] in the interleaved layout
+    (`ops/packing.py::pack_w4_i4`)."""
+    if x.device.type == "cpu":
+        return rot_w4_matmul_i4_plain(x, rot, qweight_i4, scales, zeros)
+    return _launch_dense_variant("rot_w4_matmul_i4", x, rot, qweight_i4, scales, zeros, True)

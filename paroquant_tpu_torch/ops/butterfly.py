@@ -1,8 +1,10 @@
 """Butterfly pair structure (stage r pairs lane l with l XOR 2^r).
 
-Counterpart of `paroquant_tpu/ops/butterfly.py:26-52`. The RTN Hadamard
-baseline builds its rotation from these pairs: log2(S) butterfly stages at
-theta = pi/4 compose to a dense +-1/sqrt(S) mixer per group.
+Counterpart of `paroquant_tpu/ops/butterfly.py`. The RTN Hadamard baseline
+builds its rotation from these pairs: log2(S) butterfly stages at theta =
+pi/4 compose to a dense +-1/sqrt(S) mixer per group. `butterfly_tables`
+gives the per-channel cos / signed-sin tables that the butterfly kernel
+(`kernels/rot_matmul.py::butterfly_w4_matmul`, K7) reads.
 """
 
 from __future__ import annotations
@@ -10,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .rotation import RotationParams, pack_pairs
+from .rotation import RotationParams, pack_pairs, pairs_to_permutation
 
 
 def butterfly_distances(num_rotations: int, group_size: int) -> list[int]:
@@ -38,4 +40,28 @@ def make_butterfly_params(
     pairs, theta, mask = pack_pairs(rotations, in_features, group_size)
     return RotationParams(
         torch.from_numpy(pairs), torch.from_numpy(theta), torch.from_numpy(mask)
+    )
+
+
+def is_butterfly_pairs(pairs, group_size: int) -> bool:
+    """True if `pairs` [K, H] matches the butterfly structure exactly."""
+    pairs = np.asarray(pairs)
+    K, H = pairs.shape
+    ref = make_butterfly_params(H, group_size, K).pairs.numpy()
+    return bool((pairs == ref).all())
+
+
+def butterfly_tables(theta, group_size: int) -> tuple[np.ndarray, np.ndarray]:
+    """Per-channel cos / signed-sin tables [K, H] float32 of theta [K, H//2]
+    (angles in butterfly pack order): for channel l and its partner
+    p = l ^ d_r, stage r sets y[l] = cos[r, l] x[l] + sin[r, l] x[p], the
+    sine's sign +1 when bit d_r of l is clear, -1 when it is set."""
+    theta = np.asarray(theta, np.float32)
+    K, half_h = theta.shape
+    params = make_butterfly_params(half_h * 2, group_size, K)
+    _, sign, theta_idx = pairs_to_permutation(params.pairs.numpy(), group_size)
+    theta_ch = theta[np.arange(K)[:, None], theta_idx]  # [K, H]
+    return (
+        np.cos(theta_ch).astype(np.float32),
+        (np.sin(theta_ch) * sign).astype(np.float32),
     )

@@ -225,9 +225,8 @@ def _base_auto(x: torch.Tensor, layer, m: int) -> str:
     if x.device.type == "cpu":  # the kernels run on the card
         return "xla"
     # JAX's rule, kept so that both packages pick the same numerics: the
-    # Pallas tiling needs S % 128 == 0 unless one group spans the row. Where
-    # it says fused and the CUDA kernel lacks the group size, the kernel's
-    # wrapper raises NotImplementedError.
+    # Pallas tiling needs S % 128 == 0 unless one group spans the row. The
+    # CUDA kernel takes every layout this sends to fused.
     if layer.group_size % 128 != 0 and layer.scales.shape[0] > 1:
         return "xla"
     return "fused" if m <= AUTO_FUSED_MAX_M else "xla"

@@ -8,10 +8,16 @@ a few times plainly for the host wall time per step and once under
 is 1 - device busy time / wall time, both from the profiled run; the
 profiler's own host cost raises that run's wall time, so the plain run's
 is reported beside it.
+
+`kernel_time_ms` times one call of a kernel on the card: CUDA events around
+the call, the L2 flushed before it, and the device kept busy by a spin
+kernel while the host enqueues it, so that the events time the device's
+work and not the host's; the median of the reps.
 """
 
 from __future__ import annotations
 
+import statistics
 import time
 
 import torch
@@ -20,6 +26,45 @@ from ..kernels import attention as at, rot_matmul as rm
 from ..models.config import ModelConfig
 from ..models.decoder import KVCache, decode_step, prefill
 from ..utils.device import resolve_device
+
+
+FLUSH_BYTES = 256 << 20  # more than the H100's 50 MB L2
+SPIN_CYCLES = 2_000_000  # about 1 ms of device spin ahead of each timed call
+_flush_buffers: dict[torch.device, torch.Tensor] = {}
+
+
+def kernel_time_ms(fn, reps: int = 30, flush: torch.Tensor | None = None,
+                   device="cuda") -> float:
+    """Median device time in ms of one call of fn (see the module doc), after
+    two warm-up calls. `flush` is a CUDA buffer larger than the L2 (one of
+    FLUSH_BYTES is kept per device when it is None). On the CPU
+    (device="cpu") the host clock times the calls: for checking logic only,
+    never a device time."""
+    dev = resolve_device(device)
+    fn()
+    fn()
+    times = []
+    if dev.type != "cuda":
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+    if flush is None:
+        if dev not in _flush_buffers:
+            _flush_buffers[dev] = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+        flush = _flush_buffers[dev]
+    torch.cuda.synchronize(dev)
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def profile_decode(params, config: ModelConfig, *, prompt_len: int = 256, steps: int = 16,

@@ -6,6 +6,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -51,10 +52,12 @@ def _entry_points():
     from paroquant_tpu_torch.convert.checkpoint import load_checkpoint
     from paroquant_tpu_torch.convert.rtn import quantize_model_rtn
     from paroquant_tpu_torch.models import PRESETS, KVCache, init_params
-    from paroquant_tpu_torch.convert.interop import paged_cache_from_jax
+    from paroquant_tpu_torch.convert.interop import paged_cache_from_jax, w4_i4_from_jax
+    from paroquant_tpu_torch.experiments import plot_kernel_speedup
+    from paroquant_tpu_torch.scripts import kernel_bench3, kernel_bench4
     from paroquant_tpu_torch.serve import Engine, Generator, PagedKVCache
     from paroquant_tpu_torch.utils.device import resolve_device
-    from paroquant_tpu_torch.utils.profiling import profile_paged_decode
+    from paroquant_tpu_torch.utils.profiling import kernel_time_ms, profile_paged_decode
 
     cfg = PRESETS["tiny"]
     return {
@@ -69,6 +72,11 @@ def _entry_points():
         "paged_cache_from_jax": lambda: paged_cache_from_jax(
             type("C", (), dict(k=None, v=None, k_scale=None, v_scale=None))()),
         "profile_paged_decode": lambda: profile_paged_decode({}, cfg),
+        "kernel_bench3.main": lambda: kernel_bench3.main(),
+        "kernel_bench4.main": lambda: kernel_bench4.main(),
+        "plot_kernel_speedup.main": lambda: plot_kernel_speedup.main(),
+        "w4_i4_from_jax": lambda: w4_i4_from_jax(np.zeros((4, 4), np.uint8)),
+        "kernel_time_ms": lambda: kernel_time_ms(lambda: None),
     }
 
 
@@ -76,7 +84,8 @@ def _entry_points():
     "name",
     ["resolve_device", "init_params", "KVCache.create", "Generator", "load_checkpoint",
      "quantize_model_rtn", "Engine", "PagedKVCache.create", "paged_cache_from_jax",
-     "profile_paged_decode"],
+     "profile_paged_decode", "kernel_bench3.main", "kernel_bench4.main",
+     "plot_kernel_speedup.main", "w4_i4_from_jax", "kernel_time_ms"],
 )
 def test_cuda_default_raises_without_cuda(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

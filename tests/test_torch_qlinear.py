@@ -136,15 +136,68 @@ def test_auto_resolution_matches_jax_off_cpu(S, G, monkeypatch):
                 assert tql._resolve_auto(mode, torch.empty(M, G * S, device="meta"), tl) == want
 
 
-@pytest.mark.parametrize("S,G", [(64, 1), (640, 1)])
-def test_kernel_wrapper_raises_for_group_sizes_it_lacks(S, G):
-    """Off the CPU the wrappers launch the CUDA kernel or raise; they never
-    fall back to the plain version."""
+class _Launched(Exception):
+    pass
+
+
+def _no_launch(monkeypatch):
+    """Stand-in for the compiled library: reaching it means the wrapper took
+    the layout (meta tensors stand in for the card's)."""
+    def reached(entry):
+        raise _Launched(entry)
+    monkeypatch.setattr(tk, "_lib_fn", reached)
+
+
+def _meta_operands(S, G, O=128):
     x = torch.empty(1, G * S, device="meta")
     rot = torch.empty(G, S, S, dtype=torch.bfloat16, device="meta")
-    qw = torch.empty(G * S // 2, 128, dtype=torch.uint8, device="meta")
-    sz = torch.empty(G, 128, dtype=torch.bfloat16, device="meta")
-    with pytest.raises(NotImplementedError):
+    qw = torch.empty(G * S // 2, O, dtype=torch.uint8, device="meta")
+    sz = torch.empty(G, O, dtype=torch.bfloat16, device="meta")
+    return x, rot, qw, sz
+
+
+@pytest.mark.parametrize("S,G", [(64, 1), (640, 1)])
+def test_kernel_wrapper_raises_for_group_sizes_it_lacks(S, G, monkeypatch):
+    """Off the CPU the wrappers launch the CUDA kernel or raise; they never
+    fall back to the plain version. The kernel now lacks no layout that
+    `auto` sends to fused (one group spanning the row, any multiple of 128):
+    the wrapper goes on to its launch."""
+    _no_launch(monkeypatch)
+    x, rot, qw, sz = _meta_operands(S, G)
+    with pytest.raises(_Launched):
         tk.rot_w4_matmul(x, rot, qw, sz, sz)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(_Launched):
         tk.merged_rot_w4_matmul(x, rot[None], qw, sz, sz, out_splits=(128,))
+
+
+@pytest.mark.parametrize("S,G", [(96, 1), (320, 1), (1024, 1), (1024, 2), (2048, 2), (64, 4)])
+def test_kernel_wrappers_take_every_group_layout(S, G, monkeypatch):
+    """K1, K2, K6 and K9 take any even group size dividing I on the card, and
+    f32, bf16, f16 and uint8 scales and zeros."""
+    _no_launch(monkeypatch)
+    x, rot, qw, sz = _meta_operands(S, G)
+    for dt in (torch.float32, torch.bfloat16, torch.float16, torch.uint8):
+        s = sz.to(dt)
+        for call in (lambda: tk.rot_w4_matmul(x, rot, qw, s, s, a8=True),
+                     lambda: tk.merged_rot_w4_matmul(x, rot[None], qw, s, s, out_splits=(64, 64)),
+                     lambda: tk.w4_matmul(x, qw, s, s, group_size=S),
+                     lambda: tk.rot_w4_matmul_i4(x, rot, qw, s, s)):
+            with pytest.raises(_Launched):
+                call()
+
+
+def test_kernel_wrappers_refuse_what_jax_rejects(monkeypatch):
+    """Shapes that do not tile, odd groups and other dtypes raise before a launch."""
+    _no_launch(monkeypatch)
+    x, rot, qw, sz = _meta_operands(64, 2)
+    with pytest.raises(ValueError):  # rot does not cover x
+        tk.rot_w4_matmul(x[:, :96], rot, qw[:48], sz, sz)
+    with pytest.raises(ValueError):  # an odd group
+        tk.w4_matmul(torch.empty(1, 99, device="meta"), qw[:49], sz[:1], sz[:1], group_size=99)
+    with pytest.raises(TypeError):
+        tk.rot_w4_matmul(x, rot, qw, sz.to(torch.int32), sz)
+    with pytest.raises(TypeError):
+        tk.w4_matmul(x.to(torch.float16), qw, sz, sz, group_size=64)
+    with pytest.raises(ValueError):  # K7's stages need a power-of-two group
+        tk.butterfly_w4_matmul(torch.empty(1, 192, device="meta"), None, None, None, qw, sz, sz,
+                               group_size=96)
