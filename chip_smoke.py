@@ -13,7 +13,9 @@ Phases, each printing one or more lines:
      (paged decode / verify over 8 slots of mixed lengths, bf16 and int8
      pools; each query row held to its own output's scale), K6-K9 (the
      kernel benchmarks' W4 variants, at their 4096 x 4096 shape with each
-     scale/zero dtype pair and at o_proj); then their other branches (f32,
+     scale/zero dtype pair and at o_proj), K10-K13 (the W4 GEMV experiments
+     of the TPU scripts, at their 4096 x 4096 shape, dtypes and knobs: M,
+     Gb, block_m); then their other branches (f32,
      ragged M, head_dim 64, softcap, window, page sizes, K1/K2 at group
      sizes 1024/2048 and one row-spanning group of 96/320 with f32, f16
      and uint8 scales/zeros, ...) at small shapes, checked and not timed;
@@ -21,6 +23,9 @@ Phases, each printing one or more lines:
      its three modes, kernel_bench4, the kernel-speedup sweep, K9 at the
      benchmarks' shape) with the launch counts reset just before and read
      just after: K1 (on f32 and uint8 scales/zeros) and K6-K9 must run;
+     then slice 4's path, the ported experiment scripts (kernel_edge_test,
+     kernel_dma_pipeline, kernel_tune, kernel_w4a8_exp), counted the same
+     way: K10-K13 and their control arms K1, K6 and K8 must run;
   4. slice 1's path at full width: Qwen3-0.6B (28 layers, hidden 1024,
      vocab 151936) with random weights from a seeded torch.Generator,
      Hadamard RTN W4 with a W4 lm_head and merged projections, served by
@@ -69,6 +74,7 @@ VARIANTS_SRC = "paroquant_tpu_torch/kernels/csrc/w4_variants.cu"
 SLICE1_W4 = ("rot_w4_matmul", "merged_rot_w4_matmul")  # the W4 kernels of slices 1 and 2
 FLASH_SRC = "paroquant_tpu_torch/kernels/csrc/flash_attention.cu"
 PAGED_SRC = "paroquant_tpu_torch/kernels/csrc/paged_attention.cu"
+EXPERIMENTS_SRC = "paroquant_tpu_torch/kernels/csrc/w4_experiments.cu"
 
 
 def emit(obj) -> None:
@@ -289,6 +295,7 @@ def check_edges(gen, dev):
                    at.flash_attention_plain(q, k, v, lens, **kw))
     paged_edges(gen, dev, record)
     w4_edges(gen, dev, record)
+    w4x_edges(gen, dev, record)
     torch.cuda.synchronize()
     emit({"phase": "kernel_edges", "cases": len(rows),
           "worst_err_over_tol": max(r["err_over_tol"] for r in rows),
@@ -442,6 +449,170 @@ def w4_edges(gen, dev, record):
                        rm.merged_rot_w4_matmul(x, rot, qweight, s, z, out_splits=splits, a8=a8),
                        rm.merged_rot_w4_matmul_plain(x, rot, qweight, s, z, out_splits=splits,
                                                      a8=a8))
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: the W4 GEMV experiments of the TPU scripts (K10-K13)
+# ---------------------------------------------------------------------------
+
+W4_EXPERIMENTS = ("rot_w4_matmul_b", "dma_rot_w4_matmul", "rot_w4_matmul_v2", "w4a8_matmul")
+W4X_SZ = {**SZ_DTYPES, "f16/u8": ("float16", "uint8")}
+W4X_CASES = [  # kernel, scales/zeros dtypes (the scripts'), knobs, Ms
+    ("rot_w4_matmul_b", "bf16/bf16", {}, (1, 16)),
+    *(("dma_rot_w4_matmul", "f32/f32", {"Gb": gb}, (1,)) for gb in (1, 2, 4, 8)),
+    *(("rot_w4_matmul_v2", "f32/f32", {"block_m": bm}, (1, 16)) for bm in (8, 16)),
+    ("w4a8_matmul", "bf16/u8", {}, (1, 8, 32)),
+]
+
+
+def w4x_inputs(kernel, I, O, gen, dev, S=128, sz="bf16/bf16", rot_dtype=None, block_m=None, Gb=4):
+    """Random operands of one of K10-K13 at group size S: (call, plain, the
+    rotation map x [n, I] -> [n, I] f32 (None for K13), the dequantized
+    weight [I, O] f32, the bytes the call must move beyond x and out, and
+    the extra operations of its rotation per row)."""
+    import torch
+
+    from paroquant_tpu_torch.kernels import w4_experiments as wx
+    from paroquant_tpu_torch.ops.packing import pack_w4_tpu
+
+    G = I // S
+    sdt, zdt = (getattr(torch, n) for n in W4X_SZ[sz])
+    q = torch.randint(0, 16, (I, O), generator=gen, device=dev, dtype=torch.int32)
+    qw = pack_w4_tpu(q, S)
+    scales = (torch.rand(G, O, generator=gen, device=dev) * 0.04 + 0.01).to(sdt)
+    zeros = torch.randint(0, 16, (G, O), generator=gen, device=dev).to(zdt)
+    wd = ((q.reshape(G, S, O).float() - zeros[:, None].float()) * scales[:, None].float()).reshape(I, O)
+    extra = I * O // 2 + G * O * (scales.element_size() + zeros.element_size())
+    if kernel == "w4a8_matmul":
+        return (lambda x: wx.w4a8_matmul(x, qw, scales, zeros, group_size=S),
+                lambda x: wx.w4a8_matmul_plain(x, qw, scales, zeros, group_size=S), None, wd, extra, 0)
+    rot = (torch.randn(G, S, S, generator=gen, device=dev) / S**0.5).to(rot_dtype or torch.bfloat16)
+    rotate = lambda x: torch.einsum("mgj,gij->mgi", x.float().reshape(-1, G, S),
+                                    rot.float()).reshape(x.shape[0], I)
+    ops = (rot, qw, scales, zeros)
+    run, plain = {
+        "rot_w4_matmul_b": (lambda x: wx.rot_w4_matmul_b(x, *ops, block_m=block_m or 16),
+                            lambda x: wx.rot_w4_matmul_b_plain(x, *ops)),
+        "dma_rot_w4_matmul": (lambda x: wx.dma_rot_w4_matmul(x, *ops, Gb=Gb),
+                              lambda x: wx.dma_rot_w4_matmul_plain(x, *ops, Gb=Gb)),
+        "rot_w4_matmul_v2": (lambda x: wx.rot_w4_matmul_v2(x, *ops, block_m=block_m or 8),
+                             lambda x: wx.rot_w4_matmul_v2_plain(x, *ops)),
+    }[kernel]
+    return run, plain, rotate, wd, extra + G * S * S * rot.element_size(), 2 * I * S
+
+
+def check_w4_experiments(flush, gen, dev):
+    """K10-K13 against their plain versions at the scripts' shape (4096 x
+    4096, g128) and dtypes: K10 at M = 1 and 16, K11 at M = 1 with Gb = 1, 2,
+    4, 8, K12 at block_m 8 and 16 with M = 1 and 16, K13 at M = 1, 8, 32;
+    timed beside the bound and torch.matmul on the pre-rotated (K10-K12),
+    dequantized bf16 weight."""
+    import torch
+
+    I = O = 4096
+    rows = []
+    for kernel, sz, knobs, Ms in W4X_CASES:
+        run, plain, rotate, wd, extra, rot_ops = w4x_inputs(kernel, I, O, gen, dev, sz=sz, **knobs)
+        w_eff = effective_weight(rotate, wd, I, dev)
+        out_bytes = 4 if kernel == "rot_w4_matmul_v2" else 2  # K12 returns float32
+        for M in Ms:
+            x = torch.randn(M, I, generator=gen, device=dev).to(torch.bfloat16)
+            y, y_ref = run(x).float(), plain(x).float()
+            torch.cuda.synchronize()
+            err = (y - y_ref).abs().max().item()
+            tol = TOL_KERNEL * y_ref.abs().max().item()
+            ms = median_ms(lambda: run(x), KERNEL_REPS, flush)
+            plain_ms = median_ms(lambda: plain(x), PLAIN_REPS, flush)
+            lib_ms = median_ms(lambda: torch.matmul(x, w_eff), KERNEL_REPS, flush)
+            b_ms, b_by = bound(extra + M * I * 2 + M * O * out_bytes, 2 * M * I * O + M * rot_ops,
+                               "int8" if kernel == "w4a8_matmul" else "bf16")
+            row = dict(kernel=kernel, layer="script", sz=sz, M=M, **knobs, max_abs_err=err, tol=tol,
+                       us=ms * 1e3, plain_us=plain_ms * 1e3, library_us=lib_ms * 1e3,
+                       bound_us=b_ms * 1e3, bound_by=b_by,
+                       ok=err <= tol and bool(torch.isfinite(y).all()))
+            emit({"phase": "kernel_check", **row})
+            rows.append(row)
+        del run, plain, rotate, wd, w_eff
+    return rows
+
+
+def w4x_edges(gen, dev, record):
+    """K10-K13 at small shapes: ragged M (5, 17, 33) at O = 160, f16/uint8
+    scales and zeros at O = 130 (byte loads, K11's plain-copy stage), f32 x
+    with f32 rotations and scales, one group, groups of 256 (f32 rotation)
+    and 96 channels, each block_m and the Gb that divide G; then K11's refusal of a chunk size that does not divide G and
+    K13's all-zero row, which must come out exactly 0."""
+    import torch
+
+    f32, bf = torch.float32, torch.bfloat16
+
+    def check(kernel, case, I, O, Ms, xdt=bf, **kw):
+        run, plain, *_ = w4x_inputs(kernel, I, O, gen, dev, **kw)
+        for M in Ms:
+            x = torch.randn(M, I, generator=gen, device=dev).to(xdt)
+            record(kernel, f"{case} M={M} x={xdt}", run(x), plain(x))
+
+    for kernel, knobs in (("rot_w4_matmul_b", {"block_m": 8}), ("rot_w4_matmul_b", {"block_m": 16}),
+                          ("dma_rot_w4_matmul", {"Gb": 1}), ("dma_rot_w4_matmul", {"Gb": 2}),
+                          ("rot_w4_matmul_v2", {"block_m": 8}), ("rot_w4_matmul_v2", {"block_m": 16}),
+                          ("w4a8_matmul", {})):
+        tag = " ".join(f"{k}={v}" for k, v in knobs.items())
+        check(kernel, f"ragged O=160 {tag}", 256, 160, (5, 17, 33), **knobs)
+        check(kernel, f"f16/u8 O=130 {tag}", 256, 130, (3,), sz="f16/u8", **knobs)
+        check(kernel, f"f32 rot f32/f32 {tag}", 256, 160, (1, 17), xdt=f32, sz="f32/f32",
+              rot_dtype=f32, **knobs)
+        if knobs.get("Gb", 1) == 1:
+            check(kernel, f"G=1 {tag}", 128, 128, (1, 9), **knobs)
+        # rows of M_g that do not split over a warp (one thread per row), K13's quad tail
+        check(kernel, f"S=256 f32 rot {tag}", 512, 128, (1, 9), S=256, rot_dtype=f32, **knobs)
+        check(kernel, f"S=96 {tag}", 192, 128, (1, 9), S=96, **knobs)
+
+    run, *_ = w4x_inputs("dma_rot_w4_matmul", 384, 128, gen, dev, Gb=2)
+    try:
+        run(torch.randn(1, 384, generator=gen, device=dev).to(bf))
+    except ValueError as e:
+        emit({"phase": "w4x_refusal", "kernel": "dma_rot_w4_matmul", "G": 3, "Gb": 2, "error": str(e)})
+    else:
+        raise SystemExit("dma_rot_w4_matmul ran a chunk size that does not divide the groups")
+    run, plain, *_ = w4x_inputs("w4a8_matmul", 256, 160, gen, dev, sz="bf16/u8")
+    x = torch.randn(5, 256, generator=gen, device=dev).to(bf)
+    x[2] = 0
+    y = run(x)
+    if y[2].abs().max().item() != 0.0:
+        raise SystemExit("w4a8_matmul gave a nonzero output for an all-zero row")
+    record("w4a8_matmul", "all-zero row M=5", y, plain(x))
+
+
+def w4_experiments(dev):
+    """Slice 4's path: the four ported experiment scripts at their own sizes,
+    in this process. The launch counts are reset just before and read just
+    after: K10-K13 and their control arms K1, K6 and K8 must have run."""
+    import torch
+
+    from paroquant_tpu_torch.kernels import rot_matmul as rm, w4_experiments as wx
+    from paroquant_tpu_torch.scripts import (kernel_dma_pipeline, kernel_edge_test, kernel_tune,
+                                             kernel_w4a8_exp)
+
+    torch.cuda.synchronize()
+    rm.reset_launch_counts()
+    wx.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = {"kernel_edge_test": kernel_edge_test.main(dev),
+            "kernel_dma_pipeline": kernel_dma_pipeline.main(dev),
+            "kernel_tune": kernel_tune.main(dev),
+            "kernel_w4a8_exp": kernel_w4a8_exp.main(dev)}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: wx.launch_counts[k] for k in W4_EXPERIMENTS}
+    counts.update({k: rm.launch_counts[k] for k in ("rot_w4_matmul", "w4_matmul", "rot_w4_matmul_mg")})
+    for script, script_rows in rows.items():
+        for row in script_rows:
+            emit({"phase": "kernel_bench", "script": script, **row})
+    emit({"phase": "w4_experiments_launches", "counts": counts, "wall_s": wall})
+    missing = [k for k, c in counts.items() if c == 0]
+    if missing:
+        raise SystemExit(f"w4_experiments: not launched: {missing}")
+    return counts
 
 
 def kernel_bench(dev):
@@ -1108,12 +1279,14 @@ def main() -> int:
     fa_rows = check_flash(flush, gen, dev)
     pa_rows = check_paged(flush, gen, dev)
     w4_rows = check_w4_variants(flush, gen, dev)
+    w4x_rows = check_w4_experiments(flush, gen, dev)
     edge_rows = check_edges(gen, dev)
-    bad = [r for r in mm_rows + fa_rows + pa_rows + w4_rows + edge_rows if not r["ok"]]
+    bad = [r for r in mm_rows + fa_rows + pa_rows + w4_rows + w4x_rows + edge_rows if not r["ok"]]
     if bad:
         raise SystemExit(f"{len(bad)} kernel checks missed their tolerance")
     del flush
     bench_counts = kernel_bench(dev)  # slice 3: the kernel benchmarks (K1, K6-K9)
+    exp_counts = w4_experiments(dev)  # slice 4: the experiment scripts (K10-K13)
 
     qparams, cfg = qwen3_model(dev)
     counts = main_path(qparams, cfg, dev)  # slice 1: the Generator (K1-K3)
@@ -1129,6 +1302,7 @@ def main() -> int:
           **profile_paged_decode(qparams, cfg, batch=8, context=256, steps=16, device=dev)})
 
     counts.update({k: bench_counts[k] for k in W4_VARIANTS})  # their launches: the kernel_bench phase
+    counts.update({k: exp_counts[k] for k in W4_EXPERIMENTS})  # and the w4_experiments phase
 
     def entry(name, src, replaces, row):
         return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -1136,8 +1310,8 @@ def main() -> int:
                 "ms": row["us"] / 1e3, "plain_ms": row["plain_us"] / 1e3,
                 "bound_ms": row["bound_us"] / 1e3, "bound_by": row["bound_by"],
                 "library_ms": row["library_us"] / 1e3,
-                "at": {k: row[k] for k in ("layer", "M", "a8", "sz", "case", "T", "S", "B", "W")
-                       if k in row}}
+                "at": {k: row[k] for k in ("layer", "M", "a8", "sz", "case", "T", "S", "B", "W",
+                                           "Gb", "block_m") if k in row}}
 
     def pick(rows, **kw):
         return next(r for r in rows if all(r.get(k) == v for k, v in kw.items()))
@@ -1159,6 +1333,12 @@ def main() -> int:
                                  ("butterfly_w4_matmul", 285, "bf16/u8"),
                                  ("rot_w4_matmul_mg", 564, "bf16/bf16"),
                                  ("rot_w4_matmul_i4", 464, "bf16/u8"))),
+        *(entry(name, EXPERIMENTS_SRC, replaces, pick(w4x_rows, kernel=name, M=1, **knobs))
+          for name, replaces, knobs in (
+              ("rot_w4_matmul_b", "scripts/kernel_edge_test.py:76", {}),
+              ("dma_rot_w4_matmul", "scripts/kernel_dma_pipeline.py:102", {"Gb": 4}),
+              ("rot_w4_matmul_v2", "scripts/kernel_tune.py:94", {"block_m": 16}),
+              ("w4a8_matmul", "scripts/kernel_w4a8_exp.py:91", {}))),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -23,7 +23,15 @@ def _modules():
     )
 
 
+EXPERIMENT_MODULES = (
+    "paroquant_tpu_torch.kernels.w4_experiments", "paroquant_tpu_torch.scripts.kernel_edge_test",
+    "paroquant_tpu_torch.scripts.kernel_dma_pipeline", "paroquant_tpu_torch.scripts.kernel_tune",
+    "paroquant_tpu_torch.scripts.kernel_w4a8_exp",
+)
+
+
 def test_import_leaves_jax_and_reference_unloaded():
+    assert set(EXPERIMENT_MODULES) <= set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}: importlib.import_module(m)\n"
@@ -54,7 +62,8 @@ def _entry_points():
     from paroquant_tpu_torch.models import PRESETS, KVCache, init_params
     from paroquant_tpu_torch.convert.interop import paged_cache_from_jax, w4_i4_from_jax
     from paroquant_tpu_torch.experiments import plot_kernel_speedup
-    from paroquant_tpu_torch.scripts import kernel_bench3, kernel_bench4
+    from paroquant_tpu_torch.scripts import (kernel_bench3, kernel_bench4, kernel_dma_pipeline,
+                                             kernel_edge_test, kernel_tune, kernel_w4a8_exp)
     from paroquant_tpu_torch.serve import Engine, Generator, PagedKVCache
     from paroquant_tpu_torch.utils.device import resolve_device
     from paroquant_tpu_torch.utils.profiling import kernel_time_ms, profile_paged_decode
@@ -77,6 +86,10 @@ def _entry_points():
         "plot_kernel_speedup.main": lambda: plot_kernel_speedup.main(),
         "w4_i4_from_jax": lambda: w4_i4_from_jax(np.zeros((4, 4), np.uint8)),
         "kernel_time_ms": lambda: kernel_time_ms(lambda: None),
+        "kernel_edge_test.main": lambda: kernel_edge_test.main(),
+        "kernel_dma_pipeline.main": lambda: kernel_dma_pipeline.main(),
+        "kernel_tune.main": lambda: kernel_tune.main(),
+        "kernel_w4a8_exp.main": lambda: kernel_w4a8_exp.main(),
     }
 
 
@@ -85,7 +98,8 @@ def _entry_points():
     ["resolve_device", "init_params", "KVCache.create", "Generator", "load_checkpoint",
      "quantize_model_rtn", "Engine", "PagedKVCache.create", "paged_cache_from_jax",
      "profile_paged_decode", "kernel_bench3.main", "kernel_bench4.main",
-     "plot_kernel_speedup.main", "w4_i4_from_jax", "kernel_time_ms"],
+     "plot_kernel_speedup.main", "w4_i4_from_jax", "kernel_time_ms", "kernel_edge_test.main",
+     "kernel_dma_pipeline.main", "kernel_tune.main", "kernel_w4a8_exp.main"],
 )
 def test_cuda_default_raises_without_cuda(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
