@@ -15,7 +15,8 @@ Phases, each printing one or more lines:
      kernel benchmarks' W4 variants, at their 4096 x 4096 shape with each
      scale/zero dtype pair and at o_proj), K10-K13 (the W4 GEMV experiments
      of the TPU scripts, at their 4096 x 4096 shape, dtypes and knobs: M,
-     Gb, block_m); then their other branches (f32,
+     Gb, block_m), K14-K17 (the int8 probe's narrowing cast and tensor-core
+     dots, at its shapes and on its integer inputs, exact); then their other branches (f32,
      ragged M, head_dim 64, softcap, window, page sizes, K1/K2 at group
      sizes 1024/2048 and one row-spanning group of 96/320 with f32, f16
      and uint8 scales/zeros, ...) at small shapes, checked and not timed;
@@ -26,6 +27,10 @@ Phases, each printing one or more lines:
      then slice 4's path, the ported experiment scripts (kernel_edge_test,
      kernel_dma_pipeline, kernel_tune, kernel_w4a8_exp), counted the same
      way: K10-K13 and their control arms K1, K6 and K8 must run;
+     then slice 5's path, the ported int8 probe (kernel_int8_probe: P1-P3
+     and the int8-against-bf16 bench), counted the same way: K14-K17 must
+     run and every probe pass. Before the checks, cuobjdump's SASS of the
+     probe's library must show IMMA in K15/K16 and HMMA in K17;
   4. slice 1's path at full width: Qwen3-0.6B (28 layers, hidden 1024,
      vocab 151936) with random weights from a seeded torch.Generator,
      Hadamard RTN W4 with a W4 lm_head and merged projections, served by
@@ -49,7 +54,8 @@ Phases, each printing one or more lines:
      held against the plain path, two paged decode steps run under sync
      debug mode "error", and one is profiled;
   6. the `kernels` JSON line, then the result line.
-It imports nothing of JAX, catches no failure, and exits non-zero without
+It imports nothing of JAX, catches no failure of the port (only a library
+yardstick's refusal of a shape, `int_mm_yardstick`), and exits non-zero without
 printing a result when CUDA is missing or the package is not beside it.
 """
 
@@ -75,6 +81,8 @@ SLICE1_W4 = ("rot_w4_matmul", "merged_rot_w4_matmul")  # the W4 kernels of slice
 FLASH_SRC = "paroquant_tpu_torch/kernels/csrc/flash_attention.cu"
 PAGED_SRC = "paroquant_tpu_torch/kernels/csrc/paged_attention.cu"
 EXPERIMENTS_SRC = "paroquant_tpu_torch/kernels/csrc/w4_experiments.cu"
+INT8_SRC = "paroquant_tpu_torch/kernels/csrc/int8_probe.cu"
+INT8_PROBE = ("narrow_cast", "int8_dot", "fused_unpack_int8_dot", "bf16_dot")
 
 
 def emit(obj) -> None:
@@ -248,6 +256,13 @@ def check_edges(gen, dev):
                              tol=TOL_KERNEL, err_over_tol=ratio / TOL_KERNEL,
                              ok=ratio <= TOL_KERNEL))
 
+    def record_exact(name, case, y, y_ref):
+        """The integer kernels: bit for bit, tolerance 0."""
+        err = (y.double() - y_ref.double()).abs().max().item()
+        ok = err == 0 and y.dtype == y_ref.dtype and y.shape == y_ref.shape
+        rows.append(dict(kernel=name, case=case, max_abs_err=err, tol=0.0,
+                         err_over_tol=0.0 if ok else float("inf"), ok=ok))
+
     splits = (128, 96, 160)
     rot, qweight, scales, zeros, _ = random_merged(256, splits, gen, dev)
     for xdt, rdt in ((torch.float32, torch.float32), (torch.float32, torch.bfloat16),
@@ -296,6 +311,7 @@ def check_edges(gen, dev):
     paged_edges(gen, dev, record)
     w4_edges(gen, dev, record)
     w4x_edges(gen, dev, record)
+    int8_edges(gen, dev, record, record_exact)
     torch.cuda.synchronize()
     emit({"phase": "kernel_edges", "cases": len(rows),
           "worst_err_over_tol": max(r["err_over_tol"] for r in rows),
@@ -581,6 +597,201 @@ def w4x_edges(gen, dev, record):
     if y[2].abs().max().item() != 0.0:
         raise SystemExit("w4a8_matmul gave a nonzero output for an all-zero row")
     record("w4a8_matmul", "all-zero row M=5", y, plain(x))
+
+
+# ---------------------------------------------------------------------------
+# phase 3e: the int8 tensor-core probe (K14-K17)
+# ---------------------------------------------------------------------------
+
+
+def int_mm_yardstick(a, b):
+    """(one torch._int_mm call computing a @ b, what it is): on A padded to
+    32 rows where this build refuses M <= 16; None where it refuses the shape."""
+    import torch
+
+    try:
+        torch._int_mm(a, b)
+        return (lambda: torch._int_mm(a, b)), "torch._int_mm"
+    except RuntimeError:
+        pass
+    ap = torch.zeros((32, a.shape[1]), dtype=a.dtype, device=a.device)
+    ap[: a.shape[0]] = a
+    try:
+        torch._int_mm(ap, b)
+        return (lambda: torch._int_mm(ap, b)), "torch._int_mm on A padded to 32 rows"
+    except RuntimeError as e:
+        return None, f"torch._int_mm refused the shape: {str(e).splitlines()[0][:120]}"
+
+
+def check_int8_probe(flush, gen, dev):
+    """K14-K17 against their plain versions at the probe's shapes, on its
+    kinds of integer inputs (every product and sum exact, so the tolerance
+    is 0): K14 8 x 128, K15 8 x 256 x 128 and the bench's 8 x 4096 x 4096,
+    K16 8 x 256 -> 512, K17 8 x 4096 x 4096; timed beside the bound and one
+    library call (torch._int_mm for K15, and for K16 on the unpacked int8
+    weight; torch.matmul on bf16, which returns bf16, for K17; none for K14)."""
+    import torch
+
+    from paroquant_tpu_torch.kernels import int8_probe as ip
+
+    def ints(lo, hi, shape, dtype=torch.int8):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=dtype)
+
+    x32 = torch.arange(8 * 128, dtype=torch.int32, device=dev).reshape(8, 128)
+    cases = [("narrow_cast", "8x128", lambda: ip.narrow_cast(x32), lambda: ip.narrow_cast_plain(x32),
+              (None, "none: no single call computes it"), 5 * x32.numel(), 0, "int8")]
+    for M, K, N in ((8, 256, 128), (8, 4096, 4096)):
+        a, b = ints(-8, 8, (M, K)), ints(-8, 8, (K, N))
+        cases.append(("int8_dot", f"{M}x{K}x{N}", lambda a=a, b=b: ip.int8_dot(a, b),
+                      lambda a=a, b=b: ip.int8_dot_plain(a, b), int_mm_yardstick(a, b),
+                      M * K + K * N + 4 * M * N, 2 * M * K * N, "int8"))
+    x, w = ints(-127, 127, (8, 256)), ints(0, 256, (128, 512), torch.uint8)
+    cases.append(("fused_unpack_int8_dot", "8x256->512", lambda: ip.fused_unpack_int8_dot(x, w),
+                  lambda: ip.fused_unpack_int8_dot_plain(x, w),
+                  int_mm_yardstick(x, ip.unpack_nibbles(w)), 8 * 256 + 128 * 512 + 4 * 8 * 512,
+                  2 * 8 * 256 * 512, "int8"))
+    abf, bbf = ints(-8, 8, (8, 4096)).to(torch.bfloat16), ints(-8, 8, (4096, 4096)).to(torch.bfloat16)
+    cases.append(("bf16_dot", "8x4096x4096", lambda: ip.bf16_dot(abf, bbf),
+                  lambda: ip.bf16_dot_plain(abf, bbf),
+                  (lambda: torch.matmul(abf, bbf), "torch.matmul (bf16 out)"),
+                  2 * 8 * 4096 + 2 * 4096 * 4096 + 4 * 8 * 4096, 2 * 8 * 4096 * 4096, "bf16"))
+    rows = []
+    for kernel, case, run, plain, (lib, lib_note), nbytes, ops, kind in cases:
+        y, y_ref = run(), plain()
+        torch.cuda.synchronize()
+        err = (y.double() - y_ref.double()).abs().max().item()
+        ms = median_ms(run, KERNEL_REPS, flush)
+        plain_ms = median_ms(plain, PLAIN_REPS, flush)
+        lib_ms = median_ms(lib, KERNEL_REPS, flush) if lib else None
+        b_ms, b_by = bound(nbytes, ops, kind)
+        row = dict(kernel=kernel, case=case, max_abs_err=err, tol=0.0, us=ms * 1e3,
+                   plain_us=plain_ms * 1e3, library_us=None if lib_ms is None else lib_ms * 1e3,
+                   library=lib_note, bound_us=b_ms * 1e3, bound_by=b_by,
+                   ok=err == 0 and y.dtype == y_ref.dtype and y.shape == y_ref.shape)
+        emit({"phase": "kernel_check", **row})
+        rows.append(row)
+    return rows
+
+
+def int8_edges(gen, dev, record, record_exact):
+    """K14-K17 at their edges, checked and not timed: M 1, 5, 16, 17, 33; N
+    130; K 96 and 200 (not multiples of 32; K16's S/2 = 99 puts a row quad
+    across its two halves); K 16384 (split over 128 blocks); operands that
+    are not 16-byte aligned; K15 on -128 and 127 everywhere, K16 on nibbles
+    0 and 15 everywhere and at S = 4096; K17 on random bf16 within
+    TOL_KERNEL, the integer kernels exact; K14 where R * C is not a multiple
+    of 4; then K16's refusal of an odd S."""
+    import torch
+
+    from paroquant_tpu_torch.kernels import int8_probe as ip
+
+    def ints(lo, hi, shape, dtype=torch.int8):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=dtype)
+
+    def shifted(t):
+        """t's values one element past an aligned address (not 16-byte aligned)."""
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        flat[1:] = t.flatten()
+        return flat[1:].view(t.shape)
+
+    def dots(case, M, K, N, misaligned=False):
+        move = shifted if misaligned else (lambda t: t)
+        a, b = move(ints(-128, 128, (M, K))), move(ints(-128, 128, (K, N)))
+        record_exact("int8_dot", f"{case} {M}x{K}x{N}", ip.int8_dot(a, b), ip.int8_dot_plain(a, b))
+        if K % 2 == 0:
+            w = move(ints(0, 256, (K // 2, N), torch.uint8))
+            record_exact("fused_unpack_int8_dot", f"{case} {M}x{K}->{N}",
+                         ip.fused_unpack_int8_dot(a, w), ip.fused_unpack_int8_dot_plain(a, w))
+        af = move(torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16))
+        bf = move(b.float().div(37.0).to(torch.bfloat16))  # non-integer values
+        record("bf16_dot", f"{case} {M}x{K}x{N}", ip.bf16_dot(af, bf), ip.bf16_dot_plain(af, bf))
+
+    for M in (1, 5, 16, 17, 33):
+        dots("ragged M", M, 256, 128)
+    dots("N=130", 5, 256, 130)
+    for K in (96, 200, 198):
+        dots("ragged K", 5, K, 128)
+    dots("split K", 8, 16384, 256)
+    dots("S=4096", 8, 4096, 512)
+    for va, vb in ((-128, -128), (127, 127), (-128, 127)):
+        a = torch.full((8, 4096), va, dtype=torch.int8, device=dev)
+        b = torch.full((4096, 256), vb, dtype=torch.int8, device=dev)
+        record_exact("int8_dot", f"all {va} x {vb}", ip.int8_dot(a, b), ip.int8_dot_plain(a, b))
+    for v in (0, 255):  # nibbles 0 (q = -8) and 15 (q = 7) everywhere
+        a = ints(-128, 128, (8, 4096))
+        w = torch.full((2048, 256), v, dtype=torch.uint8, device=dev)
+        record_exact("fused_unpack_int8_dot", f"nibbles all {v & 15} S=4096",
+                     ip.fused_unpack_int8_dot(a, w), ip.fused_unpack_int8_dot_plain(a, w))
+    dots("misaligned", 5, 256, 128, misaligned=True)  # widths that take 16-byte loads when aligned
+    for R, C in ((8, 128), (3, 5), (7, 129)):
+        x = torch.randint(-2**31, 2**31 - 1, (R, C), generator=gen, device=dev, dtype=torch.int32)
+        record_exact("narrow_cast", f"{R}x{C}", ip.narrow_cast(x), ip.narrow_cast_plain(x))
+        record_exact("narrow_cast", f"{R}x{C} misaligned", ip.narrow_cast(shifted(x)),
+                     ip.narrow_cast_plain(x))
+    try:
+        ip.fused_unpack_int8_dot(ints(-8, 8, (2, 7)), ints(0, 256, (3, 4), torch.uint8))
+    except ValueError as e:
+        emit({"phase": "int8_refusal", "kernel": "fused_unpack_int8_dot", "S": 7, "error": str(e)})
+    else:
+        raise SystemExit("fused_unpack_int8_dot ran an odd S")
+
+
+def tensor_core_sass():
+    """The tensor-core instructions in the int8 probe's library
+    (`cuobjdump -sass`): every instance of K15/K16's kernel must hold IMMA
+    and K17's HMMA."""
+    import shutil
+
+    from paroquant_tpu_torch.kernels import build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        emit({"phase": "sass", "cuobjdump": None})
+        return
+    lib = Path(build.build_info["dir"]) / "libint8_probe.so"
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = {"IMMA": 0, "HMMA": 0}
+        elif fn:
+            for op in counts[fn]:
+                counts[fn][op] += op in line
+    emit({"phase": "sass", "library": lib.name, "counts": counts})
+    for name, op, n in (("int8_dot_kernel", "IMMA", 2), ("bf16_dot_kernel", "HMMA", 1)):
+        found = [c[op] for f, c in counts.items() if name in f]
+        if len(found) != n or min(found) == 0:
+            raise SystemExit(f"{name}: expected {op} in {n} instance(s), found {found}")
+
+
+def int8_probe(dev):
+    """Slice 5's path: the ported int8 probe (kernel_int8_probe.main: P1-P3
+    and the int8-against-bf16 bench at 4096 x 4096, M = 8) in this process.
+    The launch counts are reset just before and read just after: K14-K17
+    must have run, and every probe must pass."""
+    import torch
+
+    from paroquant_tpu_torch.kernels import int8_probe as ip
+    from paroquant_tpu_torch.scripts import kernel_int8_probe
+
+    torch.cuda.synchronize()
+    ip.reset_launch_counts()
+    t0 = time.perf_counter()
+    ok, rows = kernel_int8_probe.main(dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: ip.launch_counts[k] for k in INT8_PROBE}
+    for row in rows:
+        emit({"phase": "kernel_bench", "script": "kernel_int8_probe", **row})
+    emit({"phase": "int8_probe_launches", "counts": counts, "probes": ok, "wall_s": wall})
+    failed = [k for k in ("narrow_cast", "int8_dot", "fused_unpack_int8_dot", "bench_dots")
+              if not ok.get(k)]
+    missing = [k for k, c in counts.items() if c == 0]
+    if failed or missing:
+        raise SystemExit(f"int8_probe: probes failed: {failed}; not launched: {missing}")
+    return counts
 
 
 def w4_experiments(dev):
@@ -1272,6 +1483,7 @@ def main() -> int:
     build.build_all()
     emit({"phase": "build", **build.build_info})
     emit({"phase": "ptxas", "lines": build.ptxas_report().splitlines()})
+    tensor_core_sass()
 
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(123)
@@ -1280,13 +1492,16 @@ def main() -> int:
     pa_rows = check_paged(flush, gen, dev)
     w4_rows = check_w4_variants(flush, gen, dev)
     w4x_rows = check_w4_experiments(flush, gen, dev)
+    i8_rows = check_int8_probe(flush, gen, dev)
     edge_rows = check_edges(gen, dev)
-    bad = [r for r in mm_rows + fa_rows + pa_rows + w4_rows + w4x_rows + edge_rows if not r["ok"]]
+    bad = [r for r in mm_rows + fa_rows + pa_rows + w4_rows + w4x_rows + i8_rows + edge_rows
+           if not r["ok"]]
     if bad:
         raise SystemExit(f"{len(bad)} kernel checks missed their tolerance")
     del flush
     bench_counts = kernel_bench(dev)  # slice 3: the kernel benchmarks (K1, K6-K9)
     exp_counts = w4_experiments(dev)  # slice 4: the experiment scripts (K10-K13)
+    probe_counts = int8_probe(dev)  # slice 5: the int8 tensor-core probe (K14-K17)
 
     qparams, cfg = qwen3_model(dev)
     counts = main_path(qparams, cfg, dev)  # slice 1: the Generator (K1-K3)
@@ -1303,13 +1518,15 @@ def main() -> int:
 
     counts.update({k: bench_counts[k] for k in W4_VARIANTS})  # their launches: the kernel_bench phase
     counts.update({k: exp_counts[k] for k in W4_EXPERIMENTS})  # and the w4_experiments phase
+    counts.update(probe_counts)  # and the int8_probe phase
 
     def entry(name, src, replaces, row):
+        lib_us = row["library_us"]
         return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": counts[name], "max_abs_err": row["max_abs_err"],
                 "ms": row["us"] / 1e3, "plain_ms": row["plain_us"] / 1e3,
                 "bound_ms": row["bound_us"] / 1e3, "bound_by": row["bound_by"],
-                "library_ms": row["library_us"] / 1e3,
+                "library_ms": None if lib_us is None else lib_us / 1e3,
                 "at": {k: row[k] for k in ("layer", "M", "a8", "sz", "case", "T", "S", "B", "W",
                                            "Gb", "block_m") if k in row}}
 
@@ -1339,6 +1556,12 @@ def main() -> int:
               ("dma_rot_w4_matmul", "scripts/kernel_dma_pipeline.py:102", {"Gb": 4}),
               ("rot_w4_matmul_v2", "scripts/kernel_tune.py:94", {"block_m": 16}),
               ("w4a8_matmul", "scripts/kernel_w4a8_exp.py:91", {}))),
+        # int8_dot also replaces the int8 arm of bench_dots (:117), the case timed here
+        *(entry(name, INT8_SRC, f"scripts/kernel_int8_probe.py:{line}",
+                pick(i8_rows, kernel=name, case=case))
+          for name, line, case in (("narrow_cast", 49, "8x128"), ("int8_dot", 69, "8x4096x4096"),
+                                   ("fused_unpack_int8_dot", 95, "8x256->512"),
+                                   ("bf16_dot", 117, "8x4096x4096"))),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

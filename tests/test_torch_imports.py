@@ -26,7 +26,8 @@ def _modules():
 EXPERIMENT_MODULES = (
     "paroquant_tpu_torch.kernels.w4_experiments", "paroquant_tpu_torch.scripts.kernel_edge_test",
     "paroquant_tpu_torch.scripts.kernel_dma_pipeline", "paroquant_tpu_torch.scripts.kernel_tune",
-    "paroquant_tpu_torch.scripts.kernel_w4a8_exp",
+    "paroquant_tpu_torch.scripts.kernel_w4a8_exp", "paroquant_tpu_torch.kernels.int8_probe",
+    "paroquant_tpu_torch.scripts.kernel_int8_probe",
 )
 
 
@@ -63,7 +64,8 @@ def _entry_points():
     from paroquant_tpu_torch.convert.interop import paged_cache_from_jax, w4_i4_from_jax
     from paroquant_tpu_torch.experiments import plot_kernel_speedup
     from paroquant_tpu_torch.scripts import (kernel_bench3, kernel_bench4, kernel_dma_pipeline,
-                                             kernel_edge_test, kernel_tune, kernel_w4a8_exp)
+                                             kernel_edge_test, kernel_int8_probe, kernel_tune,
+                                             kernel_w4a8_exp)
     from paroquant_tpu_torch.serve import Engine, Generator, PagedKVCache
     from paroquant_tpu_torch.utils.device import resolve_device
     from paroquant_tpu_torch.utils.profiling import kernel_time_ms, profile_paged_decode
@@ -90,6 +92,7 @@ def _entry_points():
         "kernel_dma_pipeline.main": lambda: kernel_dma_pipeline.main(),
         "kernel_tune.main": lambda: kernel_tune.main(),
         "kernel_w4a8_exp.main": lambda: kernel_w4a8_exp.main(),
+        "kernel_int8_probe.main": lambda: kernel_int8_probe.main(),
     }
 
 
@@ -99,7 +102,8 @@ def _entry_points():
      "quantize_model_rtn", "Engine", "PagedKVCache.create", "paged_cache_from_jax",
      "profile_paged_decode", "kernel_bench3.main", "kernel_bench4.main",
      "plot_kernel_speedup.main", "w4_i4_from_jax", "kernel_time_ms", "kernel_edge_test.main",
-     "kernel_dma_pipeline.main", "kernel_tune.main", "kernel_w4a8_exp.main"],
+     "kernel_dma_pipeline.main", "kernel_tune.main", "kernel_w4a8_exp.main",
+     "kernel_int8_probe.main"],
 )
 def test_cuda_default_raises_without_cuda(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
