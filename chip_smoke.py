@@ -29,8 +29,21 @@ Phases, each printing one or more lines:
      way: K10-K13 and their control arms K1, K6 and K8 must run;
      then slice 5's path, the ported int8 probe (kernel_int8_probe: P1-P3
      and the int8-against-bf16 bench), counted the same way: K14-K17 must
-     run and every probe pass. Before the checks, cuobjdump's SASS of the
-     probe's library must show IMMA in K15/K16 and HMMA in K17;
+     run and every probe pass; then slice 6's path, the ported unpack
+     experiments (kernel_unpack_exp), counted the same way: K18-K22 (all six
+     entry points) and their control arms K6 and K1 must run, each GEMV
+     within TOL_KERNEL of K6. Before the checks, cuobjdump's SASS of the
+     probe's library must show IMMA in K15/K16 and HMMA in K17, and that of
+     the unpack library K18's 128-bit global loads. K18-K22 are checked at
+     the script's 4096 x 4096 draws (K18 bit for bit), K3 at head dims 16,
+     32, 96 and 256, K4/K5 at 24, 32 and 256 and K5 at 80 query rows per kv
+     head (and timed there at D = 128), and the refusal of head_dim 12;
+  3b. the Engine on two small Gemma-class models with random weights
+     (`serve_head_dims`): the JAX serve test's config (head_dim 32) and
+     the same at head_dim 256 with 16 query heads per kv head and spec_k 4
+     (80 rows in a verify window); K3, K4 and K5 must run for each, and
+     each greedy request's logprobs stay within TOL_LOGPROB of
+     Engine.score_sync;
   4. slice 1's path at full width: Qwen3-0.6B (28 layers, hidden 1024,
      vocab 151936) with random weights from a seeded torch.Generator,
      Hadamard RTN W4 with a W4 lm_head and merged projections, served by
@@ -83,6 +96,9 @@ PAGED_SRC = "paroquant_tpu_torch/kernels/csrc/paged_attention.cu"
 EXPERIMENTS_SRC = "paroquant_tpu_torch/kernels/csrc/w4_experiments.cu"
 INT8_SRC = "paroquant_tpu_torch/kernels/csrc/int8_probe.cu"
 INT8_PROBE = ("narrow_cast", "int8_dot", "fused_unpack_int8_dot", "bf16_dot")
+UNPACK_SRC = "paroquant_tpu_torch/kernels/csrc/unpack_exp.cu"
+UNPACK = ("stream_only", "w4_matmul_bitcast", "w4_matmul_mulfloor", "w4_matmul_splitdot_ce",
+          "w4_matmul_splitdot", "w4_matmul_i8")
 
 
 def emit(obj) -> None:
@@ -234,8 +250,9 @@ def check_flash(flush, gen, dev):
 def check_edges(gen, dev):
     """The kernels' other branches at small shapes, checked and not timed:
     f32 activations and rotations, ragged M, uneven partitions, group sizes
-    256 to 512; head_dim 64, per-row q_offset and kv_lens, softcap, window,
-    non-causal, f32; and K4/K5's (paged_edges)."""
+    256 to 512; K3 at head_dim 64 (per-row q_offset and kv_lens, softcap,
+    window, non-causal, f32) and at 16, 32, 96 and 256 (causal, softcap,
+    window; f32 and bf16); and the other kernels' edges."""
     import torch
 
     from paroquant_tpu_torch.kernels import attention as at, rot_matmul as rm
@@ -300,18 +317,24 @@ def check_edges(gen, dev):
     qo = torch.tensor([64, 128], dtype=torch.int32, device=dev)
     cases = {"causal": {}, "softcap": dict(logit_softcap=20.0), "window": dict(sliding_window=48),
              "not_causal": dict(causal=False)}
-    for dt in (torch.float32, torch.bfloat16):
-        q = torch.randn(B, Hq, T, D, generator=gen, device=dev).to(dt)
-        k = torch.randn(B, Hkv, S, D, generator=gen, device=dev).to(dt)
-        v = torch.randn(B, Hkv, S, D, generator=gen, device=dev).to(dt)
-        for case, kw in cases.items():
-            kw = dict(scale=D**-0.5, q_offset=qo, **kw)
-            record("flash_attention", f"{case} {dt} D={D}", at.flash_attention(q, k, v, lens, **kw),
-                   at.flash_attention_plain(q, k, v, lens, **kw))
+    for D in (64, 16, 32, 96, 256):  # 64 and 128 fill their buckets; the others do not
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.randn(B, Hq, T, D, generator=gen, device=dev).to(dt)
+            k = torch.randn(B, Hkv, S, D, generator=gen, device=dev).to(dt)
+            v = torch.randn(B, Hkv, S, D, generator=gen, device=dev).to(dt)
+            for case, kw in cases.items():
+                if D != 64 and case == "not_causal":
+                    continue
+                kw = dict(scale=D**-0.5, q_offset=qo, **kw)
+                record("flash_attention", f"{case} {dt} D={D}",
+                       at.flash_attention(q, k, v, lens, **kw),
+                       at.flash_attention_plain(q, k, v, lens, **kw))
+    head_dim_refusals(gen, dev)
     paged_edges(gen, dev, record)
     w4_edges(gen, dev, record)
     w4x_edges(gen, dev, record)
     int8_edges(gen, dev, record, record_exact)
+    unpack_edges(gen, dev, record, record_exact)
     torch.cuda.synchronize()
     emit({"phase": "kernel_edges", "cases": len(rows),
           "worst_err_over_tol": max(r["err_over_tol"] for r in rows),
@@ -736,31 +759,38 @@ def int8_edges(gen, dev, record, record_exact):
         raise SystemExit("fused_unpack_int8_dot ran an odd S")
 
 
-def tensor_core_sass():
-    """The tensor-core instructions in the int8 probe's library
-    (`cuobjdump -sass`): every instance of K15/K16's kernel must hold IMMA
-    and K17's HMMA."""
+def sass_counts(lib_name, ops):
+    """Per function of a built library (`cuobjdump -sass`), the number of
+    SASS lines holding each of `ops`; None where the toolkit has no cuobjdump."""
     import shutil
 
     from paroquant_tpu_torch.kernels import build
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
-        emit({"phase": "sass", "cuobjdump": None})
-        return
-    lib = Path(build.build_info["dir"]) / "libint8_probe.so"
+        return None
+    lib = Path(build.build_info["dir"]) / lib_name
     text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True,
                           timeout=120).stdout
     counts, fn = {}, None
     for line in text.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] = {"IMMA": 0, "HMMA": 0}
+            counts[fn] = dict.fromkeys(ops, 0)
         elif fn:
-            for op in counts[fn]:
+            for op in ops:
                 counts[fn][op] += op in line
-    emit({"phase": "sass", "library": lib.name, "counts": counts})
-    for name, op, n in (("int8_dot_kernel", "IMMA", 2), ("bf16_dot_kernel", "HMMA", 1)):
+    return counts
+
+
+def check_sass(lib_name, ops, expect):
+    """Emit the `sass` line of one library and check that every instance of
+    each kernel in `expect` ((name, op, instances), ...) holds its op."""
+    counts = sass_counts(lib_name, ops)
+    emit({"phase": "sass", "library": lib_name, "counts": counts})
+    if counts is None:
+        return
+    for name, op, n in expect:
         found = [c[op] for f, c in counts.items() if name in f]
         if len(found) != n or min(found) == 0:
             raise SystemExit(f"{name}: expected {op} in {n} instance(s), found {found}")
@@ -876,6 +906,248 @@ def kernel_bench(dev):
     if missing:
         raise SystemExit(f"kernel_bench: not launched: {missing}")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 3f: the W4 unpack experiments (K18-K22)
+# ---------------------------------------------------------------------------
+
+
+def check_unpack_exp(flush, dev):
+    """K18-K22 (the six entry points) against their plain versions on the
+    script's draws (4096 x 4096, M = 1, g128, bf16 x, scales and zeros):
+    K18 bit for bit, the GEMVs within TOL_KERNEL; timed beside the bound and
+    one library call (torch.matmul on the dequantized bf16 weight for the
+    GEMVs; for K18, which no PyTorch call computes, a torch.sum over the
+    same weight bytes, with its share of the HBM rate)."""
+    import torch
+
+    from paroquant_tpu_torch.kernels import rot_matmul as rm, unpack_exp as ux
+    from paroquant_tpu_torch.scripts import kernel_unpack_exp as kue
+
+    d = kue.draws(dev)
+    x, qw, qo, s, z = (d[k] for k in ("x", "qweight", "q_opair", "scales", "zeros"))
+    (M, I), O, S = x.shape, qw.shape[1], 128
+    G = I // S
+    w = ((rm._unpack_groups(qw, G, S) - z.float()[:, None]) * s.float()[:, None])
+    w = w.reshape(I, O).to(torch.bfloat16)
+    gemv_bytes = I * O // 2 + G * O * (s.element_size() + z.element_size()) + M * I * 2 + M * O * 2
+    cases = [("stream_only", lambda: ux.stream_only(x, qw), lambda: ux.stream_only_plain(x, qw),
+              lambda: torch.sum(qw, dim=0, dtype=torch.int32),
+              "torch.sum(qweight, dim=0, dtype=int32): the same weight bytes, another function",
+              I * O // 2 + M * I * 2 + O * 4, 0)]
+    for name in UNPACK[1:]:
+        wt = qo if name == "w4_matmul_bitcast" else qw
+        cases.append((name, lambda f=getattr(ux, name), wt=wt: f(x, wt, s, z),
+                      lambda f=getattr(ux, name.replace("_ce", "") + "_plain"), wt=wt:
+                      f(x, wt, s, z),
+                      lambda: torch.matmul(x, w), "torch.matmul on the dequantized bf16 weight",
+                      gemv_bytes, 2 * M * I * O))
+    rows = []
+    for kernel, run, plain, lib, lib_note, nbytes, ops in cases:
+        y, y_ref = run(), plain()
+        torch.cuda.synchronize()
+        err = (y.double() - y_ref.double()).abs().max().item()
+        exact = kernel == "stream_only"
+        tol = 0.0 if exact else TOL_KERNEL * y_ref.float().abs().max().item()
+        ms = median_ms(run, KERNEL_REPS, flush)
+        plain_ms = median_ms(plain, PLAIN_REPS, flush)
+        lib_ms = median_ms(lib, KERNEL_REPS, flush)
+        b_ms, b_by = bound(nbytes, ops, "bf16")
+        row = dict(kernel=kernel, case=f"{I}x{O} M={M} g{S} bf16/bf16", max_abs_err=err, tol=tol,
+                   us=ms * 1e3, plain_us=plain_ms * 1e3, library_us=lib_ms * 1e3,
+                   library=lib_note, bound_us=b_ms * 1e3, bound_by=b_by,
+                   hbm_share=nbytes / (ms * 1e-3) / HBM_BYTES_PER_S,
+                   ok=(err == 0 and y.dtype == y_ref.dtype and y.shape == y_ref.shape) if exact
+                   else err <= tol and bool(torch.isfinite(y).all()))
+        if exact:
+            row["library_hbm_share"] = (I * O // 2) / (lib_ms * 1e-3) / HBM_BYTES_PER_S
+        emit({"phase": "kernel_check", **row})
+        rows.append(row)
+    return rows
+
+
+def unpack_edges(gen, dev, record, record_exact):
+    """K18-K22 at small shapes, checked and not timed: M 1, 5, 16, 17; I 256
+    and 1024; group sizes 128 and 256; O 256, 384 and 130 (rows that take
+    byte loads); scales/zeros bf16/bf16, bf16/u8, f16/u8, f32/f32; f32 x;
+    K18 bit for bit at Gb 1, 2 and 3 with G = 8 (Gb 3 leaves two groups
+    unread), then its refusal of M = 17."""
+    import torch
+
+    from paroquant_tpu_torch.kernels import unpack_exp as ux
+    from paroquant_tpu_torch.ops.packing import pack_w4_tpu
+    from paroquant_tpu_torch.scripts.kernel_unpack_exp import pack_w4_opair
+
+    def operands(I, O, S, sz):
+        G = I // S
+        sdt, zdt = (getattr(torch, n) for n in W4X_SZ[sz])
+        q = torch.randint(0, 16, (I, O), generator=gen, device=dev, dtype=torch.int32)
+        qo = torch.from_numpy(pack_w4_opair(q.cpu().numpy(), S)).to(dev)
+        scales = (torch.rand(G, O, generator=gen, device=dev) * 0.04 + 0.01).to(sdt)
+        zeros = torch.randint(0, 16, (G, O), generator=gen, device=dev).to(zdt)
+        return pack_w4_tpu(q, S), qo, scales, zeros
+
+    for I, S, O in ((256, 128, 256), (1024, 128, 384), (1024, 256, 384), (256, 128, 130)):
+        for sz in W4X_SZ:
+            qw, qo, s, z = operands(I, O, S, sz)
+            for M in (1, 5, 16, 17):
+                x = torch.randn(M, I, generator=gen, device=dev).to(torch.bfloat16)
+                for name in UNPACK[1:]:
+                    wt = qo if name == "w4_matmul_bitcast" else qw
+                    plain = getattr(ux, name.replace("_ce", "") + "_plain")
+                    record(name, f"I={I} S={S} O={O} s/z={sz} M={M}",
+                           getattr(ux, name)(x, wt, s, z, group_size=S),
+                           plain(x, wt, s, z, group_size=S))
+    qw, qo, s, z = operands(256, 256, 128, "f32/f32")
+    x = torch.randn(3, 256, generator=gen, device=dev)
+    for name in UNPACK[1:]:
+        wt = qo if name == "w4_matmul_bitcast" else qw
+        record(name, "f32 x M=3", getattr(ux, name)(x, wt, s, z),
+               getattr(ux, name.replace("_ce", "") + "_plain")(x, wt, s, z))
+    for O in (256, 384, 130):
+        qw = torch.randint(0, 256, (512, O), generator=gen, device=dev, dtype=torch.uint8)
+        for M in (1, 16):
+            x = torch.randn(M, 1024, generator=gen, device=dev).to(torch.bfloat16)
+            for Gb in (1, 2, 3):
+                record_exact("stream_only", f"G=8 Gb={Gb} O={O} M={M}",
+                             ux.stream_only(x, qw, groups_per_step=Gb),
+                             ux.stream_only_plain(x, qw, groups_per_step=Gb))
+    try:
+        ux.stream_only(torch.zeros((17, 1024), dtype=torch.bfloat16, device=dev), qw)
+    except ValueError as e:
+        emit({"phase": "unpack_refusal", "kernel": "stream_only", "M": 17, "error": str(e)})
+    else:
+        raise SystemExit("stream_only ran x of 17 rows")
+
+
+def head_dim_refusals(gen, dev):
+    """K3-K5 refuse a head_dim that is not a multiple of 8 (12) or above 256
+    (264) on the card with NotImplementedError, naming the bound."""
+    import torch
+
+    from paroquant_tpu_torch.kernels import attention as at
+
+    for D in (12, 264):
+        q = torch.randn(1, 2, 128, D, generator=gen, device=dev).to(torch.bfloat16)
+        lens = torch.full((1,), 128, dtype=torch.int32, device=dev)
+        table, k, v, _, _ = paged_inputs(gen, dev, quant=False, B=1, Hq=2, Hkv=1, D=D, ps=8, maxP=2)
+        calls = {"flash_attention": lambda: at.flash_attention(q, q[:, :1], q[:, :1], lens, scale=0.1),
+                 "paged_decode_attention": lambda: at.paged_decode_attention(
+                     q[:, :, 0], k, v, table, lens[:1] * 0 + 5, scale=0.1)}
+        for name, call in calls.items():
+            try:
+                call()
+            except NotImplementedError as e:
+                emit({"phase": "head_dim_refusal", "kernel": name, "D": D, "error": str(e)})
+            else:
+                raise SystemExit(f"{name} ran head_dim {D}")
+
+
+def unpack_exp(dev):
+    """Slice 6's path: the ported unpack experiments (kernel_unpack_exp.main
+    at 4096 x 4096, M = 1, g128) in this process. The launch counts are
+    reset just before and read just after: the six entry points of K18-K22
+    and the control arms K6 and K1 must have run, and every GEMV must agree
+    with K6 within TOL_KERNEL."""
+    import torch
+
+    from paroquant_tpu_torch.kernels import rot_matmul as rm, unpack_exp as ux
+    from paroquant_tpu_torch.scripts import kernel_unpack_exp
+
+    torch.cuda.synchronize()
+    rm.reset_launch_counts()
+    ux.reset_launch_counts()
+    t0 = time.perf_counter()
+    errs, rows = kernel_unpack_exp.main(dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: ux.launch_counts[k] for k in UNPACK}
+    counts.update({k: rm.launch_counts[k] for k in ("w4_matmul", "rot_w4_matmul")})
+    for row in rows:
+        emit({"phase": "kernel_bench", "script": "kernel_unpack_exp", **row})
+    emit({"phase": "unpack_exp_launches", "counts": counts, "max_rel_err_vs_baseline": errs,
+          "bound": TOL_KERNEL, "wall_s": wall})
+    missing = [k for k, c in counts.items() if c == 0]
+    off = {k: e for k, e in errs.items() if not e <= TOL_KERNEL}
+    if missing or off:
+        raise SystemExit(f"unpack_exp: not launched: {missing}; off the baseline: {off}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 3b': the Engine at other head dims (K3-K5)
+# ---------------------------------------------------------------------------
+
+# tests/test_serve.py::test_paged_decode_matches_contiguous_gemma's model
+SERVE_GEMMA = dict(model_type="gemma3", vocab_size=256, hidden_size=128, intermediate_size=256,
+                   num_hidden_layers=4, num_attention_heads=4, num_key_value_heads=2, head_dim=32,
+                   qk_norm=True, gemma_norm=True, post_norms=True, sliding_window=8,
+                   sliding_window_pattern=2, logit_softcap=30.0, attn_logit_softcap=50.0,
+                   tie_word_embeddings=True, rope_theta=1e6, rope_local_theta=1e4)
+HEAD_DIM_MODELS = {"gemma3-hd32": {},
+                   "gemma3-hd256-grp16": dict(head_dim=256, num_attention_heads=32)}
+
+
+def serve_head_dims(dev):
+    """The Engine on the card (pages of 64, chunked prefill, burst decode,
+    prompt-lookup speculation with spec_k 4) serving two small Gemma-class
+    models, W4 RTN of random bf16 weights: SERVE_GEMMA (head_dim 32, grp 2)
+    and the same at head_dim 256 with 16 query heads per kv head (a verify
+    window is 80 rows per kv head). Four greedy requests each, prompts of
+    130-200 tokens so that K3 runs; the launch counts are reset before each
+    model and read after its requests: K3, K4 and K5 must have run. Each
+    request's logprobs are held against Engine.score_sync (one contiguous
+    K3 prefill) within TOL_LOGPROB, and replacing half of the longest prompt
+    must move them by more than the worst gap."""
+    import torch
+
+    from paroquant_tpu_torch.convert.rtn import quantize_model_rtn
+    from paroquant_tpu_torch.kernels import attention as at
+    from paroquant_tpu_torch.models import ModelConfig, init_params, merge_projections
+    from paroquant_tpu_torch.serve import Engine, SamplingParams
+
+    out = {}
+    for name, over in HEAD_DIM_MODELS.items():
+        cfg = ModelConfig(**{**SERVE_GEMMA, **over})
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(3), torch.bfloat16, dev)
+        qp = merge_projections(
+            quantize_model_rtn(params, cfg, hadamard=True, quantize_lm_head=True, device=dev), cfg)
+        eng = Engine(qp, cfg, max_batch=4, max_len=512, page_size=64, prefill_chunk=256,
+                     quant_mode="auto", decode_burst=8, prefix_caching=True, spec_k=4, device=dev)
+        g = torch.Generator().manual_seed(5)
+        rand = lambda n: torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+        prompts = [rand(24) * 8, rand(200), rand(16) * 12, rand(130)]
+        torch.cuda.synchronize()
+        at.reset_launch_counts()
+        t0 = time.perf_counter()
+        reqs = [(eng.submit(p, SamplingParams(max_tokens=32, temperature=0.0)), p) for p in prompts]
+        while eng.step():
+            pass
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(at.launch_counts)
+        greedy = []
+        for r, p in reqs:
+            toks = []
+            while not r.out_queue.empty():
+                kind, t = r.out_queue.get_nowait()
+                if kind == "token":
+                    toks.append(t)
+            if len(toks) != 32 or not all(0 <= t < cfg.vocab_size for t in toks):
+                raise SystemExit(f"serve_head_dims_{name}: a request returned {len(toks)} tokens")
+            greedy.append((r, p, toks))
+        emit({"phase": "serve_head_dims", "model": name, "head_dim": cfg.head_dim,
+              "q_heads_per_kv_head": cfg.num_attention_heads // cfg.num_key_value_heads,
+              "requests": len(reqs), "wall_s": wall, "metrics": eng.metrics, "launches": counts})
+        missing = [k for k, c in counts.items() if c == 0]
+        if missing or eng.metrics["spec_windows"] <= 0:
+            raise SystemExit(f"serve_head_dims_{name}: not launched: {missing}; {eng.metrics}")
+        check_logprobs(eng, greedy, cfg, f"serve_head_dims_{name}", context_bound=None)
+        out[name] = counts
+        del eng, qp, params
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1158,13 +1430,50 @@ def check_paged(flush, gen, dev):
             emit({"phase": "kernel_check", **row})
             rows.append(row)
         del table, k, v, ks, vs
+    rows += check_paged_rows(flush, gen, dev)
+    return rows
+
+
+def check_paged_rows(flush, gen, dev):
+    """K5 at 16 query heads per kv head (Hq 32, Hkv 2, D 128, bf16 pool,
+    PAGED_LENS): a window of 4 (64 rows, one block per slot and kv head)
+    and of 5 (80 rows, split into two chunks of 40 that each read the
+    slot's K/V), timed beside the bound: the cost of the row split."""
+    import torch
+
+    from paroquant_tpu_torch.kernels import attention as at
+
+    shp = dict(PAGED, Hq=32, Hkv=2)
+    B, Hq, D = shp["B"], shp["Hq"], shp["D"]
+    seq = torch.tensor(PAGED_LENS, dtype=torch.int32, device=dev) - 1
+    table, k, v, _, _ = paged_inputs(gen, dev, quant=False, **shp)
+    rows = []
+    for W in (4, 5):
+        q = torch.randn(B, W, Hq, D, generator=gen, device=dev).to(torch.bfloat16)
+        run = lambda: at.paged_window_attention_kernel(q, k, v, table, seq, scale=D**-0.5)
+        plain = lambda: at.paged_window_attention_plain(q, k, v, table, seq, scale=D**-0.5)
+        y, y_ref = run().float(), plain().float()
+        torch.cuda.synchronize()
+        ratio = row_err_ratio(y, y_ref, y.dim() - 1)
+        ms = median_ms(run, KERNEL_REPS, flush)
+        plain_ms = median_ms(plain, PLAIN_REPS, flush)
+        lib_ms = median_ms(paged_sdpa(q, table, k, v, None, None, seq, dev), KERNEL_REPS, flush)
+        b_ms, b_by = paged_bound([int(n) + W for n in seq.tolist()], W, False, **shp)
+        row = dict(kernel="paged_window_attention_kernel", case=f"R{W * Hq // shp['Hkv']} bf16",
+                   B=B, W=W, Hq=Hq, Hkv=shp["Hkv"], max_abs_err=(y - y_ref).abs().max().item(),
+                   row_err_ratio=ratio, tol=TOL_KERNEL, us=ms * 1e3, plain_us=plain_ms * 1e3,
+                   library_us=lib_ms * 1e3, bound_us=b_ms * 1e3, bound_by=b_by,
+                   ok=ratio <= TOL_KERNEL and bool(torch.isfinite(y).all()))
+        emit({"phase": "kernel_check", **row})
+        rows.append(row)
     return rows
 
 
 def paged_edges(gen, dev, record):
     """K4/K5's other branches at small shapes: sliding window, softcap, head
-    dim 64, f32 pools and queries, page sizes 8/16/64, one kv head (grp 8),
-    a K5 window that runs past maxP (clamped), an empty K4 slot (gives 0)."""
+    dims 24, 32, 64 and 256, f32 pools and queries, page sizes 8/16/64, one
+    kv head (grp 8), 16 query heads per kv head (K5: 80 rows), a K5 window
+    that runs past maxP (clamped), an empty K4 slot (gives 0)."""
     import torch
 
     from paroquant_tpu_torch.kernels import attention as at
@@ -1175,6 +1484,16 @@ def paged_edges(gen, dev, record):
         ("D64_ps16", dict(D=64, ps=16, Hq=4, Hkv=2), torch.bfloat16, {}),
         ("f32_ps64", dict(D=128, ps=64, Hq=8, Hkv=4), torch.float32, {}),
         ("ps8_grp8", dict(D=128, ps=8, Hq=8, Hkv=1), torch.bfloat16, dict(sliding_window=20)),
+        # head dims outside 64/128 (24: 8-byte rows of an int8 pool), with f32
+        # and bf16 queries and pools; each case also runs an int8 pool
+        ("D24_ps8", dict(D=24, ps=8, Hq=4, Hkv=2), torch.bfloat16, dict(sliding_window=20)),
+        ("D32_f32", dict(D=32, ps=16, Hq=4, Hkv=2), torch.float32, dict(logit_softcap=30.0)),
+        ("D32_bf16", dict(D=32, ps=64, Hq=4, Hkv=2), torch.bfloat16, dict(sliding_window=100)),
+        ("D256_f32", dict(D=256, ps=64, Hq=4, Hkv=2), torch.float32, {}),
+        ("D256_bf16", dict(D=256, ps=128, Hq=8, Hkv=2), torch.bfloat16, dict(logit_softcap=30.0)),
+        # 16 query heads per kv head: K5's window of 5 is 80 rows, two chunks
+        ("R80_D128", dict(D=128, ps=64, Hq=32, Hkv=2), torch.bfloat16, {}),
+        ("R80_D256", dict(D=256, ps=64, Hq=16, Hkv=1), torch.bfloat16, dict(sliding_window=50)),
     ]
     for name, dims, dt, kw in cases:
         B, maxP = 4, 6
@@ -1249,7 +1568,7 @@ def serve_requests(cfg, quick=False):
     ]
 
 
-def check_logprobs(eng, greedy, cfg, phase):
+def check_logprobs(eng, greedy, cfg, phase, context_bound=TOL_LOGPROB):
     """Hold each greedy request's per-token logprobs (its first token from
     the prefill, prefix-hit rows gathered from the pool included; the rest
     from burst decode through K4 and verify windows through K5, each fed the
@@ -1259,7 +1578,9 @@ def check_logprobs(eng, greedy, cfg, phase):
     TOL_LOGPROB, and a wrong context (the first half of the longest prompt
     replaced by other tokens) must move the scores by more than that on
     average, or the check could not see a misread context. `greedy` holds
-    (request, prompt, tokens)."""
+    (request, prompt, tokens). context_bound None: the wrong context must
+    move the scores by more than the worst gap (the small random models of
+    serve_head_dims move them by only a few tenths of a nat)."""
     import torch
 
     gaps = []
@@ -1276,7 +1597,7 @@ def check_logprobs(eng, greedy, cfg, phase):
     context_move = statistics.mean(abs(a - b) for a, b in zip(ref, moved))
     emit({"phase": f"{phase}_logprob_check", "requests": len(greedy), "worst_gap": max(gaps),
           "gaps": gaps, "bound": TOL_LOGPROB, "wrong_context_mean_move": context_move})
-    if max(gaps) > TOL_LOGPROB or context_move <= TOL_LOGPROB:
+    if max(gaps) > TOL_LOGPROB or context_move <= (context_bound or max(gaps)):
         raise SystemExit(f"{phase}: engine logprobs off the contiguous prefill's by {max(gaps)} "
                          f"(bound {TOL_LOGPROB}, a wrong context moves them {context_move})")
 
@@ -1483,7 +1804,10 @@ def main() -> int:
     build.build_all()
     emit({"phase": "build", **build.build_info})
     emit({"phase": "ptxas", "lines": build.ptxas_report().splitlines()})
-    tensor_core_sass()
+    # the tensor-core instructions of K15/K16 (IMMA) and K17 (HMMA); K18's 16-byte loads
+    check_sass("libint8_probe.so", ("IMMA", "HMMA"),
+               (("int8_dot_kernel", "IMMA", 2), ("bf16_dot_kernel", "HMMA", 1)))
+    check_sass("libunpack_exp.so", ("LDG.E.128",), (("stream_kernel", "LDG.E.128", 2),))
 
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(123)
@@ -1493,15 +1817,18 @@ def main() -> int:
     w4_rows = check_w4_variants(flush, gen, dev)
     w4x_rows = check_w4_experiments(flush, gen, dev)
     i8_rows = check_int8_probe(flush, gen, dev)
+    ux_rows = check_unpack_exp(flush, dev)
     edge_rows = check_edges(gen, dev)
-    bad = [r for r in mm_rows + fa_rows + pa_rows + w4_rows + w4x_rows + i8_rows + edge_rows
-           if not r["ok"]]
+    bad = [r for r in mm_rows + fa_rows + pa_rows + w4_rows + w4x_rows + i8_rows + ux_rows
+           + edge_rows if not r["ok"]]
     if bad:
         raise SystemExit(f"{len(bad)} kernel checks missed their tolerance")
     del flush
     bench_counts = kernel_bench(dev)  # slice 3: the kernel benchmarks (K1, K6-K9)
     exp_counts = w4_experiments(dev)  # slice 4: the experiment scripts (K10-K13)
     probe_counts = int8_probe(dev)  # slice 5: the int8 tensor-core probe (K14-K17)
+    unpack_counts = unpack_exp(dev)  # slice 6: the unpack experiments (K18-K22)
+    serve_head_dims(dev)  # K3-K5 at head dims 32 and 256, 80 rows
 
     qparams, cfg = qwen3_model(dev)
     counts = main_path(qparams, cfg, dev)  # slice 1: the Generator (K1-K3)
@@ -1519,6 +1846,7 @@ def main() -> int:
     counts.update({k: bench_counts[k] for k in W4_VARIANTS})  # their launches: the kernel_bench phase
     counts.update({k: exp_counts[k] for k in W4_EXPERIMENTS})  # and the w4_experiments phase
     counts.update(probe_counts)  # and the int8_probe phase
+    counts.update({k: unpack_counts[k] for k in UNPACK})  # and the unpack_exp phase
 
     def entry(name, src, replaces, row):
         lib_us = row["library_us"]
@@ -1562,6 +1890,12 @@ def main() -> int:
           for name, line, case in (("narrow_cast", 49, "8x128"), ("int8_dot", 69, "8x4096x4096"),
                                    ("fused_unpack_int8_dot", 95, "8x256->512"),
                                    ("bf16_dot", 117, "8x4096x4096"))),
+        # w4_matmul_splitdot_ce and w4_matmul_splitdot launch the same kernel
+        *(entry(name, UNPACK_SRC, f"scripts/kernel_unpack_exp.py:{line}",
+                pick(ux_rows, kernel=name))
+          for name, line in (("stream_only", 70), ("w4_matmul_bitcast", 126),
+                             ("w4_matmul_mulfloor", 177), ("w4_matmul_splitdot_ce", 229),
+                             ("w4_matmul_splitdot", 260), ("w4_matmul_i8", 310))),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

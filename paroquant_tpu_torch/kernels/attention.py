@@ -18,9 +18,12 @@ token; K5's exclude the window. A slot with no valid key (K4 with
 seq_lens == 0, which the engine never passes) gives 0 in the kernel and in
 the plain version alike.
 
-CUDA tensors launch the kernel; CPU tensors run the plain version. Nothing
-falls back: a failed build or launch raises, and a shape the kernel does not
-take raises NotImplementedError. Each CUDA call adds one to
+The kernels take every head_dim D that is a multiple of 8 from 8 to 256 and,
+K4/K5, any number W * Hq / Hkv of query rows per kv head. CUDA tensors
+launch the kernel; CPU tensors run the plain version. Nothing falls back: a
+failed build or launch raises, and a shape the kernel does not take (a D
+outside that range, a page size K4/K5 do not tile) raises
+NotImplementedError. Each CUDA call adds one to
 `launch_counts[name]`; `variant_counts` splits K4/K5 into float and int8
 pools.
 """
@@ -46,6 +49,12 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
     for name in variant_counts:
         variant_counts[name] = [0, 0]
+
+
+def _check_head_dim(D: int) -> None:
+    if D % 8 or not 8 <= D <= 256:
+        raise NotImplementedError(
+            f"the CUDA attention kernels take head_dim a multiple of 8 from 8 to 256, not {D}")
 
 
 def _per_batch(v, B: int, device) -> torch.Tensor:
@@ -110,8 +119,7 @@ def flash_attention(
         )
     B, Hq, T, D = q.shape
     Hkv, S_ = k.shape[1], k.shape[2]
-    if D not in (64, 128):
-        raise ValueError(f"CUDA flash_attention supports head_dim 64 or 128, got {D}")
+    _check_head_dim(D)
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v must share dtype float32 or bfloat16: {q.dtype} {k.dtype} {v.dtype}")
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D or Hq % Hkv:
@@ -138,10 +146,6 @@ def flash_attention(
 # ---------------------------------------------------------------------------
 # Paged decode (K4) and paged window (K5) attention
 # ---------------------------------------------------------------------------
-
-PAGED_HEAD_DIMS = (64, 128)
-PAGED_MAX_ROWS = 64  # W * (Hq // Hkv) query rows per (slot, kv head)
-
 
 def dequant_pages(pages: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """pages [..., ps, Hkv, D] int8 + scales [..., Hkv, ps] -> f32 pages."""
@@ -269,17 +273,12 @@ def _paged_launch(name, q4, k_pages, v_pages, page_table, seq_lens, scale, slidi
     B, W, Hq, D = q4.shape
     P, ps, Hkv, D_kv = k_pages.shape
     maxP = page_table.shape[1]
-    if D not in PAGED_HEAD_DIMS:
-        raise NotImplementedError(f"the CUDA paged kernels take head_dim 64 or 128, not {D}")
+    _check_head_dim(D)
     if ps < 8 or ps % 8 or (ps > 64 and ps % 64):
         raise NotImplementedError(
             f"the CUDA paged kernels take page sizes that are multiples of 8 up to 64, "
             f"then multiples of 64; not {ps}")
-    if Hq % Hkv or W * (Hq // Hkv) > PAGED_MAX_ROWS:
-        raise NotImplementedError(
-            f"the CUDA paged kernels take at most {PAGED_MAX_ROWS} query rows per kv head, "
-            f"not W={W} x {Hq // Hkv}")
-    if D_kv != D or v_pages.shape != k_pages.shape or page_table.shape[0] != B:
+    if D_kv != D or Hq % Hkv or v_pages.shape != k_pages.shape or page_table.shape[0] != B:
         raise ValueError(f"shapes q {tuple(q4.shape)} pool {tuple(k_pages.shape)} "
                          f"v {tuple(v_pages.shape)} table {tuple(page_table.shape)}")
     if q4.dtype not in (torch.float32, torch.bfloat16):

@@ -15,6 +15,15 @@
 // loaded: skipping a fully masked tile leaves the online softmax unchanged.
 // Bound on this card: at T = 512 the score and PV products (operations);
 // this first kernel runs them on the f32 SIMT units, not the tensor cores.
+//
+// Head dims: any D that is a multiple of 8 from 8 to 256, as the TPU kernel
+// takes. A thread keeps the output dims tx + 16 c (c < DB / 16) of its rows
+// in registers, so the kernel is instantiated for four buckets DB = 32, 64,
+// 128 and 256 and a D inside a bucket bounds the loops at run time (the dims
+// tx + 16 c >= D of a ragged last half-tile are masked); D equal to its
+// bucket takes an instance with D fixed at compile time. Shared memory is
+// sized by the runtime D: 4 B * (64 (D+1) + 64 (D+1) + 64 D + 64 * 65 + 192),
+// 214,528 B (209.5 KiB) at D = 256, under the 232,448 B a block can use.
 
 #include "common.cuh"
 
@@ -29,16 +38,18 @@ constexpr int TK = 64;
 constexpr int THREADS = 256;
 constexpr float NEG_INF = -1e30f;
 
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (TQ * (D + 1) + TK * (D + 1) + TK * D + TQ * (TK + 1) + 3 * TQ);
+size_t smem_bytes(int D) {
+  return sizeof(float) * ((size_t)TQ * (D + 1) + TK * (D + 1) + (size_t)TK * D + TQ * (TK + 1) + 3 * TQ);
 }
 
-template <typename T, int D>
+// DB: the head-dim bucket (a multiple of 16); EXACT: D == DB, fixed at compile time
+template <typename T, int DB, bool EXACT>
 __global__ void __launch_bounds__(THREADS) flash_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, const int* __restrict__ kv_lens, const int* __restrict__ q_off,
-    int Hq, int Hkv, int T_, int S_, float scale, float softcap, int window, int causal) {
+    int Hq, int Hkv, int T_, int S_, int d_rt, float scale, float softcap, int window, int causal) {
+  constexpr int NC = DB / 16;  // output dims per thread and row
+  const int D = EXACT ? DB : d_rt;
   extern __shared__ float smem[];
   float* Qs = smem;                 // [TQ][D+1]
   float* Ks = Qs + TQ * (D + 1);    // [TK][D+1]
@@ -69,11 +80,11 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
     m_s[tid] = NEG_INF;
     l_s[tid] = 0.f;
   }
-  float acc[4][D / 16];
+  float acc[4][NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
 
   // live key range: [lo, hi)
   int hi = kv_len;
@@ -157,12 +168,12 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
     }
     __syncthreads();
 
-    // acc = acc * alpha + P @ V: rows ty*4 + i, dims tx + 16*c
+    // acc = acc * alpha + P @ V: rows ty*4 + i, dims tx + 16*c (< D)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float alpha = a_s[ty * 4 + i];
 #pragma unroll
-      for (int c = 0; c < D / 16; ++c) acc[i][c] *= alpha;
+      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
     }
 #pragma unroll 4
     for (int j = 0; j < TK; ++j) {
@@ -170,8 +181,10 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * (TK + 1) + j];
 #pragma unroll
-      for (int c = 0; c < D / 16; ++c) {
-        const float vv = Vs[j * D + tx + 16 * c];
+      for (int c = 0; c < NC; ++c) {
+        const int d = tx + 16 * c;
+        if (!EXACT && d >= D) break;  // the ragged half-tile: uniform in c per thread
+        const float vv = Vs[j * D + d];
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
       }
@@ -186,49 +199,64 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
     if (q0 + r >= T_) continue;
     const float l = fmaxf(l_s[r], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c)
-      op[(size_t)(q0 + r) * D + tx + 16 * c] = from_f32<T>(acc[i][c] / l);
+    for (int c = 0; c < NC; ++c) {
+      const int d = tx + 16 * c;
+      if (EXACT || d < D) op[(size_t)(q0 + r) * D + d] = from_f32<T>(acc[i][c] / l);
+    }
   }
 }
 
-template <typename T, int D>
+template <typename T, int DB, bool EXACT>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, const int* kv_lens,
-                   const int* q_off, int B, int Hq, int Hkv, int T_, int S_, float scale,
+                   const int* q_off, int B, int Hq, int Hkv, int T_, int S_, int D, float scale,
                    float softcap, int window, int causal, cudaStream_t st) {
-  const size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_kernel<T, D>,
+  const size_t smem = smem_bytes(D);
+  cudaError_t err = cudaFuncSetAttribute(flash_kernel<T, DB, EXACT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((T_ + TQ - 1) / TQ, Hq, B);
-  flash_kernel<T, D><<<grid, THREADS, smem, st>>>((const T*)q, (const T*)k, (const T*)v, (T*)o,
-                                                  kv_lens, q_off, Hq, Hkv, T_, S_, scale,
-                                                  softcap, window, causal);
+  flash_kernel<T, DB, EXACT><<<grid, THREADS, smem, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, kv_lens, q_off, Hq, Hkv, T_, S_, D, scale,
+      softcap, window, causal);
   return cudaGetLastError();
+}
+
+// the smallest bucket that holds D; its exact instance when D fills it
+template <typename T>
+cudaError_t by_dim(const void* q, const void* k, const void* v, void* o, const int* kl,
+                   const int* qo, int B, int Hq, int Hkv, int T_, int S_, int D, float scale,
+                   float softcap, int window, int causal, cudaStream_t st) {
+#define PARO_FLASH_BUCKET(DB)                                                                     \
+  if (D <= DB)                                                                                    \
+    return D == DB ? launch<T, DB, true>(q, k, v, o, kl, qo, B, Hq, Hkv, T_, S_, D, scale,       \
+                                         softcap, window, causal, st)                             \
+                   : launch<T, DB, false>(q, k, v, o, kl, qo, B, Hq, Hkv, T_, S_, D, scale,      \
+                                          softcap, window, causal, st);
+  PARO_FLASH_BUCKET(32)
+  PARO_FLASH_BUCKET(64)
+  PARO_FLASH_BUCKET(128)
+  PARO_FLASH_BUCKET(256)
+#undef PARO_FLASH_BUCKET
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q/o [B, Hq, T, D], k/v [B, Hkv, S, D], contiguous, all f32 or all bf16;
-// kv_lens and q_off int32 [B] on the device. D is 64 or 128. softcap <= 0 and
-// window <= 0 mean none. Returns the first CUDA error (0 on success).
+// kv_lens and q_off int32 [B] on the device. D is a multiple of 8 from 8 to
+// 256. softcap <= 0 and window <= 0 mean none. Returns the first CUDA error
+// (0 on success).
 extern "C" int paro_flash_attention(const void* q, const void* k, const void* v, void* o,
                                     const void* kv_lens, const void* q_off, int is_bf16, int B,
                                     int Hq, int Hkv, int T_, int S_, int D, float scale,
                                     float softcap, int window, int causal, void* stream) {
-  if (Hkv < 1 || Hq % Hkv != 0 || B < 1 || T_ < 1 || S_ < 1) return (int)cudaErrorInvalidValue;
+  if (Hkv < 1 || Hq % Hkv != 0 || B < 1 || T_ < 1 || S_ < 1 || D < 8 || D > 256 || D % 8 != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int* kl = (const int*)kv_lens;
   const int* qo = (const int*)q_off;
-  cudaError_t err;
-  if (D == 128 && is_bf16)
-    err = launch<bf16, 128>(q, k, v, o, kl, qo, B, Hq, Hkv, T_, S_, scale, softcap, window, causal, st);
-  else if (D == 128)
-    err = launch<float, 128>(q, k, v, o, kl, qo, B, Hq, Hkv, T_, S_, scale, softcap, window, causal, st);
-  else if (D == 64 && is_bf16)
-    err = launch<bf16, 64>(q, k, v, o, kl, qo, B, Hq, Hkv, T_, S_, scale, softcap, window, causal, st);
-  else if (D == 64)
-    err = launch<float, 64>(q, k, v, o, kl, qo, B, Hq, Hkv, T_, S_, scale, softcap, window, causal, st);
-  else
-    err = cudaErrorInvalidValue;
+  cudaError_t err =
+      is_bf16 ? by_dim<bf16>(q, k, v, o, kl, qo, B, Hq, Hkv, T_, S_, D, scale, softcap, window, causal, st)
+              : by_dim<float>(q, k, v, o, kl, qo, B, Hq, Hkv, T_, S_, D, scale, softcap, window, causal, st);
   return (int)err;
 }

@@ -1,6 +1,7 @@
 """The port's flash_attention (K3; its plain version on the CPU) against the
 JAX flash_attention in Pallas interpret mode, in f32 at the tolerance of
-tests/test_attention_kernels.py."""
+tests/test_attention_kernels.py, at head_dim 64 and at the other head dims
+the kernels take (16, 32, 256)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,13 +23,12 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_flash_attention_plain_matches_pallas(case):
+def _check(case, seed, D):
     c = dict(CASES[case])
     T, S = c.pop("T"), c.pop("S")
     kv_lens = np.asarray(c.pop("kv_lens", (S, S)), np.int32)
     q_offset = np.asarray(c.pop("q_offset", (0, 0)), np.int32)
-    rng = np.random.default_rng(sorted(CASES).index(case))
+    rng = np.random.default_rng(seed)
     q = rng.normal(size=(B, HQ, T, D)).astype(np.float32)
     k = rng.normal(size=(B, HKV, S, D)).astype(np.float32)
     v = rng.normal(size=(B, HKV, S, D)).astype(np.float32)
@@ -39,3 +39,14 @@ def test_flash_attention_plain_matches_pallas(case):
     yt = t_flash(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
                  torch.from_numpy(kv_lens), scale=scale, q_offset=torch.from_numpy(q_offset), **c)
     np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_flash_attention_plain_matches_pallas(case):
+    _check(case, sorted(CASES).index(case), D)
+
+
+@pytest.mark.parametrize("case", ["q_offset_per_row", "window", "softcap"])
+@pytest.mark.parametrize("head_dim", [16, 32, 256])
+def test_flash_attention_plain_matches_pallas_head_dims(head_dim, case):
+    _check(case, 100 + head_dim + sorted(CASES).index(case), head_dim)

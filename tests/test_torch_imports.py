@@ -27,7 +27,8 @@ EXPERIMENT_MODULES = (
     "paroquant_tpu_torch.kernels.w4_experiments", "paroquant_tpu_torch.scripts.kernel_edge_test",
     "paroquant_tpu_torch.scripts.kernel_dma_pipeline", "paroquant_tpu_torch.scripts.kernel_tune",
     "paroquant_tpu_torch.scripts.kernel_w4a8_exp", "paroquant_tpu_torch.kernels.int8_probe",
-    "paroquant_tpu_torch.scripts.kernel_int8_probe",
+    "paroquant_tpu_torch.scripts.kernel_int8_probe", "paroquant_tpu_torch.kernels.unpack_exp",
+    "paroquant_tpu_torch.scripts.kernel_unpack_exp",
 )
 
 
@@ -65,7 +66,7 @@ def _entry_points():
     from paroquant_tpu_torch.experiments import plot_kernel_speedup
     from paroquant_tpu_torch.scripts import (kernel_bench3, kernel_bench4, kernel_dma_pipeline,
                                              kernel_edge_test, kernel_int8_probe, kernel_tune,
-                                             kernel_w4a8_exp)
+                                             kernel_unpack_exp, kernel_w4a8_exp)
     from paroquant_tpu_torch.serve import Engine, Generator, PagedKVCache
     from paroquant_tpu_torch.utils.device import resolve_device
     from paroquant_tpu_torch.utils.profiling import kernel_time_ms, profile_paged_decode
@@ -93,6 +94,7 @@ def _entry_points():
         "kernel_tune.main": lambda: kernel_tune.main(),
         "kernel_w4a8_exp.main": lambda: kernel_w4a8_exp.main(),
         "kernel_int8_probe.main": lambda: kernel_int8_probe.main(),
+        "kernel_unpack_exp.main": lambda: kernel_unpack_exp.main(),
     }
 
 
@@ -103,7 +105,7 @@ def _entry_points():
      "profile_paged_decode", "kernel_bench3.main", "kernel_bench4.main",
      "plot_kernel_speedup.main", "w4_i4_from_jax", "kernel_time_ms", "kernel_edge_test.main",
      "kernel_dma_pipeline.main", "kernel_tune.main", "kernel_w4a8_exp.main",
-     "kernel_int8_probe.main"],
+     "kernel_int8_probe.main", "kernel_unpack_exp.main"],
 )
 def test_cuda_default_raises_without_cuda(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

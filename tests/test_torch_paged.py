@@ -39,19 +39,19 @@ LENS_WIN = np.array([0, 8, 19, 36], np.int32)  # K5: before a window of 4
 W = 4
 
 
-def _pool(rng, quant):
+def _pool(rng, quant, d=D, hkv=HKV):
     table = np.full((B, MAXP), P - 1, np.int32)
     perm = rng.permutation(P - 1)
     for b, n in enumerate((1, 2, 3, 5)):
         table[b, :n] = perm[b * 5 : b * 5 + n]
     if quant:
-        k = rng.integers(-127, 128, (P, PS, HKV, D)).astype(np.int8)
-        v = rng.integers(-127, 128, (P, PS, HKV, D)).astype(np.int8)
-        ks = rng.uniform(0.001, 0.02, (P, HKV, PS)).astype(np.float32)
-        vs = rng.uniform(0.001, 0.02, (P, HKV, PS)).astype(np.float32)
+        k = rng.integers(-127, 128, (P, PS, hkv, d)).astype(np.int8)
+        v = rng.integers(-127, 128, (P, PS, hkv, d)).astype(np.int8)
+        ks = rng.uniform(0.001, 0.02, (P, hkv, PS)).astype(np.float32)
+        vs = rng.uniform(0.001, 0.02, (P, hkv, PS)).astype(np.float32)
         return table, k, v, ks, vs
-    k = rng.standard_normal((P, PS, HKV, D)).astype(np.float32)
-    v = rng.standard_normal((P, PS, HKV, D)).astype(np.float32)
+    k = rng.standard_normal((P, PS, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((P, PS, hkv, d)).astype(np.float32)
     k[P - 1] = np.nan  # the trash page is never read
     v[P - 1] = np.nan
     return table, k, v, None, None
@@ -95,6 +95,46 @@ def test_paged_window_plain_matches_pallas(window, softcap, quant):
     got = tka.paged_window_attention_kernel(_t(q), _t(k), _t(v), _t(table), _t(LENS_WIN),
                                             k_scales=_t(ks), v_scales=_t(vs), **kw)
     assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
+
+
+# head dims and query-row counts beyond D = 64 and W * grp = 8: (D, Hq, Hkv, W)
+SHAPES = {"D32": (32, 4, 2, W), "D256": (256, 4, 2, W), "R80_D128": (128, 32, 2, 5),
+          "R80_D256": (256, 16, 1, 5)}
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("shape", ["D32", "D256"])
+def test_paged_decode_plain_matches_pallas_head_dims(shape, quant):
+    d, hq, hkv, _ = SHAPES[shape]
+    rng = np.random.default_rng(200 + d + quant)
+    table, k, v, ks, vs = _pool(rng, quant, d, hkv)
+    q = rng.standard_normal((B, hq, d)).astype(np.float32)
+    kw = dict(scale=d**-0.5, sliding_window=6, logit_softcap=20.0)
+    want = jka.paged_decode_attention(
+        jnp.asarray(q), _j(k), _j(v), jnp.asarray(table), jnp.asarray(LENS_INCL),
+        k_scales=_j(ks), v_scales=_j(vs), interpret=True, **kw)
+    got = tka.paged_decode_attention(_t(q), _t(k), _t(v), _t(table), _t(LENS_INCL),
+                                     k_scales=_t(ks), v_scales=_t(vs), **kw)
+    assert got.shape == (B, hq, d) and np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_paged_window_plain_matches_pallas_head_dims(shape, quant):
+    """R80: W 5 x 16 query heads per kv head, 80 rows (the engine at spec_k 4)."""
+    d, hq, hkv, wn = SHAPES[shape]
+    rng = np.random.default_rng(300 + list(SHAPES).index(shape) * 2 + quant)
+    table, k, v, ks, vs = _pool(rng, quant, d, hkv)
+    q = rng.standard_normal((B, wn, hq, d)).astype(np.float32)
+    kw = dict(scale=d**-0.5)
+    want = jka.paged_window_attention_kernel(
+        jnp.asarray(q), _j(k), _j(v), jnp.asarray(table), jnp.asarray(LENS_WIN),
+        k_scales=_j(ks), v_scales=_j(vs), interpret=True, **kw)
+    got = tka.paged_window_attention_kernel(_t(q), _t(k), _t(v), _t(table), _t(LENS_WIN),
+                                            k_scales=_t(ks), v_scales=_t(vs), **kw)
+    assert got.shape == (B, wn, hq, d) and np.isfinite(got.numpy()).all()
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
 
 
