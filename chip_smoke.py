@@ -11,7 +11,9 @@ Phases, each printing one or more lines:
      after warm-up, L2 flushed before each timed launch) beside the bound
      and one library call: K1/K2 (W4 GEMV), K3 (flash prefill), K4/K5
      (paged decode / verify over 8 slots of mixed lengths, bf16 and int8
-     pools; each query row held to its own output's scale), K6-K9 (the
+     pools; each query row held to its own output's scale; two calls on
+     the same inputs bitwise equal; K4 also at the engine step's 8 slots
+     of 256 tokens), K6-K9 (the
      kernel benchmarks' W4 variants, at their 4096 x 4096 shape with each
      scale/zero dtype pair and at o_proj), K10-K13 (the W4 GEMV experiments
      of the TPU scripts, at their 4096 x 4096 shape, dtypes and knobs: M,
@@ -33,8 +35,13 @@ Phases, each printing one or more lines:
      experiments (kernel_unpack_exp), counted the same way: K18-K22 (all six
      entry points) and their control arms K6 and K1 must run, each GEMV
      within TOL_KERNEL of K6. Before the checks, cuobjdump's SASS of the
-     probe's library must show IMMA in K15/K16 and HMMA in K17, and that of
-     the unpack library K18's 128-bit global loads. K18-K22 are checked at
+     probe's library must show IMMA in K15/K16 and HMMA in K17, that of
+     the unpack library K18's 128-bit global loads, and that of the paged
+     library HMMA in every tensor-core instance of K4/K5 (bf16 queries over
+     bf16 and int8 pools). K4/K5's split over pages is checked at its
+     edges: maxP 1, slots ending on and inside a split, a window skipping
+     whole splits, empty slots beside full ones, f32 queries over int8
+     pools. K18-K22 are checked at
      the script's 4096 x 4096 draws (K18 bit for bit), K3 at head dims 16,
      32, 96 and 256, K4/K5 at 24, 32 and 256 and K5 at 80 query rows per kv
      head (and timed there at D = 128), and the refusal of head_dim 12;
@@ -1414,13 +1421,21 @@ def check_paged(flush, gen, dev):
             torch.cuda.synchronize()
             err = (y - y_ref).abs().max().item()
             ratio = row_err_ratio(y, y_ref, y.dim() - 1)
+            # the split's partials merge in a fixed order: a second call gives the same bits
+            same = torch.equal(run(), run())
+            emit({"phase": "paged_determinism", "kernel": kernel,
+                  "case": "int8" if quant else "bf16", "bitwise_equal": same})
+            if not same:
+                raise SystemExit(f"{kernel}: two calls on the same inputs differ")
             ms = median_ms(run, KERNEL_REPS, flush)
             plain_ms = median_ms(plain, PLAIN_REPS, flush)
             lib_ms = median_ms(paged_sdpa(q4, table, k, v, ks, vs, base, dev), KERNEL_REPS, flush)
             n_keys = [int(n) + W for n in base.tolist()]
             b_ms, b_by = paged_bound(n_keys, W, quant, **shp)
             row = dict(kernel=kernel, case="int8" if quant else "bf16", B=B, W=W,
-                       lens=list(PAGED_LENS), max_abs_err=err, row_err_ratio=ratio,
+                       lens=list(PAGED_LENS), split=at.paged_split(B, shp["Hkv"], 1, shp["maxP"],
+                                                                   shp["ps"]),
+                       max_abs_err=err, row_err_ratio=ratio,
                        tol=TOL_KERNEL, us=ms * 1e3,
                        plain_us=plain_ms * 1e3, library_us=lib_ms * 1e3,
                        library="sdpa(enable_gqa) on K/V gathered to contiguous bf16 beforehand; "
@@ -1430,13 +1445,47 @@ def check_paged(flush, gen, dev):
             emit({"phase": "kernel_check", **row})
             rows.append(row)
         del table, k, v, ks, vs
+    rows += check_paged_step(flush, gen, dev)
     rows += check_paged_rows(flush, gen, dev)
     return rows
 
 
+def check_paged_step(flush, gen, dev):
+    """K4 at the engine step's own shape, the one `paged_decode_profile`
+    runs (8 slots of 256 cached tokens and the current one, pages of 128,
+    maxP 3 for 16 steps), so that this row and that line read together."""
+    import torch
+
+    from paroquant_tpu_torch.kernels import attention as at
+
+    shp = dict(PAGED, maxP=-(-(256 + 3 * 16 + 4) // 128))
+    B, Hq, D = shp["B"], shp["Hq"], shp["D"]
+    table, k, v, _, _ = paged_inputs(gen, dev, quant=False, **shp)
+    seq = torch.full((B,), 257, dtype=torch.int32, device=dev)
+    q = torch.randn(B, Hq, D, generator=gen, device=dev).to(torch.bfloat16)
+    run = lambda: at.paged_decode_attention(q, k, v, table, seq, scale=D**-0.5)
+    plain = lambda: at.paged_decode_attention_plain(q, k, v, table, seq, scale=D**-0.5)
+    y, y_ref = run().float(), plain().float()
+    torch.cuda.synchronize()
+    ratio = row_err_ratio(y, y_ref, 2)
+    ms = median_ms(run, KERNEL_REPS, flush)
+    plain_ms = median_ms(plain, PLAIN_REPS, flush)
+    lib_ms = median_ms(paged_sdpa(q[:, None], table, k, v, None, None, seq - 1, dev),
+                       KERNEL_REPS, flush)
+    b_ms, b_by = paged_bound([257] * B, 1, False, **shp)
+    row = dict(kernel="paged_decode_attention", case="step 8x256 bf16", B=B, W=1,
+               maxP=shp["maxP"], split=at.paged_split(B, shp["Hkv"], 1, shp["maxP"], shp["ps"]),
+               max_abs_err=(y - y_ref).abs().max().item(), row_err_ratio=ratio, tol=TOL_KERNEL,
+               us=ms * 1e3, plain_us=plain_ms * 1e3, library_us=lib_ms * 1e3,
+               bound_us=b_ms * 1e3, bound_by=b_by,
+               ok=ratio <= TOL_KERNEL and bool(torch.isfinite(y).all()))
+    emit({"phase": "kernel_check", **row})
+    return [row]
+
+
 def check_paged_rows(flush, gen, dev):
     """K5 at 16 query heads per kv head (Hq 32, Hkv 2, D 128, bf16 pool,
-    PAGED_LENS): a window of 4 (64 rows, one block per slot and kv head)
+    PAGED_LENS): a window of 4 (64 rows, one chunk per slot and kv head)
     and of 5 (80 rows, split into two chunks of 40 that each read the
     slot's K/V), timed beside the bound: the cost of the row split."""
     import torch
@@ -1520,6 +1569,60 @@ def paged_edges(gen, dev, record):
         raise SystemExit("K4 gave a nonzero output for a slot with seq_lens == 0")
     record("paged_decode_attention", "empty slot", y, at.paged_decode_attention_plain(
         q, k, v, table, empty, scale=0.1), lead=2)
+    paged_split_edges(gen, dev, record)
+
+
+def paged_split_edges(gen, dev, record):
+    """K4/K5's split over pages: maxP 1 (one split, no merge); at B 8,
+    Hkv 8, pages of 32, maxP 16 (paged_split: 8 splits of 2 pages, a tile
+    of 64 keys spanning two pages) slots whose live pages end on a split
+    boundary and mid-split, a sliding window that skips whole splits, an
+    empty K4 slot beside full ones, and f32 queries over int8 pools; each
+    with bf16 and int8 pools."""
+    import torch
+
+    from paroquant_tpu_torch.kernels import attention as at
+
+    one = dict(B=4, maxP=1, D=128, ps=128, Hq=16, Hkv=8)
+    wide = dict(B=8, maxP=16, D=128, ps=32, Hq=16, Hkv=8)
+    splits, pps = at.paged_split(8, 8, 1, 16, 32)
+    if splits < 2 or pps < 2 or at.paged_split(4, 8, 1, 1, 128)[0] != 1:
+        raise SystemExit(f"paged_split gave {splits} x {pps} pages at the split edges' shape")
+    span, cap = pps * 32, 16 * 32  # keys of one split, of the table
+    # K4 lengths (with the current token): 1 key; a split boundary; mid-split;
+    # mid-page; the whole table; one page; a boundary of a later split; one
+    # past it
+    ends = [1, span, span + 32, 2 * span - 5, cap, 32, 3 * span, 3 * span + 1]
+    cases = [
+        ("maxP1", one, torch.bfloat16, {}, [1, 40, 127, 128]),
+        ("split_ends", wide, torch.bfloat16, {}, ends),
+        ("split_ends_softcap", wide, torch.bfloat16, dict(logit_softcap=30.0), ends),
+        ("window_skips_splits", wide, torch.bfloat16, dict(sliding_window=100),
+         [cap, 450, 3 * span + 7, 130, 64, 2 * span, 300, 500]),
+        ("empty_beside_full", wide, torch.bfloat16, {}, [0, cap, 0, 450, 1, 0, 3 * span, 0]),
+        ("f32_q", wide, torch.float32, dict(sliding_window=300), ends),
+    ]
+    for name, shp, dt, kw, lens in cases:
+        B = shp["B"]
+        lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        for quant in (False, True):
+            table, k, v, ks, vs = paged_inputs(gen, dev, quant=quant, dtype=torch.bfloat16, **shp)
+            if dt == torch.float32 and not quant:
+                k, v = k.float(), v.float()
+            kw2 = dict(scale=shp["D"] ** -0.5, k_scales=ks, v_scales=vs, **kw)
+            q = torch.randn(B, shp["Hq"], shp["D"], generator=gen, device=dev).to(dt)
+            tag = f"{name} {'int8' if quant else k.dtype}"
+            y = at.paged_decode_attention(q, k, v, table, lens, **kw2)
+            if (y[lens == 0] != 0).any():
+                raise SystemExit(f"K4 gave a nonzero output for an empty slot ({tag})")
+            record("paged_decode_attention", tag, y,
+                   at.paged_decode_attention_plain(q, k, v, table, lens, **kw2), lead=2)
+            # K5: the window's last row ends where K4's slot does
+            qw = torch.randn(B, PAGED_W, shp["Hq"], shp["D"], generator=gen, device=dev).to(dt)
+            wl = torch.clamp(lens - PAGED_W, min=0)
+            record("paged_window_attention_kernel", tag,
+                   at.paged_window_attention_kernel(qw, k, v, table, wl, **kw2),
+                   at.paged_window_attention_plain(qw, k, v, table, wl, **kw2), lead=3)
 
 
 # ---------------------------------------------------------------------------
@@ -1808,6 +1911,8 @@ def main() -> int:
     check_sass("libint8_probe.so", ("IMMA", "HMMA"),
                (("int8_dot_kernel", "IMMA", 2), ("bf16_dot_kernel", "HMMA", 1)))
     check_sass("libunpack_exp.so", ("LDG.E.128",), (("stream_kernel", "LDG.E.128", 2),))
+    # K4/K5's tensor-core instances: bf16 queries over bf16 and int8 pools, 9 tilings each
+    check_sass("libpaged_attention.so", ("HMMA",), (("paged_mma_kernel", "HMMA", 18),))
 
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(123)

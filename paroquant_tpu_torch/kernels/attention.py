@@ -18,14 +18,22 @@ token; K5's exclude the window. A slot with no valid key (K4 with
 seq_lens == 0, which the engine never passes) gives 0 in the kernel and in
 the plain version alike.
 
+K4/K5 split each slot's pages over blocks (flash-decoding): `paged_split`
+chooses the number of splits from host-known shapes only, never from
+seq_lens or the page table, so a decode step makes no host sync. With more
+than one split the kernel writes f32 partials to a workspace this module
+allocates with `torch.empty`, and the last block of each (slot, kv head,
+chunk) to finish, behind a counter it resets, merges them in split order:
+one launch per call.
+
 The kernels take every head_dim D that is a multiple of 8 from 8 to 256 and,
 K4/K5, any number W * Hq / Hkv of query rows per kv head. CUDA tensors
 launch the kernel; CPU tensors run the plain version. Nothing falls back: a
 failed build or launch raises, and a shape the kernel does not take (a D
 outside that range, a page size K4/K5 do not tile) raises
 NotImplementedError. Each CUDA call adds one to
-`launch_counts[name]`; `variant_counts` splits K4/K5 into float and int8
-pools.
+`launch_counts[name]` (K4/K5: one per call, whatever the call launches);
+`variant_counts` splits K4/K5 into float and int8 pools.
 """
 
 from __future__ import annotations
@@ -252,6 +260,44 @@ def paged_window_attention_plain(q, k_pages, v_pages, page_table, seq_lens, *, s
         logit_softcap=logit_softcap, k_scales=k_scales, v_scales=v_scales)
 
 
+# blocks paged_split aims for: eight per SM of the H100's 132 (the host does
+# not know how many pages each slot has live, so most blocks of short slots
+# exit at once)
+SPLIT_TARGET_BLOCKS = 8 * 132
+# keys a split covers at least: one tile of the tensor-core path
+SPLIT_MIN_KEYS = 64
+# splits the kernel's last block merges (csrc/paged_attention.cu MAX_SPLITS)
+SPLIT_MAX = 32
+
+
+def paged_split(B: int, Hkv: int, chunks: int, maxP: int, ps: int,
+                pages_per_split: int | None = None) -> tuple[int, int]:
+    """(splits, pages_per_split) of K4/K5's split over pages, from host-known
+    ints only: the most pages a split that still give the grid of B * Hkv *
+    chunks * splits blocks SPLIT_TARGET_BLOCKS, but at least SPLIT_MIN_KEYS
+    keys a split and at most SPLIT_MAX splits; or `pages_per_split` when
+    given. Split s covers pages [s * pps, (s + 1) * pps); splits * pps >=
+    maxP, and no split lies wholly past maxP."""
+    if pages_per_split is None:
+        want = -(-SPLIT_TARGET_BLOCKS // (B * Hkv * chunks))  # splits that reach the target
+        most = maxP if want <= 1 else -(-maxP // (want - 1)) - 1  # pps with ceil(maxP / pps) >= want
+        pages_per_split = max(most, -(-SPLIT_MIN_KEYS // ps), -(-maxP // SPLIT_MAX))
+    pps = max(1, min(int(pages_per_split), maxP))
+    return -(-maxP // pps), pps
+
+
+# per device: the kernels' split counters, zero between calls (each call's
+# last block resets its own)
+_split_counters: dict = {}
+
+
+def _counters(n: int, device) -> torch.Tensor:
+    c = _split_counters.get(device)
+    if c is None or c.numel() < n:
+        c = _split_counters[device] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return c
+
+
 _paged_fns: dict = {}
 _PAGED_SYMBOLS = {"paged_decode_attention": "paro_paged_decode_attention",
                   "paged_window_attention_kernel": "paro_paged_window_attention"}
@@ -259,10 +305,16 @@ _PAGED_SYMBOLS = {"paged_decode_attention": "paro_paged_decode_attention",
 
 def _paged_lib_fn(name: str):
     if name not in _paged_fns:
-        fn = getattr(load("paged_attention"), _PAGED_SYMBOLS[name])
-        n_int = 8 if name == "paged_decode_attention" else 9
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * n_int + [
-            ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        lib = load("paged_attention")
+        if name == "rows_per_chunk":
+            fn = lib.paro_paged_rows_per_chunk
+            fn.argtypes = [ctypes.c_int] * 4
+        else:
+            fn = getattr(lib, _PAGED_SYMBOLS[name])
+            n_int = 8 if name == "paged_decode_attention" else 9
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * n_int + [
+                ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _paged_fns[name] = fn
     return _paged_fns[name]
@@ -302,14 +354,26 @@ def _paged_launch(name, q4, k_pages, v_pages, page_table, seq_lens, scale, slidi
         k_scales, v_scales = k_scales.contiguous(), v_scales.contiguous()
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("the pools must be 16-byte aligned")
+    q_bf16, kind, R = int(q4.dtype == torch.bfloat16), kinds[k_pages.dtype], W * (Hq // Hkv)
+    rows = _paged_lib_fn("rows_per_chunk")(q_bf16, kind, R, D)
+    if rows < 1:
+        raise NotImplementedError(f"no tiling of {R} query rows at head_dim {D} fits a block")
+    chunks = -(-R // rows)
+    splits, pps = paged_split(B, Hkv, chunks, maxP, ps)
+    ws = cnt = None
+    if splits > 1:
+        ws = torch.empty(B * Hkv * R * splits * (D + 2), dtype=torch.float32, device=q4.device)
+        cnt = _counters(B * Hkv * chunks, q4.device)
+    if q4.data_ptr() % 16:  # the kernel reads q in 16-byte pieces
+        q4 = q4.clone()
     out = torch.empty_like(q4)
     dims = (B, Hq, Hkv, D, ps, maxP) if name == "paged_decode_attention" else (B, W, Hq, Hkv, D, ps, maxP)
     err = _paged_lib_fn(name)(
         q4.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scales.data_ptr() if quant else None, v_scales.data_ptr() if quant else None,
-        out.data_ptr(), page_table.data_ptr(), seq_lens.data_ptr(),
-        int(q4.dtype == torch.bfloat16), kinds[k_pages.dtype], *dims, float(scale),
-        float(logit_softcap or 0.0), int(sliding_window or 0),
+        out.data_ptr(), page_table.data_ptr(), seq_lens.data_ptr(), q_bf16, kind, *dims,
+        float(scale), float(logit_softcap or 0.0), int(sliding_window or 0), splits, pps,
+        None if ws is None else ws.data_ptr(), None if cnt is None else cnt.data_ptr(),
         torch.cuda.current_stream(q4.device).cuda_stream,
     )
     if err != 0:

@@ -12,6 +12,7 @@ typedef __nv_bfloat16 bf16;
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ float to_f32<bf16>(bf16 v) { return __bfloat162float(v); }
+template <> __device__ __forceinline__ float to_f32<int8_t>(int8_t v) { return (float)v; }
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
@@ -20,6 +21,48 @@ template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __f
 // the value `v` takes when stored in T (round to nearest even for bf16)
 template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f32<T>(from_f32<T>(v));
+}
+
+// cp.async (sm_80 and later): global -> shared without a register stop. The
+// bytes past src_bytes (0 or the piece size) are zero-filled and not read.
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* src, int src_bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(smem_dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async8(void* smem_dst, const void* src, int src_bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(smem_dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem_dst, const void* src, int src_bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(smem_dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// wait until at most N of this thread's committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+// c += A (16 x 16, row) * B (16 x 8, col) in bf16 with f32 accumulation (HMMA)
+__device__ __forceinline__ void mma_bf16(float c[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// four 8 x 8 b16 matrices from shared memory, transposed: lane l gives the
+// 16-byte row (l & 7) of matrix l >> 3
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t d[4], const void* smem_row) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem_row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+               : "r"(addr));
 }
 
 }  // namespace paro

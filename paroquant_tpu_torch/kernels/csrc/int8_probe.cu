@@ -261,22 +261,6 @@ __device__ __forceinline__ void load8_bf16(const bf16* __restrict__ X, int r, in
     dst[j] = (r < rows && c + j < cols) ? X[(size_t)r * cols + c + j] : zero;
 }
 
-__device__ __forceinline__ void mma_bf16(float c[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t d[4], const void* smem_row) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem_row);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
-               : "r"(addr));
-}
-
 // grid (N tiles, M tiles, K splits). split > 1: block z writes its partial
 // sums to part[z] [M, N]; bf16_combine adds them in order.
 __global__ void __launch_bounds__(THREADS) bf16_dot_kernel(

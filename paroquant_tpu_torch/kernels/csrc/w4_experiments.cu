@@ -459,16 +459,6 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS) rot_w
 // K11 dma_rot_w4_matmul
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* src, int src_bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(smem_dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
 // Byte-rows [ci * rows, (ci + 1) * rows) of the block's 32-column strip into
 // dst[rows][TILE], columns past O zero-filled: 16-byte cp.async copies when
 // `async16` (O a multiple of 16, the weight 16-byte aligned), else plain

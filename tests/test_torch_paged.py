@@ -179,6 +179,154 @@ def test_paged_decode_plain_empty_slot_is_zero():
     assert not out[[0, 2]].any() and out[[1, 3]].abs().sum() > 0
 
 
+# ---------------------------------------------------------------------------
+# K4/K5's split over pages and its merge (the CUDA kernels' decomposition)
+# ---------------------------------------------------------------------------
+
+# lengths for the split cases: K4's slot 0 is empty; K5's slot 3 runs its
+# window of 4 past maxP * PS = 40; with a window of 6 slot 3's first four
+# pages lie wholly before it; slots 0 and 1 have pages past their live ones
+LENS_SPLIT_INCL = np.array([0, 9, 23, 40], np.int32)
+LENS_SPLIT_WIN = np.array([0, 8, 19, 38], np.int32)
+
+
+def _split_reference(q, k, v, ks, vs, table, base, pps, *, scale, window, softcap):
+    """The kernels' split over pages and merge, written out in f32: q
+    [B, W, Hq, D], query w of slot b at position base[b] + w. Each slot's
+    keys below min(base + W, maxP * PS) and not wholly before the window
+    are cut into paged_split's splits of `pps` pages; a split reads only its
+    own live rows and gives (m, l, acc) per query row, l and acc relative to
+    m; the splits merge in order 0, 1, ...: m* = max m_s, w_s = e^(m_s - m*)
+    (0 for an empty split), o = sum w_s acc_s / max(sum w_s l_s, 1e-30)."""
+    f32 = np.float32
+    B, W, Hq, D = q.shape
+    _, ps, Hkv, _ = k.shape
+    maxP, grp = table.shape[1], Hq // Hkv
+    splits, pps = tka.paged_split(B, Hkv, 1, maxP, ps, pages_per_split=pps)
+    heads = np.arange(Hq) // grp
+    out = np.zeros(q.shape, f32)
+    for b in range(B):
+        n_keys = min(int(base[b]) + W, maxP * ps)
+        lo = max(int(base[b]) - window + 1, 0) if window else 0
+        qpos = base[b] + np.arange(W)
+        parts = []
+        for s in range(splits):
+            k0, k1 = max(s * pps * ps, lo), min((s + 1) * pps * ps, n_keys)
+            if k0 >= k1:
+                parts.append((np.full((W, Hq), tka.NEG_INF, f32), np.zeros((W, Hq), f32), None))
+                continue
+            pos = np.arange(k0, k1)
+            pages, rows = table[b, pos // ps], pos % ps
+            kh = k[pages, rows][:, heads].astype(f32)  # [n, Hq, D]
+            vh = v[pages, rows][:, heads].astype(f32)
+            sc = np.einsum("whd,nhd->whn", q[b].astype(f32), kh)
+            if ks is not None:
+                sc = sc * ks[pages, :, rows][:, heads].T[None]
+            sc = sc * f32(scale)
+            if softcap:
+                sc = np.tanh(sc / f32(softcap)) * f32(softcap)
+            valid = pos[None, :] <= qpos[:, None]
+            if window:
+                valid &= pos[None, :] > qpos[:, None] - window
+            valid = valid[:, None, :]
+            sc = np.where(valid, sc, f32(tka.NEG_INF))
+            m = sc.max(-1)
+            pr = np.where(valid, np.exp(sc - m[..., None]), f32(0))
+            l = pr.sum(-1)
+            if vs is not None:
+                pr = pr * vs[pages, :, rows][:, heads].T[None]
+            parts.append((m, l, np.einsum("whn,nhd->whd", pr, vh)))
+        m_star = np.max([m for m, _, _ in parts], axis=0)
+        l_star = np.zeros((W, Hq), f32)
+        acc = np.zeros((W, Hq, D), f32)
+        for m, l, a in parts:
+            w = np.where(l > 0, np.exp(m - m_star), f32(0)).astype(f32)
+            l_star += w * l
+            if a is not None:
+                acc += w[..., None] * a
+        out[b] = acc / np.maximum(l_star, f32(1e-30))[..., None]
+    return out
+
+
+SPLIT_PPS = {"pps1": 1, "pps2": 2, "all": MAXP}
+
+
+@pytest.mark.parametrize("pps", list(SPLIT_PPS))
+@pytest.mark.parametrize("window,softcap,quant", KERNEL_CASES)
+@pytest.mark.parametrize("kernel", ["decode", "window"])
+def test_paged_split_reference_matches_pallas(kernel, window, softcap, quant, pps):
+    """The split-and-merge reference at one, two and all pages a split,
+    against the Pallas kernel in interpret mode; the trash page (NaN) past
+    each slot's live pages is never read, an empty K4 slot gives 0."""
+    rng = np.random.default_rng(500 + KERNEL_CASES.index((window, softcap, quant)))
+    table, k, v, ks, vs = _pool(rng, quant)
+    k[P - 1] = v[P - 1] = 127 if quant else np.nan  # an int8 trash page that would show
+    kw = dict(scale=0.125, sliding_window=window, logit_softcap=softcap)
+    if kernel == "decode":
+        q = rng.standard_normal((B, 1, HQ, D)).astype(np.float32)
+        lens, base = LENS_SPLIT_INCL, LENS_SPLIT_INCL - 1
+        want = _pallas(jka.paged_decode_attention, q[:, 0], k, v, table, lens, ks, vs, **kw)[:, None]
+        plain = tka.paged_decode_attention(_t(q[:, 0]), _t(k), _t(v), _t(table), _t(lens),
+                                           k_scales=_t(ks), v_scales=_t(vs), **kw).numpy()[:, None]
+    else:
+        q = rng.standard_normal((B, W, HQ, D)).astype(np.float32)
+        lens = base = LENS_SPLIT_WIN
+        want = _pallas(jka.paged_window_attention_kernel, q, k, v, table, lens, ks, vs, **kw)
+        plain = tka.paged_window_attention_kernel(_t(q), _t(k), _t(v), _t(table), _t(lens),
+                                                  k_scales=_t(ks), v_scales=_t(vs), **kw).numpy()
+    got = _split_reference(q, k, v, ks, vs, table, base, SPLIT_PPS[pps], scale=0.125,
+                           window=window, softcap=softcap)
+    assert np.isfinite(got).all()
+    live = lens + (0 if kernel == "decode" else W) > 0  # Pallas leaves an empty slot unwritten
+    assert not got[~live].any()
+    np.testing.assert_allclose(got[live], want[live], rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got, plain, rtol=0, atol=ATOL)
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_cached(fn, q, k, v, table, lens, ks, vs, scale, sliding_window, logit_softcap):
+    a = lambda x: None if x is None else jnp.asarray(np.frombuffer(x[0], x[1]).reshape(x[2]))
+    return np.asarray(fn(a(q), a(k), a(v), a(table), a(lens), k_scales=a(ks), v_scales=a(vs),
+                         scale=scale, sliding_window=sliding_window, logit_softcap=logit_softcap,
+                         interpret=True))
+
+
+def _pallas(fn, q, k, v, table, lens, ks, vs, **kw):
+    """The Pallas kernel in interpret mode, once per distinct input (the
+    split cases share theirs across page counts)."""
+    key = lambda x: None if x is None else (np.ascontiguousarray(x).tobytes(), x.dtype, x.shape)
+    return _pallas_cached(fn, key(q), key(k), key(v), key(table), key(lens), key(ks), key(vs),
+                          kw["scale"], kw["sliding_window"], kw["logit_softcap"])
+
+
+SPLIT_SHAPES = [(8, 8, 1, 16, 128), (8, 2, 1, 16, 128), (8, 8, 2, 16, 128), (64, 8, 1, 16, 128),
+                (4, 2, 1, 6, 8), (8, 8, 1, 16, 32), (1, 1, 1, 4096, 8), (1, 8, 1, 1, 128),
+                (2, 8, 1, 3, 128), (256, 8, 1, 64, 16)]
+
+
+@pytest.mark.parametrize("B,Hkv,chunks,maxP,ps", SPLIT_SHAPES)
+def test_paged_split_policy(B, Hkv, chunks, maxP, ps):
+    """paged_split covers maxP with at least one split of at least one page,
+    no split wholly past maxP, at most SPLIT_MAX splits of at least
+    SPLIT_MIN_KEYS keys (or the whole table); the grid reaches
+    SPLIT_TARGET_BLOCKS blocks unless those limits stop it, with the most
+    pages a split that do; a forced page count is kept within [1, maxP]."""
+    splits, pps = tka.paged_split(B, Hkv, chunks, maxP, ps)
+    assert splits >= 1 and pps >= 1
+    assert splits * pps >= maxP and (splits - 1) * pps < maxP
+    assert splits <= tka.SPLIT_MAX
+    assert pps * ps >= min(tka.SPLIT_MIN_KEYS, maxP * ps)
+    least = min(maxP, max(-(-tka.SPLIT_MIN_KEYS // ps), -(-maxP // tka.SPLIT_MAX)))
+    blocks = B * Hkv * chunks
+    assert blocks * splits >= tka.SPLIT_TARGET_BLOCKS or pps == least
+    if least < pps < maxP:  # a page more a split would miss the target
+        more = tka.paged_split(B, Hkv, chunks, maxP, ps, pages_per_split=pps + 1)[0]
+        assert blocks * more < tka.SPLIT_TARGET_BLOCKS
+    for forced in (1, 2, maxP, maxP + 5):
+        s, p = tka.paged_split(B, Hkv, chunks, maxP, ps, pages_per_split=forced)
+        assert p == min(forced, maxP) and s == -(-maxP // p)
+
+
 def test_kv_quantize_bit_exact_with_ties():
     rng = np.random.default_rng(41)
     x = rng.standard_normal((3, 5, 64)).astype(np.float32) * 3
