@@ -9,7 +9,11 @@ Phases, each printing one or more lines:
   3. every CUDA kernel against its plain PyTorch version at Qwen3-0.6B
      shapes, with max abs error, tolerance and median times (CUDA events,
      after warm-up, L2 flushed before each timed launch) beside the bound
-     and one library call: K1/K2 (W4 GEMV), K3 (flash prefill), K4/K5
+     and one library call: K1/K2 (W4 GEMV), K3 (flash prefill at a
+     512-token prefill from offset 0 and 256 and with a window of 128; each
+     query row held to its own output's scale, two calls bitwise equal,
+     SDPA timed with the mask as a tensor and, from offset 0, with
+     is_causal), K4/K5
      (paged decode / verify over 8 slots of mixed lengths, bf16 and int8
      pools; each query row held to its own output's scale; two calls on
      the same inputs bitwise equal; K4 also at the engine step's 8 slots
@@ -36,9 +40,13 @@ Phases, each printing one or more lines:
      entry points) and their control arms K6 and K1 must run, each GEMV
      within TOL_KERNEL of K6. Before the checks, cuobjdump's SASS of the
      probe's library must show IMMA in K15/K16 and HMMA in K17, that of
-     the unpack library K18's 128-bit global loads, and that of the paged
+     the unpack library K18's 128-bit global loads, that of the paged
      library HMMA in every tensor-core instance of K4/K5 (bf16 queries over
-     bf16 and int8 pools). K4/K5's split over pages is checked at its
+     bf16 and int8 pools) and that of the flash library HMMA in all 14
+     tensor-core instances of K3 (bf16 q/k/v). K3's edges (`flash_edges`):
+     T 100 and 192, kv_lens ending inside a tile, a window skipping whole
+     tiles, rows with no valid key, a grid of more blocks than SMs, each
+     query row held to its own scale. K4/K5's split over pages is checked at its
      edges: maxP 1, slots ending on and inside a split, a window skipping
      whole splits, empty slots beside full ones, f32 queries over int8
      pools. K18-K22 are checked at
@@ -56,8 +64,10 @@ Phases, each printing one or more lines:
      Hadamard RTN W4 with a W4 lm_head and merged projections, served by
      Generator(quant_mode="auto", attn_mode="flash"): 4 requests of 64 new
      tokens, three greedy and one sampled. Launch counts are reset just
-     before and read just after; K1-K3 must have run. A decode step is
-     profiled, then run under torch's sync debug mode, which raises if it
+     before and read just after; K1-K3 must have run. A decode step and a
+     512-token prefill are profiled (`prefill_profile`: K3's calls, once a
+     layer, and device time), then a decode step is run under torch's sync
+     debug mode, which raises if it
      waits for the device, on this model and on a small Gemma-class one.
      Then the kernel path's teacher-forced logits are held against the
      same model under quant_mode="xla", attn_mode="einsum";
@@ -215,10 +225,17 @@ def sdpa_mask(T, S, q_offset, window, dev):
 
 
 def check_flash(flush, gen, dev):
+    """K3 at Qwen3-0.6B's prefill (B 1, Hq 16, Hkv 8, D 128, T 512) from
+    offset 0, from offset 256 and with a window of 128: each query row
+    (batch, head, row) held to its own output's scale, two calls bitwise
+    equal; timed beside the plain version, SDPA given the same mask as a
+    tensor and, from offset 0, SDPA with is_causal=True and no mask tensor
+    (what a user would call)."""
     import torch
 
     from paroquant_tpu_torch.kernels import attention as at
 
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     B, Hq, Hkv, D, T = 1, 16, 8, 128, 512
     rows = []
     for case, q_off, window in (("q_offset0", 0, None), ("q_offset256", 256, None),
@@ -235,34 +252,92 @@ def check_flash(flush, gen, dev):
         y, y_ref = run().float(), plain().float()
         torch.cuda.synchronize()
         err = (y - y_ref).abs().max().item()
-        tol = TOL_KERNEL * y_ref.abs().max().item()
+        ratio = row_err_ratio(y, y_ref, 3)
+        same = torch.equal(run(), run())  # no atomics: a second call gives the same bits
+        emit({"phase": "flash_determinism", "case": case, "bitwise_equal": same})
+        if not same:
+            raise SystemExit(f"flash_attention {case}: two calls on the same inputs differ")
         mask = sdpa_mask(T, S, q_off, window, dev)
-        lib = lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, scale=D**-0.5, enable_gqa=True)
+        lib = lambda: sdpa(q, k, v, attn_mask=mask, scale=D**-0.5, enable_gqa=True)
         ms = median_ms(run, KERNEL_REPS, flush)
         plain_ms = median_ms(plain, PLAIN_REPS, flush)
         lib_ms = median_ms(lib, KERNEL_REPS, flush)
+        lib_causal_ms = None
+        if q_off == 0 and window is None:  # S == T: is_causal's top-left diagonal is this mask
+            lib_causal_ms = median_ms(
+                lambda: sdpa(q, k, v, is_causal=True, scale=D**-0.5, enable_gqa=True),
+                KERNEL_REPS, flush)
         pairs = int(mask.sum().item())  # the (query, key) pairs this input needs
         nbytes = 2 * (2 * B * Hq * T * D + 2 * B * Hkv * S * D)
         ops = 4 * B * Hq * pairs * D
-        b_ms, b_by = bound(nbytes, ops, "bf16")  # the inputs' type, not the kernel's f32 math
-        row = dict(kernel="flash_attention", case=case, T=T, S=S, max_abs_err=err, tol=tol,
-                   us=ms * 1e3, plain_us=plain_ms * 1e3, library_us=lib_ms * 1e3,
-                   bound_us=b_ms * 1e3, bound_by=b_by, ok=err <= tol)
+        b_ms, b_by = bound(nbytes, ops, "bf16")
+        row = dict(kernel="flash_attention", case=case, T=T, S=S,
+                   key_groups=at.flash_key_groups(B, Hq, T, D, dev), max_abs_err=err,
+                   row_err_ratio=ratio, tol=TOL_KERNEL, us=ms * 1e3, plain_us=plain_ms * 1e3,
+                   library_us=lib_ms * 1e3,
+                   library_causal_us=None if lib_causal_ms is None else lib_causal_ms * 1e3,
+                   bound_us=b_ms * 1e3, bound_by=b_by,
+                   ok=ratio <= TOL_KERNEL and bool(torch.isfinite(y).all()))
         emit({"phase": "kernel_check", **row})
         rows.append(row)
     return rows
 
 
+def flash_edges(gen, dev, record):
+    """K3's other branches at small shapes, f32 (the SIMT kernel) and bf16
+    (the tensor-core kernel), each query row held to its own scale: head_dim
+    64 with per-row q_offset and kv_lens (causal, softcap, window,
+    non-causal) and 16, 32, 96 and 256 (causal, softcap, window); T not a
+    multiple of 64 (100) and 192, kv_lens ending inside a tile, a window
+    that skips whole tiles, rows with no valid key (all of one batch row,
+    and the later rows of another: output 0), and a grid of more blocks
+    than SMs (one key group; the small shapes take two)."""
+    import torch
+
+    from paroquant_tpu_torch.kernels import attention as at
+
+    def check(case, B, Hq, Hkv, D, T, S, lens, qo, dts=(torch.float32, torch.bfloat16), **kw):
+        lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        qo = torch.tensor(qo, dtype=torch.int32, device=dev)
+        for dt in dts:
+            q = torch.randn(B, Hq, T, D, generator=gen, device=dev).to(dt)
+            k = torch.randn(B, Hkv, S, D, generator=gen, device=dev).to(dt)
+            v = torch.randn(B, Hkv, S, D, generator=gen, device=dev).to(dt)
+            kw2 = dict(scale=D**-0.5, q_offset=qo, **kw)
+            kg = at.flash_key_groups(B, Hq, T, D, dev) if dt == torch.bfloat16 else 0
+            groups.add(kg)
+            record("flash_attention", f"{case} {dt} D={D} T={T} kg={kg}",
+                   at.flash_attention(q, k, v, lens, **kw2),
+                   at.flash_attention_plain(q, k, v, lens, **kw2), lead=3)
+
+    groups = set()
+    cases = {"causal": {}, "softcap": dict(logit_softcap=20.0), "window": dict(sliding_window=48),
+             "not_causal": dict(causal=False)}
+    for D in (64, 16, 32, 96, 256):  # 32, 64 and 256 fill their buckets; 16 and 96 do not
+        for case, kw in cases.items():
+            if D != 64 and case == "not_causal":
+                continue
+            check(case, 2, 4, 2, D, 128, 256, (192, 256), (64, 128), **kw)
+    for D in (64, 128):
+        check("T100", 2, 4, 2, D, 100, 128, (100, 128), (0, 28))
+        check("T100_not_causal", 2, 4, 2, D, 100, 128, (77, 128), (0, 0), causal=False)
+        check("T192", 2, 4, 2, D, 192, 320, (192, 300), (0, 100))
+        check("kv_len_mid_tile", 2, 4, 2, D, 128, 256, (77, 200), (0, 100))
+        check("window_skips_tiles", 2, 4, 2, D, 128, 512, (512, 428), (384, 300),
+              sliding_window=48)
+        check("rows_without_keys", 2, 4, 2, D, 128, 256, (0, 100), (0, 64), sliding_window=48)
+        check("many_blocks", 2, 16, 8, D, 640, 640, (640, 600), (0, 0), dts=(torch.bfloat16,))
+    if not {1, 2} <= groups:
+        raise SystemExit(f"K3's edges ran key groups {sorted(groups)}, not both 1 and 2")
+
+
 def check_edges(gen, dev):
     """The kernels' other branches at small shapes, checked and not timed:
     f32 activations and rotations, ragged M, uneven partitions, group sizes
-    256 to 512; K3 at head_dim 64 (per-row q_offset and kv_lens, softcap,
-    window, non-causal, f32) and at 16, 32, 96 and 256 (causal, softcap,
-    window; f32 and bf16); and the other kernels' edges."""
+    256 to 512; K3's edges (`flash_edges`); and the other kernels' edges."""
     import torch
 
-    from paroquant_tpu_torch.kernels import attention as at, rot_matmul as rm
+    from paroquant_tpu_torch.kernels import rot_matmul as rm
 
     rows = []
 
@@ -319,23 +394,7 @@ def check_edges(gen, dev):
                        rm.merged_rot_w4_matmul_plain(x, rot, qweight, scales, zeros,
                                                      out_splits=splits, a8=a8))
 
-    B, Hq, Hkv, D, T, S = 2, 4, 2, 64, 128, 256
-    lens = torch.tensor([192, 256], dtype=torch.int32, device=dev)
-    qo = torch.tensor([64, 128], dtype=torch.int32, device=dev)
-    cases = {"causal": {}, "softcap": dict(logit_softcap=20.0), "window": dict(sliding_window=48),
-             "not_causal": dict(causal=False)}
-    for D in (64, 16, 32, 96, 256):  # 64 and 128 fill their buckets; the others do not
-        for dt in (torch.float32, torch.bfloat16):
-            q = torch.randn(B, Hq, T, D, generator=gen, device=dev).to(dt)
-            k = torch.randn(B, Hkv, S, D, generator=gen, device=dev).to(dt)
-            v = torch.randn(B, Hkv, S, D, generator=gen, device=dev).to(dt)
-            for case, kw in cases.items():
-                if D != 64 and case == "not_causal":
-                    continue
-                kw = dict(scale=D**-0.5, q_offset=qo, **kw)
-                record("flash_attention", f"{case} {dt} D={D}",
-                       at.flash_attention(q, k, v, lens, **kw),
-                       at.flash_attention_plain(q, k, v, lens, **kw))
+    flash_edges(gen, dev, record)
     head_dim_refusals(gen, dev)
     paged_edges(gen, dev, record)
     w4_edges(gen, dev, record)
@@ -801,6 +860,27 @@ def check_sass(lib_name, ops, expect):
         found = [c[op] for f, c in counts.items() if name in f]
         if len(found) != n or min(found) == 0:
             raise SystemExit(f"{name}: expected {op} in {n} instance(s), found {found}")
+
+
+def check_flash_spills(report):
+    """K3's tensor-core instances at head-dim buckets up to 128 keep Q, S, P
+    and O in registers: ptxas must report 0 spill bytes for each; the
+    bucket-256 instances' spills are reported, not held."""
+    import re
+
+    fn, spills = None, {}
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif fn and "flash_mma_kernel" in fn and "spill stores" in line:
+            spills[fn] = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+    bucket = {f: int(re.search(r"flash_mma_kernelILi(\d+)E", f).group(1)) for f in spills}
+    emit({"phase": "flash_spills", "instances": len(spills),
+          "spill_bytes_by_bucket": {db: [spills[f] for f in spills if bucket[f] == db]
+                                    for db in sorted(set(bucket.values()))}})
+    bad = [f for f in spills if bucket[f] <= 128 and spills[f]]
+    if len(spills) != 14 or bad:
+        raise SystemExit(f"K3's tensor-core instances: {len(spills)} found, spilling at D <= 128: {bad}")
 
 
 def int8_probe(dev):
@@ -1288,10 +1368,17 @@ def main_path(qparams, cfg, dev):
     if missing or variants["rot_w4_matmul"]["a8"] == 0:
         raise SystemExit(f"kernels not launched on the main path: {missing or 'rot_w4_matmul a8'}")
 
-    from paroquant_tpu_torch.utils.profiling import profile_decode
+    from paroquant_tpu_torch.utils.profiling import profile_decode, profile_prefill
 
     emit({"phase": "decode_profile", "prompt_tokens": 256, "quant_mode": "auto",
           **profile_decode(qparams, cfg, prompt_len=256, steps=16, device=dev)})
+    # K3's share of a 512-token prefill (time to first token): one call a layer
+    pre = profile_prefill(qparams, cfg, prompt_len=512, device=dev)
+    emit({"phase": "prefill_profile", "prompt_tokens": 512, "quant_mode": "auto", **pre})
+    if pre["port_kernel_calls_per_step"]["flash_attention"] != cfg.num_hidden_layers:
+        raise SystemExit(f"a 512-token prefill called K3 "
+                         f"{pre['port_kernel_calls_per_step']['flash_attention']} times, "
+                         f"not once a layer")
     check_decode_has_no_sync(
         {"qwen3-0.6b": (qparams, cfg), "gemma3-dense-small": gemma_dense_model(dev)}, dev)
 
@@ -1906,13 +1993,17 @@ def main() -> int:
 
     build.build_all()
     emit({"phase": "build", **build.build_info})
-    emit({"phase": "ptxas", "lines": build.ptxas_report().splitlines()})
+    report = build.ptxas_report()
+    emit({"phase": "ptxas", "lines": report.splitlines()})
+    check_flash_spills(report)
     # the tensor-core instructions of K15/K16 (IMMA) and K17 (HMMA); K18's 16-byte loads
     check_sass("libint8_probe.so", ("IMMA", "HMMA"),
                (("int8_dot_kernel", "IMMA", 2), ("bf16_dot_kernel", "HMMA", 1)))
     check_sass("libunpack_exp.so", ("LDG.E.128",), (("stream_kernel", "LDG.E.128", 2),))
     # K4/K5's tensor-core instances: bf16 queries over bf16 and int8 pools, 9 tilings each
     check_sass("libpaged_attention.so", ("HMMA",), (("paged_mma_kernel", "HMMA", 18),))
+    # K3's tensor-core instances: 4 head-dim buckets (3 with two key groups), exact or not
+    check_sass("libflash_attention.so", ("HMMA",), (("flash_mma_kernel", "HMMA", 14),))
 
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(123)

@@ -5,9 +5,11 @@ K3, `flash_attention` (csrc/flash_attention.cu), ports
 JAX function: q [B, Hq, T, D], head-major k/v [B, Hkv, S, D], kv_lens [B]
 int32, q_offset scalar or [B] int32 (absolute position of q[:, :, 0]).
 Causal by absolute position, masked to k_pos < kv_lens[b], optional
-sliding window and tanh softcap, GQA h -> h // (Hq // Hkv), f32 softmax and
-f32 PV product, output in q.dtype. A query row with no valid key gives 0,
-as the TPU kernel's does.
+sliding window and tanh softcap, GQA h -> h // (Hq // Hkv), f32 softmax,
+output in q.dtype. A query row with no valid key gives 0, as the TPU
+kernel's does. bf16 inputs run on the tensor cores (mma.sync), with P
+rounded to bf16 for the PV product; f32 inputs on the SIMT units in f32.
+Both walk the key tiles `flash_live_tiles` gives.
 
 K4, `paged_decode_attention`, and K5, `paged_window_attention_kernel`
 (csrc/paged_attention.cu), port the functions of the same names: one query
@@ -101,6 +103,22 @@ def flash_attention_plain(
     return out.reshape(B, Hq, T, D).to(q.dtype)
 
 
+FLASH_TILE = 64  # query rows per block and keys per tile of K3
+
+
+def flash_live_tiles(q_first: int, q_last: int, kv_end: int, window: int | None,
+                     causal: bool = True) -> tuple[int, int]:
+    """The key tiles K3 walks for a block of query rows at absolute positions
+    [q_first, q_last] with keys [0, kv_end) (kv_end = min(kv_lens[b], S)), as
+    csrc/flash_attention.cu computes them: (first tile, number of tiles).
+    No valid (query, key) pair lies outside them; the counterpart of the
+    Pallas kernel's index-map clamp."""
+    hi = min(kv_end, q_last + 1) if causal else kv_end
+    lo = max(q_first - window + 1, 0) if window else 0
+    t_lo = lo // FLASH_TILE
+    return t_lo, (-(-hi // FLASH_TILE) - t_lo if hi > lo else 0)
+
+
 _fn = None
 
 
@@ -113,6 +131,28 @@ def _lib_fn():
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous and 16-byte aligned (K3 copies rows in 16-byte pieces)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def flash_key_groups(B: int, Hq: int, T: int, D: int, device="cuda") -> int:
+    """The key groups (1 or 2) K3's bf16 kernel takes for this shape on the
+    device: 2 where its grid has at most one block per SM and D <= 128."""
+    from ..utils.device import resolve_device
+
+    dev = resolve_device(device)
+    fn = load("flash_attention").paro_flash_key_groups
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        kg = fn(B, Hq, T, D)
+    if kg < 1:
+        raise RuntimeError("flash_key_groups: the CUDA device could not be queried")
+    return kg
 
 
 def flash_attention(
@@ -135,7 +175,7 @@ def flash_attention(
     dev = q.device
     if k.device != dev or v.device != dev:
         raise ValueError("q, k and v must be on the same device")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_aligned(t) for t in (q, k, v))
     lens = _per_batch(kv_lens, B, dev)
     qoff = _per_batch(q_offset, B, dev)
     out = torch.empty_like(q)

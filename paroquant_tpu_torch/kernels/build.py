@@ -97,9 +97,11 @@ def load(stem: str) -> ctypes.CDLL:
 
 
 def ptxas_report() -> str:
-    """nvcc's resource lines (registers, shared memory, spills) from the last build."""
+    """nvcc's resource lines (registers, shared memory, spills) from the last
+    build, each kernel's after the line that names it."""
     out_dir = _build_dir()
     lines = []
     for log in sorted(out_dir.glob("*.log")):
-        lines += [ln for ln in log.read_text().splitlines() if "registers" in ln or "spill" in ln]
+        lines += [ln for ln in log.read_text().splitlines()
+                  if "Compiling entry function" in ln or "registers" in ln or "spill" in ln]
     return "\n".join(lines)

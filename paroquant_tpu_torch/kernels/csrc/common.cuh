@@ -46,6 +46,12 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
+// two floats as a bf16 pair (lo in the low half), round to nearest even
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
 // c += A (16 x 16, row) * B (16 x 8, col) in bf16 with f32 accumulation (HMMA)
 __device__ __forceinline__ void mma_bf16(float c[4], uint32_t a0, uint32_t a1, uint32_t a2,
                                          uint32_t a3, uint32_t b0, uint32_t b1) {
@@ -54,6 +60,16 @@ __device__ __forceinline__ void mma_bf16(float c[4], uint32_t a0, uint32_t a1, u
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// four 8 x 8 b16 matrices from shared memory: lane l gives the 16-byte row
+// (l & 7) of matrix l >> 3; lane t receives elements 2 (t % 4) and + 1 of
+// row t / 4 of matrix i in d[i]
+__device__ __forceinline__ void ldmatrix_x4(uint32_t d[4], const void* smem_row) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem_row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+               : "r"(addr));
 }
 
 // four 8 x 8 b16 matrices from shared memory, transposed: lane l gives the

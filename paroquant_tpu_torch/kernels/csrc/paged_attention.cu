@@ -227,11 +227,6 @@ __device__ __forceinline__ int sw(const Layout& L, int row, int x) {
   return L.swz ? ((((x >> 4) ^ (row & 7)) << 4) | (x & 15)) : x;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
 // Every live split of a (slot, kv head, chunk), s0 + [0, S), has written its
 // partial: the last block to arrive merges them in split order and resets
 // the counter. The same partials give the same bits whichever block is last.

@@ -1,9 +1,10 @@
-"""Where a decode step's time goes, on the card.
+"""Where a decode step's or a prefill's time goes, on the card.
 
 Counterpart of `paroquant_tpu/utils/profiling.py` for the port:
-`profile_decode` runs the single-stream `decode_step` and
-`profile_paged_decode` the engine's `paged_decode_step` at `batch` slots,
-a few times plainly for the host wall time per step and once under
+`profile_decode` runs the single-stream `decode_step`,
+`profile_paged_decode` the engine's `paged_decode_step` at `batch` slots
+and `profile_prefill` one prefill through the flash kernel (K3), a few
+times plainly for the host wall time per step and once under
 `torch.profiler` for the device time per kernel. The device's idle share
 is 1 - device busy time / wall time, both from the profiled run; the
 profiler's own host cost raises that run's wall time, so the plain run's
@@ -88,8 +89,28 @@ def profile_decode(params, config: ModelConfig, *, prompt_len: int = 256, steps:
     return _profile(run, steps, top)
 
 
-def _profile(run, steps: int, top: int) -> dict:
-    """Time run(steps) plainly, then under torch.profiler (see module doc)."""
+def profile_prefill(params, config: ModelConfig, *, prompt_len: int = 512, steps: int = 4,
+                    quant_mode: str = "auto", device="cuda", top: int = 8) -> dict:
+    """`profile_decode` for one prefill of `prompt_len` tokens (a step here),
+    run as `Generator` runs it (attn_mode "flash") into a bf16 cache of
+    prompt_len + 128 rows, every time from position 0; `focus` gives the
+    device ms and calls per prefill of the kernels named "flash" (K3)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    prompt = torch.randint(0, config.vocab_size, (1, prompt_len), generator=gen).to(dev)
+    cache = KVCache.create(config, 1, prompt_len + 128, torch.bfloat16, dev)
+
+    def run(n):
+        for _ in range(n):
+            prefill(params, config, prompt, cache, quant_mode=quant_mode, attn_mode="flash")
+        torch.cuda.synchronize(dev)
+
+    return _profile(run, steps, top, focus="flash")
+
+
+def _profile(run, steps: int, top: int, focus: str | None = None) -> dict:
+    """Time run(steps) plainly, then under torch.profiler (see module doc);
+    with `focus`, the device time and calls of the kernels whose name holds it."""
     from torch.profiler import ProfilerActivity, profile
 
     run(2)  # warm-up
@@ -121,6 +142,11 @@ def _profile(run, steps: int, top: int) -> dict:
     }
     if kernels:
         out["device_idle_share"] = 1.0 - out["device_busy_ms_per_step"] / profiled_wall_ms
+    if focus is not None:
+        named = [e for e in kernels if focus in e.key]
+        out["focus"] = {"name": focus,
+                        "device_ms_per_step": sum(e.self_device_time_total for e in named) / 1e3 / steps,
+                        "calls_per_step": sum(e.count for e in named) / steps}
     return out
 
 

@@ -69,7 +69,9 @@ def _entry_points():
                                              kernel_unpack_exp, kernel_w4a8_exp)
     from paroquant_tpu_torch.serve import Engine, Generator, PagedKVCache
     from paroquant_tpu_torch.utils.device import resolve_device
-    from paroquant_tpu_torch.utils.profiling import kernel_time_ms, profile_paged_decode
+    from paroquant_tpu_torch.kernels.attention import flash_key_groups
+    from paroquant_tpu_torch.utils.profiling import (kernel_time_ms, profile_paged_decode,
+                                                     profile_prefill)
 
     cfg = PRESETS["tiny"]
     return {
@@ -84,6 +86,8 @@ def _entry_points():
         "paged_cache_from_jax": lambda: paged_cache_from_jax(
             type("C", (), dict(k=None, v=None, k_scale=None, v_scale=None))()),
         "profile_paged_decode": lambda: profile_paged_decode({}, cfg),
+        "profile_prefill": lambda: profile_prefill({}, cfg),
+        "flash_key_groups": lambda: flash_key_groups(1, 16, 512, 128),
         "kernel_bench3.main": lambda: kernel_bench3.main(),
         "kernel_bench4.main": lambda: kernel_bench4.main(),
         "plot_kernel_speedup.main": lambda: plot_kernel_speedup.main(),
@@ -105,7 +109,7 @@ def _entry_points():
      "profile_paged_decode", "kernel_bench3.main", "kernel_bench4.main",
      "plot_kernel_speedup.main", "w4_i4_from_jax", "kernel_time_ms", "kernel_edge_test.main",
      "kernel_dma_pipeline.main", "kernel_tune.main", "kernel_w4a8_exp.main",
-     "kernel_int8_probe.main", "kernel_unpack_exp.main"],
+     "kernel_int8_probe.main", "kernel_unpack_exp.main", "profile_prefill", "flash_key_groups"],
 )
 def test_cuda_default_raises_without_cuda(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
