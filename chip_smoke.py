@@ -9,7 +9,11 @@ Phases, each printing one or more lines:
   3. every CUDA kernel against its plain PyTorch version at Qwen3-0.6B
      shapes, with max abs error, tolerance and median times (CUDA events,
      after warm-up, L2 flushed before each timed launch) beside the bound
-     and one library call: K1/K2 (W4 GEMV), K3 (flash prefill at a
+     and one library call: K1/K2 (W4 GEMV at M 1, 8, 16 and 128, each row
+     naming its route; on the one-launch route two calls bitwise equal, one
+     kernel a call on the profiler's count, the three passes timed beside
+     it; its edge grid and both sides of each limit of the route rule in
+     `rot_route_edges`), K3 (flash prefill at a
      512-token prefill from offset 0 and 256 and with a window of 128; each
      query row held to its own output's scale, two calls bitwise equal,
      SDPA timed with the mask as a tensor and, from offset 0, with
@@ -40,7 +44,10 @@ Phases, each printing one or more lines:
      entry points) and their control arms K6 and K1 must run, each GEMV
      within TOL_KERNEL of K6. Before the checks, cuobjdump's SASS of the
      probe's library must show IMMA in K15/K16 and HMMA in K17, that of
-     the unpack library K18's 128-bit global loads, that of the paged
+     the unpack library K18's 128-bit global loads, that of the K1/K2
+     library 128-bit loads (LDG.E.128) and 16-byte cp.async (LDGSTS) in all
+     16 one-launch instances, with 0 spill bytes in ptxas's lines, that of
+     the paged
      library HMMA in every tensor-core instance of K4/K5 (bf16 queries over
      bf16 and int8 pools) and that of the flash library HMMA in all 14
      tensor-core instances of K3 (bf16 q/k/v). K3's edges (`flash_edges`):
@@ -64,7 +71,10 @@ Phases, each printing one or more lines:
      Hadamard RTN W4 with a W4 lm_head and merged projections, served by
      Generator(quant_mode="auto", attn_mode="flash"): 4 requests of 64 new
      tokens, three greedy and one sampled. Launch counts are reset just
-     before and read just after; K1-K3 must have run. A decode step and a
+     before and read just after; K1-K3 must have run, and every W4A16
+     K1/K2 call at M <= 16 must have taken the one-launch route (the same
+     holds in the serve phases). A decode step (launches, device time and
+     K1/K2's by route in the `decode_profile` line) and a
      512-token prefill are profiled (`prefill_profile`: K3's calls, once a
      layer, and device time), then a decode step is run under torch's sync
      debug mode, which raises if it
@@ -165,7 +175,54 @@ def random_merged(I, splits, gen, dev, S=128):
     return rot, qweight, scales, zeros, w_eff
 
 
+def routed(rm, fn):
+    """fn()'s output and the route its one K1/K2 call took (route_counts)."""
+    before = {k: dict(v) for k, v in rm.route_counts.items()}
+    y = fn()
+    taken = [(k, r) for k, v in rm.route_counts.items() for r in ("one_launch", "passes")
+             if v[r] != before[k][r]]
+    if len(taken) != 1:
+        raise SystemExit(f"expected one K1/K2 call, counted {taken}")
+    return y, taken[0][1]
+
+
+def passes_ms(rm, run, flush):
+    """run's median time with K1/K2 sent to the three passes (rot_route
+    swapped for the length of the timing): the old route beside the new one
+    on the same card in the same run."""
+    def route(M, I, S, out_splits, a8, rot_dtype, sms):
+        n_tiles = sum(-(-n // rm.COLS_PER_TILE) for n in out_splits)
+        KS = rm._group_splits(n_tiles, -(-M // rm.ROWS_PER_TILE), I // S, sms)
+        return "passes", KS, rm.COLS_PER_TILE
+
+    real = rm.rot_route
+    rm.rot_route = route
+    try:
+        return median_ms(run, KERNEL_REPS, flush)
+    finally:
+        rm.rot_route = real
+
+
+def kernels_per_call(fn):
+    """CUDA kernels one warm call of fn launches, on the profiler's count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0)
+
+
 def check_matmuls(flush, gen, dev):
+    """K1/K2 at Qwen3-0.6B's linears, M 1, 8 (the engine step), 16 and 128,
+    W4A16 and a8: each row says which route it took (`rot_route`), how many
+    kernels one call launched on the profiler's count (the one-launch route:
+    1) and, on the one-launch route at M 1, 8 and 16, that two calls gave
+    the same bits and the three passes' time at the same inputs."""
     import torch
 
     from paroquant_tpu_torch.kernels import rot_matmul as rm
@@ -181,7 +238,7 @@ def check_matmuls(flush, gen, dev):
     for layer, kernel, I, splits in shapes:
         rot, qweight, scales, zeros, w_eff = random_merged(I, splits, gen, dev)
         O, P, G = sum(splits), len(splits), I // 128
-        for M in (1, 16, 128):
+        for M in (1, 8, 16, 128):
             x = torch.randn(M, I, generator=gen, device=dev).to(torch.bfloat16)
             for a8 in (False, True):
                 if kernel == "rot_w4_matmul":
@@ -192,19 +249,34 @@ def check_matmuls(flush, gen, dev):
                                                           out_splits=splits, a8=a8)
                     plain = lambda: rm.merged_rot_w4_matmul_plain(
                         x, rot, qweight, scales, zeros, out_splits=splits, a8=a8)
-                y, y_ref = run().float(), plain().float()
+                y, route = routed(rm, run)
+                y, y_ref = y.float(), plain().float()
                 torch.cuda.synchronize()
                 err = (y - y_ref).abs().max().item()
                 tol = TOL_KERNEL * y_ref.abs().max().item()
                 rel = ((y - y_ref).norm() / y_ref.norm()).item()
+                _, KS, tile = rm.rot_route(M, I, 128, splits, a8, rot.dtype, rm._sm_count(x.device))
+                same = None
+                if route == "one_launch":
+                    same = torch.equal(run(), run())
+                    emit({"phase": "rot_determinism", "layer": layer, "M": M, "KS": KS,
+                          "bitwise_equal": same})
+                    if not same:
+                        raise SystemExit(f"{kernel} {layer} M={M}: two calls on the same inputs differ")
+                n_kernels = kernels_per_call(run)
+                if route == "one_launch" and n_kernels != 1:
+                    raise SystemExit(f"{kernel} {layer} M={M}: the one-launch route ran {n_kernels} kernels")
                 ms = median_ms(run, KERNEL_REPS, flush)
                 plain_ms = median_ms(plain, PLAIN_REPS, flush)
                 lib_ms = median_ms(lambda: torch.matmul(x, w_eff), KERNEL_REPS, flush)
+                old_ms = passes_ms(rm, run, flush) if route == "one_launch" else None
                 nbytes = M * I * 2 + P * G * 128 * 128 * 2 + I * O // 2 + 2 * G * O * 2 + M * O * 2
                 ops = 2 * M * I * O + 2 * P * M * I * 128
                 b_ms, b_by = bound(nbytes, ops, "int8" if a8 else "bf16")
-                row = dict(kernel=kernel, layer=layer, M=M, a8=a8, max_abs_err=err, tol=tol,
-                           rel_fro_err=rel, us=ms * 1e3, plain_us=plain_ms * 1e3,
+                row = dict(kernel=kernel, layer=layer, M=M, a8=a8, route=route, KS=KS, tile=tile,
+                           kernels_per_call=n_kernels, bitwise_equal=same, max_abs_err=err,
+                           tol=tol, rel_fro_err=rel, us=ms * 1e3,
+                           passes_us=None if old_ms is None else old_ms * 1e3, plain_us=plain_ms * 1e3,
                            library_us=lib_ms * 1e3, bound_us=b_ms * 1e3, bound_by=b_by,
                            ok=err <= tol)
                 emit({"phase": "kernel_check", **row})
@@ -331,6 +403,80 @@ def flash_edges(gen, dev, record):
         raise SystemExit(f"K3's edges ran key groups {sorted(groups)}, not both 1 and 2")
 
 
+SZ_EDGE_DTYPES = ("float32", "bfloat16", "float16", "uint8")
+
+
+def rot_route_edges(gen, dev, rot_case):
+    """K1/K2's one-launch route over the grid `tests/test_torch_rot_w4_route.py`
+    holds against JAX: S 64, 128 and 256, and 100 (a bf16 rotation row of
+    200 bytes, read element by element); P 1-4 with widths that are not
+    multiples of 4 or 16; M 1, 2, 5 and 16 (row tiles of 1, 2 and 8, two of
+    8); every scale/zero dtype; x and rot in f32 and bf16; one group (KS 1)
+    and three (KS > 1). Then shapes on
+    both sides of the route rule's limits: M 16 / 17, S 256 / 512, a8, a
+    width that fills one wave and one that does not; each row says which
+    route it took, and the rule's side must be the one taken."""
+    import torch
+
+    from paroquant_tpu_torch.kernels import rot_matmul as rm
+
+    def operands(I, splits, S, sz, xdt, rdt):
+        rot, qweight, scales, zeros, _ = random_merged(I, splits, gen, dev, S)
+        sdt = getattr(torch, sz)
+        scales = (scales.float() * 1000).to(sdt) if sdt == torch.uint8 else scales.to(sdt)
+        return rot.to(rdt), qweight, scales, zeros.to(sdt)
+
+    dts = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+           (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32))
+    grid = 0
+    for S in (64, 100, 128, 256):
+        for splits in ((66,), (66, 62), (128, 96, 160), (64, 34, 48, 78)):
+            for n_groups in (1, 3):
+                I = n_groups * S
+                for j, sz in enumerate(SZ_EDGE_DTYPES):
+                    xdt, rdt = dts[(j + n_groups) % 4]
+                    rot, qweight, scales, zeros = operands(I, splits, S, sz, xdt, rdt)
+                    for M in (1, 2, 5, 16):
+                        x = torch.randn(M, I, generator=gen, device=dev).to(xdt)
+                        case = f"S={S} P={len(splits)} {splits} G={n_groups} sz={sz} x={xdt} rot={rdt} M={M}"
+                        if len(splits) == 1:
+                            one = (x, rot[0], qweight, scales, zeros)
+                            route = rot_case("rot_w4_matmul", case, lambda: rm.rot_w4_matmul(*one),
+                                             lambda: rm.rot_w4_matmul_plain(*one))
+                        else:
+                            args = (x, rot, qweight, scales, zeros)
+                            route = rot_case(
+                                "merged_rot_w4_matmul", case,
+                                lambda: rm.merged_rot_w4_matmul(*args, out_splits=splits),
+                                lambda: rm.merged_rot_w4_matmul_plain(*args, out_splits=splits))
+                        if route != "one_launch":
+                            raise SystemExit(f"{case}: took {route}, not the one-launch route")
+                        grid += 1
+    sms = rm._sm_count(torch.device(dev))
+    wide = rm.BLOCKS_PER_SM * sms * 128  # O of one wave of 128-column tiles (at 256: half a wave)
+    sides = [  # case, M, I, S, splits, a8, expected route
+        ("M16", 16, 256, 128, (128, 96), False, "one_launch"),
+        ("M17", 17, 256, 128, (128, 96), False, "passes"),
+        ("S256", 1, 512, 256, (128, 96), False, "one_launch"),
+        ("S512", 1, 1024, 512, (128, 96), False, "passes"),
+        ("a8", 1, 256, 128, (128, 96), True, "passes"),
+        ("one_wave", 1, 128, 128, (wide,), False, "one_launch"),
+        ("wider_than_a_wave", 1, 128, 128, (4 * wide + 128,), False, "passes"),
+    ]
+    for case, M, I, S, splits, a8, want in sides:
+        rot, qweight, scales, zeros = operands(I, splits, S, "bfloat16", torch.bfloat16,
+                                               torch.bfloat16)
+        x = torch.randn(M, I, generator=gen, device=dev).to(torch.bfloat16)
+        args = (x, rot, qweight, scales, zeros)
+        kw = dict(out_splits=splits, a8=a8)
+        route = rot_case("merged_rot_w4_matmul", f"route side {case}",
+                         lambda: rm.merged_rot_w4_matmul(*args, **kw),
+                         lambda: rm.merged_rot_w4_matmul_plain(*args, **kw))
+        if route != want or rm.rot_route(M, I, S, splits, a8, rot.dtype, sms)[0] != want:
+            raise SystemExit(f"route side {case}: took {route}, the rule says {want}")
+    emit({"phase": "rot_route_edges", "grid_cases": grid, "side_cases": len(sides)})
+
+
 def check_edges(gen, dev):
     """The kernels' other branches at small shapes, checked and not timed:
     f32 activations and rotations, ragged M, uneven partitions, group sizes
@@ -362,6 +508,12 @@ def check_edges(gen, dev):
         rows.append(dict(kernel=name, case=case, max_abs_err=err, tol=0.0,
                          err_over_tol=0.0 if ok else float("inf"), ok=ok))
 
+    def rot_case(name, case, fn, plain):
+        y, route = routed(rm, fn)
+        record(name, case, y, plain())
+        rows[-1]["route"] = route
+        return route
+
     splits = (128, 96, 160)
     rot, qweight, scales, zeros, _ = random_merged(256, splits, gen, dev)
     for xdt, rdt in ((torch.float32, torch.float32), (torch.float32, torch.bfloat16),
@@ -372,13 +524,12 @@ def check_edges(gen, dev):
             for a8 in (False, True):
                 case = f"x={xdt} rot={rdt} M={M} a8={a8}"
                 one = (x, r[0], qweight[:, :128], scales[:, :128], zeros[:, :128])
-                record("rot_w4_matmul", case, rm.rot_w4_matmul(*one, a8=a8),
-                       rm.rot_w4_matmul_plain(*one, a8=a8))
-                record("merged_rot_w4_matmul", case,
-                       rm.merged_rot_w4_matmul(x, r, qweight, scales, zeros, out_splits=splits,
-                                               a8=a8),
-                       rm.merged_rot_w4_matmul_plain(x, r, qweight, scales, zeros,
-                                                     out_splits=splits, a8=a8))
+                rot_case("rot_w4_matmul", case, lambda: rm.rot_w4_matmul(*one, a8=a8),
+                         lambda: rm.rot_w4_matmul_plain(*one, a8=a8))
+                kw = dict(out_splits=splits, a8=a8)
+                rot_case("merged_rot_w4_matmul", case,
+                         lambda: rm.merged_rot_w4_matmul(x, r, qweight, scales, zeros, **kw),
+                         lambda: rm.merged_rot_w4_matmul_plain(x, r, qweight, scales, zeros, **kw))
     for S in (256, 384, 512):  # two groups each, so the groups split across blocks too
         rot, qweight, scales, zeros, _ = random_merged(2 * S, splits, gen, dev, S)
         for M in (1, 9):
@@ -386,13 +537,13 @@ def check_edges(gen, dev):
             for a8 in (False, True):
                 case = f"S={S} M={M} a8={a8}"
                 one = (x, rot[0], qweight[:, :128], scales[:, :128], zeros[:, :128])
-                record("rot_w4_matmul", case, rm.rot_w4_matmul(*one, a8=a8),
-                       rm.rot_w4_matmul_plain(*one, a8=a8))
-                record("merged_rot_w4_matmul", case,
-                       rm.merged_rot_w4_matmul(x, rot, qweight, scales, zeros, out_splits=splits,
-                                               a8=a8),
-                       rm.merged_rot_w4_matmul_plain(x, rot, qweight, scales, zeros,
-                                                     out_splits=splits, a8=a8))
+                rot_case("rot_w4_matmul", case, lambda: rm.rot_w4_matmul(*one, a8=a8),
+                         lambda: rm.rot_w4_matmul_plain(*one, a8=a8))
+                kw = dict(out_splits=splits, a8=a8)
+                rot_case("merged_rot_w4_matmul", case,
+                         lambda: rm.merged_rot_w4_matmul(x, rot, qweight, scales, zeros, **kw),
+                         lambda: rm.merged_rot_w4_matmul_plain(x, rot, qweight, scales, zeros, **kw))
+    rot_route_edges(gen, dev, rot_case)
 
     flash_edges(gen, dev, record)
     head_dim_refusals(gen, dev)
@@ -883,6 +1034,23 @@ def check_flash_spills(report):
         raise SystemExit(f"K3's tensor-core instances: {len(spills)} found, spilling at D <= 128: {bad}")
 
 
+def check_rot_spills(report):
+    """The one-launch K1/K2 kernel: every instance (4 row tiles x f32/bf16 x
+    and rot) must report 0 spill bytes in ptxas's lines."""
+    import re
+
+    fn, spills = None, {}
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif fn and "rot_w4_one_launch_kernel" in fn and "spill stores" in line:
+            spills[fn] = (int(re.search(r"(\d+) bytes spill stores", line).group(1))
+                          + int(re.search(r"(\d+) bytes spill loads", line).group(1)))
+    emit({"phase": "rot_spills", "instances": len(spills), "spill_bytes": sorted(spills.values())})
+    if len(spills) != 16 or any(spills.values()):
+        raise SystemExit(f"the one-launch K1/K2 kernel: {len(spills)} instances, spill bytes {spills}")
+
+
 def int8_probe(dev):
     """Slice 5's path: the ported int8 probe (kernel_int8_probe.main: P1-P3
     and the int8-against-bf16 bench at 4096 x 4096, M = 8) in this process.
@@ -1326,6 +1494,18 @@ def qwen3_model(dev):
     return qparams, cfg
 
 
+def check_routes(rm, phase):
+    """K1/K2's calls by route since the counts were reset; every W4A16 call at
+    M <= 16 must have taken the one-launch route."""
+    routes = {k: dict(v) for k, v in rm.route_counts.items()}
+    stray = {k: v["passes_w4a16_m16"] for k, v in routes.items() if v["passes_w4a16_m16"]}
+    if stray:
+        raise SystemExit(f"{phase}: W4A16 K1/K2 calls at M <= 16 took the passes: {stray}")
+    if not any(v["one_launch"] for v in routes.values()):
+        raise SystemExit(f"{phase}: no K1/K2 call took the one-launch route")
+    return routes
+
+
 def main_path(qparams, cfg, dev):
     import torch
 
@@ -1355,6 +1535,7 @@ def main_path(qparams, cfg, dev):
     counts = {k: rm.launch_counts[k] for k in SLICE1_W4}
     counts["flash_attention"] = at.launch_counts["flash_attention"]
     variants = {k: {"w4a16": v[0], "a8": v[1]} for k, v in rm.variant_counts.items()}
+    routes = check_routes(rm, "main_path")
     for (n, sp), res in zip(requests, results):
         toks = res.token_ids
         ok = len(toks) == sp.max_tokens and all(0 <= t < cfg.vocab_size for t in toks)
@@ -1363,7 +1544,7 @@ def main_path(qparams, cfg, dev):
               "decode_tok_s": res.stats.tokens_per_second, "ok": ok, "first_tokens": toks[:8]})
         if not ok:
             raise SystemExit(f"request with a {n}-token prompt returned {len(toks)} tokens")
-    emit({"phase": "launches", "counts": counts, "variants": variants})
+    emit({"phase": "launches", "counts": counts, "variants": variants, "routes": routes})
     missing = [k for k, c in counts.items() if c == 0]
     if missing or variants["rot_w4_matmul"]["a8"] == 0:
         raise SystemExit(f"kernels not launched on the main path: {missing or 'rot_w4_matmul a8'}")
@@ -1833,6 +2014,7 @@ def serve(qparams, cfg, dev, *, kv_quant=None):
     counts = dict({k: rm.launch_counts[k] for k in SLICE1_W4}, **at.launch_counts)
     variants = {k: {"w4a16": v[0], "a8": v[1]} for k, v in rm.variant_counts.items()}
     variants.update({k: {"float": v[0], "int8": v[1]} for k, v in at.variant_counts.items()})
+    routes = check_routes(rm, phase)
     bad, greedy = [], []
     for r, (p, sp, cancel) in pairs:
         toks = []
@@ -1854,7 +2036,7 @@ def serve(qparams, cfg, dev, *, kv_quant=None):
           "generated_tok_s": eng.metrics["tokens_generated"] / wall, "metrics": eng.metrics,
           "ttft": eng.ttft_stats(), "step_time": eng.step_time_stats(),
           "free_pages": len(eng.free_pages) + len(eng.cached_idle), "pool_pages": eng.trash_page})
-    emit({"phase": f"{phase}_launches", "counts": counts, "variants": variants})
+    emit({"phase": f"{phase}_launches", "counts": counts, "variants": variants, "routes": routes})
     if bad:
         raise SystemExit(f"{phase}: requests with prompts of {bad} tokens did not return their tokens")
     if kv_quant is None:
@@ -1996,6 +2178,7 @@ def main() -> int:
     report = build.ptxas_report()
     emit({"phase": "ptxas", "lines": report.splitlines()})
     check_flash_spills(report)
+    check_rot_spills(report)
     # the tensor-core instructions of K15/K16 (IMMA) and K17 (HMMA); K18's 16-byte loads
     check_sass("libint8_probe.so", ("IMMA", "HMMA"),
                (("int8_dot_kernel", "IMMA", 2), ("bf16_dot_kernel", "HMMA", 1)))
@@ -2004,6 +2187,11 @@ def main() -> int:
     check_sass("libpaged_attention.so", ("HMMA",), (("paged_mma_kernel", "HMMA", 18),))
     # K3's tensor-core instances: 4 head-dim buckets (3 with two key groups), exact or not
     check_sass("libflash_attention.so", ("HMMA",), (("flash_mma_kernel", "HMMA", 14),))
+    # the one-launch K1/K2 kernel: the rotation's 16-byte loads (LDG.E.128) and
+    # the weight ring's 16-byte cp.async (LDGSTS) in all 16 instances
+    check_sass("librot_w4_matmul.so", ("LDG.E.128", "LDGSTS"),
+               (("rot_w4_one_launch_kernel", "LDG.E.128", 16),
+                ("rot_w4_one_launch_kernel", "LDGSTS", 16)))
 
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(123)
@@ -2051,8 +2239,8 @@ def main() -> int:
                 "ms": row["us"] / 1e3, "plain_ms": row["plain_us"] / 1e3,
                 "bound_ms": row["bound_us"] / 1e3, "bound_by": row["bound_by"],
                 "library_ms": None if lib_us is None else lib_us / 1e3,
-                "at": {k: row[k] for k in ("layer", "M", "a8", "sz", "case", "T", "S", "B", "W",
-                                           "Gb", "block_m") if k in row}}
+                "at": {k: row[k] for k in ("layer", "M", "a8", "route", "sz", "case", "T", "S", "B",
+                                           "W", "Gb", "block_m") if k in row}}
 
     def pick(rows, **kw):
         return next(r for r in rows if all(r.get(k) == v for k, v in kw.items()))

@@ -23,6 +23,12 @@ on the CPU (the counterpart of the Pallas interpreter). A failed build or
 launch raises; nothing falls back. Each CUDA call adds one to
 `launch_counts[name]`, and to `sz_counts[name]` under its scales' and
 zeros' dtypes.
+
+K1/K2 take one of two routes on the card, chosen before launch from shapes
+alone by `rot_route`: "one_launch" (W4A16 at M <= 16: one kernel that
+rotates x inside its GEMV blocks and merges its group splits behind a
+counter) or "passes" (rotate, GEMV and, with split groups, reduce). Each
+call adds one to `route_counts[name][route]`.
 """
 
 from __future__ import annotations
@@ -37,6 +43,15 @@ from .build import load
 MAX_PARTS = 4
 ROWS_PER_TILE = 8
 COLS_PER_TILE = 128
+# the one-launch route (csrc/rot_w4_matmul.cu, namespace one)
+ONE_LAUNCH_MAX_M = 16
+ONE_LAUNCH_MAX_S = 256
+ONE_LAUNCH_MAX_GROUPS = 16  # groups per block
+ONE_LAUNCH_X_FLOATS = 4096  # x (and xr) a block keeps in shared memory: groups * rows * S
+ONE_LAUNCH_SZ_FLOATS = 2048  # scales (and zeros) it keeps: groups * tile width
+ONE_LAUNCH_ROW_TILES = (1, 2, 4, 8)  # the kernel's instances of rows per block
+ONE_LAUNCH_TILES = (128, 256, 512)  # its column-tile widths
+BLOCKS_PER_SM = 2  # its blocks resident per SM (registers and shared memory allow two)
 MAX_BUTTERFLY_S = 32768  # K7 stages a group's rows in shared memory
 SZ_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.uint8: 3}
 
@@ -47,6 +62,11 @@ launch_counts = {name: 0 for name in KERNELS}
 variant_counts = {"rot_w4_matmul": [0, 0], "merged_rot_w4_matmul": [0, 0]}
 # launches by "scales dtype/zeros dtype", e.g. "float32/uint8"
 sz_counts: dict[str, dict[str, int]] = {name: {} for name in KERNELS}
+# K1/K2's calls by route (see rot_route); "passes_w4a16_m16" counts those of
+# the passes that were W4A16 at M <= 16 (only a shape wider than one wave or
+# S > 256 sends one there)
+ROUTES = ("one_launch", "passes", "passes_w4a16_m16")
+route_counts = {name: dict.fromkeys(ROUTES, 0) for name in variant_counts}
 
 
 def reset_launch_counts() -> None:
@@ -55,6 +75,7 @@ def reset_launch_counts() -> None:
         sz_counts[name] = {}
     for name in variant_counts:
         variant_counts[name] = [0, 0]
+        route_counts[name] = dict.fromkeys(ROUTES, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -183,6 +204,8 @@ def rot_w4_matmul_i4_plain(x, rot, qweight_i4, scales, zeros) -> torch.Tensor:
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {  # entry point: (source stem, argument types)
     "paro_rot_w4_matmul": ("rot_w4_matmul", [_P] * 11 + [_I] * 4 + [ctypes.POINTER(_I)] + [_I] * 6),
+    "paro_rot_w4_matmul_one_launch": ("rot_w4_matmul",
+                                      [_P] * 8 + [_I] * 4 + [ctypes.POINTER(_I)] + [_I] * 6),
     "paro_butterfly_w4_matmul": ("w4_variants", [_P] * 4 + [_I] + [_P] * 7 + [_I] * 8),
     "paro_dense_rot_w4_variant": ("w4_variants", [_P] * 9 + [_I] * 10),
 }
@@ -199,17 +222,81 @@ def _lib_fn(entry: str):
     return _fns[entry]
 
 
-def _group_splits(n_col_tiles: int, n_row_tiles: int, G: int, device,
+_sm_counts: dict = {}
+
+
+def _sm_count(device) -> int:
+    """The device's SM count, read once per device."""
+    if device not in _sm_counts:
+        _sm_counts[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _sm_counts[device]
+
+
+def _group_splits(n_col_tiles: int, n_row_tiles: int, G: int, sms: int,
                   max_groups: int | None = None) -> int:
     """Split the groups across blocks only when the column tiles cannot fill
-    the SMs twice over (and so that no block takes more than `max_groups`);
-    returns KS with every split non-empty."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    the `sms` SMs twice over (and so that no block takes more than
+    `max_groups`); returns KS with every split non-empty."""
     want = max(1, -(-2 * sms // (n_col_tiles * n_row_tiles)))
     gps = -(-G // min(G, want))
     if max_groups:
         gps = min(gps, max(1, max_groups))
     return -(-G // gps)
+
+
+def one_launch_row_tile(M: int) -> int:
+    """Rows per block of the one-launch kernel's instance for M rows: the
+    least instance that holds M, at most 8 (M 9-16 take two row tiles)."""
+    return next((t for t in ONE_LAUNCH_ROW_TILES if t >= M), ONE_LAUNCH_ROW_TILES[-1])
+
+
+def rot_route(M: int, I: int, S: int, out_splits: tuple, a8: bool, rot_dtype,
+              sms: int) -> tuple[str, int, int]:
+    """K1/K2's route on a card of `sms` SMs, its group splits KS and its
+    column-tile width, from shapes alone: ("one_launch", KS, tile) or
+    ("passes", KS, 128).
+
+    The one-launch kernel takes W4A16 calls (not `a8`) with M <= 16 rows and
+    groups of S <= 256 channels, and rot in float32 or bfloat16, when its
+    grid fits in one wave: one block per column tile (128, 256 or 512
+    columns) of each partition, group split and row tile
+    (`one_launch_row_tile(M)` rows), BLOCKS_PER_SM blocks resident per SM.
+    A block takes at most min(16, 4096 // (MT * S), 2048 // tile) groups
+    (MT: the instance's rows), so the splits are at least ceil(G / that);
+    if the tiles times those splits exceed one wave at every width (the
+    151936-wide lm_head), the call takes the passes. Otherwise, at each
+    width that fits, KS is the most splits the wave holds, at most G,
+    evened out so that every split holds ceil(G / KS) groups but the last,
+    which holds at least one. The width with the fewest groups a split wins
+    (every block rotates its own groups); on a tie, at M <= 4 (widths 128
+    and 256) the one whose busiest SM streams the fewest weight bytes, then
+    the one with fewer blocks, and at larger M (all three widths) the
+    narrower. Both tie-breaks follow times of Qwen3-0.6B's four decode
+    linears on an H100 (PERF.md §6). Every other call takes the three
+    passes, with KS from `_group_splits`."""
+    if rot_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"rot must be float32 or bfloat16, got {rot_dtype}")
+    G = I // S
+    wave = BLOCKS_PER_SM * sms
+    if not a8 and M <= ONE_LAUNCH_MAX_M and S <= ONE_LAUNCH_MAX_S:
+        MT = one_launch_row_tile(M)
+        best = None
+        for tile in ONE_LAUNCH_TILES if MT > 4 else ONE_LAUNCH_TILES[:2]:
+            n_tiles = sum(-(-int(n) // tile) for n in out_splits) * -(-M // MT)
+            gmax = min(ONE_LAUNCH_MAX_GROUPS, ONE_LAUNCH_X_FLOATS // (MT * S),
+                       ONE_LAUNCH_SZ_FLOATS // tile)
+            if n_tiles * -(-G // gmax) > wave:
+                continue
+            gps = -(-G // min(G, wave // n_tiles))
+            ks = -(-G // gps)
+            per_sm = -(-n_tiles * ks // sms) * gps * tile  # weight bytes / (S/2) on the busiest SM
+            key = (gps, per_sm, n_tiles * ks) if MT <= 4 else (gps, tile)
+            if best is None or key < best[0]:
+                best = (key, ks, tile)
+        if best is not None:
+            return "one_launch", best[1], best[2]
+    n_tiles = sum(-(-int(n) // COLS_PER_TILE) for n in out_splits)
+    return "passes", _group_splits(n_tiles, -(-M // ROWS_PER_TILE), G, sms), COLS_PER_TILE
 
 
 def _check_butterfly_group(S: int) -> None:
@@ -265,8 +352,20 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
 
 
+# per device: the one-launch route's split counters, zero between calls (each
+# call's last block per column tile resets its own)
+_split_counters: dict = {}
+
+
+def _counters(n: int, device) -> torch.Tensor:
+    c = _split_counters.get(device)
+    if c is None or c.numel() < n:
+        c = _split_counters[device] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return c
+
+
 def _launch_rot(name, x, rot, qweight, scales, zeros, out_splits, a8):
-    """K1 / K2 on the card."""
+    """K1 / K2 on the card, by the route `rot_route` picks."""
     M, I = x.shape
     P, G, S, _ = rot.shape
     O = qweight.shape[1]
@@ -275,25 +374,37 @@ def _launch_rot(name, x, rot, qweight, scales, zeros, out_splits, a8):
     if rot.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"rot must be float32 or bfloat16, got {rot.dtype}")
     x, qweight, scales, zeros, (rot,) = _check_operands(x, qweight, scales, zeros, S, G, (rot,))
-    fn = _lib_fn("paro_rot_w4_matmul")
+    fns = {"one_launch": _lib_fn("paro_rot_w4_matmul_one_launch"),  # before the device is queried
+           "passes": _lib_fn("paro_rot_w4_matmul")}
     dev = x.device
-    n_tiles = sum(-(-n // COLS_PER_TILE) for n in out_splits)
-    KS = _group_splits(n_tiles, -(-M // ROWS_PER_TILE), G, dev)
+    route, KS, tile = rot_route(M, I, S, out_splits, a8, rot.dtype, _sm_count(dev))
     out = torch.empty((M, O), dtype=x.dtype, device=dev)
-    xr, xsum, partial = _scratch(M, I, G, O, KS, dev, P)
-    xq = torch.empty((P, M, I) if a8 else (0,), dtype=torch.int8, device=dev)
-    sx = torch.empty((P, M, G), dtype=torch.float32, device=dev)
     splits = (ctypes.c_int * P)(*out_splits)
-    err = fn(
-        x.data_ptr(), rot.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
-        out.data_ptr(), xr.data_ptr(), xq.data_ptr(), xsum.data_ptr(), sx.data_ptr(),
-        partial.data_ptr(), M, I, S, P, splits, KS, int(x.dtype == torch.bfloat16),
-        int(rot.dtype == torch.bfloat16), int(a8), SZ_CODES[scales.dtype], SZ_CODES[zeros.dtype],
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    common = (int(x.dtype == torch.bfloat16), int(rot.dtype == torch.bfloat16))
+    sz = (SZ_CODES[scales.dtype], SZ_CODES[zeros.dtype])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if route == "one_launch":
+        partial = torch.empty((KS, M, O) if KS > 1 else (0,), dtype=torch.float32, device=dev)
+        n_tiles = sum(-(-n // tile) for n in out_splits) * -(-M // one_launch_row_tile(M))
+        counters = _counters(n_tiles, dev) if KS > 1 else partial
+        err = fns[route](
+            x.data_ptr(), rot.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
+            out.data_ptr(), partial.data_ptr(), counters.data_ptr(), M, I, S, P, splits, KS,
+            tile // COLS_PER_TILE, *common, *sz, stream)
+    else:
+        xr, xsum, partial = _scratch(M, I, G, O, KS, dev, P)
+        xq = torch.empty((P, M, I) if a8 else (0,), dtype=torch.int8, device=dev)
+        sx = torch.empty((P, M, G), dtype=torch.float32, device=dev)
+        err = fns[route](
+            x.data_ptr(), rot.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
+            out.data_ptr(), xr.data_ptr(), xq.data_ptr(), xsum.data_ptr(), sx.data_ptr(),
+            partial.data_ptr(), M, I, S, P, splits, KS, *common, int(a8), *sz, stream)
     _raise_on(err, name)
     _count(name, scales, zeros)
     variant_counts[name][int(a8)] += 1
+    route_counts[name][route] += 1
+    if route == "passes" and not a8 and M <= ONE_LAUNCH_MAX_M:
+        route_counts[name]["passes_w4a16_m16"] += 1
     return out
 
 
@@ -312,7 +423,7 @@ def _launch_butterfly(name, x, inv_s, cos_t, sin_t, qweight, scales, zeros, S):
             raise ValueError("inv_channel_scales must be [I] and the tables [K, I]")
     fn = _lib_fn("paro_butterfly_w4_matmul")
     dev = x.device
-    KS = _group_splits(-(-O // COLS_PER_TILE), -(-M // ROWS_PER_TILE), G, dev)
+    KS = _group_splits(-(-O // COLS_PER_TILE), -(-M // ROWS_PER_TILE), G, _sm_count(dev))
     out = torch.empty((M, O), dtype=x.dtype, device=dev)
     xr, xsum, partial = _scratch(M, I, G, O, KS, dev)
     ptr = (lambda t: t.data_ptr()) if tables else (lambda t: None)
@@ -339,7 +450,8 @@ def _launch_dense_variant(name, x, rot, qweight, scales, zeros, interleaved, max
     x, qweight, scales, zeros, (rot,) = _check_operands(x, qweight, scales, zeros, S, G, (rot,))
     fn = _lib_fn("paro_dense_rot_w4_variant")
     dev = x.device
-    KS = _group_splits(-(-O // COLS_PER_TILE), -(-M // ROWS_PER_TILE), G, dev, max_groups)
+    KS = _group_splits(-(-O // COLS_PER_TILE), -(-M // ROWS_PER_TILE), G, _sm_count(dev),
+                       max_groups)
     out = torch.empty((M, O), dtype=x.dtype, device=dev)
     xr, xsum, partial = _scratch(M, I, G, O, KS, dev)
     err = fn(

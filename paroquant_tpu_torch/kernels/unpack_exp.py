@@ -36,7 +36,7 @@ import ctypes
 import torch
 
 from .build import load
-from .rot_matmul import SZ_CODES, _check_operands, _group_splits, _raise_on
+from .rot_matmul import SZ_CODES, _check_operands, _group_splits, _raise_on, _sm_count
 
 KERNELS = ("stream_only", "w4_matmul_bitcast", "w4_matmul_mulfloor", "w4_matmul_splitdot_ce",
            "w4_matmul_splitdot", "w4_matmul_i8")
@@ -176,7 +176,7 @@ def _launch_gemv(name, x, qweight, scales, zeros, S):
     x, qweight, scales, zeros, _ = _check_operands(x, qweight, scales, zeros, S, G)
     row_bytes = O // 2 if opair else O
     dev = x.device
-    KS = _group_splits(-(-row_bytes // TILE_BYTES), M, G, dev)
+    KS = _group_splits(-(-row_bytes // TILE_BYTES), M, G, _sm_count(dev))
     out = torch.empty((M, O), dtype=x.dtype, device=dev)
     partial = torch.empty((KS, M, O) if KS > 1 else (0,), dtype=F32, device=dev)
     err = _lib_fn("paro_unpack_gemv")(
@@ -212,7 +212,7 @@ def stream_only(x, qweight, *, group_size: int = 128, groups_per_step: int = 1) 
         raise ValueError("all operands must be on the same device")
     x, qweight = x.contiguous(), qweight.contiguous()
     dev = x.device
-    KS = _group_splits(-(-O // TILE_BYTES), 1, G // Gb, dev)
+    KS = _group_splits(-(-O // TILE_BYTES), 1, G // Gb, _sm_count(dev))
     out = torch.empty((1, O), dtype=F32, device=dev)
     sink = torch.empty(1, dtype=torch.int32, device=dev)
     err = _lib_fn("paro_stream_only")(

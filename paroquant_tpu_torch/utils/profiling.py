@@ -30,6 +30,10 @@ from ..utils.device import resolve_device
 
 
 FLUSH_BYTES = 256 << 20  # more than the H100's 50 MB L2
+# K1/K2's kernels by route (kernels/rot_matmul.py::rot_route); the passes'
+# kernels are shared with K6-K9, which no decode step runs
+K1K2_KERNELS = {"one_launch": ("rot_w4_one_launch_kernel",),
+                "passes": ("w4::rotate_kernel", "w4::gemv_kernel", "w4::reduce_kernel")}
 SPIN_CYCLES = 2_000_000  # about 1 ms of device spin ahead of each timed call
 _flush_buffers: dict[torch.device, torch.Tensor] = {}
 
@@ -71,8 +75,8 @@ def kernel_time_ms(fn, reps: int = 30, flush: torch.Tensor | None = None,
 def profile_decode(params, config: ModelConfig, *, prompt_len: int = 256, steps: int = 16,
                    quant_mode: str = "auto", device="cuda", top: int = 8) -> dict:
     """Wall ms per decode step (plain and profiled), device-busy ms per
-    step, idle share, kernel launches per step (all, and the port's kernel wrappers' calls) and the
-    `top` kernels by device time."""
+    step, idle share, kernel launches per step (all, and the port's kernel wrappers' calls), K1/K2's
+    calls and device ms per step by route and the `top` kernels by device time."""
     dev = resolve_device(device)
     gen = torch.Generator(device="cpu").manual_seed(0)
     prompt = torch.randint(0, config.vocab_size, (1, prompt_len), generator=gen).to(dev)
@@ -115,10 +119,13 @@ def _profile(run, steps: int, top: int, focus: str | None = None) -> dict:
 
     run(2)  # warm-up
     before = {**rm.launch_counts, **at.launch_counts}
+    routes_before = {k: dict(v) for k, v in rm.route_counts.items()}
     t0 = time.perf_counter()
     run(steps)
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     after = {**rm.launch_counts, **at.launch_counts}
+    route_calls = {route: sum(rm.route_counts[k][route] - routes_before[k][route]
+                              for k in rm.route_counts) / steps for route in ("one_launch", "passes")}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run(steps)
@@ -134,6 +141,11 @@ def _profile(run, steps: int, top: int, focus: str | None = None) -> dict:
         "device_busy_ms_per_step": busy_us / 1e3 / steps if kernels else None,
         "launches_per_step": launches / steps if kernels else None,
         "port_kernel_calls_per_step": {k: (after[k] - before[k]) / steps for k in after},
+        "k1k2_calls_per_step": route_calls,
+        "k1k2_device_ms_per_step": {
+            route: sum(e.self_device_time_total for e in kernels
+                       if any(n in e.key for n in names)) / 1e3 / steps
+            for route, names in K1K2_KERNELS.items()},
         "top_kernels": [
             {"name": e.key[:80], "ms_per_step": e.self_device_time_total / 1e3 / steps,
              "calls_per_step": e.count / steps}
