@@ -25,7 +25,8 @@ Phases, each printing one or more lines:
      kernel benchmarks' W4 variants, at their 4096 x 4096 shape with each
      scale/zero dtype pair and at o_proj), K10-K13 (the W4 GEMV experiments
      of the TPU scripts, at their 4096 x 4096 shape, dtypes and knobs: M,
-     Gb, block_m), K14-K17 (the int8 probe's narrowing cast and tensor-core
+     Gb, block_m; K10/K12 two calls bitwise equal and one kernel a call),
+     K14-K17 (the int8 probe's narrowing cast and tensor-core
      dots, at its shapes and on its integer inputs, exact); then their other branches (f32,
      ragged M, head_dim 64, softcap, window, page sizes, K1/K2 at group
      sizes 1024/2048 and one row-spanning group of 96/320 with f32, f16
@@ -46,7 +47,9 @@ Phases, each printing one or more lines:
      probe's library must show IMMA in K15/K16 and HMMA in K17, that of
      the unpack library K18's 128-bit global loads, that of the K1/K2
      library 128-bit loads (LDG.E.128) and 16-byte cp.async (LDGSTS) in all
-     16 one-launch instances, with 0 spill bytes in ptxas's lines, that of
+     16 one-launch instances and that of the experiments' library in all 32
+     of K10/K12 (the same kernel, csrc/one_launch.cuh), with 0 spill bytes in
+     ptxas's lines for all 48, that of
      the paged
      library HMMA in every tensor-core instance of K4/K5 (bf16 queries over
      bf16 and int8 pools) and that of the flash library HMMA in all 14
@@ -203,8 +206,16 @@ def passes_ms(rm, run, flush):
         rm.rot_route = real
 
 
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC")  # the runtime's launch calls
+
+
 def kernels_per_call(fn):
-    """CUDA kernels one warm call of fn launches, on the profiler's count."""
+    """CUDA kernels one warm call of fn launches, on the profiler's count of
+    kernels run on the device. Where the profile holds no device activity
+    at all (the profiler on the card has been seen to record none for a K10
+    call whose output was right), the count of the host's launch calls in
+    the same profile stands in for it, and a `profiler_no_device_events`
+    line says so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -213,8 +224,15 @@ def kernels_per_call(fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0)
+    events = prof.key_averages()
+    n = sum(e.count for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0)
+    if n:
+        return n
+    launches = sum(e.count for e in events if e.key in LAUNCH_CALLS)
+    emit({"phase": "profiler_no_device_events", "host_launches": launches,
+          "events": [[e.key[:60], str(e.device_type), e.count] for e in events]})
+    return launches
 
 
 def check_matmuls(flush, gen, dev):
@@ -757,13 +775,20 @@ def w4x_inputs(kernel, I, O, gen, dev, S=128, sz="bf16/bf16", rot_dtype=None, bl
     return run, plain, rotate, wd, extra + G * S * S * rot.element_size(), 2 * I * S
 
 
+ONE_LAUNCH_W4X = ("rot_w4_matmul_b", "rot_w4_matmul_v2")  # K10/K12: the one-launch kernel's variants
+
+
 def check_w4_experiments(flush, gen, dev):
     """K10-K13 against their plain versions at the scripts' shape (4096 x
     4096, g128) and dtypes: K10 at M = 1 and 16, K11 at M = 1 with Gb = 1, 2,
     4, 8, K12 at block_m 8 and 16 with M = 1 and 16, K13 at M = 1, 8, 32;
     timed beside the bound and torch.matmul on the pre-rotated (K10-K12),
-    dequantized bf16 weight."""
+    dequantized bf16 weight. Each K10/K12 row names its launch plan (splits,
+    tile, rows a block), and fails unless two calls give the same bits and a
+    call launches one kernel (profiler)."""
     import torch
+
+    from paroquant_tpu_torch.kernels import rot_matmul as rm, w4_experiments as wx
 
     I = O = 4096
     rows = []
@@ -777,13 +802,23 @@ def check_w4_experiments(flush, gen, dev):
             torch.cuda.synchronize()
             err = (y - y_ref).abs().max().item()
             tol = TOL_KERNEL * y_ref.abs().max().item()
+            one = {}
+            if kernel in ONE_LAUNCH_W4X:
+                KS, tile, rows_per_block = wx.one_launch_plan(M, I, 128, O, rm._sm_count(dev))
+                one = dict(KS=KS, tile=tile, rows_per_block=rows_per_block,
+                           bitwise_equal=torch.equal(run(x), run(x)),
+                           kernels_per_call=kernels_per_call(lambda: run(x)))
+                emit({"phase": "w4x_determinism", "kernel": kernel, "M": M, **knobs, **one})
+                if not one["bitwise_equal"] or one["kernels_per_call"] != 1:
+                    raise SystemExit(f"{kernel} M={M} {knobs}: two calls differ or a call ran "
+                                     f"{one['kernels_per_call']} kernels")
             ms = median_ms(lambda: run(x), KERNEL_REPS, flush)
             plain_ms = median_ms(lambda: plain(x), PLAIN_REPS, flush)
             lib_ms = median_ms(lambda: torch.matmul(x, w_eff), KERNEL_REPS, flush)
             b_ms, b_by = bound(extra + M * I * 2 + M * O * out_bytes, 2 * M * I * O + M * rot_ops,
                                "int8" if kernel == "w4a8_matmul" else "bf16")
-            row = dict(kernel=kernel, layer="script", sz=sz, M=M, **knobs, max_abs_err=err, tol=tol,
-                       us=ms * 1e3, plain_us=plain_ms * 1e3, library_us=lib_ms * 1e3,
+            row = dict(kernel=kernel, layer="script", sz=sz, M=M, **knobs, **one, max_abs_err=err,
+                       tol=tol, us=ms * 1e3, plain_us=plain_ms * 1e3, library_us=lib_ms * 1e3,
                        bound_us=b_ms * 1e3, bound_by=b_by,
                        ok=err <= tol and bool(torch.isfinite(y).all()))
             emit({"phase": "kernel_check", **row})
@@ -1035,8 +1070,10 @@ def check_flash_spills(report):
 
 
 def check_rot_spills(report):
-    """The one-launch K1/K2 kernel: every instance (4 row tiles x f32/bf16 x
-    and rot) must report 0 spill bytes in ptxas's lines."""
+    """The one-launch kernel (csrc/one_launch.cuh): every instance of K1/K2
+    (4 row tiles x f32/bf16 x and rot, 16) and of K10/K12 (the same for each,
+    32) must report 0 spill bytes in ptxas's lines. The report names each
+    library's kernels after a line naming its source's log."""
     import re
 
     fn, spills = None, {}
@@ -1046,9 +1083,13 @@ def check_rot_spills(report):
         elif fn and "rot_w4_one_launch_kernel" in fn and "spill stores" in line:
             spills[fn] = (int(re.search(r"(\d+) bytes spill stores", line).group(1))
                           + int(re.search(r"(\d+) bytes spill loads", line).group(1)))
-    emit({"phase": "rot_spills", "instances": len(spills), "spill_bytes": sorted(spills.values())})
-    if len(spills) != 16 or any(spills.values()):
-        raise SystemExit(f"the one-launch K1/K2 kernel: {len(spills)} instances, spill bytes {spills}")
+    # the variant is the template's last argument: Li0E (K1), Li1E (K10), Li2E (K12)
+    by_var = {v: sorted(b for f, b in spills.items() if f.endswith(f"Li{v}EEEvNS0_4ArgsE"))
+              for v in range(3)}
+    emit({"phase": "rot_spills", "instances": len(spills),
+          "spill_bytes": {"k1": by_var[0], "k10": by_var[1], "k12": by_var[2]}})
+    if [len(b) for b in by_var.values()] != [16, 16, 16] or any(spills.values()):
+        raise SystemExit(f"the one-launch kernel: {len(spills)} instances, spill bytes {spills}")
 
 
 def int8_probe(dev):
@@ -2192,6 +2233,10 @@ def main() -> int:
     check_sass("librot_w4_matmul.so", ("LDG.E.128", "LDGSTS"),
                (("rot_w4_one_launch_kernel", "LDG.E.128", 16),
                 ("rot_w4_one_launch_kernel", "LDGSTS", 16)))
+    # and its K10/K12 instances (16 each) in the experiments' library
+    check_sass("libw4_experiments.so", ("LDG.E.128", "LDGSTS"),
+               (("rot_w4_one_launch_kernel", "LDG.E.128", 32),
+                ("rot_w4_one_launch_kernel", "LDGSTS", 32)))
 
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(123)
@@ -2240,7 +2285,7 @@ def main() -> int:
                 "bound_ms": row["bound_us"] / 1e3, "bound_by": row["bound_by"],
                 "library_ms": None if lib_us is None else lib_us / 1e3,
                 "at": {k: row[k] for k in ("layer", "M", "a8", "route", "sz", "case", "T", "S", "B",
-                                           "W", "Gb", "block_m") if k in row}}
+                                           "W", "Gb", "block_m", "KS", "tile") if k in row}}
 
     def pick(rows, **kw):
         return next(r for r in rows if all(r.get(k) == v for k, v in kw.items()))

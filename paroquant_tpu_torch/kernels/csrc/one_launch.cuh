@@ -1,0 +1,635 @@
+// The one-launch rotated W4 GEMV for Hopper (sm_90a), shared by K1/K2's W4A16
+// decode route (rot_w4_matmul.cu) and by K10/K12 (w4_experiments.cu).
+//
+//   xr_g[m]   = bf16(x_g[m] @ M_g^T)
+//   out[m, o] = sum_g (xr_g[m] . q_g[:, o] - rowsum_g[m] * z[g, o]) * s[g, o]
+//
+// Three variants of that function, a template switch each (Variant):
+//               x before the rotation   rowsum_g             out
+//   K1          rounded to rot's dtype  of the bf16 xr_g     x's dtype
+//   K10 (B)     rounded to rot's dtype  of the f32 xr_g      x's dtype
+//   K12 (V2)    f32, not rounded        of the bf16 xr_g     f32
+// (K10 replaces scripts/kernel_edge_test.py::rot_w4_matmul_b, K12
+// scripts/kernel_tune.py::rot_w4_matmul_v2.)
+//
+// Bound on this card: at M <= 16 the weight stream, I*O/2 bytes of nibbles
+// plus the scales and zeros, so HBM bandwidth; at 1-8 MB of weight, the
+// latency of a few dependent rounds of loads. One block per (column tile of
+// 128, 256 or 512 columns, group split, row tile of at most 8 rows), 256
+// threads (K10/K12 at 4096 x 4096, M 1: 512 columns, 32 splits of one group,
+// two blocks an SM):
+//  1. K1 puts its weight slice in flight first: a ring of 8 stages of 4 KB in
+//     shared memory, one 16-byte cp.async a thread a stage, up to 7 stages
+//     (112 bytes a thread) ahead; the decode linears' slices (8-16 KB a
+//     block) are wholly in flight at once.
+//  2. Then x for its groups, the first batch of its rotation rows (16-byte
+//     vectors, up to 256 bytes a thread) and its scales and zeros go out
+//     together; in K1 at up to 4 rows the scales and zeros reach shared memory
+//     only after the rotation, which does not wait for them. K10/K12 issue these
+//     first and their weight (the whole ring at once) only once x has landed:
+//     at 4096 x 4096 a load issued behind 8 MB of weight returns only after
+//     most of it (globaltimer stamps on the card), and x, the rotation rows
+//     and the scales and zeros are on the critical path. Their scales and
+//     zeros travel as the aligned 32-bit words that hold them, one kind of
+//     load whatever the dtype, converted once they have landed.
+//  3. It rotates x for its groups itself: xr_g = bf16(x_g @ M_g^T) into shared
+//     memory, each rotation row split over adjacent lanes, with rowsum(xr_g).
+//     K10 stores the f32 value, takes the row sum of it and rounds it to bf16
+//     in place in the same pass. The blocks of the other column tiles re-read
+//     M_g from L2 (for K10/K12, sharing it among a thread-block cluster's
+//     column tiles through distributed shared memory was slower on the card).
+//  4. The dot on f32 FMAs over the ring, lane l of a warp on columns 4l..4l+3,
+//     the scale folded into the nibbles; the zero-point correction once per
+//     group.
+//  5. With the groups split (KS > 1) each block writes its f32 partial (16-byte
+//     stores), arrives on its tile's counter, and the last to arrive sums the
+//     KS partials in split order (each thread 4 columns, its KS 16-byte loads
+//     in flight together; K10/K12 at one row a column pair and 32 partials),
+//     writes out and resets the counter to 0: the same bits whichever
+//     block is last. No block waits for another, so a grid of more than one
+//     wave (K10/K12 at M > 16) is safe.
+// Timed phase by phase on the card (globaltimer stamps), a K1 call at M 1
+// after an L2 flush is a chain of about four dependent memory round trips: x
+// and the rotation, the weight, the counter, the merge.
+#pragma once
+
+#include "w4_passes.cuh"
+
+namespace paro {
+namespace one {
+
+using w4::Parts;
+using w4::load_f32;
+
+enum Variant { K1 = 0, B = 1, V2 = 2 };
+
+constexpr int THREADS = 256;
+constexpr int NWARPS = THREADS / 32;
+constexpr int WARP_COLS = 128;   // columns of one warp: 32 lanes x 4
+constexpr int STAGE = 4096;      // bytes per ring stage: one 16-byte piece a thread
+constexpr int NST = 8;           // ring stages
+// the limits kernels/rot_matmul.py::rot_route mirrors (ONE_LAUNCH_*); K1's
+// entry point refuses a call outside them
+constexpr int MAX_M = 16;        // rows a call (K1)
+constexpr int MAX_S = 256;       // (K1)
+constexpr int MAX_GROUPS = 16;   // groups per block
+constexpr int X_FLOATS = 4096;   // x (and xr) a block keeps at two blocks an SM: groups * MT * S
+constexpr int SZ_FLOATS = 2048;  // scales (and zeros) a block keeps: groups * tile width
+constexpr size_t MAX_SMEM = 227 * 1024;  // shared memory a block can use
+
+struct Args {
+  const void* x;
+  const void* rot;
+  const uint8_t* qw;
+  const void* scales;
+  const void* zeros;
+  void* out;
+  float* partial;  // [KS, M, O] f32 when KS > 1
+  int* counters;   // one per (column tile, row tile), zero between calls
+  int M, I, S, gps, sdt, zdt;
+  int cw;     // column groups of warps: the tile is cw * 128 columns wide
+  int vec16;  // every partition's columns start on a multiple of 16, qw 16-byte aligned
+  int rvec;   // the rotation's rows are 16-byte aligned
+  Parts parts;  // tile_base in tiles of cw * 128 columns
+};
+
+__host__ __device__ constexpr int align4(int n) { return (n + 3) & ~3; }
+
+// The aligned 32-bit word that holds element i of a dtype-code dt array
+// (the word may reach up to 3 bytes past either end of the array: inside its
+// allocation, which the caching allocator aligns to 512 bytes), and that
+// element from it.
+__device__ __forceinline__ const uint8_t* elem_addr(const void* p, size_t i, int dt) {
+  return static_cast<const uint8_t*>(p) + i * (dt == w4::F32 ? 4 : dt == w4::U8 ? 1 : 2);
+}
+__device__ __forceinline__ uint32_t load_word(const void* p, size_t i, int dt) {
+  return *reinterpret_cast<const uint32_t*>((uintptr_t)elem_addr(p, i, dt) & ~(uintptr_t)3);
+}
+__device__ __forceinline__ float word_f32(uint32_t w, const void* p, size_t i, int dt) {
+  const uint32_t v = w >> (8 * ((uintptr_t)elem_addr(p, i, dt) & 3));
+  switch (dt) {
+    case w4::F32: return __uint_as_float(w);
+    case w4::BF16: return __uint_as_float(v << 16);
+    case w4::F16: return __half2float(__ushort_as_half((unsigned short)(v & 0xffffu)));
+    default: return (float)(v & 0xffu);
+  }
+}
+
+// rows per block for M rows of groups of S: the least of 1, 2, 4, 8 that
+// holds M (at most 8), halved while one group of that many rows exceeds
+// X_FLOATS (only K10/K12 take S > 512)
+inline int row_tile(int M, int S) {
+  int MT = M <= 1 ? 1 : M <= 2 ? 2 : M <= 4 ? 4 : 8;
+  while (MT > 1 && MT * S > X_FLOATS) MT /= 2;
+  return MT;
+}
+
+// the most groups a block may take at MT rows and a tile of TW columns (0
+// where one group of MT rows exceeds X_FLOATS: then it takes one group, in
+// more shared memory than two blocks an SM leave)
+inline int max_groups(int MT, int S, int TW) {
+  int g = X_FLOATS / (MT * S);
+  g = g < SZ_FLOATS / TW ? g : SZ_FLOATS / TW;
+  return g < MAX_GROUPS ? g : MAX_GROUPS;
+}
+
+// dynamic shared memory, in floats after the ring: xr pairs [gps][MT][S/2][2],
+// x rounded to rot's dtype [gps][MT][S], scales and zeros [gps][TW], row sums
+// [gps][MT]; the warps' sums [NWARPS][MT][128] reuse the whole of it at the end
+struct Layout {
+  int xr, xs, ss, zs, rsum;  // float offsets from the end of the ring
+  size_t bytes;
+};
+
+__host__ __device__ inline Layout layout(int MT, int S, int gps, int TW) {
+  Layout L;
+  L.xr = 0;
+  L.xs = L.xr + align4(gps * MT * S);
+  L.ss = L.xs + align4(gps * MT * S);
+  L.zs = L.ss + gps * TW;
+  L.rsum = L.zs + gps * TW;
+  const size_t body = (size_t)NST * STAGE + 4 * (size_t)(L.rsum + align4(gps * MT));
+  const size_t red = 4 * (size_t)NWARPS * MT * WARP_COLS;
+  L.bytes = body > red ? body : red;
+  return L;
+}
+
+template <typename XT, typename RT, int MT, int VAR>
+__global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Args a) {
+  using OT = typename std::conditional<VAR == V2, float, XT>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int last;
+  const int S = a.S, HALF = S / 2, G = a.I / S, M = a.M;
+  const int m0 = blockIdx.z * MT, Mb = min(MT, M - m0);  // the block's rows of x
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int TW = a.cw * WARP_COLS;   // tile width
+  const int WPC = NWARPS / a.cw;     // warps per 128 columns
+  const int CR = STAGE / TW;         // byte-rows per stage
+  const Parts& parts = a.parts;
+  const int O = parts.offs[parts.P];
+  const int bx = blockIdx.x, ks = blockIdx.y;
+  int p = 0;
+  while (p + 1 < parts.P && bx >= parts.tile_base[p + 1]) ++p;
+  const int col0 = parts.offs[p] + (bx - parts.tile_base[p]) * TW;
+  const int col_end = parts.offs[p + 1];
+  const int g_begin = ks * a.gps;
+  const int ng = min(G, g_begin + a.gps) - g_begin;  // >= 1: every split is non-empty
+  const int nrows = ng * HALF;                       // the block's byte-rows
+  const int nchunks = (nrows + CR - 1) / CR;
+
+  const Layout L = layout(MT, S, a.gps, TW);
+  uint8_t* ring = smem;
+  float* fs = reinterpret_cast<float*>(smem + NST * STAGE);
+  float* xr2 = fs + L.xr;
+  float* xs = fs + L.xs;
+  float* ss = fs + L.ss;
+  float* zs = fs + L.zs;
+  float* rsum = fs + L.rsum;
+
+  // 1. the weight slice: stage c holds byte-rows [c*CR, (c+1)*CR) of the
+  // block's rows; thread t copies 16 bytes of one row. K1 puts NST - 1
+  // stages in flight first; K10/K12 fill the whole ring once x has landed,
+  // their rotation rows and scales and zeros in flight (so that x and those
+  // do not queue behind 8 MB of weight at 4096 x 4096)
+  constexpr bool K1_ORDER = VAR == K1;
+  constexpr int PRE = K1_ORDER ? NST - 1 : NST;
+  const uint8_t* wbase = a.qw + (size_t)g_begin * HALF * O;
+  const int wr = tid / (TW / 16), wc = col0 + (tid % (TW / 16)) * 16;
+  auto issue = [&](int c) {
+    if (c < nchunks) {
+      uint8_t* dst = ring + (c % NST) * STAGE + tid * 16;
+      const int r = c * CR + wr;
+      if (a.vec16) {  // a piece lies wholly inside or wholly outside the columns
+        const bool ok = r < nrows && wc < col_end;
+        cp_async16(dst, ok ? wbase + (size_t)r * O + wc : a.qw, ok ? 16 : 0);
+      } else {
+        for (int b = 0; b < 16; ++b)
+          dst[b] = r < nrows && wc + b < col_end ? wbase[(size_t)r * O + wc + b] : 0;
+      }
+    }
+    cp_async_commit();  // an empty group past the end keeps the waits uniform
+  };
+
+  if (K1_ORDER) {
+#pragma unroll
+    for (int c = 0; c < PRE; ++c) issue(c);
+  }
+
+  // 2. in flight together: the first batch of the rotation's rows, x for the
+  // block's groups and their scales and zeros. The rotation: R = ng * S rows
+  // of M_{p,g}, each split over tpr adjacent lanes, 16-byte vectors apart
+  const XT* x = static_cast<const XT*>(a.x);
+  const RT* rot = static_cast<const RT*>(a.rot);
+  constexpr int VEC = 16 / sizeof(RT);
+  constexpr int BATCH = MT <= 2 ? 16 : MT <= 4 ? 8 : 4;  // vectors in flight a thread
+  const int R = ng * S;
+  int tpr = 1;
+  while (tpr < 32 && 2 * tpr * R <= THREADS) tpr *= 2;
+  const int RP = THREADS / tpr, qi = tid / tpr, h = tid % tpr;
+  const int nv = S / VEC, nb = ((nv + tpr - 1) / tpr + BATCH - 1) / BATCH;
+  const int nsteps = (R + RP - 1) / RP * nb;
+  const RT* rot_p = rot + ((size_t)p * G + g_begin) * S * S;
+  uint4 w[BATCH];
+  auto fetch = [&](int step) {  // step: (row iteration, batch of its vectors)
+    const int q = qi + step / nb * RP, v0 = h + tpr * BATCH * (step % nb);
+    const uint4* R4 = reinterpret_cast<const uint4*>(rot_p + (size_t)(q < R ? q : 0) * S);
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int v = v0 + tpr * u;
+      w[u] = q < R && v < nv ? R4[v] : make_uint4(0, 0, 0, 0);
+    }
+  };
+  // x [gl][m][j] = x[m0 + m, (g_begin + gl) S + j] (rounded to RT but in
+  // K12), LD a thread in flight at a time (all of it at the decode shapes);
+  // the first LD scales and zeros [gl][c] a thread of the tile's columns go
+  // out with it and (K1, at up to 4 rows) reach shared memory after the
+  // rotation, which does not need them. K1 converts each scale and zero as
+  // it loads it; K10/K12 load the aligned 32-bit word that holds it, one
+  // kind of load whatever its dtype, and convert it in store_sz, so that no
+  // branch on the dtype waits for a load before x and the weight are out
+  constexpr int LD = 4;
+  const int nx = R * MT, nsz = ng * TW;
+  float sv[LD], zv[LD];
+  uint32_t sw[LD], zw[LD];
+  auto sz_index = [&](int e) { return (size_t)(g_begin + e / TW) * O + col0 + e % TW; };
+  auto load_sz = [&](int k0) {
+#pragma unroll
+    for (int k = 0; k < LD; ++k) {
+      const int e = tid + (k0 + k) * THREADS;
+      const bool ok = e < nsz && col0 + e % TW < col_end;
+      const size_t idx = sz_index(e);
+      if constexpr (K1_ORDER) {
+        sv[k] = ok ? load_f32(a.scales, idx, a.sdt) : 0.f;
+        zv[k] = ok ? load_f32(a.zeros, idx, a.zdt) : 0.f;
+      } else {
+        sw[k] = ok ? load_word(a.scales, idx, a.sdt) : 0u;
+        zw[k] = ok ? load_word(a.zeros, idx, a.zdt) : 0u;
+      }
+    }
+  };
+  auto store_sz = [&](int k0) {
+#pragma unroll
+    for (int k = 0; k < LD; ++k) {
+      const int e = tid + (k0 + k) * THREADS;
+      if (e >= nsz) continue;
+      if constexpr (K1_ORDER) {
+        ss[e] = sv[k], zs[e] = zv[k];
+      } else {
+        const size_t idx = sz_index(e);
+        ss[e] = word_f32(sw[k], a.scales, idx, a.sdt);
+        zs[e] = word_f32(zw[k], a.zeros, idx, a.zdt);
+      }
+    }
+  };
+  for (int k0 = 0; k0 * THREADS < nx; k0 += LD) {
+    XT xv[LD];
+#pragma unroll
+    for (int k = 0; k < LD; ++k) {
+      const int e = tid + (k0 + k) * THREADS, m = e / S % MT;
+      xv[k] = e < nx && m < Mb
+          ? x[(size_t)(m0 + m) * a.I + (size_t)g_begin * S + e / (MT * S) * S + e % S]
+          : from_f32<XT>(0.f);
+    }
+    if (k0 == 0) {
+      if (a.rvec) fetch(0);
+      load_sz(0);
+    }
+#pragma unroll
+    for (int k = 0; k < LD; ++k)
+      if (tid + (k0 + k) * THREADS < nx)
+        xs[tid + (k0 + k) * THREADS] = VAR == V2 ? to_f32(xv[k]) : round_to<RT>(to_f32(xv[k]));
+  }
+  // where the rotation needs the registers (K10/K12: also their words), at once
+  if (MT >= 8 || !K1_ORDER) store_sz(0);
+  __syncthreads();
+  if (!K1_ORDER) {  // x has landed: now the weight (a loop, not unrolled: w is live)
+#pragma unroll 1
+    for (int c = 0; c < PRE; ++c) issue(c);
+  }
+
+  // 3. xr_g = bf16(x_g @ M_{p,g}^T) for the block's groups, into shared
+  // memory (K10: the f32 value, rounded after its row sum)
+  float acc[MT];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) acc[m] = 0.f;
+  auto emit = [&](int q) {  // sum the row's lanes; channel i of group gl at pair slot (i mod S/2, i >= S/2)
+    for (int o = 1; o < tpr; o <<= 1)
+#pragma unroll
+      for (int m = 0; m < MT; ++m) acc[m] += __shfl_xor_sync(0xffffffffu, acc[m], o);
+    if (h == 0 && q < R) {
+      const int gl = q / S, i = q % S;
+      float* dst = xr2 + (size_t)gl * MT * S + 2 * (i < HALF ? i : i - HALF) + (i >= HALF);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) dst[m * S] = VAR == B ? acc[m] : round_to<bf16>(acc[m]);
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m) acc[m] = 0.f;
+  };
+  if (a.rvec) {
+    for (int step = 0; step < nsteps; ++step) {
+      if (step > 0) fetch(step);
+      const int q = qi + step / nb * RP, v0 = h + tpr * BATCH * (step % nb);
+      const float* xg = xs + (size_t)(q < R ? q / S : 0) * MT * S;
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        const int v = v0 + tpr * u;
+        if (v >= nv) break;  // w is 0 past the row's end or past R
+        const RT* hv = reinterpret_cast<const RT*>(&w[u]);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const float4* x4 = reinterpret_cast<const float4*>(xg + m * S + v * VEC);
+#pragma unroll
+          for (int t4 = 0; t4 < VEC / 4; ++t4) {
+            const float4 xx = x4[t4];
+            acc[m] = fmaf(xx.x, to_f32(hv[4 * t4]), acc[m]);
+            acc[m] = fmaf(xx.y, to_f32(hv[4 * t4 + 1]), acc[m]);
+            acc[m] = fmaf(xx.z, to_f32(hv[4 * t4 + 2]), acc[m]);
+            acc[m] = fmaf(xx.w, to_f32(hv[4 * t4 + 3]), acc[m]);
+          }
+        }
+      }
+      if (step % nb == nb - 1) emit(q);
+    }
+  } else {  // rows not 16-byte aligned: element by element
+    for (int q0 = 0; q0 < R; q0 += RP) {
+      const int q = q0 + qi;
+      if (q < R) {
+        const RT* Ri = rot_p + (size_t)q * S;
+        const float* xg = xs + (size_t)(q / S) * MT * S;
+        for (int j = h; j < S; j += tpr) {
+          const float r = to_f32(Ri[j]);
+#pragma unroll
+          for (int m = 0; m < MT; ++m) acc[m] = fmaf(xg[m * S + j], r, acc[m]);
+        }
+      }
+      emit(q);
+    }
+  }
+  if (MT < 8 && K1_ORDER) store_sz(0);
+  for (int k0 = LD; k0 * THREADS < nsz; k0 += LD) {
+    load_sz(k0);
+    store_sz(k0);
+  }
+  __syncthreads();
+  for (int e = warp; e < ng * MT; e += NWARPS) {  // rowsum_g per (group, row)
+    float s = 0.f;
+    for (int k = lane; k < S; k += 32) {
+      float* v = xr2 + (size_t)e * S + k;
+      s += *v;
+      if (VAR == B) *v = round_to<bf16>(*v);  // the dot takes the bf16 xr
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lane == 0) rsum[e] = s;
+  }
+
+  // 4. the dot over the ring: the warps of column group cg = warp / WPC take
+  // rows wi, wi + WPC, ... of each stage (wi = warp % WPC), lane l columns
+  // cg * 128 + 4l .. + 3, every row of x at once
+  const int cg = warp / WPC, wi = warp % WPC, c4 = cg * WARP_COLS + 4 * lane;
+  float tot[MT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) tot[m][j] = 0.f;
+  for (int c = 0; c < nchunks; ++c) {
+    cp_async_wait<NST - 2>();  // stage c has landed (this thread's piece)
+    __syncthreads();           // everyone's piece; stage c - 1's readers are done
+    if (PRE == NST - 1 || c > 0) issue(c + NST - 1);
+    const uint8_t* stage = ring + (c % NST) * STAGE;
+#pragma unroll
+    for (int rr = 0; rr < STAGE / WARP_COLS / NWARPS; ++rr) {  // CR / WPC rows a warp
+      const int rl = wi + WPC * rr;
+      const int r = c * CR + rl;
+      if (r >= nrows) break;  // uniform across the warp
+      const int gl = r / HALF, k = r - gl * HALF;
+      const uchar4 b = *reinterpret_cast<const uchar4*>(stage + rl * TW + c4);
+      const float4 s4 = *reinterpret_cast<const float4*>(ss + gl * TW + c4);
+      const float wl[4] = {(float)(b.x & 15) * s4.x, (float)(b.y & 15) * s4.y,
+                           (float)(b.z & 15) * s4.z, (float)(b.w & 15) * s4.w};
+      const float wh[4] = {(float)(b.x >> 4) * s4.x, (float)(b.y >> 4) * s4.y,
+                           (float)(b.z >> 4) * s4.z, (float)(b.w >> 4) * s4.w};
+      const float2* xv = reinterpret_cast<const float2*>(xr2 + (size_t)gl * MT * S) + k;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const float2 xx = xv[m * HALF];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) tot[m][j] = fmaf(xx.y, wh[j], fmaf(xx.x, wl[j], tot[m][j]));
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (wi == 0) {  // the zero-point correction, once per group
+    for (int gl = 0; gl < ng; ++gl) {
+      const float4 s4 = *reinterpret_cast<const float4*>(ss + gl * TW + c4);
+      const float4 z4 = *reinterpret_cast<const float4*>(zs + gl * TW + c4);
+      const float sv[4] = {s4.x, s4.y, s4.z, s4.w}, zv[4] = {z4.x, z4.y, z4.z, z4.w};
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) tot[m][j] -= rsum[gl * MT + m] * zv[j] * sv[j];
+    }
+  }
+
+  // 5. the sums of each column group's warps, in warp order
+  __syncthreads();  // the ring and xr are free: red reuses them
+  float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+    *reinterpret_cast<float4*>(red + (warp * MT + m) * WARP_COLS + 4 * lane) =
+        make_float4(tot[m][0], tot[m][1], tot[m][2], tot[m][3]);
+  __syncthreads();
+  const int KS = gridDim.y;
+  OT* out = static_cast<OT*>(a.out);
+  const size_t MO = (size_t)M * O;
+  // four adjacent columns of the tile: e4 = m * TW + c .. + 3; each warp's
+  // sums add in warp order; with vec16 the four lie wholly inside or outside
+  auto red4 = [&](int e4) {
+    const int m = e4 / TW, cc = e4 % TW;
+    const float* rp = red + ((cc / WARP_COLS) * WPC * MT + m) * WARP_COLS + cc % WARP_COLS;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int w2 = 0; w2 < WPC; ++w2) {
+      const float4 r = *reinterpret_cast<const float4*>(rp + w2 * MT * WARP_COLS);
+      v.x += r.x, v.y += r.y, v.z += r.z, v.w += r.w;
+    }
+    return v;
+  };
+  auto store4 = [&](int m, int col, float4 v) {  // the columns of out below col_end
+    OT* o = out + (size_t)(m0 + m) * O + col;
+    const float f[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (col + j < col_end) o[j] = from_f32<OT>(f[j]);
+  };
+  for (int e4 = 4 * tid; e4 < Mb * TW; e4 += 4 * THREADS) {
+    const int m = e4 / TW, col = col0 + e4 % TW;
+    if (col >= col_end) continue;
+    const float4 v = red4(e4);
+    if (KS == 1) {
+      store4(m, col, v);
+    } else if (a.vec16) {
+      *reinterpret_cast<float4*>(a.partial + ks * MO + (size_t)(m0 + m) * O + col) = v;
+    } else {
+      const float f[4] = {v.x, v.y, v.z, v.w};
+      for (int j = 0; j < 4 && col + j < col_end; ++j)
+        a.partial[ks * MO + (size_t)(m0 + m) * O + col + j] = f[j];
+    }
+  }
+  if (KS == 1) return;
+
+  // 6. every split of the tile has written its partial: the last block to
+  // arrive sums them in split order and resets the counter
+  __syncthreads();
+  if (tid == 0) {  // after the barrier, one fence orders the block's partials before its arrival
+    __threadfence();
+    int* cnt = a.counters + blockIdx.z * gridDim.x + bx;
+    last = atomicAdd(cnt, 1) == KS - 1;
+    if (last) *cnt = 0;
+  }
+  __syncthreads();
+  if (!last) return;
+  if (MT <= 2 && Mb * TW <= THREADS) {  // a column a thread, up to 32 of its partials in flight
+    const int m = tid / TW, col = col0 + tid % TW;
+    if (m >= Mb || col >= col_end) return;
+    const float* src = a.partial + (size_t)(m0 + m) * O + col;
+    float v = 0.f;
+    for (int k0 = 0; k0 < KS; k0 += 32) {
+      float t[32];
+#pragma unroll
+      for (int u = 0; u < 32; ++u) t[u] = k0 + u < KS ? __ldcg(src + (k0 + u) * MO) : 0.f;
+#pragma unroll
+      for (int u = 0; u < 32; ++u)
+        if (k0 + u < KS) v += t[u];
+    }
+    out[(size_t)(m0 + m) * O + col] = from_f32<OT>(v);
+    return;
+  }
+  if (VAR != K1 && MT == 1 && TW <= 2 * THREADS && a.vec16) {  // a column pair a thread
+    const int col = col0 + 2 * tid;
+    if (2 * tid >= TW || col >= col_end) return;
+    const float* src = a.partial + (size_t)m0 * O + col;
+    float2 v = make_float2(0.f, 0.f);
+    for (int k0 = 0; k0 < KS; k0 += 32) {
+      float2 t[32];
+#pragma unroll
+      for (int u = 0; u < 32; ++u)
+        t[u] = k0 + u < KS ? __ldcg(reinterpret_cast<const float2*>(src + (k0 + u) * MO))
+                           : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int u = 0; u < 32; ++u)
+        if (k0 + u < KS) v.x += t[u].x, v.y += t[u].y;
+    }
+    out[(size_t)m0 * O + col] = from_f32<OT>(v.x);
+    out[(size_t)m0 * O + col + 1] = from_f32<OT>(v.y);
+    return;
+  }
+  constexpr int LB = MT <= 4 ? 16 : 8;  // partials in flight a thread
+  for (int e4 = 4 * tid; e4 < Mb * TW; e4 += 4 * THREADS) {
+    const int m = e4 / TW, col = col0 + e4 % TW;
+    if (col >= col_end) continue;
+    const float* src = a.partial + (size_t)(m0 + m) * O + col;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k0 = 0; k0 < KS; k0 += LB) {
+      float4 t[LB];
+#pragma unroll
+      for (int u = 0; u < LB; ++u) {
+        const float* pk = src + (k0 + u) * MO;
+        if (k0 + u >= KS) {
+          t[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        } else if (a.vec16) {
+          t[u] = __ldcg(reinterpret_cast<const float4*>(pk));
+        } else {
+          t[u].x = __ldcg(pk);
+          t[u].y = col + 1 < col_end ? __ldcg(pk + 1) : 0.f;
+          t[u].z = col + 2 < col_end ? __ldcg(pk + 2) : 0.f;
+          t[u].w = col + 3 < col_end ? __ldcg(pk + 3) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < LB; ++u)
+        if (k0 + u < KS) v.x += t[u].x, v.y += t[u].y, v.z += t[u].z, v.w += t[u].w;
+    }
+    store4(m, col, v);
+  }
+}
+
+template <typename XT, typename RT, int MT, int VAR>
+cudaError_t launch_mt(const Args& a, int n_tiles, int KS, cudaStream_t st) {
+  const auto kernel = rot_w4_one_launch_kernel<XT, RT, MT, VAR>;
+  const size_t smem = layout(MT, a.S, a.gps, a.cw * WARP_COLS).bytes;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<dim3(n_tiles, KS, (a.M + MT - 1) / MT), THREADS, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename XT, typename RT, int VAR>
+cudaError_t launch(const Args& a, int MT, int n_tiles, int KS, cudaStream_t st) {
+  switch (MT) {
+    case 1: return launch_mt<XT, RT, 1, VAR>(a, n_tiles, KS, st);
+    case 2: return launch_mt<XT, RT, 2, VAR>(a, n_tiles, KS, st);
+    case 4: return launch_mt<XT, RT, 4, VAR>(a, n_tiles, KS, st);
+    default: return launch_mt<XT, RT, 8, VAR>(a, n_tiles, KS, st);
+  }
+}
+
+// One launch of variant VAR: x [M, I] (f32 or bf16), rot [P, G, S, S] (f32
+// or bf16), qweight u8 [I/2, O] half-split, scales/zeros [G, O] of dtype
+// codes sdt/zdt, out [M, O] (x's dtype; f32 for V2); column tiles of cw * 128
+// columns (cw 1, 2 or 4), row tiles of row_tile(M, S) rows; KS group
+// splits of ceil(G / KS) groups each, every split non-empty and at most
+// max(1, max_groups) groups in at most MAX_SMEM bytes; partial f32 [KS, M, O]
+// when KS > 1 and counters int32, one per (column tile, row tile), zero (and
+// left zero). Grid (column tiles, KS, row tiles). Returns the first CUDA
+// error.
+template <int VAR>
+cudaError_t call(const void* x, const void* rot, const void* qweight, const void* scales,
+                 const void* zeros, void* out, void* partial, void* counters, int M, int I,
+                 int S, int P, const int* splits, int KS, int cw, int x_is_bf16, int rot_is_bf16,
+                 int sdt, int zdt, cudaStream_t st) {
+  Parts parts;
+  int vec4;
+  if (w4::bad_layout(M, I, S, KS, sdt, zdt) || !w4::make_parts(P, splits, parts, vec4) ||
+      (cw != 1 && cw != 2 && cw != 4))
+    return cudaErrorInvalidValue;
+  const int MT = row_tile(M, S);
+  const int TW = cw * WARP_COLS, G = I / S, gps = (G + KS - 1) / KS;
+  const int gmax = max_groups(MT, S, TW);
+  if ((KS - 1) * gps >= G || gps > (gmax > 1 ? gmax : 1) ||
+      layout(MT, S, gps, TW).bytes > MAX_SMEM ||
+      (KS > 1 && (partial == nullptr || counters == nullptr)))
+    return cudaErrorInvalidValue;
+  for (int p = 0; p < P; ++p) parts.tile_base[p + 1] = parts.tile_base[p] + (splits[p] + TW - 1) / TW;
+  Args a;
+  a.x = x;
+  a.rot = rot;
+  a.qw = static_cast<const uint8_t*>(qweight);
+  a.scales = scales;
+  a.zeros = zeros;
+  a.out = out;
+  a.partial = static_cast<float*>(partial);
+  a.counters = static_cast<int*>(counters);
+  a.M = M;
+  a.I = I;
+  a.S = S;
+  a.gps = gps;
+  a.sdt = sdt;
+  a.zdt = zdt;
+  a.cw = cw;
+  a.vec16 = (uintptr_t)qweight % 16 == 0;
+  for (int p = 0; p < P; ++p) a.vec16 &= splits[p] % 16 == 0;
+  a.rvec = (S * (rot_is_bf16 ? 2 : 4)) % 16 == 0 && (uintptr_t)rot % 16 == 0;
+  a.parts = parts;
+  const int n_tiles = parts.tile_base[P];
+  if (x_is_bf16)
+    return rot_is_bf16 ? launch<bf16, bf16, VAR>(a, MT, n_tiles, KS, st)
+                       : launch<bf16, float, VAR>(a, MT, n_tiles, KS, st);
+  return rot_is_bf16 ? launch<float, bf16, VAR>(a, MT, n_tiles, KS, st)
+                     : launch<float, float, VAR>(a, MT, n_tiles, KS, st);
+}
+
+}  // namespace one
+}  // namespace paro

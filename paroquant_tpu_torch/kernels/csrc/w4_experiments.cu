@@ -16,26 +16,28 @@
 // Bound on this card: at the scripts' M = 1 to 32 and 4096 x 4096, the
 // weight stream (I*O/2 bytes, plus scales, zeros and rotations), so HBM
 // bandwidth. What each design does about it:
-//  K10-K12 one launch. A block owns a 32-column tile (128 blocks at O =
-//      4096, one wave on 132 SMs) and an M tile, and the blocks of a
-//      cluster of 8 column tiles share the rotation: block rank r rotates
-//      groups r, r + 8, ... (its warps read rows of M_g whole, 16 lanes to
-//      a bf16 row) and writes the bf16 values and the row sums into every
-//      block's shared memory (distributed shared memory). A first version
-//      that rotated every group in every block was several times slower:
-//      each block then reads all of M_g (1 MB at this shape) and waits on
-//      it group after group. After one cluster barrier the GEMV runs with
-//      no further barrier: K10/K12 give each byte-row slice whole groups,
-//      16 weight loads in flight per thread, the group's dot unscaled and
-//      its zero-point term applied once as the TPU kernel does; K11 streams
-//      the tile's strip in chunks of Gb groups with cp.async.cg 16-byte
-//      copies (commit / wait groups) into two stages, chunk c + 1 in flight
-//      while chunk c is dequantized and consumed (the first chunk in flight
-//      through the rotation). Two stages are Gb * S/2 byte-rows x 32 bytes
-//      (32 KB at Gb = 8, S = 128).
-//      The f32 sums stay in registers; no scratch in device memory, no
-//      second pass. K12's block_m is the rows a block carries (the script's
-//      knob); at M = 1 a block carries one row.
+//  K10, K12 are variants of K1's one-launch kernel (one_launch.cuh, whose
+//      note says what bounds it and what it does about that): each block
+//      puts its weight slice in flight through a 16-byte cp.async ring first,
+//      rotates x for its own groups, and the group splits merge in split
+//      order behind a counter, so a call is one launch and its bits do not
+//      depend on scheduling. K10 takes the row sum of the f32 xr before
+//      rounding it, K12 rotates the unrounded f32 x and writes f32. At M > 8
+//      a call runs ceil(M / 8) row tiles, past one wave where it must.
+//  K11 one launch. A block owns a 32-column tile (128 blocks at O = 4096, one
+//      wave on 132 SMs) and an M tile, and the blocks of a cluster of 8
+//      column tiles share the rotation: block rank r rotates groups r, r + 8,
+//      ... (its warps read rows of M_g whole, 16 lanes to a bf16 row) and
+//      writes the bf16 values into every block's shared memory (distributed
+//      shared memory). A first version that rotated every group in every
+//      block was several times slower: each block then reads all of M_g
+//      (1 MB at this shape) and waits on it group after group. After one
+//      cluster barrier it streams the tile's strip in chunks of Gb groups
+//      with cp.async.cg 16-byte copies (commit / wait groups) into two
+//      stages, chunk c + 1 in flight while chunk c is dequantized and
+//      consumed (the first chunk in flight through the rotation). Two stages
+//      are Gb * S/2 byte-rows x 32 bytes (32 KB at Gb = 8, S = 128). The f32
+//      sums stay in registers; no scratch in device memory, no second pass.
 //  K13 one block per 32-column tile and 8 rows; each warp takes one group of
 //      a round of 8, loads its first weight quads, quantizes the block's
 //      rows of it into shared memory (rintf of x / sx, half to even, as
@@ -50,6 +52,7 @@
 
 #include <cooperative_groups.h>
 
+#include "one_launch.cuh"
 #include "w4_passes.cuh"
 
 namespace cg = cooperative_groups;
@@ -63,8 +66,7 @@ constexpr int NWARPS = THREADS / 32;
 constexpr int TILE = 32;                   // columns per block
 constexpr int LANES_C = TILE / 4;          // lanes across a tile, 4 columns each
 constexpr int SLICES = THREADS / LANES_C;  // byte-row slices of a block
-constexpr int CLUSTER = 8;                 // K10-K12: column tiles sharing a rotation
-constexpr int GB = 16;                     // K10/K12: byte-rows per thread in flight
+constexpr int CLUSTER = 8;                 // K11: column tiles sharing a rotation
 constexpr int RV = 16;                     // 16-byte vectors of M_g in flight per thread
 constexpr int A8_ROWS = 8;                 // K13: rows per block (A8_ROWS * TILE == THREADS)
 constexpr int A8_PF = 4;                   // K13: weight quads per lane loaded ahead of a group
@@ -78,53 +80,23 @@ __device__ __forceinline__ void store_y(void* out, size_t i, float v, int bf) {
   else static_cast<float*>(out)[i] = v;
 }
 
-// A thread's place in its block's column tile: columns c..c+3, byte-row slice.
-struct Tile {
-  int c, slice, vec4;
-  bool ok;
-};
-
-__device__ __forceinline__ Tile tile_of(int O, int vec4) {
-  Tile t;
-  t.slice = threadIdx.x / LANES_C;
-  t.c = blockIdx.x * TILE + 4 * (threadIdx.x % LANES_C);
-  t.ok = t.c < O;
-  t.vec4 = vec4;
-  return t;
-}
-
-__device__ __forceinline__ uchar4 byte_row(const uint8_t* qw, size_t row, int O, const Tile& t) {
-  return t.ok ? load4(qw + row * O, t.c, O, t.vec4) : make_uchar4(0, 0, 0, 0);
-}
-
-// scales and zeros of group g at the thread's columns (0 past O)
-__device__ __forceinline__ void load_sz(const void* scales, const void* zeros, int g, int O,
-                                        const Tile& t, int sdt, int zdt, float s4[4], float z4[4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const bool ok = t.c + j < O;
-    s4[j] = ok ? load_f32(scales, (size_t)g * O + t.c + j, sdt) : 0.f;
-    z4[j] = ok ? load_f32(zeros, (size_t)g * O + t.c + j, zdt) : 0.f;
-  }
-}
-
-// xs[m][j] = x[m0 + m, g*S + j] rounded through CT (0 for rows past nrows)
-template <typename CT, int BM>
+// xs[m][j] = bf16(x[m0 + m, g*S + j]) (0 for rows past nrows)
+template <int BM>
 __device__ __forceinline__ void stage_x(const void* x, int x_bf16, float* xs, int m0, int nrows,
                                         int I, int S, int g) {
   for (int j = threadIdx.x; j < S; j += blockDim.x) {
     const size_t base = (size_t)m0 * I + (size_t)g * S + j;
     float v[BM];
 #pragma unroll
-    for (int m = 0; m < BM; ++m) v[m] = m < nrows ? round_to<CT>(load_x(x, base + (size_t)m * I, x_bf16)) : 0.f;
+    for (int m = 0; m < BM; ++m) v[m] = m < nrows ? round_to<bf16>(load_x(x, base + (size_t)m * I, x_bf16)) : 0.f;
 #pragma unroll
     for (int m = 0; m < BM; ++m) xs[m * S + j] = v[m];
   }
 }
 
-// acc[m] = sum_j xs[m][j] * R_i[j], R_i one row of M_g (S values of RT, each
-// rounded through RC); RV vectors of the row in flight at once where `vec`
-template <typename RT, typename RC, int BM>
+// acc[m] = sum_j xs[m][j] * bf16(R_i[j]), R_i one row of M_g (S values of
+// RT); RV vectors of the row in flight at once where `vec`
+template <typename RT, int BM>
 __device__ __forceinline__ void rot_row(const RT* __restrict__ Ri, const float* xs, int S, int vec,
                                         float acc[BM]) {
 #pragma unroll
@@ -142,7 +114,7 @@ __device__ __forceinline__ void rot_row(const RT* __restrict__ Ri, const float* 
         const RT* h = reinterpret_cast<const RT*>(&w[v]);
 #pragma unroll
         for (int e = 0; e < VEC; ++e) {
-          const float r = round_to<RC>(to_f32(h[e]));
+          const float r = round_to<bf16>(to_f32(h[e]));
           const int jj = j + v * VEC + e;
 #pragma unroll
           for (int m = 0; m < BM; ++m) acc[m] = fmaf(xs[m * S + jj], r, acc[m]);
@@ -151,24 +123,20 @@ __device__ __forceinline__ void rot_row(const RT* __restrict__ Ri, const float* 
     }
   }
   for (; j < S; ++j) {
-    const float r = round_to<RC>(to_f32(Ri[j]));
+    const float r = round_to<bf16>(to_f32(Ri[j]));
 #pragma unroll
     for (int m = 0; m < BM; ++m) acc[m] = fmaf(xs[m * S + j], r, acc[m]);
   }
 }
 
-// What a rotation sums per row: nothing (K11), the unrounded f32 values
-// (K10) or the bf16-rounded ones (K12).
-enum RowSum { NO_SUM = 0, SUM_F32, SUM_BF16 };
-
 // The rows of M_g read by whole warps, coalesced: `lpr` lanes share a row
 // (16 bytes each, lpr = S * sizeof(RT) / 16 dividing 32), RB rows per lane
 // in flight; each lane dots its slice of the row with the staged rows, and
 // the lpr lanes add their parts by shuffles. The row's first lane stores
-// the rounded value and adds to part[m].
-template <typename RT, typename RC, int BM, int SUM, typename Store>
+// the rounded value.
+template <typename RT, int BM, typename Store>
 __device__ __forceinline__ void rotate_rows_warp(const RT* __restrict__ rot_g, const float* xs,
-                                                 Store store, float part[BM], int S, int lpr) {
+                                                 Store store, int S, int lpr) {
   constexpr int VEC = 16 / sizeof(RT);
   constexpr int RB = 8;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -188,7 +156,7 @@ __device__ __forceinline__ void rotate_rows_warp(const RT* __restrict__ rot_g, c
       float rv[VEC];
       const RT* h = reinterpret_cast<const RT*>(&w[r]);
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) rv[e] = round_to<RC>(to_f32(h[e]));
+      for (int e = 0; e < VEC; ++e) rv[e] = round_to<bf16>(to_f32(h[e]));
       float acc[BM];
 #pragma unroll
       for (int m = 0; m < BM; ++m) {
@@ -209,58 +177,40 @@ __device__ __forceinline__ void rotate_rows_warp(const RT* __restrict__ rot_g, c
         for (int m = 0; m < BM; ++m) acc[m] += __shfl_xor_sync(0xffffffffu, acc[m], o);
       if (l == 0 && i < S) {
 #pragma unroll
-        for (int m = 0; m < BM; ++m) {
-          const float v = round_to<bf16>(acc[m]);
-          store(m, i, v);
-          if (SUM != NO_SUM) part[m] += SUM == SUM_F32 ? acc[m] : v;
-        }
+        for (int m = 0; m < BM; ++m) store(m, i, round_to<bf16>(acc[m]));
       }
     }
   }
 }
 
-// store(m, i, bf16(xs[m] . M_g[i])) for the group's S channels; with a row
-// sum, wsum[warp][m] = the warp's part of it (the caller adds the warps).
-// lpr > 0: rows read by warps (rotate_rows_warp); else each thread takes
-// whole rows, read as vectors where `vec`.
-template <typename RT, typename RC, int BM, int SUM, typename Store>
+// store(m, i, bf16(xs[m] . bf16(M_g[i]))) for the group's S channels. lpr >
+// 0: rows read by warps (rotate_rows_warp); else each thread takes whole
+// rows, read as vectors where `vec`.
+template <typename RT, int BM, typename Store>
 __device__ __forceinline__ void rotate_group(const RT* __restrict__ rot_g, const float* xs,
-                                             Store store, float* wsum, int S, int vec, int lpr) {
-  float part[BM];
-#pragma unroll
-  for (int m = 0; m < BM; ++m) part[m] = 0.f;
-  if (lpr > 0) rotate_rows_warp<RT, RC, BM, SUM>(rot_g, xs, store, part, S, lpr);
-  for (int i0 = 0; lpr == 0 && i0 < S; i0 += blockDim.x) {
+                                             Store store, int S, int vec, int lpr) {
+  if (lpr > 0) {
+    rotate_rows_warp<RT, BM>(rot_g, xs, store, S, lpr);
+    return;
+  }
+  for (int i0 = 0; i0 < S; i0 += blockDim.x) {
     const int i = i0 + threadIdx.x;
     if (i >= S) continue;
     float acc[BM];
-    rot_row<RT, RC, BM>(rot_g + (size_t)i * S, xs, S, vec, acc);
+    rot_row<RT, BM>(rot_g + (size_t)i * S, xs, S, vec, acc);
 #pragma unroll
-    for (int m = 0; m < BM; ++m) {
-      const float v = round_to<bf16>(acc[m]);
-      store(m, i, v);
-      if (SUM != NO_SUM) part[m] += SUM == SUM_F32 ? acc[m] : v;
-    }
-  }
-  if (SUM == NO_SUM) return;
-#pragma unroll
-  for (int m = 0; m < BM; ++m) {
-    float p = part[m];
-    for (int o = 16; o > 0; o >>= 1) p += __shfl_xor_sync(0xffffffffu, p, o);
-    if ((threadIdx.x & 31) == 0) wsum[(threadIdx.x >> 5) * BM + m] = p;
+    for (int m = 0; m < BM; ++m) store(m, i, round_to<bf16>(acc[m]));
   }
 }
 
-// Shared memory of K10-K12, byte offsets from the dynamic base.
-//   stage  K11's two weight stages [2][Gb * S/2][TILE] bytes (16-byte aligned, first)
+// Shared memory of K11, byte offsets from the dynamic base.
+//   stage  the two weight stages [2][Gb * S/2][TILE] bytes (16-byte aligned, first)
 //   xr     the rotated rows, bf16 [BM][G][S + 2] (the pad spreads groups over banks)
-//   rsum   the rotation's row sums, f32 [BM][G]
 //   xs     one group of x, f32 [BM][S]
-//   wsum   per-warp row sums, f32 [NWARPS][BM]
 //   red    the tile's partial sums, f32 [NWARPS][BM][TILE]
-//   sz     K11's bf16-rounded scales and zeros of a chunk, f32 [Gb][2][TILE]
+//   sz     the bf16-rounded scales and zeros of a chunk, f32 [Gb][2][TILE]
 struct Smem {
-  size_t stage, xr, rsum, xs, wsum, red, sz, total;
+  size_t stage, xr, xs, red, sz, total;
 };
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) / 16 * 16; }
@@ -269,38 +219,31 @@ __host__ __device__ inline Smem smem_layout(int BM, int G, int S, int Gb) {
   Smem L;
   L.stage = 0;
   L.xr = L.stage + align16((size_t)2 * Gb * (S / 2) * TILE);
-  L.rsum = L.xr + align16((size_t)BM * G * (S + 2) * sizeof(bf16));
-  L.xs = L.rsum + align16((size_t)BM * G * sizeof(float));
-  L.wsum = L.xs + align16((size_t)BM * S * sizeof(float));
-  L.red = L.wsum + align16((size_t)NWARPS * BM * sizeof(float));
+  L.xs = L.xr + align16((size_t)BM * G * (S + 2) * sizeof(bf16));
+  L.red = L.xs + align16((size_t)BM * S * sizeof(float));
   L.sz = L.red + align16((size_t)NWARPS * BM * TILE * sizeof(float));
   L.total = L.sz + align16((size_t)Gb * 2 * TILE * sizeof(float));
   return L;
 }
 
 // The cluster's shared rotation: block rank r rotates groups r, r + CLUSTER,
-// ... of x's rows [m0, m0 + BM) (x rounded through CT, M_g through RC) and
-// writes each bf16 value into every block's xr and, with a row sum, each
-// (row, group) sum into every block's rsum. The caller syncs the cluster
-// before (every block has started) and after (every write has landed).
-template <typename RT, typename CT, typename RC, int BM, int SUM>
+// ... of x's rows [m0, m0 + BM) (x and M_g rounded to bf16) and writes each
+// bf16 value into every block's xr. The caller syncs the cluster before
+// (every block has started) and after (every write has landed).
+template <typename RT, int BM>
 __device__ __forceinline__ void cluster_rotate(const void* x, int x_bf16, const RT* __restrict__ rot,
                                                uint8_t* dsm, const Smem& L, int m0, int nrows,
                                                int I, int S, int vec, int lpr) {
   cg::cluster_group cluster = cg::this_cluster();
   const int G = I / S, LDG = S + 2;
   float* xs = reinterpret_cast<float*>(dsm + L.xs);
-  float* wsum = reinterpret_cast<float*>(dsm + L.wsum);
   bf16* xr_k[CLUSTER];
-  float* rs_k[CLUSTER];
 #pragma unroll
-  for (int k = 0; k < CLUSTER; ++k) {
+  for (int k = 0; k < CLUSTER; ++k)
     xr_k[k] = cluster.map_shared_rank(reinterpret_cast<bf16*>(dsm + L.xr), k);
-    rs_k[k] = cluster.map_shared_rank(reinterpret_cast<float*>(dsm + L.rsum), k);
-  }
   for (int g = (int)cluster.block_rank(); g < G; g += CLUSTER) {
-    __syncthreads();  // the previous group's readers of xs and wsum are done
-    stage_x<CT, BM>(x, x_bf16, xs, m0, nrows, I, S, g);
+    __syncthreads();  // the previous group's readers of xs are done
+    stage_x<BM>(x, x_bf16, xs, m0, nrows, I, S, g);
     __syncthreads();
     auto store = [&](int m, int i, float v) {
       const bf16 b = __float2bfloat16_rn(v);  // exact: v is bf16-rounded
@@ -308,65 +251,7 @@ __device__ __forceinline__ void cluster_rotate(const void* x, int x_bf16, const 
 #pragma unroll
       for (int k = 0; k < CLUSTER; ++k) xr_k[k][idx] = b;
     };
-    rotate_group<RT, RC, BM, SUM>(rot + (size_t)g * S * S, xs, store, wsum, S, vec, lpr);
-    if (SUM != NO_SUM) {
-      __syncthreads();
-      if (threadIdx.x < BM) {
-        float r = 0.f;
-        for (int w = 0; w < NWARPS; ++w) r += wsum[w * BM + threadIdx.x];
-#pragma unroll
-        for (int k = 0; k < CLUSTER; ++k) rs_k[k][threadIdx.x * G + g] = r;
-      }
-    }
-  }
-}
-
-// K10/K12's GEMV: byte-row slice s takes groups s, s + SLICES, ...; per
-// group acc = xr . q (unscaled, GB byte-rows in flight), then
-// tot += (acc - rowsum * z) * s once, as the TPU kernel's epilogue.
-template <int BM>
-__device__ __forceinline__ void gemv_groups(const uint8_t* __restrict__ qw, const bf16* xr,
-                                            const float* rsum, const void* scales,
-                                            const void* zeros, int G, int S, int O, const Tile& t,
-                                            int sdt, int zdt, float tot[BM][4]) {
-  const int HALF = S / 2, LDG = S + 2;
-  for (int g = t.slice; g < G; g += SLICES) {
-    float s4[4], z4[4];
-    load_sz(scales, zeros, g, O, t, sdt, zdt, s4, z4);
-    float acc[BM][4];
-#pragma unroll
-    for (int m = 0; m < BM; ++m)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
-    const bf16* xg = xr + (size_t)g * LDG;
-    for (int k0 = 0; k0 < HALF; k0 += GB) {
-      uchar4 b[GB];
-#pragma unroll
-      for (int r = 0; r < GB; ++r)
-        b[r] = k0 + r < HALF ? byte_row(qw, (size_t)g * HALF + k0 + r, O, t) : make_uchar4(0, 0, 0, 0);
-#pragma unroll
-      for (int r = 0; r < GB; ++r) {
-        const int kk = k0 + r;
-        if (kk >= HALF) break;
-        const float lo[4] = {(float)(b[r].x & 15), (float)(b[r].y & 15), (float)(b[r].z & 15),
-                             (float)(b[r].w & 15)};
-        const float hi[4] = {(float)(b[r].x >> 4), (float)(b[r].y >> 4), (float)(b[r].z >> 4),
-                             (float)(b[r].w >> 4)};
-#pragma unroll
-        for (int m = 0; m < BM; ++m) {
-          const float xa = __bfloat162float(xg[(size_t)m * G * LDG + kk]);
-          const float xb = __bfloat162float(xg[(size_t)m * G * LDG + HALF + kk]);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[m][j] = fmaf(xb, hi[j], fmaf(xa, lo[j], acc[m][j]));
-        }
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < BM; ++m) {
-      const float rs = rsum[m * G + g];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) tot[m][j] += (acc[m][j] - rs * z4[j]) * s4[j];
-    }
+    rotate_group<RT, BM>(rot + (size_t)g * S * S, xs, store, S, vec, lpr);
   }
 }
 
@@ -407,52 +292,6 @@ __device__ __forceinline__ void zero_tot(float tot[BM][4]) {
   for (int m = 0; m < BM; ++m)
 #pragma unroll
     for (int j = 0; j < 4; ++j) tot[m][j] = 0.f;
-}
-
-// ---------------------------------------------------------------------------
-// K10 rot_w4_matmul_b, K12 rot_w4_matmul_v2
-// ---------------------------------------------------------------------------
-
-template <typename RT, int BM>
-__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS) rot_w4_b_kernel(
-    const void* __restrict__ x, const RT* __restrict__ rot, const uint8_t* __restrict__ qw,
-    const void* __restrict__ scales, const void* __restrict__ zeros, void* __restrict__ out,
-    int M, int I, int S, int O, int x_bf16, int sdt, int zdt, int vec, int lpr, int vec4) {
-  extern __shared__ __align__(16) uint8_t dsm[];
-  const int G = I / S, m0 = blockIdx.y * BM, nrows = min(BM, M - m0);
-  const Smem L = smem_layout(BM, G, S, 0);
-  cg::this_cluster().sync();  // every block of the cluster has started
-  // x in rot's dtype; the row sum of the unrounded rotation
-  cluster_rotate<RT, RT, float, BM, SUM_F32>(x, x_bf16, rot, dsm, L, m0, nrows, I, S, vec, lpr);
-  cg::this_cluster().sync();  // every block's rotated rows and sums are in place
-  const Tile t = tile_of(O, vec4);
-  float tot[BM][4];
-  zero_tot<BM>(tot);
-  gemv_groups<BM>(qw, reinterpret_cast<const bf16*>(dsm + L.xr),
-                  reinterpret_cast<const float*>(dsm + L.rsum), scales, zeros, G, S, O, t, sdt,
-                  zdt, tot);
-  store_tile<BM>(tot, reinterpret_cast<float*>(dsm + L.red), out, x_bf16, m0, M, O);
-}
-
-template <typename RT, int BM>
-__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS) rot_w4_v2_kernel(
-    const void* __restrict__ x, const RT* __restrict__ rot, const uint8_t* __restrict__ qw,
-    const void* __restrict__ scales, const void* __restrict__ zeros, float* __restrict__ out,
-    int M, int I, int S, int O, int x_bf16, int sdt, int zdt, int vec, int lpr, int vec4) {
-  extern __shared__ __align__(16) uint8_t dsm[];
-  const int G = I / S, m0 = blockIdx.y * BM, nrows = min(BM, M - m0);
-  const Smem L = smem_layout(BM, G, S, 0);
-  cg::this_cluster().sync();
-  // f32(x), not rounded; the row sum of the bf16-rounded rotation
-  cluster_rotate<RT, float, float, BM, SUM_BF16>(x, x_bf16, rot, dsm, L, m0, nrows, I, S, vec, lpr);
-  cg::this_cluster().sync();
-  const Tile t = tile_of(O, vec4);
-  float tot[BM][4];
-  zero_tot<BM>(tot);
-  gemv_groups<BM>(qw, reinterpret_cast<const bf16*>(dsm + L.xr),
-                  reinterpret_cast<const float*>(dsm + L.rsum), scales, zeros, G, S, O, t, sdt,
-                  zdt, tot);
-  store_tile<BM>(tot, reinterpret_cast<float*>(dsm + L.red), out, 0, m0, M, O);
 }
 
 // ---------------------------------------------------------------------------
@@ -498,7 +337,7 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS) dma_r
   copy_chunk(stage, qw, 0, rows, O, async16);  // in flight through the rotation
   cp_async_commit();
   cg::this_cluster().sync();
-  cluster_rotate<RT, bf16, bf16, BM, NO_SUM>(x, x_bf16, rot, dsm, L, m0, nrows, I, S, vec, lpr);
+  cluster_rotate<RT, BM>(x, x_bf16, rot, dsm, L, m0, nrows, I, S, vec, lpr);
   cg::this_cluster().sync();
 
   float tot[BM][4];
@@ -706,64 +545,6 @@ int cluster_tiles(int O) {
   return (n + CLUSTER - 1) / CLUSTER * CLUSTER;
 }
 
-template <typename RT, int BM>
-cudaError_t launch_fused(int v2, const void* x, const void* rot, const void* qw, const void* scales,
-                         const void* zeros, void* out, int M, int I, int S, int O, int x_bf16,
-                         int sdt, int zdt, int vec4, cudaStream_t st) {
-  const int vec = (S * sizeof(RT)) % 16 == 0 && (uintptr_t)rot % 16 == 0;
-  const int lpr = warp_lanes<RT>(S, vec);
-  const size_t smem = smem_layout(BM, I / S, S, 0).total;
-  const dim3 grid(cluster_tiles(O), (M + BM - 1) / BM);
-  cudaError_t err;
-  if (v2) {
-    err = allow_smem(rot_w4_v2_kernel<RT, BM>, smem);
-    if (err != cudaSuccess) return err;
-    rot_w4_v2_kernel<RT, BM><<<grid, THREADS, smem, st>>>(
-        x, (const RT*)rot, (const uint8_t*)qw, scales, zeros, (float*)out, M, I, S, O, x_bf16, sdt,
-        zdt, vec, lpr, vec4);
-  } else {
-    err = allow_smem(rot_w4_b_kernel<RT, BM>, smem);
-    if (err != cudaSuccess) return err;
-    rot_w4_b_kernel<RT, BM><<<grid, THREADS, smem, st>>>(
-        x, (const RT*)rot, (const uint8_t*)qw, scales, zeros, out, M, I, S, O, x_bf16, sdt, zdt,
-        vec, lpr, vec4);
-  }
-  return cudaGetLastError();
-}
-
-// One row needs no padding rows: a block carries min(M, block_m) rows.
-int fused_rows(int M, int block_m) { return M == 1 ? 1 : block_m; }
-
-template <typename RT>
-cudaError_t dispatch_fused(int v2, const void* x, const void* rot, const void* qw,
-                           const void* scales, const void* zeros, void* out, int M, int I, int S,
-                           int O, int block_m, int x_bf16, int sdt, int zdt, int vec4,
-                           cudaStream_t st) {
-  switch (fused_rows(M, block_m)) {
-    case 1:
-      return launch_fused<RT, 1>(v2, x, rot, qw, scales, zeros, out, M, I, S, O, x_bf16, sdt, zdt, vec4, st);
-    case 8:
-      return launch_fused<RT, 8>(v2, x, rot, qw, scales, zeros, out, M, I, S, O, x_bf16, sdt, zdt, vec4, st);
-    default:
-      return launch_fused<RT, 16>(v2, x, rot, qw, scales, zeros, out, M, I, S, O, x_bf16, sdt, zdt, vec4, st);
-  }
-}
-
-int fused_entry(int v2, const void* x, const void* rot, const void* qweight, const void* scales,
-                const void* zeros, void* out, int M, int I, int S, int O, int block_m, int x_bf16,
-                int rot_bf16, int sdt, int zdt, void* stream) {
-  if (bad_layout(M, I, S, 1, sdt, zdt) || O < 1 || (block_m != 8 && block_m != 16) ||
-      smem_layout(fused_rows(M, block_m), I / S, S, 0).total > MAX_SMEM)
-    return (int)cudaErrorInvalidValue;
-  const int vec4 = O % 4 == 0 && (uintptr_t)qweight % 4 == 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (rot_bf16)
-    return (int)dispatch_fused<bf16>(v2, x, rot, qweight, scales, zeros, out, M, I, S, O, block_m,
-                                     x_bf16, sdt, zdt, vec4, st);
-  return (int)dispatch_fused<float>(v2, x, rot, qweight, scales, zeros, out, M, I, S, O, block_m,
-                                    x_bf16, sdt, zdt, vec4, st);
-}
-
 int dma_rows(int M) { return M == 1 ? 1 : 8; }
 
 template <typename RT, int BM>
@@ -795,23 +576,29 @@ cudaError_t dispatch_dma(const void* x, const void* rot, const void* qw, const v
 
 // K10. x [M, I] (f32 or bf16), rot [G, S, S] (f32 or bf16), qweight u8
 // [I/2, O] half-split, scales/zeros [G, O] of dtype codes sdt/zdt (0 f32,
-// 1 bf16, 2 f16, 3 uint8), out [M, O] in x's dtype; block_m 8 or 16.
-// Returns the first CUDA error (0 on success). Launches on `stream`, no sync.
+// 1 bf16, 2 f16, 3 uint8), out [M, O] in x's dtype; KS group splits and
+// column tiles of cw * 128 columns (cw 1, 2 or 4), the scratch partial
+// f32 [KS, M, O] (KS > 1) and counters int32, one per (column tile, row
+// tile of one_launch.cuh's row_tile(M, S) rows), zero and left zero: the
+// limits of one::call. Returns the first CUDA error (0 on success). Launches
+// on `stream`, no sync.
 extern "C" int paro_rot_w4_matmul_b(const void* x, const void* rot, const void* qweight,
-                                    const void* scales, const void* zeros, void* out, int M, int I,
-                                    int S, int O, int block_m, int x_bf16, int rot_bf16, int sdt,
-                                    int zdt, void* stream) {
-  return fused_entry(0, x, rot, qweight, scales, zeros, out, M, I, S, O, block_m, x_bf16, rot_bf16,
-                     sdt, zdt, stream);
+                                    const void* scales, const void* zeros, void* out,
+                                    void* partial, void* counters, int M, int I, int S, int O,
+                                    int KS, int cw, int x_bf16, int rot_bf16, int sdt, int zdt,
+                                    void* stream) {
+  return (int)one::call<one::B>(x, rot, qweight, scales, zeros, out, partial, counters, M, I, S, 1,
+                                &O, KS, cw, x_bf16, rot_bf16, sdt, zdt, (cudaStream_t)stream);
 }
 
 // K12: K10's operands, out f32 [M, O].
 extern "C" int paro_rot_w4_matmul_v2(const void* x, const void* rot, const void* qweight,
-                                     const void* scales, const void* zeros, void* out, int M, int I,
-                                     int S, int O, int block_m, int x_bf16, int rot_bf16, int sdt,
-                                     int zdt, void* stream) {
-  return fused_entry(1, x, rot, qweight, scales, zeros, out, M, I, S, O, block_m, x_bf16, rot_bf16,
-                     sdt, zdt, stream);
+                                     const void* scales, const void* zeros, void* out,
+                                     void* partial, void* counters, int M, int I, int S, int O,
+                                     int KS, int cw, int x_bf16, int rot_bf16, int sdt, int zdt,
+                                     void* stream) {
+  return (int)one::call<one::V2>(x, rot, qweight, scales, zeros, out, partial, counters, M, I, S,
+                                 1, &O, KS, cw, x_bf16, rot_bf16, sdt, zdt, (cudaStream_t)stream);
 }
 
 // K11: K10's operands (s and z rounded to bf16 in the kernel), Gb groups per

@@ -16,7 +16,7 @@ Port of the kernels of four TPU experiment scripts (x [M, I]; rot M_g
           out  = sum over chunks c of xr_c @ w_c in f32, in x's dtype.
         G must be a multiple of Gb (the JAX kernel drops the last G mod Gb
         groups; the port refuses them).
-    K12 rot_w4_matmul_v2 (`scripts/kernel_tune.py`), block_m rows per block:
+    K12 rot_w4_matmul_v2 (`scripts/kernel_tune.py`):
           xr_g = bf16(f32(x_g) @ f32(M_g)^T)
           out  = sum_g (xr_g @ q_g - rowsum(xr_g) * z_g) * s_g   in float32
         whatever x's dtype.
@@ -26,6 +26,10 @@ Port of the kernels of four TPU experiment scripts (x [M, I]; rot M_g
           out = sum_g (xq . q_g - sum(xq) * z_g) * (s_g * sx)
         with xq . q_g exact in int32, (s_g * sx) formed first, and the sum
         over g taken in order in f32; out in x's dtype.
+
+On the card K10 and K12 are variants of K1's one-launch kernel
+(csrc/one_launch.cuh): one launch a call, its group splits and column tile
+chosen from shapes alone by `one_launch_plan`.
 
 Scales and zeros come in float32, bfloat16, float16 or uint8. A wrapper
 launches the CUDA kernel for tensors on a CUDA device and runs the plain
@@ -41,11 +45,14 @@ import ctypes
 import torch
 
 from .build import load
-from .rot_matmul import SZ_CODES, _check_operands, _raise_on, _unpack_groups
+from .rot_matmul import (BLOCKS_PER_SM, COLS_PER_TILE, ONE_LAUNCH_MAX_GROUPS,
+                         ONE_LAUNCH_SZ_FLOATS, ONE_LAUNCH_TILES, ONE_LAUNCH_X_FLOATS, SZ_CODES,
+                         _check_operands, _counters, _group_splits, _raise_on, _sm_count,
+                         _unpack_groups, one_launch_row_tile)
 
 KERNELS = ("rot_w4_matmul_b", "dma_rot_w4_matmul", "rot_w4_matmul_v2", "w4a8_matmul")
 launch_counts = {name: 0 for name in KERNELS}
-BLOCK_MS = (8, 16)  # K10/K12: the rows one block carries (one where M = 1)
+BLOCK_MS = (8, 16)  # K10/K12: the JAX scripts' rows per block (see one_launch_plan)
 DMA_ROWS = 8  # K11: the rows one block carries (one where M = 1)
 MAX_SMEM_BYTES = 227 * 1024  # shared memory a block can use on the H100
 
@@ -139,9 +146,9 @@ def w4a8_matmul_plain(x, qweight, scales, zeros, *, group_size: int = 128) -> to
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {  # entry point: argument types (all in csrc/w4_experiments.cu)
-    "paro_rot_w4_matmul_b": [_P] * 6 + [_I] * 9,
+    "paro_rot_w4_matmul_b": [_P] * 8 + [_I] * 10,
     "paro_dma_rot_w4_matmul": [_P] * 6 + [_I] * 9,
-    "paro_rot_w4_matmul_v2": [_P] * 6 + [_I] * 9,
+    "paro_rot_w4_matmul_v2": [_P] * 8 + [_I] * 10,
     "paro_w4a8_matmul": [_P] * 5 + [_I] * 7,
 }
 _fns: dict[str, object] = {}
@@ -171,31 +178,91 @@ def _align16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def _smem_bytes(bm: int, G: int, S: int, Gb: int = 0) -> int:
-    """K10-K12's shared memory per block (`smem_layout` in the CUDA source):
-    K11's two weight stages, the rotated rows in bf16, their row sums, one
-    group of x, per-warp sums, the tile's partials, K11's scales and zeros."""
+def _smem_bytes(bm: int, G: int, S: int, Gb: int) -> int:
+    """K11's shared memory per block (`smem_layout` in the CUDA source): its
+    two weight stages, the rotated rows in bf16, one group of x, the tile's
+    partials, the chunk's scales and zeros."""
     return sum(_align16(n) for n in (
-        2 * Gb * (S // 2) * 32, bm * G * (S + 2) * 2, bm * G * 4, bm * S * 4, 8 * bm * 4,
-        8 * bm * 32 * 4, Gb * 2 * 32 * 4))
+        2 * Gb * (S // 2) * 32, bm * G * (S + 2) * 2, bm * S * 4, 8 * bm * 32 * 4, Gb * 2 * 32 * 4))
+
+
+def _row_tile(M: int, S: int) -> int:
+    """Rows per block of K10/K12 (`row_tile` in csrc/one_launch.cuh): K1's
+    row tile for M (1, 2, 4 or 8), halved while one group of that many rows
+    exceeds ONE_LAUNCH_X_FLOATS."""
+    mt = one_launch_row_tile(M)
+    while mt > 1 and mt * S > ONE_LAUNCH_X_FLOATS:
+        mt //= 2
+    return mt
+
+
+def _one_launch_smem(mt: int, S: int, gps: int, tile: int) -> int:
+    """K10/K12's shared memory per block (`layout` in csrc/one_launch.cuh):
+    the 8 x 4 KB weight ring, then x and xr, the scales and zeros and the
+    row sums in floats; the warps' sums reuse it."""
+    a4 = lambda n: (n + 3) & ~3
+    body = 8 * 4096 + 4 * (2 * a4(gps * mt * S) + 2 * gps * tile + a4(gps * mt))
+    return max(body, 4 * 8 * mt * 128)
+
+
+def one_launch_plan(M: int, I: int, S: int, O: int, sms: int) -> tuple[int, int, int]:
+    """K10/K12's launch on a card of `sms` SMs, from shapes alone: (KS group
+    splits, column-tile width, rows per block).
+
+    Rows per block: `_row_tile(M, S)`. Where one wave of BLOCKS_PER_SM
+    blocks an SM can hold the grid, the tile of 128, 256 or 512 columns
+    whose most splits that fit the wave leave the fewest groups a block (at
+    most min(16, 4096 // (rows * S), 2048 // tile)), the narrower on a tie:
+    every block rotates its own groups, and at 4096 x 4096 one group a block
+    (512 columns, 32 splits, M <= 8) took the least time of the splits and
+    tiles tried on an H100 (PERF.md §6). Otherwise 128-column tiles and as many splits as fill two
+    blocks an SM, each of at most that many groups (one where a group of
+    that many rows exceeds 4096 floats), past one wave: the split merge
+    never waits on another block. Every split holds at least one group.
+    Raises ValueError where one group does not fit a block's shared memory
+    (S above about 24,000 channels)."""
+    mt = _row_tile(M, S)
+    G, rows, wave = I // S, -(-M // mt), BLOCKS_PER_SM * sms
+    gmax = lambda tile: max(1, min(ONE_LAUNCH_MAX_GROUPS, ONE_LAUNCH_X_FLOATS // (mt * S),
+                                   ONE_LAUNCH_SZ_FLOATS // tile))
+    best = None
+    for tile in ONE_LAUNCH_TILES:
+        ks = min(G, wave // (-(-O // tile) * rows))
+        if ks < 1 or -(-G // ks) > gmax(tile):
+            continue
+        gps = -(-G // ks)
+        if best is None or gps < best[0]:
+            best = (gps, -(-G // gps), tile)
+    if best is None:
+        tile = COLS_PER_TILE
+        ks = _group_splits(-(-O // tile), rows, G, sms, gmax(tile))
+        best = (-(-G // ks), ks, tile)
+    gps, ks, tile = best
+    if _one_launch_smem(mt, S, gps, tile) > MAX_SMEM_BYTES:
+        raise ValueError(f"a group of {S} channels does not fit one block's shared memory")
+    return ks, tile, mt
 
 
 def _launch_fused(name, entry, x, rot, qweight, scales, zeros, block_m, out_dtype):
-    """K10 / K12 on the card: x and the rotated rows staged per group."""
+    """K10 / K12 on the card: one launch of the one-launch kernel's variant."""
     M, I = x.shape
     G, S, _ = rot.shape
     O = qweight.shape[1]
     _check_rot(rot, G, S)
     if block_m not in BLOCK_MS:
         raise ValueError(f"block_m must be one of {BLOCK_MS}, got {block_m}")
-    if _smem_bytes(1 if M == 1 else block_m, G, S) > MAX_SMEM_BYTES:
-        raise ValueError(f"{G} groups of {S} channels at block_m {block_m} do not fit shared memory")
     x, qweight, scales, zeros, (rot,) = _check_operands(x, qweight, scales, zeros, S, G, (rot,))
-    out = torch.empty((M, O), dtype=out_dtype or x.dtype, device=x.device)
-    err = _lib_fn(entry)(
+    fn = _lib_fn(entry)  # before the device is queried
+    dev = x.device
+    KS, tile, mt = one_launch_plan(M, I, S, O, _sm_count(dev))
+    out = torch.empty((M, O), dtype=out_dtype or x.dtype, device=dev)
+    partial = torch.empty((KS, M, O) if KS > 1 else (0,), dtype=F32, device=dev)
+    counters = _counters(-(-O // tile) * -(-M // mt), dev) if KS > 1 else partial
+    err = fn(
         x.data_ptr(), rot.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
-        out.data_ptr(), M, I, S, O, block_m, int(x.dtype == BF16), int(rot.dtype == BF16),
-        SZ_CODES[scales.dtype], SZ_CODES[zeros.dtype], _stream(x.device))
+        out.data_ptr(), partial.data_ptr(), counters.data_ptr(), M, I, S, O, KS,
+        tile // COLS_PER_TILE, int(x.dtype == BF16), int(rot.dtype == BF16),
+        SZ_CODES[scales.dtype], SZ_CODES[zeros.dtype], _stream(dev))
     _raise_on(err, name)
     launch_counts[name] += 1
     return out
@@ -208,8 +275,11 @@ def _launch_fused(name, entry, x, rot, qweight, scales, zeros, block_m, out_dtyp
 
 def rot_w4_matmul_b(x, rot, qweight, scales, zeros, *, block_m: int = 16) -> torch.Tensor:
     """K10: x [M, I]; rot [G, S, S]; qweight uint8 [I//2, O]; scales, zeros
-    [G, O] -> [M, O] in x.dtype. block_m (8 or 16) is the rows a block
-    carries on the card; on the CPU it changes nothing."""
+    [G, O] -> [M, O] in x.dtype. block_m (8 or 16), the JAX script's rows
+    per block, is checked and changes nothing: on the card a block carries
+    `_row_tile(M, S)` rows (M = 1: one; M 9-16 and block_m 16's
+    sixteen rows: two row tiles of 8 in the one launch; M > 16: ceil(M / 8)
+    row tiles), on the CPU the plain version runs."""
     if x.device.type == "cpu":
         return rot_w4_matmul_b_plain(x, rot, qweight, scales, zeros)
     return _launch_fused("rot_w4_matmul_b", "paro_rot_w4_matmul_b", x, rot, qweight, scales,
@@ -241,8 +311,8 @@ def dma_rot_w4_matmul(x, rot, qweight, scales, zeros, *, Gb: int = 4) -> torch.T
 
 def rot_w4_matmul_v2(x, rot, qweight, scales_f16, zeros_u8, *, block_m: int = 8) -> torch.Tensor:
     """K12: K10's operands (scales and zeros in any of the four dtypes,
-    whatever their names say) -> float32 [M, O]. block_m (8 or 16) is the
-    rows a block carries on the card. The JAX kernel's `semantics` flag, a
+    whatever their names say) -> float32 [M, O]. block_m (8 or 16) is
+    checked and changes nothing, as K10's. The JAX kernel's `semantics` flag, a
     Mosaic `dimension_semantics` hint for the TPU's grid, has no
     counterpart on the card and is not taken."""
     if x.device.type == "cpu":

@@ -1,0 +1,196 @@
+"""Where a one-launch W4 call's time goes, phase by phase, on the card.
+
+    python -m paroquant_tpu_torch.scripts.one_launch_phases [--kernel k10] [--M 1] [--I 4096] [--O 4096] [--reps 9]
+
+Builds a copy of `kernels/csrc/one_launch.cuh` in which thread 0 of every
+block writes `%globaltimer` (ns) at the end of each phase of
+`rot_w4_one_launch_kernel` into a device array, with one `extern "C"` entry
+for the three variants (K1's one launch, K10, K12), into the build
+directory. At the given shape, with random weights from a seeded
+`torch.Generator`, it runs one call after an L2 flush `reps` times and
+prints for each phase the median over repetitions of the median over blocks
+of the time since the first block started at which the phase ended, and
+the latest block's end; beside them the kernel's own time (the wrapper, no
+stamps, `utils/profiling.py::kernel_time_ms`, the same flush). Phases: x
+staged, rotation, row sums, dot (the ring consumed), partial written,
+counter, end (the merging block's last store; none with one split). The
+stamps cost a few global stores a block. A change to the kernel that moves
+an anchor the stamps go after fails here (`instrumented_source`), not
+silently; the CPU tests check the anchors.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import json
+import subprocess
+
+import torch
+
+from ..kernels import build, rot_matmul as rm, w4_experiments as wx
+from ..utils.device import resolve_device
+from ..utils.profiling import kernel_time_ms
+
+PHASES = ("x", "rotation", "row_sums", "dot", "partial", "counter", "end")
+VARIANTS = {"k1": 0, "k10": 1, "k12": 2}  # one::Variant
+MAX_BLOCKS = 16384
+FLUSH_BYTES = 256 << 20  # > the 50 MB L2
+
+# (text of the kernel, the same text with the stamp of a phase's end in it)
+STAMPS = (
+    ("  __shared__ int last;\n", "  __shared__ int last;\n  PHASE_STAMP(7);\n"),  # the block's start
+    ("  if (MT >= 8 || !K1_ORDER) store_sz(0);\n  __syncthreads();\n",
+     "  if (MT >= 8 || !K1_ORDER) store_sz(0);\n  __syncthreads();\n  PHASE_STAMP(0);\n"),
+    ("    store_sz(k0);\n  }\n  __syncthreads();\n",
+     "    store_sz(k0);\n  }\n  __syncthreads();\n  PHASE_STAMP(1);\n"),
+    ("    if (lane == 0) rsum[e] = s;\n  }\n", "    if (lane == 0) rsum[e] = s;\n  }\n  PHASE_STAMP(2);\n"),
+    ("  cp_async_wait<0>();\n", "  cp_async_wait<0>();\n  PHASE_STAMP(3);\n"),
+    ("  if (KS == 1) return;\n", "  PHASE_STAMP(4);\n  if (KS == 1) return;\n"),
+    ("  __syncthreads();\n  if (!last) return;\n", "  __syncthreads();\n  PHASE_STAMP(5);\n  if (!last) return;\n"),
+    # the merge's last stores, in each of its three branches
+    ("    out[(size_t)(m0 + m) * O + col] = from_f32<OT>(v);\n    return;\n",
+     "    out[(size_t)(m0 + m) * O + col] = from_f32<OT>(v);\n    PHASE_STAMP(6);\n    return;\n"),
+    ("    out[(size_t)m0 * O + col + 1] = from_f32<OT>(v.y);\n    return;\n",
+     "    out[(size_t)m0 * O + col + 1] = from_f32<OT>(v.y);\n    PHASE_STAMP(6);\n    return;\n"),
+    ("    store4(m, col, v);\n  }\n}\n", "    store4(m, col, v);\n  }\n  PHASE_STAMP(6);\n}\n"),
+)
+PRELUDE = """
+__device__ unsigned long long g_phase_stamps[%d * 8];
+#define PHASE_STAMP(k) do { if (threadIdx.x == 0) { unsigned long long t_; \\
+  asm volatile("mov.u64 %%0, %%%%globaltimer;" : "=l"(t_)); \\
+  g_phase_stamps[((blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) * 8 + (k)] = t_; \\
+  } } while (0)
+""" % MAX_BLOCKS
+ENTRY = """
+using namespace paro;
+extern "C" int phases_call(int var, const void* x, const void* rot, const void* qweight,
+                           const void* scales, const void* zeros, void* out, void* partial,
+                           void* counters, int M, int I, int S, int O, int KS, int cw, int x_bf16,
+                           int rot_bf16, int sdt, int zdt, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (var == one::K1)
+    return (int)one::call<one::K1>(x, rot, qweight, scales, zeros, out, partial, counters, M, I, S,
+                                   1, &O, KS, cw, x_bf16, rot_bf16, sdt, zdt, st);
+  if (var == one::B)
+    return (int)one::call<one::B>(x, rot, qweight, scales, zeros, out, partial, counters, M, I, S,
+                                  1, &O, KS, cw, x_bf16, rot_bf16, sdt, zdt, st);
+  return (int)one::call<one::V2>(x, rot, qweight, scales, zeros, out, partial, counters, M, I, S, 1,
+                                 &O, KS, cw, x_bf16, rot_bf16, sdt, zdt, st);
+}
+extern "C" int phases_read(void* dst, int n) {
+  return (int)cudaMemcpyFromSymbol(dst, g_phase_stamps, (size_t)n * 8);
+}
+extern "C" int phases_clear() {
+  static unsigned long long zero[%d * 8];
+  return (int)cudaMemcpyToSymbol(g_phase_stamps, zero, sizeof(zero));
+}
+""" % MAX_BLOCKS
+
+
+def instrumented_source() -> str:
+    """one_launch.cuh with the stamps (each anchor found once) and an
+    `extern "C"` entry; raises if the kernel no longer has an anchor."""
+    src = (build.CSRC / "one_launch.cuh").read_text()
+    src = src.replace('#include "w4_passes.cuh"\n', '#include "w4_passes.cuh"\n' + PRELUDE, 1)
+    for old, new in STAMPS:
+        if src.count(old) != 1:
+            raise RuntimeError(f"one_launch.cuh no longer has the anchor {old!r}")
+        src = src.replace(old, new)
+    return src + ENTRY
+
+
+def _library() -> ctypes.CDLL:
+    src = instrumented_source()
+    h = hashlib.sha256((src + " ".join(build.NVCC_FLAGS)).encode()).hexdigest()[:16]
+    out_dir = build.BUILD_ROOT / "phases" / h
+    lib = out_dir / "libone_launch_phases.so"
+    if not lib.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / "one_launch_phases.cu").write_text(src)
+        subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", str(lib),
+                        str(out_dir / "one_launch_phases.cu")], check=True, capture_output=True)
+    dll = ctypes.CDLL(str(lib))
+    dll.phases_call.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    dll.phases_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    return dll
+
+
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+
+
+def main(argv=None) -> list[dict]:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=list(VARIANTS), default="k10")
+    ap.add_argument("--M", type=int, default=1)
+    ap.add_argument("--I", type=int, default=4096)
+    ap.add_argument("--O", type=int, default=4096)
+    ap.add_argument("--S", type=int, default=128)
+    ap.add_argument("--reps", type=int, default=9)
+    args = ap.parse_args(argv)
+    dev = resolve_device("cuda")  # the phases are stamped on the card only
+    M, I, S, O = args.M, args.I, args.S, args.O
+    G = I // S
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf = torch.bfloat16
+    x = torch.randn(M, I, generator=gen, device=dev).to(bf)
+    rot = (torch.randn(G, S, S, generator=gen, device=dev) / S**0.5).to(bf)
+    qw = torch.randint(0, 256, (I // 2, O), generator=gen, device=dev, dtype=torch.int32).to(torch.uint8)
+    scales = (torch.rand(G, O, generator=gen, device=dev) * 0.04 + 0.01).to(bf)
+    zeros = torch.randint(0, 16, (G, O), generator=gen, device=dev).to(bf)
+    sms = rm._sm_count(dev)
+    if args.kernel == "k1":
+        route, KS, tile = rm.rot_route(M, I, S, (O,), False, bf, sms)
+        if route != "one_launch":
+            raise SystemExit(f"K1 takes the passes at M={M}, I={I}, S={S}, O={O}")
+        rows = rm.one_launch_row_tile(M)
+        call = lambda: rm.rot_w4_matmul(x, rot, qw, scales, zeros)
+    else:
+        KS, tile, rows = wx.one_launch_plan(M, I, S, O, sms)
+        fn = wx.rot_w4_matmul_b if args.kernel == "k10" else wx.rot_w4_matmul_v2
+        call = lambda: fn(x, rot, qw, scales, zeros)
+    lib = _library()
+    n = -(-O // tile) * KS * -(-M // rows)
+    if n > MAX_BLOCKS:
+        raise SystemExit(f"{n} blocks: at most {MAX_BLOCKS} are stamped")
+    out = torch.empty((M, O), dtype=torch.float32 if args.kernel == "k12" else bf, device=dev)
+    partial = torch.empty((KS, M, O) if KS > 1 else (0,), dtype=torch.float32, device=dev)
+    counters = rm._counters(-(-O // tile) * -(-M // rows), dev)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    per_rep = []
+    for _ in range(args.reps):
+        lib.phases_clear()
+        flush.zero_()
+        torch.cuda.synchronize()
+        err = lib.phases_call(VARIANTS[args.kernel], x.data_ptr(), rot.data_ptr(), qw.data_ptr(),
+                              scales.data_ptr(), zeros.data_ptr(), out.data_ptr(), partial.data_ptr(),
+                              counters.data_ptr(), M, I, S, O, KS, tile // rm.COLS_PER_TILE, 1, 1, 1, 1,
+                              stream)
+        torch.cuda.synchronize()
+        if err:
+            raise RuntimeError(f"the stamped kernel failed with CUDA error {err}")
+        buf = (ctypes.c_uint64 * (n * 8))()
+        lib.phases_read(buf, n * 8)
+        t = torch.tensor(list(buf), dtype=torch.float64).reshape(n, 8)
+        rel = (t - t[:, 7].min()) / 1e3  # µs since the first block started
+        rel[t == 0] = float("nan")  # phases a block did not reach (the merge: one block a tile)
+        per_rep.append([rel[:, k].nanmedian().item() for k in range(7)]
+                       + [torch.nan_to_num(rel[:, 6], nan=-1.0).max().item()])
+    med = torch.tensor(per_rep).median(0).values.tolist()
+    us = kernel_time_ms(call, 30, flush) * 1e3
+    row = {"kernel": args.kernel, "M": M, "I": I, "O": O, "S": S, "KS": KS, "tile": tile,
+           "rows_per_block": rows, "blocks": n, "us": us,
+           "phase_end_us": dict(zip(PHASES, med[:7])), "last_end_us": med[7],
+           "device": torch.cuda.get_device_name(dev), "card": _card()}
+    print(json.dumps(row), flush=True)
+    return [row]
+
+
+if __name__ == "__main__":
+    main()

@@ -28,7 +28,7 @@ EXPERIMENT_MODULES = (
     "paroquant_tpu_torch.scripts.kernel_dma_pipeline", "paroquant_tpu_torch.scripts.kernel_tune",
     "paroquant_tpu_torch.scripts.kernel_w4a8_exp", "paroquant_tpu_torch.kernels.int8_probe",
     "paroquant_tpu_torch.scripts.kernel_int8_probe", "paroquant_tpu_torch.kernels.unpack_exp",
-    "paroquant_tpu_torch.scripts.kernel_unpack_exp",
+    "paroquant_tpu_torch.scripts.kernel_unpack_exp", "paroquant_tpu_torch.scripts.one_launch_phases",
 )
 
 
@@ -66,7 +66,7 @@ def _entry_points():
     from paroquant_tpu_torch.experiments import plot_kernel_speedup
     from paroquant_tpu_torch.scripts import (kernel_bench3, kernel_bench4, kernel_dma_pipeline,
                                              kernel_edge_test, kernel_int8_probe, kernel_tune,
-                                             kernel_unpack_exp, kernel_w4a8_exp)
+                                             kernel_unpack_exp, kernel_w4a8_exp, one_launch_phases)
     from paroquant_tpu_torch.serve import Engine, Generator, PagedKVCache
     from paroquant_tpu_torch.utils.device import resolve_device
     from paroquant_tpu_torch.kernels.attention import flash_key_groups
@@ -99,6 +99,7 @@ def _entry_points():
         "kernel_w4a8_exp.main": lambda: kernel_w4a8_exp.main(),
         "kernel_int8_probe.main": lambda: kernel_int8_probe.main(),
         "kernel_unpack_exp.main": lambda: kernel_unpack_exp.main(),
+        "one_launch_phases.main": lambda: one_launch_phases.main([]),
     }
 
 
@@ -109,7 +110,8 @@ def _entry_points():
      "profile_paged_decode", "kernel_bench3.main", "kernel_bench4.main",
      "plot_kernel_speedup.main", "w4_i4_from_jax", "kernel_time_ms", "kernel_edge_test.main",
      "kernel_dma_pipeline.main", "kernel_tune.main", "kernel_w4a8_exp.main",
-     "kernel_int8_probe.main", "kernel_unpack_exp.main", "profile_prefill", "flash_key_groups"],
+     "kernel_int8_probe.main", "kernel_unpack_exp.main", "profile_prefill", "flash_key_groups",
+     "one_launch_phases.main"],
 )
 def test_cuda_default_raises_without_cuda(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

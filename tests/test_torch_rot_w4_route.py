@@ -12,19 +12,18 @@ torch: each block rotates its own groups, xr_g = bf16(round_rot(x_g) @
 M_{p,g}^T), adds (xr_g . (q_g s_g) - rowsum(xr_g) z_g s_g) over its split's
 groups into an f32 partial, and the partials are summed in split order.
 The model is held against JAX's rot_w4_matmul / merged_rot_w4_matmul in
-Pallas interpret mode, on inputs made from a numpy seed, at the route's
-split count and at one and two groups a split. x takes multiples of 1/4 in
-[-4, 4] and the rotation multiples of 1/8 in [-1/2, 1/2]: both are exact in
-bf16 and every sum of their products is exact in f32, so x @ M^T rounds to
-the same bf16 whatever order the f32 sums take. (With Gaussian draws the
-port's plain version, too, misses 1e-5 x max |y| against the Pallas kernel
-at a few of these inputs: XLA's dot and torch's sum in other orders, and an
-activation at a bf16 rounding boundary then rounds the other way.)
+Pallas interpret mode, on Gaussian inputs made from a numpy seed, at the
+route's split count and at one and two groups a split. The model also
+takes K10's and K12's switches (tests/test_torch_w4_experiments.py holds
+those against the JAX scripts' kernels).
 
-Tolerance: 1e-5 x max |y| (only the order of f32 sums differs), as
-tests/test_torch_w4_layouts.py states for K1/K2; where x is bf16 the output
-is bf16 in both, and a different f32 sum may round it one bf16 ulp the
-other way, so there the bound adds 2**-7 |y| elementwise.
+Tolerance: `rot_tolerance` (tests/test_torch_rot_w4_flips.py): 1e-5 x max
+|y| for f32 sums in another order, plus one bf16 ulp of each rotated
+activation whose exact value lies within the f32 sums' error bound of a
+bf16 rounding midpoint, times its coefficient |(q - z) s| in the output;
+where x is bf16 the output is bf16 in both, and a different f32 sum may
+round it one bf16 ulp the other way, so there the bound adds 2**-7 |y|
+elementwise.
 """
 
 import jax.numpy as jnp
@@ -34,6 +33,7 @@ import torch
 
 from paroquant_tpu.kernels import rot_matmul as jk
 from paroquant_tpu_torch.kernels import rot_matmul as tk
+from test_torch_rot_w4_flips import rot_tolerance
 
 SMS = 132  # an H100 SXM's SMs
 QWEN3_DECODE = {  # Qwen3-0.6B's decode linears: I, out_splits
@@ -113,16 +113,18 @@ def test_route_refuses_other_rot_dtypes():
 # ---------------------------------------------------------------------------
 
 
-def one_launch_model(x, rot, qweight, scales, zeros, out_splits, KS):
+def one_launch_model(x, rot, qweight, scales, zeros, out_splits, KS, variant="k1"):
     """The one-launch kernel's arithmetic in torch: per block (partition p,
-    split ks) xr_g = bf16(round_rot(x_g) @ rot[p, g]^T) for its groups, an
-    f32 partial sum_g xr_g @ (q_g s_g) - rowsum(xr_g) z_g s_g, and the KS
-    partials summed in split order. Returns f32 [M, O]."""
+    split ks) xr_g = bf16(x_g @ rot[p, g]^T) for its groups, an f32 partial
+    sum_g xr_g @ (q_g s_g) - rowsum_g z_g s_g, and the KS partials summed in
+    split order. Returns f32 [M, O]. variant "k1" (K1/K2: x rounded to rot's
+    dtype, rowsum of the bf16 xr), "b" (K10: the rowsum of the f32 xr) or
+    "v2" (K12: x not rounded)."""
     M, I = x.shape
     P, G, S, _ = rot.shape
     gps = -(-G // KS)
     q = tk._unpack_groups(qweight, G, S)  # [G, S, O] nibble values
-    xg = x.to(rot.dtype).to(torch.float32).reshape(M, G, S)
+    xg = (x if variant == "v2" else x.to(rot.dtype)).to(torch.float32).reshape(M, G, S)
     outs, off = [], 0
     for p, n in enumerate(out_splits):
         cols = slice(off, off + n)
@@ -130,10 +132,12 @@ def one_launch_model(x, rot, qweight, scales, zeros, out_splits, KS):
         for ks in range(KS):
             part = torch.zeros(M, n)
             for g in range(ks * gps, min(G, (ks + 1) * gps)):
-                xr = (xg[:, g] @ rot[p, g].to(torch.float32).T).to(torch.bfloat16).to(torch.float32)
+                xr32 = xg[:, g] @ rot[p, g].to(torch.float32).T
+                xr = xr32.to(torch.bfloat16).to(torch.float32)
+                rowsum = (xr32 if variant == "b" else xr).sum(-1, keepdim=True)
                 s = scales[g, cols].to(torch.float32)
                 z = zeros[g, cols].to(torch.float32)
-                part = part + xr @ (q[g][:, cols] * s) - xr.sum(-1, keepdim=True) * z * s
+                part = part + xr @ (q[g][:, cols] * s) - rowsum * z * s
             total = total + part
         outs.append(total)
         off += n
@@ -165,8 +169,8 @@ def test_one_launch_model_matches_pallas(S, splits, M):
     rng = np.random.default_rng(1000 + i)
     G, P, O = 3, len(splits), sum(splits)
     I = G * S
-    x = _np((rng.integers(-16, 17, size=(M, I)) / 4).astype(np.float32), xdt)
-    rot = _np((rng.integers(-4, 5, size=(P, G, S, S)) / 8).astype(np.float32), rdt)
+    x = _np(rng.normal(size=(M, I)).astype(np.float32), xdt)
+    rot = _np((rng.normal(size=(P, G, S, S)) / np.sqrt(S)).astype(np.float32), rdt)
     qweight = rng.integers(0, 256, size=(I // 2, O)).astype(np.uint8)
     if sz is np.uint8:
         scales = rng.integers(1, 4, size=(G, O)).astype(np.uint8)
@@ -185,8 +189,7 @@ def test_one_launch_model_matches_pallas(S, splits, M):
     args = [_torch(a) for a in (x, rot, qweight, scales, zeros)]
     route, KS, _ = tk.rot_route(M, I, S, splits, False, args[1].dtype, SMS)
     assert route == "one_launch"
-    bf16_out = args[0].dtype == torch.bfloat16
-    tol = 1e-5 * np.abs(yj).max() + (2.0**-7 * np.abs(yj) if bf16_out else 0.0)
+    tol = rot_tolerance(yj, *args, out_splits=splits, bf16_out=args[0].dtype == torch.bfloat16)
     for ks in sorted({KS, 1, 2}):
         y = one_launch_model(*args, splits, ks).to(args[0].dtype).to(torch.float32).numpy()
         assert np.all(np.abs(y - yj) <= tol), (ks, np.abs(y - yj).max())
