@@ -23,14 +23,20 @@ Phases, each printing one or more lines:
      the same inputs bitwise equal; K4 also at the engine step's 8 slots
      of 256 tokens), K6-K9 (the
      kernel benchmarks' W4 variants, at their 4096 x 4096 shape with each
-     scale/zero dtype pair and at o_proj), K10-K13 (the W4 GEMV experiments
-     of the TPU scripts, at their 4096 x 4096 shape, dtypes and knobs: M,
-     Gb, block_m; K10/K12 two calls bitwise equal and one kernel a call),
+     scale/zero dtype pair and at o_proj; K8 at M <= 16 on the DQ variant of
+     the one-launch kernel, two calls bitwise equal and one kernel a call,
+     and each K8 row timed beside the other of its two routes), K10-K13 (the
+     W4 GEMV experiments of the TPU scripts, at their 4096 x 4096 shape,
+     dtypes and knobs: M, Gb, block_m; K10-K12 two calls bitwise equal and
+     one kernel a call; K8 and K11, one function, held to TOL_DEQUANT
+     here and in their edges),
      K14-K17 (the int8 probe's narrowing cast and tensor-core
      dots, at its shapes and on its integer inputs, exact); then their other branches (f32,
      ragged M, head_dim 64, softcap, window, page sizes, K1/K2 at group
      sizes 1024/2048 and one row-spanning group of 96/320 with f32, f16
-     and uint8 scales/zeros, ...) at small shapes, checked and not timed;
+     and uint8 scales/zeros, K8 and K11 on fractional zero points where
+     a dequant that rounded once would miss TOL_DEQUANT, ...) at small
+     shapes, checked and not timed;
      then slice 3's path, the ported kernel benchmarks (kernel_bench3 in
      its three modes, kernel_bench4, the kernel-speedup sweep, K9 at the
      benchmarks' shape) with the launch counts reset just before and read
@@ -47,9 +53,12 @@ Phases, each printing one or more lines:
      probe's library must show IMMA in K15/K16 and HMMA in K17, that of
      the unpack library K18's 128-bit global loads, that of the K1/K2
      library 128-bit loads (LDG.E.128) and 16-byte cp.async (LDGSTS) in all
-     16 one-launch instances and that of the experiments' library in all 32
-     of K10/K12 (the same kernel, csrc/one_launch.cuh), with 0 spill bytes in
-     ptxas's lines for all 48, that of
+     16 one-launch instances, that of the experiments' library in all 32
+     of K10/K12 and that of the dequant library in all 16 of K8/K11 (the
+     same kernel, csrc/one_launch.cuh), with 0 spill bytes in ptxas's lines
+     for all 64 and, in K8/K11's, three bf16x2 operations for each pair
+     of nibbles (the dequant's two roundings neither fused nor dropped),
+     that of
      the paged
      library HMMA in every tensor-core instance of K4/K5 (bf16 queries over
      bf16 and int8 pools) and that of the flash library HMMA in all 14
@@ -116,10 +125,17 @@ PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}  # dense tensor-core rates, H100 SX
 FLUSH_BYTES = 256 << 20  # > the 50 MB L2
 KERNEL_REPS, PLAIN_REPS = 30, 5
 TOL_KERNEL = 2e-2  # max abs error / max |plain output|; for K4/K5 per query row (slot, w, head)
+# K8/K11: max abs error / max |plain output|, plus one bf16 rounding of each
+# output (2**-7 |y|) where it is bf16: below what a dequant that rounds once,
+# bf16((q - z) s), misses by on the fractional-zero edges (`dequant_edges`
+# fails unless it does), far above f32 sums taken in another order (PERF.md §2)
+TOL_DEQUANT = 5e-4
+DEQUANT_KERNELS = ("rot_w4_matmul_mg", "dma_rot_w4_matmul")
 TOL_E2E = 5e-2  # relative Frobenius error of the logits, kernel path vs reference path
 TOL_LOGPROB = 0.25  # nats: an engine request's logprobs against a contiguous prefill's
 ROT_SRC = "paroquant_tpu_torch/kernels/csrc/rot_w4_matmul.cu"
 VARIANTS_SRC = "paroquant_tpu_torch/kernels/csrc/w4_variants.cu"
+DEQUANT_SRC = "paroquant_tpu_torch/kernels/csrc/rot_w4_dequant.cu"
 SLICE1_W4 = ("rot_w4_matmul", "merged_rot_w4_matmul")  # the W4 kernels of slices 1 and 2
 FLASH_SRC = "paroquant_tpu_torch/kernels/csrc/flash_attention.cu"
 PAGED_SRC = "paroquant_tpu_torch/kernels/csrc/paged_attention.cu"
@@ -506,10 +522,16 @@ def check_edges(gen, dev):
     rows = []
 
     def record(name, case, y, y_ref, lead=None):
-        """lead: hold each query row (the first `lead` dims) to its own scale."""
+        """lead: hold each query row (the first `lead` dims) to its own scale;
+        K8 and K11 are held to TOL_DEQUANT."""
+        ratio = dequant_err_over_tol(y, y_ref) if name in DEQUANT_KERNELS else None
         y, y_ref = y.float(), y_ref.float()
         err = (y - y_ref).abs().max().item()
-        if lead is None:
+        if ratio is not None:
+            rows.append(dict(kernel=name, case=case, max_abs_err=err,
+                             tol=TOL_DEQUANT * y_ref.abs().max().item(), err_over_tol=ratio,
+                             ok=ratio <= 1))
+        elif lead is None:
             tol = TOL_KERNEL * y_ref.abs().max().item()
             rows.append(dict(kernel=name, case=case, max_abs_err=err, tol=tol,
                              err_over_tol=err / tol, ok=err <= tol))
@@ -568,6 +590,7 @@ def check_edges(gen, dev):
     paged_edges(gen, dev, record)
     w4_edges(gen, dev, record)
     w4x_edges(gen, dev, record)
+    dequant_edges(gen, dev, record)
     int8_edges(gen, dev, record, record_exact)
     unpack_edges(gen, dev, record, record_exact)
     torch.cuda.synchronize()
@@ -602,8 +625,6 @@ def w4_variant_inputs(kernel, I, O, gen, dev, S=128, K=8, sz="bf16/bf16"):
     q = torch.randint(0, 16, (I, O), generator=gen, device=dev, dtype=torch.int32)
     scales = (torch.rand(G, O, generator=gen, device=dev) * 0.04 + 0.01).to(sdt)
     zeros = torch.randint(0, 16, (G, O), generator=gen, device=dev).to(zdt)
-    if kernel == "rot_w4_matmul_mg":  # the kernel rounds them to bf16
-        scales, zeros = scales.to(torch.bfloat16), zeros.to(torch.bfloat16)
     wd = ((q.reshape(G, S, O).float() - zeros[:, None].float()) * scales[:, None].float()).reshape(I, O)
     extra = I * O // 2 + G * O * (scales.element_size() + zeros.element_size())
     if kernel == "w4_matmul":
@@ -646,35 +667,91 @@ def effective_weight(rotate, wd, I, dev):
     return (rotate(torch.eye(I, device=dev)) @ wd).to(torch.bfloat16)
 
 
+def mg_routed(rm, fn):
+    """fn()'s output and the route its one K8 call took (mg_route_counts)."""
+    before = dict(rm.mg_route_counts)
+    y = fn()
+    taken = [r for r, n in rm.mg_route_counts.items() if n != before[r]]
+    if len(taken) != 1:
+        raise SystemExit(f"expected one K8 call, counted {taken}")
+    return y, taken[0]
+
+
+def other_route_ms(rm, run, flush, taken):
+    """run's median time with K8 sent to the route it did not take
+    (mg_route swapped for the length of the timing): both routes on the same
+    card in the same run, for the choice `mg_route` makes."""
+    def route(M, I, S, O, chunk, sms):
+        if taken == "passes":
+            return "one_launch", rm.dq_plan(M, I, S, O, sms, chunk)
+        return "passes", None
+
+    real = rm.mg_route
+    rm.mg_route = route
+    try:
+        return median_ms(run, KERNEL_REPS, flush)
+    finally:
+        rm.mg_route = real
+
+
 def check_w4_variants(flush, gen, dev):
     """K6-K9 against their plain versions at the benchmarks' shape (4096 x
     4096, g128, K = 8) with each scale/zero dtype pair of the callers
     (bf16/bf16, bf16/uint8, f32/f32; K8 rounds them to bf16), and at
-    Qwen3-0.6B's o_proj (2048 -> 1024), M = 1, 16, 128, timed beside the
-    bound and torch.matmul on the pre-rotated, dequantized bf16 weight."""
+    Qwen3-0.6B's o_proj (2048 -> 1024), M = 1, 16, 128 (K8 also 17 and
+    33), timed beside the bound and torch.matmul on the pre-rotated,
+    dequantized bf16 weight. Each K8 row names its route (`mg_route`) and
+    the other route's time at the same inputs, and is held to TOL_DEQUANT;
+    on the one-launch route it names its plan and fails unless two calls
+    give the same bits and a call launches one kernel (profiler)."""
     import torch
+
+    from paroquant_tpu_torch.kernels import rot_matmul as rm
 
     shapes = [("bench", 4096, 4096, sz) for sz in SZ_DTYPES] + [("o_proj", 2048, 1024, "bf16/bf16")]
     rows = []
     for kernel in W4_VARIANTS:
+        mg = kernel == "rot_w4_matmul_mg"
         for layer, I, O, sz in shapes:
-            if kernel == "rot_w4_matmul_mg" and sz != "bf16/bf16":
+            if mg and sz != "bf16/bf16":
                 continue
             run, plain, rotate, wd, extra, rot_ops = w4_variant_inputs(kernel, I, O, gen, dev, sz=sz)
             w_eff = effective_weight(rotate, wd, I, dev)
-            for M in (1, 16, 128):
+            for M in (1, 16, 17, 33, 128) if mg else (1, 16, 128):
                 x = torch.randn(M, I, generator=gen, device=dev).to(torch.bfloat16)
-                y, y_ref = run(x).float(), plain(x).float()
+                route = {}
+                if mg:
+                    y, taken = mg_routed(rm, lambda: run(x))
+                    route = dict(route=taken, other_route_us=None)
+                    if taken == "one_launch":
+                        KS, tile, rows_per_block, gps = rm.dq_plan(
+                            M, I, 128, O, rm._sm_count(dev), rm.mg_chunk(I // 128, 16))
+                        route.update(KS=KS, tile=tile, rows_per_block=rows_per_block,
+                                     groups_per_split=gps, bitwise_equal=torch.equal(run(x), run(x)),
+                                     kernels_per_call=kernels_per_call(lambda: run(x)))
+                        emit({"phase": "mg_determinism", "layer": layer, "M": M, **route})
+                        if not route["bitwise_equal"] or route["kernels_per_call"] != 1:
+                            raise SystemExit(f"rot_w4_matmul_mg {layer} M={M}: two calls differ or "
+                                             f"a call ran {route['kernels_per_call']} kernels")
+                else:
+                    y = run(x)
+                y_ref = plain(x)
                 torch.cuda.synchronize()
-                err = (y - y_ref).abs().max().item()
-                tol = TOL_KERNEL * y_ref.abs().max().item()
+                err = (y.float() - y_ref.float()).abs().max().item()
+                scale = y_ref.float().abs().max().item()
+                ratio = dequant_err_over_tol(y, y_ref) if mg else err / (TOL_KERNEL * scale)
+                tol = (TOL_DEQUANT if mg else TOL_KERNEL) * scale
                 ms = median_ms(lambda: run(x), KERNEL_REPS, flush)
+                if mg:
+                    route["other_route_us"] = other_route_ms(rm, lambda: run(x), flush,
+                                                             route["route"]) * 1e3
                 plain_ms = median_ms(lambda: plain(x), PLAIN_REPS, flush)
                 lib_ms = median_ms(lambda: torch.matmul(x, w_eff), KERNEL_REPS, flush)
                 b_ms, b_by = bound(extra + M * I * 2 + M * O * 2, 2 * M * I * O + M * rot_ops, "bf16")
-                row = dict(kernel=kernel, layer=layer, sz=sz, M=M, max_abs_err=err, tol=tol,
-                           us=ms * 1e3, plain_us=plain_ms * 1e3, library_us=lib_ms * 1e3,
-                           bound_us=b_ms * 1e3, bound_by=b_by, ok=err <= tol)
+                row = dict(kernel=kernel, layer=layer, sz=sz, M=M, **route, max_abs_err=err, tol=tol,
+                           err_over_tol=ratio, us=ms * 1e3, plain_us=plain_ms * 1e3,
+                           library_us=lib_ms * 1e3, bound_us=b_ms * 1e3, bound_by=b_by,
+                           ok=ratio <= 1)
                 emit({"phase": "kernel_check", **row})
                 rows.append(row)
             del run, plain, rotate, wd, w_eff
@@ -691,8 +768,9 @@ def w4_edges(gen, dev, record):
 
     from paroquant_tpu_torch.kernels import rot_matmul as rm
 
-    def check(kernel, case, I, O, S=128, K=8, sz="bf16/bf16", Ms=(5, 17, 33), xdt=torch.bfloat16):
-        run, plain, _, _, _, _ = w4_variant_inputs(kernel, I, O, gen, dev, S=S, K=K, sz=sz)
+    def check(kernel, case, I, O, S=128, K=8, sz="bf16/bf16", Ms=(5, 17, 33), xdt=torch.bfloat16,
+              **kw):
+        run, plain, _, _, _, _ = w4_variant_inputs(kernel, I, O, gen, dev, S=S, K=K, sz=sz, **kw)
         for M in Ms:
             x = torch.randn(M, I, generator=gen, device=dev).to(xdt)
             record(kernel, f"{case} M={M} x={xdt}", run(x), plain(x))
@@ -702,11 +780,26 @@ def w4_edges(gen, dev, record):
         check(kernel, "f32 x", 256, 160, Ms=(1, 17), xdt=torch.float32)
         for S in (256, 512):
             check(kernel, f"S={S}", 2 * S, 128, S=S, Ms=(1, 9))
-        if kernel != "rot_w4_matmul_mg":
-            check(kernel, "f32/f32 O=130", 256, 130, sz="f32/f32", Ms=(3,))
+        check(kernel, "f32/f32 O=130", 256, 130, sz="f32/f32", Ms=(3,))
     for K in (1, 2, 4, 8):
         check("butterfly_w4_matmul", f"K={K}", 256, 128, K=K, Ms=(1, 9))
     check("rot_w4_matmul_mg", "G=20 gps=16", 20 * 128, 128, Ms=(1, 9))
+    # both sides of mg_route's cut at two widths: the route taken must be the
+    # rule's, the DQ variant at M 16 and the passes at M 17
+    sms = rm._sm_count(torch.device(dev))
+    for O in (1024, 160):
+        run, plain, *_ = w4_variant_inputs("rot_w4_matmul_mg", 20 * 128, O, gen, dev)
+        routes = []
+        for M in (rm.ONE_LAUNCH_MAX_M, rm.ONE_LAUNCH_MAX_M + 1):
+            x = torch.randn(M, 20 * 128, generator=gen, device=dev).to(torch.bfloat16)
+            y, taken = mg_routed(rm, lambda: run(x))
+            want = rm.mg_route(M, 20 * 128, 128, O, 16, sms)[0]
+            if taken != want:
+                raise SystemExit(f"rot_w4_matmul_mg O={O} M={M}: took {taken}, mg_route says {want}")
+            record("rot_w4_matmul_mg", f"route side O={O} M={M} ({taken})", y, plain(x))
+            routes.append(taken)
+        if routes != ["one_launch", "passes"]:
+            raise SystemExit(f"rot_w4_matmul_mg O={O}: M 16 / 17 took {routes}")
 
     for S, G in ((1024, 1), (1024, 2), (2048, 1), (2048, 2), (96, 1), (320, 1)):
         splits = (128, 96) if S >= 128 else (66, 62)
@@ -775,7 +868,8 @@ def w4x_inputs(kernel, I, O, gen, dev, S=128, sz="bf16/bf16", rot_dtype=None, bl
     return run, plain, rotate, wd, extra + G * S * S * rot.element_size(), 2 * I * S
 
 
-ONE_LAUNCH_W4X = ("rot_w4_matmul_b", "rot_w4_matmul_v2")  # K10/K12: the one-launch kernel's variants
+# K10/K12/K11: the one-launch kernel's variants (K11: DQ)
+ONE_LAUNCH_W4X = ("rot_w4_matmul_b", "rot_w4_matmul_v2", "dma_rot_w4_matmul")
 
 
 def check_w4_experiments(flush, gen, dev):
@@ -783,9 +877,10 @@ def check_w4_experiments(flush, gen, dev):
     4096, g128) and dtypes: K10 at M = 1 and 16, K11 at M = 1 with Gb = 1, 2,
     4, 8, K12 at block_m 8 and 16 with M = 1 and 16, K13 at M = 1, 8, 32;
     timed beside the bound and torch.matmul on the pre-rotated (K10-K12),
-    dequantized bf16 weight. Each K10/K12 row names its launch plan (splits,
-    tile, rows a block), and fails unless two calls give the same bits and a
-    call launches one kernel (profiler)."""
+    dequantized bf16 weight. Each K10-K12 row names its launch plan (splits,
+    tile, rows a block; K11 groups a split), and fails unless two calls give
+    the same bits and a call launches one kernel (profiler); K11's rows are
+    held to TOL_DEQUANT."""
     import torch
 
     from paroquant_tpu_torch.kernels import rot_matmul as rm, w4_experiments as wx
@@ -798,14 +893,23 @@ def check_w4_experiments(flush, gen, dev):
         out_bytes = 4 if kernel == "rot_w4_matmul_v2" else 2  # K12 returns float32
         for M in Ms:
             x = torch.randn(M, I, generator=gen, device=dev).to(torch.bfloat16)
-            y, y_ref = run(x).float(), plain(x).float()
+            y, y_ref = run(x), plain(x)
             torch.cuda.synchronize()
+            dq = kernel in DEQUANT_KERNELS
+            ratio = dequant_err_over_tol(y, y_ref) if dq else None
+            y, y_ref = y.float(), y_ref.float()
             err = (y - y_ref).abs().max().item()
-            tol = TOL_KERNEL * y_ref.abs().max().item()
+            tol = (TOL_DEQUANT if dq else TOL_KERNEL) * y_ref.abs().max().item()
+            ratio = err / tol if ratio is None else ratio
             one = {}
             if kernel in ONE_LAUNCH_W4X:
-                KS, tile, rows_per_block = wx.one_launch_plan(M, I, 128, O, rm._sm_count(dev))
-                one = dict(KS=KS, tile=tile, rows_per_block=rows_per_block,
+                sms = rm._sm_count(dev)
+                if kernel == "dma_rot_w4_matmul":
+                    KS, tile, rows_per_block, gps = rm.dq_plan(M, I, 128, O, sms, knobs["Gb"])
+                    one = dict(groups_per_split=gps)
+                else:
+                    KS, tile, rows_per_block = wx.one_launch_plan(M, I, 128, O, sms)
+                one.update(KS=KS, tile=tile, rows_per_block=rows_per_block,
                            bitwise_equal=torch.equal(run(x), run(x)),
                            kernels_per_call=kernels_per_call(lambda: run(x)))
                 emit({"phase": "w4x_determinism", "kernel": kernel, "M": M, **knobs, **one})
@@ -818,9 +922,9 @@ def check_w4_experiments(flush, gen, dev):
             b_ms, b_by = bound(extra + M * I * 2 + M * O * out_bytes, 2 * M * I * O + M * rot_ops,
                                "int8" if kernel == "w4a8_matmul" else "bf16")
             row = dict(kernel=kernel, layer="script", sz=sz, M=M, **knobs, **one, max_abs_err=err,
-                       tol=tol, us=ms * 1e3, plain_us=plain_ms * 1e3, library_us=lib_ms * 1e3,
-                       bound_us=b_ms * 1e3, bound_by=b_by,
-                       ok=err <= tol and bool(torch.isfinite(y).all()))
+                       tol=tol, err_over_tol=ratio, us=ms * 1e3, plain_us=plain_ms * 1e3,
+                       library_us=lib_ms * 1e3, bound_us=b_ms * 1e3, bound_by=b_by,
+                       ok=ratio <= 1 and bool(torch.isfinite(y).all()))
             emit({"phase": "kernel_check", **row})
             rows.append(row)
         del run, plain, rotate, wd, w_eff
@@ -829,10 +933,11 @@ def check_w4_experiments(flush, gen, dev):
 
 def w4x_edges(gen, dev, record):
     """K10-K13 at small shapes: ragged M (5, 17, 33) at O = 160, f16/uint8
-    scales and zeros at O = 130 (byte loads, K11's plain-copy stage), f32 x
-    with f32 rotations and scales, one group, groups of 256 (f32 rotation)
-    and 96 channels, each block_m and the Gb that divide G; then K11's refusal of a chunk size that does not divide G and
-    K13's all-zero row, which must come out exactly 0."""
+    scales and zeros at O = 130 (byte loads), f32 x with f32 rotations and
+    scales, one group, groups of 256 (f32 rotation) and 96 channels, each
+    block_m and the Gb that divide G; then K11's refusal of a chunk size
+    that does not divide G and K13's all-zero row, which must come out
+    exactly 0."""
     import torch
 
     f32, bf = torch.float32, torch.bfloat16
@@ -872,6 +977,88 @@ def w4x_edges(gen, dev, record):
     if y[2].abs().max().item() != 0.0:
         raise SystemExit("w4a8_matmul gave a nonzero output for an all-zero row")
     record("w4a8_matmul", "all-zero row M=5", y, plain(x))
+
+
+def dequant_err_over_tol(y, y_ref) -> float:
+    """K8/K11 against their plain version: the largest |y - y_ref| over its
+    limit, TOL_DEQUANT max |y_ref| plus, where the output is bf16, one
+    rounding of it (2**-7 |y_ref|: a different f32 sum may round an output
+    one bf16 ulp the other way)."""
+    import torch
+
+    yf, rf = y.float(), y_ref.float()
+    limit = TOL_DEQUANT * rf.abs().max().clamp_min(1e-30)
+    if y.dtype == torch.bfloat16:
+        limit = limit + 2.0**-7 * rf.abs()
+    return ((yf - rf).abs() / limit).max().item()
+
+
+def one_rounding_plain(x, rot, qweight, scales, zeros):
+    """K8/K11's function with the fault of a dequant that rounds once, w =
+    bf16((q - z) s) with bf16 s and z, in one f32 dot: what the
+    fractional-zero edges must tell apart from the plain version."""
+    import torch
+
+    from paroquant_tpu_torch.kernels import rot_matmul as rm
+
+    bf = rm._bf16
+    M = x.shape[0]
+    G, S, _ = rot.shape
+    xr = bf(torch.einsum("mgj,gij->mgi", bf(x).reshape(M, G, S), bf(rot)))
+    w = bf((rm._unpack_groups(qweight, G, S) - bf(zeros)[:, None]) * bf(scales)[:, None])
+    return (xr.reshape(M, -1) @ w.reshape(G * S, -1)).to(x.dtype)
+
+
+DEQUANT_EDGES = [  # kernel, K8's groups_per_step or K11's Gb, S, G, O, scales/zeros, Ms
+    ("rot_w4_matmul_mg", 16, 128, 20, 1024, "bf16/bf16", (1, 5, 16, 17, 33)),
+    ("rot_w4_matmul_mg", 32, 64, 40, 130, "f32/f32", (1, 9, 17)),
+    ("dma_rot_w4_matmul", 1, 128, 4, 160, "bf16/bf16", (1, 5, 17)),
+    ("dma_rot_w4_matmul", 2, 64, 6, 160, "f32/f32", (1, 5, 17)),
+    ("dma_rot_w4_matmul", 4, 128, 8, 160, "f32/f32", (1, 5, 17)),
+    ("dma_rot_w4_matmul", 3, 96, 9, 160, "bf16/bf16", (1, 5, 17)),
+]
+
+
+def dequant_edges(gen, dev, record):
+    """K8 (the DQ variant at M <= 16, the passes above) and K11 on fractional
+    zero points ~ U(0, 15) with f32 x, so f32 out: q - z rounds to bf16
+    before the product. Each row is held to TOL_DEQUANT (`record`), and the
+    phase fails unless, on the same inputs, the dequant that rounds once
+    (`one_rounding_plain`) misses that limit: every edge would catch it."""
+    import torch
+
+    from paroquant_tpu_torch.kernels import rot_matmul as rm, w4_experiments as wx
+    from paroquant_tpu_torch.ops.packing import pack_w4_tpu
+
+    errs, faults = [], []
+    for kernel, knob, S, G, O, sz, Ms in DEQUANT_EDGES:
+        I = G * S
+        sdt, zdt = (getattr(torch, n) for n in SZ_DTYPES[sz])
+        qw = pack_w4_tpu(torch.randint(0, 16, (I, O), generator=gen, device=dev, dtype=torch.int32), S)
+        scales = (torch.rand(G, O, generator=gen, device=dev) * 0.04 + 0.01).to(sdt)
+        zeros = (torch.rand(G, O, generator=gen, device=dev) * 15).to(zdt)
+        rot = (torch.randn(G, S, S, generator=gen, device=dev) / S**0.5).to(torch.bfloat16)
+        ops = (rot, qw, scales, zeros)
+        mg = kernel == "rot_w4_matmul_mg"
+        for M in Ms:
+            x = torch.randn(M, I, generator=gen, device=dev)
+            case = f"fractional zeros {'gps' if mg else 'Gb'}={knob} S={S} G={G} {sz} M={M} f32 x"
+            if mg:
+                y, taken = mg_routed(rm, lambda: rm.rot_w4_matmul_mg(x, *ops, groups_per_step=knob))
+                y_ref = rm.rot_w4_matmul_mg_plain(x, *ops, groups_per_step=knob)
+                case += f" ({taken})"
+            else:
+                y = wx.dma_rot_w4_matmul(x, *ops, Gb=knob)
+                y_ref = wx.dma_rot_w4_matmul_plain(x, *ops, Gb=knob)
+            fault = dequant_err_over_tol(one_rounding_plain(x, *ops), y_ref)
+            if fault <= 1:
+                raise SystemExit(f"{kernel} {case}: a dequant that rounds once is within "
+                                 f"TOL_DEQUANT ({fault:.3f} of it), so the edge cannot show it")
+            record(kernel, case, y, y_ref)
+            errs.append(dequant_err_over_tol(y, y_ref))
+            faults.append(fault)
+    emit({"phase": "dequant_edges", "cases": len(faults), "tol": TOL_DEQUANT,
+          "worst_err_over_tol": max(errs), "least_one_rounding_over_tol": min(faults)})
 
 
 # ---------------------------------------------------------------------------
@@ -1048,6 +1235,30 @@ def check_sass(lib_name, ops, expect):
             raise SystemExit(f"{name}: expected {op} in {n} instance(s), found {found}")
 
 
+MAGIC_SUB = "-128, -128"  # SASS of DQ's exact subtraction of the magic 128 (one per nibble pair)
+
+
+def check_dequant_sass():
+    """K8/K11's DQ instances (16) in the dequant library: the one-launch
+    kernel's 16-byte loads (LDG.E.128, LDGSTS), and the dequant's bf16x2
+    operations as compiled. Each pair of nibbles takes three, each rounding
+    once: the exact subtraction of the magic 128, q - z and the product by
+    s. ptxas issues the last two as HADD2/HMUL2 or as HFMA2.MMA (times 1,
+    plus -0), all `BF16_V2`; so every instance must hold three bf16x2
+    operations for each magic subtraction. A subtraction fused into the
+    product, or one dropped, would break that count."""
+    ops = ("LDG.E.128", "LDGSTS", "BF16_V2", MAGIC_SUB)
+    counts = sass_counts("librot_w4_dequant.so", ops)
+    emit({"phase": "sass", "library": "librot_w4_dequant.so", "counts": counts})
+    if counts is None:
+        return
+    dq = {f: c for f, c in counts.items() if "rot_w4_one_launch_kernel" in f}
+    bad = [f for f, c in dq.items() if not c["LDG.E.128"] or not c["LDGSTS"]
+           or not c[MAGIC_SUB] or c["BF16_V2"] != 3 * c[MAGIC_SUB]]
+    if len(dq) != 16 or bad:
+        raise SystemExit(f"the DQ instances: {len(dq)} found, missing loads or bf16x2 roundings: {bad}")
+
+
 def check_flash_spills(report):
     """K3's tensor-core instances at head-dim buckets up to 128 keep Q, S, P
     and O in registers: ptxas must report 0 spill bytes for each; the
@@ -1071,9 +1282,10 @@ def check_flash_spills(report):
 
 def check_rot_spills(report):
     """The one-launch kernel (csrc/one_launch.cuh): every instance of K1/K2
-    (4 row tiles x f32/bf16 x and rot, 16) and of K10/K12 (the same for each,
-    32) must report 0 spill bytes in ptxas's lines. The report names each
-    library's kernels after a line naming its source's log."""
+    (4 row tiles x f32/bf16 x and rot, 16), of K10/K12 (the same for each,
+    32) and of K8/K11's DQ variant (16) must report 0 spill bytes in ptxas's
+    lines. The report names each library's kernels after a line naming its
+    source's log."""
     import re
 
     fn, spills = None, {}
@@ -1083,12 +1295,12 @@ def check_rot_spills(report):
         elif fn and "rot_w4_one_launch_kernel" in fn and "spill stores" in line:
             spills[fn] = (int(re.search(r"(\d+) bytes spill stores", line).group(1))
                           + int(re.search(r"(\d+) bytes spill loads", line).group(1)))
-    # the variant is the template's last argument: Li0E (K1), Li1E (K10), Li2E (K12)
+    # the variant is the template's last argument: Li0E (K1), Li1E (K10), Li2E (K12), Li3E (DQ)
     by_var = {v: sorted(b for f, b in spills.items() if f.endswith(f"Li{v}EEEvNS0_4ArgsE"))
-              for v in range(3)}
+              for v in range(4)}
     emit({"phase": "rot_spills", "instances": len(spills),
-          "spill_bytes": {"k1": by_var[0], "k10": by_var[1], "k12": by_var[2]}})
-    if [len(b) for b in by_var.values()] != [16, 16, 16] or any(spills.values()):
+          "spill_bytes": {"k1": by_var[0], "k10": by_var[1], "k12": by_var[2], "dq": by_var[3]}})
+    if [len(b) for b in by_var.values()] != [16, 16, 16, 16] or any(spills.values()):
         raise SystemExit(f"the one-launch kernel: {len(spills)} instances, spill bytes {spills}")
 
 
@@ -1156,8 +1368,8 @@ def kernel_bench(dev):
     """The ported kernel benchmarks, in this process: kernel_bench3 in its
     three modes, kernel_bench4, the kernel-speedup sweep, and K9 (which has
     no caller) at the benchmarks' shape. The launch counts are reset just
-    before and read just after: K6-K9 must have run, and K1 on f32 and on
-    uint8 scales/zeros."""
+    before and read just after: K6-K9 must have run, K1 on f32 and on uint8
+    scales/zeros, and every K8 call (M 1) on the one-launch route."""
     import numpy as np
     import torch
 
@@ -1195,10 +1407,14 @@ def kernel_bench(dev):
         for row in script_rows:
             emit({"phase": "kernel_bench", "script": script, **row})
     emit({"phase": "kernel_speedup", **sweep})
-    emit({"phase": "kernel_bench_launches", "counts": counts, "sz_dtypes": sz, "wall_s": wall})
+    mg_routes = dict(rm.mg_route_counts)
+    emit({"phase": "kernel_bench_launches", "counts": counts, "sz_dtypes": sz,
+          "rot_w4_matmul_mg_routes": mg_routes, "wall_s": wall})
     missing = [k for k, c in counts.items() if c == 0]
     missing += [f"rot_w4_matmul on {k}" for k in ("float32/float32", "bfloat16/uint8")
                 if k not in sz["rot_w4_matmul"]]
+    if mg_routes["passes"] or mg_routes["one_launch"] != counts["rot_w4_matmul_mg"]:
+        missing.append(f"rot_w4_matmul_mg on the one-launch route at every call: {mg_routes}")
     if missing:
         raise SystemExit(f"kernel_bench: not launched: {missing}")
     return counts
@@ -2237,6 +2453,8 @@ def main() -> int:
     check_sass("libw4_experiments.so", ("LDG.E.128", "LDGSTS"),
                (("rot_w4_one_launch_kernel", "LDG.E.128", 32),
                 ("rot_w4_one_launch_kernel", "LDGSTS", 32)))
+    # and K8/K11's DQ instances, with the dequant's two roundings
+    check_dequant_sass()
 
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(123)
@@ -2301,18 +2519,18 @@ def main() -> int:
               pick(pa_rows, kernel="paged_decode_attention", case="bf16")),
         entry("paged_window_attention_kernel", PAGED_SRC, "paroquant_tpu/kernels/attention.py:337",
               pick(pa_rows, kernel="paged_window_attention_kernel", case="bf16")),
-        *(entry(name, VARIANTS_SRC, f"paroquant_tpu/kernels/rot_matmul.py:{line}",
+        *(entry(name, src, f"paroquant_tpu/kernels/rot_matmul.py:{line}",
                 pick(w4_rows, kernel=name, layer="bench", sz=sz, M=1))
-          for name, line, sz in (("w4_matmul", 387, "bf16/u8"),
-                                 ("butterfly_w4_matmul", 285, "bf16/u8"),
-                                 ("rot_w4_matmul_mg", 564, "bf16/bf16"),
-                                 ("rot_w4_matmul_i4", 464, "bf16/u8"))),
-        *(entry(name, EXPERIMENTS_SRC, replaces, pick(w4x_rows, kernel=name, M=1, **knobs))
-          for name, replaces, knobs in (
-              ("rot_w4_matmul_b", "scripts/kernel_edge_test.py:76", {}),
-              ("dma_rot_w4_matmul", "scripts/kernel_dma_pipeline.py:102", {"Gb": 4}),
-              ("rot_w4_matmul_v2", "scripts/kernel_tune.py:94", {"block_m": 16}),
-              ("w4a8_matmul", "scripts/kernel_w4a8_exp.py:91", {}))),
+          for name, src, line, sz in (("w4_matmul", VARIANTS_SRC, 387, "bf16/u8"),
+                                      ("butterfly_w4_matmul", VARIANTS_SRC, 285, "bf16/u8"),
+                                      ("rot_w4_matmul_mg", DEQUANT_SRC, 564, "bf16/bf16"),
+                                      ("rot_w4_matmul_i4", VARIANTS_SRC, 464, "bf16/u8"))),
+        *(entry(name, src, replaces, pick(w4x_rows, kernel=name, M=1, **knobs))
+          for name, src, replaces, knobs in (
+              ("rot_w4_matmul_b", EXPERIMENTS_SRC, "scripts/kernel_edge_test.py:76", {}),
+              ("dma_rot_w4_matmul", DEQUANT_SRC, "scripts/kernel_dma_pipeline.py:102", {"Gb": 4}),
+              ("rot_w4_matmul_v2", EXPERIMENTS_SRC, "scripts/kernel_tune.py:94", {"block_m": 16}),
+              ("w4a8_matmul", EXPERIMENTS_SRC, "scripts/kernel_w4a8_exp.py:91", {}))),
         # int8_dot also replaces the int8 arm of bench_dots (:117), the case timed here
         *(entry(name, INT8_SRC, f"scripts/kernel_int8_probe.py:{line}",
                 pick(i8_rows, kernel=name, case=case))

@@ -1,16 +1,29 @@
 // The one-launch rotated W4 GEMV for Hopper (sm_90a), shared by K1/K2's W4A16
-// decode route (rot_w4_matmul.cu) and by K10/K12 (w4_experiments.cu).
+// decode route (rot_w4_matmul.cu), by K10/K12 (w4_experiments.cu) and by K8/K11
+// (rot_w4_dequant.cu).
 //
 //   xr_g[m]   = bf16(x_g[m] @ M_g^T)
 //   out[m, o] = sum_g (xr_g[m] . q_g[:, o] - rowsum_g[m] * z[g, o]) * s[g, o]
 //
-// Three variants of that function, a template switch each (Variant):
+// Four variants of that function, a template switch each (Variant):
 //               x before the rotation   rowsum_g             out
 //   K1          rounded to rot's dtype  of the bf16 xr_g     x's dtype
 //   K10 (B)     rounded to rot's dtype  of the f32 xr_g      x's dtype
 //   K12 (V2)    f32, not rounded        of the bf16 xr_g     f32
+//   K8/K11 (DQ) rounded to bf16, M_g    none: the weight     x's dtype
+//               rounded to bf16 too     is dequantized
 // (K10 replaces scripts/kernel_edge_test.py::rot_w4_matmul_b, K12
-// scripts/kernel_tune.py::rot_w4_matmul_v2.)
+// scripts/kernel_tune.py::rot_w4_matmul_v2, DQ both
+// paroquant_tpu/kernels/rot_matmul.py::rot_w4_matmul_mg and
+// scripts/kernel_dma_pipeline.py::dma_rot_w4_matmul.) DQ dequantizes the
+// weight in bf16, w = bf16(bf16(q - z) * s) with s and z rounded to bf16,
+// and sums xr_g . w_g in f32 over chunks of `chunk` groups (the last may be
+// shorter): no split crosses a chunk, the splits of a chunk add in split
+// order into its sum and the chunk sums add in chunk order, as the TPU
+// kernels add each chunk's dot to their accumulator. Its bound is K10's
+// (the weight stream); its dot spends three bf16x2 operations (one exact,
+// two rounding) on the nibbles of one byte-row in two columns, where K10
+// converts and scales each nibble in f32.
 //
 // Bound on this card: at M <= 16 the weight stream, I*O/2 bytes of nibbles
 // plus the scales and zeros, so HBM bandwidth; at 1-8 MB of weight, the
@@ -61,7 +74,7 @@ namespace one {
 using w4::Parts;
 using w4::load_f32;
 
-enum Variant { K1 = 0, B = 1, V2 = 2 };
+enum Variant { K1 = 0, B = 1, V2 = 2, DQ = 3 };
 
 constexpr int THREADS = 256;
 constexpr int NWARPS = THREADS / 32;
@@ -87,6 +100,7 @@ struct Args {
   float* partial;  // [KS, M, O] f32 when KS > 1
   int* counters;   // one per (column tile, row tile), zero between calls
   int M, I, S, gps, sdt, zdt;
+  int chunk, spc;  // DQ: groups a chunk, splits a chunk (split ks lies in chunk ks / spc)
   int cw;     // column groups of warps: the tile is cw * 128 columns wide
   int vec16;  // every partition's columns start on a multiple of 16, qw 16-byte aligned
   int rvec;   // the rotation's rows are 16-byte aligned
@@ -112,6 +126,51 @@ __device__ __forceinline__ float word_f32(uint32_t w, const void* p, size_t i, i
     case w4::BF16: return __uint_as_float(v << 16);
     case w4::F16: return __half2float(__ushort_as_half((unsigned short)(v & 0xffffu)));
     default: return (float)(v & 0xffu);
+  }
+}
+
+// The bf16 value of a rotation element as the variant uses it: DQ rounds M_g
+// to bf16 whatever its dtype, the others take it as it is.
+template <int VAR, typename RT>
+__device__ __forceinline__ float rot_elem(RT v) {
+  if constexpr (VAR == DQ && !std::is_same<RT, bf16>::value) return round_to<bf16>(to_f32(v));
+  return to_f32(v);
+}
+
+// DQ's weight for a pair of nibbles (bits 0-3 and 16-19 of nib) of two
+// columns sharing the bf16 pairs s2 and z2: w = bf16(bf16(q - z) * s), each
+// operation rounding once (.rn keeps the compiler from contracting them).
+// 0x4300 | q is the bf16 of 128 + q, so subtracting 128 gives q exactly.
+__device__ __forceinline__ void dequant_pair(uint32_t nib, uint32_t s2, uint32_t z2, float& lo,
+                                             float& hi) {
+  uint32_t q, w;
+  asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(q) : "r"(nib | 0x43004300u), "r"(0x43004300u));
+  asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(w) : "r"(q), "r"(z2));
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(w) : "r"(w), "r"(s2));
+  lo = __uint_as_float(w << 16);
+  hi = __uint_as_float(w & 0xffff0000u);
+}
+
+// the merge's sums, split k's partial t in split order: DQ adds it into its
+// chunk's sum cs and that into v after the chunk's last split (`left` counts
+// the chunk's splits still to come, spc at the start); the others add it
+// into v
+__device__ __forceinline__ void add_to(float& a, float b) { a += b; }
+__device__ __forceinline__ void add_to(float2& a, float2 b) { a.x += b.x, a.y += b.y; }
+__device__ __forceinline__ void add_to(float4& a, float4 b) {
+  a.x += b.x, a.y += b.y, a.z += b.z, a.w += b.w;
+}
+template <int VAR, typename T>
+__device__ __forceinline__ void merge_add(T& v, T& cs, int& left, T t, int k, int KS, int spc) {
+  if constexpr (VAR == DQ) {
+    add_to(cs, t);
+    if (--left == 0 || k + 1 == KS) {
+      add_to(v, cs);
+      cs = T{};
+      left = spc;
+    }
+  } else {
+    add_to(v, t);
   }
 }
 
@@ -172,8 +231,11 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
   while (p + 1 < parts.P && bx >= parts.tile_base[p + 1]) ++p;
   const int col0 = parts.offs[p] + (bx - parts.tile_base[p]) * TW;
   const int col_end = parts.offs[p + 1];
-  const int g_begin = ks * a.gps;
-  const int ng = min(G, g_begin + a.gps) - g_begin;  // >= 1: every split is non-empty
+  // the split's groups (DQ: within chunk ks / spc)
+  const int chunk_of = VAR == DQ ? ks / a.spc : 0;
+  const int g_begin = VAR == DQ ? chunk_of * a.chunk + (ks - chunk_of * a.spc) * a.gps : ks * a.gps;
+  const int g_stop = VAR == DQ ? min(G, (chunk_of + 1) * a.chunk) : G;
+  const int ng = min(g_stop, g_begin + a.gps) - g_begin;  // >= 1: every split is non-empty
   const int nrows = ng * HALF;                       // the block's byte-rows
   const int nchunks = (nrows + CR - 1) / CR;
 
@@ -297,7 +359,9 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
 #pragma unroll
     for (int k = 0; k < LD; ++k)
       if (tid + (k0 + k) * THREADS < nx)
-        xs[tid + (k0 + k) * THREADS] = VAR == V2 ? to_f32(xv[k]) : round_to<RT>(to_f32(xv[k]));
+        xs[tid + (k0 + k) * THREADS] = VAR == V2   ? to_f32(xv[k])
+                                       : VAR == DQ ? round_to<bf16>(to_f32(xv[k]))
+                                                   : round_to<RT>(to_f32(xv[k]));
   }
   // where the rotation needs the registers (K10/K12: also their words), at once
   if (MT >= 8 || !K1_ORDER) store_sz(0);
@@ -341,10 +405,10 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
 #pragma unroll
           for (int t4 = 0; t4 < VEC / 4; ++t4) {
             const float4 xx = x4[t4];
-            acc[m] = fmaf(xx.x, to_f32(hv[4 * t4]), acc[m]);
-            acc[m] = fmaf(xx.y, to_f32(hv[4 * t4 + 1]), acc[m]);
-            acc[m] = fmaf(xx.z, to_f32(hv[4 * t4 + 2]), acc[m]);
-            acc[m] = fmaf(xx.w, to_f32(hv[4 * t4 + 3]), acc[m]);
+            acc[m] = fmaf(xx.x, rot_elem<VAR>(hv[4 * t4]), acc[m]);
+            acc[m] = fmaf(xx.y, rot_elem<VAR>(hv[4 * t4 + 1]), acc[m]);
+            acc[m] = fmaf(xx.z, rot_elem<VAR>(hv[4 * t4 + 2]), acc[m]);
+            acc[m] = fmaf(xx.w, rot_elem<VAR>(hv[4 * t4 + 3]), acc[m]);
           }
         }
       }
@@ -357,7 +421,7 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
         const RT* Ri = rot_p + (size_t)q * S;
         const float* xg = xs + (size_t)(q / S) * MT * S;
         for (int j = h; j < S; j += tpr) {
-          const float r = to_f32(Ri[j]);
+          const float r = rot_elem<VAR>(Ri[j]);
 #pragma unroll
           for (int m = 0; m < MT; ++m) acc[m] = fmaf(xg[m * S + j], r, acc[m]);
         }
@@ -371,7 +435,29 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
     store_sz(k0);
   }
   __syncthreads();
-  for (int e = warp; e < ng * MT; e += NWARPS) {  // rowsum_g per (group, row)
+  if constexpr (VAR == DQ) {  // DQ's scales and zeros as its dot reads them: for each 4 columns
+    // the bf16 pairs (s0, s2), (s1, s3), (z0, z2), (z1, z3), in place of the f32 scales
+    constexpr int NQ = SZ_FLOATS / 4 / THREADS;
+    float4 sq[NQ], zq[NQ];
+#pragma unroll
+    for (int u = 0; u < NQ; ++u) {
+      const int e = 4 * (tid + u * THREADS);
+      if (e < nsz) {
+        sq[u] = *reinterpret_cast<const float4*>(ss + e);
+        zq[u] = *reinterpret_cast<const float4*>(zs + e);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < NQ; ++u) {
+      const int e = 4 * (tid + u * THREADS);
+      if (e < nsz)
+        *reinterpret_cast<uint4*>(ss + e) =
+            make_uint4(pack_bf16(sq[u].x, sq[u].z), pack_bf16(sq[u].y, sq[u].w),
+                       pack_bf16(zq[u].x, zq[u].z), pack_bf16(zq[u].y, zq[u].w));
+    }
+  }
+  for (int e = warp; e < (VAR == DQ ? 0 : ng * MT); e += NWARPS) {  // rowsum_g per (group, row)
     float s = 0.f;
     for (int k = lane; k < S; k += 32) {
       float* v = xr2 + (size_t)e * S + k;
@@ -403,12 +489,22 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
       const int r = c * CR + rl;
       if (r >= nrows) break;  // uniform across the warp
       const int gl = r / HALF, k = r - gl * HALF;
-      const uchar4 b = *reinterpret_cast<const uchar4*>(stage + rl * TW + c4);
-      const float4 s4 = *reinterpret_cast<const float4*>(ss + gl * TW + c4);
-      const float wl[4] = {(float)(b.x & 15) * s4.x, (float)(b.y & 15) * s4.y,
-                           (float)(b.z & 15) * s4.z, (float)(b.w & 15) * s4.w};
-      const float wh[4] = {(float)(b.x >> 4) * s4.x, (float)(b.y >> 4) * s4.y,
-                           (float)(b.z >> 4) * s4.z, (float)(b.w >> 4) * s4.w};
+      float wl[4], wh[4];  // the weight of the row's low and high nibbles: q s, or DQ's w
+      if constexpr (VAR == DQ) {
+        const uint32_t b = *reinterpret_cast<const uint32_t*>(stage + rl * TW + c4);
+        const uint4 sz = *reinterpret_cast<const uint4*>(ss + gl * TW + c4);
+        dequant_pair(b & 0x000F000Fu, sz.x, sz.z, wl[0], wl[2]);
+        dequant_pair((b >> 4) & 0x000F000Fu, sz.x, sz.z, wh[0], wh[2]);
+        dequant_pair((b >> 8) & 0x000F000Fu, sz.y, sz.w, wl[1], wl[3]);
+        dequant_pair((b >> 12) & 0x000F000Fu, sz.y, sz.w, wh[1], wh[3]);
+      } else {
+        const uchar4 b = *reinterpret_cast<const uchar4*>(stage + rl * TW + c4);
+        const float4 s4 = *reinterpret_cast<const float4*>(ss + gl * TW + c4);
+        wl[0] = (float)(b.x & 15) * s4.x, wl[1] = (float)(b.y & 15) * s4.y;
+        wl[2] = (float)(b.z & 15) * s4.z, wl[3] = (float)(b.w & 15) * s4.w;
+        wh[0] = (float)(b.x >> 4) * s4.x, wh[1] = (float)(b.y >> 4) * s4.y;
+        wh[2] = (float)(b.z >> 4) * s4.z, wh[3] = (float)(b.w >> 4) * s4.w;
+      }
       const float2* xv = reinterpret_cast<const float2*>(xr2 + (size_t)gl * MT * S) + k;
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
@@ -419,7 +515,7 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
     }
   }
   cp_async_wait<0>();
-  if (wi == 0) {  // the zero-point correction, once per group
+  if (VAR != DQ && wi == 0) {  // the zero-point correction, once per group
     for (int gl = 0; gl < ng; ++gl) {
       const float4 s4 = *reinterpret_cast<const float4*>(ss + gl * TW + c4);
       const float4 z4 = *reinterpret_cast<const float4*>(zs + gl * TW + c4);
@@ -492,14 +588,15 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
     const int m = tid / TW, col = col0 + tid % TW;
     if (m >= Mb || col >= col_end) return;
     const float* src = a.partial + (size_t)(m0 + m) * O + col;
-    float v = 0.f;
+    float v = 0.f, cs = 0.f;
+    int left = a.spc;
     for (int k0 = 0; k0 < KS; k0 += 32) {
       float t[32];
 #pragma unroll
       for (int u = 0; u < 32; ++u) t[u] = k0 + u < KS ? __ldcg(src + (k0 + u) * MO) : 0.f;
 #pragma unroll
       for (int u = 0; u < 32; ++u)
-        if (k0 + u < KS) v += t[u];
+        if (k0 + u < KS) merge_add<VAR>(v, cs, left, t[u], k0 + u, KS, a.spc);
     }
     out[(size_t)(m0 + m) * O + col] = from_f32<OT>(v);
     return;
@@ -508,7 +605,8 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
     const int col = col0 + 2 * tid;
     if (2 * tid >= TW || col >= col_end) return;
     const float* src = a.partial + (size_t)m0 * O + col;
-    float2 v = make_float2(0.f, 0.f);
+    float2 v = make_float2(0.f, 0.f), cs = v;
+    int left = a.spc;
     for (int k0 = 0; k0 < KS; k0 += 32) {
       float2 t[32];
 #pragma unroll
@@ -517,7 +615,7 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
                            : make_float2(0.f, 0.f);
 #pragma unroll
       for (int u = 0; u < 32; ++u)
-        if (k0 + u < KS) v.x += t[u].x, v.y += t[u].y;
+        if (k0 + u < KS) merge_add<VAR>(v, cs, left, t[u], k0 + u, KS, a.spc);
     }
     out[(size_t)m0 * O + col] = from_f32<OT>(v.x);
     out[(size_t)m0 * O + col + 1] = from_f32<OT>(v.y);
@@ -528,7 +626,8 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
     const int m = e4 / TW, col = col0 + e4 % TW;
     if (col >= col_end) continue;
     const float* src = a.partial + (size_t)(m0 + m) * O + col;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f), cs = v;
+    int left = a.spc;
     for (int k0 = 0; k0 < KS; k0 += LB) {
       float4 t[LB];
 #pragma unroll
@@ -547,7 +646,7 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
       }
 #pragma unroll
       for (int u = 0; u < LB; ++u)
-        if (k0 + u < KS) v.x += t[u].x, v.y += t[u].y, v.z += t[u].z, v.w += t[u].w;
+        if (k0 + u < KS) merge_add<VAR>(v, cs, left, t[u], k0 + u, KS, a.spc);
     }
     store4(m, col, v);
   }
@@ -580,26 +679,36 @@ cudaError_t launch(const Args& a, int MT, int n_tiles, int KS, cudaStream_t st) 
 // or bf16), qweight u8 [I/2, O] half-split, scales/zeros [G, O] of dtype
 // codes sdt/zdt, out [M, O] (x's dtype; f32 for V2); column tiles of cw * 128
 // columns (cw 1, 2 or 4), row tiles of row_tile(M, S) rows; KS group
-// splits of ceil(G / KS) groups each, every split non-empty and at most
-// max(1, max_groups) groups in at most MAX_SMEM bytes; partial f32 [KS, M, O]
-// when KS > 1 and counters int32, one per (column tile, row tile), zero (and
-// left zero). Grid (column tiles, KS, row tiles). Returns the first CUDA
-// error.
+// splits of ceil(G / KS) groups each (DQ: each chunk of `chunk` groups,
+// 1 <= chunk <= G, split into ceil(chunk / gps) splits of gps groups but
+// the chunk's last, so KS = G / chunk * ceil(chunk / gps) + ceil((G mod
+// chunk) / gps)), every split non-empty and at most max(1, max_groups)
+// groups in at most MAX_SMEM bytes; partial f32 [KS, M, O] when KS > 1 and
+// counters int32, one per (column tile, row tile), zero (and left zero).
+// Grid (column tiles, KS, row tiles). Returns the first CUDA error.
 template <int VAR>
 cudaError_t call(const void* x, const void* rot, const void* qweight, const void* scales,
                  const void* zeros, void* out, void* partial, void* counters, int M, int I,
                  int S, int P, const int* splits, int KS, int cw, int x_is_bf16, int rot_is_bf16,
-                 int sdt, int zdt, cudaStream_t st) {
+                 int sdt, int zdt, cudaStream_t st, int chunk = 0, int gps_dq = 0) {
   Parts parts;
   int vec4;
   if (w4::bad_layout(M, I, S, KS, sdt, zdt) || !w4::make_parts(P, splits, parts, vec4) ||
       (cw != 1 && cw != 2 && cw != 4))
     return cudaErrorInvalidValue;
   const int MT = row_tile(M, S);
-  const int TW = cw * WARP_COLS, G = I / S, gps = (G + KS - 1) / KS;
+  const int TW = cw * WARP_COLS, G = I / S;
+  int gps = (G + KS - 1) / KS, spc = KS;
+  if (VAR == DQ) {
+    gps = gps_dq;
+    if (chunk < 1 || chunk > G || gps < 1 || gps > chunk) return cudaErrorInvalidValue;
+    spc = (chunk + gps - 1) / gps;
+    if (KS != G / chunk * spc + (G % chunk + gps - 1) / gps) return cudaErrorInvalidValue;
+  } else if ((KS - 1) * gps >= G) {
+    return cudaErrorInvalidValue;
+  }
   const int gmax = max_groups(MT, S, TW);
-  if ((KS - 1) * gps >= G || gps > (gmax > 1 ? gmax : 1) ||
-      layout(MT, S, gps, TW).bytes > MAX_SMEM ||
+  if (gps > (gmax > 1 ? gmax : 1) || layout(MT, S, gps, TW).bytes > MAX_SMEM ||
       (KS > 1 && (partial == nullptr || counters == nullptr)))
     return cudaErrorInvalidValue;
   for (int p = 0; p < P; ++p) parts.tile_base[p + 1] = parts.tile_base[p] + (splits[p] + TW - 1) / TW;
@@ -619,6 +728,8 @@ cudaError_t call(const void* x, const void* rot, const void* qweight, const void
   a.sdt = sdt;
   a.zdt = zdt;
   a.cw = cw;
+  a.chunk = VAR == DQ ? chunk : G;
+  a.spc = spc;
   a.vec16 = (uintptr_t)qweight % 16 == 0;
   for (int p = 0; p < P; ++p) a.vec16 &= splits[p] % 16 == 0;
   a.rvec = (S * (rot_is_bf16 ? 2 : 4)) % 16 == 0 && (uintptr_t)rot % 16 == 0;

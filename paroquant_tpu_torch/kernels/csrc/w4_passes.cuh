@@ -46,7 +46,7 @@ enum GemvMode {
   HALF_SPLIT = 0,   // nibbles of channels k, k + S/2; (xr.q - rowsum*z)*s   (K1, K2, K6, K7)
   HALF_SPLIT_A8,    // the same with int8 activations, *sx                   (K1, K2 a8)
   INTERLEAVED,      // nibbles of channels 2k, 2k + 1                        (K9)
-  DEQUANT_BF16,     // w = bf16((q - z)*s) on the weight side, xr.w          (K8)
+  DEQUANT_BF16,     // w = bf16(bf16(q - z)*s) on the weight side, xr.w    (K8)
 };
 
 struct Parts {
@@ -354,13 +354,14 @@ __global__ void __launch_bounds__(WARPS * 32, 2) gemv_kernel(
               for (int j = 0; j < 4; ++j) acci[m][j] += xa * lo[j] + xb * hi[j];
             }
           } else {
-            // the weight with its scale: q*s, or bf16((q - z)*s) for the weight-side dequant
+            // the weight with its scale: q*s, or bf16(bf16(q - z)*s) for the weight-side
+            // dequant (q - z rounded to bf16 first, as the TPU kernel's bf16 operands are)
             float wl[4], wh[4];
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
               if (MODE == DEQUANT_BF16) {
-                wl[j] = round_to<bf16>(((float)lo[j] - z4[j]) * s4[j]);
-                wh[j] = round_to<bf16>(((float)hi[j] - z4[j]) * s4[j]);
+                wl[j] = round_to<bf16>(round_to<bf16>((float)lo[j] - z4[j]) * s4[j]);
+                wh[j] = round_to<bf16>(round_to<bf16>((float)hi[j] - z4[j]) * s4[j]);
               } else {
                 wl[j] = (float)lo[j] * s4[j];
                 wh[j] = (float)hi[j] * s4[j];

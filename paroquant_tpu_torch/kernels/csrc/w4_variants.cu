@@ -8,8 +8,10 @@
 //       l XOR d_r (d_r = 2^(r mod log2 S)): x[l] <- cos[r, l] x[l] + sin[r, l] x[l ^ d_r];
 //       then K6's sum.
 //  K8 rot_w4_matmul_mg (_kernel_dense_rot_mg): xr_g = bf16(bf16(x_g) @ bf16(M_g)^T),
-//       the weight dequantized in bf16, w = bf16((q - z) * s) with bf16 s and z,
-//       out = sum_g xr_g . w_g in f32, no zero-point correction.
+//       the weight dequantized in bf16, w = bf16(bf16(q - z) * s) with bf16 s and z,
+//       out = sum_g xr_g . w_g in f32, no zero-point correction. These passes
+//       take K8's calls at M > 16 (rot_matmul.py::mg_route); the DQ variant of
+//       the one-launch kernel (rot_w4_dequant.cu) takes the rest.
 //  K9 rot_w4_matmul_i4 (_kernel_dense_rot_i4): K1's numerics on a weight whose
 //       byte row k holds channel 2k in its low nibble and 2k + 1 in its high one.
 // K6, K7 and K9 take scales and zeros in f32, bf16, f16 or uint8 and convert

@@ -11,7 +11,8 @@ Port of the six kernels of `paroquant_tpu/kernels/rot_matmul.py`:
     K6 w4_matmul: K1 without the rotation, xr_g = bf16(x_g)
     K7 butterfly_w4_matmul: xr_g = bf16(K butterfly Givens stages of x_g * inv_s)
     K8 rot_w4_matmul_mg: xr_g = bf16(bf16(x_g) @ bf16(M_g)^T), the weight
-       dequantized in bf16, w = bf16((q - z) * s), out = sum_g xr_g @ w_g
+       dequantized in bf16, w = bf16(bf16(q - z) * s), out = the sum over
+       chunks of groups, in order, of each chunk's dot xr @ w
     K9 rot_w4_matmul_i4: K1 on the interleaved weight layout of
        `ops/packing.py::pack_w4_i4`
 
@@ -28,7 +29,10 @@ K1/K2 take one of two routes on the card, chosen before launch from shapes
 alone by `rot_route`: "one_launch" (W4A16 at M <= 16: one kernel that
 rotates x inside its GEMV blocks and merges its group splits behind a
 counter) or "passes" (rotate, GEMV and, with split groups, reduce). Each
-call adds one to `route_counts[name][route]`.
+call adds one to `route_counts[name][route]`. K8 takes the DQ variant of the
+one-launch kernel (csrc/rot_w4_dequant.cu, shared with K11, launched by
+`launch_dq` on the plan `dq_plan`) at M <= 16, or the passes, by
+`mg_route`; each call adds one to `mg_route_counts[route]`.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ ONE_LAUNCH_SZ_FLOATS = 2048  # scales (and zeros) it keeps: groups * tile width
 ONE_LAUNCH_ROW_TILES = (1, 2, 4, 8)  # the kernel's instances of rows per block
 ONE_LAUNCH_TILES = (128, 256, 512)  # its column-tile widths
 BLOCKS_PER_SM = 2  # its blocks resident per SM (registers and shared memory allow two)
+MAX_SMEM_BYTES = 227 * 1024  # shared memory a block can use on the H100
 MAX_BUTTERFLY_S = 32768  # K7 stages a group's rows in shared memory
 SZ_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.uint8: 3}
 
@@ -67,6 +72,8 @@ sz_counts: dict[str, dict[str, int]] = {name: {} for name in KERNELS}
 # S > 256 sends one there)
 ROUTES = ("one_launch", "passes", "passes_w4a16_m16")
 route_counts = {name: dict.fromkeys(ROUTES, 0) for name in variant_counts}
+# K8's calls by route (see mg_route)
+mg_route_counts = dict.fromkeys(ROUTES[:2], 0)
 
 
 def reset_launch_counts() -> None:
@@ -76,6 +83,8 @@ def reset_launch_counts() -> None:
     for name in variant_counts:
         variant_counts[name] = [0, 0]
         route_counts[name] = dict.fromkeys(ROUTES, 0)
+    for route in mg_route_counts:
+        mg_route_counts[route] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -173,20 +182,52 @@ def butterfly_w4_matmul_plain(x, inv_channel_scales, cos_table, sin_table, qweig
     return _w4_epilogue(xb, q, scales, zeros).sum(dim=1).to(x.dtype)
 
 
-def rot_w4_matmul_mg_plain(x, rot, qweight, scales, zeros) -> torch.Tensor:
-    """Plain PyTorch version of K8 (`_kernel_dense_rot_mg`): x and rot in
-    bf16, xr = bf16(x_g @ rot_g^T), the weight w = bf16((q - z) * s) with
-    bf16 scales and zeros, out = xr @ w summed in f32."""
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """t's values rounded to bf16 (nearest even), as float32."""
+    return t.to(torch.float32).to(torch.bfloat16).to(torch.float32)
+
+
+def dequant_chunks_plain(x, rot, qweight, scales, zeros, chunk: int) -> torch.Tensor:
+    """K8's and K11's function: x [M, I]; rot [G, S, S]; qweight uint8
+    [I//2, O]; scales, zeros [G, O] of any dtype -> [M, O] in x.dtype.
+
+        xr_g = bf16(bf16(x_g) @ bf16(M_g)^T),   w_g = bf16(bf16(q_g - z_g) * s_g)
+        out  = the f32 sum over chunks of `chunk` groups (the last may be
+               shorter), in order, of each chunk's f32 dot xr @ w
+
+    with s and z rounded to bf16, each bf16 operation of the weight
+    rounding once, as the TPU kernels compute (q - z) * s on bf16 operands."""
     M = x.shape[0]
     G, S, _ = rot.shape
-    xb = x.to(torch.bfloat16).to(torch.float32).reshape(M, G, S)
-    xr = torch.einsum("mgj,gij->mgi", xb, rot.to(torch.bfloat16).to(torch.float32))
-    xr = xr.to(torch.bfloat16).to(torch.float32)
-    q = _unpack_groups(qweight, G, S)
-    s = scales.to(torch.bfloat16).to(torch.float32)[:, None, :]
-    z = zeros.to(torch.bfloat16).to(torch.float32)[:, None, :]
-    w = ((q - z) * s).to(torch.bfloat16).to(torch.float32)
-    return torch.einsum("mgk,gko->mo", xr, w).to(x.dtype)
+    O = qweight.shape[1]
+    xr = _bf16(torch.einsum("mgj,gij->mgi", _bf16(x).reshape(M, G, S), _bf16(rot)))
+    s, z = _bf16(scales)[:, None, :], _bf16(zeros)[:, None, :]
+    w = _bf16(_bf16(_unpack_groups(qweight, G, S) - z) * s)  # [G, S, O]
+    acc = torch.zeros((M, O), dtype=torch.float32, device=x.device)
+    for g0 in range(0, G, chunk):  # the chunks in order, as the kernels' accumulators take them
+        acc = acc + xr[:, g0:g0 + chunk].reshape(M, -1) @ w[g0:g0 + chunk].reshape(-1, O)
+    return acc.to(x.dtype)
+
+
+def mg_chunk(G: int, groups_per_step: int) -> int:
+    """K8's chunk in groups, as JAX's wrapper normalises groups_per_step
+    (`paroquant_tpu/kernels/rot_matmul.py::rot_w4_matmul_mg`): at most G, and
+    below G a multiple of 16 (its bf16 blocks of scales and zeros tile at 16
+    sublanes), or G itself where G < 16. The last chunk holds what is left."""
+    if groups_per_step < 1:
+        raise ValueError(f"groups_per_step must be at least 1, got {groups_per_step}")
+    Gb = min(groups_per_step, G)
+    if Gb < G and Gb % 16:
+        Gb = max(16, Gb // 16 * 16) if G >= 16 else G
+    return Gb
+
+
+def rot_w4_matmul_mg_plain(x, rot, qweight, scales, zeros, *,
+                           groups_per_step: int = 16) -> torch.Tensor:
+    """Plain PyTorch version of K8 (`_kernel_dense_rot_mg`): `dequant_chunks_plain`
+    in chunks of `mg_chunk(G, groups_per_step)` groups."""
+    return dequant_chunks_plain(x, rot, qweight, scales, zeros,
+                                mg_chunk(rot.shape[0], groups_per_step))
 
 
 def rot_w4_matmul_i4_plain(x, rot, qweight_i4, scales, zeros) -> torch.Tensor:
@@ -208,6 +249,7 @@ _SIGNATURES = {  # entry point: (source stem, argument types)
                                       [_P] * 8 + [_I] * 4 + [ctypes.POINTER(_I)] + [_I] * 6),
     "paro_butterfly_w4_matmul": ("w4_variants", [_P] * 4 + [_I] + [_P] * 7 + [_I] * 8),
     "paro_dense_rot_w4_variant": ("w4_variants", [_P] * 9 + [_I] * 10),
+    "paro_rot_w4_matmul_dq": ("rot_w4_dequant", [_P] * 8 + [_I] * 12),
 }
 _fns: dict[str, object] = {}
 
@@ -297,6 +339,96 @@ def rot_route(M: int, I: int, S: int, out_splits: tuple, a8: bool, rot_dtype,
             return "one_launch", best[1], best[2]
     n_tiles = sum(-(-int(n) // COLS_PER_TILE) for n in out_splits)
     return "passes", _group_splits(n_tiles, -(-M // ROWS_PER_TILE), G, sms), COLS_PER_TILE
+
+
+def _row_tile(M: int, S: int) -> int:
+    """Rows per block of K10/K12 and the DQ variant (`row_tile` in
+    csrc/one_launch.cuh): K1's row tile for M (1, 2, 4 or 8), halved while
+    one group of that many rows exceeds ONE_LAUNCH_X_FLOATS."""
+    mt = one_launch_row_tile(M)
+    while mt > 1 and mt * S > ONE_LAUNCH_X_FLOATS:
+        mt //= 2
+    return mt
+
+
+def _one_launch_smem(mt: int, S: int, gps: int, tile: int) -> int:
+    """K10/K12's and the DQ variant's shared memory per block (`layout` in
+    csrc/one_launch.cuh): the 8 x 4 KB weight ring, then x and xr, the
+    scales and zeros and the row sums in floats; the warps' sums reuse it."""
+    a4 = lambda n: (n + 3) & ~3
+    body = 8 * 4096 + 4 * (2 * a4(gps * mt * S) + 2 * gps * tile + a4(gps * mt))
+    return max(body, 4 * 8 * mt * 128)
+
+
+def chunk_splits(G: int, chunk: int, gps: int) -> int:
+    """The splits of at most gps groups that cover G groups without crossing
+    a chunk of `chunk` groups (the last chunk holds G mod chunk where that is
+    not 0): each chunk takes ceil(its groups / gps) splits, all of gps
+    groups but its last."""
+    return G // chunk * -(-chunk // gps) + -(-(G % chunk) // gps)
+
+
+def dq_plan(M: int, I: int, S: int, O: int, sms: int, chunk: int, *,
+            wide_past_wave: bool = True) -> tuple[int, int, int, int]:
+    """The one-launch kernel's launch on a card of `sms` SMs, from shapes
+    alone, for splits that do not cross a chunk of `chunk` groups (K8, K11;
+    a chunk of G or more groups is all of them): (KS splits, column-tile
+    width, rows per block, groups per split).
+
+    Rows per block: `_row_tile(M, S)`. Where one wave of BLOCKS_PER_SM
+    blocks an SM can hold the grid, the tile of 128, 256 or 512 columns at
+    which the fewest groups a split (at most the chunk and min(16, 4096 //
+    (rows * S), 2048 // tile)) fit the wave, the narrower on a tie: every
+    block rotates its own groups, and at 4096 x 4096 one group a block (512
+    columns, 32 splits, M <= 8) took the least time of the splits and tiles
+    tried on an H100 (PERF.md §6). Otherwise the grid runs past one wave
+    (the split merge never waits on another block): with `wide_past_wave`
+    at M <= 16, 512-column tiles of the most groups a split they allow,
+    since every column tile reads its groups' rotations again (K8's
+    kernel-speedup sweep at I = 32768, PERF.md §6); else 128-column tiles
+    and as many splits as fill two blocks an SM, each of at most that many
+    groups (one where a group of that many rows exceeds 4096 floats). KS is
+    `chunk_splits`, so every split holds at least one group. Raises
+    ValueError where one group does not fit a block's shared memory (S
+    above about 24,000 channels)."""
+    mt = _row_tile(M, S)
+    G, rows, wave = I // S, -(-M // mt), BLOCKS_PER_SM * sms
+    chunk = min(chunk, G)
+    gmax = lambda tile: max(1, min(ONE_LAUNCH_MAX_GROUPS, ONE_LAUNCH_X_FLOATS // (mt * S),
+                                   ONE_LAUNCH_SZ_FLOATS // tile))
+    best = None
+    for tile in ONE_LAUNCH_TILES:
+        n = -(-O // tile) * rows
+        gps = next((g for g in range(1, min(chunk, gmax(tile)) + 1)
+                    if n * chunk_splits(G, chunk, g) <= wave), None)
+        if gps is not None and (best is None or gps < best[0]):
+            best = (gps, tile)
+    if best is None and wide_past_wave and M <= ONE_LAUNCH_MAX_M:
+        tile = ONE_LAUNCH_TILES[-1]
+        best = (min(chunk, gmax(tile)), tile)
+    elif best is None:
+        tile = COLS_PER_TILE
+        ks = _group_splits(-(-O // tile), rows, G, sms, gmax(tile))
+        best = (min(chunk, -(-G // ks)), tile)
+    gps, tile = best
+    if _one_launch_smem(mt, S, gps, tile) > MAX_SMEM_BYTES:
+        raise ValueError(f"a group of {S} channels does not fit one block's shared memory")
+    return chunk_splits(G, chunk, gps), tile, mt, gps
+
+
+def mg_route(M: int, I: int, S: int, O: int, chunk: int, sms: int):
+    """K8's route on a card of `sms` SMs, from shapes alone:
+    ("one_launch", `dq_plan`'s plan in chunks of `chunk` groups) or
+    ("passes", None). The DQ variant of the one-launch kernel takes M <= 16
+    rows where one group fits a block's shared memory; every other call
+    takes the three passes. On an H100 (PERF.md §6) the variant was the
+    faster at M 1 and 16 and the passes at M 33 and 128 at 4096 x 4096."""
+    if M <= ONE_LAUNCH_MAX_M:
+        try:
+            return "one_launch", dq_plan(M, I, S, O, sms, chunk)
+        except ValueError:  # a group too wide for one block's shared memory
+            pass
+    return "passes", None
 
 
 def _check_butterfly_group(S: int) -> None:
@@ -408,6 +540,36 @@ def _launch_rot(name, x, rot, qweight, scales, zeros, out_splits, a8):
     return out
 
 
+def launch_dq(name, x, rot, qweight, scales, zeros, chunk, plan=None):
+    """K8 / K11 on the card: one launch of the one-launch kernel's DQ variant
+    (csrc/rot_w4_dequant.cu) in chunks of `chunk` groups, by `plan` (KS,
+    tile, rows, gps) or else `dq_plan`'s. x [M, I]; rot [G, S, S] f32 or
+    bf16; scales, zeros [G, O] of any of the four dtypes -> [M, O] in
+    x.dtype. The caller counts the launch."""
+    M, I = x.shape
+    G, S, _ = rot.shape
+    O = qweight.shape[1]
+    if tuple(rot.shape) != (G, S, S):
+        raise ValueError(f"rot must be [G, S, S], got {tuple(rot.shape)}")
+    if rot.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"rot must be float32 or bfloat16, got {rot.dtype}")
+    x, qweight, scales, zeros, (rot,) = _check_operands(x, qweight, scales, zeros, S, G, (rot,))
+    fn = _lib_fn("paro_rot_w4_matmul_dq")  # before the device is queried
+    dev = x.device
+    KS, tile, mt, gps = plan or dq_plan(M, I, S, O, _sm_count(dev), chunk)
+    out = torch.empty((M, O), dtype=x.dtype, device=dev)
+    partial = torch.empty((KS, M, O) if KS > 1 else (0,), dtype=torch.float32, device=dev)
+    counters = _counters(-(-O // tile) * -(-M // mt), dev) if KS > 1 else partial
+    err = fn(
+        x.data_ptr(), rot.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
+        out.data_ptr(), partial.data_ptr(), counters.data_ptr(), M, I, S, O, KS, gps,
+        min(chunk, G), tile // COLS_PER_TILE, int(x.dtype == torch.bfloat16),
+        int(rot.dtype == torch.bfloat16), SZ_CODES[scales.dtype], SZ_CODES[zeros.dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, name)
+    return out
+
+
 def _launch_butterfly(name, x, inv_s, cos_t, sin_t, qweight, scales, zeros, S):
     """K6 (no tables) / K7 on the card."""
     M, I = x.shape
@@ -514,14 +676,28 @@ def butterfly_w4_matmul(x, inv_channel_scales, cos_table, sin_table, qweight, sc
 
 
 def rot_w4_matmul_mg(x, rot, qweight, scales, zeros, *, groups_per_step: int = 16) -> torch.Tensor:
-    """K8: K1's operands; x, rot, scales and zeros are rounded to bf16.
-    On the card `groups_per_step` caps the groups one block takes; the
-    result moves only by the order of f32 sums."""
-    if x.device.type == "cpu":  # groups_per_step only groups the sums
-        return rot_w4_matmul_mg_plain(x, rot, qweight, scales, zeros)
-    bf = torch.bfloat16
-    return _launch_dense_variant("rot_w4_matmul_mg", x, rot.to(bf), qweight, scales.to(bf),
-                                 zeros.to(bf), False, groups_per_step)
+    """K8: K1's operands; x, rot, scales and zeros are rounded to bf16, and
+    the dot is summed over chunks of `mg_chunk(G, groups_per_step)` groups in
+    order. On the card `mg_route` picks the DQ variant of the one-launch
+    kernel (one launch; the splits of a chunk merge in split order and the
+    chunks in order) or the three passes (where the result moves only by
+    the order of f32 sums)."""
+    if x.device.type == "cpu":
+        return rot_w4_matmul_mg_plain(x, rot, qweight, scales, zeros,
+                                      groups_per_step=groups_per_step)
+    M, I = x.shape
+    G, S, _ = rot.shape
+    chunk = mg_chunk(G, groups_per_step)
+    route, plan = mg_route(M, I, S, qweight.shape[1], chunk, _sm_count(x.device))
+    if route == "one_launch":
+        out = launch_dq("rot_w4_matmul_mg", x, rot, qweight, scales, zeros, chunk, plan)
+        _count("rot_w4_matmul_mg", scales, zeros)
+    else:
+        bf = torch.bfloat16
+        out = _launch_dense_variant("rot_w4_matmul_mg", x, rot.to(bf), qweight, scales.to(bf),
+                                    zeros.to(bf), False, groups_per_step)
+    mg_route_counts[route] += 1
+    return out
 
 
 def rot_w4_matmul_i4(x, rot, qweight_i4, scales, zeros) -> torch.Tensor:

@@ -13,7 +13,8 @@ Port of the kernels of four TPU experiment scripts (x [M, I]; rot M_g
     K11 dma_rot_w4_matmul (`scripts/kernel_dma_pipeline.py`), the weight
         streamed in chunks of Gb groups; s and z rounded to bf16 first:
           xr_g = bf16(bf16(x_g) @ bf16(M_g)^T),   w_g = bf16(bf16(q_g - z_g) * s_g)
-          out  = sum over chunks c of xr_c @ w_c in f32, in x's dtype.
+          out  = sum over chunks c of xr_c @ w_c in f32, in x's dtype:
+        K8's function (`rot_matmul.dequant_chunks_plain`) in chunks of Gb.
         G must be a multiple of Gb (the JAX kernel drops the last G mod Gb
         groups; the port refuses them).
     K12 rot_w4_matmul_v2 (`scripts/kernel_tune.py`):
@@ -27,9 +28,11 @@ Port of the kernels of four TPU experiment scripts (x [M, I]; rot M_g
         with xq . q_g exact in int32, (s_g * sx) formed first, and the sum
         over g taken in order in f32; out in x's dtype.
 
-On the card K10 and K12 are variants of K1's one-launch kernel
+On the card K10, K12 and K11 are variants of K1's one-launch kernel
 (csrc/one_launch.cuh): one launch a call, its group splits and column tile
-chosen from shapes alone by `one_launch_plan`.
+chosen from shapes alone by `one_launch_plan`, or for K11 (the DQ variant,
+csrc/rot_w4_dequant.cu, shared with K8) by `rot_matmul.dq_plan`, whose
+splits never cross a chunk of groups.
 
 Scales and zeros come in float32, bfloat16, float16 or uint8. A wrapper
 launches the CUDA kernel for tensors on a CUDA device and runs the plain
@@ -45,16 +48,13 @@ import ctypes
 import torch
 
 from .build import load
-from .rot_matmul import (BLOCKS_PER_SM, COLS_PER_TILE, ONE_LAUNCH_MAX_GROUPS,
-                         ONE_LAUNCH_SZ_FLOATS, ONE_LAUNCH_TILES, ONE_LAUNCH_X_FLOATS, SZ_CODES,
-                         _check_operands, _counters, _group_splits, _raise_on, _sm_count,
-                         _unpack_groups, one_launch_row_tile)
+from .rot_matmul import (COLS_PER_TILE, MAX_SMEM_BYTES, SZ_CODES, _bf16, _check_operands,
+                         _counters, _one_launch_smem, _raise_on, _row_tile, _sm_count,
+                         _unpack_groups, dequant_chunks_plain, dq_plan, launch_dq)
 
 KERNELS = ("rot_w4_matmul_b", "dma_rot_w4_matmul", "rot_w4_matmul_v2", "w4a8_matmul")
 launch_counts = {name: 0 for name in KERNELS}
 BLOCK_MS = (8, 16)  # K10/K12: the JAX scripts' rows per block (see one_launch_plan)
-DMA_ROWS = 8  # K11: the rows one block carries (one where M = 1)
-MAX_SMEM_BYTES = 227 * 1024  # shared memory a block can use on the H100
 
 F32, BF16 = torch.float32, torch.bfloat16
 
@@ -72,10 +72,6 @@ def reset_launch_counts() -> None:
 def _rotate(xg: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
     """xg [M, G, S] f32, rot [G, S, S] f32 -> xg_g @ rot_g^T in f32."""
     return torch.einsum("mgj,gij->mgi", xg, rot)
-
-
-def _bf16(t: torch.Tensor) -> torch.Tensor:
-    return t.to(BF16).to(F32)
 
 
 def rot_w4_matmul_b_plain(x, rot, qweight, scales, zeros) -> torch.Tensor:
@@ -96,20 +92,8 @@ def _check_chunks(G: int, Gb: int) -> None:
 
 def dma_rot_w4_matmul_plain(x, rot, qweight, scales, zeros, *, Gb: int = 4) -> torch.Tensor:
     """Plain PyTorch version of K11 (`_kernel_dma`): [M, I] -> [M, O] in x.dtype."""
-    M = x.shape[0]
-    G, S, _ = rot.shape
-    O = qweight.shape[1]
-    _check_chunks(G, Gb)
-    xr = _bf16(_rotate(_bf16(x.to(F32)).reshape(M, G, S), _bf16(rot.to(F32))))
-    s = _bf16(scales.to(F32))[:, None, :]
-    z = _bf16(zeros.to(F32))[:, None, :]
-    w = _bf16(_bf16(_unpack_groups(qweight, G, S) - z) * s)  # [G, S, O]
-    n = G // Gb
-    parts = torch.einsum("mck,cko->mco", xr.reshape(M, n, Gb * S), w.reshape(n, Gb * S, O))
-    acc = torch.zeros((M, O), dtype=F32, device=x.device)
-    for c in range(n):  # the chunks in order, as the kernel's fori_loop sums them
-        acc = acc + parts[:, c]
-    return acc.to(x.dtype)
+    _check_chunks(rot.shape[0], Gb)
+    return dequant_chunks_plain(x, rot, qweight, scales, zeros, Gb)
 
 
 def rot_w4_matmul_v2_plain(x, rot, qweight, scales_f16, zeros_u8) -> torch.Tensor:
@@ -147,7 +131,6 @@ def w4a8_matmul_plain(x, qweight, scales, zeros, *, group_size: int = 128) -> to
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {  # entry point: argument types (all in csrc/w4_experiments.cu)
     "paro_rot_w4_matmul_b": [_P] * 8 + [_I] * 10,
-    "paro_dma_rot_w4_matmul": [_P] * 6 + [_I] * 9,
     "paro_rot_w4_matmul_v2": [_P] * 8 + [_I] * 10,
     "paro_w4a8_matmul": [_P] * 5 + [_I] * 7,
 }
@@ -174,73 +157,12 @@ def _check_rot(rot, G: int, S: int):
         raise TypeError(f"rot must be float32 or bfloat16, got {rot.dtype}")
 
 
-def _align16(n: int) -> int:
-    return -(-n // 16) * 16
-
-
-def _smem_bytes(bm: int, G: int, S: int, Gb: int) -> int:
-    """K11's shared memory per block (`smem_layout` in the CUDA source): its
-    two weight stages, the rotated rows in bf16, one group of x, the tile's
-    partials, the chunk's scales and zeros."""
-    return sum(_align16(n) for n in (
-        2 * Gb * (S // 2) * 32, bm * G * (S + 2) * 2, bm * S * 4, 8 * bm * 32 * 4, Gb * 2 * 32 * 4))
-
-
-def _row_tile(M: int, S: int) -> int:
-    """Rows per block of K10/K12 (`row_tile` in csrc/one_launch.cuh): K1's
-    row tile for M (1, 2, 4 or 8), halved while one group of that many rows
-    exceeds ONE_LAUNCH_X_FLOATS."""
-    mt = one_launch_row_tile(M)
-    while mt > 1 and mt * S > ONE_LAUNCH_X_FLOATS:
-        mt //= 2
-    return mt
-
-
-def _one_launch_smem(mt: int, S: int, gps: int, tile: int) -> int:
-    """K10/K12's shared memory per block (`layout` in csrc/one_launch.cuh):
-    the 8 x 4 KB weight ring, then x and xr, the scales and zeros and the
-    row sums in floats; the warps' sums reuse it."""
-    a4 = lambda n: (n + 3) & ~3
-    body = 8 * 4096 + 4 * (2 * a4(gps * mt * S) + 2 * gps * tile + a4(gps * mt))
-    return max(body, 4 * 8 * mt * 128)
-
-
 def one_launch_plan(M: int, I: int, S: int, O: int, sms: int) -> tuple[int, int, int]:
-    """K10/K12's launch on a card of `sms` SMs, from shapes alone: (KS group
-    splits, column-tile width, rows per block).
-
-    Rows per block: `_row_tile(M, S)`. Where one wave of BLOCKS_PER_SM
-    blocks an SM can hold the grid, the tile of 128, 256 or 512 columns
-    whose most splits that fit the wave leave the fewest groups a block (at
-    most min(16, 4096 // (rows * S), 2048 // tile)), the narrower on a tie:
-    every block rotates its own groups, and at 4096 x 4096 one group a block
-    (512 columns, 32 splits, M <= 8) took the least time of the splits and
-    tiles tried on an H100 (PERF.md §6). Otherwise 128-column tiles and as many splits as fill two
-    blocks an SM, each of at most that many groups (one where a group of
-    that many rows exceeds 4096 floats), past one wave: the split merge
-    never waits on another block. Every split holds at least one group.
-    Raises ValueError where one group does not fit a block's shared memory
-    (S above about 24,000 channels)."""
-    mt = _row_tile(M, S)
-    G, rows, wave = I // S, -(-M // mt), BLOCKS_PER_SM * sms
-    gmax = lambda tile: max(1, min(ONE_LAUNCH_MAX_GROUPS, ONE_LAUNCH_X_FLOATS // (mt * S),
-                                   ONE_LAUNCH_SZ_FLOATS // tile))
-    best = None
-    for tile in ONE_LAUNCH_TILES:
-        ks = min(G, wave // (-(-O // tile) * rows))
-        if ks < 1 or -(-G // ks) > gmax(tile):
-            continue
-        gps = -(-G // ks)
-        if best is None or gps < best[0]:
-            best = (gps, -(-G // gps), tile)
-    if best is None:
-        tile = COLS_PER_TILE
-        ks = _group_splits(-(-O // tile), rows, G, sms, gmax(tile))
-        best = (-(-G // ks), ks, tile)
-    gps, ks, tile = best
-    if _one_launch_smem(mt, S, gps, tile) > MAX_SMEM_BYTES:
-        raise ValueError(f"a group of {S} channels does not fit one block's shared memory")
-    return ks, tile, mt
+    """K10/K12's launch on a card of `sms` SMs: `rot_matmul.dq_plan` with
+    all G groups one chunk and 128-column tiles past one wave (the wider
+    tiles there were timed for K8 only), (KS group splits of ceil(G / KS)
+    groups, column-tile width, rows per block)."""
+    return dq_plan(M, I, S, O, sms, I // S, wide_past_wave=False)[:3]
 
 
 def _launch_fused(name, entry, x, rot, qweight, scales, zeros, block_m, out_dtype):
@@ -287,24 +209,13 @@ def rot_w4_matmul_b(x, rot, qweight, scales, zeros, *, block_m: int = 16) -> tor
 
 
 def dma_rot_w4_matmul(x, rot, qweight, scales, zeros, *, Gb: int = 4) -> torch.Tensor:
-    """K11: K10's operands, the weight streamed in chunks of Gb groups; G
-    must be a multiple of Gb. -> [M, O] in x.dtype."""
-    G, S, _ = rot.shape
-    _check_chunks(G, Gb)
+    """K11: K10's operands, the dot summed over chunks of Gb groups in order;
+    G must be a multiple of Gb. -> [M, O] in x.dtype. On the card the DQ
+    variant of the one-launch kernel, at every M (`rot_matmul.dq_plan`)."""
+    _check_chunks(rot.shape[0], Gb)
     if x.device.type == "cpu":
         return dma_rot_w4_matmul_plain(x, rot, qweight, scales, zeros, Gb=Gb)
-    _check_rot(rot, G, S)
-    M, I = x.shape
-    O = qweight.shape[1]
-    if _smem_bytes(1 if M == 1 else DMA_ROWS, G, S, Gb) > MAX_SMEM_BYTES:
-        raise ValueError(f"{G} groups of {S} channels in chunks of {Gb} do not fit shared memory")
-    x, qweight, scales, zeros, (rot,) = _check_operands(x, qweight, scales, zeros, S, G, (rot,))
-    out = torch.empty((M, O), dtype=x.dtype, device=x.device)
-    err = _lib_fn("paro_dma_rot_w4_matmul")(
-        x.data_ptr(), rot.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
-        out.data_ptr(), M, I, S, O, Gb, int(x.dtype == BF16), int(rot.dtype == BF16),
-        SZ_CODES[scales.dtype], SZ_CODES[zeros.dtype], _stream(x.device))
-    _raise_on(err, "dma_rot_w4_matmul")
+    out = launch_dq("dma_rot_w4_matmul", x, rot, qweight, scales, zeros, Gb)
     launch_counts["dma_rot_w4_matmul"] += 1
     return out
 

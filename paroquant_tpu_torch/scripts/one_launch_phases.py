@@ -1,19 +1,20 @@
 """Where a one-launch W4 call's time goes, phase by phase, on the card.
 
-    python -m paroquant_tpu_torch.scripts.one_launch_phases [--kernel k10] [--M 1] [--I 4096] [--O 4096] [--reps 9]
+    python -m paroquant_tpu_torch.scripts.one_launch_phases [--kernel k10] [--M 1] [--I 4096] [--O 4096] [--Gb 4] [--reps 9]
 
 Builds a copy of `kernels/csrc/one_launch.cuh` in which thread 0 of every
 block writes `%globaltimer` (ns) at the end of each phase of
 `rot_w4_one_launch_kernel` into a device array, with one `extern "C"` entry
-for the three variants (K1's one launch, K10, K12), into the build
-directory. At the given shape, with random weights from a seeded
+for the four variants (K1's one launch, K10, K12, and K11's DQ in chunks of
+Gb groups), into the build directory. At the given shape, with random weights from a seeded
 `torch.Generator`, it runs one call after an L2 flush `reps` times and
 prints for each phase the median over repetitions of the median over blocks
 of the time since the first block started at which the phase ended, and
 the latest block's end; beside them the kernel's own time (the wrapper, no
 stamps, `utils/profiling.py::kernel_time_ms`, the same flush). Phases: x
-staged, rotation, row sums, dot (the ring consumed), partial written,
-counter, end (the merging block's last store; none with one split). The
+staged, rotation, row sums (DQ: its scales and zeros packed as bf16
+pairs), dot (the ring consumed), partial written, counter, end (the
+merging block's last store; none with one split). The
 stamps cost a few global stores a block. A change to the kernel that moves
 an anchor the stamps go after fails here (`instrumented_source`), not
 silently; the CPU tests check the anchors.
@@ -34,7 +35,7 @@ from ..utils.device import resolve_device
 from ..utils.profiling import kernel_time_ms
 
 PHASES = ("x", "rotation", "row_sums", "dot", "partial", "counter", "end")
-VARIANTS = {"k1": 0, "k10": 1, "k12": 2}  # one::Variant
+VARIANTS = {"k1": 0, "k10": 1, "k12": 2, "k11": 3}  # one::Variant
 MAX_BLOCKS = 16384
 FLUSH_BYTES = 256 << 20  # > the 50 MB L2
 
@@ -68,8 +69,11 @@ using namespace paro;
 extern "C" int phases_call(int var, const void* x, const void* rot, const void* qweight,
                            const void* scales, const void* zeros, void* out, void* partial,
                            void* counters, int M, int I, int S, int O, int KS, int cw, int x_bf16,
-                           int rot_bf16, int sdt, int zdt, void* stream) {
+                           int rot_bf16, int sdt, int zdt, int chunk, int gps, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
+  if (var == one::DQ)
+    return (int)one::call<one::DQ>(x, rot, qweight, scales, zeros, out, partial, counters, M, I, S,
+                                   1, &O, KS, cw, x_bf16, rot_bf16, sdt, zdt, st, chunk, gps);
   if (var == one::K1)
     return (int)one::call<one::K1>(x, rot, qweight, scales, zeros, out, partial, counters, M, I, S,
                                    1, &O, KS, cw, x_bf16, rot_bf16, sdt, zdt, st);
@@ -112,7 +116,7 @@ def _library() -> ctypes.CDLL:
         subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", str(lib),
                         str(out_dir / "one_launch_phases.cu")], check=True, capture_output=True)
     dll = ctypes.CDLL(str(lib))
-    dll.phases_call.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    dll.phases_call.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
     dll.phases_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
     return dll
 
@@ -131,6 +135,7 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--I", type=int, default=4096)
     ap.add_argument("--O", type=int, default=4096)
     ap.add_argument("--S", type=int, default=128)
+    ap.add_argument("--Gb", type=int, default=4, help="K11's groups a chunk")
     ap.add_argument("--reps", type=int, default=9)
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")  # the phases are stamped on the card only
@@ -144,12 +149,17 @@ def main(argv=None) -> list[dict]:
     scales = (torch.rand(G, O, generator=gen, device=dev) * 0.04 + 0.01).to(bf)
     zeros = torch.randint(0, 16, (G, O), generator=gen, device=dev).to(bf)
     sms = rm._sm_count(dev)
+    chunk, gps = G, 0  # K11 only
     if args.kernel == "k1":
         route, KS, tile = rm.rot_route(M, I, S, (O,), False, bf, sms)
         if route != "one_launch":
             raise SystemExit(f"K1 takes the passes at M={M}, I={I}, S={S}, O={O}")
         rows = rm.one_launch_row_tile(M)
         call = lambda: rm.rot_w4_matmul(x, rot, qw, scales, zeros)
+    elif args.kernel == "k11":
+        chunk = args.Gb
+        KS, tile, rows, gps = rm.dq_plan(M, I, S, O, sms, chunk)
+        call = lambda: wx.dma_rot_w4_matmul(x, rot, qw, scales, zeros, Gb=chunk)
     else:
         KS, tile, rows = wx.one_launch_plan(M, I, S, O, sms)
         fn = wx.rot_w4_matmul_b if args.kernel == "k10" else wx.rot_w4_matmul_v2
@@ -171,7 +181,7 @@ def main(argv=None) -> list[dict]:
         err = lib.phases_call(VARIANTS[args.kernel], x.data_ptr(), rot.data_ptr(), qw.data_ptr(),
                               scales.data_ptr(), zeros.data_ptr(), out.data_ptr(), partial.data_ptr(),
                               counters.data_ptr(), M, I, S, O, KS, tile // rm.COLS_PER_TILE, 1, 1, 1, 1,
-                              stream)
+                              chunk, gps, stream)
         torch.cuda.synchronize()
         if err:
             raise RuntimeError(f"the stamped kernel failed with CUDA error {err}")
@@ -185,6 +195,7 @@ def main(argv=None) -> list[dict]:
     med = torch.tensor(per_rep).median(0).values.tolist()
     us = kernel_time_ms(call, 30, flush) * 1e3
     row = {"kernel": args.kernel, "M": M, "I": I, "O": O, "S": S, "KS": KS, "tile": tile,
+           **({"Gb": chunk, "groups_per_split": gps} if args.kernel == "k11" else {}),
            "rows_per_block": rows, "blocks": n, "us": us,
            "phase_end_us": dict(zip(PHASES, med[:7])), "last_end_us": med[7],
            "device": torch.cuda.get_device_name(dev), "card": _card()}

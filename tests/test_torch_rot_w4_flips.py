@@ -20,7 +20,9 @@ from every bf16 midpoint, both sides round to the same bf16; where it lies
 within it, they may differ by one bf16 ulp of it, 2**(floor(log2 |v|) - 7).
 The element's coefficient in y[m, o] is (q[i, o] - z[o]) s[o] (xr feeds the
 dot and the zero point's row sum), or q[i, o] s[o] where the row sum takes
-the unrounded f32 value (K10). So
+the unrounded f32 value (K10), or the dequantized weight w[i, o] =
+bf16(bf16(q[i, o] - z[o]) s[o]) where the dot takes the weight whole and
+there is no row sum (K8, K11). So
 
     |y - y_ref| <= 1e-5 max |y_ref|
                    + sum over such elements i of ulp_i |coefficient[i, o]|
@@ -50,16 +52,23 @@ def flip_bound(x, rot, qweight, scales, zeros, out_splits=None, *, variant="k1")
     """The bf16-flip term of `rot_tolerance`, float64 [M, O]. x [M, I] as
     the caller passes it, rot [G, S, S] or [P, G, S, S], qweight uint8
     [I//2, O], scales/zeros [G, O] (torch tensors). variant "k1" (K1/K2),
-    "b" (K10: x in rot's dtype, the row sum unrounded) or "v2" (K12: x not
-    rounded)."""
+    "b" (K10: x in rot's dtype, the row sum unrounded), "v2" (K12: x not
+    rounded) or "dq" (K8/K11: x and rot rounded to bf16, the coefficient the
+    dequantized weight |bf16(bf16(q - z) s)| with s and z in bf16)."""
     rot = rot if rot.dim() == 4 else rot[None]
     P, G, S, _ = rot.shape
     M = x.shape[0]
     out_splits = out_splits or (qweight.shape[1],)
-    xg = _f64(x if variant == "v2" else x.to(rot.dtype)).reshape(M, G, S)
-    q = _f64(tk._unpack_groups(qweight, G, S))  # [G, S, O]
-    s, z = _f64(scales), _f64(zeros)
-    coef = np.abs(q * s[:, None] if variant == "b" else (q - z[:, None]) * s[:, None])
+    if variant == "dq":
+        xg, rot = _f64(tk._bf16(x)).reshape(M, G, S), tk._bf16(rot)
+        w = tk._bf16(tk._bf16(tk._unpack_groups(qweight, G, S) - tk._bf16(zeros)[:, None])
+                     * tk._bf16(scales)[:, None])
+        coef = np.abs(_f64(w))
+    else:
+        xg = _f64(x if variant == "v2" else x.to(rot.dtype)).reshape(M, G, S)
+        q = _f64(tk._unpack_groups(qweight, G, S))  # [G, S, O]
+        s, z = _f64(scales), _f64(zeros)
+        coef = np.abs(q * s[:, None] if variant == "b" else (q - z[:, None]) * s[:, None])
     gamma = S * U32 / (1 - S * U32)
     parts, off = [], 0
     for p, n in enumerate(out_splits):

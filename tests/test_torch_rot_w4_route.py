@@ -113,32 +113,64 @@ def test_route_refuses_other_rot_dtypes():
 # ---------------------------------------------------------------------------
 
 
-def one_launch_model(x, rot, qweight, scales, zeros, out_splits, KS, variant="k1"):
+def split_groups(G, KS, chunk=None, gps=None):
+    """The groups of each of the KS splits, as the one-launch kernel assigns
+    them: split ks of chunk ks // spc (spc = ceil(chunk / gps) splits a
+    chunk) takes up to gps groups from the chunk's start + (ks mod spc) gps,
+    never past the chunk. Without a chunk, all G groups are one chunk of
+    ceil(G / KS) groups a split. Returns [(chunk index, range of groups)]."""
+    gps = gps or -(-G // KS)
+    chunk = min(chunk or G, G)
+    spc = -(-chunk // gps)
+    out = []
+    for ks in range(KS):
+        c = ks // spc
+        g0 = c * chunk + ks % spc * gps
+        out.append((c, range(g0, min(g0 + gps, (c + 1) * chunk, G))))
+    return out
+
+
+def one_launch_model(x, rot, qweight, scales, zeros, out_splits, KS, variant="k1", chunk=None,
+                     gps=None):
     """The one-launch kernel's arithmetic in torch: per block (partition p,
     split ks) xr_g = bf16(x_g @ rot[p, g]^T) for its groups, an f32 partial
     sum_g xr_g @ (q_g s_g) - rowsum_g z_g s_g, and the KS partials summed in
     split order. Returns f32 [M, O]. variant "k1" (K1/K2: x rounded to rot's
-    dtype, rowsum of the bf16 xr), "b" (K10: the rowsum of the f32 xr) or
-    "v2" (K12: x not rounded)."""
+    dtype, rowsum of the bf16 xr), "b" (K10: the rowsum of the f32 xr), "v2"
+    (K12: x not rounded) or "dq" (K8/K11: x and rot rounded to bf16, the
+    partial sum_g xr_g @ w_g with w_g = bf16(bf16(q_g - z_g) s_g) and s, z in
+    bf16; the splits, `split_groups(G, KS, chunk, gps)`, do not cross a
+    chunk, each chunk's splits add in split order into its f32 sum and the
+    chunk sums in chunk order)."""
     M, I = x.shape
     P, G, S, _ = rot.shape
-    gps = -(-G // KS)
     q = tk._unpack_groups(qweight, G, S)  # [G, S, O] nibble values
-    xg = (x if variant == "v2" else x.to(rot.dtype)).to(torch.float32).reshape(M, G, S)
+    dq = variant == "dq"
+    if dq:
+        xg, rot = tk._bf16(x).reshape(M, G, S), tk._bf16(rot)
+        s_all, z_all = tk._bf16(scales), tk._bf16(zeros)
+    else:
+        xg = (x if variant == "v2" else x.to(rot.dtype)).to(torch.float32).reshape(M, G, S)
+        s_all, z_all = scales.to(torch.float32), zeros.to(torch.float32)
+    splits = split_groups(G, KS, chunk, gps)
     outs, off = [], 0
     for p, n in enumerate(out_splits):
         cols = slice(off, off + n)
-        total = torch.zeros(M, n)
-        for ks in range(KS):
+        total, chunk_sum = torch.zeros(M, n), torch.zeros(M, n)
+        for ks, (c, groups) in enumerate(splits):
             part = torch.zeros(M, n)
-            for g in range(ks * gps, min(G, (ks + 1) * gps)):
+            for g in groups:
                 xr32 = xg[:, g] @ rot[p, g].to(torch.float32).T
                 xr = xr32.to(torch.bfloat16).to(torch.float32)
+                s, z = s_all[g, cols], z_all[g, cols]
+                if dq:
+                    part = part + xr @ tk._bf16(tk._bf16(q[g][:, cols] - z) * s)
+                    continue
                 rowsum = (xr32 if variant == "b" else xr).sum(-1, keepdim=True)
-                s = scales[g, cols].to(torch.float32)
-                z = zeros[g, cols].to(torch.float32)
                 part = part + xr @ (q[g][:, cols] * s) - rowsum * z * s
-            total = total + part
+            chunk_sum = chunk_sum + part
+            if ks + 1 == KS or splits[ks + 1][0] != c:  # the chunk's last split
+                total, chunk_sum = total + chunk_sum, torch.zeros(M, n)
         outs.append(total)
         off += n
     return torch.cat(outs, dim=-1)

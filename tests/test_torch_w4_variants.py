@@ -6,7 +6,9 @@ tests/test_kernels.py runs them.
 
 Tolerances, relative to max |y| of the JAX output:
   1e-5    where only the order of f32 sums differs (K6, K9);
-  2e-3    where a bf16 rounding of an intermediate can flip (K7's and K8's xr);
+  2e-3    where a bf16 rounding of an intermediate can flip (K7's and K8's xr;
+          K8's weight rounds q - z to bf16 before the product, and a port
+          that rounds once misses this bound on fractional zeros);
   2**-7   (one bf16 ulp at max |y|) for bf16 outputs.
 """
 
@@ -162,6 +164,30 @@ def test_rot_w4_matmul_mg_plain_matches_pallas(M, G, gps):
                              torch.from_numpy(zeros).to(torch.bfloat16), groups_per_step=gps)
     assert yt.dtype == torch.bfloat16
     _close(yt, yj, 2e-3 + BF16_ULP)
+
+
+@pytest.mark.parametrize("seed", range(20))
+def test_rot_w4_matmul_mg_plain_on_fractional_zeros(seed):
+    """JAX's kernel forms (q - z) * s on bf16 operands, so q - z is rounded to
+    bf16 before the product; with integer zeros q - z is exact and a single
+    rounding of (q - z) * s gives the same weight, with fractional ones it
+    does not. Zeros ~ U(0, 15) rounded to bf16, scales ~ U(0.01, 0.05),
+    Gaussian x and rotations, f32 operands; G 4 (one chunk) or 20 (chunks of
+    16 and 4) and M 1 or 5 by seed."""
+    G, M = (4, 20)[seed % 2], (1, 5)[seed // 2 % 2]
+    I, O = G * GS, 128
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(M, I)).astype(np.float32)
+    rot = (rng.normal(size=(G, GS, GS)) / GS**0.5).astype(np.float32)
+    qw = np.asarray(jpk.pack_w4_tpu(rng.integers(0, 16, (I, O), dtype=np.int32), GS))
+    scales = rng.uniform(0.01, 0.05, (G, O)).astype(np.float32)
+    zeros = np.asarray(jnp.asarray(rng.uniform(0, 15, (G, O)).astype(np.float32), jnp.bfloat16),
+                       np.float32)
+    ops = (x, rot, qw, scales, zeros)
+    yj = jk.rot_w4_matmul_mg(*(jnp.asarray(a) for a in ops), interpret=True)
+    yt = tk.rot_w4_matmul_mg(*(torch.from_numpy(a) for a in ops))
+    assert yt.dtype == torch.float32
+    _close(yt, yj, 2e-3)
 
 
 def test_rot_w4_matmul_mg_rounds_f32_operands_to_bf16():
