@@ -23,13 +23,14 @@ Phases, each printing one or more lines:
      the same inputs bitwise equal; K4 also at the engine step's 8 slots
      of 256 tokens), K6-K9 (the
      kernel benchmarks' W4 variants, at their 4096 x 4096 shape with each
-     scale/zero dtype pair and at o_proj; K8 at M <= 16 on the DQ variant of
-     the one-launch kernel, two calls bitwise equal and one kernel a call,
-     and each K8 row timed beside the other of its two routes), K10-K13 (the
+     scale/zero dtype pair and at o_proj; K8 and K7 at M <= 16 on the DQ and
+     BF variants of the one-launch kernel, two calls bitwise equal and one
+     kernel a call, and each K8 and K7 row timed beside the other of its two
+     routes), K10-K13 (the
      W4 GEMV experiments of the TPU scripts, at their 4096 x 4096 shape,
-     dtypes and knobs: M, Gb, block_m; K10-K12 two calls bitwise equal and
-     one kernel a call; K8 and K11, one function, held to TOL_DEQUANT
-     here and in their edges),
+     dtypes and knobs: M, Gb, block_m; all four on the one-launch kernel
+     (K13 its A8 variant), two calls bitwise equal and one kernel a call;
+     K8 and K11, one function, held to TOL_DEQUANT here and in their edges),
      K14-K17 (the int8 probe's narrowing cast and tensor-core
      dots, at its shapes and on its integer inputs, exact); then their other branches (f32,
      ragged M, head_dim 64, softcap, window, page sizes, K1/K2 at group
@@ -40,7 +41,8 @@ Phases, each printing one or more lines:
      then slice 3's path, the ported kernel benchmarks (kernel_bench3 in
      its three modes, kernel_bench4, the kernel-speedup sweep, K9 at the
      benchmarks' shape) with the launch counts reset just before and read
-     just after: K1 (on f32 and uint8 scales/zeros) and K6-K9 must run;
+     just after: K1 (on f32 and uint8 scales/zeros) and K6-K9 must run,
+     K7 and K8 at every call on the one-launch route;
      then slice 4's path, the ported experiment scripts (kernel_edge_test,
      kernel_dma_pipeline, kernel_tune, kernel_w4a8_exp), counted the same
      way: K10-K13 and their control arms K1, K6 and K8 must run;
@@ -54,9 +56,10 @@ Phases, each printing one or more lines:
      the unpack library K18's 128-bit global loads, that of the K1/K2
      library 128-bit loads (LDG.E.128) and 16-byte cp.async (LDGSTS) in all
      16 one-launch instances, that of the experiments' library in all 32
-     of K10/K12 and that of the dequant library in all 16 of K8/K11 (the
+     of K10/K12 and 8 of K13, that of the variants' library in all 8 of K7
+     and that of the dequant library in all 16 of K8/K11 (the
      same kernel, csrc/one_launch.cuh), with 0 spill bytes in ptxas's lines
-     for all 64 and, in K8/K11's, three bf16x2 operations for each pair
+     for all 80 and, in K8/K11's, three bf16x2 operations for each pair
      of nibbles (the dequant's two roundings neither fused nor dropped),
      that of
      the paged
@@ -594,8 +597,12 @@ def check_edges(gen, dev):
     int8_edges(gen, dev, record, record_exact)
     unpack_edges(gen, dev, record, record_exact)
     torch.cuda.synchronize()
-    emit({"phase": "kernel_edges", "cases": len(rows),
-          "worst_err_over_tol": max(r["err_over_tol"] for r in rows),
+    worst = max(rows, key=lambda r: r["err_over_tol"])
+    by_kernel = {}
+    for r in rows:
+        by_kernel[r["kernel"]] = max(by_kernel.get(r["kernel"], 0.0), r["err_over_tol"])
+    emit({"phase": "kernel_edges", "cases": len(rows), "worst_err_over_tol": worst["err_over_tol"],
+          "worst": {k: worst[k] for k in ("kernel", "case")}, "worst_by_kernel": by_kernel,
           "failed": [r for r in rows if not r["ok"]]})
     return rows
 
@@ -609,11 +616,12 @@ SZ_DTYPES = {"bf16/bf16": ("bfloat16", "bfloat16"), "bf16/u8": ("bfloat16", "uin
              "f32/f32": ("float32", "float32")}
 
 
-def w4_variant_inputs(kernel, I, O, gen, dev, S=128, K=8, sz="bf16/bf16"):
+def w4_variant_inputs(kernel, I, O, gen, dev, S=128, K=8, sz="bf16/bf16", shift_tables=False):
     """Random operands of one W4 variant at group size S: (call, plain, the
     rotation map as a function of x [n, I] -> [n, I] f32 (None for K6), the
     dequantized weight [I, O] f32, the bytes the call must move beyond x and
-    out, and the extra operations of its rotation per row)."""
+    out, and the extra operations of its rotation per row). shift_tables:
+    K7's tables start 4 bytes past a 16-byte boundary."""
     import torch
 
     from paroquant_tpu_torch.kernels import rot_matmul as rm
@@ -637,6 +645,9 @@ def w4_variant_inputs(kernel, I, O, gen, dev, S=128, K=8, sz="bf16/bf16"):
         inv_s = torch.rand(I, generator=gen, device=dev) * 1.5 + 0.5
         theta = torch.randn(K, I // 2, generator=gen, device=dev) * 0.3
         cos_t, sin_t = (torch.from_numpy(a).to(dev) for a in butterfly_tables(theta.cpu().numpy(), S))
+        if shift_tables:
+            inv_s, cos_t, sin_t = (torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape)
+                                   for t in (inv_s, cos_t, sin_t))
         args = (inv_s, cos_t, sin_t, qw, scales, zeros)
         return (lambda x: rm.butterfly_w4_matmul(x, *args, group_size=S),
                 lambda x: rm.butterfly_w4_matmul_plain(x, *args, group_size=S),
@@ -667,31 +678,42 @@ def effective_weight(rotate, wd, I, dev):
     return (rotate(torch.eye(I, device=dev)) @ wd).to(torch.bfloat16)
 
 
-def mg_routed(rm, fn):
-    """fn()'s output and the route its one K8 call took (mg_route_counts)."""
-    before = dict(rm.mg_route_counts)
+# the kernels whose one-launch variant a route rule picks: the rule, its counts
+ROUTE_RULES = {"rot_w4_matmul_mg": ("mg_route", "mg_route_counts"),
+               "butterfly_w4_matmul": ("bf_route", "bf_route_counts")}
+
+
+def one_routed(rm, kernel, fn):
+    """fn()'s output and the route its one call of K8 or K7 took (their
+    route counts)."""
+    counts = getattr(rm, ROUTE_RULES[kernel][1])
+    before = dict(counts)
     y = fn()
-    taken = [r for r, n in rm.mg_route_counts.items() if n != before[r]]
+    taken = [r for r, n in counts.items() if n != before[r]]
     if len(taken) != 1:
-        raise SystemExit(f"expected one K8 call, counted {taken}")
+        raise SystemExit(f"expected one {kernel} call, counted {taken}")
     return y, taken[0]
 
 
-def other_route_ms(rm, run, flush, taken):
-    """run's median time with K8 sent to the route it did not take
-    (mg_route swapped for the length of the timing): both routes on the same
-    card in the same run, for the choice `mg_route` makes."""
-    def route(M, I, S, O, chunk, sms):
-        if taken == "passes":
-            return "one_launch", rm.dq_plan(M, I, S, O, sms, chunk)
-        return "passes", None
+def other_route_ms(rm, kernel, run, flush, taken):
+    """run's median time with K8 or K7 sent to the route it did not take
+    (mg_route or bf_route swapped for the length of the timing): both routes
+    on the same card in the same run, for the choice the rule makes."""
+    rule = ROUTE_RULES[kernel][0]
 
-    real = rm.mg_route
-    rm.mg_route = route
+    def route(M, I, S, O, arg, sms):  # arg: K8's chunk, K7's stages
+        if taken == "one_launch":
+            return "passes", None
+        if rule == "mg_route":
+            return "one_launch", rm.dq_plan(M, I, S, O, sms, arg)
+        return "one_launch", rm.dq_plan(M, I, S, O, sms, I // S, group_floats=S * (2 * arg + 1))
+
+    real = getattr(rm, rule)
+    setattr(rm, rule, route)
     try:
         return median_ms(run, KERNEL_REPS, flush)
     finally:
-        rm.mg_route = real
+        setattr(rm, rule, real)
 
 
 def check_w4_variants(flush, gen, dev):
@@ -700,10 +722,11 @@ def check_w4_variants(flush, gen, dev):
     (bf16/bf16, bf16/uint8, f32/f32; K8 rounds them to bf16), and at
     Qwen3-0.6B's o_proj (2048 -> 1024), M = 1, 16, 128 (K8 also 17 and
     33), timed beside the bound and torch.matmul on the pre-rotated,
-    dequantized bf16 weight. Each K8 row names its route (`mg_route`) and
-    the other route's time at the same inputs, and is held to TOL_DEQUANT;
-    on the one-launch route it names its plan and fails unless two calls
-    give the same bits and a call launches one kernel (profiler)."""
+    dequantized bf16 weight. Each K8 and K7 row names its route (`mg_route`,
+    `bf_route`) and the other route's time at the same inputs (K8 is held
+    to TOL_DEQUANT); on the one-launch route it names its plan and fails
+    unless two calls give the same bits and a call launches one kernel
+    (profiler)."""
     import torch
 
     from paroquant_tpu_torch.kernels import rot_matmul as rm
@@ -712,6 +735,7 @@ def check_w4_variants(flush, gen, dev):
     rows = []
     for kernel in W4_VARIANTS:
         mg = kernel == "rot_w4_matmul_mg"
+        rule = kernel in ROUTE_RULES
         for layer, I, O, sz in shapes:
             if mg and sz != "bf16/bf16":
                 continue
@@ -720,18 +744,21 @@ def check_w4_variants(flush, gen, dev):
             for M in (1, 16, 17, 33, 128) if mg else (1, 16, 128):
                 x = torch.randn(M, I, generator=gen, device=dev).to(torch.bfloat16)
                 route = {}
-                if mg:
-                    y, taken = mg_routed(rm, lambda: run(x))
+                if rule:
+                    y, taken = one_routed(rm, kernel, lambda: run(x))
                     route = dict(route=taken, other_route_us=None)
                     if taken == "one_launch":
-                        KS, tile, rows_per_block, gps = rm.dq_plan(
-                            M, I, 128, O, rm._sm_count(dev), rm.mg_chunk(I // 128, 16))
+                        sms = rm._sm_count(dev)
+                        KS, tile, rows_per_block, gps = (
+                            rm.mg_route(M, I, 128, O, rm.mg_chunk(I // 128, 16), sms) if mg
+                            else rm.bf_route(M, I, 128, O, 8, sms))[1]
                         route.update(KS=KS, tile=tile, rows_per_block=rows_per_block,
                                      groups_per_split=gps, bitwise_equal=torch.equal(run(x), run(x)),
                                      kernels_per_call=kernels_per_call(lambda: run(x)))
-                        emit({"phase": "mg_determinism", "layer": layer, "M": M, **route})
+                        emit({"phase": "mg_determinism" if mg else "bf_determinism",
+                              "layer": layer, "sz": sz, "M": M, **route})
                         if not route["bitwise_equal"] or route["kernels_per_call"] != 1:
-                            raise SystemExit(f"rot_w4_matmul_mg {layer} M={M}: two calls differ or "
+                            raise SystemExit(f"{kernel} {layer} M={M}: two calls differ or "
                                              f"a call ran {route['kernels_per_call']} kernels")
                 else:
                     y = run(x)
@@ -742,8 +769,8 @@ def check_w4_variants(flush, gen, dev):
                 ratio = dequant_err_over_tol(y, y_ref) if mg else err / (TOL_KERNEL * scale)
                 tol = (TOL_DEQUANT if mg else TOL_KERNEL) * scale
                 ms = median_ms(lambda: run(x), KERNEL_REPS, flush)
-                if mg:
-                    route["other_route_us"] = other_route_ms(rm, lambda: run(x), flush,
+                if rule:
+                    route["other_route_us"] = other_route_ms(rm, kernel, lambda: run(x), flush,
                                                              route["route"]) * 1e3
                 plain_ms = median_ms(lambda: plain(x), PLAIN_REPS, flush)
                 lib_ms = median_ms(lambda: torch.matmul(x, w_eff), KERNEL_REPS, flush)
@@ -783,23 +810,30 @@ def w4_edges(gen, dev, record):
         check(kernel, "f32/f32 O=130", 256, 130, sz="f32/f32", Ms=(3,))
     for K in (1, 2, 4, 8):
         check("butterfly_w4_matmul", f"K={K}", 256, 128, K=K, Ms=(1, 9))
+    check("butterfly_w4_matmul", "K=16 S=512", 2048, 160, S=512, K=16, Ms=(1, 16))
+    # K7's tables at no 16-byte boundary: the BF variant copies them element by element
+    check("butterfly_w4_matmul", "tables off 16-byte alignment", 256, 128, Ms=(3,),
+          shift_tables=True)
     check("rot_w4_matmul_mg", "G=20 gps=16", 20 * 128, 128, Ms=(1, 9))
-    # both sides of mg_route's cut at two widths: the route taken must be the
-    # rule's, the DQ variant at M 16 and the passes at M 17
+    # both sides of mg_route's and bf_route's cut at two widths: the route
+    # taken must be the rule's, the one-launch variant at M 16 and the passes
+    # at M 17
     sms = rm._sm_count(torch.device(dev))
-    for O in (1024, 160):
-        run, plain, *_ = w4_variant_inputs("rot_w4_matmul_mg", 20 * 128, O, gen, dev)
-        routes = []
-        for M in (rm.ONE_LAUNCH_MAX_M, rm.ONE_LAUNCH_MAX_M + 1):
-            x = torch.randn(M, 20 * 128, generator=gen, device=dev).to(torch.bfloat16)
-            y, taken = mg_routed(rm, lambda: run(x))
-            want = rm.mg_route(M, 20 * 128, 128, O, 16, sms)[0]
-            if taken != want:
-                raise SystemExit(f"rot_w4_matmul_mg O={O} M={M}: took {taken}, mg_route says {want}")
-            record("rot_w4_matmul_mg", f"route side O={O} M={M} ({taken})", y, plain(x))
-            routes.append(taken)
-        if routes != ["one_launch", "passes"]:
-            raise SystemExit(f"rot_w4_matmul_mg O={O}: M 16 / 17 took {routes}")
+    for kernel in ROUTE_RULES:
+        for O in (1024, 160):
+            run, plain, *_ = w4_variant_inputs(kernel, 20 * 128, O, gen, dev)
+            routes = []
+            for M in (rm.ONE_LAUNCH_MAX_M, rm.ONE_LAUNCH_MAX_M + 1):
+                x = torch.randn(M, 20 * 128, generator=gen, device=dev).to(torch.bfloat16)
+                y, taken = one_routed(rm, kernel, lambda: run(x))
+                want = (rm.mg_route(M, 20 * 128, 128, O, 16, sms) if kernel == "rot_w4_matmul_mg"
+                        else rm.bf_route(M, 20 * 128, 128, O, 8, sms))[0]
+                if taken != want:
+                    raise SystemExit(f"{kernel} O={O} M={M}: took {taken}, the rule says {want}")
+                record(kernel, f"route side O={O} M={M} ({taken})", y, plain(x))
+                routes.append(taken)
+            if routes != ["one_launch", "passes"]:
+                raise SystemExit(f"{kernel} O={O}: M 16 / 17 took {routes}")
 
     for S, G in ((1024, 1), (1024, 2), (2048, 1), (2048, 2), (96, 1), (320, 1)):
         splits = (128, 96) if S >= 128 else (66, 62)
@@ -868,8 +902,8 @@ def w4x_inputs(kernel, I, O, gen, dev, S=128, sz="bf16/bf16", rot_dtype=None, bl
     return run, plain, rotate, wd, extra + G * S * S * rot.element_size(), 2 * I * S
 
 
-# K10/K12/K11: the one-launch kernel's variants (K11: DQ)
-ONE_LAUNCH_W4X = ("rot_w4_matmul_b", "rot_w4_matmul_v2", "dma_rot_w4_matmul")
+# K10/K12/K11/K13: the one-launch kernel's variants (K11: DQ; K13: A8)
+ONE_LAUNCH_W4X = ("rot_w4_matmul_b", "rot_w4_matmul_v2", "dma_rot_w4_matmul", "w4a8_matmul")
 
 
 def check_w4_experiments(flush, gen, dev):
@@ -877,9 +911,9 @@ def check_w4_experiments(flush, gen, dev):
     4096, g128) and dtypes: K10 at M = 1 and 16, K11 at M = 1 with Gb = 1, 2,
     4, 8, K12 at block_m 8 and 16 with M = 1 and 16, K13 at M = 1, 8, 32;
     timed beside the bound and torch.matmul on the pre-rotated (K10-K12),
-    dequantized bf16 weight. Each K10-K12 row names its launch plan (splits,
-    tile, rows a block; K11 groups a split), and fails unless two calls give
-    the same bits and a call launches one kernel (profiler); K11's rows are
+    dequantized bf16 weight. Each row names its launch plan (splits, tile,
+    rows a block; K11 groups a split), and fails unless two calls give the
+    same bits and a call launches one kernel (profiler); K11's rows are
     held to TOL_DEQUANT."""
     import torch
 
@@ -907,6 +941,8 @@ def check_w4_experiments(flush, gen, dev):
                 if kernel == "dma_rot_w4_matmul":
                     KS, tile, rows_per_block, gps = rm.dq_plan(M, I, 128, O, sms, knobs["Gb"])
                     one = dict(groups_per_split=gps)
+                elif kernel == "w4a8_matmul":
+                    KS, tile, rows_per_block = wx.a8_plan(M, I, 128, O, sms)
                 else:
                     KS, tile, rows_per_block = wx.one_launch_plan(M, I, 128, O, sms)
                 one.update(KS=KS, tile=tile, rows_per_block=rows_per_block,
@@ -935,9 +971,10 @@ def w4x_edges(gen, dev, record):
     """K10-K13 at small shapes: ragged M (5, 17, 33) at O = 160, f16/uint8
     scales and zeros at O = 130 (byte loads), f32 x with f32 rotations and
     scales, one group, groups of 256 (f32 rotation) and 96 channels, each
-    block_m and the Gb that divide G; then K11's refusal of a chunk size
-    that does not divide G and K13's all-zero row, which must come out
-    exactly 0."""
+    block_m and the Gb that divide G; K13 at every M from 1 to 32 (its row
+    tiles and plans), at groups of 8 channels with two groups a split (a
+    ring stage spanning groups), and at M 1-32 with O = 4096; then K11's refusal of a chunk size that does not divide
+    G and K13's all-zero row, which must come out exactly 0."""
     import torch
 
     f32, bf = torch.float32, torch.bfloat16
@@ -962,6 +999,10 @@ def w4x_edges(gen, dev, record):
         # rows of M_g that do not split over a warp (one thread per row), K13's quad tail
         check(kernel, f"S=256 f32 rot {tag}", 512, 128, (1, 9), S=256, rot_dtype=f32, **knobs)
         check(kernel, f"S=96 {tag}", 192, 128, (1, 9), S=96, **knobs)
+
+    check("w4a8_matmul", "O=160 every M", 512, 160, tuple(range(1, 33)))
+    check("w4a8_matmul", "S=8 two groups a split", 64, 8192, (32,), S=8, sz="bf16/u8")
+    check("w4a8_matmul", "O=4096", 1024, 4096, (1, 8, 16, 32), sz="bf16/u8")
 
     run, *_ = w4x_inputs("dma_rot_w4_matmul", 384, 128, gen, dev, Gb=2)
     try:
@@ -1044,7 +1085,8 @@ def dequant_edges(gen, dev, record):
             x = torch.randn(M, I, generator=gen, device=dev)
             case = f"fractional zeros {'gps' if mg else 'Gb'}={knob} S={S} G={G} {sz} M={M} f32 x"
             if mg:
-                y, taken = mg_routed(rm, lambda: rm.rot_w4_matmul_mg(x, *ops, groups_per_step=knob))
+                y, taken = one_routed(rm, kernel, lambda: rm.rot_w4_matmul_mg(x, *ops,
+                                                                         groups_per_step=knob))
                 y_ref = rm.rot_w4_matmul_mg_plain(x, *ops, groups_per_step=knob)
                 case += f" ({taken})"
             else:
@@ -1283,7 +1325,8 @@ def check_flash_spills(report):
 def check_rot_spills(report):
     """The one-launch kernel (csrc/one_launch.cuh): every instance of K1/K2
     (4 row tiles x f32/bf16 x and rot, 16), of K10/K12 (the same for each,
-    32) and of K8/K11's DQ variant (16) must report 0 spill bytes in ptxas's
+    32), of K8/K11's DQ variant (16) and of K7's BF and K13's A8 variants
+    (4 row tiles x f32/bf16 x, 8 each) must report 0 spill bytes in ptxas's
     lines. The report names each library's kernels after a line naming its
     source's log."""
     import re
@@ -1295,12 +1338,14 @@ def check_rot_spills(report):
         elif fn and "rot_w4_one_launch_kernel" in fn and "spill stores" in line:
             spills[fn] = (int(re.search(r"(\d+) bytes spill stores", line).group(1))
                           + int(re.search(r"(\d+) bytes spill loads", line).group(1)))
-    # the variant is the template's last argument: Li0E (K1), Li1E (K10), Li2E (K12), Li3E (DQ)
+    # the variant is the template's last argument: Li0E (K1), Li1E (K10), Li2E (K12), Li3E (DQ),
+    # Li4E (BF), Li5E (A8)
     by_var = {v: sorted(b for f, b in spills.items() if f.endswith(f"Li{v}EEEvNS0_4ArgsE"))
-              for v in range(4)}
+              for v in range(6)}
     emit({"phase": "rot_spills", "instances": len(spills),
-          "spill_bytes": {"k1": by_var[0], "k10": by_var[1], "k12": by_var[2], "dq": by_var[3]}})
-    if [len(b) for b in by_var.values()] != [16, 16, 16, 16] or any(spills.values()):
+          "spill_bytes": {name: by_var[v] for v, name in enumerate(("k1", "k10", "k12", "dq",
+                                                                     "bf", "a8"))}})
+    if [len(b) for b in by_var.values()] != [16, 16, 16, 16, 8, 8] or any(spills.values()):
         raise SystemExit(f"the one-launch kernel: {len(spills)} instances, spill bytes {spills}")
 
 
@@ -1407,14 +1452,17 @@ def kernel_bench(dev):
         for row in script_rows:
             emit({"phase": "kernel_bench", "script": script, **row})
     emit({"phase": "kernel_speedup", **sweep})
-    mg_routes = dict(rm.mg_route_counts)
+    mg_routes, bf_routes = dict(rm.mg_route_counts), dict(rm.bf_route_counts)
     emit({"phase": "kernel_bench_launches", "counts": counts, "sz_dtypes": sz,
-          "rot_w4_matmul_mg_routes": mg_routes, "wall_s": wall})
+          "rot_w4_matmul_mg_routes": mg_routes, "butterfly_w4_matmul_routes": bf_routes,
+          "wall_s": wall})
     missing = [k for k, c in counts.items() if c == 0]
     missing += [f"rot_w4_matmul on {k}" for k in ("float32/float32", "bfloat16/uint8")
                 if k not in sz["rot_w4_matmul"]]
     if mg_routes["passes"] or mg_routes["one_launch"] != counts["rot_w4_matmul_mg"]:
         missing.append(f"rot_w4_matmul_mg on the one-launch route at every call: {mg_routes}")
+    if bf_routes["passes"] or bf_routes["one_launch"] != counts["butterfly_w4_matmul"]:
+        missing.append(f"butterfly_w4_matmul on the one-launch route at every call: {bf_routes}")
     if missing:
         raise SystemExit(f"kernel_bench: not launched: {missing}")
     return counts
@@ -2449,10 +2497,14 @@ def main() -> int:
     check_sass("librot_w4_matmul.so", ("LDG.E.128", "LDGSTS"),
                (("rot_w4_one_launch_kernel", "LDG.E.128", 16),
                 ("rot_w4_one_launch_kernel", "LDGSTS", 16)))
-    # and its K10/K12 instances (16 each) in the experiments' library
+    # and its K10/K12 instances (16 each) and K13's A8 (8) in the experiments' library
     check_sass("libw4_experiments.so", ("LDG.E.128", "LDGSTS"),
-               (("rot_w4_one_launch_kernel", "LDG.E.128", 32),
-                ("rot_w4_one_launch_kernel", "LDGSTS", 32)))
+               (("rot_w4_one_launch_kernel", "LDG.E.128", 40),
+                ("rot_w4_one_launch_kernel", "LDGSTS", 40)))
+    # and K7's BF instances (8) in the variants' library
+    check_sass("libw4_variants.so", ("LDG.E.128", "LDGSTS"),
+               (("rot_w4_one_launch_kernel", "LDG.E.128", 8),
+                ("rot_w4_one_launch_kernel", "LDGSTS", 8)))
     # and K8/K11's DQ instances, with the dequant's two roundings
     check_dequant_sass()
 

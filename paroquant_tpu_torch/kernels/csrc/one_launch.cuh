@@ -1,21 +1,27 @@
-// The one-launch rotated W4 GEMV for Hopper (sm_90a), shared by K1/K2's W4A16
-// decode route (rot_w4_matmul.cu), by K10/K12 (w4_experiments.cu) and by K8/K11
-// (rot_w4_dequant.cu).
+// The one-launch W4 GEMV for Hopper (sm_90a), shared by K1/K2's W4A16 decode
+// route (rot_w4_matmul.cu), by K10/K12 and K13 (w4_experiments.cu), by K8/K11
+// (rot_w4_dequant.cu) and by K7 (w4_variants.cu).
 //
 //   xr_g[m]   = bf16(x_g[m] @ M_g^T)
 //   out[m, o] = sum_g (xr_g[m] . q_g[:, o] - rowsum_g[m] * z[g, o]) * s[g, o]
 //
-// Four variants of that function, a template switch each (Variant):
+// Six variants of that function, a template switch each (Variant):
 //               x before the rotation   rowsum_g             out
 //   K1          rounded to rot's dtype  of the bf16 xr_g     x's dtype
 //   K10 (B)     rounded to rot's dtype  of the f32 xr_g      x's dtype
 //   K12 (V2)    f32, not rounded        of the bf16 xr_g     f32
 //   K8/K11 (DQ) rounded to bf16, M_g    none: the weight     x's dtype
 //               rounded to bf16 too     is dequantized
+//   K7 (BF)     f32, times inv_s; K     of the bf16 xr_g     x's dtype
+//               butterfly stages, no M_g
+//   K13 (A8)    no rotation: int8 per   sum(xq_g)            x's dtype
+//               (row, group)
 // (K10 replaces scripts/kernel_edge_test.py::rot_w4_matmul_b, K12
 // scripts/kernel_tune.py::rot_w4_matmul_v2, DQ both
 // paroquant_tpu/kernels/rot_matmul.py::rot_w4_matmul_mg and
-// scripts/kernel_dma_pipeline.py::dma_rot_w4_matmul.) DQ dequantizes the
+// scripts/kernel_dma_pipeline.py::dma_rot_w4_matmul, BF
+// paroquant_tpu/kernels/rot_matmul.py::butterfly_w4_matmul, A8
+// scripts/kernel_w4a8_exp.py::w4a8_matmul.) DQ dequantizes the
 // weight in bf16, w = bf16(bf16(q - z) * s) with s and z rounded to bf16,
 // and sums xr_g . w_g in f32 over chunks of `chunk` groups (the last may be
 // shorter): no split crosses a chunk, the splits of a chunk add in split
@@ -23,7 +29,15 @@
 // kernels add each chunk's dot to their accumulator. Its bound is K10's
 // (the weight stream); its dot spends three bf16x2 operations (one exact,
 // two rounding) on the nibbles of one byte-row in two columns, where K10
-// converts and scales each nibble in f32.
+// converts and scales each nibble in f32. BF's stage r sets lane l of a
+// group to cos[r, l] x[l] + sin[r, l] x[l ^ d_r], d_r = 2^(r mod log2 S),
+// the products rounded apart, from per-channel tables cos/sin [K, I] and
+// inv_s [I] (f32). A8 quantizes x per (row, group): sx = max|x_g| / 127 (1
+// where that is 0), xq = rint(x / sx) half to even, and forms
+// (xq . q_g - sum(xq) z) (s sx) per group, the dot exact (an f32 FMA on
+// integers: |xq . q| <= S 127 15 < 2^24 for every S up to 8192), the groups
+// of a split added in order and the splits merged in split order (with one
+// group a split, the TPU kernel's order).
 //
 // Bound on this card: at M <= 16 the weight stream, I*O/2 bytes of nibbles
 // plus the scales and zeros, so HBM bandwidth; at 1-8 MB of weight, the
@@ -45,15 +59,24 @@
 //     and the scales and zeros are on the critical path. Their scales and
 //     zeros travel as the aligned 32-bit words that hold them, one kind of
 //     load whatever the dtype, converted once they have landed.
+//     BF's tables (the block's slice of inv_s and its K rows of cos and sin)
+//     and A8's nothing but x go out the same way, the tables as 16-byte
+//     cp.async into shared memory ahead of the ring.
 //  3. It rotates x for its groups itself: xr_g = bf16(x_g @ M_g^T) into shared
 //     memory, each rotation row split over adjacent lanes, with rowsum(xr_g).
+//     BF runs its K stages in place in shared memory instead (a thread owns
+//     the pairs (l, l ^ d) of a stage, one barrier a stage), A8 quantizes each
+//     (group, row) with one warp.
 //     K10 stores the f32 value, takes the row sum of it and rounds it to bf16
 //     in place in the same pass. The blocks of the other column tiles re-read
 //     M_g from L2 (for K10/K12, sharing it among a thread-block cluster's
 //     column tiles through distributed shared memory was slower on the card).
 //  4. The dot on f32 FMAs over the ring, lane l of a warp on columns 4l..4l+3,
 //     the scale folded into the nibbles; the zero-point correction once per
-//     group.
+//     group. A8's warps each own 64 columns of a 512-column tile (two a
+//     lane) over every byte-row, so that a group's integer dot is whole in
+//     one lane and its epilogue is applied there when the rows pass to the
+//     next group.
 //  5. With the groups split (KS > 1) each block writes its f32 partial (16-byte
 //     stores), arrives on its tile's counter, and the last to arrive sums the
 //     KS partials in split order (each thread 4 columns, its KS 16-byte loads
@@ -74,13 +97,14 @@ namespace one {
 using w4::Parts;
 using w4::load_f32;
 
-enum Variant { K1 = 0, B = 1, V2 = 2, DQ = 3 };
+enum Variant { K1 = 0, B = 1, V2 = 2, DQ = 3, BF = 4, A8 = 5 };
 
 constexpr int THREADS = 256;
 constexpr int NWARPS = THREADS / 32;
 constexpr int WARP_COLS = 128;   // columns of one warp: 32 lanes x 4
 constexpr int STAGE = 4096;      // bytes per ring stage: one 16-byte piece a thread
 constexpr int NST = 8;           // ring stages
+constexpr int A8_TW = 512;       // A8's tile: 64 columns a warp, two a lane
 // the limits kernels/rot_matmul.py::rot_route mirrors (ONE_LAUNCH_*); K1's
 // entry point refuses a call outside them
 constexpr int MAX_M = 16;        // rows a call (K1)
@@ -103,8 +127,12 @@ struct Args {
   int chunk, spc;  // DQ: groups a chunk, splits a chunk (split ks lies in chunk ks / spc)
   int cw;     // column groups of warps: the tile is cw * 128 columns wide
   int vec16;  // every partition's columns start on a multiple of 16, qw 16-byte aligned
-  int rvec;   // the rotation's rows are 16-byte aligned
+  int rvec;   // the rotation's rows (BF: its tables) are 16-byte aligned
   Parts parts;  // tile_base in tiles of cw * 128 columns
+  const float* inv_s;  // BF: [I]
+  const float* cos_t;  // BF: [K, I]
+  const float* sin_t;  // BF: [K, I]
+  int K;               // BF: butterfly stages
 };
 
 __host__ __device__ constexpr int align4(int n) { return (n + 3) & ~3; }
@@ -192,22 +220,30 @@ inline int max_groups(int MT, int S, int TW) {
   return g < MAX_GROUPS ? g : MAX_GROUPS;
 }
 
-// dynamic shared memory, in floats after the ring: xr pairs [gps][MT][S/2][2],
-// x rounded to rot's dtype [gps][MT][S], scales and zeros [gps][TW], row sums
-// [gps][MT]; the warps' sums [NWARPS][MT][128] reuse the whole of it at the end
+// the floats of a variant's tables for gps groups of MT rows: BF's inv_s, cos
+// and sin rows [2K + 1][gps * S], A8's scales of x [gps][MT]; none elsewhere
+__host__ __device__ inline int table_floats(int var, int MT, int S, int gps, int K) {
+  return var == BF ? gps * S * (2 * K + 1) : var == A8 ? gps * MT : 0;
+}
+
+// dynamic shared memory, in floats after the ring: xr pairs [gps][MT][S/2][2]
+// (A8: xq), x rounded to rot's dtype [gps][MT][S], scales and zeros [gps][TW],
+// row sums [gps][MT], then `tab` floats of tables; the warps' sums
+// [NWARPS][MT][128] reuse the whole of it at the end
 struct Layout {
-  int xr, xs, ss, zs, rsum;  // float offsets from the end of the ring
+  int xr, xs, ss, zs, rsum, tb;  // float offsets from the end of the ring
   size_t bytes;
 };
 
-__host__ __device__ inline Layout layout(int MT, int S, int gps, int TW) {
+__host__ __device__ inline Layout layout(int MT, int S, int gps, int TW, int tab = 0) {
   Layout L;
   L.xr = 0;
   L.xs = L.xr + align4(gps * MT * S);
   L.ss = L.xs + align4(gps * MT * S);
   L.zs = L.ss + gps * TW;
   L.rsum = L.zs + gps * TW;
-  const size_t body = (size_t)NST * STAGE + 4 * (size_t)(L.rsum + align4(gps * MT));
+  L.tb = L.rsum + align4(gps * MT);
+  const size_t body = (size_t)NST * STAGE + 4 * (size_t)(L.tb + align4(tab));
   const size_t red = 4 * (size_t)NWARPS * MT * WARP_COLS;
   L.bytes = body > red ? body : red;
   return L;
@@ -239,7 +275,7 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
   const int nrows = ng * HALF;                       // the block's byte-rows
   const int nchunks = (nrows + CR - 1) / CR;
 
-  const Layout L = layout(MT, S, a.gps, TW);
+  const Layout L = layout(MT, S, a.gps, TW, table_floats(VAR, MT, S, a.gps, a.K));
   uint8_t* ring = smem;
   float* fs = reinterpret_cast<float*>(smem + NST * STAGE);
   float* xr2 = fs + L.xr;
@@ -247,12 +283,15 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
   float* ss = fs + L.ss;
   float* zs = fs + L.zs;
   float* rsum = fs + L.rsum;
+  float* tb = fs + L.tb;  // BF: inv_s, cos, sin rows [2K + 1][ng * S]; A8: sx [ng][MT]
+  constexpr bool ROT = VAR == K1 || VAR == B || VAR == V2 || VAR == DQ;  // a dense M_g
 
   // 1. the weight slice: stage c holds byte-rows [c*CR, (c+1)*CR) of the
   // block's rows; thread t copies 16 bytes of one row. K1 puts NST - 1
-  // stages in flight first; K10/K12 fill the whole ring once x has landed,
-  // their rotation rows and scales and zeros in flight (so that x and those
-  // do not queue behind 8 MB of weight at 4096 x 4096)
+  // stages in flight first; the other variants fill the whole ring once x
+  // has landed, their rotation rows (BF: tables) and scales and zeros in
+  // flight (so that x and those do not queue behind 8 MB of weight at 4096 x
+  // 4096)
   constexpr bool K1_ORDER = VAR == K1;
   constexpr int PRE = K1_ORDER ? NST - 1 : NST;
   const uint8_t* wbase = a.qw + (size_t)g_begin * HALF * O;
@@ -275,6 +314,24 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
   if (K1_ORDER) {
 #pragma unroll
     for (int c = 0; c < PRE; ++c) issue(c);
+  }
+  if constexpr (VAR == BF) {  // the tables, one cp.async group ahead of x and the ring
+    const int seg = ng * S;   // floats of one table row for the block's groups
+    const size_t g0 = (size_t)g_begin * S;
+    auto row_of = [&](int t) {  // table row t: inv_s, then cos rows 0..K-1, then sin rows
+      return (t == 0 ? a.inv_s : t <= a.K ? a.cos_t + (size_t)(t - 1) * a.I
+                                         : a.sin_t + (size_t)(t - 1 - a.K) * a.I) + g0;
+    };
+    if (a.rvec) {
+      const int per = seg / 4;
+      for (int c = tid; c < (2 * a.K + 1) * per; c += THREADS) {
+        const int t = c / per, o = 4 * (c - t * per);
+        cp_async16(tb + t * seg + o, row_of(t) + o, 16);
+      }
+    } else {
+      for (int e = tid; e < (2 * a.K + 1) * seg; e += THREADS) tb[e] = row_of(e / seg)[e % seg];
+    }
+    cp_async_commit();
   }
 
   // 2. in flight together: the first batch of the rotation's rows, x for the
@@ -353,13 +410,14 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
           : from_f32<XT>(0.f);
     }
     if (k0 == 0) {
-      if (a.rvec) fetch(0);
+      if constexpr (ROT)
+        if (a.rvec) fetch(0);
       load_sz(0);
     }
 #pragma unroll
     for (int k = 0; k < LD; ++k)
       if (tid + (k0 + k) * THREADS < nx)
-        xs[tid + (k0 + k) * THREADS] = VAR == V2   ? to_f32(xv[k])
+        xs[tid + (k0 + k) * THREADS] = VAR == V2 || VAR == BF || VAR == A8 ? to_f32(xv[k])
                                        : VAR == DQ ? round_to<bf16>(to_f32(xv[k]))
                                                    : round_to<RT>(to_f32(xv[k]));
   }
@@ -372,7 +430,8 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
   }
 
   // 3. xr_g = bf16(x_g @ M_{p,g}^T) for the block's groups, into shared
-  // memory (K10: the f32 value, rounded after its row sum)
+  // memory (K10: the f32 value, rounded after its row sum; BF: the bf16 of
+  // its butterfly stages; A8: xq_g, with sum(xq_g) and sx)
   float acc[MT];
 #pragma unroll
   for (int m = 0; m < MT; ++m) acc[m] = 0.f;
@@ -389,7 +448,54 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
 #pragma unroll
     for (int m = 0; m < MT; ++m) acc[m] = 0.f;
   };
-  if (a.rvec) {
+  auto pair_slot = [&](int i) { return 2 * (i < HALF ? i : i - HALF) + (i >= HALF); };
+  if constexpr (VAR == BF) {
+    cp_async_wait<NST>();  // the tables' group, committed before the ring's NST
+    __syncthreads();
+    const int seg = ng * S;
+    for (int e = tid; e < nx; e += THREADS)  // x * inv_s; e = (gl MT + m) S + j
+      xs[e] = __fmul_rn(xs[e], tb[e / (MT * S) * S + e % S]);
+    int log_s = 0;
+    while ((1 << log_s) < S) ++log_s;
+    for (int r = 0; r < a.K; ++r) {  // stage r on the pairs (l, l ^ d) of every row
+      __syncthreads();
+      const int d = 1 << (r % log_s);
+      const float* cr = tb + (1 + r) * seg;
+      const float* sr = tb + (1 + a.K + r) * seg;
+      for (int e = tid; e < nx / 2; e += THREADS) {
+        const int row = e / HALF, t = e - row * HALF;
+        const int l = ((t & ~(d - 1)) << 1) | (t & (d - 1)), pr = l | d;  // bit d of l clear
+        float* xrow = xs + (size_t)row * S;
+        const float* c = cr + row / MT * S;
+        const float* sn = sr + row / MT * S;
+        const float u = xrow[l], v = xrow[pr];
+        // products rounded apart, as the plain version computes them
+        xrow[l] = __fadd_rn(__fmul_rn(c[l], u), __fmul_rn(sn[l], v));
+        xrow[pr] = __fadd_rn(__fmul_rn(c[pr], v), __fmul_rn(sn[pr], u));
+      }
+    }
+    __syncthreads();
+    for (int e = tid; e < nx; e += THREADS)  // xr_g = bf16 of the stages, at its pair slot
+      xr2[e - e % S + pair_slot(e % S)] = round_to<bf16>(xs[e]);
+  } else if constexpr (VAR == A8) {
+    for (int e = warp; e < ng * MT; e += NWARPS) {  // (group, row) e = gl MT + m, one warp
+      const float* xrow = xs + (size_t)e * S;
+      float amax = 0.f;
+      for (int k = lane; k < S; k += 32) amax = fmaxf(amax, fabsf(xrow[k]));
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+      const float sx = amax > 0.f ? __fdiv_rn(amax, 127.f) : 1.f;
+      float qs = 0.f;  // integers of at most 127 S: exact
+      for (int k = lane; k < S; k += 32) {
+        const float q = rintf(__fdiv_rn(xrow[k], sx));  // half to even, as jnp.round
+        xr2[(size_t)e * S + pair_slot(k)] = q;
+        qs += q;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) qs += __shfl_xor_sync(0xffffffffu, qs, o);
+      if (lane == 0) rsum[e] = qs, tb[e] = sx;
+    }
+  } else if (a.rvec) {
     for (int step = 0; step < nsteps; ++step) {
       if (step > 0) fetch(step);
       const int q = qi + step / nb * RP, v0 = h + tpr * BATCH * (step % nb);
@@ -457,7 +563,7 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
                        pack_bf16(zq[u].x, zq[u].z), pack_bf16(zq[u].y, zq[u].w));
     }
   }
-  for (int e = warp; e < (VAR == DQ ? 0 : ng * MT); e += NWARPS) {  // rowsum_g per (group, row)
+  for (int e = warp; e < (VAR == DQ || VAR == A8 ? 0 : ng * MT); e += NWARPS) {  // rowsum_g per (group, row)
     float s = 0.f;
     for (int k = lane; k < S; k += 32) {
       float* v = xr2 + (size_t)e * S + k;
@@ -471,51 +577,88 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
 
   // 4. the dot over the ring: the warps of column group cg = warp / WPC take
   // rows wi, wi + WPC, ... of each stage (wi = warp % WPC), lane l columns
-  // cg * 128 + 4l .. + 3, every row of x at once
+  // cg * 128 + 4l .. + 3, every row of x at once. A8 (tiles of 512 columns,
+  // 8 byte-rows a stage): every warp takes every row, lane l of warp w the
+  // columns a8_c, a8_c + 1 (64 a warp); tot[m][j] the integer dot of group
+  // a8_gl so far (exact in f32), tot[m][2 + j] the sum of the split's groups
+  // before it; a8_k the row of the group that comes next
   const int cg = warp / WPC, wi = warp % WPC, c4 = cg * WARP_COLS + 4 * lane;
   float tot[MT][4];
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int j = 0; j < 4; ++j) tot[m][j] = 0.f;
+  const int a8_c = warp * (A8_TW / NWARPS) + 2 * lane;
+  int a8_gl = 0, a8_k = 0;
+  auto a8_close = [&](int gl) {  // group gl's (dot - sum(xq) z) (s sx), added in group order
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float s = ss[gl * A8_TW + a8_c + j], z = zs[gl * A8_TW + a8_c + j];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const float e = __fmul_rn(__fsub_rn(tot[m][j], __fmul_rn(rsum[gl * MT + m], z)),
+                                  __fmul_rn(s, tb[gl * MT + m]));
+        tot[m][2 + j] = __fadd_rn(tot[m][2 + j], e);
+        tot[m][j] = 0.f;
+      }
+    }
+  };
   for (int c = 0; c < nchunks; ++c) {
     cp_async_wait<NST - 2>();  // stage c has landed (this thread's piece)
     __syncthreads();           // everyone's piece; stage c - 1's readers are done
     if (PRE == NST - 1 || c > 0) issue(c + NST - 1);
     const uint8_t* stage = ring + (c % NST) * STAGE;
+    if constexpr (VAR == A8) {
 #pragma unroll
-    for (int rr = 0; rr < STAGE / WARP_COLS / NWARPS; ++rr) {  // CR / WPC rows a warp
-      const int rl = wi + WPC * rr;
-      const int r = c * CR + rl;
-      if (r >= nrows) break;  // uniform across the warp
-      const int gl = r / HALF, k = r - gl * HALF;
-      float wl[4], wh[4];  // the weight of the row's low and high nibbles: q s, or DQ's w
-      if constexpr (VAR == DQ) {
-        const uint32_t b = *reinterpret_cast<const uint32_t*>(stage + rl * TW + c4);
-        const uint4 sz = *reinterpret_cast<const uint4*>(ss + gl * TW + c4);
-        dequant_pair(b & 0x000F000Fu, sz.x, sz.z, wl[0], wl[2]);
-        dequant_pair((b >> 4) & 0x000F000Fu, sz.x, sz.z, wh[0], wh[2]);
-        dequant_pair((b >> 8) & 0x000F000Fu, sz.y, sz.w, wl[1], wl[3]);
-        dequant_pair((b >> 12) & 0x000F000Fu, sz.y, sz.w, wh[1], wh[3]);
-      } else {
-        const uchar4 b = *reinterpret_cast<const uchar4*>(stage + rl * TW + c4);
-        const float4 s4 = *reinterpret_cast<const float4*>(ss + gl * TW + c4);
-        wl[0] = (float)(b.x & 15) * s4.x, wl[1] = (float)(b.y & 15) * s4.y;
-        wl[2] = (float)(b.z & 15) * s4.z, wl[3] = (float)(b.w & 15) * s4.w;
-        wh[0] = (float)(b.x >> 4) * s4.x, wh[1] = (float)(b.y >> 4) * s4.y;
-        wh[2] = (float)(b.z >> 4) * s4.z, wh[3] = (float)(b.w >> 4) * s4.w;
+      for (int rl = 0; rl < STAGE / A8_TW; ++rl) {  // the stage's byte-rows in order
+        if (c * (STAGE / A8_TW) + rl >= nrows) break;
+        const uint32_t b = *reinterpret_cast<const uint16_t*>(stage + rl * A8_TW + a8_c);
+        const float lo[2] = {(float)(b & 15), (float)((b >> 8) & 15)};  // unscaled nibbles
+        const float hi[2] = {(float)((b >> 4) & 15), (float)(b >> 12)};
+        const float2* xv = reinterpret_cast<const float2*>(xr2 + (size_t)a8_gl * MT * S) + a8_k;
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const float2 xx = xv[m * HALF];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) tot[m][j] = fmaf(xx.y, hi[j], fmaf(xx.x, lo[j], tot[m][j]));
+        }
+        if (++a8_k == HALF) a8_close(a8_gl++), a8_k = 0;  // the group's last row
       }
-      const float2* xv = reinterpret_cast<const float2*>(xr2 + (size_t)gl * MT * S) + k;
+    } else {
 #pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const float2 xx = xv[m * HALF];
+      for (int rr = 0; rr < STAGE / WARP_COLS / NWARPS; ++rr) {  // CR / WPC rows a warp
+        const int rl = wi + WPC * rr;
+        const int r = c * CR + rl;
+        if (r >= nrows) break;  // uniform across the warp
+        const int gl = r / HALF, k = r - gl * HALF;
+        float wl[4], wh[4];  // the weight of the row's low and high nibbles: q s, or DQ's w
+        if constexpr (VAR == DQ) {
+          const uint32_t b = *reinterpret_cast<const uint32_t*>(stage + rl * TW + c4);
+          const uint4 sz = *reinterpret_cast<const uint4*>(ss + gl * TW + c4);
+          dequant_pair(b & 0x000F000Fu, sz.x, sz.z, wl[0], wl[2]);
+          dequant_pair((b >> 4) & 0x000F000Fu, sz.x, sz.z, wh[0], wh[2]);
+          dequant_pair((b >> 8) & 0x000F000Fu, sz.y, sz.w, wl[1], wl[3]);
+          dequant_pair((b >> 12) & 0x000F000Fu, sz.y, sz.w, wh[1], wh[3]);
+        } else {
+          const uchar4 b = *reinterpret_cast<const uchar4*>(stage + rl * TW + c4);
+          const float4 s4 = *reinterpret_cast<const float4*>(ss + gl * TW + c4);
+          wl[0] = (float)(b.x & 15) * s4.x, wl[1] = (float)(b.y & 15) * s4.y;
+          wl[2] = (float)(b.z & 15) * s4.z, wl[3] = (float)(b.w & 15) * s4.w;
+          wh[0] = (float)(b.x >> 4) * s4.x, wh[1] = (float)(b.y >> 4) * s4.y;
+          wh[2] = (float)(b.z >> 4) * s4.z, wh[3] = (float)(b.w >> 4) * s4.w;
+        }
+        const float2* xv = reinterpret_cast<const float2*>(xr2 + (size_t)gl * MT * S) + k;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) tot[m][j] = fmaf(xx.y, wh[j], fmaf(xx.x, wl[j], tot[m][j]));
+        for (int m = 0; m < MT; ++m) {
+          const float2 xx = xv[m * HALF];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) tot[m][j] = fmaf(xx.y, wh[j], fmaf(xx.x, wl[j], tot[m][j]));
+        }
       }
     }
   }
   cp_async_wait<0>();
-  if (VAR != DQ && wi == 0) {  // the zero-point correction, once per group
+  if (VAR != DQ && VAR != A8 && wi == 0) {  // the zero-point correction, once per group
     for (int gl = 0; gl < ng; ++gl) {
       const float4 s4 = *reinterpret_cast<const float4*>(ss + gl * TW + c4);
       const float4 z4 = *reinterpret_cast<const float4*>(zs + gl * TW + c4);
@@ -527,13 +670,19 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
     }
   }
 
-  // 5. the sums of each column group's warps, in warp order
+  // 5. the sums of each column group's warps, in warp order (A8: each lane's
+  // own columns, red [MT][A8_TW])
   __syncthreads();  // the ring and xr are free: red reuses them
   float* red = reinterpret_cast<float*>(smem);
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
-    *reinterpret_cast<float4*>(red + (warp * MT + m) * WARP_COLS + 4 * lane) =
-        make_float4(tot[m][0], tot[m][1], tot[m][2], tot[m][3]);
+  for (int m = 0; m < MT; ++m) {
+    if constexpr (VAR == A8) {
+      *reinterpret_cast<float2*>(red + m * A8_TW + a8_c) = make_float2(tot[m][2], tot[m][3]);
+    } else {
+      *reinterpret_cast<float4*>(red + (warp * MT + m) * WARP_COLS + 4 * lane) =
+          make_float4(tot[m][0], tot[m][1], tot[m][2], tot[m][3]);
+    }
+  }
   __syncthreads();
   const int KS = gridDim.y;
   OT* out = static_cast<OT*>(a.out);
@@ -542,6 +691,7 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
   // sums add in warp order; with vec16 the four lie wholly inside or outside
   auto red4 = [&](int e4) {
     const int m = e4 / TW, cc = e4 % TW;
+    if constexpr (VAR == A8) return *reinterpret_cast<const float4*>(red + m * TW + cc);
     const float* rp = red + ((cc / WARP_COLS) * WPC * MT + m) * WARP_COLS + cc % WARP_COLS;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int w2 = 0; w2 < WPC; ++w2) {
@@ -655,7 +805,8 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
 template <typename XT, typename RT, int MT, int VAR>
 cudaError_t launch_mt(const Args& a, int n_tiles, int KS, cudaStream_t st) {
   const auto kernel = rot_w4_one_launch_kernel<XT, RT, MT, VAR>;
-  const size_t smem = layout(MT, a.S, a.gps, a.cw * WARP_COLS).bytes;
+  const size_t smem =
+      layout(MT, a.S, a.gps, a.cw * WARP_COLS, table_floats(VAR, MT, a.S, a.gps, a.K)).bytes;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -683,18 +834,26 @@ cudaError_t launch(const Args& a, int MT, int n_tiles, int KS, cudaStream_t st) 
 // 1 <= chunk <= G, split into ceil(chunk / gps) splits of gps groups but
 // the chunk's last, so KS = G / chunk * ceil(chunk / gps) + ceil((G mod
 // chunk) / gps)), every split non-empty and at most max(1, max_groups)
-// groups in at most MAX_SMEM bytes; partial f32 [KS, M, O] when KS > 1 and
-// counters int32, one per (column tile, row tile), zero (and left zero).
+// groups in at most MAX_SMEM bytes with the variant's tables; partial f32
+// [KS, M, O] when KS > 1 and counters int32, one per (column tile, row
+// tile), zero (and left zero). BF takes no rot but inv_s [I] and cos_t,
+// sin_t [K, I] (f32; S a power of two where K > 0), A8 no rot; both one
+// partition, and A8 tiles of A8_TW columns.
 // Grid (column tiles, KS, row tiles). Returns the first CUDA error.
 template <int VAR>
 cudaError_t call(const void* x, const void* rot, const void* qweight, const void* scales,
                  const void* zeros, void* out, void* partial, void* counters, int M, int I,
                  int S, int P, const int* splits, int KS, int cw, int x_is_bf16, int rot_is_bf16,
-                 int sdt, int zdt, cudaStream_t st, int chunk = 0, int gps_dq = 0) {
+                 int sdt, int zdt, cudaStream_t st, int chunk = 0, int gps_dq = 0,
+                 const void* inv_s = nullptr, const void* cos_t = nullptr,
+                 const void* sin_t = nullptr, int K = 0) {
   Parts parts;
   int vec4;
   if (w4::bad_layout(M, I, S, KS, sdt, zdt) || !w4::make_parts(P, splits, parts, vec4) ||
-      (cw != 1 && cw != 2 && cw != 4))
+      (cw != 1 && cw != 2 && cw != 4) || ((VAR == BF || VAR == A8) && P != 1) ||
+      (VAR == BF && (inv_s == nullptr || K < 0 ||
+                     (K > 0 && ((S & (S - 1)) != 0 || cos_t == nullptr || sin_t == nullptr)))) ||
+      (VAR == A8 && cw * WARP_COLS != A8_TW))
     return cudaErrorInvalidValue;
   const int MT = row_tile(M, S);
   const int TW = cw * WARP_COLS, G = I / S;
@@ -708,7 +867,8 @@ cudaError_t call(const void* x, const void* rot, const void* qweight, const void
     return cudaErrorInvalidValue;
   }
   const int gmax = max_groups(MT, S, TW);
-  if (gps > (gmax > 1 ? gmax : 1) || layout(MT, S, gps, TW).bytes > MAX_SMEM ||
+  if (gps > (gmax > 1 ? gmax : 1) ||
+      layout(MT, S, gps, TW, table_floats(VAR, MT, S, gps, K)).bytes > MAX_SMEM ||
       (KS > 1 && (partial == nullptr || counters == nullptr)))
     return cudaErrorInvalidValue;
   for (int p = 0; p < P; ++p) parts.tile_base[p + 1] = parts.tile_base[p] + (splits[p] + TW - 1) / TW;
@@ -734,12 +894,23 @@ cudaError_t call(const void* x, const void* rot, const void* qweight, const void
   for (int p = 0; p < P; ++p) a.vec16 &= splits[p] % 16 == 0;
   a.rvec = (S * (rot_is_bf16 ? 2 : 4)) % 16 == 0 && (uintptr_t)rot % 16 == 0;
   a.parts = parts;
+  a.inv_s = static_cast<const float*>(inv_s);
+  a.cos_t = static_cast<const float*>(cos_t);
+  a.sin_t = static_cast<const float*>(sin_t);
+  a.K = K;
   const int n_tiles = parts.tile_base[P];
-  if (x_is_bf16)
-    return rot_is_bf16 ? launch<bf16, bf16, VAR>(a, MT, n_tiles, KS, st)
-                       : launch<bf16, float, VAR>(a, MT, n_tiles, KS, st);
-  return rot_is_bf16 ? launch<float, bf16, VAR>(a, MT, n_tiles, KS, st)
+  if constexpr (VAR == BF || VAR == A8) {  // no rotation matrix: one instance per x dtype
+    if (VAR == BF)
+      a.rvec = S % 4 == 0 && ((uintptr_t)inv_s | (uintptr_t)cos_t | (uintptr_t)sin_t) % 16 == 0;
+    return x_is_bf16 ? launch<bf16, float, VAR>(a, MT, n_tiles, KS, st)
                      : launch<float, float, VAR>(a, MT, n_tiles, KS, st);
+  } else {
+    if (x_is_bf16)
+      return rot_is_bf16 ? launch<bf16, bf16, VAR>(a, MT, n_tiles, KS, st)
+                         : launch<bf16, float, VAR>(a, MT, n_tiles, KS, st);
+    return rot_is_bf16 ? launch<float, bf16, VAR>(a, MT, n_tiles, KS, st)
+                       : launch<float, float, VAR>(a, MT, n_tiles, KS, st);
+  }
 }
 
 }  // namespace one

@@ -18,15 +18,22 @@
 // them in the kernel; out is in x's dtype (f32 or bf16).
 //
 // Bound on this card: at the benchmarks' M = 1 the weight stream (I*O/2
-// bytes, plus scales, zeros and, for K8/K9, the rotation matrices), so HBM
-// bandwidth. Design: K1's passes (w4_passes.cuh). K6 and K7 replace K1's
-// rotate pass with prep_kernel below: one block per (group, 8-row tile)
-// stages its rows in shared memory, a thread owns the pairs (l, l ^ d) of a
-// stage so the stage updates in place, and the rows' bf16 values and their
-// sums go to the GEMV pass. K8 is K1's rotate pass in bf16 with a GEMV mode
-// that dequantizes the weight; K9 is K1 with a GEMV mode for the interleaved
-// nibbles. Simple and right first: no tensor cores, no TMA.
+// bytes, plus scales, zeros and, for K7, its tables, for K8/K9 the rotation
+// matrices), so HBM bandwidth. Design: K7 at M <= 16 (where its tables fit a
+// block, kernels/rot_matmul.py::bf_route) is the BF variant of the
+// one-launch kernel (one_launch.cuh, whose note says what it does about that
+// bound): one launch a call, each block running the K stages on x for its
+// own groups in shared memory, its tables and x issued before the weight
+// ring, the group splits merged behind a counter in split order. The rest
+// run K1's passes (w4_passes.cuh): K6 and K7 replace K1's rotate pass with
+// prep_kernel below: one block per (group, 8-row tile) stages its rows in
+// shared memory, a thread owns the pairs (l, l ^ d) of a stage so the stage
+// updates in place, and the rows' bf16 values and their sums go to the GEMV
+// pass. K8 is K1's rotate pass in bf16 with a GEMV mode that dequantizes the
+// weight; K9 is K1 with a GEMV mode for the interleaved nibbles. No tensor
+// cores, no TMA.
 
+#include "one_launch.cuh"
 #include "w4_passes.cuh"
 
 using namespace paro;
@@ -170,6 +177,22 @@ extern "C" int paro_butterfly_w4_matmul(const void* x, const void* inv_s, const 
                                     xsum, partial, M, I, S, KS, parts, vec4, sdt, zdt, st);
   return (int)run_butterfly<float>(x, inv_s, cos_t, sin_t, K, qweight, scales, zeros, out, xr,
                                    xsum, partial, M, I, S, KS, parts, vec4, sdt, zdt, st);
+}
+
+// K7 in one launch (the BF variant): K7's operands as above, the scratch
+// partial f32 [KS, M, O] (KS > 1) and counters int32, one per (column tile,
+// row tile of one_launch.cuh's row_tile(M, S) rows), zero and left zero;
+// KS group splits and column tiles of cw * 128 columns, within the limits
+// of one::call. Returns the first CUDA error (0 on success).
+extern "C" int paro_butterfly_w4_one_launch(const void* x, const void* inv_s, const void* cos_t,
+                                            const void* sin_t, int K, const void* qweight,
+                                            const void* scales, const void* zeros, void* out,
+                                            void* partial, void* counters, int M, int I, int S,
+                                            int O, int KS, int cw, int x_is_bf16, int sdt, int zdt,
+                                            void* stream) {
+  return (int)one::call<one::BF>(x, nullptr, qweight, scales, zeros, out, partial, counters, M, I,
+                                 S, 1, &O, KS, cw, x_is_bf16, 0, sdt, zdt, (cudaStream_t)stream, 0,
+                                 0, inv_s, cos_t, sin_t, K);
 }
 
 // K8 (interleaved = 0: half-split nibbles, bf16 rot, bf16 scales and zeros)

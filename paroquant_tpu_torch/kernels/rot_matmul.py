@@ -32,7 +32,10 @@ counter) or "passes" (rotate, GEMV and, with split groups, reduce). Each
 call adds one to `route_counts[name][route]`. K8 takes the DQ variant of the
 one-launch kernel (csrc/rot_w4_dequant.cu, shared with K11, launched by
 `launch_dq` on the plan `dq_plan`) at M <= 16, or the passes, by
-`mg_route`; each call adds one to `mg_route_counts[route]`.
+`mg_route`; each call adds one to `mg_route_counts[route]`. K7 takes its BF
+variant (csrc/w4_variants.cu) at M <= 16 where its tables fit a block, or
+the passes, by `bf_route`; each call adds one to `bf_route_counts[route]`.
+K6 takes the passes.
 """
 
 from __future__ import annotations
@@ -53,6 +56,9 @@ ONE_LAUNCH_MAX_S = 256
 ONE_LAUNCH_MAX_GROUPS = 16  # groups per block
 ONE_LAUNCH_X_FLOATS = 4096  # x (and xr) a block keeps in shared memory: groups * rows * S
 ONE_LAUNCH_SZ_FLOATS = 2048  # scales (and zeros) it keeps: groups * tile width
+# K7's tables a block keeps at two blocks an SM: groups * S * (2K + 1) (one
+# group may take more, alone)
+ONE_LAUNCH_TABLE_FLOATS = 8192
 ONE_LAUNCH_ROW_TILES = (1, 2, 4, 8)  # the kernel's instances of rows per block
 ONE_LAUNCH_TILES = (128, 256, 512)  # its column-tile widths
 BLOCKS_PER_SM = 2  # its blocks resident per SM (registers and shared memory allow two)
@@ -72,8 +78,9 @@ sz_counts: dict[str, dict[str, int]] = {name: {} for name in KERNELS}
 # S > 256 sends one there)
 ROUTES = ("one_launch", "passes", "passes_w4a16_m16")
 route_counts = {name: dict.fromkeys(ROUTES, 0) for name in variant_counts}
-# K8's calls by route (see mg_route)
+# K8's calls by route (see mg_route), and K7's (bf_route)
 mg_route_counts = dict.fromkeys(ROUTES[:2], 0)
+bf_route_counts = dict.fromkeys(ROUTES[:2], 0)
 
 
 def reset_launch_counts() -> None:
@@ -85,6 +92,7 @@ def reset_launch_counts() -> None:
         route_counts[name] = dict.fromkeys(ROUTES, 0)
     for route in mg_route_counts:
         mg_route_counts[route] = 0
+        bf_route_counts[route] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -248,6 +256,7 @@ _SIGNATURES = {  # entry point: (source stem, argument types)
     "paro_rot_w4_matmul_one_launch": ("rot_w4_matmul",
                                       [_P] * 8 + [_I] * 4 + [ctypes.POINTER(_I)] + [_I] * 6),
     "paro_butterfly_w4_matmul": ("w4_variants", [_P] * 4 + [_I] + [_P] * 7 + [_I] * 8),
+    "paro_butterfly_w4_one_launch": ("w4_variants", [_P] * 4 + [_I] + [_P] * 6 + [_I] * 9),
     "paro_dense_rot_w4_variant": ("w4_variants", [_P] * 9 + [_I] * 10),
     "paro_rot_w4_matmul_dq": ("rot_w4_dequant", [_P] * 8 + [_I] * 12),
 }
@@ -351,12 +360,13 @@ def _row_tile(M: int, S: int) -> int:
     return mt
 
 
-def _one_launch_smem(mt: int, S: int, gps: int, tile: int) -> int:
-    """K10/K12's and the DQ variant's shared memory per block (`layout` in
+def _one_launch_smem(mt: int, S: int, gps: int, tile: int, tab: int = 0) -> int:
+    """The one-launch kernel's shared memory per block but K1's (`layout` in
     csrc/one_launch.cuh): the 8 x 4 KB weight ring, then x and xr, the
-    scales and zeros and the row sums in floats; the warps' sums reuse it."""
+    scales and zeros, the row sums and `tab` floats of the variant's tables
+    (BF's, A8's scales of x) in floats; the warps' sums reuse it."""
     a4 = lambda n: (n + 3) & ~3
-    body = 8 * 4096 + 4 * (2 * a4(gps * mt * S) + 2 * gps * tile + a4(gps * mt))
+    body = 8 * 4096 + 4 * (2 * a4(gps * mt * S) + 2 * gps * tile + a4(gps * mt) + a4(tab))
     return max(body, 4 * 8 * mt * 128)
 
 
@@ -369,49 +379,55 @@ def chunk_splits(G: int, chunk: int, gps: int) -> int:
 
 
 def dq_plan(M: int, I: int, S: int, O: int, sms: int, chunk: int, *,
-            wide_past_wave: bool = True) -> tuple[int, int, int, int]:
+            wide_past_wave: bool = True, tiles: tuple = ONE_LAUNCH_TILES,
+            group_floats: int = 0) -> tuple[int, int, int, int]:
     """The one-launch kernel's launch on a card of `sms` SMs, from shapes
     alone, for splits that do not cross a chunk of `chunk` groups (K8, K11;
-    a chunk of G or more groups is all of them): (KS splits, column-tile
-    width, rows per block, groups per split).
+    a chunk of G or more groups is all of them, as for K7, K10, K12, K13):
+    (KS splits, column-tile width, rows per block, groups per split).
+    `tiles` are the column-tile widths the variant takes (A8: 512 only),
+    and `group_floats` the floats of tables a group adds to a block (BF:
+    S (2K + 1); A8: its rows), which also cap the groups a split at
+    ONE_LAUNCH_TABLE_FLOATS // group_floats (at least one).
 
     Rows per block: `_row_tile(M, S)`. Where one wave of BLOCKS_PER_SM
-    blocks an SM can hold the grid, the tile of 128, 256 or 512 columns at
-    which the fewest groups a split (at most the chunk and min(16, 4096 //
-    (rows * S), 2048 // tile)) fit the wave, the narrower on a tie: every
+    blocks an SM can hold the grid, the tile of `tiles` at which the fewest
+    groups a split (at most the chunk and min(16, 4096 // (rows * S), 2048 //
+    tile) and the tables' cap) fit the wave, the narrower on a tie: every
     block rotates its own groups, and at 4096 x 4096 one group a block (512
     columns, 32 splits, M <= 8) took the least time of the splits and tiles
     tried on an H100 (PERF.md §6). Otherwise the grid runs past one wave
     (the split merge never waits on another block): with `wide_past_wave`
-    at M <= 16, 512-column tiles of the most groups a split they allow,
+    at M <= 16, the widest tiles of the most groups a split they allow,
     since every column tile reads its groups' rotations again (K8's
-    kernel-speedup sweep at I = 32768, PERF.md §6); else 128-column tiles
+    kernel-speedup sweep at I = 32768, PERF.md §6); else the narrowest tiles
     and as many splits as fill two blocks an SM, each of at most that many
     groups (one where a group of that many rows exceeds 4096 floats). KS is
     `chunk_splits`, so every split holds at least one group. Raises
-    ValueError where one group does not fit a block's shared memory (S
-    above about 24,000 channels)."""
+    ValueError where one group (with its tables) does not fit a block's
+    shared memory (S above about 24,000 channels)."""
     mt = _row_tile(M, S)
     G, rows, wave = I // S, -(-M // mt), BLOCKS_PER_SM * sms
     chunk = min(chunk, G)
+    cap = ONE_LAUNCH_TABLE_FLOATS // group_floats if group_floats else ONE_LAUNCH_MAX_GROUPS
     gmax = lambda tile: max(1, min(ONE_LAUNCH_MAX_GROUPS, ONE_LAUNCH_X_FLOATS // (mt * S),
-                                   ONE_LAUNCH_SZ_FLOATS // tile))
+                                   ONE_LAUNCH_SZ_FLOATS // tile, cap))
     best = None
-    for tile in ONE_LAUNCH_TILES:
+    for tile in tiles:
         n = -(-O // tile) * rows
         gps = next((g for g in range(1, min(chunk, gmax(tile)) + 1)
                     if n * chunk_splits(G, chunk, g) <= wave), None)
         if gps is not None and (best is None or gps < best[0]):
             best = (gps, tile)
     if best is None and wide_past_wave and M <= ONE_LAUNCH_MAX_M:
-        tile = ONE_LAUNCH_TILES[-1]
+        tile = tiles[-1]
         best = (min(chunk, gmax(tile)), tile)
     elif best is None:
-        tile = COLS_PER_TILE
+        tile = tiles[0]
         ks = _group_splits(-(-O // tile), rows, G, sms, gmax(tile))
         best = (min(chunk, -(-G // ks)), tile)
     gps, tile = best
-    if _one_launch_smem(mt, S, gps, tile) > MAX_SMEM_BYTES:
+    if _one_launch_smem(mt, S, gps, tile, gps * group_floats) > MAX_SMEM_BYTES:
         raise ValueError(f"a group of {S} channels does not fit one block's shared memory")
     return chunk_splits(G, chunk, gps), tile, mt, gps
 
@@ -427,6 +443,20 @@ def mg_route(M: int, I: int, S: int, O: int, chunk: int, sms: int):
         try:
             return "one_launch", dq_plan(M, I, S, O, sms, chunk)
         except ValueError:  # a group too wide for one block's shared memory
+            pass
+    return "passes", None
+
+
+def bf_route(M: int, I: int, S: int, O: int, K: int, sms: int):
+    """K7's route on a card of `sms` SMs, from shapes alone: ("one_launch",
+    `dq_plan`'s plan with K stages' tables) or ("passes", None). The BF
+    variant of the one-launch kernel takes M <= 16 rows, as K8's DQ
+    (`mg_route`), where one group and its tables (S (2K + 1) floats) fit a
+    block's shared memory; every other call takes the three passes."""
+    if M <= ONE_LAUNCH_MAX_M:
+        try:
+            return "one_launch", dq_plan(M, I, S, O, sms, I // S, group_floats=S * (2 * K + 1))
+        except ValueError:  # a group and its tables too wide for one block's shared memory
             pass
     return "passes", None
 
@@ -571,7 +601,8 @@ def launch_dq(name, x, rot, qweight, scales, zeros, chunk, plan=None):
 
 
 def _launch_butterfly(name, x, inv_s, cos_t, sin_t, qweight, scales, zeros, S):
-    """K6 (no tables) / K7 on the card."""
+    """K6 (no tables) on the card by the passes, K7 by the route `bf_route`
+    picks."""
     M, I = x.shape
     G, O = I // S if S else 0, qweight.shape[1]
     tables = () if cos_t is None else (inv_s.to(torch.float32), cos_t.to(torch.float32),
@@ -583,20 +614,34 @@ def _launch_butterfly(name, x, inv_s, cos_t, sin_t, qweight, scales, zeros, S):
         K = cos_t.shape[0]
         if inv_s.shape != (I,) or cos_t.shape != (K, I) or sin_t.shape != (K, I):
             raise ValueError("inv_channel_scales must be [I] and the tables [K, I]")
-    fn = _lib_fn("paro_butterfly_w4_matmul")
+    fns = {"one_launch": _lib_fn("paro_butterfly_w4_one_launch"),  # before the device is queried
+           "passes": _lib_fn("paro_butterfly_w4_matmul")}
     dev = x.device
-    KS = _group_splits(-(-O // COLS_PER_TILE), -(-M // ROWS_PER_TILE), G, _sm_count(dev))
+    route, plan = bf_route(M, I, S, O, K, _sm_count(dev)) if tables else ("passes", None)
     out = torch.empty((M, O), dtype=x.dtype, device=dev)
-    xr, xsum, partial = _scratch(M, I, G, O, KS, dev)
     ptr = (lambda t: t.data_ptr()) if tables else (lambda t: None)
-    err = fn(
-        x.data_ptr(), ptr(inv_s), ptr(cos_t), ptr(sin_t), K, qweight.data_ptr(),
-        scales.data_ptr(), zeros.data_ptr(), out.data_ptr(), xr.data_ptr(), xsum.data_ptr(),
-        partial.data_ptr(), M, I, S, O, KS, int(x.dtype == torch.bfloat16),
-        SZ_CODES[scales.dtype], SZ_CODES[zeros.dtype], torch.cuda.current_stream(dev).cuda_stream,
-    )
+    common = (M, I, S, O)
+    sz = (int(x.dtype == torch.bfloat16), SZ_CODES[scales.dtype], SZ_CODES[zeros.dtype],
+          torch.cuda.current_stream(dev).cuda_stream)
+    if route == "one_launch":
+        KS, tile, mt, _ = plan
+        partial = torch.empty((KS, M, O) if KS > 1 else (0,), dtype=torch.float32, device=dev)
+        counters = _counters(-(-O // tile) * -(-M // mt), dev) if KS > 1 else partial
+        err = fns[route](
+            x.data_ptr(), inv_s.data_ptr(), cos_t.data_ptr(), sin_t.data_ptr(), K,
+            qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(), out.data_ptr(),
+            partial.data_ptr(), counters.data_ptr(), *common, KS, tile // COLS_PER_TILE, *sz)
+    else:
+        KS = _group_splits(-(-O // COLS_PER_TILE), -(-M // ROWS_PER_TILE), G, _sm_count(dev))
+        xr, xsum, partial = _scratch(M, I, G, O, KS, dev)
+        err = fns[route](
+            x.data_ptr(), ptr(inv_s), ptr(cos_t), ptr(sin_t), K, qweight.data_ptr(),
+            scales.data_ptr(), zeros.data_ptr(), out.data_ptr(), xr.data_ptr(), xsum.data_ptr(),
+            partial.data_ptr(), *common, KS, *sz)
     _raise_on(err, name)
     _count(name, scales, zeros)
+    if tables:
+        bf_route_counts[route] += 1
     return out
 
 

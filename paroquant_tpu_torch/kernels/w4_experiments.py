@@ -28,11 +28,11 @@ Port of the kernels of four TPU experiment scripts (x [M, I]; rot M_g
         with xq . q_g exact in int32, (s_g * sx) formed first, and the sum
         over g taken in order in f32; out in x's dtype.
 
-On the card K10, K12 and K11 are variants of K1's one-launch kernel
+On the card K10, K12, K13 and K11 are variants of K1's one-launch kernel
 (csrc/one_launch.cuh): one launch a call, its group splits and column tile
-chosen from shapes alone by `one_launch_plan`, or for K11 (the DQ variant,
-csrc/rot_w4_dequant.cu, shared with K8) by `rot_matmul.dq_plan`, whose
-splits never cross a chunk of groups.
+chosen from shapes alone by `one_launch_plan` (K13, the A8 variant:
+`a8_plan`), or for K11 (the DQ variant, csrc/rot_w4_dequant.cu, shared with
+K8) by `rot_matmul.dq_plan`, whose splits never cross a chunk of groups.
 
 Scales and zeros come in float32, bfloat16, float16 or uint8. A wrapper
 launches the CUDA kernel for tensors on a CUDA device and runs the plain
@@ -51,6 +51,8 @@ from .build import load
 from .rot_matmul import (COLS_PER_TILE, MAX_SMEM_BYTES, SZ_CODES, _bf16, _check_operands,
                          _counters, _one_launch_smem, _raise_on, _row_tile, _sm_count,
                          _unpack_groups, dequant_chunks_plain, dq_plan, launch_dq)
+
+A8_TILES = (512,)  # K13's column tile (csrc/one_launch.cuh A8_TW): two columns a lane
 
 KERNELS = ("rot_w4_matmul_b", "dma_rot_w4_matmul", "rot_w4_matmul_v2", "w4a8_matmul")
 launch_counts = {name: 0 for name in KERNELS}
@@ -132,7 +134,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {  # entry point: argument types (all in csrc/w4_experiments.cu)
     "paro_rot_w4_matmul_b": [_P] * 8 + [_I] * 10,
     "paro_rot_w4_matmul_v2": [_P] * 8 + [_I] * 10,
-    "paro_w4a8_matmul": [_P] * 5 + [_I] * 7,
+    "paro_w4a8_matmul": [_P] * 7 + [_I] * 9,
 }
 _fns: dict[str, object] = {}
 
@@ -163,6 +165,17 @@ def one_launch_plan(M: int, I: int, S: int, O: int, sms: int) -> tuple[int, int,
     tiles there were timed for K8 only), (KS group splits of ceil(G / KS)
     groups, column-tile width, rows per block)."""
     return dq_plan(M, I, S, O, sms, I // S, wide_past_wave=False)[:3]
+
+
+def a8_plan(M: int, I: int, S: int, O: int, sms: int) -> tuple[int, int, int]:
+    """K13's launch on a card of `sms` SMs: `one_launch_plan` on tiles of
+    512 columns (each lane of the A8 variant owns two columns over every
+    byte-row), a block's scales of x counted in its shared memory. At 4096 x
+    4096 and M <= 8: one group a split, one wave; M 32: four groups a
+    split."""
+    mt = _row_tile(M, S)
+    return dq_plan(M, I, S, O, sms, I // S, wide_past_wave=False, tiles=A8_TILES,
+                   group_floats=mt)[:3]
 
 
 def _launch_fused(name, entry, x, rot, qweight, scales, zeros, block_m, out_dtype):
@@ -234,22 +247,25 @@ def rot_w4_matmul_v2(x, rot, qweight, scales_f16, zeros_u8, *, block_m: int = 8)
 
 def w4a8_matmul(x, qweight, scales, zeros, *, group_size: int = 128) -> torch.Tensor:
     """K13: x [M, I]; qweight uint8 [I//2, O] half-split; scales, zeros
-    [I//group_size, O] -> [M, O] in x.dtype."""
+    [I//group_size, O] -> [M, O] in x.dtype. On the card the A8 variant of
+    the one-launch kernel at every M (`a8_plan`); a group too wide for one
+    block's shared memory (about 24,000 channels) raises ValueError."""
     if x.device.type == "cpu":
         return w4a8_matmul_plain(x, qweight, scales, zeros, group_size=group_size)
     M, I = x.shape
     S = group_size
     G, O = I // S if S else 0, qweight.shape[1]
-    if S % 8:  # the int8 dot packs four channels of each half-group
-        raise ValueError(f"the CUDA kernel takes group sizes that are multiples of 8, got {S}")
-    if 8 * 8 * (32 * 4 + S) > MAX_SMEM_BYTES:  # per warp and row: the int8 group, partials
-        raise ValueError(f"groups of {S} channels do not fit shared memory")
     x, qweight, scales, zeros, _ = _check_operands(x, qweight, scales, zeros, S, G)
-    out = torch.empty((M, O), dtype=x.dtype, device=x.device)
-    err = _lib_fn("paro_w4a8_matmul")(
+    fn = _lib_fn("paro_w4a8_matmul")  # before the device is queried
+    dev = x.device
+    KS, tile, mt = a8_plan(M, I, S, O, _sm_count(dev))
+    out = torch.empty((M, O), dtype=x.dtype, device=dev)
+    partial = torch.empty((KS, M, O) if KS > 1 else (0,), dtype=F32, device=dev)
+    counters = _counters(-(-O // tile) * -(-M // mt), dev) if KS > 1 else partial
+    err = fn(
         x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(), out.data_ptr(),
-        M, I, S, O, int(x.dtype == BF16), SZ_CODES[scales.dtype], SZ_CODES[zeros.dtype],
-        _stream(x.device))
+        partial.data_ptr(), counters.data_ptr(), M, I, S, O, KS, tile // COLS_PER_TILE,
+        int(x.dtype == BF16), SZ_CODES[scales.dtype], SZ_CODES[zeros.dtype], _stream(dev))
     _raise_on(err, "w4a8_matmul")
     launch_counts["w4a8_matmul"] += 1
     return out

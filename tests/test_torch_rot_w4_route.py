@@ -131,24 +131,42 @@ def split_groups(G, KS, chunk=None, gps=None):
 
 
 def one_launch_model(x, rot, qweight, scales, zeros, out_splits, KS, variant="k1", chunk=None,
-                     gps=None):
+                     gps=None, tables=None):
     """The one-launch kernel's arithmetic in torch: per block (partition p,
     split ks) xr_g = bf16(x_g @ rot[p, g]^T) for its groups, an f32 partial
     sum_g xr_g @ (q_g s_g) - rowsum_g z_g s_g, and the KS partials summed in
     split order. Returns f32 [M, O]. variant "k1" (K1/K2: x rounded to rot's
     dtype, rowsum of the bf16 xr), "b" (K10: the rowsum of the f32 xr), "v2"
-    (K12: x not rounded) or "dq" (K8/K11: x and rot rounded to bf16, the
+    (K12: x not rounded), "dq" (K8/K11: x and rot rounded to bf16, the
     partial sum_g xr_g @ w_g with w_g = bf16(bf16(q_g - z_g) s_g) and s, z in
     bf16; the splits, `split_groups(G, KS, chunk, gps)`, do not cross a
     chunk, each chunk's splits add in split order into its f32 sum and the
-    chunk sums in chunk order)."""
+    chunk sums in chunk order), "bf" (K7: no rot; xr_g = bf16 of the K
+    butterfly stages on x_g * inv_s, `tables` = (inv_s, cos, sin), then K1's
+    partial) or "a8" (K13: no rot; per (row, group) sx = max |x_g| / 127 (1
+    where 0) and xq = round(x_g / sx), and the partial the sum, in group
+    order from 0, of (xq_g @ q_g - sum(xq_g) z_g) (s_g sx), each operation
+    rounded apart and the dot exact)."""
     M, I = x.shape
-    P, G, S, _ = rot.shape
+    if variant in ("bf", "a8"):  # no rotation matrix: one partition
+        P, G = 1, scales.shape[0]
+        S = I // G
+    else:
+        P, G, S, _ = rot.shape
     q = tk._unpack_groups(qweight, G, S)  # [G, S, O] nibble values
     dq = variant == "dq"
     if dq:
         xg, rot = tk._bf16(x).reshape(M, G, S), tk._bf16(rot)
         s_all, z_all = tk._bf16(scales), tk._bf16(zeros)
+    elif variant == "bf":
+        xg = tk.butterfly_rotate_plain(x, *tables, S)  # [M, G, S] f32, the stages' output
+        s_all, z_all = scales.to(torch.float32), zeros.to(torch.float32)
+    elif variant == "a8":
+        xg = x.to(torch.float32).reshape(M, G, S)
+        amax = xg.abs().amax(-1, keepdim=True)
+        sx = torch.where(amax > 0, amax / torch.full_like(amax, 127.0), torch.ones_like(amax))
+        xg = torch.round(xg / sx)  # xq
+        s_all, z_all = scales.to(torch.float32), zeros.to(torch.float32)
     else:
         xg = (x if variant == "v2" else x.to(rot.dtype)).to(torch.float32).reshape(M, G, S)
         s_all, z_all = scales.to(torch.float32), zeros.to(torch.float32)
@@ -160,9 +178,13 @@ def one_launch_model(x, rot, qweight, scales, zeros, out_splits, KS, variant="k1
         for ks, (c, groups) in enumerate(splits):
             part = torch.zeros(M, n)
             for g in groups:
-                xr32 = xg[:, g] @ rot[p, g].to(torch.float32).T
-                xr = xr32.to(torch.bfloat16).to(torch.float32)
                 s, z = s_all[g, cols], z_all[g, cols]
+                if variant == "a8":
+                    dot = xg[:, g] @ q[g][:, cols]  # integers below 2**24: exact
+                    part = part + (dot - xg[:, g].sum(-1, keepdim=True) * z) * (s * sx[:, g])
+                    continue
+                xr32 = xg[:, g] if variant == "bf" else xg[:, g] @ rot[p, g].to(torch.float32).T
+                xr = xr32.to(torch.bfloat16).to(torch.float32)
                 if dq:
                     part = part + xr @ tk._bf16(tk._bf16(q[g][:, cols] - z) * s)
                     continue

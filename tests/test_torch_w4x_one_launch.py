@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from paroquant_tpu_torch.kernels import rot_matmul as rm, w4_experiments as wx
-from paroquant_tpu_torch.scripts import one_launch_phases
+from paroquant_tpu_torch.scripts import one_launch_phases, one_launch_sass
 from test_torch_rot_w4_flips import rot_tolerance
 from test_torch_rot_w4_route import one_launch_model
 from test_torch_w4_experiments import JNP, TORCH, interpret, js  # noqa: F401 (fixtures)
@@ -132,6 +132,27 @@ def test_block_m_leaves_the_cpu_result_alone(kernel):
     z = torch.from_numpy(rng.integers(0, 16, (2, 160)).astype(np.float32))
     fn = getattr(wx, kernel)
     assert torch.equal(fn(x, rot, qw, s, z, block_m=8), fn(x, rot, qw, s, z, block_m=16))
+
+
+SASS = """
+		Function : _ZN4paro3one24rot_w4_one_launch_kernelIffLi1ELi1EEEvNS0_4ArgsE
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   EXIT ;
+		Function : _ZN4paro3one24rot_w4_one_launch_kernelIffLi1ELi5EEEvNS0_4ArgsE
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+		Function : _ZN4paro2w413reduce_kernelIfEEvPKfPT_im
+        /*0000*/                   EXIT ;
+"""
+
+
+def test_sass_comparison_counts_identical_instances_by_variant():
+    """scripts/one_launch_sass.py: the one-launch instances of a cuobjdump
+    listing, by variant, and how many compile to the same SASS."""
+    ref = one_launch_sass.sass_functions(SASS)
+    assert sorted(one_launch_sass.variant_of(f) for f in ref) == [1, 5]
+    moved = {f: body.replace("R1,", "R2,") if f.endswith("Li5EEEvNS0_4ArgsE") else body
+             for f, body in ref.items()}
+    assert one_launch_sass.compare(ref, moved) == {1: [1, 1], 5: [0, 1]}
 
 
 def test_phase_stamps_find_their_anchors():
