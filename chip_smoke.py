@@ -23,26 +23,28 @@ Phases, each printing one or more lines:
      the same inputs bitwise equal; K4 also at the engine step's 8 slots
      of 256 tokens), K6-K9 (the
      kernel benchmarks' W4 variants, at their 4096 x 4096 shape with each
-     scale/zero dtype pair and at o_proj; K8 and K7 at M <= 16 on the DQ and
-     BF variants of the one-launch kernel, two calls bitwise equal and one
-     kernel a call, and each K8 and K7 row timed beside the other of its two
-     routes), K10-K13 (the
+     scale/zero dtype pair and at o_proj; K8, K7 and K9 at M <= 16 on the
+     DQ, BF and I4 variants of the one-launch kernel, two calls bitwise
+     equal and one kernel a call, and each K8, K7 and K9 row timed beside
+     the other of its two routes), K10-K13 (the
      W4 GEMV experiments of the TPU scripts, at their 4096 x 4096 shape,
      dtypes and knobs: M, Gb, block_m; all four on the one-launch kernel
      (K13 its A8 variant), two calls bitwise equal and one kernel a call;
      K8 and K11, one function, held to TOL_DEQUANT here and in their edges),
      K14-K17 (the int8 probe's narrowing cast and tensor-core
-     dots, at its shapes and on its integer inputs, exact); then their other branches (f32,
+     dots, at its shapes and on its integer inputs, exact; K17 one launch a
+     call, two calls bitwise equal); then their other branches (f32,
      ragged M, head_dim 64, softcap, window, page sizes, K1/K2 at group
      sizes 1024/2048 and one row-spanning group of 96/320 with f32, f16
      and uint8 scales/zeros, K8 and K11 on fractional zero points where
-     a dequant that rounded once would miss TOL_DEQUANT, ...) at small
-     shapes, checked and not timed;
+     a dequant that rounded once would miss TOL_DEQUANT, K9's odd shapes
+     on both routes in `i4_edges`, ...) at small shapes, checked and not
+     timed;
      then slice 3's path, the ported kernel benchmarks (kernel_bench3 in
      its three modes, kernel_bench4, the kernel-speedup sweep, K9 at the
      benchmarks' shape) with the launch counts reset just before and read
      just after: K1 (on f32 and uint8 scales/zeros) and K6-K9 must run,
-     K7 and K8 at every call on the one-launch route;
+     K7, K8 and K9 at every call on the one-launch route;
      then slice 4's path, the ported experiment scripts (kernel_edge_test,
      kernel_dma_pipeline, kernel_tune, kernel_w4a8_exp), counted the same
      way: K10-K13 and their control arms K1, K6 and K8 must run;
@@ -57,9 +59,9 @@ Phases, each printing one or more lines:
      library 128-bit loads (LDG.E.128) and 16-byte cp.async (LDGSTS) in all
      16 one-launch instances, that of the experiments' library in all 32
      of K10/K12 and 8 of K13, that of the variants' library in all 8 of K7
-     and that of the dequant library in all 16 of K8/K11 (the
+     and 16 of K9 and that of the dequant library in all 16 of K8/K11 (the
      same kernel, csrc/one_launch.cuh), with 0 spill bytes in ptxas's lines
-     for all 80 and, in K8/K11's, three bf16x2 operations for each pair
+     for all 96 and, in K8/K11's, three bf16x2 operations for each pair
      of nibbles (the dequant's two roundings neither fused nor dropped),
      that of
      the paged
@@ -592,6 +594,7 @@ def check_edges(gen, dev):
     head_dim_refusals(gen, dev)
     paged_edges(gen, dev, record)
     w4_edges(gen, dev, record)
+    i4_edges(gen, dev, record)
     w4x_edges(gen, dev, record)
     dequant_edges(gen, dev, record)
     int8_edges(gen, dev, record, record_exact)
@@ -680,11 +683,22 @@ def effective_weight(rotate, wd, I, dev):
 
 # the kernels whose one-launch variant a route rule picks: the rule, its counts
 ROUTE_RULES = {"rot_w4_matmul_mg": ("mg_route", "mg_route_counts"),
-               "butterfly_w4_matmul": ("bf_route", "bf_route_counts")}
+               "butterfly_w4_matmul": ("bf_route", "bf_route_counts"),
+               "rot_w4_matmul_i4": ("i4_route", "i4_route_counts")}
+
+
+def route_of(rm, kernel, M, I, O, sms, S=128):
+    """The route rule's (route, plan) for K8 (chunks of K8's default 16
+    groups a step), K7 (8 stages) or K9 at group size S."""
+    if kernel == "rot_w4_matmul_mg":
+        return rm.mg_route(M, I, S, O, rm.mg_chunk(I // S, 16), sms)
+    if kernel == "butterfly_w4_matmul":
+        return rm.bf_route(M, I, S, O, 8, sms)
+    return rm.i4_route(M, I, S, O, sms)
 
 
 def one_routed(rm, kernel, fn):
-    """fn()'s output and the route its one call of K8 or K7 took (their
+    """fn()'s output and the route its one call of K8, K7 or K9 took (their
     route counts)."""
     counts = getattr(rm, ROUTE_RULES[kernel][1])
     before = dict(counts)
@@ -696,17 +710,22 @@ def one_routed(rm, kernel, fn):
 
 
 def other_route_ms(rm, kernel, run, flush, taken):
-    """run's median time with K8 or K7 sent to the route it did not take
-    (mg_route or bf_route swapped for the length of the timing): both routes
-    on the same card in the same run, for the choice the rule makes."""
+    """run's median time with K8, K7 or K9 sent to the route it did not take
+    (mg_route, bf_route or i4_route swapped for the length of the timing):
+    both routes on the same card in the same run, for the choice the rule
+    makes."""
     rule = ROUTE_RULES[kernel][0]
 
-    def route(M, I, S, O, arg, sms):  # arg: K8's chunk, K7's stages
+    def route(M, I, S, O, *rest):  # rest: K8's chunk or K7's stages (none for K9), the SM count
+        sms = rest[-1]
         if taken == "one_launch":
             return "passes", None
         if rule == "mg_route":
-            return "one_launch", rm.dq_plan(M, I, S, O, sms, arg)
-        return "one_launch", rm.dq_plan(M, I, S, O, sms, I // S, group_floats=S * (2 * arg + 1))
+            return "one_launch", rm.dq_plan(M, I, S, O, sms, rest[0])
+        if rule == "bf_route":
+            return "one_launch", rm.dq_plan(M, I, S, O, sms, I // S,
+                                            group_floats=S * (2 * rest[0] + 1))
+        return "one_launch", rm.i4_plan(M, I, S, O, sms)
 
     real = getattr(rm, rule)
     setattr(rm, rule, route)
@@ -721,12 +740,12 @@ def check_w4_variants(flush, gen, dev):
     4096, g128, K = 8) with each scale/zero dtype pair of the callers
     (bf16/bf16, bf16/uint8, f32/f32; K8 rounds them to bf16), and at
     Qwen3-0.6B's o_proj (2048 -> 1024), M = 1, 16, 128 (K8 also 17 and
-    33), timed beside the bound and torch.matmul on the pre-rotated,
-    dequantized bf16 weight. Each K8 and K7 row names its route (`mg_route`,
-    `bf_route`) and the other route's time at the same inputs (K8 is held
-    to TOL_DEQUANT); on the one-launch route it names its plan and fails
-    unless two calls give the same bits and a call launches one kernel
-    (profiler)."""
+    33, K9 8 and 17), timed beside the bound and torch.matmul on the
+    pre-rotated, dequantized bf16 weight. Each K8, K7 and K9 row names its
+    route (`mg_route`, `bf_route`, `i4_route`) and the other route's time at
+    the same inputs (K8 is held to TOL_DEQUANT); on the one-launch route it
+    names its plan and fails unless two calls give the same bits and a call
+    launches one kernel (profiler)."""
     import torch
 
     from paroquant_tpu_torch.kernels import rot_matmul as rm
@@ -741,21 +760,21 @@ def check_w4_variants(flush, gen, dev):
                 continue
             run, plain, rotate, wd, extra, rot_ops = w4_variant_inputs(kernel, I, O, gen, dev, sz=sz)
             w_eff = effective_weight(rotate, wd, I, dev)
-            for M in (1, 16, 17, 33, 128) if mg else (1, 16, 128):
+            Ms = ((1, 16, 17, 33, 128) if mg else (1, 8, 16, 17, 128) if kernel == "rot_w4_matmul_i4"
+                  else (1, 16, 128))
+            for M in Ms:
                 x = torch.randn(M, I, generator=gen, device=dev).to(torch.bfloat16)
                 route = {}
                 if rule:
                     y, taken = one_routed(rm, kernel, lambda: run(x))
                     route = dict(route=taken, other_route_us=None)
                     if taken == "one_launch":
-                        sms = rm._sm_count(dev)
-                        KS, tile, rows_per_block, gps = (
-                            rm.mg_route(M, I, 128, O, rm.mg_chunk(I // 128, 16), sms) if mg
-                            else rm.bf_route(M, I, 128, O, 8, sms))[1]
+                        KS, tile, rows_per_block, gps = route_of(rm, kernel, M, I, O,
+                                                                 rm._sm_count(dev))[1]
                         route.update(KS=KS, tile=tile, rows_per_block=rows_per_block,
                                      groups_per_split=gps, bitwise_equal=torch.equal(run(x), run(x)),
                                      kernels_per_call=kernels_per_call(lambda: run(x)))
-                        emit({"phase": "mg_determinism" if mg else "bf_determinism",
+                        emit({"phase": ROUTE_RULES[kernel][0][:2] + "_determinism",
                               "layer": layer, "sz": sz, "M": M, **route})
                         if not route["bitwise_equal"] or route["kernels_per_call"] != 1:
                             raise SystemExit(f"{kernel} {layer} M={M}: two calls differ or "
@@ -815,9 +834,9 @@ def w4_edges(gen, dev, record):
     check("butterfly_w4_matmul", "tables off 16-byte alignment", 256, 128, Ms=(3,),
           shift_tables=True)
     check("rot_w4_matmul_mg", "G=20 gps=16", 20 * 128, 128, Ms=(1, 9))
-    # both sides of mg_route's and bf_route's cut at two widths: the route
-    # taken must be the rule's, the one-launch variant at M 16 and the passes
-    # at M 17
+    # both sides of mg_route's, bf_route's and i4_route's cut at two widths:
+    # the route taken must be the rule's, the one-launch variant at M 16 and
+    # the passes at M 17
     sms = rm._sm_count(torch.device(dev))
     for kernel in ROUTE_RULES:
         for O in (1024, 160):
@@ -826,8 +845,7 @@ def w4_edges(gen, dev, record):
             for M in (rm.ONE_LAUNCH_MAX_M, rm.ONE_LAUNCH_MAX_M + 1):
                 x = torch.randn(M, 20 * 128, generator=gen, device=dev).to(torch.bfloat16)
                 y, taken = one_routed(rm, kernel, lambda: run(x))
-                want = (rm.mg_route(M, 20 * 128, 128, O, 16, sms) if kernel == "rot_w4_matmul_mg"
-                        else rm.bf_route(M, 20 * 128, 128, O, 8, sms))[0]
+                want = route_of(rm, kernel, M, 20 * 128, O, sms)[0]
                 if taken != want:
                     raise SystemExit(f"{kernel} O={O} M={M}: took {taken}, the rule says {want}")
                 record(kernel, f"route side O={O} M={M} ({taken})", y, plain(x))
@@ -850,6 +868,50 @@ def w4_edges(gen, dev, record):
                        rm.merged_rot_w4_matmul(x, rot, qweight, s, z, out_splits=splits, a8=a8),
                        rm.merged_rot_w4_matmul_plain(x, rot, qweight, s, z, out_splits=splits,
                                                      a8=a8))
+
+
+def i4_edges(gen, dev, record):
+    """K9's odd shapes on both routes: S 40 (not a multiple of 8) with a
+    ragged last split (the plan forced to three splits of three groups of
+    seven), S 96 and 256, O 130 and 160 (the byte-wise weight ring where
+    O is not a multiple of 16), a qweight 4 bytes past a 16-byte boundary,
+    scales and zeros in each of the four dtypes, rot in f32 and bf16, x in
+    f32 and bf16; M 1, 5 and 16 on the one launch and 17 on the passes
+    (each call's route checked against `i4_route`)."""
+    import torch
+
+    from paroquant_tpu_torch.kernels import rot_matmul as rm
+    from paroquant_tpu_torch.ops.packing import pack_w4_i4
+
+    sms = rm._sm_count(torch.device(dev))
+    f32, bf, f16, u8 = torch.float32, torch.bfloat16, torch.float16, torch.uint8
+    for I, O, S, sdt, zdt, rdt, xdt in ((280, 160, 40, bf, u8, bf, bf),
+                                        (256, 130, 128, f32, f32, f32, bf),
+                                        (512, 160, 256, f16, u8, bf, f32),
+                                        (768, 128, 96, bf, bf, f32, f32)):
+        G = I // S
+        q = torch.randint(0, 16, (I, O), generator=gen, device=dev, dtype=torch.int32)
+        scales = (torch.rand(G, O, generator=gen, device=dev) * 0.04 + 0.01).to(sdt)
+        zeros = torch.randint(0, 16, (G, O), generator=gen, device=dev).to(zdt)
+        rot = (torch.randn(G, S, S, generator=gen, device=dev) / S**0.5).to(rdt)
+        qw = pack_w4_i4(q)
+        flat = torch.empty(qw.numel() + 4, dtype=u8, device=dev)
+        flat[4:] = qw.flatten()
+        shifted = flat[4:].view(qw.shape)  # 4-byte aligned, not 16
+        case = f"I={I} O={O} S={S} s/z={sdt}/{zdt} rot={rdt} x={xdt}"
+        for M in (1, 5, 16, 17):
+            x = torch.randn(M, I, generator=gen, device=dev).to(xdt)
+            plain = rm.rot_w4_matmul_i4_plain(x, rot, qw, scales, zeros)
+            for w, where in ((qw, ""), (shifted, " qweight off 16 bytes")):
+                y, taken = one_routed(rm, "rot_w4_matmul_i4",
+                                      lambda: rm.rot_w4_matmul_i4(x, rot, w, scales, zeros))
+                if taken != rm.i4_route(M, I, S, O, sms)[0]:
+                    raise SystemExit(f"rot_w4_matmul_i4 {case} M={M}: took {taken}")
+                record("rot_w4_matmul_i4", f"{case} M={M}{where} ({taken})", y, plain)
+            if S == 40 and M <= rm.ONE_LAUNCH_MAX_M:  # splits of 3, 3 and 1 groups
+                _, tile, mt, _ = rm.i4_plan(M, I, S, O, sms)
+                record("rot_w4_matmul_i4", f"{case} M={M} 3 splits, the last ragged",
+                       rm.launch_i4(x, rot, qw, scales, zeros, (3, tile, mt, 3)), plain)
 
 
 # ---------------------------------------------------------------------------
@@ -1133,7 +1195,10 @@ def check_int8_probe(flush, gen, dev):
     is 0): K14 8 x 128, K15 8 x 256 x 128 and the bench's 8 x 4096 x 4096,
     K16 8 x 256 -> 512, K17 8 x 4096 x 4096; timed beside the bound and one
     library call (torch._int_mm for K15, and for K16 on the unpacked int8
-    weight; torch.matmul on bf16, which returns bf16, for K17; none for K14)."""
+    weight; torch.matmul on bf16, which returns bf16, for K17; none for K14).
+    K17's row names its plan and fails unless two calls give the same bits
+    and a call launches one kernel (profiler); it is also timed, with the
+    library call, after a flush that leaves the L2 clean."""
     import torch
 
     from paroquant_tpu_torch.kernels import int8_probe as ip
@@ -1172,6 +1237,18 @@ def check_int8_probe(flush, gen, dev):
                    plain_us=plain_ms * 1e3, library_us=None if lib_ms is None else lib_ms * 1e3,
                    library=lib_note, bound_us=b_ms * 1e3, bound_by=b_by,
                    ok=err == 0 and y.dtype == y_ref.dtype and y.shape == y_ref.shape)
+        if kernel == "bf16_dot":  # one launch a call, its splits merged in a fixed order
+            from paroquant_tpu_torch.utils.profiling import kernel_time_ms
+
+            KS, per, rows_per_block = ip.bf16_plan(*abf.shape, bbf.shape[1], ip._sm_count(dev))
+            row.update(KS=KS, chunks_per_split=per, rows_per_block=rows_per_block,
+                       bitwise_equal=torch.equal(run(), run()), kernels_per_call=kernels_per_call(run),
+                       us_clean_l2=kernel_time_ms(run, KERNEL_REPS, flush, clean_l2=True) * 1e3,
+                       library_us_clean_l2=kernel_time_ms(lib, KERNEL_REPS, flush,
+                                                          clean_l2=True) * 1e3)
+            if not row["bitwise_equal"] or row["kernels_per_call"] != 1:
+                raise SystemExit(f"bf16_dot: two calls differ or a call ran "
+                                 f"{row['kernels_per_call']} kernels")
         emit({"phase": "kernel_check", **row})
         rows.append(row)
     return rows
@@ -1325,10 +1402,10 @@ def check_flash_spills(report):
 def check_rot_spills(report):
     """The one-launch kernel (csrc/one_launch.cuh): every instance of K1/K2
     (4 row tiles x f32/bf16 x and rot, 16), of K10/K12 (the same for each,
-    32), of K8/K11's DQ variant (16) and of K7's BF and K13's A8 variants
-    (4 row tiles x f32/bf16 x, 8 each) must report 0 spill bytes in ptxas's
-    lines. The report names each library's kernels after a line naming its
-    source's log."""
+    32), of K8/K11's DQ variant (16), of K7's BF and K13's A8 variants
+    (4 row tiles x f32/bf16 x, 8 each) and of K9's I4 variant (16) must
+    report 0 spill bytes in ptxas's lines. The report names each library's
+    kernels after a line naming its source's log."""
     import re
 
     fn, spills = None, {}
@@ -1339,13 +1416,13 @@ def check_rot_spills(report):
             spills[fn] = (int(re.search(r"(\d+) bytes spill stores", line).group(1))
                           + int(re.search(r"(\d+) bytes spill loads", line).group(1)))
     # the variant is the template's last argument: Li0E (K1), Li1E (K10), Li2E (K12), Li3E (DQ),
-    # Li4E (BF), Li5E (A8)
+    # Li4E (BF), Li5E (A8), Li6E (I4)
     by_var = {v: sorted(b for f, b in spills.items() if f.endswith(f"Li{v}EEEvNS0_4ArgsE"))
-              for v in range(6)}
+              for v in range(7)}
     emit({"phase": "rot_spills", "instances": len(spills),
           "spill_bytes": {name: by_var[v] for v, name in enumerate(("k1", "k10", "k12", "dq",
-                                                                     "bf", "a8"))}})
-    if [len(b) for b in by_var.values()] != [16, 16, 16, 16, 8, 8] or any(spills.values()):
+                                                                     "bf", "a8", "i4"))}})
+    if [len(b) for b in by_var.values()] != [16, 16, 16, 16, 8, 8, 16] or any(spills.values()):
         raise SystemExit(f"the one-launch kernel: {len(spills)} instances, spill bytes {spills}")
 
 
@@ -1414,7 +1491,7 @@ def kernel_bench(dev):
     three modes, kernel_bench4, the kernel-speedup sweep, and K9 (which has
     no caller) at the benchmarks' shape. The launch counts are reset just
     before and read just after: K6-K9 must have run, K1 on f32 and on uint8
-    scales/zeros, and every K8 call (M 1) on the one-launch route."""
+    scales/zeros, and every K8, K7 and K9 call (M 1) on the one-launch route."""
     import numpy as np
     import torch
 
@@ -1452,17 +1529,15 @@ def kernel_bench(dev):
         for row in script_rows:
             emit({"phase": "kernel_bench", "script": script, **row})
     emit({"phase": "kernel_speedup", **sweep})
-    mg_routes, bf_routes = dict(rm.mg_route_counts), dict(rm.bf_route_counts)
+    routes = {k: dict(getattr(rm, ROUTE_RULES[k][1])) for k in ROUTE_RULES}
     emit({"phase": "kernel_bench_launches", "counts": counts, "sz_dtypes": sz,
-          "rot_w4_matmul_mg_routes": mg_routes, "butterfly_w4_matmul_routes": bf_routes,
-          "wall_s": wall})
+          **{f"{k}_routes": v for k, v in routes.items()}, "wall_s": wall})
     missing = [k for k, c in counts.items() if c == 0]
     missing += [f"rot_w4_matmul on {k}" for k in ("float32/float32", "bfloat16/uint8")
                 if k not in sz["rot_w4_matmul"]]
-    if mg_routes["passes"] or mg_routes["one_launch"] != counts["rot_w4_matmul_mg"]:
-        missing.append(f"rot_w4_matmul_mg on the one-launch route at every call: {mg_routes}")
-    if bf_routes["passes"] or bf_routes["one_launch"] != counts["butterfly_w4_matmul"]:
-        missing.append(f"butterfly_w4_matmul on the one-launch route at every call: {bf_routes}")
+    for k, r in routes.items():
+        if r["passes"] or r["one_launch"] != counts[k]:
+            missing.append(f"{k} on the one-launch route at every call: {r}")
     if missing:
         raise SystemExit(f"kernel_bench: not launched: {missing}")
     return counts
@@ -2484,9 +2559,10 @@ def main() -> int:
     emit({"phase": "ptxas", "lines": report.splitlines()})
     check_flash_spills(report)
     check_rot_spills(report)
-    # the tensor-core instructions of K15/K16 (IMMA) and K17 (HMMA); K18's 16-byte loads
+    # the tensor-core instructions of K15/K16 (IMMA) and K17 (HMMA, its three
+    # row tilings); K18's 16-byte loads
     check_sass("libint8_probe.so", ("IMMA", "HMMA"),
-               (("int8_dot_kernel", "IMMA", 2), ("bf16_dot_kernel", "HMMA", 1)))
+               (("int8_dot_kernel", "IMMA", 2), ("bf16_dot_kernel", "HMMA", 3)))
     check_sass("libunpack_exp.so", ("LDG.E.128",), (("stream_kernel", "LDG.E.128", 2),))
     # K4/K5's tensor-core instances: bf16 queries over bf16 and int8 pools, 9 tilings each
     check_sass("libpaged_attention.so", ("HMMA",), (("paged_mma_kernel", "HMMA", 18),))
@@ -2501,10 +2577,10 @@ def main() -> int:
     check_sass("libw4_experiments.so", ("LDG.E.128", "LDGSTS"),
                (("rot_w4_one_launch_kernel", "LDG.E.128", 40),
                 ("rot_w4_one_launch_kernel", "LDGSTS", 40)))
-    # and K7's BF instances (8) in the variants' library
+    # and K7's BF (8) and K9's I4 instances (16) in the variants' library
     check_sass("libw4_variants.so", ("LDG.E.128", "LDGSTS"),
-               (("rot_w4_one_launch_kernel", "LDG.E.128", 8),
-                ("rot_w4_one_launch_kernel", "LDGSTS", 8)))
+               (("rot_w4_one_launch_kernel", "LDG.E.128", 24),
+                ("rot_w4_one_launch_kernel", "LDGSTS", 24)))
     # and K8/K11's DQ instances, with the dequant's two roundings
     check_dequant_sass()
 

@@ -26,16 +26,14 @@
 // bytes. B alone is 16 MB (int8) or 32 MB (bf16), about 5.1 and 10.1 us at
 // 3.35 TB/s, against 0.14 / 0.27 us of tensor-core work; the TPU's argument
 // for int8 (twice the bf16 matrix rate) does not reach a GEMV here. What the
-// design does about it:
+// design of K15/K16 does about it:
 //  - A block owns a 16-row tile (one mma tile; M is padded to it with zeros,
 //    so at M = 8 half the tile is padding) and 64 columns, 16 per warp (two
 //    n8 tiles). B is the stream: 16-byte loads, each thread four rows, and
 //    the K range is split across blocks (grid.z) so that about 8 blocks per
 //    SM keep loads in flight even where the columns alone make 64 blocks.
 //    The int8 partials meet through int32 atomicAdd into a zeroed output
-//    (exact, the same in any order); the bf16 partials go to scratch and a
-//    second pass sums them in split order, so a run gives the same bits
-//    every time.
+//    (exact, the same in any order).
 //  - K15/K16 use mma.sync.m16n8k32 s8 x s8 -> s32. Its B operand (.col)
 //    wants each column's four K bytes in one register, and B lies [K, N] with
 //    N contiguous; ldmatrix.trans moves only 16-bit elements, so each thread
@@ -44,12 +42,36 @@
 //    fragment reads conflict-free. K16 builds the same tile from the nibbles:
 //    row k < S/2 from the low nibbles of byte-row k, row k >= S/2 from the
 //    high nibbles of byte-row k - S/2, minus 8 per byte (__vsub4).
-//  - K17 uses mma.sync.m16n8k16 bf16 x bf16 -> f32, B staged [k][n] as it
-//    lies (rows padded to 144 bytes) and read with ldmatrix.x4.trans.
 //  - Ragged M, N and K are zero-filled in shared memory and masked on the
 //    store; inputs that are not 16-byte aligned, or whose rows are not a
 //    multiple of 16 bytes, are loaded byte by byte.
-// Simple and right first: no wgmma, no TMA, no cp.async pipeline.
+// K17 streams B at the bound's rate in one launch:
+//  - It computes out^T = B^T A^T, so that the weight tile is the mma's
+//    16-row operand and the rows of A fill its n8 side: at M = 8 no lane
+//    multiplies padding. M up to 32 takes more n8 tiles (NM = 1, 2 or 4) of
+//    the same B fragments; past 32 rows, row tiles on the grid.
+//  - A block owns 128 columns of B (16 a warp, eight warps) and a range of
+//    64-row chunks of K; a ring of BF_NST stages of 64 x 128 bf16 (16 KB,
+//    rows padded to 272 bytes) plus the chunk's rows of A is filled by
+//    16-byte cp.async, BF_NST - 1 stages ahead: 48 KB of B in flight a
+//    block, where 3.35 TB/s times a microsecond of latency over 132 SMs
+//    asks for about 25 KB an SM. The plan (kernels/int8_probe.py::bf16_plan)
+//    splits K so that the grid is one wave at one block an SM: at the bench
+//    32 column tiles x 4 splits of 16 chunks. On the card that beat 8
+//    splits (two blocks an SM) and rings of 3, 6 and 8 stages or of 32- and
+//    128-row stages, and 256-column tiles (PERF.md §6).
+//  - B is read once: its copies carry the L2 policy evict_first, so that
+//    they replace each other in the L2 rather than what the L2 holds (after
+//    a write, dirty lines whose eviction would cost a write each).
+//  - mma.sync.m16n8k16 bf16 x bf16 -> f32: B's [k][n] stage gives the A
+//    fragments through ldmatrix.x4.trans, A's [m][k] rows the B fragments
+//    through ldmatrix.x4 (two k16 steps a load).
+//  - Each block writes its f32 partial (with K split), arrives on its
+//    tile's counter, and the last to arrive sums the partials in split
+//    order, writes out and resets the counter: one launch, the same bits
+//    whichever block is last.
+//  - Operands that are not 16-byte aligned, or whose rows are not a
+//    multiple of 16 bytes, are loaded element by element into the ring.
 
 #include "common.cuh"
 
@@ -62,9 +84,6 @@ constexpr int BM = 16;             // rows per block: one mma tile
 constexpr int BN = 64;             // columns per block: 16 per warp
 constexpr int BK8 = 128;           // K15/K16: K bytes per stage, four m16n8k32 steps
 constexpr int SW = BK8 / 4 + 4;    // K15/K16: shared row stride in 32-bit words
-constexpr int BK16 = 64;           // K17: K elements per stage, four m16n8k16 steps
-constexpr int SH = BK16 + 8;       // K17: shared row stride of A in bf16 (144 bytes)
-constexpr int SHB = BN + 8;        // K17: shared row stride of B in bf16 (144 bytes)
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
@@ -247,81 +266,206 @@ __global__ void __launch_bounds__(THREADS) int8_dot_kernel(
 // K17
 // ---------------------------------------------------------------------------
 
-// 8 bf16 of row r (of `cols` columns) from column c into the 16 bytes at dst
-// (zero beyond `rows` and `cols`).
+// 8 bf16 of row r (of `cols` columns) from column c into the 16 bytes at dst,
+// element by element (zero beyond `rows` and `cols`).
 __device__ __forceinline__ void load8_bf16(const bf16* __restrict__ X, int r, int c, int rows,
-                                           int cols, bool vec, bf16* dst) {
-  if (r < rows && vec && c + 8 <= cols) {
-    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(X + (size_t)r * cols + c);
-    return;
-  }
+                                           int cols, bf16* dst) {
   const bf16 zero = __float2bfloat16_rn(0.f);
 #pragma unroll
   for (int j = 0; j < 8; ++j)
     dst[j] = (r < rows && c + j < cols) ? X[(size_t)r * cols + c + j] : zero;
 }
 
-// grid (N tiles, M tiles, K splits). split > 1: block z writes its partial
-// sums to part[z] [M, N]; bf16_combine adds them in order.
-__global__ void __launch_bounds__(THREADS) bf16_dot_kernel(
+// cp_async16 with the L2 policy evict_first: B is read once, so its lines
+// leave the L2 before anything else does
+__device__ __forceinline__ void cp_async16_evict_first(void* smem_dst, const void* src,
+                                                       int src_bytes, uint64_t policy) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(smem_dst);
+  asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes), "l"(policy));
+}
+
+constexpr int BF_THREADS = 256;          // eight warps
+constexpr int BF_TN = 128;               // columns of B a block takes: 16 a warp
+constexpr int BF_BK = 64;                // K rows a ring stage
+constexpr int BF_NST = 4;                // ring stages
+constexpr int BF_SB = BF_TN + 8;         // shared row stride of B in bf16 (272 bytes)
+constexpr int BF_SA = BF_BK + 8;         // shared row stride of A in bf16 (144 bytes)
+constexpr int BF_RS = BF_TN + 4;         // row stride of the f32 tile staged for the stores
+constexpr int BF_LB = 8;                 // partials in flight a thread in the merge
+
+// bytes of one ring stage for NM n8 tiles of A's rows: B's 64 x 128 and A's 8 NM x 64
+__host__ __device__ constexpr int bf_stage(int nm) { return 2 * (BF_BK * BF_SB + 8 * nm * BF_SA); }
+
+// grid (column tiles of 128, K splits of `per` chunks of 64, row tiles of 8 NM
+// rows). With K split, block (x, y, z) writes its partial to part[y] [M, NP]
+// (NP = 128 gridDim.x) and the last block of (x, z) to arrive on its counter
+// sums the gridDim.y partials in split order into out and resets the counter.
+template <int NM>
+__global__ void __launch_bounds__(BF_THREADS, 2) bf16_dot_kernel(
     const bf16* __restrict__ A, const bf16* __restrict__ B, float* __restrict__ out,
-    float* __restrict__ part, int M, int K, int N, int per, int vec_a, int vec_b) {
-  __shared__ __align__(16) bf16 sA[BM][SH];    // [m][k]
-  __shared__ __align__(16) bf16 sB[BK16][SHB];  // [k][n], as B lies
+    float* __restrict__ part, int* __restrict__ counters, int M, int K, int N, int per,
+    int vec_a, int vec_b, int vec_out) {
+  constexpr int MB = 8 * NM;  // rows of A a block takes
+  constexpr int STAGE = bf_stage(NM);
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int last;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int n_chunks = (K + BK16 - 1) / BK16;
-  const int c_end = min(n_chunks, (int)(blockIdx.z + 1) * per);
-  const int a_row = tid >> 3, a_k = (tid & 7) * 8;
-  // ldmatrix.x4.trans: lane l gives row (l & 7) of matrix l >> 3, which is
-  // k 0-7 / 8-15 (bit 0) of n 0-7 / 8-15 (bit 1) of this warp's 16 columns
-  const int l_k = ((lane >> 3) & 1) * 8 + (lane & 7), l_n = warp * 16 + (lane >> 4) * 8;
-  float acc[2][4] = {};
+  const int n0 = blockIdx.x * BF_TN, ks = blockIdx.y, m0 = blockIdx.z * MB;
+  const int KS = gridDim.y, NP = gridDim.x * BF_TN;
+  const int c0 = ks * per, nc = min((K + BF_BK - 1) / BF_BK, c0 + per) - c0;  // >= 1
 
-  for (int c = blockIdx.z * per; c < c_end; ++c) {
-    const int k0 = c * BK16;
-    load8_bf16(A, m0 + a_row, k0 + a_k, M, K, vec_a, &sA[a_row][a_k]);
+  uint64_t policy;
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(policy));
+  // chunk c of the split into stage c % BF_NST: B's rows [k0, k0 + 64) of the
+  // tile's columns (1024 pieces of 16 bytes, four a thread), then A's rows
+  // [m0, m0 + MB) of the same K range (MB * 8 pieces); zero outside M, K, N
+  auto issue = [&](int c) {
+    if (c < nc) {
+      const int k0 = (c0 + c) * BF_BK;
+      bf16* sb = reinterpret_cast<bf16*>(smem + (c % BF_NST) * STAGE);
+      bf16* sa = sb + BF_BK * BF_SB;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {  // 64 rows x 8 pieces of 8 columns
-      const int idx = tid + i * THREADS, r = idx >> 3, cc = (idx & 7) * 8;
-      load8_bf16(B, k0 + r, n0 + cc, K, N, vec_b, &sB[r][cc]);
+      for (int i = 0; i < BF_BK * BF_TN / 8 / BF_THREADS; ++i) {
+        const int piece = tid + i * BF_THREADS, r = piece >> 4, cc = (piece & 15) * 8;
+        const int k = k0 + r, n = n0 + cc;
+        bf16* dst = sb + r * BF_SB + cc;
+        if (vec_b) {  // N a multiple of 8: a piece lies wholly inside or outside
+          const bool ok = k < K && n < N;
+          cp_async16_evict_first(dst, ok ? B + (size_t)k * N + n : B, ok ? 16 : 0, policy);
+        } else {
+          load8_bf16(B, k, n, K, N, dst);
+        }
+      }
+      for (int piece = tid; piece < MB * BF_BK / 8; piece += BF_THREADS) {
+        const int r = piece / (BF_BK / 8), kk = piece % (BF_BK / 8) * 8;
+        const int m = m0 + r, k = k0 + kk;
+        bf16* dst = sa + r * BF_SA + kk;
+        if (vec_a) {  // K a multiple of 8
+          const bool ok = m < M && k < K;
+          cp_async16(dst, ok ? A + (size_t)m * K + k : A, ok ? 16 : 0);
+        } else {
+          load8_bf16(A, m, k, M, K, dst);
+        }
+      }
     }
-    __syncthreads();
+    cp_async_commit();  // an empty group past the end keeps the waits uniform
+  };
+
 #pragma unroll
-    for (int ks = 0; ks < BK16 / 16; ++ks) {
-      const int k = ks * 16;
-      const uint32_t a0 = *reinterpret_cast<const uint32_t*>(&sA[g][k + 2 * t]);
-      const uint32_t a1 = *reinterpret_cast<const uint32_t*>(&sA[g + 8][k + 2 * t]);
-      const uint32_t a2 = *reinterpret_cast<const uint32_t*>(&sA[g][k + 8 + 2 * t]);
-      const uint32_t a3 = *reinterpret_cast<const uint32_t*>(&sA[g + 8][k + 8 + 2 * t]);
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, &sB[k + l_k][l_n]);
-      mma_bf16(acc[0], a0, a1, a2, a3, b[0], b[1]);
-      mma_bf16(acc[1], a0, a1, a2, a3, b[2], b[3]);
+  for (int c = 0; c < BF_NST - 1; ++c) issue(c);
+  // ldmatrix rows: the mma's A operand (B^T, 16 columns x 16 k) by .trans,
+  // matrix i = lane >> 3 holding columns + 8 (i & 1) and k + 8 (i >> 1); its B
+  // operand (A^T) from A's rows 8j + (lane & 7), k + 8 (lane >> 3): the b0, b1
+  // of two k16 steps
+  const int fa_k = ((lane >> 4) & 1) * 8 + (lane & 7), fa_n = warp * 16 + ((lane >> 3) & 1) * 8;
+  const int fb_m = lane & 7, fb_k = (lane >> 3) * 8;
+  float acc[NM][4];
+#pragma unroll
+  for (int j = 0; j < NM; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int c = 0; c < nc; ++c) {
+    cp_async_wait<BF_NST - 2>();  // chunk c has landed (this thread's pieces)
+    __syncthreads();              // everyone's; chunk c - 1's readers are done
+    issue(c + BF_NST - 1);
+    const bf16* sb = reinterpret_cast<const bf16*>(smem + (c % BF_NST) * STAGE);
+    const bf16* sa = sb + BF_BK * BF_SB;
+#pragma unroll
+    for (int h = 0; h < BF_BK / 32; ++h) {
+      uint32_t fb[NM][4];
+#pragma unroll
+      for (int j = 0; j < NM; ++j) ldmatrix_x4(fb[j], sa + (8 * j + fb_m) * BF_SA + 32 * h + fb_k);
+#pragma unroll
+      for (int s2 = 0; s2 < 2; ++s2) {
+        uint32_t fa[4];
+        ldmatrix_x4_trans(fa, sb + (32 * h + 16 * s2 + fa_k) * BF_SB + fa_n);
+#pragma unroll
+        for (int j = 0; j < NM; ++j)
+          mma_bf16(acc[j], fa[0], fa[1], fa[2], fa[3], fb[j][2 * s2], fb[j][2 * s2 + 1]);
+      }
     }
-    __syncthreads();
   }
-  float* dst = gridDim.z > 1 ? part + (size_t)blockIdx.z * M * N : out;
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the tile [MB][BF_RS] f32 reuses it
+
+  // acc[j] holds out^T[column warp * 16 + g (+ 8 for 2, 3)][row 8j + 2t (+ 1 for 1, 3)]
+  float* red = reinterpret_cast<float*>(smem);
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = m0 + g + (i >= 2 ? 8 : 0);
-      const int n = n0 + warp * 16 + j * 8 + 2 * t + (i & 1);
-      if (m < M && n < N) dst[(size_t)m * N + n] = acc[j][i];
+  for (int j = 0; j < NM; ++j) {
+    const int m = 8 * j + 2 * t, n = warp * 16 + g;
+    red[m * BF_RS + n] = acc[j][0];
+    red[(m + 1) * BF_RS + n] = acc[j][1];
+    red[m * BF_RS + n + 8] = acc[j][2];
+    red[(m + 1) * BF_RS + n + 8] = acc[j][3];
+  }
+  __syncthreads();
+  const int Mb = min(MB, M - m0);
+  auto store4 = [&](int m, int col, float4 v) {  // out's columns below N
+    float* o = out + (size_t)(m0 + m) * N + col;
+    if (vec_out && col + 4 <= N) {
+      *reinterpret_cast<float4*>(o) = v;
+      return;
     }
+    const float f[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (col + j < N) o[j] = f[j];
+  };
+  for (int e4 = 4 * tid; e4 < Mb * BF_TN; e4 += 4 * BF_THREADS) {
+    const int m = e4 / BF_TN, cc = e4 % BF_TN;
+    const float4 v = *reinterpret_cast<const float4*>(red + m * BF_RS + cc);
+    if (KS == 1) {
+      if (n0 + cc < N) store4(m, n0 + cc, v);
+    } else {  // the partial's rows are NP wide: every 16-byte store aligned
+      *reinterpret_cast<float4*>(part + ((size_t)ks * M + m0 + m) * NP + n0 + cc) = v;
+    }
+  }
+  if (KS == 1) return;
+
+  // every split of the tile has written its partial: the last block to
+  // arrive sums them in split order and resets the counter
+  __syncthreads();
+  if (tid == 0) {  // after the barrier, one fence orders the block's partials before its arrival
+    __threadfence();
+    int* cnt = counters + blockIdx.z * gridDim.x + blockIdx.x;
+    last = atomicAdd(cnt, 1) == KS - 1;
+    if (last) *cnt = 0;
+  }
+  __syncthreads();
+  if (!last) return;
+  const size_t MNP = (size_t)M * NP;
+  for (int e4 = 4 * tid; e4 < Mb * BF_TN; e4 += 4 * BF_THREADS) {
+    const int m = e4 / BF_TN, col = n0 + e4 % BF_TN;
+    if (col >= N) continue;
+    const float* src = part + (size_t)(m0 + m) * NP + col;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k0 = 0; k0 < KS; k0 += BF_LB) {
+      float4 p[BF_LB];
+#pragma unroll
+      for (int u = 0; u < BF_LB; ++u)
+        p[u] = k0 + u < KS ? __ldcg(reinterpret_cast<const float4*>(src + (k0 + u) * MNP))
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int u = 0; u < BF_LB; ++u)
+        if (k0 + u < KS) v.x += p[u].x, v.y += p[u].y, v.z += p[u].z, v.w += p[u].w;
+    }
+    store4(m, col, v);
   }
 }
 
-// out[i] = part[0][i] + part[1][i] + ... in split order
-__global__ void bf16_combine(const float* __restrict__ part, float* __restrict__ out,
-                             long long n, int split) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = part[i];
-  for (int z = 1; z < split; ++z) s += part[(size_t)z * n + i];
-  out[i] = s;
+template <int NM>
+int launch_bf16(const void* a, const void* b, void* out, void* part, void* counters, int M, int K,
+                int N, int per, int split, int vec_a, int vec_b, int vec_out, cudaStream_t st) {
+  const auto kernel = bf16_dot_kernel<NM>;
+  const int smem = BF_NST * bf_stage(NM);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((N + BF_TN - 1) / BF_TN, split, (M + 8 * NM - 1) / (8 * NM));
+  kernel<<<grid, BF_THREADS, smem, st>>>((const bf16*)a, (const bf16*)b, (float*)out,
+                                         (float*)part, (int*)counters, M, K, N, per, vec_a,
+                                         vec_b, vec_out);
+  return (int)cudaGetLastError();
 }
 
 // the K split: chunks of bk, `per` to a block, `split` blocks covering them
@@ -381,20 +525,19 @@ extern "C" int paro_fused_unpack_int8_dot(const void* x, const void* w, void* ou
                            O % 16 == 0 && aligned16(w), (cudaStream_t)stream);
 }
 
-// K17. a bf16 [M, K], b bf16 [K, N] -> out f32 [M, N]; the K range in
-// `split` blocks of `per` chunks of 64, partials in part f32 [split, M, N]
-// (unused when split is 1).
-extern "C" int paro_bf16_dot(const void* a, const void* b, void* out, void* part, int M, int K,
-                             int N, int per, int split, void* stream) {
-  if (bad_split(M, K, N, BK16, per, split)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  bf16_dot_kernel<<<tile_grid(M, N, split), THREADS, 0, st>>>(
-      (const bf16*)a, (const bf16*)b, (float*)out, (float*)part, M, K, N, per,
-      K % 8 == 0 && aligned16(a), N % 8 == 0 && aligned16(b));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || split == 1) return (int)err;
-  const long long n = (long long)M * N;
-  bf16_combine<<<(unsigned)((n + 255) / 256), 256, 0, st>>>((const float*)part, (float*)out, n,
-                                                            split);
-  return (int)cudaGetLastError();
+// K17. a bf16 [M, K], b bf16 [K, N] -> out f32 [M, N]; blocks of `rows` rows
+// of a (8, 16 or 32) and 128 columns of b, the K range in `split` blocks of
+// `per` chunks of 64; with split > 1 the scratch part f32 [split, M, 128
+// ceil(N / 128)] and counters int32, one per (column tile, row tile), zero
+// and left zero. Returns the first CUDA error (0 on success).
+extern "C" int paro_bf16_dot(const void* a, const void* b, void* out, void* part, void* counters,
+                             int M, int K, int N, int per, int split, int rows, void* stream) {
+  if ((rows != 8 && rows != 16 && rows != 32) || bad_split(M, K, N, BF_BK, per, split) ||
+      (M + rows - 1) / rows > 65535 || (split > 1 && (part == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const int vec_a = K % 8 == 0 && aligned16(a), vec_b = N % 8 == 0 && aligned16(b);
+  const int vec_out = N % 4 == 0 && aligned16(out);
+  const auto launch = rows == 8 ? launch_bf16<1> : rows == 16 ? launch_bf16<2> : launch_bf16<4>;
+  return launch(a, b, out, part, counters, M, K, N, per, split, vec_a, vec_b, vec_out,
+                (cudaStream_t)stream);
 }

@@ -1,11 +1,11 @@
 // The one-launch W4 GEMV for Hopper (sm_90a), shared by K1/K2's W4A16 decode
 // route (rot_w4_matmul.cu), by K10/K12 and K13 (w4_experiments.cu), by K8/K11
-// (rot_w4_dequant.cu) and by K7 (w4_variants.cu).
+// (rot_w4_dequant.cu) and by K7 and K9 (w4_variants.cu).
 //
 //   xr_g[m]   = bf16(x_g[m] @ M_g^T)
 //   out[m, o] = sum_g (xr_g[m] . q_g[:, o] - rowsum_g[m] * z[g, o]) * s[g, o]
 //
-// Six variants of that function, a template switch each (Variant):
+// Seven variants of that function, a template switch each (Variant):
 //               x before the rotation   rowsum_g             out
 //   K1          rounded to rot's dtype  of the bf16 xr_g     x's dtype
 //   K10 (B)     rounded to rot's dtype  of the f32 xr_g      x's dtype
@@ -16,12 +16,19 @@
 //               butterfly stages, no M_g
 //   K13 (A8)    no rotation: int8 per   sum(xq_g)            x's dtype
 //               (row, group)
+//   K9 (I4)     as K1, on a weight whose byte-row k of a group holds channels
+//               2k and 2k + 1 (K1's: k and k + S/2)
 // (K10 replaces scripts/kernel_edge_test.py::rot_w4_matmul_b, K12
 // scripts/kernel_tune.py::rot_w4_matmul_v2, DQ both
 // paroquant_tpu/kernels/rot_matmul.py::rot_w4_matmul_mg and
 // scripts/kernel_dma_pipeline.py::dma_rot_w4_matmul, BF
 // paroquant_tpu/kernels/rot_matmul.py::butterfly_w4_matmul, A8
-// scripts/kernel_w4a8_exp.py::w4a8_matmul.) DQ dequantizes the
+// scripts/kernel_w4a8_exp.py::w4a8_matmul, I4
+// paroquant_tpu/kernels/rot_matmul.py::rot_w4_matmul_i4.) I4 differs from K1
+// only in where it stores a rotated channel: the dot reads xr as (low
+// nibble, high nibble) pairs, one per byte-row, so K1 keeps channel i of a
+// group at pair slot 2 (i mod S/2) + (i >= S/2) and I4 at slot i; it issues
+// its loads in K10's order. DQ dequantizes the
 // weight in bf16, w = bf16(bf16(q - z) * s) with s and z rounded to bf16,
 // and sums xr_g . w_g in f32 over chunks of `chunk` groups (the last may be
 // shorter): no split crosses a chunk, the splits of a chunk add in split
@@ -97,7 +104,7 @@ namespace one {
 using w4::Parts;
 using w4::load_f32;
 
-enum Variant { K1 = 0, B = 1, V2 = 2, DQ = 3, BF = 4, A8 = 5 };
+enum Variant { K1 = 0, B = 1, V2 = 2, DQ = 3, BF = 4, A8 = 5, I4 = 6 };
 
 constexpr int THREADS = 256;
 constexpr int NWARPS = THREADS / 32;
@@ -284,7 +291,7 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
   float* zs = fs + L.zs;
   float* rsum = fs + L.rsum;
   float* tb = fs + L.tb;  // BF: inv_s, cos, sin rows [2K + 1][ng * S]; A8: sx [ng][MT]
-  constexpr bool ROT = VAR == K1 || VAR == B || VAR == V2 || VAR == DQ;  // a dense M_g
+  constexpr bool ROT = VAR == K1 || VAR == B || VAR == V2 || VAR == DQ || VAR == I4;  // a dense M_g
 
   // 1. the weight slice: stage c holds byte-rows [c*CR, (c+1)*CR) of the
   // block's rows; thread t copies 16 bytes of one row. K1 puts NST - 1
@@ -435,13 +442,17 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
   float acc[MT];
 #pragma unroll
   for (int m = 0; m < MT; ++m) acc[m] = 0.f;
-  auto emit = [&](int q) {  // sum the row's lanes; channel i of group gl at pair slot (i mod S/2, i >= S/2)
+  auto emit = [&](int q) {  // sum the row's lanes; channel i of group gl at pair slot (i mod S/2, i >= S/2) (I4: at slot i)
     for (int o = 1; o < tpr; o <<= 1)
 #pragma unroll
       for (int m = 0; m < MT; ++m) acc[m] += __shfl_xor_sync(0xffffffffu, acc[m], o);
     if (h == 0 && q < R) {
       const int gl = q / S, i = q % S;
-      float* dst = xr2 + (size_t)gl * MT * S + 2 * (i < HALF ? i : i - HALF) + (i >= HALF);
+      float* dst;
+      if constexpr (VAR == I4)
+        dst = xr2 + (size_t)gl * MT * S + i;
+      else
+        dst = xr2 + (size_t)gl * MT * S + 2 * (i < HALF ? i : i - HALF) + (i >= HALF);
 #pragma unroll
       for (int m = 0; m < MT; ++m) dst[m * S] = VAR == B ? acc[m] : round_to<bf16>(acc[m]);
     }
@@ -827,9 +838,9 @@ cudaError_t launch(const Args& a, int MT, int n_tiles, int KS, cudaStream_t st) 
 }
 
 // One launch of variant VAR: x [M, I] (f32 or bf16), rot [P, G, S, S] (f32
-// or bf16), qweight u8 [I/2, O] half-split, scales/zeros [G, O] of dtype
-// codes sdt/zdt, out [M, O] (x's dtype; f32 for V2); column tiles of cw * 128
-// columns (cw 1, 2 or 4), row tiles of row_tile(M, S) rows; KS group
+// or bf16), qweight u8 [I/2, O] half-split (I4: interleaved), scales/zeros
+// [G, O] of dtype codes sdt/zdt, out [M, O] (x's dtype; f32 for V2); column
+// tiles of cw * 128 columns (cw 1, 2 or 4), row tiles of row_tile(M, S) rows; KS group
 // splits of ceil(G / KS) groups each (DQ: each chunk of `chunk` groups,
 // 1 <= chunk <= G, split into ceil(chunk / gps) splits of gps groups but
 // the chunk's last, so KS = G / chunk * ceil(chunk / gps) + ceil((G mod

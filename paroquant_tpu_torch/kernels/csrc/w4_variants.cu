@@ -14,6 +14,8 @@
 //       the one-launch kernel (rot_w4_dequant.cu) takes the rest.
 //  K9 rot_w4_matmul_i4 (_kernel_dense_rot_i4): K1's numerics on a weight whose
 //       byte row k holds channel 2k in its low nibble and 2k + 1 in its high one.
+//       These passes take K9's calls at M > 16 or S > 256 (rot_matmul.py::i4_route);
+//       the I4 variant of the one-launch kernel takes the rest.
 // K6, K7 and K9 take scales and zeros in f32, bf16, f16 or uint8 and convert
 // them in the kernel; out is in x's dtype (f32 or bf16).
 //
@@ -24,7 +26,11 @@
 // one-launch kernel (one_launch.cuh, whose note says what it does about that
 // bound): one launch a call, each block running the K stages on x for its
 // own groups in shared memory, its tables and x issued before the weight
-// ring, the group splits merged behind a counter in split order. The rest
+// ring, the group splits merged behind a counter in split order. K9 at M <=
+// 16 and S <= 256 is its I4 variant: K1's numerics in K10's issue order (x,
+// the rotation rows and the scale and zero words before the weight ring),
+// each block rotating x for its own groups and storing channel i of a group
+// at pair slot i, where the interleaved byte-rows want it. The rest
 // run K1's passes (w4_passes.cuh): K6 and K7 replace K1's rotate pass with
 // prep_kernel below: one block per (group, 8-row tile) stages its rows in
 // shared memory, a thread owns the pairs (l, l ^ d) of a stage so the stage
@@ -193,6 +199,21 @@ extern "C" int paro_butterfly_w4_one_launch(const void* x, const void* inv_s, co
   return (int)one::call<one::BF>(x, nullptr, qweight, scales, zeros, out, partial, counters, M, I,
                                  S, 1, &O, KS, cw, x_is_bf16, 0, sdt, zdt, (cudaStream_t)stream, 0,
                                  0, inv_s, cos_t, sin_t, K);
+}
+
+// K9 in one launch (the I4 variant): K9's operands (below; qweight u8 [I/2,
+// O] interleaved), the scratch partial f32 [KS, M, O] (KS > 1) and counters
+// int32, one per (column tile, row tile of one_launch.cuh's row_tile(M, S)
+// rows), zero and left zero; KS group splits and column tiles of cw * 128
+// columns, within the limits of one::call. Returns the first CUDA error (0 on
+// success).
+extern "C" int paro_rot_w4_matmul_i4_one_launch(const void* x, const void* rot, const void* qweight,
+                                                const void* scales, const void* zeros, void* out,
+                                                void* partial, void* counters, int M, int I, int S,
+                                                int O, int KS, int cw, int x_bf16, int rot_bf16,
+                                                int sdt, int zdt, void* stream) {
+  return (int)one::call<one::I4>(x, rot, qweight, scales, zeros, out, partial, counters, M, I, S,
+                                 1, &O, KS, cw, x_bf16, rot_bf16, sdt, zdt, (cudaStream_t)stream);
 }
 
 // K8 (interleaved = 0: half-split nibbles, bf16 rot, bf16 scales and zeros)

@@ -13,13 +13,16 @@ Port of the four kernels of `scripts/kernel_int8_probe.py`:
     K17 bf16_dot (the bf16 arm of `bench_dots`):
           bf16 [M, K] @ bf16 [K, N] -> float32 [M, N]
 
-On the card K15/K16 run on the tensor cores with `mma.sync` s8 x s8 -> s32
-and K17 with `mma.sync` bf16 x bf16 -> f32; the K range is split across
-blocks where the columns alone would not fill the card (`k_splits`). A
-wrapper launches the CUDA kernel for tensors on a CUDA device and runs the
-plain PyTorch version for tensors on the CPU (the counterpart of the Pallas
-interpreter). A failed build or launch raises; nothing falls back. Each
-CUDA call adds one to `launch_counts[name]`.
+On the card K15/K16 run on the tensor cores with `mma.sync` s8 x s8 -> s32,
+the K range split across blocks where the columns alone would not fill the
+card (`k_splits`). K17 streams B through a `cp.async` ring (L2 policy
+evict_first) into `mma.sync` bf16 x bf16 -> f32 in one launch, its K splits
+merged in split order by the last block of each tile (`bf16_plan`). A
+wrapper launches the CUDA kernel
+for tensors on a CUDA device and runs the plain PyTorch version for tensors
+on the CPU (the counterpart of the Pallas interpreter). A failed build or
+launch raises; nothing falls back. Each CUDA call adds one to
+`launch_counts[name]`.
 """
 
 from __future__ import annotations
@@ -29,13 +32,19 @@ import ctypes
 import torch
 
 from .build import load
-from .rot_matmul import _raise_on
+from .rot_matmul import BLOCKS_PER_SM, MAX_SMEM_BYTES, _counters, _raise_on, _sm_count
 
 KERNELS = ("narrow_cast", "int8_dot", "fused_unpack_int8_dot", "bf16_dot")
 launch_counts = {name: 0 for name in KERNELS}
-TILE_M, TILE_N = 16, 64  # rows and columns of a block's output tile
-CHUNK_K = {"int8": 128, "bf16": 64}  # K per stage of a block
-TARGET_BLOCKS = 132 * 8  # about eight blocks per SM of the H100
+TILE_M, TILE_N = 16, 64  # K15/K16: rows and columns of a block's output tile
+CHUNK_K = 128  # K15/K16: K bytes per stage of a block
+TARGET_BLOCKS = 132 * 8  # K15/K16: about eight blocks per SM of the H100
+# K17 (csrc/int8_probe.cu, bf16_dot_kernel): a block's columns of B, its K
+# rows a ring stage, the ring's stages, the rows of A it takes (one, two or
+# four n8 tiles of the mma) and its shared rows' padding in bf16
+BF16_TILE_N, BF16_CHUNK_K, BF16_STAGES = 128, 64, 4
+BF16_ROWS = (8, 16, 32)
+BF16_PAD = 8
 
 I8, I32, U8, BF16, F32 = torch.int8, torch.int32, torch.uint8, torch.bfloat16, torch.float32
 
@@ -107,13 +116,41 @@ def _check_fused(x, w) -> None:
         raise ValueError(f"w must be [S/2, O] = [{S // 2}, O], got {tuple(w.shape)}")
 
 
-def k_splits(M: int, K: int, N: int, kind: str) -> tuple[int, int]:
-    """(blocks along K, chunks of CHUNK_K[kind] per block): enough blocks
+def k_splits(M: int, K: int, N: int) -> tuple[int, int]:
+    """K15/K16's (blocks along K, chunks of CHUNK_K per block): enough blocks
     that about TARGET_BLOCKS are in flight, and no block without a chunk."""
-    chunks = -(-K // CHUNK_K[kind])
+    chunks = -(-K // CHUNK_K)
     tiles = -(-M // TILE_M) * -(-N // TILE_N)
     per = -(-chunks // max(1, min(chunks, TARGET_BLOCKS // tiles)))
     return -(-chunks // per), per
+
+
+def bf16_smem(rows: int) -> int:
+    """K17's dynamic shared memory a block for `rows` rows of A: its ring of
+    BF16_STAGES stages of B's 64 x 128 and A's rows x 64 bf16, each row
+    padded by BF16_PAD (`bf_stage` in csrc/int8_probe.cu)."""
+    return BF16_STAGES * 2 * (BF16_CHUNK_K * (BF16_TILE_N + BF16_PAD)
+                              + rows * (BF16_CHUNK_K + BF16_PAD))
+
+
+def bf16_plan(M: int, K: int, N: int, sms: int) -> tuple[int, int, int]:
+    """K17's launch on a card of `sms` SMs, from shapes alone: (K splits,
+    chunks of BF16_CHUNK_K rows a split, rows of A a block). A block takes
+    the least of BF16_ROWS that holds M (32 past it: more row tiles) and 128
+    columns of B; the K range splits into as many splits as fill one wave
+    of one block an SM with those tiles, at most one a chunk, and every
+    split non-empty. At 8 x 4096 x 4096: 4 splits of 16 chunks, 128 blocks
+    (on an H100 that beat 8 splits, two blocks an SM, at M 1, 8, 16 and 32:
+    PERF.md §6). Raises ValueError where two blocks of that many rows (the
+    kernel's launch bound) do not fit an SM's shared memory (none of
+    BF16_ROWS: at most 88 KB a block)."""
+    rows = next((r for r in BF16_ROWS if r >= M), BF16_ROWS[-1])
+    if BLOCKS_PER_SM * bf16_smem(rows) > MAX_SMEM_BYTES:
+        raise ValueError(f"K17's ring at {rows} rows does not fit two blocks an SM")
+    tiles = -(-N // BF16_TILE_N) * -(-M // rows)
+    chunks = -(-K // BF16_CHUNK_K)
+    per = -(-chunks // max(1, min(chunks, sms // tiles)))
+    return -(-chunks // per), per, rows
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -121,7 +158,7 @@ _SIGNATURES = {  # entry point: argument types (all in csrc/int8_probe.cu)
     "paro_narrow_cast": [_P, _P, _L],
     "paro_int8_dot": [_P] * 3 + [_I] * 5,
     "paro_fused_unpack_int8_dot": [_P] * 3 + [_I] * 5,
-    "paro_bf16_dot": [_P] * 4 + [_I] * 5,
+    "paro_bf16_dot": [_P] * 5 + [_I] * 6,
 }
 _fns: dict[str, object] = {}
 
@@ -152,7 +189,7 @@ def _stream(dev) -> int:
 def _launch_int8(name, entry, a, b, M, K, N):
     a, b = _on_card(a, b)
     out = torch.empty((M, N), dtype=I32, device=a.device)
-    split, per = k_splits(M, K, N, "int8")
+    split, per = k_splits(M, K, N)
     err = _lib_fn(entry)(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, K, N, per, split,
                          _stream(a.device))
     _raise_on(err, name)
@@ -203,11 +240,16 @@ def bf16_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return bf16_dot_plain(a, b)
     a, b = _on_card(a, b)
     (M, K), N = a.shape, b.shape[1]
-    split, per = k_splits(M, K, N, "bf16")
-    out = torch.empty((M, N), dtype=F32, device=a.device)
-    part = torch.empty((split if split > 1 else 0, M, N), dtype=F32, device=a.device)
-    err = _lib_fn("paro_bf16_dot")(a.data_ptr(), b.data_ptr(), out.data_ptr(), part.data_ptr(),
-                                   M, K, N, per, split, _stream(a.device))
+    fn = _lib_fn("paro_bf16_dot")  # before the device is queried
+    dev = a.device
+    split, per, rows = bf16_plan(M, K, N, _sm_count(dev))
+    n_tiles = -(-N // BF16_TILE_N)
+    out = torch.empty((M, N), dtype=F32, device=dev)
+    part = torch.empty((split, M, n_tiles * BF16_TILE_N) if split > 1 else (0,), dtype=F32,
+                       device=dev)
+    counters = _counters(n_tiles * -(-M // rows), dev) if split > 1 else part
+    err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), part.data_ptr(), counters.data_ptr(),
+             M, K, N, per, split, rows, _stream(dev))
     _raise_on(err, "bf16_dot")
     launch_counts["bf16_dot"] += 1
     return out

@@ -35,7 +35,9 @@ one-launch kernel (csrc/rot_w4_dequant.cu, shared with K11, launched by
 `mg_route`; each call adds one to `mg_route_counts[route]`. K7 takes its BF
 variant (csrc/w4_variants.cu) at M <= 16 where its tables fit a block, or
 the passes, by `bf_route`; each call adds one to `bf_route_counts[route]`.
-K6 takes the passes.
+K9 takes its I4 variant (csrc/w4_variants.cu, on the plan `i4_plan`) at
+M <= 16 and S <= 256, or the passes, by `i4_route`; each call adds one to
+`i4_route_counts[route]`. K6 takes the passes.
 """
 
 from __future__ import annotations
@@ -78,9 +80,10 @@ sz_counts: dict[str, dict[str, int]] = {name: {} for name in KERNELS}
 # S > 256 sends one there)
 ROUTES = ("one_launch", "passes", "passes_w4a16_m16")
 route_counts = {name: dict.fromkeys(ROUTES, 0) for name in variant_counts}
-# K8's calls by route (see mg_route), and K7's (bf_route)
+# K8's calls by route (see mg_route), K7's (bf_route) and K9's (i4_route)
 mg_route_counts = dict.fromkeys(ROUTES[:2], 0)
 bf_route_counts = dict.fromkeys(ROUTES[:2], 0)
+i4_route_counts = dict.fromkeys(ROUTES[:2], 0)
 
 
 def reset_launch_counts() -> None:
@@ -93,6 +96,7 @@ def reset_launch_counts() -> None:
     for route in mg_route_counts:
         mg_route_counts[route] = 0
         bf_route_counts[route] = 0
+        i4_route_counts[route] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -258,6 +262,7 @@ _SIGNATURES = {  # entry point: (source stem, argument types)
     "paro_butterfly_w4_matmul": ("w4_variants", [_P] * 4 + [_I] + [_P] * 7 + [_I] * 8),
     "paro_butterfly_w4_one_launch": ("w4_variants", [_P] * 4 + [_I] + [_P] * 6 + [_I] * 9),
     "paro_dense_rot_w4_variant": ("w4_variants", [_P] * 9 + [_I] * 10),
+    "paro_rot_w4_matmul_i4_one_launch": ("w4_variants", [_P] * 8 + [_I] * 10),
     "paro_rot_w4_matmul_dq": ("rot_w4_dequant", [_P] * 8 + [_I] * 12),
 }
 _fns: dict[str, object] = {}
@@ -461,6 +466,26 @@ def bf_route(M: int, I: int, S: int, O: int, K: int, sms: int):
     return "passes", None
 
 
+def i4_plan(M: int, I: int, S: int, O: int, sms: int) -> tuple[int, int, int, int]:
+    """K9's launch of the I4 variant on a card of `sms` SMs, from shapes
+    alone: K10's plan (`w4_experiments.one_launch_plan`, the same issue
+    order), `dq_plan` with all G groups one chunk and 128-column tiles past
+    one wave: (KS splits, column-tile width, rows per block, groups per
+    split). At 4096 x 4096, M 1: 32 splits of one group, 512 columns."""
+    return dq_plan(M, I, S, O, sms, I // S, wide_past_wave=False)
+
+
+def i4_route(M: int, I: int, S: int, O: int, sms: int):
+    """K9's route on a card of `sms` SMs, from shapes alone: ("one_launch",
+    `i4_plan`'s plan) or ("passes", None). The I4 variant of the one-launch
+    kernel takes K1's one-launch calls: M <= 16 rows and groups of S <= 256
+    channels (where one group of 8 rows always fits a block); every other
+    call takes the three passes."""
+    if M <= ONE_LAUNCH_MAX_M and S <= ONE_LAUNCH_MAX_S:
+        return "one_launch", i4_plan(M, I, S, O, sms)
+    return "passes", None
+
+
 def _check_butterfly_group(S: int) -> None:
     if S < 2 or S & (S - 1):
         raise ValueError(f"butterfly stages need a power-of-two group size, got {S}")
@@ -470,6 +495,14 @@ def _sz_code(t: torch.Tensor, what: str) -> int:
     if t.dtype not in SZ_CODES:
         raise TypeError(f"{what} must be float32, bfloat16, float16 or uint8, got {t.dtype}")
     return SZ_CODES[t.dtype]
+
+
+def _check_rot(rot, G: int, S: int) -> None:
+    """A dense rotation [G, S, S] in float32 or bfloat16 (K8-K12)."""
+    if tuple(rot.shape) != (G, S, S):
+        raise ValueError(f"rot must be [G, S, S], got {tuple(rot.shape)}")
+    if rot.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"rot must be float32 or bfloat16, got {rot.dtype}")
 
 
 def _check_operands(x, qweight, scales, zeros, S: int, G: int, others=()):
@@ -579,10 +612,7 @@ def launch_dq(name, x, rot, qweight, scales, zeros, chunk, plan=None):
     M, I = x.shape
     G, S, _ = rot.shape
     O = qweight.shape[1]
-    if tuple(rot.shape) != (G, S, S):
-        raise ValueError(f"rot must be [G, S, S], got {tuple(rot.shape)}")
-    if rot.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"rot must be float32 or bfloat16, got {rot.dtype}")
+    _check_rot(rot, G, S)
     x, qweight, scales, zeros, (rot,) = _check_operands(x, qweight, scales, zeros, S, G, (rot,))
     fn = _lib_fn("paro_rot_w4_matmul_dq")  # before the device is queried
     dev = x.device
@@ -645,15 +675,37 @@ def _launch_butterfly(name, x, inv_s, cos_t, sin_t, qweight, scales, zeros, S):
     return out
 
 
+def launch_i4(x, rot, qweight_i4, scales, zeros, plan):
+    """K9 on the card in one launch of the I4 variant, by `plan` (KS, tile,
+    rows, gps; `i4_plan`'s or another within the kernel's limits); K9's
+    operands. The caller counts the launch."""
+    M, I = x.shape
+    G, S, _ = rot.shape
+    O = qweight_i4.shape[1]
+    _check_rot(rot, G, S)
+    x, qweight_i4, scales, zeros, (rot,) = _check_operands(x, qweight_i4, scales, zeros, S, G, (rot,))
+    fn = _lib_fn("paro_rot_w4_matmul_i4_one_launch")
+    dev = x.device
+    KS, tile, mt, _ = plan
+    out = torch.empty((M, O), dtype=x.dtype, device=dev)
+    partial = torch.empty((KS, M, O) if KS > 1 else (0,), dtype=torch.float32, device=dev)
+    counters = _counters(-(-O // tile) * -(-M // mt), dev) if KS > 1 else partial
+    err = fn(
+        x.data_ptr(), rot.data_ptr(), qweight_i4.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
+        out.data_ptr(), partial.data_ptr(), counters.data_ptr(), M, I, S, O, KS,
+        tile // COLS_PER_TILE, int(x.dtype == torch.bfloat16), int(rot.dtype == torch.bfloat16),
+        SZ_CODES[scales.dtype], SZ_CODES[zeros.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "rot_w4_matmul_i4")
+    return out
+
+
 def _launch_dense_variant(name, x, rot, qweight, scales, zeros, interleaved, max_groups=None):
-    """K8 (interleaved=False; bf16 rot, scales and zeros) / K9 on the card."""
+    """K8 (interleaved=False; bf16 rot, scales and zeros) / K9 on the card by
+    the three passes."""
     M, I = x.shape
     G, S, _ = rot.shape
     O = qweight.shape[1]
-    if rot.shape != (G, S, S):
-        raise ValueError(f"rot must be [G, S, S], got {tuple(rot.shape)}")
-    if rot.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"rot must be float32 or bfloat16, got {rot.dtype}")
+    _check_rot(rot, G, S)
     x, qweight, scales, zeros, (rot,) = _check_operands(x, qweight, scales, zeros, S, G, (rot,))
     fn = _lib_fn("paro_dense_rot_w4_variant")
     dev = x.device
@@ -747,7 +799,22 @@ def rot_w4_matmul_mg(x, rot, qweight, scales, zeros, *, groups_per_step: int = 1
 
 def rot_w4_matmul_i4(x, rot, qweight_i4, scales, zeros) -> torch.Tensor:
     """K9: K1 with qweight_i4 uint8 [I//2, O] in the interleaved layout
-    (`ops/packing.py::pack_w4_i4`)."""
+    (`ops/packing.py::pack_w4_i4`). On the card `i4_route` picks the I4
+    variant of the one-launch kernel (one launch; the group splits merged in
+    split order) or the three passes."""
     if x.device.type == "cpu":
         return rot_w4_matmul_i4_plain(x, rot, qweight_i4, scales, zeros)
-    return _launch_dense_variant("rot_w4_matmul_i4", x, rot, qweight_i4, scales, zeros, True)
+    _lib_fn("paro_rot_w4_matmul_i4_one_launch")  # both libraries before the device is queried
+    _lib_fn("paro_dense_rot_w4_variant")
+    M, I = x.shape
+    S = rot.shape[-1]
+    if S < 2 or S % 2 or I != rot.shape[0] * S:
+        raise ValueError(f"groups of {S} channels do not tile x {tuple(x.shape)}")
+    route, plan = i4_route(M, I, S, qweight_i4.shape[1], _sm_count(x.device))
+    if route == "one_launch":
+        out = launch_i4(x, rot, qweight_i4, scales, zeros, plan)
+        _count("rot_w4_matmul_i4", scales, zeros)
+    else:
+        out = _launch_dense_variant("rot_w4_matmul_i4", x, rot, qweight_i4, scales, zeros, True)
+    i4_route_counts[route] += 1
+    return out

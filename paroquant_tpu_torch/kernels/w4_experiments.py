@@ -49,8 +49,8 @@ import torch
 
 from .build import load
 from .rot_matmul import (COLS_PER_TILE, MAX_SMEM_BYTES, SZ_CODES, _bf16, _check_operands,
-                         _counters, _one_launch_smem, _raise_on, _row_tile, _sm_count,
-                         _unpack_groups, dequant_chunks_plain, dq_plan, launch_dq)
+                         _check_rot, _counters, _one_launch_smem, _raise_on, _row_tile,
+                         _sm_count, _unpack_groups, dequant_chunks_plain, dq_plan, launch_dq)
 
 A8_TILES = (512,)  # K13's column tile (csrc/one_launch.cuh A8_TW): two columns a lane
 
@@ -150,13 +150,6 @@ def _lib_fn(entry: str):
 
 def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
-
-
-def _check_rot(rot, G: int, S: int):
-    if tuple(rot.shape) != (G, S, S):
-        raise ValueError(f"rot must be [G, S, S], got {tuple(rot.shape)}")
-    if rot.dtype not in (F32, BF16):
-        raise TypeError(f"rot must be float32 or bfloat16, got {rot.dtype}")
 
 
 def one_launch_plan(M: int, I: int, S: int, O: int, sms: int) -> tuple[int, int, int]:

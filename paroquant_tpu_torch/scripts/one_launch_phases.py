@@ -5,8 +5,8 @@
 Builds a copy of `kernels/csrc/one_launch.cuh` in which thread 0 of every
 block writes `%globaltimer` (ns) at the end of each phase of
 `rot_w4_one_launch_kernel` into a device array, with one `extern "C"` entry
-for the six variants (K1's one launch, K10, K12, K11's DQ in chunks of Gb
-groups, K7's BF with K butterfly stages and K13's A8), into the build
+for the seven variants (K1's one launch, K10, K12, K11's DQ in chunks of Gb
+groups, K7's BF with K butterfly stages, K13's A8 and K9's I4), into the build
 directory. At the given shape, with random weights from a seeded
 `torch.Generator`, it runs one call after an L2 flush `reps` times and
 prints for each phase the median over repetitions of the median over blocks
@@ -38,7 +38,7 @@ from ..utils.device import resolve_device
 from ..utils.profiling import kernel_time_ms
 
 PHASES = ("x", "tables", "rotation", "row_sums", "dot", "partial", "counter", "end")
-VARIANTS = {"k1": 0, "k10": 1, "k12": 2, "k11": 3, "k7": 4, "k13": 5}  # one::Variant
+VARIANTS = {"k1": 0, "k10": 1, "k12": 2, "k11": 3, "k7": 4, "k13": 5, "k9": 6}  # one::Variant
 SLOTS = len(PHASES) + 1  # the phases' ends, then the block's start
 MAX_BLOCKS = 16384
 FLUSH_BYTES = 256 << 20  # > the 50 MB L2
@@ -92,6 +92,9 @@ extern "C" int phases_call(int var, const void* x, const void* rot, const void* 
                                    1, &O, KS, cw, x_bf16, rot_bf16, sdt, zdt, st, chunk, gps);
   if (var == one::K1)
     return (int)one::call<one::K1>(x, rot, qweight, scales, zeros, out, partial, counters, M, I, S,
+                                   1, &O, KS, cw, x_bf16, rot_bf16, sdt, zdt, st);
+  if (var == one::I4)
+    return (int)one::call<one::I4>(x, rot, qweight, scales, zeros, out, partial, counters, M, I, S,
                                    1, &O, KS, cw, x_bf16, rot_bf16, sdt, zdt, st);
   if (var == one::B)
     return (int)one::call<one::B>(x, rot, qweight, scales, zeros, out, partial, counters, M, I, S,
@@ -191,6 +194,12 @@ def main(argv=None) -> list[dict]:
     elif args.kernel == "k13":
         KS, tile, rows = wx.a8_plan(M, I, S, O, sms)
         call = lambda: wx.w4a8_matmul(x, qw, scales, zeros, group_size=S)
+    elif args.kernel == "k9":  # the random bytes read as interleaved nibbles
+        route, plan = rm.i4_route(M, I, S, O, sms)
+        if route != "one_launch":
+            raise SystemExit(f"K9 takes the passes at M={M}, I={I}, S={S}, O={O}")
+        KS, tile, rows, _ = plan
+        call = lambda: rm.rot_w4_matmul_i4(x, rot, qw, scales, zeros)
     else:
         KS, tile, rows = wx.one_launch_plan(M, I, S, O, sms)
         fn = wx.rot_w4_matmul_b if args.kernel == "k10" else wx.rot_w4_matmul_v2

@@ -9,9 +9,11 @@ holding such a source with the headers it includes), all with
 `kernels/build.py`'s flags and in parallel, and prints one JSON line a
 source found in both: for each `Variant` of `rot_w4_one_launch_kernel`, how
 many of DIR's instances compile to the same SASS here, byte for byte
-(`cuobjdump -sass`). A change meant to leave a variant alone shows as all
-of its instances identical. Runs where nvcc and cuobjdump are installed
-(the card's machine); the libraries go under `kernels/_build/sass/`.
+(`cuobjdump -sass`), and how many instances each variant has here (a
+variant new here, such as K9's I4, has none in DIR). A change meant to
+leave a variant alone shows as all of its instances identical. Runs where
+nvcc and cuobjdump are installed (the card's machine); the libraries go
+under `kernels/_build/sass/`.
 """
 
 from __future__ import annotations
@@ -56,6 +58,14 @@ def compare(ref: dict[str, str], new: dict[str, str]) -> dict[int, list[int]]:
     return dict(sorted(out.items()))
 
 
+def count_by_variant(funcs: dict[str, str]) -> dict[int, int]:
+    """{variant: its instances} of a `sass_functions` listing."""
+    out: dict[int, int] = {}
+    for name in funcs:
+        out[variant_of(name)] = out.get(variant_of(name), 0) + 1
+    return dict(sorted(out.items()))
+
+
 def _cuobjdump() -> str:
     return shutil.which("cuobjdump") or str(Path(build._nvcc()).parent / "cuobjdump")
 
@@ -81,7 +91,8 @@ def main(argv=None) -> list[dict]:
             [_cuobjdump(), "-sass", str(jobs[side, s][1])], capture_output=True, text=True,
             check=True).stdout) for side in ("ref", "here")}
         row = {"source": f"{s}.cu", "ref": str(args.ref),
-               "identical_of_instances_by_variant": compare(funcs["ref"], funcs["here"])}
+               "identical_of_instances_by_variant": compare(funcs["ref"], funcs["here"]),
+               "instances_here_by_variant": count_by_variant(funcs["here"])}
         print(json.dumps(row), flush=True)
         rows.append(row)
     return rows

@@ -13,7 +13,10 @@ is reported beside it.
 `kernel_time_ms` times one call of a kernel on the card: CUDA events around
 the call, the L2 flushed before it, and the device kept busy by a spin
 kernel while the host enqueues it, so that the events time the device's
-work and not the host's; the median of the reps.
+work and not the host's; the median of the reps. The flush writes a buffer
+larger than the L2, which leaves the L2 full of dirty lines: a call that
+evicts one costs a write to device memory too. `clean_l2=True` flushes by
+reading the buffer instead, for the same call beside a clean L2.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ _flush_buffers: dict[torch.device, torch.Tensor] = {}
 
 
 def kernel_time_ms(fn, reps: int = 30, flush: torch.Tensor | None = None,
-                   device="cuda") -> float:
+                   device="cuda", clean_l2: bool = False) -> float:
     """Median device time in ms of one call of fn (see the module doc), after
     two warm-up calls. `flush` is a CUDA buffer larger than the L2 (one of
     FLUSH_BYTES is kept per device when it is None). On the CPU
@@ -61,7 +64,10 @@ def kernel_time_ms(fn, reps: int = 30, flush: torch.Tensor | None = None,
         flush = _flush_buffers[dev]
     torch.cuda.synchronize(dev)
     for _ in range(reps):
-        flush.zero_()
+        if clean_l2:
+            flush.view(torch.int32).max()
+        else:
+            flush.zero_()
         torch.cuda._sleep(SPIN_CYCLES)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()

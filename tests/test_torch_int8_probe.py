@@ -11,6 +11,13 @@ anything is timed) and run through the real interpret-mode `pallas_call` at
 a small shape. Every comparison with JAX is bit for bit: the inputs are
 small integers, so even the bf16 dot is exact in float32. The plain
 versions' edges are exact too, but for random bf16 (1e-5 of max |y|).
+
+K17's launch plan (`bf16_plan`) is a pure function of shapes and the card's
+SM count, tested at an H100's 132 SMs (one wave at the bench's shape, every
+split non-empty, two blocks an SM within shared memory). The kernel runs
+only on the card; `bf16_dot_model` models its sums (an f32 partial per K
+split, the partials added in split order) and is held bit for bit against
+the JAX bench body on integer inputs.
 """
 
 import importlib.util
@@ -23,8 +30,8 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
-from paroquant_tpu_torch.kernels import int8_probe as ip
-from paroquant_tpu_torch.scripts import kernel_int8_probe as kp
+from paroquant_tpu_torch.kernels import int8_probe as ip, rot_matmul as rm
+from paroquant_tpu_torch.scripts import bf16_dot_sweep, kernel_int8_probe as kp
 
 SCRIPT = Path(__file__).resolve().parent.parent / "scripts" / "kernel_int8_probe.py"
 REAL_PALLAS_CALL = pl.pallas_call
@@ -199,17 +206,95 @@ def test_wrappers_refuse_other_dtypes_and_shapes():
         ip.fused_unpack_int8_dot(torch.zeros((2, 8), dtype=torch.int8), torch.zeros((3, 4), dtype=torch.uint8))
 
 
-@pytest.mark.parametrize("M, K, N, kind, want", [
-    (8, 4096, 4096, "int8", (16, 2)),  # 64 column tiles: the K range splits 16 ways
-    (8, 4096, 4096, "bf16", (16, 4)),
-    (8, 96, 128, "int8", (1, 1)),  # one chunk: no split
-    (8, 16384, 256, "int8", (128, 1)),
-    (8, 4096, 300 * 64, "int8", (3, 11)),  # 300 tiles: every block keeps a chunk
+@pytest.mark.parametrize("M, K, N, want", [
+    (8, 4096, 4096, (16, 2)),  # 64 column tiles: the K range splits 16 ways
+    (8, 96, 128, (1, 1)),  # one chunk: no split
+    (8, 16384, 256, (128, 1)),
+    (8, 4096, 300 * 64, (3, 11)),  # 300 tiles: every block keeps a chunk
 ])
-def test_k_splits(M, K, N, kind, want):
-    split, per = ip.k_splits(M, K, N, kind)
-    chunks = -(-K // ip.CHUNK_K[kind])
+def test_k_splits(M, K, N, want):
+    """K15/K16's split of the K range."""
+    split, per = ip.k_splits(M, K, N)
+    chunks = -(-K // ip.CHUNK_K)
     assert (split, per) == want and (split - 1) * per < chunks <= split * per
+
+
+# ---------------------------------------------------------------------------
+# K17's plan, and a model of its sums against the JAX bench body
+# ---------------------------------------------------------------------------
+
+SMS = 132  # an H100 SXM's SMs
+
+
+@pytest.mark.parametrize("M, K, N, want", [
+    (8, 4096, 4096, (4, 16, 8)),  # the bench: 32 column tiles x 4 splits, one wave
+    (1, 4096, 4096, (4, 16, 8)),
+    (16, 4096, 4096, (4, 16, 16)),
+    (17, 4096, 4096, (4, 16, 32)),
+    (33, 4096, 4096, (2, 32, 32)),  # two row tiles
+    (5, 96, 128, (2, 1, 8)),  # ragged K: the last chunk holds 32 rows
+    (5, 200, 130, (4, 1, 8)),  # the last chunk holds 8 rows
+    (8, 16384, 256, (64, 4, 8)),  # split K: 64 splits of four chunks
+    (8, 64, 300 * 128, (1, 1, 8)),  # past one wave: no split
+])
+def test_bf16_plan(M, K, N, want):
+    """One wave of one block an SM where the columns leave room for splits,
+    every split non-empty, at most one split a chunk."""
+    KS, per, rows = plan = ip.bf16_plan(M, K, N, SMS)
+    assert plan == want
+    chunks = -(-K // ip.BF16_CHUNK_K)
+    assert (KS - 1) * per < chunks <= KS * per
+    blocks = -(-N // ip.BF16_TILE_N) * -(-M // rows) * KS
+    assert blocks <= SMS or KS == 1
+
+
+@pytest.mark.parametrize("rows", ip.BF16_ROWS)
+def test_bf16_ring_fits_two_blocks_an_sm(rows):
+    """The ring of 4 stages (B's 64 x 128 and A's rows x 64 bf16, rows
+    padded by 8) fits twice in an SM's shared memory: 74-88 KB a block."""
+    assert 70_000 < ip.bf16_smem(rows) and 2 * ip.bf16_smem(rows) <= rm.MAX_SMEM_BYTES
+
+
+def bf16_dot_model(a: torch.Tensor, b: torch.Tensor, KS: int, per: int) -> torch.Tensor:
+    """K17's sums: split ks takes K rows [64 per ks, 64 per (ks + 1)), its f32
+    partial a_ks @ b_ks, and the partials added in split order from 0."""
+    out = torch.zeros(a.shape[0], b.shape[1])
+    for ks in range(KS):
+        k = slice(ip.BF16_CHUNK_K * per * ks, ip.BF16_CHUNK_K * per * (ks + 1))
+        out = out + a[:, k].float() @ b[k].float()
+    return out
+
+
+@pytest.mark.parametrize("variant", list(bf16_dot_sweep.VARIANTS))
+def test_sweep_variants_find_their_anchors(variant):
+    """scripts/bf16_dot_sweep.py builds K17 with other constants and B's L2
+    policy: each anchor must be in csrc/int8_probe.cu once, and the
+    committed variant is the source as it is."""
+    stages, rows, evict_first = bf16_dot_sweep.VARIANTS[variant]
+    src = bf16_dot_sweep.variant_source(stages, rows, evict_first)
+    assert f"constexpr int BF_NST = {stages};" in src and f"constexpr int BF_BK = {rows};" in src
+    assert ("cp_async16_evict_first(dst, ok ? B" in src) == evict_first
+    if variant == "committed":
+        assert src == (bf16_dot_sweep.build.CSRC / "int8_probe.cu").read_text()
+
+
+@pytest.mark.parametrize("M, K, N", [(8, 256, 384), (5, 200, 130), (33, 1024, 256)])
+def test_bf16_dot_model_matches_the_jax_bench_body(js, monkeypatch, M, K, N):
+    """On integer inputs every product and partial sum is exact in f32, so
+    the model, at the plan's splits and at one split a chunk, and the JAX
+    bench's bf16 body agree bit for bit."""
+    kernel, acc = _bench_bodies(js, monkeypatch)[1]
+    rng = np.random.default_rng(K)
+    a = rng.integers(-8, 8, (M, K)).astype(np.float32)
+    b = rng.integers(-8, 8, (K, N)).astype(np.float32)
+    call = REAL_PALLAS_CALL(kernel, out_shape=jax.ShapeDtypeStruct((M, N), acc), interpret=True)
+    yj = call(jnp.asarray(a, jnp.bfloat16), jnp.asarray(b, jnp.bfloat16))
+    ta, tb = torch.from_numpy(a).to(torch.bfloat16), torch.from_numpy(b).to(torch.bfloat16)
+    KS, per, _ = ip.bf16_plan(M, K, N, SMS)
+    chunks = -(-K // ip.BF16_CHUNK_K)
+    assert KS > 1
+    for ks, p in ((KS, per), (chunks, 1), (1, chunks)):
+        _same(bf16_dot_model(ta, tb, ks, p), yj)
 
 
 # ---------------------------------------------------------------------------

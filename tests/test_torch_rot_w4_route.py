@@ -143,17 +143,20 @@ def one_launch_model(x, rot, qweight, scales, zeros, out_splits, KS, variant="k1
     chunk, each chunk's splits add in split order into its f32 sum and the
     chunk sums in chunk order), "bf" (K7: no rot; xr_g = bf16 of the K
     butterfly stages on x_g * inv_s, `tables` = (inv_s, cos, sin), then K1's
-    partial) or "a8" (K13: no rot; per (row, group) sx = max |x_g| / 127 (1
+    partial), "a8" (K13: no rot; per (row, group) sx = max |x_g| / 127 (1
     where 0) and xq = round(x_g / sx), and the partial the sum, in group
     order from 0, of (xq_g @ q_g - sum(xq_g) z_g) (s_g sx), each operation
-    rounded apart and the dot exact)."""
+    rounded apart and the dot exact) or "i4" (K9: K1's arithmetic on a
+    qweight in the interleaved layout, byte-row k of a group holding
+    channels 2k and 2k + 1)."""
     M, I = x.shape
     if variant in ("bf", "a8"):  # no rotation matrix: one partition
         P, G = 1, scales.shape[0]
         S = I // G
     else:
         P, G, S, _ = rot.shape
-    q = tk._unpack_groups(qweight, G, S)  # [G, S, O] nibble values
+    unpack = tk._unpack_interleaved if variant == "i4" else tk._unpack_groups
+    q = unpack(qweight, G, S)  # [G, S, O] nibble values
     dq = variant == "dq"
     if dq:
         xg, rot = tk._bf16(x).reshape(M, G, S), tk._bf16(rot)

@@ -153,6 +153,7 @@ def test_sass_comparison_counts_identical_instances_by_variant():
     moved = {f: body.replace("R1,", "R2,") if f.endswith("Li5EEEvNS0_4ArgsE") else body
              for f, body in ref.items()}
     assert one_launch_sass.compare(ref, moved) == {1: [1, 1], 5: [0, 1]}
+    assert one_launch_sass.count_by_variant(ref) == {1: 1, 5: 1}
 
 
 def test_phase_stamps_find_their_anchors():
