@@ -9,11 +9,13 @@ Phases, each printing one or more lines:
   3. every CUDA kernel against its plain PyTorch version at Qwen3-0.6B
      shapes, with max abs error, tolerance and median times (CUDA events,
      after warm-up, L2 flushed before each timed launch) beside the bound
-     and one library call: K1/K2 (W4 GEMV at M 1, 8, 16 and 128, each row
-     naming its route; on the one-launch route two calls bitwise equal, one
-     kernel a call on the profiler's count, the three passes timed beside
-     it; its edge grid and both sides of each limit of the route rule in
-     `rot_route_edges`), K3 (flash prefill at a
+     and one library call: K1/K2 (W4 GEMV at M 1, 8, 16 and 128, W4A16
+     and a8, each row naming its route; on the one-launch and RA8 routes
+     two calls bitwise equal, one kernel a call on the profiler's count,
+     the three passes timed beside it; its edge grid and both sides of each
+     limit of the route rule in `rot_route_edges`, RA8's edges in
+     `ra8_edges`: the lm_head at M 1-16 with an all-zero row, runs of
+     tiles over uneven partitions), K3 (flash prefill at a
      512-token prefill from offset 0 and 256 and with a window of 128; each
      query row held to its own output's scale, two calls bitwise equal,
      SDPA timed with the mask as a tensor and, from offset 0, with
@@ -23,10 +25,10 @@ Phases, each printing one or more lines:
      the same inputs bitwise equal; K4 also at the engine step's 8 slots
      of 256 tokens), K6-K9 (the
      kernel benchmarks' W4 variants, at their 4096 x 4096 shape with each
-     scale/zero dtype pair and at o_proj; K8, K7 and K9 at M <= 16 on the
-     DQ, BF and I4 variants of the one-launch kernel, two calls bitwise
-     equal and one kernel a call, and each K8, K7 and K9 row timed beside
-     the other of its two routes), K10-K13 (the
+     scale/zero dtype pair and at o_proj; K8, K7, K9 and K6 at M <= 16 on the
+     DQ, BF, I4 and PL variants of the one-launch kernel, two calls bitwise
+     equal and one kernel a call, and each K8, K7, K9 and K6 row timed beside
+     the other of its two routes; K6's edges in `k6_edges`), K10-K13 (the
      W4 GEMV experiments of the TPU scripts, at their 4096 x 4096 shape,
      dtypes and knobs: M, Gb, block_m; all four on the one-launch kernel
      (K13 its A8 variant), two calls bitwise equal and one kernel a call;
@@ -44,7 +46,7 @@ Phases, each printing one or more lines:
      its three modes, kernel_bench4, the kernel-speedup sweep, K9 at the
      benchmarks' shape) with the launch counts reset just before and read
      just after: K1 (on f32 and uint8 scales/zeros) and K6-K9 must run,
-     K7, K8 and K9 at every call on the one-launch route;
+     K6, K7, K8 and K9 at every call on the one-launch route;
      then slice 4's path, the ported experiment scripts (kernel_edge_test,
      kernel_dma_pipeline, kernel_tune, kernel_w4a8_exp), counted the same
      way: K10-K13 and their control arms K1, K6 and K8 must run;
@@ -59,9 +61,11 @@ Phases, each printing one or more lines:
      library 128-bit loads (LDG.E.128) and 16-byte cp.async (LDGSTS) in all
      16 one-launch instances, that of the experiments' library in all 32
      of K10/K12 and 8 of K13, that of the variants' library in all 8 of K7
-     and 16 of K9 and that of the dequant library in all 16 of K8/K11 (the
-     same kernel, csrc/one_launch.cuh), with 0 spill bytes in ptxas's lines
-     for all 96 and, in K8/K11's, three bf16x2 operations for each pair
+     and 16 of K9, that of the a8 library in all 16 of RA8 (with its dp4a,
+     IDP.4A), that of the plain library in all 8 of K6's PL and that of the
+     dequant library in all 16 of K8/K11 (the same kernel,
+     csrc/one_launch.cuh), with 0 spill bytes in ptxas's lines for all 120
+     and, in K8/K11's, three bf16x2 operations for each pair
      of nibbles (the dequant's two roundings neither fused nor dropped),
      that of
      the paged
@@ -88,9 +92,9 @@ Phases, each printing one or more lines:
      Hadamard RTN W4 with a W4 lm_head and merged projections, served by
      Generator(quant_mode="auto", attn_mode="flash"): 4 requests of 64 new
      tokens, three greedy and one sampled. Launch counts are reset just
-     before and read just after; K1-K3 must have run, and every W4A16
-     K1/K2 call at M <= 16 must have taken the one-launch route (the same
-     holds in the serve phases). A decode step (launches, device time and
+     before and read just after; K1-K3 must have run, every W4A16 K1/K2
+     call at M <= 16 must have taken the one-launch route and every a8 one
+     (the lm_head) the RA8 route (the same holds in the serve phases). A decode step (launches, device time and
      K1/K2's by route in the `decode_profile` line) and a
      512-token prefill are profiled (`prefill_profile`: K3's calls, once a
      layer, and device time), then a decode step is run under torch's sync
@@ -139,7 +143,9 @@ DEQUANT_KERNELS = ("rot_w4_matmul_mg", "dma_rot_w4_matmul")
 TOL_E2E = 5e-2  # relative Frobenius error of the logits, kernel path vs reference path
 TOL_LOGPROB = 0.25  # nats: an engine request's logprobs against a contiguous prefill's
 ROT_SRC = "paroquant_tpu_torch/kernels/csrc/rot_w4_matmul.cu"
+RA8_SRC = "paroquant_tpu_torch/kernels/csrc/rot_w4_a8.cu"
 VARIANTS_SRC = "paroquant_tpu_torch/kernels/csrc/w4_variants.cu"
+PLAIN_SRC = "paroquant_tpu_torch/kernels/csrc/w4_plain.cu"
 DEQUANT_SRC = "paroquant_tpu_torch/kernels/csrc/rot_w4_dequant.cu"
 SLICE1_W4 = ("rot_w4_matmul", "merged_rot_w4_matmul")  # the W4 kernels of slices 1 and 2
 FLASH_SRC = "paroquant_tpu_torch/kernels/csrc/flash_attention.cu"
@@ -199,11 +205,14 @@ def random_merged(I, splits, gen, dev, S=128):
     return rot, qweight, scales, zeros, w_eff
 
 
+ONE_LAUNCH_ROUTES = ("one_launch", "ra8")  # K1/K2's routes of one kernel a call
+
+
 def routed(rm, fn):
     """fn()'s output and the route its one K1/K2 call took (route_counts)."""
     before = {k: dict(v) for k, v in rm.route_counts.items()}
     y = fn()
-    taken = [(k, r) for k, v in rm.route_counts.items() for r in ("one_launch", "passes")
+    taken = [(k, r) for k, v in rm.route_counts.items() for r in ("one_launch", "passes", "ra8")
              if v[r] != before[k][r]]
     if len(taken) != 1:
         raise SystemExit(f"expected one K1/K2 call, counted {taken}")
@@ -259,9 +268,10 @@ def kernels_per_call(fn):
 def check_matmuls(flush, gen, dev):
     """K1/K2 at Qwen3-0.6B's linears, M 1, 8 (the engine step), 16 and 128,
     W4A16 and a8: each row says which route it took (`rot_route`), how many
-    kernels one call launched on the profiler's count (the one-launch route:
-    1) and, on the one-launch route at M 1, 8 and 16, that two calls gave
-    the same bits and the three passes' time at the same inputs."""
+    kernels one call launched on the profiler's count (the one-launch and
+    RA8 routes: 1) and, on those routes at M 1, 8 and 16, that two calls gave
+    the same bits and the three passes' time at the same inputs (an RA8 row
+    also its plan's tiles a block, `ra8_plan`)."""
     import torch
 
     from paroquant_tpu_torch.kernels import rot_matmul as rm
@@ -296,19 +306,19 @@ def check_matmuls(flush, gen, dev):
                 rel = ((y - y_ref).norm() / y_ref.norm()).item()
                 _, KS, tile = rm.rot_route(M, I, 128, splits, a8, rot.dtype, rm._sm_count(x.device))
                 same = None
-                if route == "one_launch":
+                if route in ONE_LAUNCH_ROUTES:
                     same = torch.equal(run(), run())
                     emit({"phase": "rot_determinism", "layer": layer, "M": M, "KS": KS,
                           "bitwise_equal": same})
                     if not same:
                         raise SystemExit(f"{kernel} {layer} M={M}: two calls on the same inputs differ")
                 n_kernels = kernels_per_call(run)
-                if route == "one_launch" and n_kernels != 1:
-                    raise SystemExit(f"{kernel} {layer} M={M}: the one-launch route ran {n_kernels} kernels")
+                if route in ONE_LAUNCH_ROUTES and n_kernels != 1:
+                    raise SystemExit(f"{kernel} {layer} M={M}: the {route} route ran {n_kernels} kernels")
                 ms = median_ms(run, KERNEL_REPS, flush)
                 plain_ms = median_ms(plain, PLAIN_REPS, flush)
                 lib_ms = median_ms(lambda: torch.matmul(x, w_eff), KERNEL_REPS, flush)
-                old_ms = passes_ms(rm, run, flush) if route == "one_launch" else None
+                old_ms = passes_ms(rm, run, flush) if route in ONE_LAUNCH_ROUTES else None
                 nbytes = M * I * 2 + P * G * 128 * 128 * 2 + I * O // 2 + 2 * G * O * 2 + M * O * 2
                 ops = 2 * M * I * O + 2 * P * M * I * 128
                 b_ms, b_by = bound(nbytes, ops, "int8" if a8 else "bf16")
@@ -316,6 +326,8 @@ def check_matmuls(flush, gen, dev):
                            kernels_per_call=n_kernels, bitwise_equal=same, max_abs_err=err,
                            tol=tol, rel_fro_err=rel, us=ms * 1e3,
                            passes_us=None if old_ms is None else old_ms * 1e3, plain_us=plain_ms * 1e3,
+                           tiles_per_block=(rm.ra8_plan(M, I, 128, splits, rm._sm_count(x.device))[4]
+                                            if route == "ra8" else None),
                            library_us=lib_ms * 1e3, bound_us=b_ms * 1e3, bound_by=b_by,
                            ok=err <= tol)
                 emit({"phase": "kernel_check", **row})
@@ -452,9 +464,10 @@ def rot_route_edges(gen, dev, rot_case):
     multiples of 4 or 16; M 1, 2, 5 and 16 (row tiles of 1, 2 and 8, two of
     8); every scale/zero dtype; x and rot in f32 and bf16; one group (KS 1)
     and three (KS > 1). Then shapes on
-    both sides of the route rule's limits: M 16 / 17, S 256 / 512, a8, a
-    width that fills one wave and one that does not; each row says which
-    route it took, and the rule's side must be the one taken."""
+    both sides of the route rule's limits: M 16 / 17, S 256 / 512, a8 (RA8
+    at M 16, S 256; the passes at M 17, S 512 and S 100), a width that
+    fills one wave and one that does not; each row says which route it
+    took, and the rule's side must be the one taken."""
     import torch
 
     from paroquant_tpu_torch.kernels import rot_matmul as rm
@@ -498,7 +511,10 @@ def rot_route_edges(gen, dev, rot_case):
         ("M17", 17, 256, 128, (128, 96), False, "passes"),
         ("S256", 1, 512, 256, (128, 96), False, "one_launch"),
         ("S512", 1, 1024, 512, (128, 96), False, "passes"),
-        ("a8", 1, 256, 128, (128, 96), True, "passes"),
+        ("a8", 1, 256, 128, (128, 96), True, "ra8"),
+        ("a8_M17", 17, 256, 128, (128, 96), True, "passes"),
+        ("a8_S512", 1, 1024, 512, (128, 96), True, "passes"),
+        ("a8_S100", 1, 200, 100, (128, 96), True, "passes"),
         ("one_wave", 1, 128, 128, (wide,), False, "one_launch"),
         ("wider_than_a_wave", 1, 128, 128, (4 * wide + 128,), False, "passes"),
     ]
@@ -514,6 +530,104 @@ def rot_route_edges(gen, dev, rot_case):
         if route != want or rm.rot_route(M, I, S, splits, a8, rot.dtype, sms)[0] != want:
             raise SystemExit(f"route side {case}: took {route}, the rule says {want}")
     emit({"phase": "rot_route_edges", "grid_cases": grid, "side_cases": len(sides)})
+
+
+def ra8_edges(gen, dev, record):
+    """K1/K2's a8 on the RA8 variant at its edges, each call's route checked
+    and held to TOL_KERNEL against the plain version: the 151936-wide lm_head
+    (its last tile 384 columns wide) at every M from 1 to 16 with an
+    all-zero row (sx = 1, output exactly 0); S 64 and 256; P 2-4 with
+    widths that are not multiples of 16 or 512, in runs of two and three
+    tiles forced past the plan, with splits of uneven groups; x and rot in
+    f32 and bf16 and each scale/zero dtype."""
+    import torch
+
+    from paroquant_tpu_torch.kernels import rot_matmul as rm
+    from paroquant_tpu_torch.ops.packing import pack_w4_tpu
+
+    def operands(I, splits, S, sz, rdt):
+        G, O, P = I // S, sum(splits), len(splits)
+        q = torch.randint(0, 16, (I, O), generator=gen, device=dev, dtype=torch.int32)
+        sdt = getattr(torch, sz)
+        scales = (torch.randint(1, 4, (G, O), generator=gen, device=dev) if sdt == torch.uint8
+                  else torch.rand(G, O, generator=gen, device=dev) * 0.04 + 0.01).to(sdt)
+        zeros = torch.randint(0, 16, (G, O), generator=gen, device=dev).to(sdt)
+        rot = (torch.randn(P, G, S, S, generator=gen, device=dev) / S**0.5).to(rdt)
+        return rot, pack_w4_tpu(q, S), scales, zeros
+
+    sms = rm._sm_count(torch.device(dev))
+    rot, qw, s, z = operands(1024, (151936,), 128, "bfloat16", torch.bfloat16)
+    for M in range(1, 17):
+        x = torch.randn(M, 1024, generator=gen, device=dev).to(torch.bfloat16)
+        zero = M // 2 if M > 1 else None  # at M 1 an all-zero x alone, below
+        if zero is not None:
+            x[zero] = 0
+        one = (x, rot[0], qw, s, z)
+        y, route = routed(rm, lambda: rm.rot_w4_matmul(*one, a8=True))
+        record("rot_w4_matmul", f"RA8 lm_head M={M} zero row {zero} ({route})", y,
+               rm.rot_w4_matmul_plain(*one, a8=True))
+        if zero is None:
+            y0, route0 = routed(rm, lambda: rm.rot_w4_matmul(torch.zeros_like(x), rot[0], qw, s, z, a8=True))
+            zero_out = not bool(y0.any()) and route0 == "ra8"
+        else:
+            zero_out = not bool(y[zero].any())
+        if route != "ra8" or not zero_out:
+            raise SystemExit(f"RA8 lm_head M={M}: took {route}, or the zero row is not 0")
+    del rot, qw, s, z
+    f32, bf = torch.float32, torch.bfloat16
+    cases = [  # S, G, splits, scale/zero dtype, x dtype, rot dtype
+        (64, 5, (66, 62), "float32", f32, f32),
+        (256, 3, (128, 96, 160), "float16", bf, bf),
+        (128, 7, (1000, 34, 530, 78), "uint8", bf, f32),
+        (64, 9, (1536, 1030), "bfloat16", f32, bf),
+    ]
+    for S, G, splits, sz, xdt, rdt in cases:
+        rot, qw, s, z = operands(G * S, splits, S, sz, rdt)
+        for M in (1, 2, 5, 9, 16):
+            x = torch.randn(M, G * S, generator=gen, device=dev).to(xdt)
+            args = (x, rot, qw, s, z)
+            plain = rm.merged_rot_w4_matmul_plain(*args, out_splits=splits, a8=True)
+            case = f"RA8 S={S} G={G} {splits} sz={sz} x={xdt} rot={rdt} M={M}"
+            y, route = routed(rm, lambda: rm.merged_rot_w4_matmul(*args, out_splits=splits, a8=True))
+            if route != "ra8":
+                raise SystemExit(f"{case}: took {route}")
+            record("merged_rot_w4_matmul", case, y, plain)
+            for gps in (1, 2):  # forced past the plan: runs of 2 and 3 tiles, uneven splits
+                for tpb in (2, 3):
+                    KS, tile, mt, _, _ = rm.ra8_plan(M, G * S, S, splits, sms, gps=gps)
+                    plan = (KS, tile, mt, -(-G // KS), tpb)
+                    record("merged_rot_w4_matmul", f"{case} KS={KS} runs of {tpb}",
+                           rm.launch_ra8(x, rot, qw, s, z, splits, plan), plain)
+
+
+def k6_edges(gen, dev, record):
+    """K6 on its PL variant at every M from 1 to 16 with each of the four
+    scale/zero dtypes, at a width that is not a multiple of 16 and one group
+    spanning 96 channels, each call's route checked against `w4_route`."""
+    import torch
+
+    from paroquant_tpu_torch.kernels import rot_matmul as rm
+    from paroquant_tpu_torch.ops.packing import pack_w4_tpu
+
+    sms = rm._sm_count(torch.device(dev))
+    for I, O, S in ((512, 130, 128), (384, 160, 96)):
+        G = I // S
+        q = torch.randint(0, 16, (I, O), generator=gen, device=dev, dtype=torch.int32)
+        qw = pack_w4_tpu(q, S)
+        for sz in SZ_EDGE_DTYPES:
+            sdt = getattr(torch, sz)
+            scales = (torch.randint(1, 4, (G, O), generator=gen, device=dev) if sdt == torch.uint8
+                      else torch.rand(G, O, generator=gen, device=dev) * 0.04 + 0.01).to(sdt)
+            zeros = torch.randint(0, 16, (G, O), generator=gen, device=dev).to(sdt)
+            for M in range(1, 17):
+                x = torch.randn(M, I, generator=gen, device=dev).to(
+                    torch.bfloat16 if M % 2 else torch.float32)
+                y, taken = one_routed(rm, "w4_matmul",
+                                      lambda: rm.w4_matmul(x, qw, scales, zeros, group_size=S))
+                if taken != "one_launch" or rm.w4_route(M, I, S, O, sms)[0] != taken:
+                    raise SystemExit(f"w4_matmul I={I} O={O} M={M}: took {taken}")
+                record("w4_matmul", f"PL I={I} O={O} S={S} sz={sz} M={M} x={x.dtype}", y,
+                       rm.w4_matmul_plain(x, qw, scales, zeros, group_size=S))
 
 
 def check_edges(gen, dev):
@@ -589,6 +703,8 @@ def check_edges(gen, dev):
                          lambda: rm.merged_rot_w4_matmul(x, rot, qweight, scales, zeros, **kw),
                          lambda: rm.merged_rot_w4_matmul_plain(x, rot, qweight, scales, zeros, **kw))
     rot_route_edges(gen, dev, rot_case)
+    ra8_edges(gen, dev, record)
+    k6_edges(gen, dev, record)
 
     flash_edges(gen, dev, record)
     head_dim_refusals(gen, dev)
@@ -684,22 +800,25 @@ def effective_weight(rotate, wd, I, dev):
 # the kernels whose one-launch variant a route rule picks: the rule, its counts
 ROUTE_RULES = {"rot_w4_matmul_mg": ("mg_route", "mg_route_counts"),
                "butterfly_w4_matmul": ("bf_route", "bf_route_counts"),
-               "rot_w4_matmul_i4": ("i4_route", "i4_route_counts")}
+               "rot_w4_matmul_i4": ("i4_route", "i4_route_counts"),
+               "w4_matmul": ("w4_route", "w4_route_counts")}
 
 
 def route_of(rm, kernel, M, I, O, sms, S=128):
     """The route rule's (route, plan) for K8 (chunks of K8's default 16
-    groups a step), K7 (8 stages) or K9 at group size S."""
+    groups a step), K7 (8 stages), K9 or K6 at group size S."""
     if kernel == "rot_w4_matmul_mg":
         return rm.mg_route(M, I, S, O, rm.mg_chunk(I // S, 16), sms)
     if kernel == "butterfly_w4_matmul":
         return rm.bf_route(M, I, S, O, 8, sms)
+    if kernel == "w4_matmul":
+        return rm.w4_route(M, I, S, O, sms)
     return rm.i4_route(M, I, S, O, sms)
 
 
 def one_routed(rm, kernel, fn):
-    """fn()'s output and the route its one call of K8, K7 or K9 took (their
-    route counts)."""
+    """fn()'s output and the route its one call of K8, K7, K9 or K6 took
+    (their route counts)."""
     counts = getattr(rm, ROUTE_RULES[kernel][1])
     before = dict(counts)
     y = fn()
@@ -710,13 +829,13 @@ def one_routed(rm, kernel, fn):
 
 
 def other_route_ms(rm, kernel, run, flush, taken):
-    """run's median time with K8, K7 or K9 sent to the route it did not take
-    (mg_route, bf_route or i4_route swapped for the length of the timing):
-    both routes on the same card in the same run, for the choice the rule
-    makes."""
+    """run's median time with K8, K7, K9 or K6 sent to the route it did not
+    take (mg_route, bf_route, i4_route or w4_route swapped for the length of
+    the timing): both routes on the same card in the same run, for the
+    choice the rule makes."""
     rule = ROUTE_RULES[kernel][0]
 
-    def route(M, I, S, O, *rest):  # rest: K8's chunk or K7's stages (none for K9), the SM count
+    def route(M, I, S, O, *rest):  # rest: K8's chunk or K7's stages (none for K9, K6), the SM count
         sms = rest[-1]
         if taken == "one_launch":
             return "passes", None
@@ -725,6 +844,8 @@ def other_route_ms(rm, kernel, run, flush, taken):
         if rule == "bf_route":
             return "one_launch", rm.dq_plan(M, I, S, O, sms, I // S,
                                             group_floats=S * (2 * rest[0] + 1))
+        if rule == "w4_route":
+            return "one_launch", rm.w4_plan(M, I, S, O, sms)
         return "one_launch", rm.i4_plan(M, I, S, O, sms)
 
     real = getattr(rm, rule)
@@ -740,9 +861,9 @@ def check_w4_variants(flush, gen, dev):
     4096, g128, K = 8) with each scale/zero dtype pair of the callers
     (bf16/bf16, bf16/uint8, f32/f32; K8 rounds them to bf16), and at
     Qwen3-0.6B's o_proj (2048 -> 1024), M = 1, 16, 128 (K8 also 17 and
-    33, K9 8 and 17), timed beside the bound and torch.matmul on the
-    pre-rotated, dequantized bf16 weight. Each K8, K7 and K9 row names its
-    route (`mg_route`, `bf_route`, `i4_route`) and the other route's time at
+    33, K9 8 and 17, K6 8), timed beside the bound and torch.matmul on the
+    pre-rotated, dequantized bf16 weight. Each K8, K7, K9 and K6 row names its
+    route (`mg_route`, `bf_route`, `i4_route`, `w4_route`) and the other route's time at
     the same inputs (K8 is held to TOL_DEQUANT); on the one-launch route it
     names its plan and fails unless two calls give the same bits and a call
     launches one kernel (profiler)."""
@@ -761,7 +882,7 @@ def check_w4_variants(flush, gen, dev):
             run, plain, rotate, wd, extra, rot_ops = w4_variant_inputs(kernel, I, O, gen, dev, sz=sz)
             w_eff = effective_weight(rotate, wd, I, dev)
             Ms = ((1, 16, 17, 33, 128) if mg else (1, 8, 16, 17, 128) if kernel == "rot_w4_matmul_i4"
-                  else (1, 16, 128))
+                  else (1, 8, 16, 128) if kernel == "w4_matmul" else (1, 16, 128))
             for M in Ms:
                 x = torch.randn(M, I, generator=gen, device=dev).to(torch.bfloat16)
                 route = {}
@@ -1403,9 +1524,10 @@ def check_rot_spills(report):
     """The one-launch kernel (csrc/one_launch.cuh): every instance of K1/K2
     (4 row tiles x f32/bf16 x and rot, 16), of K10/K12 (the same for each,
     32), of K8/K11's DQ variant (16), of K7's BF and K13's A8 variants
-    (4 row tiles x f32/bf16 x, 8 each) and of K9's I4 variant (16) must
-    report 0 spill bytes in ptxas's lines. The report names each library's
-    kernels after a line naming its source's log."""
+    (4 row tiles x f32/bf16 x, 8 each), of K9's I4 variant (16), of K1/K2's
+    a8 RA8 variant (16) and of K6's PL variant (8) must report 0 spill
+    bytes in ptxas's lines. The report names each library's kernels after a
+    line naming its source's log."""
     import re
 
     fn, spills = None, {}
@@ -1416,13 +1538,15 @@ def check_rot_spills(report):
             spills[fn] = (int(re.search(r"(\d+) bytes spill stores", line).group(1))
                           + int(re.search(r"(\d+) bytes spill loads", line).group(1)))
     # the variant is the template's last argument: Li0E (K1), Li1E (K10), Li2E (K12), Li3E (DQ),
-    # Li4E (BF), Li5E (A8), Li6E (I4)
+    # Li4E (BF), Li5E (A8), Li6E (I4), Li7E (RA8), Li8E (PL)
     by_var = {v: sorted(b for f, b in spills.items() if f.endswith(f"Li{v}EEEvNS0_4ArgsE"))
-              for v in range(7)}
+              for v in range(9)}
     emit({"phase": "rot_spills", "instances": len(spills),
           "spill_bytes": {name: by_var[v] for v, name in enumerate(("k1", "k10", "k12", "dq",
-                                                                     "bf", "a8", "i4"))}})
-    if [len(b) for b in by_var.values()] != [16, 16, 16, 16, 8, 8, 16] or any(spills.values()):
+                                                                     "bf", "a8", "i4", "ra8",
+                                                                     "pl"))}})
+    if ([len(b) for b in by_var.values()] != [16, 16, 16, 16, 8, 8, 16, 16, 8]
+            or any(spills.values())):
         raise SystemExit(f"the one-launch kernel: {len(spills)} instances, spill bytes {spills}")
 
 
@@ -1876,13 +2000,17 @@ def qwen3_model(dev):
 
 def check_routes(rm, phase):
     """K1/K2's calls by route since the counts were reset; every W4A16 call at
-    M <= 16 must have taken the one-launch route."""
+    M <= 16 must have taken the one-launch route, every a8 call at M <= 16
+    the RA8 route (the lm_head's, once a decode step), and both must have
+    run."""
     routes = {k: dict(v) for k, v in rm.route_counts.items()}
-    stray = {k: v["passes_w4a16_m16"] for k, v in routes.items() if v["passes_w4a16_m16"]}
+    stray = {k: (v["passes_w4a16_m16"], v["passes_a8_m16"]) for k, v in routes.items()
+             if v["passes_w4a16_m16"] or v["passes_a8_m16"]}
     if stray:
-        raise SystemExit(f"{phase}: W4A16 K1/K2 calls at M <= 16 took the passes: {stray}")
-    if not any(v["one_launch"] for v in routes.values()):
-        raise SystemExit(f"{phase}: no K1/K2 call took the one-launch route")
+        raise SystemExit(f"{phase}: K1/K2 calls at M <= 16 (W4A16, a8) took the passes: {stray}")
+    for route in ONE_LAUNCH_ROUTES:
+        if not any(v[route] for v in routes.values()):
+            raise SystemExit(f"{phase}: no K1/K2 call took the {route} route")
     return routes
 
 
@@ -2581,6 +2709,14 @@ def main() -> int:
     check_sass("libw4_variants.so", ("LDG.E.128", "LDGSTS"),
                (("rot_w4_one_launch_kernel", "LDG.E.128", 24),
                 ("rot_w4_one_launch_kernel", "LDGSTS", 24)))
+    # and K1/K2's a8 RA8 instances (16), their dot on dp4a (IDP.4A), and K6's PL (8)
+    check_sass("librot_w4_a8.so", ("LDG.E.128", "LDGSTS", "IDP.4A"),
+               (("rot_w4_one_launch_kernel", "LDG.E.128", 16),
+                ("rot_w4_one_launch_kernel", "LDGSTS", 16),
+                ("rot_w4_one_launch_kernel", "IDP.4A", 16)))
+    check_sass("libw4_plain.so", ("LDG.E.128", "LDGSTS"),
+               (("rot_w4_one_launch_kernel", "LDG.E.128", 8),
+                ("rot_w4_one_launch_kernel", "LDGSTS", 8)))
     # and K8/K11's DQ instances, with the dequant's two roundings
     check_dequant_sass()
 
@@ -2637,7 +2773,7 @@ def main() -> int:
         return next(r for r in rows if all(r.get(k) == v for k, v in kw.items()))
 
     emit({"kernels": [
-        entry("rot_w4_matmul", ROT_SRC, "paroquant_tpu/kernels/rot_matmul.py:834",
+        entry("rot_w4_matmul", RA8_SRC, "paroquant_tpu/kernels/rot_matmul.py:834",
               pick(mm_rows, layer="lm_head", M=1, a8=True)),
         entry("merged_rot_w4_matmul", ROT_SRC, "paroquant_tpu/kernels/rot_matmul.py:714",
               pick(mm_rows, layer="gate_up_proj", M=1, a8=False)),
@@ -2649,7 +2785,7 @@ def main() -> int:
               pick(pa_rows, kernel="paged_window_attention_kernel", case="bf16")),
         *(entry(name, src, f"paroquant_tpu/kernels/rot_matmul.py:{line}",
                 pick(w4_rows, kernel=name, layer="bench", sz=sz, M=1))
-          for name, src, line, sz in (("w4_matmul", VARIANTS_SRC, 387, "bf16/u8"),
+          for name, src, line, sz in (("w4_matmul", PLAIN_SRC, 387, "bf16/u8"),
                                       ("butterfly_w4_matmul", VARIANTS_SRC, 285, "bf16/u8"),
                                       ("rot_w4_matmul_mg", DEQUANT_SRC, 564, "bf16/bf16"),
                                       ("rot_w4_matmul_i4", VARIANTS_SRC, 464, "bf16/u8"))),

@@ -1,11 +1,12 @@
 // The one-launch W4 GEMV for Hopper (sm_90a), shared by K1/K2's W4A16 decode
 // route (rot_w4_matmul.cu), by K10/K12 and K13 (w4_experiments.cu), by K8/K11
-// (rot_w4_dequant.cu) and by K7 and K9 (w4_variants.cu).
+// (rot_w4_dequant.cu), by K7 and K9 (w4_variants.cu), by K1/K2's a8 route
+// (rot_w4_a8.cu) and by K6 (w4_plain.cu).
 //
 //   xr_g[m]   = bf16(x_g[m] @ M_g^T)
 //   out[m, o] = sum_g (xr_g[m] . q_g[:, o] - rowsum_g[m] * z[g, o]) * s[g, o]
 //
-// Seven variants of that function, a template switch each (Variant):
+// Nine variants of that function, a template switch each (Variant):
 //               x before the rotation   rowsum_g             out
 //   K1          rounded to rot's dtype  of the bf16 xr_g     x's dtype
 //   K10 (B)     rounded to rot's dtype  of the f32 xr_g      x's dtype
@@ -18,6 +19,10 @@
 //               (row, group)
 //   K9 (I4)     as K1, on a weight whose byte-row k of a group holds channels
 //               2k and 2k + 1 (K1's: k and k + S/2)
+//   K1/K2 a8    rounded to rot's dtype; xq_g = int8 of the f32 xr_g per
+//   (RA8)       (row, group); out = sum_g ((xq_g . q_g - sum(xq_g) z) s) sx
+//   K6 (PL)     no rotation: xr_g = bf16(x_g), rowsum of it, as BF without
+//               tables
 // (K10 replaces scripts/kernel_edge_test.py::rot_w4_matmul_b, K12
 // scripts/kernel_tune.py::rot_w4_matmul_v2, DQ both
 // paroquant_tpu/kernels/rot_matmul.py::rot_w4_matmul_mg and
@@ -44,7 +49,18 @@
 // (xq . q_g - sum(xq) z) (s sx) per group, the dot exact (an f32 FMA on
 // integers: |xq . q| <= S 127 15 < 2^24 for every S up to 8192), the groups
 // of a split added in order and the splits merged in split order (with one
-// group a split, the TPU kernel's order).
+// group a split, the TPU kernel's order). RA8 (paroquant_tpu/kernels/
+// rot_matmul.py::rot_w4_matmul and ::merged_rot_w4_matmul with a8) takes K1's
+// rotation without rounding xr to bf16, A8's quantization of it (in place)
+// and A8's exact dot, and applies each group's epilogue in the TPU kernel's
+// order, ((dot - sum(xq) z) s) sx, on dp4a. Past one wave (the 151936-wide
+// lm_head) each block rotates and quantizes its groups once and streams a
+// run of `tpb` column tiles of its partition through the ring back to back,
+// each lane's scales and zeros of the next tile in flight as words while it
+// reads the current one; each tile's splits merge in split order behind its
+// counter.
+// PL (paroquant_tpu/kernels/rot_matmul.py::w4_matmul) is BF with no tables
+// and no stages.
 //
 // Bound on this card: at M <= 16 the weight stream, I*O/2 bytes of nibbles
 // plus the scales and zeros, so HBM bandwidth; at 1-8 MB of weight, the
@@ -104,7 +120,7 @@ namespace one {
 using w4::Parts;
 using w4::load_f32;
 
-enum Variant { K1 = 0, B = 1, V2 = 2, DQ = 3, BF = 4, A8 = 5, I4 = 6 };
+enum Variant { K1 = 0, B = 1, V2 = 2, DQ = 3, BF = 4, A8 = 5, I4 = 6, RA8 = 7, PL = 8 };
 
 constexpr int THREADS = 256;
 constexpr int NWARPS = THREADS / 32;
@@ -119,6 +135,7 @@ constexpr int MAX_S = 256;       // (K1)
 constexpr int MAX_GROUPS = 16;   // groups per block
 constexpr int X_FLOATS = 4096;   // x (and xr) a block keeps at two blocks an SM: groups * MT * S
 constexpr int SZ_FLOATS = 2048;  // scales (and zeros) a block keeps: groups * tile width
+constexpr int RA8_GROUPS = SZ_FLOATS / A8_TW;  // RA8's most groups a split (their scales in flight a lane)
 constexpr size_t MAX_SMEM = 227 * 1024;  // shared memory a block can use
 
 struct Args {
@@ -140,6 +157,7 @@ struct Args {
   const float* cos_t;  // BF: [K, I]
   const float* sin_t;  // BF: [K, I]
   int K;               // BF: butterfly stages
+  int tpb;             // RA8: column tiles a block streams (a run, within one partition)
 };
 
 __host__ __device__ constexpr int align4(int n) { return (n + 3) & ~3; }
@@ -228,9 +246,10 @@ inline int max_groups(int MT, int S, int TW) {
 }
 
 // the floats of a variant's tables for gps groups of MT rows: BF's inv_s, cos
-// and sin rows [2K + 1][gps * S], A8's scales of x [gps][MT]; none elsewhere
+// and sin rows [2K + 1][gps * S], A8's and RA8's scales of x [gps][MT]; none
+// elsewhere
 __host__ __device__ inline int table_floats(int var, int MT, int S, int gps, int K) {
-  return var == BF ? gps * S * (2 * K + 1) : var == A8 ? gps * MT : 0;
+  return var == BF ? gps * S * (2 * K + 1) : var == A8 || var == RA8 ? gps * MT : 0;
 }
 
 // dynamic shared memory, in floats after the ring: xr pairs [gps][MT][S/2][2]
@@ -272,7 +291,8 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
   const int bx = blockIdx.x, ks = blockIdx.y;
   int p = 0;
   while (p + 1 < parts.P && bx >= parts.tile_base[p + 1]) ++p;
-  const int col0 = parts.offs[p] + (bx - parts.tile_base[p]) * TW;
+  // the block's first column (RA8: of its run's first tile; tile_base counts runs)
+  const int col0 = parts.offs[p] + (bx - parts.tile_base[p]) * (VAR == RA8 ? a.tpb * TW : TW);
   const int col_end = parts.offs[p + 1];
   // the split's groups (DQ: within chunk ks / spc)
   const int chunk_of = VAR == DQ ? ks / a.spc : 0;
@@ -281,6 +301,7 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
   const int ng = min(g_stop, g_begin + a.gps) - g_begin;  // >= 1: every split is non-empty
   const int nrows = ng * HALF;                       // the block's byte-rows
   const int nchunks = (nrows + CR - 1) / CR;
+  const int ntl = VAR == RA8 ? min(a.tpb, (col_end - col0 + TW - 1) / TW) : 1;  // RA8: its run's tiles
 
   const Layout L = layout(MT, S, a.gps, TW, table_floats(VAR, MT, S, a.gps, a.K));
   uint8_t* ring = smem;
@@ -291,7 +312,7 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
   float* zs = fs + L.zs;
   float* rsum = fs + L.rsum;
   float* tb = fs + L.tb;  // BF: inv_s, cos, sin rows [2K + 1][ng * S]; A8: sx [ng][MT]
-  constexpr bool ROT = VAR == K1 || VAR == B || VAR == V2 || VAR == DQ || VAR == I4;  // a dense M_g
+  constexpr bool ROT = VAR == K1 || VAR == B || VAR == V2 || VAR == DQ || VAR == I4 || VAR == RA8;  // a dense M_g
 
   // 1. the weight slice: stage c holds byte-rows [c*CR, (c+1)*CR) of the
   // block's rows; thread t copies 16 bytes of one row. K1 puts NST - 1
@@ -304,15 +325,30 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
   const uint8_t* wbase = a.qw + (size_t)g_begin * HALF * O;
   const int wr = tid / (TW / 16), wc = col0 + (tid % (TW / 16)) * 16;
   auto issue = [&](int c) {
-    if (c < nchunks) {
-      uint8_t* dst = ring + (c % NST) * STAGE + tid * 16;
-      const int r = c * CR + wr;
-      if (a.vec16) {  // a piece lies wholly inside or wholly outside the columns
-        const bool ok = r < nrows && wc < col_end;
-        cp_async16(dst, ok ? wbase + (size_t)r * O + wc : a.qw, ok ? 16 : 0);
-      } else {
-        for (int b = 0; b < 16; ++b)
-          dst[b] = r < nrows && wc + b < col_end ? wbase[(size_t)r * O + wc + b] : 0;
+    if constexpr (VAR == RA8) {  // RA8: stage c of its run, tile c / nchunks's stage c mod nchunks
+      if (c < ntl * nchunks) {
+        const int i = c / nchunks, ci = c - i * nchunks;
+        uint8_t* dst = ring + (c % NST) * STAGE + tid * 16;
+        const int r = ci * CR + wr, wci = wc + i * TW;
+        if (a.vec16) {
+          const bool ok = r < nrows && wci < col_end;
+          cp_async16(dst, ok ? wbase + (size_t)r * O + wci : a.qw, ok ? 16 : 0);
+        } else {
+          for (int b = 0; b < 16; ++b)
+            dst[b] = r < nrows && wci + b < col_end ? wbase[(size_t)r * O + wci + b] : 0;
+        }
+      }
+    } else {
+      if (c < nchunks) {
+        uint8_t* dst = ring + (c % NST) * STAGE + tid * 16;
+        const int r = c * CR + wr;
+        if (a.vec16) {  // a piece lies wholly inside or wholly outside the columns
+          const bool ok = r < nrows && wc < col_end;
+          cp_async16(dst, ok ? wbase + (size_t)r * O + wc : a.qw, ok ? 16 : 0);
+        } else {
+          for (int b = 0; b < 16; ++b)
+            dst[b] = r < nrows && wc + b < col_end ? wbase[(size_t)r * O + wc + b] : 0;
+        }
       }
     }
     cp_async_commit();  // an empty group past the end keeps the waits uniform
@@ -454,7 +490,7 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
       else
         dst = xr2 + (size_t)gl * MT * S + 2 * (i < HALF ? i : i - HALF) + (i >= HALF);
 #pragma unroll
-      for (int m = 0; m < MT; ++m) dst[m * S] = VAR == B ? acc[m] : round_to<bf16>(acc[m]);
+      for (int m = 0; m < MT; ++m) dst[m * S] = VAR == B || VAR == RA8 ? acc[m] : round_to<bf16>(acc[m]);
     }
 #pragma unroll
     for (int m = 0; m < MT; ++m) acc[m] = 0.f;
@@ -506,6 +542,8 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
       for (int o = 16; o > 0; o >>= 1) qs += __shfl_xor_sync(0xffffffffu, qs, o);
       if (lane == 0) rsum[e] = qs, tb[e] = sx;
     }
+  } else if constexpr (VAR == PL) {  // xr_g = bf16(x_g), at its pair slot
+    for (int e = tid; e < nx; e += THREADS) xr2[e - e % S + pair_slot(e % S)] = round_to<bf16>(xs[e]);
   } else if (a.rvec) {
     for (int step = 0; step < nsteps; ++step) {
       if (step > 0) fetch(step);
@@ -574,7 +612,27 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
                        pack_bf16(zq[u].x, zq[u].z), pack_bf16(zq[u].y, zq[u].w));
     }
   }
-  for (int e = warp; e < (VAR == DQ || VAR == A8 ? 0 : ng * MT); e += NWARPS) {  // rowsum_g per (group, row)
+  if constexpr (VAR == RA8) {  // xq_g = rint(xr_g / sx) of the f32 xr_g, sum(xq_g), sx: one warp each
+    int8_t* xq8 = reinterpret_cast<int8_t*>(xs);  // [gl][m][S] int8, channel order; x is spent
+    for (int e = warp; e < ng * MT; e += NWARPS) {  // (group, row) e = gl MT + m
+      const float* row = xr2 + (size_t)e * S;  // channel i at pair slot 2 (i mod S/2) + (i >= S/2)
+      float amax = 0.f;
+      for (int k = lane; k < S; k += 32) amax = fmaxf(amax, fabsf(row[k]));
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+      const float sx = amax > 0.f ? __fdiv_rn(amax, 127.f) : 1.f;
+      float qs = 0.f;  // integers of at most 127 S: exact
+      for (int k = lane; k < S; k += 32) {
+        const float q = rintf(__fdiv_rn(row[k], sx));  // half to even, as jnp.round
+        xq8[(size_t)e * S + (k >> 1) + (k & 1) * HALF] = (int8_t)q;
+        qs += q;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) qs += __shfl_xor_sync(0xffffffffu, qs, o);
+      if (lane == 0) rsum[e] = qs, tb[e] = sx;
+    }
+  }
+  for (int e = warp; e < (VAR == DQ || VAR == A8 || VAR == RA8 ? 0 : ng * MT); e += NWARPS) {  // rowsum_g per (group, row)
     float s = 0.f;
     for (int k = lane; k < S; k += 32) {
       float* v = xr2 + (size_t)e * S + k;
@@ -584,6 +642,189 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
     if (lane == 0) rsum[e] = s;
+  }
+  if constexpr (VAR == RA8) {
+    // 4. RA8: the run's ntl tiles through the ring back to back, A8's layout:
+    // lane l of warp w on columns c8 = 64 w + 2 l and c8 + 1 of each tile over
+    // every byte-row, four byte-rows at a time on dp4a (the four low nibbles
+    // of a column against xq of channels k..k+3, the high ones against
+    // channels S/2 + k..), the group's dot exact in int32; dot[m][j] group gl's
+    // dot so far, tot[m][j] the sum of the split's groups before it. The first
+    // tile's scales and zeros are in shared memory; each later tile's reach
+    // this lane's own slots there from words loaded while it reads the tile
+    // before.
+    // 5. With split groups (KS > 1) each tile's partials merge in split order
+    // behind a counter a (row tile, column tile): after its run a block
+    // arrives on its tiles' counters together (a thread a tile) and merges
+    // the tiles it came last on, U column quads a thread at a time with their
+    // partials in flight together. No block waits for another.
+    const int c8 = warp * (A8_TW / NWARPS) + 2 * lane;
+    const int* xq4 = reinterpret_cast<const int*>(xs);  // four int8 channels a word
+    int n_tiles = 0, ptile0 = 0;  // column tiles of every partition, and of those before p
+    for (int q = 0; q < parts.P; ++q) {
+      const int nq = (parts.offs[q + 1] - parts.offs[q] + TW - 1) / TW;
+      ptile0 += q < p ? nq : 0;
+      n_tiles += nq;
+    }
+    int* const ctr = a.counters + (size_t)blockIdx.z * n_tiles + ptile0 +
+                     (bx - parts.tile_base[p]) * a.tpb;  // the run's tiles' counters
+    float tot[MT][2];
+    int dot[MT][2];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) tot[m][j] = 0.f, dot[m][j] = 0;
+    uint32_t nsw[RA8_GROUPS][2], nzw[RA8_GROUPS][2];  // the next tile's words, this lane's columns
+    auto next_index = [&](int i, int g2, int j) {  // of scale (g2, column c8 + j) of tile i
+      return (size_t)(g_begin + g2) * O + col0 + i * TW + c8 + j;
+    };
+    auto prefetch = [&](int i) {  // tile i's scale and zero words, none past the run
+#pragma unroll
+      for (int g2 = 0; g2 < RA8_GROUPS; ++g2)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const bool ok = i < ntl && g2 < ng && col0 + i * TW + c8 + j < col_end;
+          nsw[g2][j] = ok ? load_word(a.scales, next_index(i, g2, j), a.sdt) : 0u;
+          nzw[g2][j] = ok ? load_word(a.zeros, next_index(i, g2, j), a.zdt) : 0u;
+        }
+    };
+    auto ra8_close = [&](int g2) {  // group g2's ((dot - sum(xq) z) s) sx, added in group order
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float sc = ss[g2 * A8_TW + c8 + j], z = zs[g2 * A8_TW + c8 + j];
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const float e = __fmul_rn(__fmul_rn(__fsub_rn((float)dot[m][j],  // exact: below 2^24
+                                                        __fmul_rn(rsum[g2 * MT + m], z)), sc),
+                                    tb[g2 * MT + m]);
+          tot[m][j] = __fadd_rn(tot[m][j], e);
+          dot[m][j] = 0;
+        }
+      }
+    };
+    const int KS = gridDim.y;
+    OT* out = static_cast<OT*>(a.out);
+    const size_t MO = (size_t)M * O;
+    prefetch(1);
+    int gl = 0, k = 0;
+    for (int c = 0; c < ntl * nchunks; ++c) {
+      cp_async_wait<NST - 2>();  // stage c has landed (this thread's piece)
+      __syncthreads();  // everyone's piece; stage c - 1's readers are done (c = 0: xq and sx)
+      if (c > 0) issue(c + NST - 1);
+      const int i = c / nchunks, ci = c - i * nchunks;
+#pragma unroll
+      for (int rl = 0; rl < STAGE / A8_TW; rl += 4) {  // the stage's byte-rows, four at a time
+        if (ci * (STAGE / A8_TW) + rl >= nrows) break;  // S/2 is a multiple of 4
+        const uint8_t* br = (ring + (c % NST) * STAGE) + rl * A8_TW + c8;
+        const uint32_t w01 = *reinterpret_cast<const uint16_t*>(br) |
+                             (uint32_t)*reinterpret_cast<const uint16_t*>(br + A8_TW) << 16;
+        const uint32_t w23 = *reinterpret_cast<const uint16_t*>(br + 2 * A8_TW) |
+                             (uint32_t)*reinterpret_cast<const uint16_t*>(br + 3 * A8_TW) << 16;
+        const uint32_t col[2] = {__byte_perm(w01, w23, 0x6420), __byte_perm(w01, w23, 0x7531)};
+        const int* xk = xq4 + ((size_t)gl * MT * S + k) / 4;
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const int xl = xk[m * S / 4], xh = xk[(m * S + HALF) / 4];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            dot[m][j] = __dp4a((int)(col[j] & 0x0F0F0F0Fu), xl, dot[m][j]);
+            dot[m][j] = __dp4a((int)((col[j] >> 4) & 0x0F0F0F0Fu), xh, dot[m][j]);
+          }
+        }
+        if ((k += 4) == HALF) ra8_close(gl++), k = 0;  // the group's last rows
+      }
+      if (ci == nchunks - 1) {  // tile i's last stage: its groups are closed
+        const int col = col0 + i * TW + c8;
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          if (m < Mb) {
+            for (int j = 0; j < 2 && col + j < col_end; ++j) {
+              if (KS == 1)
+                out[(size_t)(m0 + m) * O + col + j] = from_f32<OT>(tot[m][j]);
+              else
+                a.partial[ks * MO + (size_t)(m0 + m) * O + col + j] = tot[m][j];
+            }
+          }
+          tot[m][0] = tot[m][1] = 0.f;
+        }
+        gl = 0;  // tile i done
+        if (i + 1 < ntl) {  // the next tile's scales and zeros, into this lane's own slots
+#pragma unroll
+          for (int g2 = 0; g2 < RA8_GROUPS; ++g2)
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+              if (g2 < ng) {
+                ss[g2 * A8_TW + c8 + j] = word_f32(nsw[g2][j], a.scales, next_index(i + 1, g2, j), a.sdt);
+                zs[g2 * A8_TW + c8 + j] = word_f32(nzw[g2][j], a.zeros, next_index(i + 1, g2, j), a.zdt);
+              }
+          prefetch(i + 2);
+        }
+      }
+    }
+    cp_async_wait<0>();  // the run's last tile
+    if (KS == 1) return;  // no merge
+    __syncthreads();  // the partials are stored and the ring is free
+    int* lastt = reinterpret_cast<int*>(ring);  // [0]: how many tiles this block merges, then which
+    if (tid == 0) lastt[0] = 0;
+    __syncthreads();
+    for (int i = tid; i < ntl; i += THREADS) {
+      __threadfence();
+      if (atomicAdd(ctr + i, 1) == KS - 1) {
+        ctr[i] = 0;
+        lastt[1 + atomicAdd(lastt, 1)] = i;
+      }
+    }
+    __syncthreads();
+    constexpr int U = 4, LB = 4;  // column quads a thread at a time, partials each in flight
+    const int W4 = TW / 4, n_quads = lastt[0] * Mb * W4;
+    for (int e0 = tid; e0 < n_quads; e0 += U * THREADS) {
+      float4 v[U];
+      int cols[U];
+      const float* src[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int e = e0 + u * THREADS, ti = e / (Mb * W4), r = e - ti * (Mb * W4), m = r / W4;
+        cols[u] = e < n_quads ? col0 + lastt[1 + min(ti, lastt[0] - 1)] * TW + 4 * (r - m * W4)
+                              : col_end;
+        src[u] = a.partial + (size_t)(m0 + m) * O + cols[u];
+        v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      for (int k0 = 0; k0 < KS; k0 += LB) {
+        float4 tt[U][LB];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+          for (int kk = 0; kk < LB; ++kk) {
+            const float* pk = src[u] + (k0 + kk) * MO;
+            const int cu = cols[u];
+            if (k0 + kk >= KS || cu >= col_end) {
+              tt[u][kk] = make_float4(0.f, 0.f, 0.f, 0.f);
+            } else if (a.vec16) {  // four columns wholly inside
+              tt[u][kk] = __ldcg(reinterpret_cast<const float4*>(pk));
+            } else {
+              tt[u][kk].x = __ldcg(pk);
+              tt[u][kk].y = cu + 1 < col_end ? __ldcg(pk + 1) : 0.f;
+              tt[u][kk].z = cu + 2 < col_end ? __ldcg(pk + 2) : 0.f;
+              tt[u][kk].w = cu + 3 < col_end ? __ldcg(pk + 3) : 0.f;
+            }
+          }
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+          for (int kk = 0; kk < LB; ++kk)
+            if (k0 + kk < KS) add_to(v[u], tt[u][kk]);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (cols[u] >= col_end) continue;
+        OT* o = out + (src[u] - a.partial);
+        const float f[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (cols[u] + j < col_end) o[j] = from_f32<OT>(f[j]);
+      }
+    }
+    return;
   }
 
   // 4. the dot over the ring: the warps of column group cg = warp / WPC take
@@ -848,23 +1089,27 @@ cudaError_t launch(const Args& a, int MT, int n_tiles, int KS, cudaStream_t st) 
 // groups in at most MAX_SMEM bytes with the variant's tables; partial f32
 // [KS, M, O] when KS > 1 and counters int32, one per (column tile, row
 // tile), zero (and left zero). BF takes no rot but inv_s [I] and cos_t,
-// sin_t [K, I] (f32; S a power of two where K > 0), A8 no rot; both one
-// partition, and A8 tiles of A8_TW columns.
-// Grid (column tiles, KS, row tiles). Returns the first CUDA error.
+// sin_t [K, I] (f32; S a power of two where K > 0), A8 and PL no rot; the
+// three one partition, and A8 tiles of A8_TW columns. RA8 takes S a
+// multiple of 8 and tiles of A8_TW columns in runs of tpb tiles of one
+// partition (tpb 1 elsewhere; its merge lists a run's tiles in the ring's
+// words): a block a run, a counter a (row tile, column tile).
+// Grid (column tiles or RA8's runs, KS, row tiles). Returns the first CUDA error.
 template <int VAR>
 cudaError_t call(const void* x, const void* rot, const void* qweight, const void* scales,
                  const void* zeros, void* out, void* partial, void* counters, int M, int I,
                  int S, int P, const int* splits, int KS, int cw, int x_is_bf16, int rot_is_bf16,
                  int sdt, int zdt, cudaStream_t st, int chunk = 0, int gps_dq = 0,
                  const void* inv_s = nullptr, const void* cos_t = nullptr,
-                 const void* sin_t = nullptr, int K = 0) {
+                 const void* sin_t = nullptr, int K = 0, int tpb = 1) {
   Parts parts;
   int vec4;
   if (w4::bad_layout(M, I, S, KS, sdt, zdt) || !w4::make_parts(P, splits, parts, vec4) ||
-      (cw != 1 && cw != 2 && cw != 4) || ((VAR == BF || VAR == A8) && P != 1) ||
+      (cw != 1 && cw != 2 && cw != 4) || ((VAR == BF || VAR == A8 || VAR == PL) && P != 1) ||
       (VAR == BF && (inv_s == nullptr || K < 0 ||
                      (K > 0 && ((S & (S - 1)) != 0 || cos_t == nullptr || sin_t == nullptr)))) ||
-      (VAR == A8 && cw * WARP_COLS != A8_TW))
+      ((VAR == A8 || VAR == RA8) && cw * WARP_COLS != A8_TW) || tpb < 1 || (VAR != RA8 && tpb != 1) ||
+      (VAR == RA8 && (S % 8 != 0 || tpb > NST * STAGE / 4 - 1)))
     return cudaErrorInvalidValue;
   const int MT = row_tile(M, S);
   const int TW = cw * WARP_COLS, G = I / S;
@@ -882,7 +1127,8 @@ cudaError_t call(const void* x, const void* rot, const void* qweight, const void
       layout(MT, S, gps, TW, table_floats(VAR, MT, S, gps, K)).bytes > MAX_SMEM ||
       (KS > 1 && (partial == nullptr || counters == nullptr)))
     return cudaErrorInvalidValue;
-  for (int p = 0; p < P; ++p) parts.tile_base[p + 1] = parts.tile_base[p] + (splits[p] + TW - 1) / TW;
+  for (int p = 0; p < P; ++p)  // in runs of tpb tiles (tpb 1 but for RA8)
+    parts.tile_base[p + 1] = parts.tile_base[p] + ((splits[p] + TW - 1) / TW + tpb - 1) / tpb;
   Args a;
   a.x = x;
   a.rot = rot;
@@ -909,8 +1155,9 @@ cudaError_t call(const void* x, const void* rot, const void* qweight, const void
   a.cos_t = static_cast<const float*>(cos_t);
   a.sin_t = static_cast<const float*>(sin_t);
   a.K = K;
+  a.tpb = tpb;
   const int n_tiles = parts.tile_base[P];
-  if constexpr (VAR == BF || VAR == A8) {  // no rotation matrix: one instance per x dtype
+  if constexpr (VAR == BF || VAR == A8 || VAR == PL) {  // no rotation matrix: one instance per x dtype
     if (VAR == BF)
       a.rvec = S % 4 == 0 && ((uintptr_t)inv_s | (uintptr_t)cos_t | (uintptr_t)sin_t) % 16 == 0;
     return x_is_bf16 ? launch<bf16, float, VAR>(a, MT, n_tiles, KS, st)

@@ -27,8 +27,10 @@
 // groups, runs the dot and merges its group splits in split order behind a
 // counter.
 //
-// Three passes (w4_passes.cuh; a8, M > 16, S > 256, wider shapes such as the
-// lm_head):
+// Three passes (w4_passes.cuh; M > 16, S > 256, W4A16 shapes wider than one
+// wave such as the lm_head, a8 with S not a multiple of 8; a8 at M <= 16
+// and S <= 256 otherwise takes the RA8 variant of the one-launch kernel,
+// rot_w4_a8.cu):
 //  1. rotate pass, one block per (group, partition, 8-row tile). Each rotation
 //     matrix is read once per call.
 //  2. GEMV pass, one block per (128-column tile, group split, 8-row tile).

@@ -3,6 +3,8 @@
 // Replace four kernels of paroquant_tpu/kernels/rot_matmul.py:
 //  K6 w4_matmul (_kernel_plain): no rotation.
 //       xr_g = bf16(x_g);  out = sum_g (xr_g . q_g - rowsum(xr_g) * z_g) * s_g
+//       These passes take K6's calls at M > 16 (rot_matmul.py::w4_route); the
+//       PL variant of the one-launch kernel (w4_plain.cu) takes the rest.
 //  K7 butterfly_w4_matmul (_kernel, _rotate_block_butterfly): xr_g = bf16 of
 //       K butterfly Givens stages on x_g * inv_s, stage r pairing lane l with
 //       l XOR d_r (d_r = 2^(r mod log2 S)): x[l] <- cos[r, l] x[l] + sin[r, l] x[l ^ d_r];

@@ -1,5 +1,6 @@
-"""W4 matmuls: CUDA kernels (csrc/rot_w4_matmul.cu, csrc/w4_variants.cu) and
-their plain versions.
+"""W4 matmuls: CUDA kernels (csrc/rot_w4_matmul.cu, csrc/rot_w4_a8.cu,
+csrc/w4_variants.cu, csrc/w4_plain.cu, csrc/rot_w4_dequant.cu) and their
+plain versions.
 
 Port of the six kernels of `paroquant_tpu/kernels/rot_matmul.py`:
 
@@ -25,11 +26,13 @@ launch raises; nothing falls back. Each CUDA call adds one to
 `launch_counts[name]`, and to `sz_counts[name]` under its scales' and
 zeros' dtypes.
 
-K1/K2 take one of two routes on the card, chosen before launch from shapes
-alone by `rot_route`: "one_launch" (W4A16 at M <= 16: one kernel that
-rotates x inside its GEMV blocks and merges its group splits behind a
-counter) or "passes" (rotate, GEMV and, with split groups, reduce). Each
-call adds one to `route_counts[name][route]`. K8 takes the DQ variant of the
+K1/K2 take one of three routes on the card, chosen before launch from
+shapes alone by `rot_route`: "one_launch" (W4A16 at M <= 16: one kernel
+that rotates x inside its GEMV blocks and merges its group splits behind a
+counter), "ra8" (`a8` at M <= 16: the one-launch kernel's RA8 variant,
+csrc/rot_w4_a8.cu, on the plan `ra8_plan`, which past one wave gives each
+block a run of column tiles) or "passes" (rotate, GEMV and, with split
+groups, reduce). Each call adds one to `route_counts[name][route]`. K8 takes the DQ variant of the
 one-launch kernel (csrc/rot_w4_dequant.cu, shared with K11, launched by
 `launch_dq` on the plan `dq_plan`) at M <= 16, or the passes, by
 `mg_route`; each call adds one to `mg_route_counts[route]`. K7 takes its BF
@@ -37,7 +40,9 @@ variant (csrc/w4_variants.cu) at M <= 16 where its tables fit a block, or
 the passes, by `bf_route`; each call adds one to `bf_route_counts[route]`.
 K9 takes its I4 variant (csrc/w4_variants.cu, on the plan `i4_plan`) at
 M <= 16 and S <= 256, or the passes, by `i4_route`; each call adds one to
-`i4_route_counts[route]`. K6 takes the passes.
+`i4_route_counts[route]`. K6 takes its PL variant (csrc/w4_plain.cu, on
+the plan `w4_plan`) at M <= 16, or the passes, by `w4_route`; each call
+adds one to `w4_route_counts[route]`.
 """
 
 from __future__ import annotations
@@ -63,6 +68,7 @@ ONE_LAUNCH_SZ_FLOATS = 2048  # scales (and zeros) it keeps: groups * tile width
 ONE_LAUNCH_TABLE_FLOATS = 8192
 ONE_LAUNCH_ROW_TILES = (1, 2, 4, 8)  # the kernel's instances of rows per block
 ONE_LAUNCH_TILES = (128, 256, 512)  # its column-tile widths
+RA8_TILE = 512  # RA8's column tile (csrc/one_launch.cuh A8_TW): A8's dot, two columns a lane
 BLOCKS_PER_SM = 2  # its blocks resident per SM (registers and shared memory allow two)
 MAX_SMEM_BYTES = 227 * 1024  # shared memory a block can use on the H100
 MAX_BUTTERFLY_S = 32768  # K7 stages a group's rows in shared memory
@@ -75,15 +81,17 @@ launch_counts = {name: 0 for name in KERNELS}
 variant_counts = {"rot_w4_matmul": [0, 0], "merged_rot_w4_matmul": [0, 0]}
 # launches by "scales dtype/zeros dtype", e.g. "float32/uint8"
 sz_counts: dict[str, dict[str, int]] = {name: {} for name in KERNELS}
-# K1/K2's calls by route (see rot_route); "passes_w4a16_m16" counts those of
-# the passes that were W4A16 at M <= 16 (only a shape wider than one wave or
-# S > 256 sends one there)
-ROUTES = ("one_launch", "passes", "passes_w4a16_m16")
+# K1/K2's calls by route (see rot_route); "passes_w4a16_m16" and
+# "passes_a8_m16" count those of the passes that were W4A16 or a8 at M <= 16
+# (only a W4A16 shape wider than one wave, S > 256, or for a8 S not a
+# multiple of 8, sends one there)
+ROUTES = ("one_launch", "passes", "passes_w4a16_m16", "ra8", "passes_a8_m16")
 route_counts = {name: dict.fromkeys(ROUTES, 0) for name in variant_counts}
-# K8's calls by route (see mg_route), K7's (bf_route) and K9's (i4_route)
+# K8's calls by route (see mg_route), K7's (bf_route), K9's (i4_route) and K6's (w4_route)
 mg_route_counts = dict.fromkeys(ROUTES[:2], 0)
 bf_route_counts = dict.fromkeys(ROUTES[:2], 0)
 i4_route_counts = dict.fromkeys(ROUTES[:2], 0)
+w4_route_counts = dict.fromkeys(ROUTES[:2], 0)
 
 
 def reset_launch_counts() -> None:
@@ -97,6 +105,7 @@ def reset_launch_counts() -> None:
         mg_route_counts[route] = 0
         bf_route_counts[route] = 0
         i4_route_counts[route] = 0
+        w4_route_counts[route] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -264,6 +273,8 @@ _SIGNATURES = {  # entry point: (source stem, argument types)
     "paro_dense_rot_w4_variant": ("w4_variants", [_P] * 9 + [_I] * 10),
     "paro_rot_w4_matmul_i4_one_launch": ("w4_variants", [_P] * 8 + [_I] * 10),
     "paro_rot_w4_matmul_dq": ("rot_w4_dequant", [_P] * 8 + [_I] * 12),
+    "paro_rot_w4_matmul_ra8": ("rot_w4_a8", [_P] * 8 + [_I] * 4 + [ctypes.POINTER(_I)] + [_I] * 7),
+    "paro_w4_matmul_one_launch": ("w4_plain", [_P] * 7 + [_I] * 9),
 }
 _fns: dict[str, object] = {}
 
@@ -309,8 +320,14 @@ def one_launch_row_tile(M: int) -> int:
 def rot_route(M: int, I: int, S: int, out_splits: tuple, a8: bool, rot_dtype,
               sms: int) -> tuple[str, int, int]:
     """K1/K2's route on a card of `sms` SMs, its group splits KS and its
-    column-tile width, from shapes alone: ("one_launch", KS, tile) or
-    ("passes", KS, 128).
+    column-tile width, from shapes alone: ("one_launch", KS, tile), ("ra8",
+    KS, 512) or ("passes", KS, 128).
+
+    `a8` calls with M <= 16 rows and groups of S <= 256 channels, S a
+    multiple of 8 (its dp4a dot takes four byte-rows of a group at a time),
+    take "ra8", the RA8 variant of the one-launch kernel on `ra8_plan`'s
+    plan (one launch at every width, the lm_head's included) where the plan
+    finds one.
 
     The one-launch kernel takes W4A16 calls (not `a8`) with M <= 16 rows and
     groups of S <= 256 channels, and rot in float32 or bfloat16, when its
@@ -334,6 +351,10 @@ def rot_route(M: int, I: int, S: int, out_splits: tuple, a8: bool, rot_dtype,
         raise TypeError(f"rot must be float32 or bfloat16, got {rot_dtype}")
     G = I // S
     wave = BLOCKS_PER_SM * sms
+    if a8 and M <= ONE_LAUNCH_MAX_M and S <= ONE_LAUNCH_MAX_S and S % 8 == 0:
+        plan = ra8_plan(M, I, S, out_splits, sms)
+        if plan is not None:
+            return "ra8", plan[0], plan[1]
     if not a8 and M <= ONE_LAUNCH_MAX_M and S <= ONE_LAUNCH_MAX_S:
         MT = one_launch_row_tile(M)
         best = None
@@ -353,6 +374,61 @@ def rot_route(M: int, I: int, S: int, out_splits: tuple, a8: bool, rot_dtype,
             return "one_launch", best[1], best[2]
     n_tiles = sum(-(-int(n) // COLS_PER_TILE) for n in out_splits)
     return "passes", _group_splits(n_tiles, -(-M // ROWS_PER_TILE), G, sms), COLS_PER_TILE
+
+
+def ra8_plan(M: int, I: int, S: int, out_splits: tuple, sms: int,
+             gps: int | None = None) -> tuple[int, int, int, int, int] | None:
+    """K1/K2's `a8` launch of the RA8 variant on a card of `sms` SMs, from
+    shapes alone: (KS splits, column-tile width 512, rows per block, groups
+    per split, tiles per block), or None where no plan fits one wave.
+
+    Rows per block: `_row_tile(M, S)`; a split takes at most min(16, 4096 //
+    (rows * S), 4) groups (x and xq in shared memory; the scales and zeros of
+    a tile's 512 columns). Where one wave of BLOCKS_PER_SM blocks an SM holds
+    one block per (column tile of each partition, split, row tile), the
+    fewest groups a split that fit it, one tile a block: the ordinary
+    one-launch grid. Past one wave (the 151936-wide lm_head) each block takes
+    a run of consecutive tiles of one partition: at each number of groups a
+    split, the shortest runs whose blocks fit one wave, and of those the
+    split whose busiest SM streams the fewest bytes (its blocks' weight
+    slices and, with more than one split, their f32 partials; on a tie the
+    one with more blocks, then fewer splits). `gps` forces the groups a split (ceil(G / KS) after
+    the split count is evened out), with the shortest runs that fit. On an
+    H100 the rule's choice at the lm_head was the fastest of the splits
+    timed at M 1, 8 and 16 (PERF.md §6, `scripts/ra8_split_sweep.py`)."""
+    mt = _row_tile(M, S)
+    G, rows, wave = I // S, -(-M // mt), BLOCKS_PER_SM * sms
+    gmax = max(1, min(ONE_LAUNCH_MAX_GROUPS, ONE_LAUNCH_X_FLOATS // (mt * S),
+                      ONE_LAUNCH_SZ_FLOATS // RA8_TILE))
+    tiles = [-(-int(n) // RA8_TILE) for n in out_splits]
+
+    def runs(tpb):
+        return sum(-(-t // tpb) for t in tiles) * rows
+
+    def plan_at(g):
+        ks = -(-G // min(g, G))
+        tpb = next((t for t in range(1, max(tiles) + 1) if runs(t) * ks <= wave), None)
+        gps_k = -(-G // ks)  # its scales of x [gps][rows] are its tables
+        if tpb is None or _one_launch_smem(mt, S, gps_k, RA8_TILE, gps_k * mt) > MAX_SMEM_BYTES:
+            return None
+        return ks, RA8_TILE, mt, gps_k, tpb
+
+    if gps is not None:
+        return plan_at(gps)
+    fits = [g for g in range(1, min(G, gmax) + 1) if runs(1) * -(-G // g) <= wave]
+    if fits:
+        return plan_at(fits[0])
+    best = None
+    for g in range(1, min(G, gmax) + 1):
+        plan = plan_at(g)
+        if plan is None:
+            continue
+        ks, _, _, g2, tpb = plan
+        per_block = tpb * RA8_TILE * (g2 * S // 2 + (4 * mt if ks > 1 else 0))
+        key = (-(-runs(tpb) * ks // sms) * per_block, -runs(tpb) * ks, ks)
+        if best is None or key < best[0]:
+            best = (key, plan)
+    return None if best is None else best[1]
 
 
 def _row_tile(M: int, S: int) -> int:
@@ -486,6 +562,28 @@ def i4_route(M: int, I: int, S: int, O: int, sms: int):
     return "passes", None
 
 
+def w4_plan(M: int, I: int, S: int, O: int, sms: int) -> tuple[int, int, int, int]:
+    """K6's launch of the PL variant on a card of `sms` SMs, from shapes
+    alone: `dq_plan` with all G groups one chunk and no tables (K7's plan
+    without its tables): (KS splits, column-tile width, rows per block,
+    groups per split). At 4096 x 4096, M 1: 32 splits of one group, 512
+    columns. Raises ValueError where one group does not fit a block."""
+    return dq_plan(M, I, S, O, sms, I // S)
+
+
+def w4_route(M: int, I: int, S: int, O: int, sms: int):
+    """K6's route on a card of `sms` SMs, from shapes alone: ("one_launch",
+    `w4_plan`'s plan) or ("passes", None). The PL variant of the one-launch
+    kernel takes M <= 16 rows where one group fits a block's shared memory,
+    as K7's BF (`bf_route`); every other call takes the three passes."""
+    if M <= ONE_LAUNCH_MAX_M:
+        try:
+            return "one_launch", w4_plan(M, I, S, O, sms)
+        except ValueError:  # a group too wide for one block's shared memory
+            pass
+    return "passes", None
+
+
 def _check_butterfly_group(S: int) -> None:
     if S < 2 or S & (S - 1):
         raise ValueError(f"butterfly stages need a power-of-two group size, got {S}")
@@ -559,6 +657,31 @@ def _counters(n: int, device) -> torch.Tensor:
     return c
 
 
+def launch_ra8(x, rot, qweight, scales, zeros, out_splits, plan):
+    """K1 / K2's `a8` on the card in one launch of the RA8 variant, by `plan`
+    (KS, tile, rows, gps, tiles per block; `ra8_plan`'s or another within the
+    kernel's limits); x [M, I]; rot [P, G, S, S]; the rest as K2's. The
+    caller checks the operands and counts the launch."""
+    M, I = x.shape
+    P, G, S, _ = rot.shape
+    O = qweight.shape[1]
+    fn = _lib_fn("paro_rot_w4_matmul_ra8")
+    dev = x.device
+    KS, tile, mt, _, tpb = plan
+    out = torch.empty((M, O), dtype=x.dtype, device=dev)
+    partial = torch.empty((KS, M, O) if KS > 1 else (0,), dtype=torch.float32, device=dev)
+    n_tiles = sum(-(-n // tile) for n in out_splits)
+    counters = _counters(n_tiles * -(-M // mt), dev) if KS > 1 else partial  # a (row tile, tile)
+    err = fn(
+        x.data_ptr(), rot.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
+        out.data_ptr(), partial.data_ptr(), counters.data_ptr(), M, I, S, P,
+        (ctypes.c_int * P)(*out_splits), KS, tile // COLS_PER_TILE, tpb,
+        int(x.dtype == torch.bfloat16), int(rot.dtype == torch.bfloat16), SZ_CODES[scales.dtype],
+        SZ_CODES[zeros.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "rot_w4_matmul_ra8")
+    return out
+
+
 def _launch_rot(name, x, rot, qweight, scales, zeros, out_splits, a8):
     """K1 / K2 on the card, by the route `rot_route` picks."""
     M, I = x.shape
@@ -570,36 +693,41 @@ def _launch_rot(name, x, rot, qweight, scales, zeros, out_splits, a8):
         raise TypeError(f"rot must be float32 or bfloat16, got {rot.dtype}")
     x, qweight, scales, zeros, (rot,) = _check_operands(x, qweight, scales, zeros, S, G, (rot,))
     fns = {"one_launch": _lib_fn("paro_rot_w4_matmul_one_launch"),  # before the device is queried
-           "passes": _lib_fn("paro_rot_w4_matmul")}
+           "passes": _lib_fn("paro_rot_w4_matmul"), "ra8": _lib_fn("paro_rot_w4_matmul_ra8")}
     dev = x.device
     route, KS, tile = rot_route(M, I, S, out_splits, a8, rot.dtype, _sm_count(dev))
-    out = torch.empty((M, O), dtype=x.dtype, device=dev)
-    splits = (ctypes.c_int * P)(*out_splits)
-    common = (int(x.dtype == torch.bfloat16), int(rot.dtype == torch.bfloat16))
-    sz = (SZ_CODES[scales.dtype], SZ_CODES[zeros.dtype])
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if route == "one_launch":
-        partial = torch.empty((KS, M, O) if KS > 1 else (0,), dtype=torch.float32, device=dev)
-        n_tiles = sum(-(-n // tile) for n in out_splits) * -(-M // one_launch_row_tile(M))
-        counters = _counters(n_tiles, dev) if KS > 1 else partial
-        err = fns[route](
-            x.data_ptr(), rot.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
-            out.data_ptr(), partial.data_ptr(), counters.data_ptr(), M, I, S, P, splits, KS,
-            tile // COLS_PER_TILE, *common, *sz, stream)
+    if route == "ra8":
+        out = launch_ra8(x, rot, qweight, scales, zeros, out_splits,
+                         ra8_plan(M, I, S, out_splits, _sm_count(dev)))
     else:
-        xr, xsum, partial = _scratch(M, I, G, O, KS, dev, P)
-        xq = torch.empty((P, M, I) if a8 else (0,), dtype=torch.int8, device=dev)
-        sx = torch.empty((P, M, G), dtype=torch.float32, device=dev)
-        err = fns[route](
-            x.data_ptr(), rot.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
-            out.data_ptr(), xr.data_ptr(), xq.data_ptr(), xsum.data_ptr(), sx.data_ptr(),
-            partial.data_ptr(), M, I, S, P, splits, KS, *common, int(a8), *sz, stream)
-    _raise_on(err, name)
+        out = torch.empty((M, O), dtype=x.dtype, device=dev)
+        splits = (ctypes.c_int * P)(*out_splits)
+        common = (int(x.dtype == torch.bfloat16), int(rot.dtype == torch.bfloat16))
+        sz = (SZ_CODES[scales.dtype], SZ_CODES[zeros.dtype])
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if route == "one_launch":
+            partial = torch.empty((KS, M, O) if KS > 1 else (0,), dtype=torch.float32, device=dev)
+            n_tiles = sum(-(-n // tile) for n in out_splits) * -(-M // one_launch_row_tile(M))
+            counters = _counters(n_tiles, dev) if KS > 1 else partial
+            err = fns[route](
+                x.data_ptr(), rot.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
+                zeros.data_ptr(), out.data_ptr(), partial.data_ptr(), counters.data_ptr(), M, I, S,
+                P, splits, KS, tile // COLS_PER_TILE, *common, *sz, stream)
+        else:
+            xr, xsum, partial = _scratch(M, I, G, O, KS, dev, P)
+            xq = torch.empty((P, M, I) if a8 else (0,), dtype=torch.int8, device=dev)
+            sx = torch.empty((P, M, G), dtype=torch.float32, device=dev)
+            err = fns[route](
+                x.data_ptr(), rot.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
+                zeros.data_ptr(), out.data_ptr(), xr.data_ptr(), xq.data_ptr(), xsum.data_ptr(),
+                sx.data_ptr(), partial.data_ptr(), M, I, S, P, splits, KS, *common, int(a8), *sz,
+                stream)
+        _raise_on(err, name)
     _count(name, scales, zeros)
     variant_counts[name][int(a8)] += 1
     route_counts[name][route] += 1
-    if route == "passes" and not a8 and M <= ONE_LAUNCH_MAX_M:
-        route_counts[name]["passes_w4a16_m16"] += 1
+    if route == "passes" and M <= ONE_LAUNCH_MAX_M:
+        route_counts[name]["passes_a8_m16" if a8 else "passes_w4a16_m16"] += 1
     return out
 
 
@@ -631,8 +759,8 @@ def launch_dq(name, x, rot, qweight, scales, zeros, chunk, plan=None):
 
 
 def _launch_butterfly(name, x, inv_s, cos_t, sin_t, qweight, scales, zeros, S):
-    """K6 (no tables) on the card by the passes, K7 by the route `bf_route`
-    picks."""
+    """K6 (no tables) on the card by the route `w4_route` picks, K7 by the
+    route `bf_route` picks."""
     M, I = x.shape
     G, O = I // S if S else 0, qweight.shape[1]
     tables = () if cos_t is None else (inv_s.to(torch.float32), cos_t.to(torch.float32),
@@ -644,10 +772,12 @@ def _launch_butterfly(name, x, inv_s, cos_t, sin_t, qweight, scales, zeros, S):
         K = cos_t.shape[0]
         if inv_s.shape != (I,) or cos_t.shape != (K, I) or sin_t.shape != (K, I):
             raise ValueError("inv_channel_scales must be [I] and the tables [K, I]")
-    fns = {"one_launch": _lib_fn("paro_butterfly_w4_one_launch"),  # before the device is queried
+    fns = {"one_launch": _lib_fn("paro_butterfly_w4_one_launch" if tables  # before the device is queried
+                                 else "paro_w4_matmul_one_launch"),
            "passes": _lib_fn("paro_butterfly_w4_matmul")}
     dev = x.device
-    route, plan = bf_route(M, I, S, O, K, _sm_count(dev)) if tables else ("passes", None)
+    route, plan = (bf_route(M, I, S, O, K, _sm_count(dev)) if tables
+                   else w4_route(M, I, S, O, _sm_count(dev)))
     out = torch.empty((M, O), dtype=x.dtype, device=dev)
     ptr = (lambda t: t.data_ptr()) if tables else (lambda t: None)
     common = (M, I, S, O)
@@ -657,10 +787,13 @@ def _launch_butterfly(name, x, inv_s, cos_t, sin_t, qweight, scales, zeros, S):
         KS, tile, mt, _ = plan
         partial = torch.empty((KS, M, O) if KS > 1 else (0,), dtype=torch.float32, device=dev)
         counters = _counters(-(-O // tile) * -(-M // mt), dev) if KS > 1 else partial
-        err = fns[route](
-            x.data_ptr(), inv_s.data_ptr(), cos_t.data_ptr(), sin_t.data_ptr(), K,
-            qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(), out.data_ptr(),
-            partial.data_ptr(), counters.data_ptr(), *common, KS, tile // COLS_PER_TILE, *sz)
+        ptrs = (qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(), out.data_ptr(),
+                partial.data_ptr(), counters.data_ptr())
+        if tables:
+            err = fns[route](x.data_ptr(), inv_s.data_ptr(), cos_t.data_ptr(), sin_t.data_ptr(), K,
+                             *ptrs, *common, KS, tile // COLS_PER_TILE, *sz)
+        else:
+            err = fns[route](x.data_ptr(), *ptrs, *common, KS, tile // COLS_PER_TILE, *sz)
     else:
         KS = _group_splits(-(-O // COLS_PER_TILE), -(-M // ROWS_PER_TILE), G, _sm_count(dev))
         xr, xsum, partial = _scratch(M, I, G, O, KS, dev)
@@ -670,8 +803,7 @@ def _launch_butterfly(name, x, inv_s, cos_t, sin_t, qweight, scales, zeros, S):
             partial.data_ptr(), *common, KS, *sz)
     _raise_on(err, name)
     _count(name, scales, zeros)
-    if tables:
-        bf_route_counts[route] += 1
+    (bf_route_counts if tables else w4_route_counts)[route] += 1
     return out
 
 
@@ -751,7 +883,9 @@ def merged_rot_w4_matmul(x, rot, qweight, scales, zeros, *, out_splits: tuple,
 
 def w4_matmul(x, qweight, scales, zeros, *, group_size: int = 128) -> torch.Tensor:
     """K6: x [M, I]; qweight uint8 [I//2, O] half-split; scales, zeros
-    [I//group_size, O] -> [M, O] in x.dtype."""
+    [I//group_size, O] -> [M, O] in x.dtype. On the card `w4_route` picks
+    the PL variant of the one-launch kernel (one launch; the group splits
+    merged in split order) or the three passes."""
     if x.device.type == "cpu":
         return w4_matmul_plain(x, qweight, scales, zeros, group_size=group_size)
     return _launch_butterfly("w4_matmul", x, None, None, None, qweight, scales, zeros, group_size)

@@ -7,11 +7,11 @@ Compiles each source of this checkout that instantiates
 source in DIR (the `csrc` directory of another checkout, or any directory
 holding such a source with the headers it includes), all with
 `kernels/build.py`'s flags and in parallel, and prints one JSON line a
-source found in both: for each `Variant` of `rot_w4_one_launch_kernel`, how
-many of DIR's instances compile to the same SASS here, byte for byte
-(`cuobjdump -sass`), and how many instances each variant has here (a
-variant new here, such as K9's I4, has none in DIR). A change meant to
-leave a variant alone shows as all of its instances identical. Runs where
+source: for each `Variant` of `rot_w4_one_launch_kernel`, how many of DIR's
+instances compile to the same SASS here, byte for byte (`cuobjdump -sass`),
+and how many instances each variant has here (a variant new here, such as
+RA8 in a source that DIR lacks, has none in DIR). A change meant to leave a
+variant alone shows as all of its instances identical. Runs where
 nvcc and cuobjdump are installed (the card's machine); the libraries go
 under `kernels/_build/sass/`.
 """
@@ -27,7 +27,8 @@ from pathlib import Path
 
 from ..kernels import build
 
-ONE_LAUNCH_SOURCES = ("rot_w4_matmul", "w4_experiments", "rot_w4_dequant", "w4_variants")
+ONE_LAUNCH_SOURCES = ("rot_w4_matmul", "w4_experiments", "rot_w4_dequant", "w4_variants",
+                      "rot_w4_a8", "w4_plain")
 KERNEL = "rot_w4_one_launch_kernel"
 
 
@@ -76,9 +77,10 @@ def main(argv=None) -> list[dict]:
     args = ap.parse_args(argv)
     out = build.BUILD_ROOT / "sass"
     out.mkdir(parents=True, exist_ok=True)
-    stems = [s for s in ONE_LAUNCH_SOURCES if (args.ref / f"{s}.cu").exists()]
+    stems = [s for s in ONE_LAUNCH_SOURCES if (build.CSRC / f"{s}.cu").exists()]
     jobs = {(side, s): (src, out / f"{side}_{s}.so")
-            for s in stems for side, src in (("ref", args.ref), ("here", build.CSRC))}
+            for s in stems for side, src in (("ref", args.ref), ("here", build.CSRC))
+            if (src / f"{s}.cu").exists()}
     procs = [subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-I", str(src), "-o", str(lib),
                                str(src / f"{s}.cu")], stdout=subprocess.DEVNULL,
                               stderr=subprocess.STDOUT)
@@ -89,7 +91,7 @@ def main(argv=None) -> list[dict]:
     for s in stems:
         funcs = {side: sass_functions(subprocess.run(
             [_cuobjdump(), "-sass", str(jobs[side, s][1])], capture_output=True, text=True,
-            check=True).stdout) for side in ("ref", "here")}
+            check=True).stdout) if (side, s) in jobs else {} for side in ("ref", "here")}
         row = {"source": f"{s}.cu", "ref": str(args.ref),
                "identical_of_instances_by_variant": compare(funcs["ref"], funcs["here"]),
                "instances_here_by_variant": count_by_variant(funcs["here"])}

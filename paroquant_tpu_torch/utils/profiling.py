@@ -21,6 +21,7 @@ reading the buffer instead, for the same call beside a clean L2.
 
 from __future__ import annotations
 
+import re
 import statistics
 import time
 
@@ -33,10 +34,20 @@ from ..utils.device import resolve_device
 
 
 FLUSH_BYTES = 256 << 20  # more than the H100's 50 MB L2
-# K1/K2's kernels by route (kernels/rot_matmul.py::rot_route); the passes'
-# kernels are shared with K6-K9, which no decode step runs
-K1K2_KERNELS = {"one_launch": ("rot_w4_one_launch_kernel",),
-                "passes": ("w4::rotate_kernel", "w4::gemv_kernel", "w4::reduce_kernel")}
+# K1/K2's kernels by route (kernels/rot_matmul.py::rot_route): the one-launch
+# kernel's variant K1 (0) or RA8 (7), the last template argument of its name;
+# the passes' kernels are shared with K6-K9, which no decode step runs
+K1K2_VARIANTS = {"0": "one_launch", "7": "ra8"}
+PASSES_KERNELS = ("w4::rotate_kernel", "w4::gemv_kernel", "w4::reduce_kernel")
+K1K2_ROUTES = ("one_launch", "ra8", "passes")
+
+
+def k1k2_route(kernel_name: str) -> str | None:
+    """The K1/K2 route a device kernel's name (demangled or not) belongs to."""
+    if "rot_w4_one_launch_kernel" in kernel_name:
+        var = re.search(r"(?:, |Li)(\d+)(?:>\(|EEEv)", kernel_name)
+        return K1K2_VARIANTS.get(var.group(1)) if var else None
+    return "passes" if any(n in kernel_name for n in PASSES_KERNELS) else None
 SPIN_CYCLES = 2_000_000  # about 1 ms of device spin ahead of each timed call
 _flush_buffers: dict[torch.device, torch.Tensor] = {}
 
@@ -131,7 +142,7 @@ def _profile(run, steps: int, top: int, focus: str | None = None) -> dict:
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     after = {**rm.launch_counts, **at.launch_counts}
     route_calls = {route: sum(rm.route_counts[k][route] - routes_before[k][route]
-                              for k in rm.route_counts) / steps for route in ("one_launch", "passes")}
+                              for k in rm.route_counts) / steps for route in K1K2_ROUTES}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run(steps)
@@ -150,8 +161,8 @@ def _profile(run, steps: int, top: int, focus: str | None = None) -> dict:
         "k1k2_calls_per_step": route_calls,
         "k1k2_device_ms_per_step": {
             route: sum(e.self_device_time_total for e in kernels
-                       if any(n in e.key for n in names)) / 1e3 / steps
-            for route, names in K1K2_KERNELS.items()},
+                       if k1k2_route(e.key) == route) / 1e3 / steps
+            for route in K1K2_ROUTES},
         "top_kernels": [
             {"name": e.key[:80], "ms_per_step": e.self_device_time_total / 1e3 / steps,
              "calls_per_step": e.count / steps}

@@ -3,8 +3,9 @@ arithmetic in csrc/rot_w4_matmul.cu) on the CPU.
 
 The route rule is a pure function of shapes and the card's SM count, so it
 is tested here at an H100's 132 SMs: Qwen3-0.6B's four decode linears take
-the one-launch route at every M from 1 to 16; `a8`, M > 16, S > 256 and the
-151936-wide lm_head take the three passes. The split count it picks must
+the one-launch route at every M from 1 to 16; `a8` at M <= 16 and S <= 256
+the RA8 variant (tests/test_torch_rot_w4_a8.py); M > 16, S > 256 and the
+151936-wide lm_head in W4A16 take the three passes. The split count it picks must
 leave every split non-empty and the grid within one wave.
 
 The kernel itself runs only on the card. What it sums is modelled here in
@@ -59,17 +60,15 @@ def test_decode_linears_take_one_launch(layer, M):
 
 
 PASSES = {  # case: M, I, S, out_splits, a8
-    "a8_o_proj": (1, 2048, 128, (1024,), True),
-    "a8_down_proj": (1, 3072, 128, (1024,), True),
-    "a8_qkv_proj": (1, 1024, 128, (2048, 1024, 1024), True),
-    "a8_gate_up_proj": (8, 1024, 128, (3072, 3072), True),
+    "a8_M17": (17, 2048, 128, (1024,), True),
+    "a8_S512": (1, 1024, 512, (1024,), True),
     "M17": (17, 2048, 128, (1024,), False),
     "M128": (128, 1024, 128, (2048, 1024, 1024), False),
     "S512": (1, 1024, 512, (1024,), False),
     "S1024": (1, 2048, 1024, (1024,), False),
     "lm_head_M1": (1, 1024, 128, (151936,), False),
     "lm_head_M8": (8, 1024, 128, (151936,), False),
-    "lm_head_M16_a8": (16, 1024, 128, (151936,), True),
+    "lm_head_M17_a8": (17, 1024, 128, (151936,), True),
 }
 
 
@@ -80,6 +79,22 @@ def test_other_calls_take_the_passes(case):
     assert route == "passes" and tile == tk.COLS_PER_TILE
     n_tiles = sum(-(-n // tk.COLS_PER_TILE) for n in splits)
     assert KS == tk._group_splits(n_tiles, -(-M // tk.ROWS_PER_TILE), I // S, SMS)
+
+
+RA8 = {  # case: M, I, S, out_splits (a8 at M <= 16 and S <= 256: the RA8 variant)
+    "a8_o_proj": (1, 2048, 128, (1024,)),
+    "a8_down_proj": (1, 3072, 128, (1024,)),
+    "a8_qkv_proj": (1, 1024, 128, (2048, 1024, 1024)),
+    "a8_gate_up_proj": (8, 1024, 128, (3072, 3072)),
+    "lm_head_M16_a8": (16, 1024, 128, (151936,)),
+}
+
+
+@pytest.mark.parametrize("case", list(RA8))
+def test_a8_calls_take_ra8(case):
+    M, I, S, splits = RA8[case]
+    route, KS, tile = tk.rot_route(M, I, S, splits, True, torch.bfloat16, SMS)
+    assert route == "ra8" and (KS, tile) == tk.ra8_plan(M, I, S, splits, SMS)[:2]
 
 
 SPLIT_SHAPES = [(M, I, S, splits) for M in (1, 3, 8, 9, 16)
@@ -130,6 +145,15 @@ def split_groups(G, KS, chunk=None, gps=None):
     return out
 
 
+def _a8_quantize(xr):
+    """(sx, xq) of f32 values xr [..., S]: sx = max |xr| / 127 per row (1
+    where that is 0), xq = xr / sx rounded half to even, as JAX's
+    `_a8_quantize` (integer-valued f32)."""
+    amax = xr.abs().amax(-1, keepdim=True)
+    sx = torch.where(amax > 0, amax / torch.full_like(amax, 127.0), torch.ones_like(amax))
+    return sx, torch.round(xr / sx)
+
+
 def one_launch_model(x, rot, qweight, scales, zeros, out_splits, KS, variant="k1", chunk=None,
                      gps=None, tables=None):
     """The one-launch kernel's arithmetic in torch: per block (partition p,
@@ -146,11 +170,16 @@ def one_launch_model(x, rot, qweight, scales, zeros, out_splits, KS, variant="k1
     partial), "a8" (K13: no rot; per (row, group) sx = max |x_g| / 127 (1
     where 0) and xq = round(x_g / sx), and the partial the sum, in group
     order from 0, of (xq_g @ q_g - sum(xq_g) z_g) (s_g sx), each operation
-    rounded apart and the dot exact) or "i4" (K9: K1's arithmetic on a
+    rounded apart and the dot exact), "i4" (K9: K1's arithmetic on a
     qweight in the interleaved layout, byte-row k of a group holding
-    channels 2k and 2k + 1)."""
+    channels 2k and 2k + 1), "ra8" (K1/K2's a8: x rounded to rot's dtype,
+    xr32_g = x_g @ rot[p, g]^T in f32, not rounded to bf16; per (row, group)
+    sx = max |xr32_g| / 127 (1 where 0) and xq = round(xr32_g / sx); the
+    partial the sum, in group order, of ((xq_g @ q_g - sum(xq_g) z_g) s_g) sx,
+    each operation rounded apart and the dot exact) or "pl" (K6: no rot;
+    xr_g = bf16(x_g), then K1's partial)."""
     M, I = x.shape
-    if variant in ("bf", "a8"):  # no rotation matrix: one partition
+    if variant in ("bf", "a8", "pl"):  # no rotation matrix: one partition
         P, G = 1, scales.shape[0]
         S = I // G
     else:
@@ -166,9 +195,10 @@ def one_launch_model(x, rot, qweight, scales, zeros, out_splits, KS, variant="k1
         s_all, z_all = scales.to(torch.float32), zeros.to(torch.float32)
     elif variant == "a8":
         xg = x.to(torch.float32).reshape(M, G, S)
-        amax = xg.abs().amax(-1, keepdim=True)
-        sx = torch.where(amax > 0, amax / torch.full_like(amax, 127.0), torch.ones_like(amax))
-        xg = torch.round(xg / sx)  # xq
+        sx, xg = _a8_quantize(xg)
+        s_all, z_all = scales.to(torch.float32), zeros.to(torch.float32)
+    elif variant == "pl":
+        xg = x.to(torch.float32).reshape(M, G, S)
         s_all, z_all = scales.to(torch.float32), zeros.to(torch.float32)
     else:
         xg = (x if variant == "v2" else x.to(rot.dtype)).to(torch.float32).reshape(M, G, S)
@@ -186,7 +216,12 @@ def one_launch_model(x, rot, qweight, scales, zeros, out_splits, KS, variant="k1
                     dot = xg[:, g] @ q[g][:, cols]  # integers below 2**24: exact
                     part = part + (dot - xg[:, g].sum(-1, keepdim=True) * z) * (s * sx[:, g])
                     continue
-                xr32 = xg[:, g] if variant == "bf" else xg[:, g] @ rot[p, g].to(torch.float32).T
+                xr32 = xg[:, g] if variant in ("bf", "pl") else xg[:, g] @ rot[p, g].to(torch.float32).T
+                if variant == "ra8":
+                    sxg, xq = _a8_quantize(xr32)
+                    dot = xq @ q[g][:, cols]  # integers below 2**24: exact
+                    part = part + ((dot - xq.sum(-1, keepdim=True) * z) * s) * sxg
+                    continue
                 xr = xr32.to(torch.bfloat16).to(torch.float32)
                 if dq:
                     part = part + xr @ tk._bf16(tk._bf16(q[g][:, cols] - z) * s)

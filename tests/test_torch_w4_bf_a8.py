@@ -7,8 +7,8 @@ The launch plans (`kernels/rot_matmul.py::bf_route`, K7's route and plan;
 card's SM count, tested here at an H100's 132 SMs: one wave at 4096 x 4096,
 the tables within shared memory, every split non-empty, K7 at M > 16 on the
 passes. Which entry point each wrapper calls, with which plan, is checked
-on meta tensors with the library replaced by a recorder (K6 keeps the
-passes).
+on meta tensors with the library replaced by a recorder (K6 on its PL
+variant at M <= 16, `tests/test_torch_rot_w4_a8.py`).
 
 The kernel runs only on the card. `one_launch_model`
 (tests/test_torch_rot_w4_route.py, variants "bf" and "a8") models its sums:
@@ -167,16 +167,22 @@ def test_k7_and_k6_launch_by_route(recorded, M):
     rm.reset_launch_counts()
     rm.butterfly_w4_matmul(x, inv, cos, cos, qw, s, z)
     rm.w4_matmul(x, qw, s, z)
-    (k7, a7), (k6, _) = recorded
-    assert k6 == "paro_butterfly_w4_matmul"  # K6 keeps the passes
+    (k7, a7), (k6, a6) = recorded
     if M <= rm.ONE_LAUNCH_MAX_M:
         KS, tile, mt, _ = rm.bf_route(M, 4096, 128, 4096, 8, SMS)[1]
         assert k7 == "paro_butterfly_w4_one_launch"
         assert a7[4] == 8 and a7[11:17] == (M, 4096, 128, 4096, KS, tile // rm.COLS_PER_TILE)
         assert rm.bf_route_counts == {"one_launch": 1, "passes": 0}
+        KS, tile, mt, _ = rm.w4_plan(M, 4096, 128, 4096, SMS)
+        assert k6 == "paro_w4_matmul_one_launch"  # K6 on the PL variant
+        assert a6[7:16] == (M, 4096, 128, 4096, KS, tile // rm.COLS_PER_TILE, 1,
+                            rm.SZ_CODES[torch.bfloat16], rm.SZ_CODES[torch.uint8])
+        assert rm.w4_route_counts == {"one_launch": 1, "passes": 0}
     else:
         assert k7 == "paro_butterfly_w4_matmul"
         assert rm.bf_route_counts == {"one_launch": 0, "passes": 1}
+        assert k6 == "paro_butterfly_w4_matmul"  # K6 on the passes
+        assert rm.w4_route_counts == {"one_launch": 0, "passes": 1}
     assert rm.launch_counts["butterfly_w4_matmul"] == rm.launch_counts["w4_matmul"] == 1
 
 
