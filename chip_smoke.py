@@ -55,16 +55,18 @@ Phases, each printing one or more lines:
      run and every probe pass; then slice 6's path, the ported unpack
      experiments (kernel_unpack_exp), counted the same way: K18-K22 (all six
      entry points) and their control arms K6 and K1 must run, each GEMV
-     within TOL_KERNEL of K6. Before the checks, cuobjdump's SASS of the
+     within TOL_KERNEL of K6, and K19 (BC) and K21 (PL) on the one-launch
+     route at every call. Before the checks, cuobjdump's SASS of the
      probe's library must show IMMA in K15/K16 and HMMA in K17, that of
      the unpack library K18's 128-bit global loads, that of the K1/K2
      library 128-bit loads (LDG.E.128) and 16-byte cp.async (LDGSTS) in all
      16 one-launch instances, that of the experiments' library in all 32
      of K10/K12 and 8 of K13, that of the variants' library in all 8 of K7
      and 16 of K9, that of the a8 library in all 16 of RA8 (with its dp4a,
-     IDP.4A), that of the plain library in all 8 of K6's PL and that of the
+     IDP.4A), that of the plain library in all 8 of K6's PL, that of the
+     output-pair library in all 8 of K19's BC and that of the
      dequant library in all 16 of K8/K11 (the same kernel,
-     csrc/one_launch.cuh), with 0 spill bytes in ptxas's lines for all 120
+     csrc/one_launch.cuh), with 0 spill bytes in ptxas's lines for all 128
      and, in K8/K11's, three bf16x2 operations for each pair
      of nibbles (the dequant's two roundings neither fused nor dropped),
      that of
@@ -78,7 +80,10 @@ Phases, each printing one or more lines:
      edges: maxP 1, slots ending on and inside a split, a window skipping
      whole splits, empty slots beside full ones, f32 queries over int8
      pools. K18-K22 are checked at
-     the script's 4096 x 4096 draws (K18 bit for bit), K3 at head dims 16,
+     the script's 4096 x 4096 draws (K18 bit for bit; K19 and K21 at M 1, 8
+     and 16 beside K6, each row naming its route, `unpack_route`, and the
+     other route's time; two calls bitwise equal and one kernel a call on
+     the one launch) and at their edges (`unpack_edges`), K3 at head dims 16,
      32, 96 and 256, K4/K5 at 24, 32 and 256 and K5 at 80 query rows per kv
      head (and timed there at D = 128), and the refusal of head_dim 12;
   3b. the Engine on two small Gemma-class models with random weights
@@ -146,6 +151,7 @@ ROT_SRC = "paroquant_tpu_torch/kernels/csrc/rot_w4_matmul.cu"
 RA8_SRC = "paroquant_tpu_torch/kernels/csrc/rot_w4_a8.cu"
 VARIANTS_SRC = "paroquant_tpu_torch/kernels/csrc/w4_variants.cu"
 PLAIN_SRC = "paroquant_tpu_torch/kernels/csrc/w4_plain.cu"
+OPAIR_SRC = "paroquant_tpu_torch/kernels/csrc/w4_opair.cu"
 DEQUANT_SRC = "paroquant_tpu_torch/kernels/csrc/rot_w4_dequant.cu"
 SLICE1_W4 = ("rot_w4_matmul", "merged_rot_w4_matmul")  # the W4 kernels of slices 1 and 2
 FLASH_SRC = "paroquant_tpu_torch/kernels/csrc/flash_attention.cu"
@@ -1046,17 +1052,18 @@ W4X_CASES = [  # kernel, scales/zeros dtypes (the scripts'), knobs, Ms
     *(("dma_rot_w4_matmul", "f32/f32", {"Gb": gb}, (1,)) for gb in (1, 2, 4, 8)),
     *(("rot_w4_matmul_v2", "f32/f32", {"block_m": bm}, (1, 16)) for bm in (8, 16)),
     ("w4a8_matmul", "bf16/u8", {}, (1, 8, 32)),
+    ("rot_w4_matmul", "bf16/bf16", {}, (1, 16)),  # K1, K10's control arm ("variant a")
 ]
 
 
 def w4x_inputs(kernel, I, O, gen, dev, S=128, sz="bf16/bf16", rot_dtype=None, block_m=None, Gb=4):
-    """Random operands of one of K10-K13 at group size S: (call, plain, the
-    rotation map x [n, I] -> [n, I] f32 (None for K13), the dequantized
-    weight [I, O] f32, the bytes the call must move beyond x and out, and
-    the extra operations of its rotation per row)."""
+    """Random operands of one of K10-K13 (or K1, their control arm) at group
+    size S: (call, plain, the rotation map x [n, I] -> [n, I] f32 (None for
+    K13), the dequantized weight [I, O] f32, the bytes the call must move
+    beyond x and out, and the extra operations of its rotation per row)."""
     import torch
 
-    from paroquant_tpu_torch.kernels import w4_experiments as wx
+    from paroquant_tpu_torch.kernels import rot_matmul as rm, w4_experiments as wx
     from paroquant_tpu_torch.ops.packing import pack_w4_tpu
 
     G = I // S
@@ -1081,6 +1088,8 @@ def w4x_inputs(kernel, I, O, gen, dev, S=128, sz="bf16/bf16", rot_dtype=None, bl
                               lambda x: wx.dma_rot_w4_matmul_plain(x, *ops, Gb=Gb)),
         "rot_w4_matmul_v2": (lambda x: wx.rot_w4_matmul_v2(x, *ops, block_m=block_m or 8),
                              lambda x: wx.rot_w4_matmul_v2_plain(x, *ops)),
+        "rot_w4_matmul": (lambda x: rm.rot_w4_matmul(x, *ops),
+                          lambda x: rm.rot_w4_matmul_plain(x, *ops)),
     }[kernel]
     return run, plain, rotate, wd, extra + G * S * S * rot.element_size(), 2 * I * S
 
@@ -1092,9 +1101,9 @@ ONE_LAUNCH_W4X = ("rot_w4_matmul_b", "rot_w4_matmul_v2", "dma_rot_w4_matmul", "w
 def check_w4_experiments(flush, gen, dev):
     """K10-K13 against their plain versions at the scripts' shape (4096 x
     4096, g128) and dtypes: K10 at M = 1 and 16, K11 at M = 1 with Gb = 1, 2,
-    4, 8, K12 at block_m 8 and 16 with M = 1 and 16, K13 at M = 1, 8, 32;
-    timed beside the bound and torch.matmul on the pre-rotated (K10-K12),
-    dequantized bf16 weight. Each row names its launch plan (splits, tile,
+    4, 8, K12 at block_m 8 and 16 with M = 1 and 16, K13 at M = 1, 8, 32,
+    and K1, K10's control arm, at M = 1 and 16; timed beside the bound and
+    torch.matmul on the pre-rotated (K10-K12, K1), dequantized bf16 weight. Each row names its launch plan (splits, tile,
     rows a block; K11 groups a split), and fails unless two calls give the
     same bits and a call launches one kernel (profiler); K11's rows are
     held to TOL_DEQUANT."""
@@ -1525,8 +1534,8 @@ def check_rot_spills(report):
     (4 row tiles x f32/bf16 x and rot, 16), of K10/K12 (the same for each,
     32), of K8/K11's DQ variant (16), of K7's BF and K13's A8 variants
     (4 row tiles x f32/bf16 x, 8 each), of K9's I4 variant (16), of K1/K2's
-    a8 RA8 variant (16) and of K6's PL variant (8) must report 0 spill
-    bytes in ptxas's lines. The report names each library's kernels after a
+    a8 RA8 variant (16), of K6's PL variant (8) and of K19's BC variant (8)
+    must report 0 spill bytes in ptxas's lines. The report names each library's kernels after a
     line naming its source's log."""
     import re
 
@@ -1538,14 +1547,14 @@ def check_rot_spills(report):
             spills[fn] = (int(re.search(r"(\d+) bytes spill stores", line).group(1))
                           + int(re.search(r"(\d+) bytes spill loads", line).group(1)))
     # the variant is the template's last argument: Li0E (K1), Li1E (K10), Li2E (K12), Li3E (DQ),
-    # Li4E (BF), Li5E (A8), Li6E (I4), Li7E (RA8), Li8E (PL)
+    # Li4E (BF), Li5E (A8), Li6E (I4), Li7E (RA8), Li8E (PL), Li9E (BC)
     by_var = {v: sorted(b for f, b in spills.items() if f.endswith(f"Li{v}EEEvNS0_4ArgsE"))
-              for v in range(9)}
+              for v in range(10)}
     emit({"phase": "rot_spills", "instances": len(spills),
           "spill_bytes": {name: by_var[v] for v, name in enumerate(("k1", "k10", "k12", "dq",
                                                                      "bf", "a8", "i4", "ra8",
-                                                                     "pl"))}})
-    if ([len(b) for b in by_var.values()] != [16, 16, 16, 16, 8, 8, 16, 16, 8]
+                                                                     "pl", "bc"))}})
+    if ([len(b) for b in by_var.values()] != [16, 16, 16, 16, 8, 8, 16, 16, 8, 8]
             or any(spills.values())):
         raise SystemExit(f"the one-launch kernel: {len(spills)} instances, spill bytes {spills}")
 
@@ -1672,69 +1681,133 @@ def kernel_bench(dev):
 # ---------------------------------------------------------------------------
 
 
+def unpack_routed(ux, name, fn):
+    """fn()'s output and the route its one call of K19 or K21 took
+    (`unpack_route_counts`)."""
+    before = dict(ux.unpack_route_counts[name])
+    y = fn()
+    taken = [r for r, n in ux.unpack_route_counts[name].items() if n != before[r]]
+    if len(taken) != 1:
+        raise SystemExit(f"expected one {name} call, counted {taken}")
+    return y, taken[0]
+
+
+def other_unpack_route_ms(ux, rm, run, flush, taken):
+    """run's median time with K19 or K21 sent to the route it did not take
+    (`unpack_route` swapped for the length of the timing): both routes on
+    the same card in the same run."""
+    def route(M, I, S, O, sms):
+        if taken == "one_launch":
+            return "gemv", None
+        return "one_launch", rm.w4_plan(M, I, S, O, sms)
+
+    real = ux.unpack_route
+    ux.unpack_route = route
+    try:
+        return median_ms(run, KERNEL_REPS, flush)
+    finally:
+        ux.unpack_route = real
+
+
+UNPACK_MS = (1, 8, 16)  # K19's and K21's rows (K6's on the same draws beside them)
+
+
 def check_unpack_exp(flush, dev):
     """K18-K22 (the six entry points) against their plain versions on the
-    script's draws (4096 x 4096, M = 1, g128, bf16 x, scales and zeros):
-    K18 bit for bit, the GEMVs within TOL_KERNEL; timed beside the bound and
-    one library call (torch.matmul on the dequantized bf16 weight for the
-    GEMVs; for K18, which no PyTorch call computes, a torch.sum over the
-    same weight bytes, with its share of the HBM rate)."""
+    script's draws (4096 x 4096, g128, bf16 x, scales and zeros; M = 1, and
+    K19, both K21 entries and K6 also at M 8 and 16): K18 bit for bit, the
+    GEMVs within TOL_KERNEL; timed beside the bound and one library call
+    (torch.matmul on the dequantized bf16 weight for the GEMVs; for K18,
+    which no PyTorch call computes, a torch.sum over the same weight bytes,
+    with its share of the HBM rate). Each K19 and K21 row names its route
+    (`unpack_route`), its plan and the other route's time at the same
+    inputs; on the one-launch route it fails unless two calls give the same
+    bits and a call launches one kernel (profiler)."""
     import torch
 
     from paroquant_tpu_torch.kernels import rot_matmul as rm, unpack_exp as ux
     from paroquant_tpu_torch.scripts import kernel_unpack_exp as kue
 
-    d = kue.draws(dev)
-    x, qw, qo, s, z = (d[k] for k in ("x", "qweight", "q_opair", "scales", "zeros"))
-    (M, I), O, S = x.shape, qw.shape[1], 128
-    G = I // S
-    w = ((rm._unpack_groups(qw, G, S) - z.float()[:, None]) * s.float()[:, None])
-    w = w.reshape(I, O).to(torch.bfloat16)
-    gemv_bytes = I * O // 2 + G * O * (s.element_size() + z.element_size()) + M * I * 2 + M * O * 2
-    cases = [("stream_only", lambda: ux.stream_only(x, qw), lambda: ux.stream_only_plain(x, qw),
-              lambda: torch.sum(qw, dim=0, dtype=torch.int32),
-              "torch.sum(qweight, dim=0, dtype=int32): the same weight bytes, another function",
-              I * O // 2 + M * I * 2 + O * 4, 0)]
-    for name in UNPACK[1:]:
-        wt = qo if name == "w4_matmul_bitcast" else qw
-        cases.append((name, lambda f=getattr(ux, name), wt=wt: f(x, wt, s, z),
-                      lambda f=getattr(ux, name.replace("_ce", "") + "_plain"), wt=wt:
-                      f(x, wt, s, z),
-                      lambda: torch.matmul(x, w), "torch.matmul on the dequantized bf16 weight",
-                      gemv_bytes, 2 * M * I * O))
     rows = []
-    for kernel, run, plain, lib, lib_note, nbytes, ops in cases:
-        y, y_ref = run(), plain()
-        torch.cuda.synchronize()
-        err = (y.double() - y_ref.double()).abs().max().item()
-        exact = kernel == "stream_only"
-        tol = 0.0 if exact else TOL_KERNEL * y_ref.float().abs().max().item()
-        ms = median_ms(run, KERNEL_REPS, flush)
-        plain_ms = median_ms(plain, PLAIN_REPS, flush)
-        lib_ms = median_ms(lib, KERNEL_REPS, flush)
-        b_ms, b_by = bound(nbytes, ops, "bf16")
-        row = dict(kernel=kernel, case=f"{I}x{O} M={M} g{S} bf16/bf16", max_abs_err=err, tol=tol,
-                   us=ms * 1e3, plain_us=plain_ms * 1e3, library_us=lib_ms * 1e3,
-                   library=lib_note, bound_us=b_ms * 1e3, bound_by=b_by,
-                   hbm_share=nbytes / (ms * 1e-3) / HBM_BYTES_PER_S,
-                   ok=(err == 0 and y.dtype == y_ref.dtype and y.shape == y_ref.shape) if exact
-                   else err <= tol and bool(torch.isfinite(y).all()))
-        if exact:
-            row["library_hbm_share"] = (I * O // 2) / (lib_ms * 1e-3) / HBM_BYTES_PER_S
-        emit({"phase": "kernel_check", **row})
-        rows.append(row)
+    for M in UNPACK_MS:
+        d = kue.draws(dev, M=M)
+        x, qw, qo, s, z = (d[k] for k in ("x", "qweight", "q_opair", "scales", "zeros"))
+        I, O, S = x.shape[1], qw.shape[1], 128
+        G = I // S
+        w = ((rm._unpack_groups(qw, G, S) - z.float()[:, None]) * s.float()[:, None])
+        w = w.reshape(I, O).to(torch.bfloat16)
+        gemv_bytes = (I * O // 2 + G * O * (s.element_size() + z.element_size()) + M * I * 2
+                      + M * O * 2)
+        cases = []
+        if M == 1:
+            cases.append(("stream_only", lambda: ux.stream_only(x, qw),
+                          lambda: ux.stream_only_plain(x, qw),
+                          lambda: torch.sum(qw, dim=0, dtype=torch.int32),
+                          "torch.sum(qweight, dim=0, dtype=int32): the same weight bytes, another function",
+                          I * O // 2 + M * I * 2 + O * 4, 0))
+        names = UNPACK[1:] if M == 1 else tuple(ux.ONE_LAUNCH_ENTRY)
+        for name in names + ("w4_matmul",):
+            wt = qo if name == "w4_matmul_bitcast" else qw
+            mod = rm if name == "w4_matmul" else ux
+            cases.append((name, lambda f=getattr(mod, name), wt=wt: f(x, wt, s, z),
+                          lambda f=getattr(mod, name.replace("_ce", "") + "_plain"), wt=wt:
+                          f(x, wt, s, z),
+                          lambda: torch.matmul(x, w), "torch.matmul on the dequantized bf16 weight",
+                          gemv_bytes, 2 * M * I * O))
+        for kernel, run, plain, lib, lib_note, nbytes, ops in cases:
+            route = {}
+            if kernel in ux.ONE_LAUNCH_ENTRY:
+                y, taken = unpack_routed(ux, kernel, run)
+                route = dict(route=taken, other_route_us=None)
+                if taken == "one_launch":
+                    KS, tile, rows_per_block, gps = ux.unpack_route(M, I, S, O, rm._sm_count(dev))[1]
+                    route.update(KS=KS, tile=tile, rows_per_block=rows_per_block,
+                                 groups_per_split=gps, bitwise_equal=torch.equal(run(), run()),
+                                 kernels_per_call=kernels_per_call(run))
+                    emit({"phase": "unpack_determinism", "kernel": kernel, "M": M, **route})
+                    if not route["bitwise_equal"] or route["kernels_per_call"] != 1:
+                        raise SystemExit(f"{kernel} M={M}: two calls differ or a call ran "
+                                         f"{route['kernels_per_call']} kernels")
+            else:
+                y = run()
+            y_ref = plain()
+            torch.cuda.synchronize()
+            err = (y.double() - y_ref.double()).abs().max().item()
+            exact = kernel == "stream_only"
+            tol = 0.0 if exact else TOL_KERNEL * y_ref.float().abs().max().item()
+            ms = median_ms(run, KERNEL_REPS, flush)
+            if route:
+                route["other_route_us"] = other_unpack_route_ms(ux, rm, run, flush,
+                                                                route["route"]) * 1e3
+            plain_ms = median_ms(plain, PLAIN_REPS, flush)
+            lib_ms = median_ms(lib, KERNEL_REPS, flush)
+            b_ms, b_by = bound(nbytes, ops, "bf16")
+            row = dict(kernel=kernel, case=f"{I}x{O} M={M} g{S} bf16/bf16", M=M, **route,
+                       max_abs_err=err, tol=tol, us=ms * 1e3, plain_us=plain_ms * 1e3,
+                       library_us=lib_ms * 1e3, library=lib_note, bound_us=b_ms * 1e3,
+                       bound_by=b_by, hbm_share=nbytes / (ms * 1e-3) / HBM_BYTES_PER_S,
+                       ok=(err == 0 and y.dtype == y_ref.dtype and y.shape == y_ref.shape) if exact
+                       else err <= tol and bool(torch.isfinite(y).all()))
+            if exact:
+                row["library_hbm_share"] = (I * O // 2) / (lib_ms * 1e-3) / HBM_BYTES_PER_S
+            emit({"phase": "kernel_check", **row})
+            rows.append(row)
+        del d, x, qw, qo, s, z, w
     return rows
 
 
 def unpack_edges(gen, dev, record, record_exact):
-    """K18-K22 at small shapes, checked and not timed: M 1, 5, 16, 17; I 256
-    and 1024; group sizes 128 and 256; O 256, 384 and 130 (rows that take
-    byte loads); scales/zeros bf16/bf16, bf16/u8, f16/u8, f32/f32; f32 x;
-    K18 bit for bit at Gb 1, 2 and 3 with G = 8 (Gb 3 leaves two groups
-    unread), then its refusal of M = 17."""
+    """K18-K22 at small shapes, checked and not timed: M 1, 5, 8, 16, 17; I
+    256, 384 and 1024; group sizes 96, 128 and 256; O 256, 384, 160 and 130
+    (K19's rows of 65 bytes and the gemv's rows take byte loads); a weight 4
+    bytes past a 16-byte boundary; scales/zeros bf16/bf16, bf16/u8, f16/u8,
+    f32/f32; f32 x; each K19 and K21 call's route checked against
+    `unpack_route` (the one launch to M 16, the gemv at 17); K18 bit for
+    bit at Gb 1, 2 and 3 with G = 8 (Gb 3 leaves two groups unread), then
+    its refusal of M = 17."""
     import torch
 
-    from paroquant_tpu_torch.kernels import unpack_exp as ux
+    from paroquant_tpu_torch.kernels import rot_matmul as rm, unpack_exp as ux
     from paroquant_tpu_torch.ops.packing import pack_w4_tpu
     from paroquant_tpu_torch.scripts.kernel_unpack_exp import pack_w4_opair
 
@@ -1747,17 +1820,37 @@ def unpack_edges(gen, dev, record, record_exact):
         zeros = torch.randint(0, 16, (G, O), generator=gen, device=dev).to(zdt)
         return pack_w4_tpu(q, S), qo, scales, zeros
 
-    for I, S, O in ((256, 128, 256), (1024, 128, 384), (1024, 256, 384), (256, 128, 130)):
+    sms = rm._sm_count(torch.device(dev))
+
+    def call(name, x, wt, s, z, S, case):
+        fn = lambda: getattr(ux, name)(x, wt, s, z, group_size=S)
+        if name in ux.ONE_LAUNCH_ENTRY:
+            y, taken = unpack_routed(ux, name, fn)
+            want = ux.unpack_route(x.shape[0], x.shape[1], S, s.shape[1], sms)[0]
+            if taken != want:
+                raise SystemExit(f"{name} {case}: took {taken}, the rule says {want}")
+            case += f" ({taken})"
+        else:
+            y = fn()
+        record(name, case, y, getattr(ux, name.replace("_ce", "") + "_plain")(x, wt, s, z,
+                                                                              group_size=S))
+
+    for I, S, O in ((256, 128, 256), (1024, 128, 384), (1024, 256, 384), (256, 128, 130),
+                    (384, 96, 160)):
         for sz in W4X_SZ:
             qw, qo, s, z = operands(I, O, S, sz)
-            for M in (1, 5, 16, 17):
+            for M in (1, 5, 8, 16, 17):
                 x = torch.randn(M, I, generator=gen, device=dev).to(torch.bfloat16)
                 for name in UNPACK[1:]:
                     wt = qo if name == "w4_matmul_bitcast" else qw
-                    plain = getattr(ux, name.replace("_ce", "") + "_plain")
-                    record(name, f"I={I} S={S} O={O} s/z={sz} M={M}",
-                           getattr(ux, name)(x, wt, s, z, group_size=S),
-                           plain(x, wt, s, z, group_size=S))
+                    call(name, x, wt, s, z, S, f"I={I} S={S} O={O} s/z={sz} M={M}")
+    qw, qo, s, z = operands(256, 256, 128, "bf16/bf16")
+    for name in UNPACK[1:]:  # the weight 4 bytes past a 16-byte boundary: byte by byte
+        wt = qo if name == "w4_matmul_bitcast" else qw
+        shifted = torch.cat([wt.new_zeros(4), wt.flatten()])[4:].view(wt.shape)
+        for M in (1, 8):
+            x = torch.randn(M, 256, generator=gen, device=dev).to(torch.bfloat16)
+            call(name, x, shifted, s, z, 128, f"weight off 16-byte alignment M={M}")
     qw, qo, s, z = operands(256, 256, 128, "f32/f32")
     x = torch.randn(3, 256, generator=gen, device=dev)
     for name in UNPACK[1:]:
@@ -1807,8 +1900,9 @@ def unpack_exp(dev):
     """Slice 6's path: the ported unpack experiments (kernel_unpack_exp.main
     at 4096 x 4096, M = 1, g128) in this process. The launch counts are
     reset just before and read just after: the six entry points of K18-K22
-    and the control arms K6 and K1 must have run, and every GEMV must agree
-    with K6 within TOL_KERNEL."""
+    and the control arms K6 and K1 must have run, K19 and both K21 entries
+    on the one-launch route at every call, and every GEMV must agree with K6
+    within TOL_KERNEL."""
     import torch
 
     from paroquant_tpu_torch.kernels import rot_matmul as rm, unpack_exp as ux
@@ -1823,14 +1917,17 @@ def unpack_exp(dev):
     wall = time.perf_counter() - t0
     counts = {k: ux.launch_counts[k] for k in UNPACK}
     counts.update({k: rm.launch_counts[k] for k in ("w4_matmul", "rot_w4_matmul")})
+    routes = {k: dict(v) for k, v in ux.unpack_route_counts.items()}
     for row in rows:
         emit({"phase": "kernel_bench", "script": "kernel_unpack_exp", **row})
-    emit({"phase": "unpack_exp_launches", "counts": counts, "max_rel_err_vs_baseline": errs,
-          "bound": TOL_KERNEL, "wall_s": wall})
+    emit({"phase": "unpack_exp_launches", "counts": counts, "routes": routes,
+          "max_rel_err_vs_baseline": errs, "bound": TOL_KERNEL, "wall_s": wall})
     missing = [k for k, c in counts.items() if c == 0]
     off = {k: e for k, e in errs.items() if not e <= TOL_KERNEL}
-    if missing or off:
-        raise SystemExit(f"unpack_exp: not launched: {missing}; off the baseline: {off}")
+    off_route = {k: r for k, r in routes.items() if r["gemv"] or r["one_launch"] != counts[k]}
+    if missing or off or off_route:
+        raise SystemExit(f"unpack_exp: not launched: {missing}; off the baseline: {off}; "
+                         f"off the one launch: {off_route}")
     return counts
 
 
@@ -2717,6 +2814,10 @@ def main() -> int:
     check_sass("libw4_plain.so", ("LDG.E.128", "LDGSTS"),
                (("rot_w4_one_launch_kernel", "LDG.E.128", 8),
                 ("rot_w4_one_launch_kernel", "LDGSTS", 8)))
+    # and K19's BC (8)
+    check_sass("libw4_opair.so", ("LDG.E.128", "LDGSTS"),
+               (("rot_w4_one_launch_kernel", "LDG.E.128", 8),
+                ("rot_w4_one_launch_kernel", "LDGSTS", 8)))
     # and K8/K11's DQ instances, with the dequant's two roundings
     check_dequant_sass()
 
@@ -2801,12 +2902,16 @@ def main() -> int:
           for name, line, case in (("narrow_cast", 49, "8x128"), ("int8_dot", 69, "8x4096x4096"),
                                    ("fused_unpack_int8_dot", 95, "8x256->512"),
                                    ("bf16_dot", 117, "8x4096x4096"))),
-        # w4_matmul_splitdot_ce and w4_matmul_splitdot launch the same kernel
-        *(entry(name, UNPACK_SRC, f"scripts/kernel_unpack_exp.py:{line}",
-                pick(ux_rows, kernel=name))
-          for name, line in (("stream_only", 70), ("w4_matmul_bitcast", 126),
-                             ("w4_matmul_mulfloor", 177), ("w4_matmul_splitdot_ce", 229),
-                             ("w4_matmul_splitdot", 260), ("w4_matmul_i8", 310))),
+        # K19 on BC (w4_opair.cu); w4_matmul_splitdot_ce and w4_matmul_splitdot
+        # launch the same kernel, K6's PL (w4_plain.cu), at M <= 16
+        *(entry(name, src, f"scripts/kernel_unpack_exp.py:{line}",
+                pick(ux_rows, kernel=name, M=1))
+          for name, src, line in (("stream_only", UNPACK_SRC, 70),
+                                  ("w4_matmul_bitcast", OPAIR_SRC, 126),
+                                  ("w4_matmul_mulfloor", UNPACK_SRC, 177),
+                                  ("w4_matmul_splitdot_ce", PLAIN_SRC, 229),
+                                  ("w4_matmul_splitdot", PLAIN_SRC, 260),
+                                  ("w4_matmul_i8", UNPACK_SRC, 310))),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

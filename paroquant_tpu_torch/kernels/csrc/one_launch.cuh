@@ -1,12 +1,12 @@
 // The one-launch W4 GEMV for Hopper (sm_90a), shared by K1/K2's W4A16 decode
 // route (rot_w4_matmul.cu), by K10/K12 and K13 (w4_experiments.cu), by K8/K11
 // (rot_w4_dequant.cu), by K7 and K9 (w4_variants.cu), by K1/K2's a8 route
-// (rot_w4_a8.cu) and by K6 (w4_plain.cu).
+// (rot_w4_a8.cu), by K6 and K21 (w4_plain.cu) and by K19 (w4_opair.cu).
 //
 //   xr_g[m]   = bf16(x_g[m] @ M_g^T)
 //   out[m, o] = sum_g (xr_g[m] . q_g[:, o] - rowsum_g[m] * z[g, o]) * s[g, o]
 //
-// Nine variants of that function, a template switch each (Variant):
+// Ten variants of that function, a template switch each (Variant):
 //               x before the rotation   rowsum_g             out
 //   K1          rounded to rot's dtype  of the bf16 xr_g     x's dtype
 //   K10 (B)     rounded to rot's dtype  of the f32 xr_g      x's dtype
@@ -23,6 +23,8 @@
 //   (RA8)       (row, group); out = sum_g ((xq_g . q_g - sum(xq_g) z) s) sx
 //   K6 (PL)     no rotation: xr_g = bf16(x_g), rowsum of it, as BF without
 //               tables
+//   K19 (BC)    as PL, on the output-pair layout u8 [I, O/2]: byte (i, j)
+//               holds columns 2j (low nibble) and 2j + 1 of channel i
 // (K10 replaces scripts/kernel_edge_test.py::rot_w4_matmul_b, K12
 // scripts/kernel_tune.py::rot_w4_matmul_v2, DQ both
 // paroquant_tpu/kernels/rot_matmul.py::rot_w4_matmul_mg and
@@ -60,7 +62,19 @@
 // reads the current one; each tile's splits merge in split order behind its
 // counter.
 // PL (paroquant_tpu/kernels/rot_matmul.py::w4_matmul) is BF with no tables
-// and no stages.
+// and no stages; it also takes K21 (scripts/kernel_unpack_exp.py::
+// w4_matmul_splitdot), whose split dot (low nibbles against a group's first
+// S/2 channels, high ones against the rest) PL's dot already is. BC
+// (scripts/kernel_unpack_exp.py::w4_matmul_bitcast) is PL on the output-pair
+// layout: a group of a tile is S byte-rows of TW/2 bytes (PL's: S/2 of TW),
+// so a 4 KB stage holds 2 STAGE / TW byte-rows, each one channel, and xr is
+// kept in channel order; a warp takes byte-rows in pairs, so that a float2
+// of xr serves two of them as in PL. Its unpack is the card's counterpart of the TPU's
+// u8 -> u4 bitcast, the exponent-bias trick: lane l reads the 2 bytes of its
+// columns 4l..4l+3, spreads them to bits 0-7 and 16-23 of a word (one byte
+// permute), and ((w >> 4t) & 0x000F000F) | 0x43004300 is the bf16 pair 128 +
+// n of columns (t, t + 2), from which one bf16x2 subtraction of 128 gives the
+// nibbles exactly; the columns go back to their order before the scale.
 //
 // Bound on this card: at M <= 16 the weight stream, I*O/2 bytes of nibbles
 // plus the scales and zeros, so HBM bandwidth; at 1-8 MB of weight, the
@@ -120,7 +134,7 @@ namespace one {
 using w4::Parts;
 using w4::load_f32;
 
-enum Variant { K1 = 0, B = 1, V2 = 2, DQ = 3, BF = 4, A8 = 5, I4 = 6, RA8 = 7, PL = 8 };
+enum Variant { K1 = 0, B = 1, V2 = 2, DQ = 3, BF = 4, A8 = 5, I4 = 6, RA8 = 7, PL = 8, BC = 9 };
 
 constexpr int THREADS = 256;
 constexpr int NWARPS = THREADS / 32;
@@ -202,6 +216,16 @@ __device__ __forceinline__ void dequant_pair(uint32_t nib, uint32_t s2, uint32_t
   asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(w) : "r"(w), "r"(s2));
   lo = __uint_as_float(w << 16);
   hi = __uint_as_float(w & 0xffff0000u);
+}
+
+// BC's nibbles at bits 0-3 and 16-19 of w as floats: (w & 0x000F000F) |
+// 0x43004300 is the bf16 pair 128 + n, and one bf16x2 subtraction of 128
+// (exact: the bf16 ulp at 128 is 1) gives n
+__device__ __forceinline__ void bias_pair(uint32_t w, float& lo, float& hi) {
+  uint32_t n;
+  asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(n) : "r"((w & 0x000F000Fu) | 0x43004300u), "r"(0x43004300u));
+  lo = __uint_as_float(n << 16);
+  hi = __uint_as_float(n & 0xffff0000u);
 }
 
 // the merge's sums, split k's partial t in split order: DQ adds it into its
@@ -336,6 +360,19 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
         } else {
           for (int b = 0; b < 16; ++b)
             dst[b] = r < nrows && wci + b < col_end ? wbase[(size_t)r * O + wci + b] : 0;
+        }
+      }
+    } else if constexpr (VAR == BC) {  // BC: stage c holds byte-rows [2c CR, 2(c+1) CR) of TW/2 bytes
+      if (c < nchunks) {
+        uint8_t* dst = ring + (c % NST) * STAGE + tid * 16;
+        const int r = 2 * c * CR + tid / (TW / 32), rb = O / 2;  // the row, the bytes of a global row
+        const int wb = col0 / 2 + (tid % (TW / 32)) * 16;
+        if (a.vec16) {  // a piece lies wholly inside or wholly outside the row
+          const bool ok = r < 2 * nrows && wb < rb;
+          cp_async16(dst, ok ? wbase + (size_t)r * rb + wb : a.qw, ok ? 16 : 0);
+        } else {
+          for (int b = 0; b < 16; ++b)
+            dst[b] = r < 2 * nrows && wb + b < rb ? wbase[(size_t)r * rb + wb + b] : 0;
         }
       }
     } else {
@@ -544,6 +581,8 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
     }
   } else if constexpr (VAR == PL) {  // xr_g = bf16(x_g), at its pair slot
     for (int e = tid; e < nx; e += THREADS) xr2[e - e % S + pair_slot(e % S)] = round_to<bf16>(xs[e]);
+  } else if constexpr (VAR == BC) {  // xr_g = bf16(x_g), in channel order: a byte-row is one channel
+    for (int e = tid; e < nx; e += THREADS) xr2[e] = round_to<bf16>(xs[e]);
   } else if (a.rvec) {
     for (int step = 0; step < nsteps; ++step) {
       if (step > 0) fetch(step);
@@ -876,6 +915,34 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
         }
         if (++a8_k == HALF) a8_close(a8_gl++), a8_k = 0;  // the group's last row
       }
+    } else if constexpr (VAR == BC) {
+#pragma unroll
+      for (int rr = 0; rr < STAGE / WARP_COLS / NWARPS; ++rr) {  // CR / WPC pairs of byte-rows a warp
+        const int rl = 2 * (wi + WPC * rr);  // byte-rows rl and rl + 1 of the stage
+        const int r = 2 * c * CR + rl;       // channels r, r + 1 of the block's groups: one group (S even)
+        if (r >= 2 * nrows) break;           // uniform across the warp
+        const int gl = r / S, k = r - gl * S;
+        const float4 s4 = *reinterpret_cast<const float4*>(ss + gl * TW + c4);
+        float wq[2][4];  // the weight of channels r and r + 1 in the lane's columns: q s
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // the lane's 2 bytes to bits 0-7 and 16-23: columns (c4, c4 + 2) at
+          // bits 0-3 and 16-19, (c4 + 1, c4 + 3) four bits up
+          const uint32_t w = __byte_perm(
+              *reinterpret_cast<const uint16_t*>(stage + (rl + h) * (TW / 2) + c4 / 2), 0u, 0x4140);
+          float n[4];
+          bias_pair(w, n[0], n[2]);
+          bias_pair(w >> 4, n[1], n[3]);
+          wq[h][0] = n[0] * s4.x, wq[h][1] = n[1] * s4.y, wq[h][2] = n[2] * s4.z, wq[h][3] = n[3] * s4.w;
+        }
+        const float2* xv = reinterpret_cast<const float2*>(xr2 + (size_t)gl * MT * S + k);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const float2 xx = xv[m * S / 2];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) tot[m][j] = fmaf(xx.y, wq[1][j], fmaf(xx.x, wq[0][j], tot[m][j]));
+        }
+      }
     } else {
 #pragma unroll
       for (int rr = 0; rr < STAGE / WARP_COLS / NWARPS; ++rr) {  // CR / WPC rows a warp
@@ -1089,8 +1156,9 @@ cudaError_t launch(const Args& a, int MT, int n_tiles, int KS, cudaStream_t st) 
 // groups in at most MAX_SMEM bytes with the variant's tables; partial f32
 // [KS, M, O] when KS > 1 and counters int32, one per (column tile, row
 // tile), zero (and left zero). BF takes no rot but inv_s [I] and cos_t,
-// sin_t [K, I] (f32; S a power of two where K > 0), A8 and PL no rot; the
-// three one partition, and A8 tiles of A8_TW columns. RA8 takes S a
+// sin_t [K, I] (f32; S a power of two where K > 0), A8, PL and BC no rot;
+// the four one partition, A8 tiles of A8_TW columns, and BC qweight u8
+// [I, O/2] in output pairs (O even). RA8 takes S a
 // multiple of 8 and tiles of A8_TW columns in runs of tpb tiles of one
 // partition (tpb 1 elsewhere; its merge lists a run's tiles in the ring's
 // words): a block a run, a counter a (row tile, column tile).
@@ -1105,7 +1173,9 @@ cudaError_t call(const void* x, const void* rot, const void* qweight, const void
   Parts parts;
   int vec4;
   if (w4::bad_layout(M, I, S, KS, sdt, zdt) || !w4::make_parts(P, splits, parts, vec4) ||
-      (cw != 1 && cw != 2 && cw != 4) || ((VAR == BF || VAR == A8 || VAR == PL) && P != 1) ||
+      (cw != 1 && cw != 2 && cw != 4) ||
+      ((VAR == BF || VAR == A8 || VAR == PL || VAR == BC) && P != 1) ||
+      (VAR == BC && splits[0] % 2 != 0) ||
       (VAR == BF && (inv_s == nullptr || K < 0 ||
                      (K > 0 && ((S & (S - 1)) != 0 || cos_t == nullptr || sin_t == nullptr)))) ||
       ((VAR == A8 || VAR == RA8) && cw * WARP_COLS != A8_TW) || tpb < 1 || (VAR != RA8 && tpb != 1) ||
@@ -1148,7 +1218,7 @@ cudaError_t call(const void* x, const void* rot, const void* qweight, const void
   a.chunk = VAR == DQ ? chunk : G;
   a.spc = spc;
   a.vec16 = (uintptr_t)qweight % 16 == 0;
-  for (int p = 0; p < P; ++p) a.vec16 &= splits[p] % 16 == 0;
+  for (int p = 0; p < P; ++p) a.vec16 &= (VAR == BC ? splits[p] / 2 : splits[p]) % 16 == 0;
   a.rvec = (S * (rot_is_bf16 ? 2 : 4)) % 16 == 0 && (uintptr_t)rot % 16 == 0;
   a.parts = parts;
   a.inv_s = static_cast<const float*>(inv_s);
@@ -1157,7 +1227,7 @@ cudaError_t call(const void* x, const void* rot, const void* qweight, const void
   a.K = K;
   a.tpb = tpb;
   const int n_tiles = parts.tile_base[P];
-  if constexpr (VAR == BF || VAR == A8 || VAR == PL) {  // no rotation matrix: one instance per x dtype
+  if constexpr (VAR == BF || VAR == A8 || VAR == PL || VAR == BC) {  // no rotation matrix: one instance per x dtype
     if (VAR == BF)
       a.rvec = S % 4 == 0 && ((uintptr_t)inv_s | (uintptr_t)cos_t | (uintptr_t)sin_t) % 16 == 0;
     return x_is_bf16 ? launch<bf16, float, VAR>(a, MT, n_tiles, KS, st)

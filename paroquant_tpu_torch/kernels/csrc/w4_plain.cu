@@ -2,9 +2,18 @@
 //
 // Replaces paroquant_tpu/kernels/rot_matmul.py::w4_matmul (_kernel_plain) at
 // M <= 16 (kernels/rot_matmul.py::w4_route; the passes of w4_variants.cu
-// take the rest):
+// take the rest), and scripts/kernel_unpack_exp.py::w4_matmul_splitdot and
+// w4_matmul_splitdot_ce (_kernel_splitdot) at M <= 16
+// (kernels/unpack_exp.py::unpack_route; the gemv of unpack_exp.cu takes the
+// rest):
 //
 //   xr_g = bf16(x_g);  out = sum_g (xr_g . q_g - rowsum(xr_g) z_g) s_g   in x's dtype
+//
+// _kernel_splitdot is _kernel_plain with the group's dot split in two (low
+// nibbles against its first S/2 channels, high ones against the rest), and
+// PL's dot is that split dot already: each byte-row's low nibbles against
+// channel k, its high ones against channel S/2 + k, the scale folded into
+// the nibbles. The TPU's concatenate has no counterpart here.
 //
 // Bound on this card: the weight stream, I*O/2 bytes of nibbles plus the
 // scales and zeros, so HBM bandwidth. Design: the PL variant of the

@@ -27,6 +27,16 @@ launches the CUDA kernel for tensors on a CUDA device and runs the plain
 PyTorch version for tensors on the CPU. A failed build or launch raises;
 nothing falls back. Each CUDA call adds one to `launch_counts[name]`, the
 two splitdot entry points apart.
+
+On the card `unpack_route` picks, from shapes alone, K19's and K21's
+kernel: at M <= 16, where one group fits a block, one launch of the
+one-launch kernel (csrc/one_launch.cuh) on `w4_plan`'s plan, K19 on its BC
+variant (csrc/w4_opair.cu: the output-pair layout, the bitcast's
+exponent-bias unpack) and K21 on K6's PL variant (csrc/w4_plain.cu), whose
+dot is K21's split dot already (low nibbles against the group's first S/2
+channels, high ones against the rest; the scale folded into the nibbles);
+every other call takes this file's gemv (csrc/unpack_exp.cu), which K20 and
+K22 always take. Each such call adds one to `unpack_route_counts[name][route]`.
 """
 
 from __future__ import annotations
@@ -36,7 +46,8 @@ import ctypes
 import torch
 
 from .build import load
-from .rot_matmul import SZ_CODES, _check_operands, _group_splits, _raise_on, _sm_count
+from .rot_matmul import (COLS_PER_TILE, SZ_CODES, _check_operands, _counters, _group_splits,
+                         _raise_on, _sm_count, w4_route)
 
 KERNELS = ("stream_only", "w4_matmul_bitcast", "w4_matmul_mulfloor", "w4_matmul_splitdot_ce",
            "w4_matmul_splitdot", "w4_matmul_i8")
@@ -46,6 +57,13 @@ TILE_BYTES = 512  # bytes of a byte-row one CUDA block owns
 MODES = {"w4_matmul_mulfloor": 0, "w4_matmul_splitdot_ce": 1, "w4_matmul_splitdot": 1,
          "w4_matmul_i8": 2, "w4_matmul_bitcast": 3}
 SINK_KEY = 0x9E3779B9  # K18 writes its scratch word only when its loads fold to this
+ONE_LAUNCH_ENTRY = {  # the kernels `unpack_route` may send to the one-launch kernel: its entry
+    "w4_matmul_bitcast": "paro_w4_opair_one_launch",  # K19: the BC variant
+    "w4_matmul_splitdot_ce": "paro_w4_matmul_one_launch",  # K21: K6's PL variant
+    "w4_matmul_splitdot": "paro_w4_matmul_one_launch",
+}
+ROUTES = ("one_launch", "gemv")
+unpack_route_counts = {name: dict.fromkeys(ROUTES, 0) for name in ONE_LAUNCH_ENTRY}
 
 F32, BF16 = torch.float32, torch.bfloat16
 
@@ -53,6 +71,21 @@ F32, BF16 = torch.float32, torch.bfloat16
 def reset_launch_counts() -> None:
     for name in KERNELS:
         launch_counts[name] = 0
+    for name in ONE_LAUNCH_ENTRY:
+        unpack_route_counts[name] = dict.fromkeys(ROUTES, 0)
+
+
+def unpack_route(M: int, I: int, S: int, O: int, sms: int):
+    """K19's and K21's route on a card of `sms` SMs, from shapes alone:
+    ("one_launch", `w4_plan`'s plan (KS splits, column-tile width, rows per
+    block, groups per split)) or ("gemv", None). K6's rule
+    (`rot_matmul.w4_route`): the one-launch kernel takes M <= 16 rows where
+    one group fits a block's shared memory. A group of K19's output-pair
+    layout takes a tile's bytes as PL's does, so the plan is K6's (at 4096 x
+    4096, M 1: 32 splits of one group, 512 columns, 256 blocks). Every other
+    call takes the gemv."""
+    route, plan = w4_route(M, I, S, O, sms)
+    return ("one_launch", plan) if route == "one_launch" else ("gemv", None)
 
 
 # ---------------------------------------------------------------------------
@@ -147,17 +180,20 @@ def w4_matmul_bitcast_plain(x, qweight_opair, scales, zeros, *, group_size: int 
 # ---------------------------------------------------------------------------
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {  # entry point: argument types (csrc/unpack_exp.cu), the stream last
-    "paro_unpack_gemv": [_P] * 6 + [_I] * 9 + [_P],
-    "paro_stream_only": [_P] * 4 + [ctypes.c_uint] + [_I] * 6 + [_P],
+_SIGNATURES = {  # entry point: (source stem, argument types), the stream last
+    "paro_unpack_gemv": ("unpack_exp", [_P] * 6 + [_I] * 9 + [_P]),
+    "paro_stream_only": ("unpack_exp", [_P] * 4 + [ctypes.c_uint] + [_I] * 6 + [_P]),
+    "paro_w4_opair_one_launch": ("w4_opair", [_P] * 7 + [_I] * 9 + [_P]),
+    "paro_w4_matmul_one_launch": ("w4_plain", [_P] * 7 + [_I] * 9 + [_P]),
 }
 _fns: dict[str, object] = {}
 
 
 def _lib_fn(entry: str):
     if entry not in _fns:
-        fn = getattr(load("unpack_exp"), entry)
-        fn.argtypes = _SIGNATURES[entry]
+        stem, argtypes = _SIGNATURES[entry]
+        fn = getattr(load(stem), entry)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _fns[entry] = fn
     return _fns[entry]
@@ -174,17 +210,31 @@ def _launch_gemv(name, x, qweight, scales, zeros, S):
                              f"got {tuple(qweight.shape)}")
         qweight = qweight.reshape(I // 2, O)  # the same bytes, in the shape the checks take
     x, qweight, scales, zeros, _ = _check_operands(x, qweight, scales, zeros, S, G)
-    row_bytes = O // 2 if opair else O
+    fns = {"gemv": _lib_fn("paro_unpack_gemv")}  # before the device is queried
+    if name in ONE_LAUNCH_ENTRY:
+        fns["one_launch"] = _lib_fn(ONE_LAUNCH_ENTRY[name])
     dev = x.device
-    KS = _group_splits(-(-row_bytes // TILE_BYTES), M, G, _sm_count(dev))
+    route, plan = (unpack_route(M, I, S, O, _sm_count(dev)) if name in ONE_LAUNCH_ENTRY
+                   else ("gemv", None))
     out = torch.empty((M, O), dtype=x.dtype, device=dev)
-    partial = torch.empty((KS, M, O) if KS > 1 else (0,), dtype=F32, device=dev)
-    err = _lib_fn("paro_unpack_gemv")(
-        x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(), out.data_ptr(),
-        partial.data_ptr(), MODES[name], M, I, S, O, KS, int(x.dtype == BF16),
-        SZ_CODES[scales.dtype], SZ_CODES[zeros.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    sz = (int(x.dtype == BF16), SZ_CODES[scales.dtype], SZ_CODES[zeros.dtype],
+          torch.cuda.current_stream(dev).cuda_stream)
+    ptrs = (x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(), out.data_ptr())
+    if route == "one_launch":
+        KS, tile, mt, _ = plan
+        partial = torch.empty((KS, M, O) if KS > 1 else (0,), dtype=F32, device=dev)
+        counters = _counters(-(-O // tile) * -(-M // mt), dev) if KS > 1 else partial
+        err = fns[route](*ptrs, partial.data_ptr(), counters.data_ptr(), M, I, S, O, KS,
+                         tile // COLS_PER_TILE, *sz)
+    else:
+        row_bytes = O // 2 if opair else O
+        KS = _group_splits(-(-row_bytes // TILE_BYTES), M, G, _sm_count(dev))
+        partial = torch.empty((KS, M, O) if KS > 1 else (0,), dtype=F32, device=dev)
+        err = fns[route](*ptrs, partial.data_ptr(), MODES[name], M, I, S, O, KS, *sz)
     _raise_on(err, name)
     launch_counts[name] += 1
+    if name in ONE_LAUNCH_ENTRY:
+        unpack_route_counts[name][route] += 1
     return out
 
 
@@ -225,7 +275,8 @@ def stream_only(x, qweight, *, group_size: int = 128, groups_per_step: int = 1) 
 
 def w4_matmul_bitcast(x, qweight_opair, scales, zeros, *, group_size: int = 128) -> torch.Tensor:
     """K19: x [M, I]; qweight_opair uint8 [I, O//2]; scales, zeros
-    [I//group_size, O] -> [M, O] in x.dtype."""
+    [I//group_size, O] -> [M, O] in x.dtype. On the card `unpack_route`
+    picks the BC variant of the one-launch kernel or the gemv."""
     if x.device.type == "cpu":
         return w4_matmul_bitcast_plain(x, qweight_opair, scales, zeros, group_size=group_size)
     return _launch_gemv("w4_matmul_bitcast", x, qweight_opair, scales, zeros, group_size)
@@ -241,14 +292,17 @@ def w4_matmul_mulfloor(x, qweight, scales, zeros, *, group_size: int = 128) -> t
 
 def w4_matmul_splitdot_ce(x, qweight, scales, zeros, *, group_size: int = 128) -> torch.Tensor:
     """K21 under the name of the JAX call that carries a `pl.CostEstimate`,
-    a TPU scheduling hint with no counterpart on the card: K20's operands."""
+    a TPU scheduling hint with no counterpart on the card: K20's operands.
+    On the card `unpack_route` picks K6's PL variant of the one-launch kernel
+    or the gemv."""
     if x.device.type == "cpu":
         return w4_matmul_splitdot_plain(x, qweight, scales, zeros, group_size=group_size)
     return _launch_gemv("w4_matmul_splitdot_ce", x, qweight, scales, zeros, group_size)
 
 
 def w4_matmul_splitdot(x, qweight, scales, zeros, *, group_size: int = 128) -> torch.Tensor:
-    """K21: K20's operands."""
+    """K21: K20's operands. On the card `unpack_route` picks K6's PL variant
+    of the one-launch kernel or the gemv."""
     if x.device.type == "cpu":
         return w4_matmul_splitdot_plain(x, qweight, scales, zeros, group_size=group_size)
     return _launch_gemv("w4_matmul_splitdot", x, qweight, scales, zeros, group_size)

@@ -28,7 +28,7 @@ from pathlib import Path
 from ..kernels import build
 
 ONE_LAUNCH_SOURCES = ("rot_w4_matmul", "w4_experiments", "rot_w4_dequant", "w4_variants",
-                      "rot_w4_a8", "w4_plain")
+                      "rot_w4_a8", "w4_plain", "w4_opair")
 KERNEL = "rot_w4_one_launch_kernel"
 
 

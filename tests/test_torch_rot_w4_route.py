@@ -34,6 +34,7 @@ import torch
 
 from paroquant_tpu.kernels import rot_matmul as jk
 from paroquant_tpu_torch.kernels import rot_matmul as tk
+from paroquant_tpu_torch.kernels import unpack_exp as ux
 from test_torch_rot_w4_flips import rot_tolerance
 
 SMS = 132  # an H100 SXM's SMs
@@ -176,16 +177,21 @@ def one_launch_model(x, rot, qweight, scales, zeros, out_splits, KS, variant="k1
     xr32_g = x_g @ rot[p, g]^T in f32, not rounded to bf16; per (row, group)
     sx = max |xr32_g| / 127 (1 where 0) and xq = round(xr32_g / sx); the
     partial the sum, in group order, of ((xq_g @ q_g - sum(xq_g) z_g) s_g) sx,
-    each operation rounded apart and the dot exact) or "pl" (K6: no rot;
-    xr_g = bf16(x_g), then K1's partial)."""
+    each operation rounded apart and the dot exact), "pl" (K6 and K21: no
+    rot; xr_g = bf16(x_g), then K1's partial) or "bc" (K19: "pl" on a
+    qweight in the output-pair layout uint8 [I, O//2], byte (i, j) holding
+    columns 2j and 2j + 1 of channel i; xr per channel)."""
     M, I = x.shape
-    if variant in ("bf", "a8", "pl"):  # no rotation matrix: one partition
+    if variant in ("bf", "a8", "pl", "bc"):  # no rotation matrix: one partition
         P, G = 1, scales.shape[0]
         S = I // G
     else:
         P, G, S, _ = rot.shape
-    unpack = tk._unpack_interleaved if variant == "i4" else tk._unpack_groups
-    q = unpack(qweight, G, S)  # [G, S, O] nibble values
+    if variant == "bc":
+        q = ux.unpack_opair(qweight).to(torch.float32).reshape(G, S, -1)
+    else:
+        unpack = tk._unpack_interleaved if variant == "i4" else tk._unpack_groups
+        q = unpack(qweight, G, S)  # [G, S, O] nibble values
     dq = variant == "dq"
     if dq:
         xg, rot = tk._bf16(x).reshape(M, G, S), tk._bf16(rot)
@@ -197,7 +203,7 @@ def one_launch_model(x, rot, qweight, scales, zeros, out_splits, KS, variant="k1
         xg = x.to(torch.float32).reshape(M, G, S)
         sx, xg = _a8_quantize(xg)
         s_all, z_all = scales.to(torch.float32), zeros.to(torch.float32)
-    elif variant == "pl":
+    elif variant in ("pl", "bc"):
         xg = x.to(torch.float32).reshape(M, G, S)
         s_all, z_all = scales.to(torch.float32), zeros.to(torch.float32)
     else:
@@ -216,7 +222,8 @@ def one_launch_model(x, rot, qweight, scales, zeros, out_splits, KS, variant="k1
                     dot = xg[:, g] @ q[g][:, cols]  # integers below 2**24: exact
                     part = part + (dot - xg[:, g].sum(-1, keepdim=True) * z) * (s * sx[:, g])
                     continue
-                xr32 = xg[:, g] if variant in ("bf", "pl") else xg[:, g] @ rot[p, g].to(torch.float32).T
+                xr32 = (xg[:, g] if variant in ("bf", "pl", "bc")
+                        else xg[:, g] @ rot[p, g].to(torch.float32).T)
                 if variant == "ra8":
                     sxg, xq = _a8_quantize(xr32)
                     dot = xq @ q[g][:, cols]  # integers below 2**24: exact

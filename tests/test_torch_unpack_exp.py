@@ -6,14 +6,27 @@ package): it is loaded by path, and `jax.experimental.pallas.pallas_call` is
 replaced by its interpret-mode partial before the first trace (a jitted
 function keeps its first trace, so the replacement must come first).
 
-Tolerances: the GEMVs within one bf16 ulp (2**-7) of max |y| of the JAX
-output (the nibbles are exact everywhere; only the order of the f32 sums
-differs), plus 2e-3 for the rotated control arm, where a bf16 rounding of a
-rotated activation can flip; `stream_only` and the packing bit for bit.
+On the card K19 and K21 take the one-launch kernel at M <= 16
+(`unpack_route`): K19 its BC variant, K21 K6's PL variant. Those kernels run
+only on the card; `one_launch_model` (tests/test_torch_rot_w4_route.py,
+variants "bc" and "pl") models their sums, per split an f32 partial over its
+groups with the scale folded into the nibbles, the partials summed in split
+order, and is held here against JAX's `w4_matmul_bitcast`,
+`w4_matmul_splitdot` and `w4_matmul_splitdot_ce` in interpret mode. BC's
+exponent-bias unpack is modelled bit for bit in torch (`bias_unpack`). The
+route, its plan and the wrappers' launches are checked on meta tensors with
+the library replaced by a recorder.
+
+Tolerances: the GEMVs (and the models) within one bf16 ulp (2**-7) of max
+|y| of the JAX output (the nibbles are exact everywhere; only the order of
+the f32 sums differs), plus 2e-3 for the rotated control arm, where a bf16
+rounding of a rotated activation can flip; `stream_only`, the packing and
+the unpack bit for bit.
 """
 
 import functools
 import importlib.util
+import types
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -24,14 +37,16 @@ from jax.experimental import pallas as pl
 
 from paroquant_tpu.kernels import rot_matmul as jk
 from paroquant_tpu.ops.packing import pack_w4_tpu
-from paroquant_tpu_torch.kernels import unpack_exp as ux
+from paroquant_tpu_torch.kernels import rot_matmul as rm, unpack_exp as ux
 from paroquant_tpu_torch.scripts import kernel_unpack_exp
+from test_torch_rot_w4_route import SMS, one_launch_model
 
 SCRIPT = Path(__file__).resolve().parent.parent / "scripts" / "kernel_unpack_exp.py"
 O, S = 256, 128
 BF16_ULP = 2.0**-7
 ROT_TOL = BF16_ULP + 2e-3
 JNP = {"f32": jnp.float32, "bf16": jnp.bfloat16, "u8": jnp.uint8}
+WAVE = 2 * SMS  # the one-launch kernel's blocks resident at two an SM
 TORCH = {"f32": torch.float32, "bf16": torch.bfloat16, "u8": torch.uint8}
 GEMVS = ("w4_matmul_bitcast", "w4_matmul_mulfloor", "w4_matmul_splitdot_ce",
          "w4_matmul_splitdot", "w4_matmul_i8")
@@ -66,16 +81,16 @@ def _close(yt, yj, rel, what=""):
                                err_msg=what)
 
 
-def _operands(seed, M, n_in, sz, js):
+def _operands(seed, M, n_in, sz, js, xk="bf16", gs=S):
     """x, the half-split and output-pair weights, scales and zeros."""
     rng = np.random.default_rng(seed)
-    G = n_in // S
+    G = n_in // gs
     x = rng.normal(size=(M, n_in)).astype(np.float32)
     q = rng.integers(0, 16, (n_in, O), dtype=np.int32)
     scales = rng.uniform(0.01, 0.05, (G, O)).astype(np.float32)
     zeros = rng.integers(0, 16, (G, O)).astype(np.float32)
-    return dict(x=_pair(x, "bf16"), qweight=_pair(np.asarray(pack_w4_tpu(q, S)), "u8"),
-                q_opair=_pair(js.pack_w4_opair(q, S), "u8"), scales=_pair(scales, sz[0]),
+    return dict(x=_pair(x, xk), qweight=_pair(np.asarray(pack_w4_tpu(q, gs)), "u8"),
+                q_opair=_pair(js.pack_w4_opair(q, gs), "u8"), scales=_pair(scales, sz[0]),
                 zeros=_pair(zeros, sz[1]))
 
 
@@ -130,6 +145,178 @@ def test_pack_w4_opair_matches_jax(js):
     assert got.dtype == want.dtype == np.uint8
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(ux.unpack_opair(torch.from_numpy(got)).numpy(), q)
+
+
+# ---------------------------------------------------------------------------
+# K19 on the BC variant and K21 on PL: the kernels' models against JAX
+# ---------------------------------------------------------------------------
+
+SZ3 = (("bf16", "bf16"), ("bf16", "u8"), ("f32", "f32"))
+BC_CASES = [(M, gs, xk) for M in (1, 5, 16) for gs in (128, 256) for xk in ("bf16", "f32")]
+
+
+@pytest.mark.parametrize("M,gs,xk", BC_CASES)
+def test_bc_model_matches_jax_bitcast(js, interpret, M, gs, xk):
+    """K19's one launch: the output-pair layout, xr per channel, the splits
+    merged in split order, at the plan's split count and at one and two
+    groups a split."""
+    i = BC_CASES.index((M, gs, xk))
+    sz = SZ3[i % 3]
+    ops = _operands(500 + i, M, 3 * gs, sz, js, xk, gs)
+    args = [ops[k] for k in ("x", "q_opair", "scales", "zeros")]
+    yj = js.w4_matmul_bitcast(*(a[0] for a in args), group_size=gs)
+    xt, qo, st, zt = (a[1] for a in args)
+    route, (KS, *_) = ux.unpack_route(M, 3 * gs, gs, O, SMS)
+    assert route == "one_launch"
+    for ks in sorted({KS, 1, 2}):
+        y = one_launch_model(xt, None, qo, st, zt, (O,), ks, "bc").to(xt.dtype)
+        _close(y, yj, BF16_ULP, f"bc KS={ks} sz={sz}")
+
+
+SPLITDOT_CASES = [(name, M, gs) for name in ("w4_matmul_splitdot", "w4_matmul_splitdot_ce")
+                  for M in (1, 5, 16) for gs in (128, 256)]
+
+
+@pytest.mark.parametrize("name,M,gs", SPLITDOT_CASES)
+def test_pl_model_matches_jax_splitdot(js, interpret, name, M, gs):
+    """K21's one launch is K6's PL: its split dot, the scale folded into the
+    nibbles, within K21's tolerance of JAX's split dot and epilogue."""
+    i = SPLITDOT_CASES.index((name, M, gs))
+    sz, xk = SZ3[i % 3], ("bf16", "f32")[i % 2]
+    ops = _operands(600 + i, M, 3 * gs, sz, js, xk, gs)
+    args = [ops[k] for k in ("x", "qweight", "scales", "zeros")]
+    yj = getattr(js, name)(*(a[0] for a in args), group_size=gs)
+    xt, qw, st, zt = (a[1] for a in args)
+    route, (KS, *_) = ux.unpack_route(M, 3 * gs, gs, O, SMS)
+    assert route == "one_launch"
+    for ks in sorted({KS, 1, 2}):
+        y = one_launch_model(xt, None, qw, st, zt, (O,), ks, "pl").to(xt.dtype)
+        _close(y, yj, BF16_ULP, f"pl KS={ks} sz={sz} x={xk}")
+
+
+def bias_unpack(qweight_opair: torch.Tensor) -> torch.Tensor:
+    """BC's unpack in torch, bit for bit: uint8 [R, B] (B even) -> float32
+    [R, 2B]. Lane l takes the 2 bytes (b0, b1) of columns 4l..4l+3, spreads
+    them to w = b0 | b1 << 16 (the byte permute 0x4140), and for t = 0, 1
+    the word ((w >> 4t) & 0x000F000F) | 0x43004300 holds the bf16 values 128
+    + n of columns 4l + t (low half) and 4l + 2 + t (high half); one bf16
+    subtraction of 128 gives n."""
+    b = qweight_opair.to(torch.int32)
+    w = b[:, 0::2] | (b[:, 1::2] << 16)
+    out = torch.empty(b.shape[0], w.shape[1], 4, dtype=torch.float32)
+    bias = torch.tensor(128.0, dtype=torch.bfloat16)
+    for t in (0, 1):
+        bits = ((w >> (4 * t)) & 0x000F000F) | 0x43004300
+        for half, col in ((bits & 0xFFFF, t), ((bits >> 16) & 0xFFFF, 2 + t)):
+            v = half.to(torch.int16).view(torch.bfloat16)  # the bits 0x43.. fit int16
+            n = v - bias  # bf16 arithmetic, rounded to bf16
+            assert n.dtype == torch.bfloat16
+            out[..., col] = n.to(torch.float32)
+    return out.reshape(b.shape[0], -1)
+
+
+def test_bias_unpack_matches_unpack_opair_bit_for_bit():
+    """Every byte value at every byte position of a 32-bit word (so every
+    nibble value at each of its 8 nibble positions), beside random bytes."""
+    rng = np.random.default_rng(11)
+    words = rng.integers(0, 256, (4 * 256, 4)).astype(np.uint8)
+    for pos in range(4):
+        words[pos * 256:(pos + 1) * 256, pos] = np.arange(256)
+    qo = torch.from_numpy(words.reshape(-1, 8))  # [128, 8]: 8 bytes, 16 columns a row
+    got = bias_unpack(qo)
+    want = ux.unpack_opair(qo)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(got, want.to(torch.float32))
+    assert torch.equal(got.to(torch.int32).to(torch.float32), got)  # integral: exact
+
+
+# ---------------------------------------------------------------------------
+# the route, its plan and the wrappers' launches
+# ---------------------------------------------------------------------------
+
+ROUTED = tuple(ux.ONE_LAUNCH_ENTRY)
+
+
+def test_plan_at_the_scripts_shape():
+    """4096 x 4096, M 1, g128: 32 splits of one group, 512 columns, 256
+    blocks, two an SM."""
+    route, plan = ux.unpack_route(1, 4096, 128, 4096, SMS)
+    assert route == "one_launch" and plan == rm.w4_plan(1, 4096, 128, 4096, SMS)
+    KS, tile, mt, gps = plan
+    assert (KS, tile, mt, gps) == (32, 512, 1, 1)
+    assert -(-4096 // tile) * KS == 256 <= WAVE
+
+
+@pytest.mark.parametrize("M", [1, 5, 8, 16])
+def test_route_takes_one_launch_to_sixteen_rows(M):
+    route, plan = ux.unpack_route(M, 4096, 128, 4096, SMS)
+    assert route == "one_launch" and plan == rm.w4_plan(M, 4096, 128, 4096, SMS)
+    KS, tile, mt, _ = plan
+    assert -(-4096 // tile) * -(-M // mt) * KS <= WAVE
+
+
+@pytest.mark.parametrize("M", [17, 32, 128])
+def test_route_past_sixteen_rows_takes_the_gemv(M):
+    assert ux.unpack_route(M, 4096, 128, 4096, SMS) == ("gemv", None)
+
+
+def test_route_with_a_group_too_wide_for_a_block_takes_the_gemv():
+    assert ux.unpack_route(1, 65536, 32768, 128, SMS) == ("gemv", None)
+
+
+@pytest.fixture
+def recorded(monkeypatch):
+    """Every library entry point replaced by a recorder of (entry, args)."""
+    calls = []
+    monkeypatch.setattr(ux, "_lib_fn", lambda entry: lambda *a: calls.append((entry, a)) or 0)
+    monkeypatch.setattr(ux, "_sm_count", lambda dev: SMS)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(rm, "_split_counters", {})
+    return calls
+
+
+def _meta(name, M, I=4096, n_out=4096):
+    G = I // S
+    meta = dict(device="meta")
+    w = (I, n_out // 2) if name == "w4_matmul_bitcast" else (I // 2, n_out)
+    return (torch.empty(M, I, dtype=torch.bfloat16, **meta),
+            torch.empty(w, dtype=torch.uint8, **meta),
+            torch.empty(G, n_out, dtype=torch.bfloat16, **meta),
+            torch.empty(G, n_out, dtype=torch.uint8, **meta))
+
+
+@pytest.mark.parametrize("M", [1, 8, 16, 17])
+@pytest.mark.parametrize("name", ROUTED)
+def test_k19_and_k21_launch_by_route(recorded, name, M):
+    ux.reset_launch_counts()
+    getattr(ux, name)(*_meta(name, M))
+    ((entry, args),) = recorded
+    codes = (1, rm.SZ_CODES[torch.bfloat16], rm.SZ_CODES[torch.uint8], 0)
+    if M <= rm.ONE_LAUNCH_MAX_M:
+        KS, tile, _, _ = rm.w4_plan(M, 4096, 128, 4096, SMS)
+        assert entry == ("paro_w4_opair_one_launch" if name == "w4_matmul_bitcast"
+                         else "paro_w4_matmul_one_launch")
+        assert args[7:] == (M, 4096, 128, 4096, KS, tile // rm.COLS_PER_TILE, *codes)
+        assert ux.unpack_route_counts[name] == {"one_launch": 1, "gemv": 0}
+    else:
+        assert entry == "paro_unpack_gemv"
+        assert args[6:11] == (ux.MODES[name], M, 4096, 128, 4096) and args[12:] == codes
+        assert ux.unpack_route_counts[name] == {"one_launch": 0, "gemv": 1}
+    assert ux.launch_counts[name] == 1
+    assert sum(ux.launch_counts.values()) == 1
+    assert all(sum(c.values()) == (n == name) for n, c in ux.unpack_route_counts.items())
+
+
+@pytest.mark.parametrize("M", [1, 17])
+@pytest.mark.parametrize("name", ["w4_matmul_mulfloor", "w4_matmul_i8"])
+def test_k20_and_k22_keep_the_gemv(recorded, name, M):
+    ux.reset_launch_counts()
+    getattr(ux, name)(*_meta(name, M))
+    ((entry, args),) = recorded
+    assert entry == "paro_unpack_gemv" and args[6] == ux.MODES[name]
+    assert ux.launch_counts[name] == 1
+    assert all(sum(c.values()) == 0 for c in ux.unpack_route_counts.values())
 
 
 # ---------------------------------------------------------------------------
