@@ -55,8 +55,8 @@ Phases, each printing one or more lines:
      run and every probe pass; then slice 6's path, the ported unpack
      experiments (kernel_unpack_exp), counted the same way: K18-K22 (all six
      entry points) and their control arms K6 and K1 must run, each GEMV
-     within TOL_KERNEL of K6, and K19 (BC) and K21 (PL) on the one-launch
-     route at every call. Before the checks, cuobjdump's SASS of the
+     within TOL_KERNEL of K6, and K19-K22 (BC, MF, PL, WM) on the
+     one-launch route at every call. Before the checks, cuobjdump's SASS of the
      probe's library must show IMMA in K15/K16 and HMMA in K17, that of
      the unpack library K18's 128-bit global loads, that of the K1/K2
      library 128-bit loads (LDG.E.128) and 16-byte cp.async (LDGSTS) in all
@@ -64,9 +64,10 @@ Phases, each printing one or more lines:
      of K10/K12 and 8 of K13, that of the variants' library in all 8 of K7
      and 16 of K9, that of the a8 library in all 16 of RA8 (with its dp4a,
      IDP.4A), that of the plain library in all 8 of K6's PL, that of the
-     output-pair library in all 8 of K19's BC and that of the
+     output-pair library in all 8 of K19's BC, those of the mul-floor and
+     word-mask libraries in all 8 of K20's MF and of K22's WM, and that of the
      dequant library in all 16 of K8/K11 (the same kernel,
-     csrc/one_launch.cuh), with 0 spill bytes in ptxas's lines for all 128
+     csrc/one_launch.cuh), with 0 spill bytes in ptxas's lines for all 144
      and, in K8/K11's, three bf16x2 operations for each pair
      of nibbles (the dequant's two roundings neither fused nor dropped),
      that of
@@ -80,10 +81,12 @@ Phases, each printing one or more lines:
      edges: maxP 1, slots ending on and inside a split, a window skipping
      whole splits, empty slots beside full ones, f32 queries over int8
      pools. K18-K22 are checked at
-     the script's 4096 x 4096 draws (K18 bit for bit; K19 and K21 at M 1, 8
+     the script's 4096 x 4096 draws (K18 bit for bit; K19-K22 at M 1, 8
      and 16 beside K6, each row naming its route, `unpack_route`, and the
      other route's time; two calls bitwise equal and one kernel a call on
-     the one launch) and at their edges (`unpack_edges`), K3 at head dims 16,
+     the one launch, K20's and K22's outputs bit for bit K21's) and at their
+     edges (`unpack_edges`, K20 and K22 bit for bit K21 wherever the three
+     take the one launch), K3 at head dims 16,
      32, 96 and 256, K4/K5 at 24, 32 and 256 and K5 at 80 query rows per kv
      head (and timed there at D = 128), and the refusal of head_dim 12;
   3b. the Engine on two small Gemma-class models with random weights
@@ -152,6 +155,8 @@ RA8_SRC = "paroquant_tpu_torch/kernels/csrc/rot_w4_a8.cu"
 VARIANTS_SRC = "paroquant_tpu_torch/kernels/csrc/w4_variants.cu"
 PLAIN_SRC = "paroquant_tpu_torch/kernels/csrc/w4_plain.cu"
 OPAIR_SRC = "paroquant_tpu_torch/kernels/csrc/w4_opair.cu"
+MULFLOOR_SRC = "paroquant_tpu_torch/kernels/csrc/w4_mulfloor.cu"
+WORDMASK_SRC = "paroquant_tpu_torch/kernels/csrc/w4_wordmask.cu"
 DEQUANT_SRC = "paroquant_tpu_torch/kernels/csrc/rot_w4_dequant.cu"
 SLICE1_W4 = ("rot_w4_matmul", "merged_rot_w4_matmul")  # the W4 kernels of slices 1 and 2
 FLASH_SRC = "paroquant_tpu_torch/kernels/csrc/flash_attention.cu"
@@ -1534,8 +1539,9 @@ def check_rot_spills(report):
     (4 row tiles x f32/bf16 x and rot, 16), of K10/K12 (the same for each,
     32), of K8/K11's DQ variant (16), of K7's BF and K13's A8 variants
     (4 row tiles x f32/bf16 x, 8 each), of K9's I4 variant (16), of K1/K2's
-    a8 RA8 variant (16), of K6's PL variant (8) and of K19's BC variant (8)
-    must report 0 spill bytes in ptxas's lines. The report names each library's kernels after a
+    a8 RA8 variant (16), of K6's PL variant (8), of K19's BC variant (8), of
+    K20's MF variant (8) and of K22's WM variant (8) must report 0 spill
+    bytes in ptxas's lines. The report names each library's kernels after a
     line naming its source's log."""
     import re
 
@@ -1547,14 +1553,14 @@ def check_rot_spills(report):
             spills[fn] = (int(re.search(r"(\d+) bytes spill stores", line).group(1))
                           + int(re.search(r"(\d+) bytes spill loads", line).group(1)))
     # the variant is the template's last argument: Li0E (K1), Li1E (K10), Li2E (K12), Li3E (DQ),
-    # Li4E (BF), Li5E (A8), Li6E (I4), Li7E (RA8), Li8E (PL), Li9E (BC)
+    # Li4E (BF), Li5E (A8), Li6E (I4), Li7E (RA8), Li8E (PL), Li9E (BC), Li10E (MF), Li11E (WM)
     by_var = {v: sorted(b for f, b in spills.items() if f.endswith(f"Li{v}EEEvNS0_4ArgsE"))
-              for v in range(10)}
+              for v in range(12)}
     emit({"phase": "rot_spills", "instances": len(spills),
           "spill_bytes": {name: by_var[v] for v, name in enumerate(("k1", "k10", "k12", "dq",
                                                                      "bf", "a8", "i4", "ra8",
-                                                                     "pl", "bc"))}})
-    if ([len(b) for b in by_var.values()] != [16, 16, 16, 16, 8, 8, 16, 16, 8, 8]
+                                                                     "pl", "bc", "mf", "wm"))}})
+    if ([len(b) for b in by_var.values()] != [16, 16, 16, 16, 8, 8, 16, 16, 8, 8, 8, 8]
             or any(spills.values())):
         raise SystemExit(f"the one-launch kernel: {len(spills)} instances, spill bytes {spills}")
 
@@ -1682,7 +1688,7 @@ def kernel_bench(dev):
 
 
 def unpack_routed(ux, name, fn):
-    """fn()'s output and the route its one call of K19 or K21 took
+    """fn()'s output and the route its one call of K19-K22 took
     (`unpack_route_counts`)."""
     before = dict(ux.unpack_route_counts[name])
     y = fn()
@@ -1693,7 +1699,7 @@ def unpack_routed(ux, name, fn):
 
 
 def other_unpack_route_ms(ux, rm, run, flush, taken):
-    """run's median time with K19 or K21 sent to the route it did not take
+    """run's median time with K19-K22 sent to the route it did not take
     (`unpack_route` swapped for the length of the timing): both routes on
     the same card in the same run."""
     def route(M, I, S, O, sms):
@@ -1709,7 +1715,8 @@ def other_unpack_route_ms(ux, rm, run, flush, taken):
         ux.unpack_route = real
 
 
-UNPACK_MS = (1, 8, 16)  # K19's and K21's rows (K6's on the same draws beside them)
+UNPACK_MS = (1, 8, 16)  # K19-K22's rows (K6's on the same draws beside them)
+HALF_SPLIT_UNPACKS = ("w4_matmul_mulfloor", "w4_matmul_i8")  # K20, K22: bit for bit K21 on the one launch
 
 
 def check_unpack_exp(flush, dev):
@@ -1719,10 +1726,12 @@ def check_unpack_exp(flush, dev):
     GEMVs within TOL_KERNEL; timed beside the bound and one library call
     (torch.matmul on the dequantized bf16 weight for the GEMVs; for K18,
     which no PyTorch call computes, a torch.sum over the same weight bytes,
-    with its share of the HBM rate). Each K19 and K21 row names its route
+    with its share of the HBM rate). Each K19-K22 row names its route
     (`unpack_route`), its plan and the other route's time at the same
     inputs; on the one-launch route it fails unless two calls give the same
-    bits and a call launches one kernel (profiler)."""
+    bits and a call launches one kernel (profiler). K20 and K22 (MF and WM:
+    PL's skeleton and FMA order with their own unpacks) must take the one
+    launch and give K21's output (PL) bit for bit on the same inputs."""
     import torch
 
     from paroquant_tpu_torch.kernels import rot_matmul as rm, unpack_exp as ux
@@ -1746,6 +1755,8 @@ def check_unpack_exp(flush, dev):
                           "torch.sum(qweight, dim=0, dtype=int32): the same weight bytes, another function",
                           I * O // 2 + M * I * 2 + O * 4, 0))
         names = UNPACK[1:] if M == 1 else tuple(ux.ONE_LAUNCH_ENTRY)
+        k21, k21_route = unpack_routed(ux, "w4_matmul_splitdot",
+                                       lambda: ux.w4_matmul_splitdot(x, qw, s, z))
         for name in names + ("w4_matmul",):
             wt = qo if name == "w4_matmul_bitcast" else qw
             mod = rm if name == "w4_matmul" else ux
@@ -1764,10 +1775,16 @@ def check_unpack_exp(flush, dev):
                     route.update(KS=KS, tile=tile, rows_per_block=rows_per_block,
                                  groups_per_split=gps, bitwise_equal=torch.equal(run(), run()),
                                  kernels_per_call=kernels_per_call(run))
+                    if kernel in HALF_SPLIT_UNPACKS:
+                        route["bitwise_equal_to_k21"] = (k21_route == "one_launch"
+                                                         and torch.equal(y, k21))
                     emit({"phase": "unpack_determinism", "kernel": kernel, "M": M, **route})
                     if not route["bitwise_equal"] or route["kernels_per_call"] != 1:
                         raise SystemExit(f"{kernel} M={M}: two calls differ or a call ran "
                                          f"{route['kernels_per_call']} kernels")
+                if kernel in HALF_SPLIT_UNPACKS and not route.get("bitwise_equal_to_k21"):
+                    raise SystemExit(f"{kernel} M={M}: took {taken}, K21 {k21_route}; not K21's "
+                                     "bits on the one launch")
             else:
                 y = run()
             y_ref = plain()
@@ -1792,7 +1809,7 @@ def check_unpack_exp(flush, dev):
                 row["library_hbm_share"] = (I * O // 2) / (lib_ms * 1e-3) / HBM_BYTES_PER_S
             emit({"phase": "kernel_check", **row})
             rows.append(row)
-        del d, x, qw, qo, s, z, w
+        del d, x, qw, qo, s, z, w, k21
     return rows
 
 
@@ -1801,10 +1818,11 @@ def unpack_edges(gen, dev, record, record_exact):
     256, 384 and 1024; group sizes 96, 128 and 256; O 256, 384, 160 and 130
     (K19's rows of 65 bytes and the gemv's rows take byte loads); a weight 4
     bytes past a 16-byte boundary; scales/zeros bf16/bf16, bf16/u8, f16/u8,
-    f32/f32; f32 x; each K19 and K21 call's route checked against
-    `unpack_route` (the one launch to M 16, the gemv at 17); K18 bit for
-    bit at Gb 1, 2 and 3 with G = 8 (Gb 3 leaves two groups unread), then
-    its refusal of M = 17."""
+    f32/f32; f32 x; each K19-K22 call's route checked against
+    `unpack_route` (the one launch to M 16, the gemv at 17), and K20's and
+    K22's outputs bit for bit K21's wherever the three take the one launch;
+    K18 bit for bit at Gb 1, 2 and 3 with G = 8 (Gb 3 leaves two groups
+    unread), then its refusal of M = 17."""
     import torch
 
     from paroquant_tpu_torch.kernels import rot_matmul as rm, unpack_exp as ux
@@ -1822,18 +1840,28 @@ def unpack_edges(gen, dev, record, record_exact):
 
     sms = rm._sm_count(torch.device(dev))
 
+    same_as_k21 = []  # (kernel, case) of each K20 / K22 output compared with K21's
+
     def call(name, x, wt, s, z, S, case):
         fn = lambda: getattr(ux, name)(x, wt, s, z, group_size=S)
-        if name in ux.ONE_LAUNCH_ENTRY:
-            y, taken = unpack_routed(ux, name, fn)
-            want = ux.unpack_route(x.shape[0], x.shape[1], S, s.shape[1], sms)[0]
-            if taken != want:
-                raise SystemExit(f"{name} {case}: took {taken}, the rule says {want}")
-            case += f" ({taken})"
-        else:
-            y = fn()
-        record(name, case, y, getattr(ux, name.replace("_ce", "") + "_plain")(x, wt, s, z,
-                                                                              group_size=S))
+        y, taken = unpack_routed(ux, name, fn)
+        want = ux.unpack_route(x.shape[0], x.shape[1], S, s.shape[1], sms)[0]
+        if taken != want:
+            raise SystemExit(f"{name} {case}: took {taken}, the rule says {want}")
+        record(name, f"{case} ({taken})", y,
+               getattr(ux, name.replace("_ce", "") + "_plain")(x, wt, s, z, group_size=S))
+        return y, taken
+
+    def calls(x, qw, qo, s, z, S, case):  # the five GEMVs; K20's and K22's bits against K21's
+        ys = {name: call(name, x, qo if name == "w4_matmul_bitcast" else qw, s, z, S, case)
+              for name in UNPACK[1:]}
+        k21, k21_taken = ys["w4_matmul_splitdot"]
+        for name in HALF_SPLIT_UNPACKS:
+            y, taken = ys[name]
+            if taken == k21_taken == "one_launch":
+                if not torch.equal(y, k21):
+                    raise SystemExit(f"{name} {case}: not K21's bits on the one launch")
+                same_as_k21.append((name, case))
 
     for I, S, O in ((256, 128, 256), (1024, 128, 384), (1024, 256, 384), (256, 128, 130),
                     (384, 96, 160)):
@@ -1841,22 +1869,17 @@ def unpack_edges(gen, dev, record, record_exact):
             qw, qo, s, z = operands(I, O, S, sz)
             for M in (1, 5, 8, 16, 17):
                 x = torch.randn(M, I, generator=gen, device=dev).to(torch.bfloat16)
-                for name in UNPACK[1:]:
-                    wt = qo if name == "w4_matmul_bitcast" else qw
-                    call(name, x, wt, s, z, S, f"I={I} S={S} O={O} s/z={sz} M={M}")
+                calls(x, qw, qo, s, z, S, f"I={I} S={S} O={O} s/z={sz} M={M}")
     qw, qo, s, z = operands(256, 256, 128, "bf16/bf16")
-    for name in UNPACK[1:]:  # the weight 4 bytes past a 16-byte boundary: byte by byte
-        wt = qo if name == "w4_matmul_bitcast" else qw
-        shifted = torch.cat([wt.new_zeros(4), wt.flatten()])[4:].view(wt.shape)
-        for M in (1, 8):
-            x = torch.randn(M, 256, generator=gen, device=dev).to(torch.bfloat16)
-            call(name, x, shifted, s, z, 128, f"weight off 16-byte alignment M={M}")
+    # the weight 4 bytes past a 16-byte boundary: byte by byte
+    qw, qo = (torch.cat([wt.new_zeros(4), wt.flatten()])[4:].view(wt.shape) for wt in (qw, qo))
+    for M in (1, 8):
+        x = torch.randn(M, 256, generator=gen, device=dev).to(torch.bfloat16)
+        calls(x, qw, qo, s, z, 128, f"weight off 16-byte alignment M={M}")
     qw, qo, s, z = operands(256, 256, 128, "f32/f32")
-    x = torch.randn(3, 256, generator=gen, device=dev)
-    for name in UNPACK[1:]:
-        wt = qo if name == "w4_matmul_bitcast" else qw
-        record(name, "f32 x M=3", getattr(ux, name)(x, wt, s, z),
-               getattr(ux, name.replace("_ce", "") + "_plain")(x, wt, s, z))
+    calls(torch.randn(3, 256, generator=gen, device=dev), qw, qo, s, z, 128, "f32 x M=3")
+    emit({"phase": "unpack_edges_k21_bitwise", "compared": len(same_as_k21),
+          "by_kernel": {n: sum(k == n for k, _ in same_as_k21) for n in HALF_SPLIT_UNPACKS}})
     for O in (256, 384, 130):
         qw = torch.randint(0, 256, (512, O), generator=gen, device=dev, dtype=torch.uint8)
         for M in (1, 16):
@@ -1900,9 +1923,9 @@ def unpack_exp(dev):
     """Slice 6's path: the ported unpack experiments (kernel_unpack_exp.main
     at 4096 x 4096, M = 1, g128) in this process. The launch counts are
     reset just before and read just after: the six entry points of K18-K22
-    and the control arms K6 and K1 must have run, K19 and both K21 entries
-    on the one-launch route at every call, and every GEMV must agree with K6
-    within TOL_KERNEL."""
+    and the control arms K6 and K1 must have run, K19, K20, both K21 entries
+    and K22 on the one-launch route at every call, and every GEMV must agree
+    with K6 within TOL_KERNEL."""
     import torch
 
     from paroquant_tpu_torch.kernels import rot_matmul as rm, unpack_exp as ux
@@ -2814,10 +2837,11 @@ def main() -> int:
     check_sass("libw4_plain.so", ("LDG.E.128", "LDGSTS"),
                (("rot_w4_one_launch_kernel", "LDG.E.128", 8),
                 ("rot_w4_one_launch_kernel", "LDGSTS", 8)))
-    # and K19's BC (8)
-    check_sass("libw4_opair.so", ("LDG.E.128", "LDGSTS"),
-               (("rot_w4_one_launch_kernel", "LDG.E.128", 8),
-                ("rot_w4_one_launch_kernel", "LDGSTS", 8)))
+    # and K19's BC (8), K20's MF (8) and K22's WM (8)
+    for lib in ("libw4_opair.so", "libw4_mulfloor.so", "libw4_wordmask.so"):
+        check_sass(lib, ("LDG.E.128", "LDGSTS"),
+                   (("rot_w4_one_launch_kernel", "LDG.E.128", 8),
+                    ("rot_w4_one_launch_kernel", "LDGSTS", 8)))
     # and K8/K11's DQ instances, with the dequant's two roundings
     check_dequant_sass()
 
@@ -2902,16 +2926,17 @@ def main() -> int:
           for name, line, case in (("narrow_cast", 49, "8x128"), ("int8_dot", 69, "8x4096x4096"),
                                    ("fused_unpack_int8_dot", 95, "8x256->512"),
                                    ("bf16_dot", 117, "8x4096x4096"))),
-        # K19 on BC (w4_opair.cu); w4_matmul_splitdot_ce and w4_matmul_splitdot
-        # launch the same kernel, K6's PL (w4_plain.cu), at M <= 16
+        # at M <= 16 K19 on BC (w4_opair.cu), K20 on MF (w4_mulfloor.cu), K22 on WM
+        # (w4_wordmask.cu); w4_matmul_splitdot_ce and w4_matmul_splitdot launch
+        # the same kernel, K6's PL (w4_plain.cu)
         *(entry(name, src, f"scripts/kernel_unpack_exp.py:{line}",
                 pick(ux_rows, kernel=name, M=1))
           for name, src, line in (("stream_only", UNPACK_SRC, 70),
                                   ("w4_matmul_bitcast", OPAIR_SRC, 126),
-                                  ("w4_matmul_mulfloor", UNPACK_SRC, 177),
+                                  ("w4_matmul_mulfloor", MULFLOOR_SRC, 177),
                                   ("w4_matmul_splitdot_ce", PLAIN_SRC, 229),
                                   ("w4_matmul_splitdot", PLAIN_SRC, 260),
-                                  ("w4_matmul_i8", UNPACK_SRC, 310))),
+                                  ("w4_matmul_i8", WORDMASK_SRC, 310))),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,12 +1,13 @@
 // The one-launch W4 GEMV for Hopper (sm_90a), shared by K1/K2's W4A16 decode
 // route (rot_w4_matmul.cu), by K10/K12 and K13 (w4_experiments.cu), by K8/K11
 // (rot_w4_dequant.cu), by K7 and K9 (w4_variants.cu), by K1/K2's a8 route
-// (rot_w4_a8.cu), by K6 and K21 (w4_plain.cu) and by K19 (w4_opair.cu).
+// (rot_w4_a8.cu), by K6 and K21 (w4_plain.cu), by K19 (w4_opair.cu), by K20
+// (w4_mulfloor.cu) and by K22 (w4_wordmask.cu).
 //
 //   xr_g[m]   = bf16(x_g[m] @ M_g^T)
 //   out[m, o] = sum_g (xr_g[m] . q_g[:, o] - rowsum_g[m] * z[g, o]) * s[g, o]
 //
-// Ten variants of that function, a template switch each (Variant):
+// Twelve variants of that function, a template switch each (Variant):
 //               x before the rotation   rowsum_g             out
 //   K1          rounded to rot's dtype  of the bf16 xr_g     x's dtype
 //   K10 (B)     rounded to rot's dtype  of the f32 xr_g      x's dtype
@@ -25,6 +26,8 @@
 //               tables
 //   K19 (BC)    as PL, on the output-pair layout u8 [I, O/2]: byte (i, j)
 //               holds columns 2j (low nibble) and 2j + 1 of channel i
+//   K20 (MF)    as PL, the nibbles unpacked in bf16: hi = floor(f / 16), lo = f - 16 hi
+//   K22 (WM)    as PL, the nibbles masked on whole words, then int8 -> float
 // (K10 replaces scripts/kernel_edge_test.py::rot_w4_matmul_b, K12
 // scripts/kernel_tune.py::rot_w4_matmul_v2, DQ both
 // paroquant_tpu/kernels/rot_matmul.py::rot_w4_matmul_mg and
@@ -75,6 +78,12 @@
 // permute), and ((w >> 4t) & 0x000F000F) | 0x43004300 is the bf16 pair 128 +
 // n of columns (t, t + 2), from which one bf16x2 subtraction of 128 gives the
 // nibbles exactly; the columns go back to their order before the scale.
+// MF (scripts/kernel_unpack_exp.py::w4_matmul_mulfloor) is PL with each pair
+// of a lane's bytes converted to a bf16 pair f (exact for 0..255), hi =
+// floor(f * 1/16) and lo = hi * -16 + f on bf16x2, all exact; WM (::w4_matmul_i8)
+// is PL with the lane's word masked whole, w & 0x0F0F0F0F and (w >> 4) &
+// 0x0F0F0F0F, each byte then taken as int8 to float. Both give PL's nibbles
+// and keep PL's FMA order, so their outputs equal K21's bit for bit.
 //
 // Bound on this card: at M <= 16 the weight stream, I*O/2 bytes of nibbles
 // plus the scales and zeros, so HBM bandwidth; at 1-8 MB of weight, the
@@ -134,7 +143,14 @@ namespace one {
 using w4::Parts;
 using w4::load_f32;
 
-enum Variant { K1 = 0, B = 1, V2 = 2, DQ = 3, BF = 4, A8 = 5, I4 = 6, RA8 = 7, PL = 8, BC = 9 };
+enum Variant {
+  K1 = 0, B = 1, V2 = 2, DQ = 3, BF = 4, A8 = 5, I4 = 6, RA8 = 7, PL = 8, BC = 9, MF = 10, WM = 11
+};
+
+// the variants that take no rotation matrix (and one partition)
+__host__ __device__ constexpr bool no_rotation(int var) {
+  return var == BF || var == A8 || var == PL || var == BC || var == MF || var == WM;
+}
 
 constexpr int THREADS = 256;
 constexpr int NWARPS = THREADS / 32;
@@ -226,6 +242,34 @@ __device__ __forceinline__ void bias_pair(uint32_t w, float& lo, float& hi) {
   asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(n) : "r"((w & 0x000F000Fu) | 0x43004300u), "r"(0x43004300u));
   lo = __uint_as_float(n << 16);
   hi = __uint_as_float(n & 0xffff0000u);
+}
+
+// MF's nibbles of the 4 bytes of w (columns c4..c4 + 3), as the TPU body
+// unpacks them: bytes (0, 1) and (2, 3) each as a bf16 pair f, exact for
+// 0..255, then hi = floor(f * 0.0625) and lo = hi * -16 + f, all exact
+__device__ __forceinline__ void mulfloor_nibbles(uint32_t w, float* lo, float* hi) {
+  const __nv_bfloat162 sixteenth = __float2bfloat162_rn(0.0625f);
+  const __nv_bfloat162 minus16 = __float2bfloat162_rn(-16.f);
+#pragma unroll
+  for (int i = 0; i < 4; i += 2) {
+    const __nv_bfloat162 f =
+        __floats2bfloat162_rn((float)((w >> (8 * i)) & 0xFFu), (float)((w >> (8 * i + 8)) & 0xFFu));
+    const __nv_bfloat162 h = h2floor(__hmul2(f, sixteenth));
+    const __nv_bfloat162 l = __hfma2(h, minus16, f);
+    const float2 lf = __bfloat1622float2(l), hf = __bfloat1622float2(h);
+    lo[i] = lf.x, lo[i + 1] = lf.y, hi[i] = hf.x, hi[i + 1] = hf.y;
+  }
+}
+
+// WM's nibbles of the 4 bytes of w: the mask and shift on the whole word,
+// four nibbles an operation, then each byte as int8 to float
+__device__ __forceinline__ void wordmask_nibbles(uint32_t w, float* lo, float* hi) {
+  const uint32_t l = w & 0x0F0F0F0Fu, h = (w >> 4) & 0x0F0F0F0Fu;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    lo[i] = (float)(int8_t)(l >> (8 * i));
+    hi[i] = (float)(int8_t)(h >> (8 * i));
+  }
 }
 
 // the merge's sums, split k's partial t in split order: DQ adds it into its
@@ -336,7 +380,7 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
   float* zs = fs + L.zs;
   float* rsum = fs + L.rsum;
   float* tb = fs + L.tb;  // BF: inv_s, cos, sin rows [2K + 1][ng * S]; A8: sx [ng][MT]
-  constexpr bool ROT = VAR == K1 || VAR == B || VAR == V2 || VAR == DQ || VAR == I4 || VAR == RA8;  // a dense M_g
+  constexpr bool ROT = !no_rotation(VAR);  // a dense M_g
 
   // 1. the weight slice: stage c holds byte-rows [c*CR, (c+1)*CR) of the
   // block's rows; thread t copies 16 bytes of one row. K1 puts NST - 1
@@ -579,7 +623,7 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
       for (int o = 16; o > 0; o >>= 1) qs += __shfl_xor_sync(0xffffffffu, qs, o);
       if (lane == 0) rsum[e] = qs, tb[e] = sx;
     }
-  } else if constexpr (VAR == PL) {  // xr_g = bf16(x_g), at its pair slot
+  } else if constexpr (VAR == PL || VAR == MF || VAR == WM) {  // xr_g = bf16(x_g), at its pair slot
     for (int e = tid; e < nx; e += THREADS) xr2[e - e % S + pair_slot(e % S)] = round_to<bf16>(xs[e]);
   } else if constexpr (VAR == BC) {  // xr_g = bf16(x_g), in channel order: a byte-row is one channel
     for (int e = tid; e < nx; e += THREADS) xr2[e] = round_to<bf16>(xs[e]);
@@ -958,6 +1002,17 @@ __global__ void __launch_bounds__(THREADS, 2) rot_w4_one_launch_kernel(const Arg
           dequant_pair((b >> 4) & 0x000F000Fu, sz.x, sz.z, wh[0], wh[2]);
           dequant_pair((b >> 8) & 0x000F000Fu, sz.y, sz.w, wl[1], wl[3]);
           dequant_pair((b >> 12) & 0x000F000Fu, sz.y, sz.w, wh[1], wh[3]);
+        } else if constexpr (VAR == MF || VAR == WM) {  // the lane's 4 bytes as one word
+          const uint32_t b = *reinterpret_cast<const uint32_t*>(stage + rl * TW + c4);
+          const float4 s4 = *reinterpret_cast<const float4*>(ss + gl * TW + c4);
+          const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+          float nl[4], nh[4];
+          if constexpr (VAR == MF)
+            mulfloor_nibbles(b, nl, nh);
+          else
+            wordmask_nibbles(b, nl, nh);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) wl[j] = nl[j] * sv[j], wh[j] = nh[j] * sv[j];
         } else {
           const uchar4 b = *reinterpret_cast<const uchar4*>(stage + rl * TW + c4);
           const float4 s4 = *reinterpret_cast<const float4*>(ss + gl * TW + c4);
@@ -1156,8 +1211,8 @@ cudaError_t launch(const Args& a, int MT, int n_tiles, int KS, cudaStream_t st) 
 // groups in at most MAX_SMEM bytes with the variant's tables; partial f32
 // [KS, M, O] when KS > 1 and counters int32, one per (column tile, row
 // tile), zero (and left zero). BF takes no rot but inv_s [I] and cos_t,
-// sin_t [K, I] (f32; S a power of two where K > 0), A8, PL and BC no rot;
-// the four one partition, A8 tiles of A8_TW columns, and BC qweight u8
+// sin_t [K, I] (f32; S a power of two where K > 0), A8, PL, BC, MF and WM
+// no rot; the six one partition, A8 tiles of A8_TW columns, and BC qweight u8
 // [I, O/2] in output pairs (O even). RA8 takes S a
 // multiple of 8 and tiles of A8_TW columns in runs of tpb tiles of one
 // partition (tpb 1 elsewhere; its merge lists a run's tiles in the ring's
@@ -1174,7 +1229,7 @@ cudaError_t call(const void* x, const void* rot, const void* qweight, const void
   int vec4;
   if (w4::bad_layout(M, I, S, KS, sdt, zdt) || !w4::make_parts(P, splits, parts, vec4) ||
       (cw != 1 && cw != 2 && cw != 4) ||
-      ((VAR == BF || VAR == A8 || VAR == PL || VAR == BC) && P != 1) ||
+      (no_rotation(VAR) && P != 1) ||
       (VAR == BC && splits[0] % 2 != 0) ||
       (VAR == BF && (inv_s == nullptr || K < 0 ||
                      (K > 0 && ((S & (S - 1)) != 0 || cos_t == nullptr || sin_t == nullptr)))) ||
@@ -1227,7 +1282,7 @@ cudaError_t call(const void* x, const void* rot, const void* qweight, const void
   a.K = K;
   a.tpb = tpb;
   const int n_tiles = parts.tile_base[P];
-  if constexpr (VAR == BF || VAR == A8 || VAR == PL || VAR == BC) {  // no rotation matrix: one instance per x dtype
+  if constexpr (no_rotation(VAR)) {  // one instance per x dtype
     if (VAR == BF)
       a.rvec = S % 4 == 0 && ((uintptr_t)inv_s | (uintptr_t)cos_t | (uintptr_t)sin_t) % 16 == 0;
     return x_is_bf16 ? launch<bf16, float, VAR>(a, MT, n_tiles, KS, st)

@@ -20,12 +20,13 @@
 //  K19-K22: out = sum over g of (acc_g - xsum_g * z_g) * s_g, acc_g the f32
 //      dot of xr_g with the nibbles 0..15, rounded to x's dtype.
 //
-// At M <= 16, where one group fits a block, K19 and K21 do not come here
-// (kernels/unpack_exp.py::unpack_route): K19 runs the BC variant of the
-// one-launch kernel (w4_opair.cu), which keeps the bitcast's unpack below on
-// a 16-byte cp.async ring, and K21 runs K6's PL variant (w4_plain.cu), whose
-// dot is the split dot below. This file's GEMV takes K19 and K21 at M > 16
-// and K20 and K22 at every M.
+// At M <= 16, where one group fits a block, K19-K22 do not come here
+// (kernels/unpack_exp.py::unpack_route): they run variants of the
+// one-launch kernel, which keep the unpacks below on a 16-byte cp.async
+// ring: K19 BC (w4_opair.cu), K20 MF (w4_mulfloor.cu), K22 WM
+// (w4_wordmask.cu), and K21 K6's PL (w4_plain.cu), whose dot is the split
+// dot below. This file's GEMV takes K19-K22 only above 16 rows, or where a
+// group is too wide for a block.
 //
 // Each GEMV keeps its Pallas body's unpack strategy, translated for this card:
 //  K21 splitdot: int mask and shift per byte (b & 0xF, (b >> 4) & 0xF), the

@@ -28,15 +28,19 @@ PyTorch version for tensors on the CPU. A failed build or launch raises;
 nothing falls back. Each CUDA call adds one to `launch_counts[name]`, the
 two splitdot entry points apart.
 
-On the card `unpack_route` picks, from shapes alone, K19's and K21's
-kernel: at M <= 16, where one group fits a block, one launch of the
+On the card `unpack_route` picks, from shapes alone, the kernel of each
+of K19-K22: at M <= 16, where one group fits a block, one launch of the
 one-launch kernel (csrc/one_launch.cuh) on `w4_plan`'s plan, K19 on its BC
 variant (csrc/w4_opair.cu: the output-pair layout, the bitcast's
-exponent-bias unpack) and K21 on K6's PL variant (csrc/w4_plain.cu), whose
+exponent-bias unpack), K20 on its MF variant (csrc/w4_mulfloor.cu: the
+bf16 mul-floor unpack), K21 on K6's PL variant (csrc/w4_plain.cu), whose
 dot is K21's split dot already (low nibbles against the group's first S/2
-channels, high ones against the rest; the scale folded into the nibbles);
-every other call takes this file's gemv (csrc/unpack_exp.cu), which K20 and
-K22 always take. Each such call adds one to `unpack_route_counts[name][route]`.
+channels, high ones against the rest; the scale folded into the nibbles),
+and K22 on its WM variant (csrc/w4_wordmask.cu: the mask on whole words);
+so the four share one skeleton and differ only by the unpack. Every other
+call (M > 16, or a group too wide for a block) takes this file's gemv
+(csrc/unpack_exp.cu). Each call adds one to
+`unpack_route_counts[name][route]`.
 """
 
 from __future__ import annotations
@@ -57,10 +61,12 @@ TILE_BYTES = 512  # bytes of a byte-row one CUDA block owns
 MODES = {"w4_matmul_mulfloor": 0, "w4_matmul_splitdot_ce": 1, "w4_matmul_splitdot": 1,
          "w4_matmul_i8": 2, "w4_matmul_bitcast": 3}
 SINK_KEY = 0x9E3779B9  # K18 writes its scratch word only when its loads fold to this
-ONE_LAUNCH_ENTRY = {  # the kernels `unpack_route` may send to the one-launch kernel: its entry
+ONE_LAUNCH_ENTRY = {  # each GEMV's entry into the one-launch kernel, where `unpack_route` sends it
     "w4_matmul_bitcast": "paro_w4_opair_one_launch",  # K19: the BC variant
+    "w4_matmul_mulfloor": "paro_w4_mulfloor_one_launch",  # K20: the MF variant
     "w4_matmul_splitdot_ce": "paro_w4_matmul_one_launch",  # K21: K6's PL variant
     "w4_matmul_splitdot": "paro_w4_matmul_one_launch",
+    "w4_matmul_i8": "paro_w4_wordmask_one_launch",  # K22: the WM variant
 }
 ROUTES = ("one_launch", "gemv")
 unpack_route_counts = {name: dict.fromkeys(ROUTES, 0) for name in ONE_LAUNCH_ENTRY}
@@ -76,7 +82,7 @@ def reset_launch_counts() -> None:
 
 
 def unpack_route(M: int, I: int, S: int, O: int, sms: int):
-    """K19's and K21's route on a card of `sms` SMs, from shapes alone:
+    """The route of K19-K22 on a card of `sms` SMs, from shapes alone:
     ("one_launch", `w4_plan`'s plan (KS splits, column-tile width, rows per
     block, groups per split)) or ("gemv", None). K6's rule
     (`rot_matmul.w4_route`): the one-launch kernel takes M <= 16 rows where
@@ -185,6 +191,8 @@ _SIGNATURES = {  # entry point: (source stem, argument types), the stream last
     "paro_stream_only": ("unpack_exp", [_P] * 4 + [ctypes.c_uint] + [_I] * 6 + [_P]),
     "paro_w4_opair_one_launch": ("w4_opair", [_P] * 7 + [_I] * 9 + [_P]),
     "paro_w4_matmul_one_launch": ("w4_plain", [_P] * 7 + [_I] * 9 + [_P]),
+    "paro_w4_mulfloor_one_launch": ("w4_mulfloor", [_P] * 7 + [_I] * 9 + [_P]),
+    "paro_w4_wordmask_one_launch": ("w4_wordmask", [_P] * 7 + [_I] * 9 + [_P]),
 }
 _fns: dict[str, object] = {}
 
@@ -210,12 +218,10 @@ def _launch_gemv(name, x, qweight, scales, zeros, S):
                              f"got {tuple(qweight.shape)}")
         qweight = qweight.reshape(I // 2, O)  # the same bytes, in the shape the checks take
     x, qweight, scales, zeros, _ = _check_operands(x, qweight, scales, zeros, S, G)
-    fns = {"gemv": _lib_fn("paro_unpack_gemv")}  # before the device is queried
-    if name in ONE_LAUNCH_ENTRY:
-        fns["one_launch"] = _lib_fn(ONE_LAUNCH_ENTRY[name])
+    fns = {"gemv": _lib_fn("paro_unpack_gemv"),  # before the device is queried
+           "one_launch": _lib_fn(ONE_LAUNCH_ENTRY[name])}
     dev = x.device
-    route, plan = (unpack_route(M, I, S, O, _sm_count(dev)) if name in ONE_LAUNCH_ENTRY
-                   else ("gemv", None))
+    route, plan = unpack_route(M, I, S, O, _sm_count(dev))
     out = torch.empty((M, O), dtype=x.dtype, device=dev)
     sz = (int(x.dtype == BF16), SZ_CODES[scales.dtype], SZ_CODES[zeros.dtype],
           torch.cuda.current_stream(dev).cuda_stream)
@@ -233,8 +239,7 @@ def _launch_gemv(name, x, qweight, scales, zeros, S):
         err = fns[route](*ptrs, partial.data_ptr(), MODES[name], M, I, S, O, KS, *sz)
     _raise_on(err, name)
     launch_counts[name] += 1
-    if name in ONE_LAUNCH_ENTRY:
-        unpack_route_counts[name][route] += 1
+    unpack_route_counts[name][route] += 1
     return out
 
 
@@ -284,7 +289,8 @@ def w4_matmul_bitcast(x, qweight_opair, scales, zeros, *, group_size: int = 128)
 
 def w4_matmul_mulfloor(x, qweight, scales, zeros, *, group_size: int = 128) -> torch.Tensor:
     """K20: x [M, I]; qweight uint8 [I//2, O] half-split; scales, zeros
-    [I//group_size, O] -> [M, O] in x.dtype."""
+    [I//group_size, O] -> [M, O] in x.dtype. On the card `unpack_route`
+    picks the MF variant of the one-launch kernel or the gemv."""
     if x.device.type == "cpu":
         return w4_matmul_mulfloor_plain(x, qweight, scales, zeros, group_size=group_size)
     return _launch_gemv("w4_matmul_mulfloor", x, qweight, scales, zeros, group_size)
@@ -309,7 +315,8 @@ def w4_matmul_splitdot(x, qweight, scales, zeros, *, group_size: int = 128) -> t
 
 
 def w4_matmul_i8(x, qweight, scales, zeros, *, group_size: int = 128) -> torch.Tensor:
-    """K22: K20's operands."""
+    """K22: K20's operands. On the card `unpack_route` picks the WM variant
+    of the one-launch kernel or the gemv."""
     if x.device.type == "cpu":
         return w4_matmul_i8_plain(x, qweight, scales, zeros, group_size=group_size)
     return _launch_gemv("w4_matmul_i8", x, qweight, scales, zeros, group_size)

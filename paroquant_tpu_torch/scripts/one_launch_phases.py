@@ -5,9 +5,10 @@
 Builds a copy of `kernels/csrc/one_launch.cuh` in which thread 0 of every
 block writes `%globaltimer` (ns) at the end of each phase of
 `rot_w4_one_launch_kernel` into a device array, with one `extern "C"` entry
-for the ten variants (K1's one launch, K10, K12, K11's DQ in chunks of Gb
-groups, K7's BF with K butterfly stages, K13's A8, K9's I4, K1's a8 on RA8
-with its plan or `--gps` groups a split, K6's PL and K19's BC), into the
+for the twelve variants (K1's one launch, K10, K12, K11's DQ in chunks of
+Gb groups, K7's BF with K butterfly stages, K13's A8, K9's I4, K1's a8 on
+RA8 with its plan or `--gps` groups a split, K6's PL, K19's BC, K20's MF
+and K22's WM), into the
 build directory. RA8 at the lm_head: `--kernel ra8 --I 1024 --O 151936`. At the given shape, with random weights from a seeded
 `torch.Generator`, it runs one call after an L2 flush `reps` times and
 prints for each phase the median over repetitions of the median over blocks
@@ -42,7 +43,7 @@ from ..utils.profiling import kernel_time_ms
 
 PHASES = ("x", "tables", "rotation", "row_sums", "first_tile", "dot", "partial", "counter", "end")
 VARIANTS = {"k1": 0, "k10": 1, "k12": 2, "k11": 3, "k7": 4, "k13": 5, "k9": 6, "ra8": 7,
-            "k6": 8, "k19": 9}  # one::Variant
+            "k6": 8, "k19": 9, "k20": 10, "k22": 11}  # one::Variant
 SLOTS = len(PHASES) + 1  # the phases' ends, then the block's start
 MAX_BLOCKS = 16384
 FLUSH_BYTES = 256 << 20  # > the 50 MB L2
@@ -103,6 +104,12 @@ extern "C" int phases_call(int var, const void* x, const void* rot, const void* 
                                    S, 1, &O, KS, cw, x_bf16, 0, sdt, zdt, st);
   if (var == one::BC)
     return (int)one::call<one::BC>(x, nullptr, qweight, scales, zeros, out, partial, counters, M, I,
+                                   S, 1, &O, KS, cw, x_bf16, 0, sdt, zdt, st);
+  if (var == one::MF)
+    return (int)one::call<one::MF>(x, nullptr, qweight, scales, zeros, out, partial, counters, M, I,
+                                   S, 1, &O, KS, cw, x_bf16, 0, sdt, zdt, st);
+  if (var == one::WM)
+    return (int)one::call<one::WM>(x, nullptr, qweight, scales, zeros, out, partial, counters, M, I,
                                    S, 1, &O, KS, cw, x_bf16, 0, sdt, zdt, st);
   if (var == one::BF)
     return (int)one::call<one::BF>(x, nullptr, qweight, scales, zeros, out, partial, counters, M, I,
@@ -232,12 +239,14 @@ def main(argv=None) -> list[dict]:
             raise SystemExit(f"K6 takes the passes at M={M}, I={I}, S={S}, O={O}")
         KS, tile, rows, _ = plan
         call = lambda: rm.w4_matmul(x, qw, scales, zeros, group_size=S)
-    elif args.kernel == "k19":  # the random bytes read as output pairs [I, O/2]
+    elif args.kernel in ("k19", "k20", "k22"):  # K19 reads the random bytes as output pairs [I, O/2]
         route, plan = ux.unpack_route(M, I, S, O, sms)
         if route != "one_launch":
-            raise SystemExit(f"K19 takes the gemv at M={M}, I={I}, S={S}, O={O}")
+            raise SystemExit(f"{args.kernel.upper()} takes the gemv at M={M}, I={I}, S={S}, O={O}")
         KS, tile, rows, _ = plan
-        call = lambda: ux.w4_matmul_bitcast(x, qw.view(I, O // 2), scales, zeros, group_size=S)
+        fn, wt = {"k19": (ux.w4_matmul_bitcast, qw.view(I, O // 2)),
+                  "k20": (ux.w4_matmul_mulfloor, qw), "k22": (ux.w4_matmul_i8, qw)}[args.kernel]
+        call = lambda: fn(x, wt, scales, zeros, group_size=S)
     elif args.kernel == "k9":  # the random bytes read as interleaved nibbles
         route, plan = rm.i4_route(M, I, S, O, sms)
         if route != "one_launch":

@@ -155,6 +155,36 @@ def _a8_quantize(xr):
     return sx, torch.round(xr / sx)
 
 
+def mulfloor_unpack(qweight: torch.Tensor):
+    """MF's unpack (K20) in torch, bit for bit: uint8 [R, C] -> the (low,
+    high) nibbles, float32 [R, C] each. The kernel takes a lane's bytes in
+    pairs as bf16x2, whose halves are computed apart, so a byte at a time:
+    f = bf16(float(b)) (exact for 0..255), hi = floor(bf16(f * 0.0625)) and
+    lo = bf16(hi * -16 + f) rounded once (the fused __hfma2: the product of
+    two bf16 values and the sum are exact in float64, so one rounding of the
+    float64 value to bf16 is the FMA's), each then widened to float32."""
+    f = qweight.to(torch.int32).to(torch.float32).to(torch.bfloat16)
+    hi = torch.floor(f * torch.tensor(0.0625, dtype=torch.bfloat16))
+    assert hi.dtype == torch.bfloat16
+    lo = (hi.to(torch.float64) * -16.0 + f.to(torch.float64)).to(torch.bfloat16)
+    return lo.to(torch.float32), hi.to(torch.float32)
+
+
+def wordmask_unpack(qweight: torch.Tensor):
+    """WM's unpack (K22) in torch, bit for bit: uint8 [R, C] (C a multiple
+    of 4) -> the (low, high) nibbles, float32 [R, C] each. Lane l reads the
+    32-bit word of columns 4l..4l+3 (byte i of the word is column 4l + i),
+    masks it whole, w & 0x0F0F0F0F and (w >> 4) & 0x0F0F0F0F, and takes
+    byte i of each as int8 to float."""
+    b = qweight.to(torch.int64).reshape(qweight.shape[0], -1, 4)
+    w = b[..., 0] | b[..., 1] << 8 | b[..., 2] << 16 | b[..., 3] << 24
+    out = []
+    for word in (w & 0x0F0F0F0F, (w >> 4) & 0x0F0F0F0F):
+        n = torch.stack([(word >> (8 * i)) & 0xFF for i in range(4)], dim=-1)
+        out.append(n.to(torch.uint8).view(torch.int8).to(torch.float32).reshape(qweight.shape))
+    return tuple(out)
+
+
 def one_launch_model(x, rot, qweight, scales, zeros, out_splits, KS, variant="k1", chunk=None,
                      gps=None, tables=None):
     """The one-launch kernel's arithmetic in torch: per block (partition p,
@@ -178,17 +208,22 @@ def one_launch_model(x, rot, qweight, scales, zeros, out_splits, KS, variant="k1
     sx = max |xr32_g| / 127 (1 where 0) and xq = round(xr32_g / sx); the
     partial the sum, in group order, of ((xq_g @ q_g - sum(xq_g) z_g) s_g) sx,
     each operation rounded apart and the dot exact), "pl" (K6 and K21: no
-    rot; xr_g = bf16(x_g), then K1's partial) or "bc" (K19: "pl" on a
+    rot; xr_g = bf16(x_g), then K1's partial), "bc" (K19: "pl" on a
     qweight in the output-pair layout uint8 [I, O//2], byte (i, j) holding
-    columns 2j and 2j + 1 of channel i; xr per channel)."""
+    columns 2j and 2j + 1 of channel i; xr per channel), "mf" (K20: "pl"
+    with the nibbles of `mulfloor_unpack`) or "wm" (K22: "pl" with those of
+    `wordmask_unpack`)."""
     M, I = x.shape
-    if variant in ("bf", "a8", "pl", "bc"):  # no rotation matrix: one partition
+    if variant in ("bf", "a8", "pl", "bc", "mf", "wm"):  # no rotation matrix: one partition
         P, G = 1, scales.shape[0]
         S = I // G
     else:
         P, G, S, _ = rot.shape
     if variant == "bc":
         q = ux.unpack_opair(qweight).to(torch.float32).reshape(G, S, -1)
+    elif variant in ("mf", "wm"):  # byte-row k of a group: channels k (low) and S/2 + k (high)
+        lo, hi = (mulfloor_unpack if variant == "mf" else wordmask_unpack)(qweight)
+        q = torch.cat([lo.reshape(G, S // 2, -1), hi.reshape(G, S // 2, -1)], dim=1)
     else:
         unpack = tk._unpack_interleaved if variant == "i4" else tk._unpack_groups
         q = unpack(qweight, G, S)  # [G, S, O] nibble values
@@ -203,7 +238,7 @@ def one_launch_model(x, rot, qweight, scales, zeros, out_splits, KS, variant="k1
         xg = x.to(torch.float32).reshape(M, G, S)
         sx, xg = _a8_quantize(xg)
         s_all, z_all = scales.to(torch.float32), zeros.to(torch.float32)
-    elif variant in ("pl", "bc"):
+    elif variant in ("pl", "bc", "mf", "wm"):
         xg = x.to(torch.float32).reshape(M, G, S)
         s_all, z_all = scales.to(torch.float32), zeros.to(torch.float32)
     else:
@@ -222,7 +257,7 @@ def one_launch_model(x, rot, qweight, scales, zeros, out_splits, KS, variant="k1
                     dot = xg[:, g] @ q[g][:, cols]  # integers below 2**24: exact
                     part = part + (dot - xg[:, g].sum(-1, keepdim=True) * z) * (s * sx[:, g])
                     continue
-                xr32 = (xg[:, g] if variant in ("bf", "pl", "bc")
+                xr32 = (xg[:, g] if variant in ("bf", "pl", "bc", "mf", "wm")
                         else xg[:, g] @ rot[p, g].to(torch.float32).T)
                 if variant == "ra8":
                     sxg, xq = _a8_quantize(xr32)

@@ -6,16 +6,19 @@ package): it is loaded by path, and `jax.experimental.pallas.pallas_call` is
 replaced by its interpret-mode partial before the first trace (a jitted
 function keeps its first trace, so the replacement must come first).
 
-On the card K19 and K21 take the one-launch kernel at M <= 16
-(`unpack_route`): K19 its BC variant, K21 K6's PL variant. Those kernels run
-only on the card; `one_launch_model` (tests/test_torch_rot_w4_route.py,
-variants "bc" and "pl") models their sums, per split an f32 partial over its
-groups with the scale folded into the nibbles, the partials summed in split
-order, and is held here against JAX's `w4_matmul_bitcast`,
-`w4_matmul_splitdot` and `w4_matmul_splitdot_ce` in interpret mode. BC's
-exponent-bias unpack is modelled bit for bit in torch (`bias_unpack`). The
-route, its plan and the wrappers' launches are checked on meta tensors with
-the library replaced by a recorder.
+On the card K19-K22 take the one-launch kernel at M <= 16 (`unpack_route`):
+K19 its BC variant, K20 its MF variant, K21 K6's PL variant and K22 its WM
+variant. Those kernels run only on the card; `one_launch_model`
+(tests/test_torch_rot_w4_route.py, variants "bc", "mf", "pl" and "wm")
+models their sums, per split an f32 partial over its groups with the scale
+folded into the nibbles, the partials summed in split order, and is held
+here against JAX's `w4_matmul_bitcast`, `w4_matmul_mulfloor`,
+`w4_matmul_splitdot`, `w4_matmul_splitdot_ce` and `w4_matmul_i8` in
+interpret mode. Each variant's unpack is modelled bit for bit in torch
+(`bias_unpack`, `mulfloor_unpack`, `wordmask_unpack`) and held to the
+nibbles on every byte value; MF and WM give PL's nibbles, so their models
+equal PL's bit for bit. The route, its plan and the wrappers' launches are
+checked on meta tensors with the library replaced by a recorder.
 
 Tolerances: the GEMVs (and the models) within one bf16 ulp (2**-7) of max
 |y| of the JAX output (the nibbles are exact everywhere; only the order of
@@ -39,7 +42,7 @@ from paroquant_tpu.kernels import rot_matmul as jk
 from paroquant_tpu.ops.packing import pack_w4_tpu
 from paroquant_tpu_torch.kernels import rot_matmul as rm, unpack_exp as ux
 from paroquant_tpu_torch.scripts import kernel_unpack_exp
-from test_torch_rot_w4_route import SMS, one_launch_model
+from test_torch_rot_w4_route import SMS, mulfloor_unpack, one_launch_model, wordmask_unpack
 
 SCRIPT = Path(__file__).resolve().parent.parent / "scripts" / "kernel_unpack_exp.py"
 O, S = 256, 128
@@ -194,6 +197,56 @@ def test_pl_model_matches_jax_splitdot(js, interpret, name, M, gs):
         _close(y, yj, BF16_ULP, f"pl KS={ks} sz={sz} x={xk}")
 
 
+def _half_split_model_case(js, name, variant, i, M, gs, xk):
+    """The "mf" or "wm" model against JAX's `name` in interpret mode at the
+    plan's split count and at one and two groups a split, and bit for bit
+    against the "pl" model on the same inputs."""
+    sz = SZ3[i % 3]
+    ops = _operands(700 + 50 * (variant == "wm") + i, M, 3 * gs, sz, js, xk, gs)
+    args = [ops[k] for k in ("x", "qweight", "scales", "zeros")]
+    yj = getattr(js, name)(*(a[0] for a in args), group_size=gs)
+    xt, qw, st, zt = (a[1] for a in args)
+    route, (KS, *_) = ux.unpack_route(M, 3 * gs, gs, O, SMS)
+    assert route == "one_launch"
+    for ks in sorted({KS, 1, 2}):
+        y = one_launch_model(xt, None, qw, st, zt, (O,), ks, variant)
+        assert torch.equal(y, one_launch_model(xt, None, qw, st, zt, (O,), ks, "pl"))
+        _close(y.to(xt.dtype), yj, BF16_ULP, f"{variant} KS={ks} sz={sz} x={xk}")
+
+
+@pytest.mark.parametrize("M,gs,xk", BC_CASES)
+def test_mf_model_matches_jax_mulfloor(js, interpret, M, gs, xk):
+    """K20's one launch: PL's skeleton with the bf16 mul-floor unpack."""
+    _half_split_model_case(js, "w4_matmul_mulfloor", "mf", BC_CASES.index((M, gs, xk)), M, gs, xk)
+
+
+@pytest.mark.parametrize("M,gs,xk", BC_CASES)
+def test_wm_model_matches_jax_i8(js, interpret, M, gs, xk):
+    """K22's one launch: PL's skeleton with the word-wide mask unpack."""
+    _half_split_model_case(js, "w4_matmul_i8", "wm", BC_CASES.index((M, gs, xk)), M, gs, xk)
+
+
+def _words(seed, pos):
+    """uint8 [256, 16]: 4 words a row, random bytes but every byte value at
+    byte position `pos` of the row's first word."""
+    words = np.random.default_rng(seed).integers(0, 256, (256, 16)).astype(np.uint8)
+    words[:, pos] = np.arange(256)
+    return torch.from_numpy(words)
+
+
+@pytest.mark.parametrize("pos", range(4))
+@pytest.mark.parametrize("unpack", [mulfloor_unpack, wordmask_unpack], ids=["mf", "wm"])
+def test_half_split_unpack_models_bit_for_bit(unpack, pos):
+    """MF's and WM's unpacks give (b & 15, b >> 4) exactly: every byte value
+    at each byte position of a 32-bit word, beside random bytes."""
+    qw = _words(20 + pos, pos)
+    lo, hi = unpack(qw)
+    assert lo.dtype == hi.dtype == torch.float32 and lo.shape == hi.shape == qw.shape
+    b = qw.to(torch.int32)
+    assert torch.equal(lo, (b & 15).to(torch.float32))
+    assert torch.equal(hi, (b >> 4).to(torch.float32))
+
+
 def bias_unpack(qweight_opair: torch.Tensor) -> torch.Tensor:
     """BC's unpack in torch, bit for bit: uint8 [R, B] (B even) -> float32
     [R, 2B]. Lane l takes the 2 bytes (b0, b1) of columns 4l..4l+3, spreads
@@ -234,7 +287,12 @@ def test_bias_unpack_matches_unpack_opair_bit_for_bit():
 # the route, its plan and the wrappers' launches
 # ---------------------------------------------------------------------------
 
-ROUTED = tuple(ux.ONE_LAUNCH_ENTRY)
+# K19-K22: each GEMV's entry into the one-launch kernel at M <= 16
+ROUTED = {"w4_matmul_bitcast": "paro_w4_opair_one_launch",  # K19: BC
+          "w4_matmul_mulfloor": "paro_w4_mulfloor_one_launch",  # K20: MF
+          "w4_matmul_splitdot_ce": "paro_w4_matmul_one_launch",  # K21: K6's PL
+          "w4_matmul_splitdot": "paro_w4_matmul_one_launch",
+          "w4_matmul_i8": "paro_w4_wordmask_one_launch"}  # K22: WM
 
 
 def test_plan_at_the_scripts_shape():
@@ -287,16 +345,15 @@ def _meta(name, M, I=4096, n_out=4096):
 
 
 @pytest.mark.parametrize("M", [1, 8, 16, 17])
-@pytest.mark.parametrize("name", ROUTED)
-def test_k19_and_k21_launch_by_route(recorded, name, M):
+@pytest.mark.parametrize("name", list(ROUTED))
+def test_k19_to_k22_launch_by_route(recorded, name, M):
     ux.reset_launch_counts()
     getattr(ux, name)(*_meta(name, M))
     ((entry, args),) = recorded
     codes = (1, rm.SZ_CODES[torch.bfloat16], rm.SZ_CODES[torch.uint8], 0)
     if M <= rm.ONE_LAUNCH_MAX_M:
         KS, tile, _, _ = rm.w4_plan(M, 4096, 128, 4096, SMS)
-        assert entry == ("paro_w4_opair_one_launch" if name == "w4_matmul_bitcast"
-                         else "paro_w4_matmul_one_launch")
+        assert entry == ROUTED[name]
         assert args[7:] == (M, 4096, 128, 4096, KS, tile // rm.COLS_PER_TILE, *codes)
         assert ux.unpack_route_counts[name] == {"one_launch": 1, "gemv": 0}
     else:
@@ -306,17 +363,6 @@ def test_k19_and_k21_launch_by_route(recorded, name, M):
     assert ux.launch_counts[name] == 1
     assert sum(ux.launch_counts.values()) == 1
     assert all(sum(c.values()) == (n == name) for n, c in ux.unpack_route_counts.items())
-
-
-@pytest.mark.parametrize("M", [1, 17])
-@pytest.mark.parametrize("name", ["w4_matmul_mulfloor", "w4_matmul_i8"])
-def test_k20_and_k22_keep_the_gemv(recorded, name, M):
-    ux.reset_launch_counts()
-    getattr(ux, name)(*_meta(name, M))
-    ((entry, args),) = recorded
-    assert entry == "paro_unpack_gemv" and args[6] == ux.MODES[name]
-    assert ux.launch_counts[name] == 1
-    assert all(sum(c.values()) == 0 for c in ux.unpack_route_counts.values())
 
 
 # ---------------------------------------------------------------------------

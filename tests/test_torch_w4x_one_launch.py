@@ -156,6 +156,38 @@ def test_sass_comparison_counts_identical_instances_by_variant():
     assert one_launch_sass.count_by_variant(ref) == {1: 1, 5: 1}
 
 
+UNPACK_SASS = """
+		Function : _ZN4paro3one24rot_w4_one_launch_kernelIffLi1ELi8EEEvNS0_4ArgsE
+        /*0000*/                   LOP3.LUT R5, R4, 0xf, RZ, 0xc0, !PT ;
+        /*0010*/                   I2FP.F32.U32 R6, R5 ;
+        /*0020*/              @!P0 I2FP.F32.U32 R7, R5 ;
+		Function : _ZN4paro3one24rot_w4_one_launch_kernelI13__nv_bfloat16fLi8ELi10EEEvNS0_4ArgsE
+        /*0000*/                   HFMA2.BF16_V2 R5, R4, R3, R2 ;
+        /*0010*/                   FRND.FLOOR R6, R5 ;
+		Function : _ZN4paro3one24rot_w4_one_launch_kernelIffLi1ELi11EEEvNS0_4ArgsE
+        /*0000*/                   LOP3.LUT R5, R4, 0xf, RZ, 0xc0, !PT ;
+        /*0010*/                   I2FP.F32.U32 R6, R5 ;
+        /*0020*/              @!P0 I2FP.F32.U32 R7, R5 ;
+		Function : _ZN4paro3one24rot_w4_one_launch_kernelIffLi2ELi11EEEvNS0_4ArgsE
+        /*0000*/                   PRMT R5, R4, 0x7440, RZ ;
+		Function : _ZN4paro3one24rot_w4_one_launch_kernelIffLi1ELi1EEEvNS0_4ArgsE
+        /*0000*/                   LOP3.LUT R5, R4, 0xf, RZ, 0xc0, !PT ;
+"""
+
+
+def test_unpack_readout_counts_opcodes_and_holds_wm_to_pl():
+    """scripts/one_launch_sass.py's unpack readout: the unpack opcodes of
+    PL's, MF's and WM's instances (none of K10's), and each WM instance
+    against PL's of the same x type and row tile."""
+    funcs = one_launch_sass.sass_functions(UNPACK_SASS)
+    got = one_launch_sass.unpack_readout(funcs)
+    assert got["opcodes"] == {
+        "mf": {"13__nv_bfloat16fLi8E": {"FRND.FLOOR": 1, "HFMA2.BF16_V2": 1}},
+        "pl": {"ffLi1E": {"I2FP.F32.U32": 2, "LOP3.LUT": 1}},
+        "wm": {"ffLi1E": {"I2FP.F32.U32": 2, "LOP3.LUT": 1}, "ffLi2E": {"PRMT": 1}}}
+    assert got["wm_identical_to_pl"] == {"ffLi1E": True, "ffLi2E": False}
+
+
 def test_phase_stamps_find_their_anchors():
     """scripts/one_launch_phases.py stamps the kernel after texts of
     csrc/one_launch.cuh: each must still be there, once."""
