@@ -34,8 +34,9 @@ Phases, each printing one or more lines:
      (K13 its A8 variant), two calls bitwise equal and one kernel a call;
      K8 and K11, one function, held to TOL_DEQUANT here and in their edges),
      K14-K17 (the int8 probe's narrowing cast and tensor-core
-     dots, at its shapes and on its integer inputs, exact; K17 one launch a
-     call, two calls bitwise equal); then their other branches (f32,
+     dots, at its shapes and on its integer inputs, exact; K15 and K17 one
+     launch a call, two calls bitwise equal, and timed after a clean flush
+     too); then their other branches (f32,
      ragged M, head_dim 64, softcap, window, page sizes, K1/K2 at group
      sizes 1024/2048 and one row-spanning group of 96/320 with f32, f16
      and uint8 scales/zeros, K8 and K11 on fractional zero points where
@@ -57,8 +58,10 @@ Phases, each printing one or more lines:
      entry points) and their control arms K6 and K1 must run, each GEMV
      within TOL_KERNEL of K6, and K19-K22 (BC, MF, PL, WM) on the
      one-launch route at every call. Before the checks, cuobjdump's SASS of the
-     probe's library must show IMMA in K15/K16 and HMMA in K17, that of
-     the unpack library K18's 128-bit global loads, that of the K1/K2
+     probe's library must show IMMA in K16 and in K15's three streaming
+     instances (with their 16-byte cp.async, LDGSTS) and HMMA in K17, that
+     of the unpack library K18's bulk copies (UBLKCP) in both of its
+     instances, with 0 spill bytes in ptxas's lines for K15's and K18's, that of the K1/K2
      library 128-bit loads (LDG.E.128) and 16-byte cp.async (LDGSTS) in all
      16 one-launch instances, that of the experiments' library in all 32
      of K10/K12 and 8 of K13, that of the variants' library in all 8 of K7
@@ -81,7 +84,8 @@ Phases, each printing one or more lines:
      edges: maxP 1, slots ending on and inside a split, a window skipping
      whole splits, empty slots beside full ones, f32 queries over int8
      pools. K18-K22 are checked at
-     the script's 4096 x 4096 draws (K18 bit for bit; K19-K22 at M 1, 8
+     the script's 4096 x 4096 draws (K18 bit for bit, one launch a call,
+     two calls bitwise equal, timed after a clean flush too; K19-K22 at M 1, 8
      and 16 beside K6, each row naming its route, `unpack_route`, and the
      other route's time; two calls bitwise equal and one kernel a call on
      the one launch, K20's and K22's outputs bit for bit K21's) and at their
@@ -1331,9 +1335,10 @@ def check_int8_probe(flush, gen, dev):
     K16 8 x 256 -> 512, K17 8 x 4096 x 4096; timed beside the bound and one
     library call (torch._int_mm for K15, and for K16 on the unpacked int8
     weight; torch.matmul on bf16, which returns bf16, for K17; none for K14).
-    K17's row names its plan and fails unless two calls give the same bits
-    and a call launches one kernel (profiler); it is also timed, with the
-    library call, after a flush that leaves the L2 clean."""
+    K15's rows and K17's name their plan and fail unless two calls give the
+    same bits and a call launches one kernel (profiler: no memset); they are
+    also timed, with the library call, after a flush that leaves the L2
+    clean."""
     import torch
 
     from paroquant_tpu_torch.kernels import int8_probe as ip
@@ -1372,17 +1377,19 @@ def check_int8_probe(flush, gen, dev):
                    plain_us=plain_ms * 1e3, library_us=None if lib_ms is None else lib_ms * 1e3,
                    library=lib_note, bound_us=b_ms * 1e3, bound_by=b_by,
                    ok=err == 0 and y.dtype == y_ref.dtype and y.shape == y_ref.shape)
-        if kernel == "bf16_dot":  # one launch a call, its splits merged in a fixed order
+        if kernel in ("int8_dot", "bf16_dot"):  # one launch a call, its splits merged in a fixed order
             from paroquant_tpu_torch.utils.profiling import kernel_time_ms
 
-            KS, per, rows_per_block = ip.bf16_plan(*abf.shape, bbf.shape[1], ip._sm_count(dev))
+            M, K, N = (int(v) for v in case.split("x"))
+            plan = ip.int8_plan if kernel == "int8_dot" else ip.bf16_plan
+            KS, per, rows_per_block = plan(M, K, N, ip._sm_count(dev))
             row.update(KS=KS, chunks_per_split=per, rows_per_block=rows_per_block,
                        bitwise_equal=torch.equal(run(), run()), kernels_per_call=kernels_per_call(run),
                        us_clean_l2=kernel_time_ms(run, KERNEL_REPS, flush, clean_l2=True) * 1e3,
-                       library_us_clean_l2=kernel_time_ms(lib, KERNEL_REPS, flush,
-                                                          clean_l2=True) * 1e3)
+                       library_us_clean_l2=None if lib is None else
+                       kernel_time_ms(lib, KERNEL_REPS, flush, clean_l2=True) * 1e3)
             if not row["bitwise_equal"] or row["kernels_per_call"] != 1:
-                raise SystemExit(f"bf16_dot: two calls differ or a call ran "
+                raise SystemExit(f"{kernel} {case}: two calls differ or a call ran "
                                  f"{row['kernels_per_call']} kernels")
         emit({"phase": "kernel_check", **row})
         rows.append(row)
@@ -1390,7 +1397,7 @@ def check_int8_probe(flush, gen, dev):
 
 
 def int8_edges(gen, dev, record, record_exact):
-    """K14-K17 at their edges, checked and not timed: M 1, 5, 16, 17, 33; N
+    """K14-K17 at their edges, checked and not timed: M 1, 5, 16, 17, 32, 33; N
     130; K 96 and 200 (not multiples of 32; K16's S/2 = 99 puts a row quad
     across its two halves); K 16384 (split over 128 blocks); operands that
     are not 16-byte aligned; K15 on -128 and 127 everywhere, K16 on nibbles
@@ -1422,7 +1429,7 @@ def int8_edges(gen, dev, record, record_exact):
         bf = move(b.float().div(37.0).to(torch.bfloat16))  # non-integer values
         record("bf16_dot", f"{case} {M}x{K}x{N}", ip.bf16_dot(af, bf), ip.bf16_dot_plain(af, bf))
 
-    for M in (1, 5, 16, 17, 33):
+    for M in (1, 5, 16, 17, 32, 33):
         dots("ragged M", M, 256, 128)
     dots("N=130", 5, 256, 130)
     for K in (96, 200, 198):
@@ -1563,6 +1570,26 @@ def check_rot_spills(report):
     if ([len(b) for b in by_var.values()] != [16, 16, 16, 16, 8, 8, 16, 16, 8, 8, 8, 8]
             or any(spills.values())):
         raise SystemExit(f"the one-launch kernel: {len(spills)} instances, spill bytes {spills}")
+
+
+def check_stream_spills(report):
+    """K15's streaming instances (int8_stream_kernel, NM 1, 2, 4) and K18's
+    (stream_kernel, f32 and bf16 x) must report 0 spill bytes in ptxas's
+    lines."""
+    import re
+
+    fn, spills = None, {}
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif fn and "stream_kernel" in fn and "spill stores" in line:
+            spills[fn] = (int(re.search(r"(\d+) bytes spill stores", line).group(1))
+                          + int(re.search(r"(\d+) bytes spill loads", line).group(1)))
+    k15 = [b for f, b in spills.items() if "int8_stream_kernel" in f]
+    k18 = [b for f, b in spills.items() if "int8_stream_kernel" not in f]
+    emit({"phase": "stream_spills", "spill_bytes": {"k15": k15, "k18": k18}})
+    if len(k15) != 3 or len(k18) != 2 or any(spills.values()):
+        raise SystemExit(f"K15/K18's instances: spill bytes {spills}")
 
 
 def int8_probe(dev):
@@ -1726,7 +1753,10 @@ def check_unpack_exp(flush, dev):
     GEMVs within TOL_KERNEL; timed beside the bound and one library call
     (torch.matmul on the dequantized bf16 weight for the GEMVs; for K18,
     which no PyTorch call computes, a torch.sum over the same weight bytes,
-    with its share of the HBM rate). Each K19-K22 row names its route
+    with its share of the HBM rate; K18's row names its splits, fails unless
+    two calls give the same bits and a call launches one kernel (profiler:
+    no second pass), and is timed, with its yardstick, after a clean flush
+    too). Each K19-K22 row names its route
     (`unpack_route`), its plan and the other route's time at the same
     inputs; on the one-launch route it fails unless two calls give the same
     bits and a call launches one kernel (profiler). K20 and K22 (MF and WM:
@@ -1787,13 +1817,25 @@ def check_unpack_exp(flush, dev):
                                      "bits on the one launch")
             else:
                 y = run()
+            if kernel == "stream_only":  # one launch a call, its rows merged in g order
+                from paroquant_tpu_torch.utils.profiling import kernel_time_ms
+
+                route = dict(KS=ux.stream_plan(O, G, rm._sm_count(dev)),
+                             bitwise_equal=torch.equal(run(), run()),
+                             kernels_per_call=kernels_per_call(run),
+                             us_clean_l2=kernel_time_ms(run, KERNEL_REPS, flush, clean_l2=True) * 1e3,
+                             library_us_clean_l2=kernel_time_ms(lib, KERNEL_REPS, flush,
+                                                                clean_l2=True) * 1e3)
+                if not route["bitwise_equal"] or route["kernels_per_call"] != 1:
+                    raise SystemExit(f"stream_only: two calls differ or a call ran "
+                                     f"{route['kernels_per_call']} kernels")
             y_ref = plain()
             torch.cuda.synchronize()
             err = (y.double() - y_ref.double()).abs().max().item()
             exact = kernel == "stream_only"
             tol = 0.0 if exact else TOL_KERNEL * y_ref.float().abs().max().item()
             ms = median_ms(run, KERNEL_REPS, flush)
-            if route:
+            if "route" in route:
                 route["other_route_us"] = other_unpack_route_ms(ux, rm, run, flush,
                                                                 route["route"]) * 1e3
             plain_ms = median_ms(plain, PLAIN_REPS, flush)
@@ -1822,7 +1864,10 @@ def unpack_edges(gen, dev, record, record_exact):
     `unpack_route` (the one launch to M 16, the gemv at 17), and K20's and
     K22's outputs bit for bit K21's wherever the three take the one launch;
     K18 bit for bit at Gb 1, 2 and 3 with G = 8 (Gb 3 leaves two groups
-    unread), then its refusal of M = 17."""
+    unread), with the weight 16-byte aligned and 4 bytes past it, with f32
+    x, where a block streams more chunks than its ring has stages (Gb 4 at
+    I 8192; one split of 8 blocks of groups a block at O 153600), then its
+    refusal of M = 17."""
     import torch
 
     from paroquant_tpu_torch.kernels import rot_matmul as rm, unpack_exp as ux
@@ -1888,6 +1933,22 @@ def unpack_edges(gen, dev, record, record_exact):
                 record_exact("stream_only", f"G=8 Gb={Gb} O={O} M={M}",
                              ux.stream_only(x, qw, groups_per_step=Gb),
                              ux.stream_only_plain(x, qw, groups_per_step=Gb))
+        qs = torch.cat([qw.new_zeros(4), qw.flatten()])[4:].view(qw.shape)  # off 16-byte alignment
+        xf = torch.randn(3, 1024, generator=gen, device=dev)
+        for Gb in (1, 2, 3):
+            record_exact("stream_only", f"G=8 Gb={Gb} O={O} weight off 16-byte alignment",
+                         ux.stream_only(x, qs, groups_per_step=Gb),
+                         ux.stream_only_plain(x, qs, groups_per_step=Gb))
+            record_exact("stream_only", f"G=8 Gb={Gb} O={O} f32 x",
+                         ux.stream_only(xf, qw, groups_per_step=Gb),
+                         ux.stream_only_plain(xf, qw, groups_per_step=Gb))
+    for I, O, Gb in ((8192, 4096, 4), (1024, 153600, 1)):  # ring stages reused; one split (KS 1)
+        qw = torch.randint(0, 256, (I // 2, O), generator=gen, device=dev, dtype=torch.uint8)
+        x = torch.randn(1, I, generator=gen, device=dev).to(torch.bfloat16)
+        KS = ux.stream_plan(O, I // 128 // Gb, sms)
+        record_exact("stream_only", f"I={I} O={O} Gb={Gb} KS={KS}",
+                     ux.stream_only(x, qw, groups_per_step=Gb),
+                     ux.stream_only_plain(x, qw, groups_per_step=Gb))
     try:
         ux.stream_only(torch.zeros((17, 1024), dtype=torch.bfloat16, device=dev), qw)
     except ValueError as e:
@@ -2807,11 +2868,14 @@ def main() -> int:
     emit({"phase": "ptxas", "lines": report.splitlines()})
     check_flash_spills(report)
     check_rot_spills(report)
-    # the tensor-core instructions of K15/K16 (IMMA) and K17 (HMMA, its three
-    # row tilings); K18's 16-byte loads
-    check_sass("libint8_probe.so", ("IMMA", "HMMA"),
-               (("int8_dot_kernel", "IMMA", 2), ("bf16_dot_kernel", "HMMA", 3)))
-    check_sass("libunpack_exp.so", ("LDG.E.128",), (("stream_kernel", "LDG.E.128", 2),))
+    # the tensor-core instructions of K16 (IMMA), K15 (IMMA, its three row
+    # tilings, with their ring's 16-byte cp.async) and K17 (HMMA); K18's bulk
+    # copies (UBLKCP: cp.async.bulk into shared memory) for f32 and bf16 x
+    check_sass("libint8_probe.so", ("IMMA", "HMMA", "LDGSTS"),
+               (("int8_dot_kernel", "IMMA", 1), ("int8_stream_kernel", "IMMA", 3),
+                ("int8_stream_kernel", "LDGSTS", 3), ("bf16_dot_kernel", "HMMA", 3)))
+    check_sass("libunpack_exp.so", ("UBLKCP",), (("stream_kernel", "UBLKCP", 2),))
+    check_stream_spills(report)
     # K4/K5's tensor-core instances: bf16 queries over bf16 and int8 pools, 9 tilings each
     check_sass("libpaged_attention.so", ("HMMA",), (("paged_mma_kernel", "HMMA", 18),))
     # K3's tensor-core instances: 4 head-dim buckets (3 with two key groups), exact or not

@@ -25,53 +25,72 @@
 // Bound of K15-K17 on this card at the script's bench (M = 8, K = N = 4096):
 // bytes. B alone is 16 MB (int8) or 32 MB (bf16), about 5.1 and 10.1 us at
 // 3.35 TB/s, against 0.14 / 0.27 us of tensor-core work; the TPU's argument
-// for int8 (twice the bf16 matrix rate) does not reach a GEMV here. What the
-// design of K15/K16 does about it:
+// for int8 (twice the bf16 matrix rate) does not reach a GEMV here.
+// K16 (and its probe's 8 x 256 -> 512, a few KB: launch cost):
 //  - A block owns a 16-row tile (one mma tile; M is padded to it with zeros,
 //    so at M = 8 half the tile is padding) and 64 columns, 16 per warp (two
-//    n8 tiles). B is the stream: 16-byte loads, each thread four rows, and
-//    the K range is split across blocks (grid.z) so that about 8 blocks per
-//    SM keep loads in flight even where the columns alone make 64 blocks.
-//    The int8 partials meet through int32 atomicAdd into a zeroed output
-//    (exact, the same in any order).
-//  - K15/K16 use mma.sync.m16n8k32 s8 x s8 -> s32. Its B operand (.col)
-//    wants each column's four K bytes in one register, and B lies [K, N] with
-//    N contiguous; ldmatrix.trans moves only 16-bit elements, so each thread
-//    transposes its 4 x 16 byte block with __byte_perm on the way into shared
-//    memory, stored [n][k] with a padded row (36 words) that makes the
-//    fragment reads conflict-free. K16 builds the same tile from the nibbles:
-//    row k < S/2 from the low nibbles of byte-row k, row k >= S/2 from the
-//    high nibbles of byte-row k - S/2, minus 8 per byte (__vsub4).
-//  - Ragged M, N and K are zero-filled in shared memory and masked on the
-//    store; inputs that are not 16-byte aligned, or whose rows are not a
-//    multiple of 16 bytes, are loaded byte by byte.
-// K17 streams B at the bound's rate in one launch:
-//  - It computes out^T = B^T A^T, so that the weight tile is the mma's
+//    n8 tiles). B is read with synchronous 16-byte loads, each thread four
+//    rows, and the K range is split across blocks (grid.z) so that about 8
+//    blocks per SM are resident; the partials meet through int32 atomicAdd
+//    into an output zeroed by a memset first (exact, the same in any order).
+//  - mma.sync.m16n8k32 s8 x s8 -> s32. Its B operand (.col) wants each
+//    column's four K bytes in one register, and B lies [K, N] with N
+//    contiguous, so each thread transposes its 4 x 16 byte block with
+//    __byte_perm on the way into shared memory, stored [n][k] with a padded
+//    row (36 words). The tile is built from the nibbles: row k < S/2 from the
+//    low nibbles of byte-row k, row k >= S/2 from the high nibbles of
+//    byte-row k - S/2, minus 8 per byte (__vsub4).
+// K15 and K17 stream B at the bound's rate in one launch, on one skeleton:
+//  - They compute out^T = B^T A^T, so that the weight tile is the mma's
 //    16-row operand and the rows of A fill its n8 side: at M = 8 no lane
 //    multiplies padding. M up to 32 takes more n8 tiles (NM = 1, 2 or 4) of
 //    the same B fragments; past 32 rows, row tiles on the grid.
-//  - A block owns 128 columns of B (16 a warp, eight warps) and a range of
-//    64-row chunks of K; a ring of BF_NST stages of 64 x 128 bf16 (16 KB,
-//    rows padded to 272 bytes) plus the chunk's rows of A is filled by
-//    16-byte cp.async, BF_NST - 1 stages ahead: 48 KB of B in flight a
-//    block, where 3.35 TB/s times a microsecond of latency over 132 SMs
-//    asks for about 25 KB an SM. The plan (kernels/int8_probe.py::bf16_plan)
-//    splits K so that the grid is one wave at one block an SM: at the bench
-//    32 column tiles x 4 splits of 16 chunks. On the card that beat 8
-//    splits (two blocks an SM) and rings of 3, 6 and 8 stages or of 32- and
-//    128-row stages, and 256-column tiles (PERF.md §6).
-//  - B is read once: its copies carry the L2 policy evict_first, so that
-//    they replace each other in the L2 rather than what the L2 holds (after
-//    a write, dirty lines whose eviction would cost a write each).
-//  - mma.sync.m16n8k16 bf16 x bf16 -> f32: B's [k][n] stage gives the A
-//    fragments through ldmatrix.x4.trans, A's [m][k] rows the B fragments
+//  - A block owns 128 columns of B and a range of K chunks; a ring of
+//    stages of B (K17: 64 x 128 bf16, rows padded to 272 bytes; K15: 128 x
+//    128 int8, 16 KB) plus the chunk's rows of A is filled by 16-byte
+//    cp.async, three stages ahead: 48 KB of B in flight a block, where 3.35
+//    TB/s times a microsecond of latency over 132 SMs asks for about 25 KB
+//    an SM. The plans (kernels/int8_probe.py::bf16_plan, int8_plan) split K
+//    so that the grid is one wave at one block an SM: at the bench 32
+//    column tiles x 4 splits (K17 16 chunks a split, K15 8). For K17 that
+//    beat 8 splits (two blocks an SM) and rings of 3, 6 and 8 stages or of
+//    32- and 128-row stages, and 256-column tiles (PERF.md §6).
+//  - K17's copies of B carry the L2 policy evict_first, so that they
+//    replace each other in the L2 rather than what the L2 holds (after a
+//    write, dirty lines whose eviction would cost a write each). K15's are
+//    plain: with that policy K15 and another kernel's ring raised an
+//    illegal instruction on this card (ROADMAP.md §B 4).
+//  - K17: mma.sync.m16n8k16 bf16 x bf16 -> f32; B's [k][n] stage gives the
+//    A fragments through ldmatrix.x4.trans, A's [m][k] rows the B fragments
 //    through ldmatrix.x4 (two k16 steps a load).
-//  - Each block writes its f32 partial (with K split), arrives on its
-//    tile's counter, and the last to arrive sums the partials in split
-//    order, writes out and resets the counter: one launch, the same bits
-//    whichever block is last.
+//  - K15: mma.sync.m16n8k32 s8 x s8 -> s32, whose 16-row operand (.row)
+//    wants four consecutive K bytes of one column of B in a register; no
+//    instruction of sm_90a transposes bytes on the way in (ldmatrix.trans
+//    moves 16-bit elements, wgmma takes s8 only K-major, TMA does not
+//    transpose), so the stage keeps B as it lies, [k][n], and the
+//    transposition happens on the way out. Four warps take 32 columns each
+//    and two K halves of a stage (two k32 steps each). Lane (g, t) reads the
+//    32-bit word g of its warp's columns (columns 4g .. 4g + 3) at k-rows 4t
+//    .. 4t + 3 and 16 + 4t .. 16 + 4t + 3 of a step and byte-permutes each
+//    four into four columns' k-quads (transpose4x4). The kernel writes out
+//    itself, so the mma's rows may stand for B's columns in any order the
+//    store undoes: columns 4g and 4g + 1 are rows g and g + 8 of one m16
+//    tile, columns 4g + 2 and 4g + 3 of a second. A k32 step costs a lane 8
+//    LDS.32 of B, 16 PRMT and 2 NM mma, and every byte read is used. A's
+//    fragments are plain 32-bit reads of its staged [m][k] rows (padded by
+//    16 bytes: conflict-free). In a B stage each row's 16-byte piece p lies
+//    at p ^ 2 ((k >> 2) & 3), for the copy and the read alike, so that the
+//    32 lanes' words fall on 32 banks. Each lane then holds four
+//    neighbouring columns of each of its rows: the two K halves meet in
+//    shared memory and leave as 16-byte stores.
+//  - Each block writes its partial (f32 for K17, int32 for K15) where K is
+//    split, arrives on its tile's counter, and the last to arrive sums the
+//    partials in split order, writes out and resets the counter: one
+//    launch, no memset, no atomics on out, the same bits whichever block is
+//    last.
 //  - Operands that are not 16-byte aligned, or whose rows are not a
-//    multiple of 16 bytes, are loaded element by element into the ring.
+//    multiple of 16 bytes, are loaded element by element into the ring;
+//    ragged M, N and K are zero-filled in the stage and masked on the store.
 
 #include "common.cuh"
 
@@ -79,11 +98,11 @@ using namespace paro;
 
 namespace {
 
-constexpr int THREADS = 128;       // four warps
-constexpr int BM = 16;             // rows per block: one mma tile
-constexpr int BN = 64;             // columns per block: 16 per warp
-constexpr int BK8 = 128;           // K15/K16: K bytes per stage, four m16n8k32 steps
-constexpr int SW = BK8 / 4 + 4;    // K15/K16: shared row stride in 32-bit words
+constexpr int THREADS = 128;       // K16: four warps
+constexpr int BM = 16;             // K16: rows per block, one mma tile
+constexpr int BN = 64;             // K16: columns per block, 16 per warp
+constexpr int BK8 = 128;           // K16: K bytes per stage, four m16n8k32 steps
+constexpr int SW = BK8 / 4 + 4;    // K16: shared row stride in 32-bit words
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
@@ -106,10 +125,11 @@ __global__ void narrow_cast_kernel(const int32_t* __restrict__ x, uint8_t* __res
 }
 
 // ---------------------------------------------------------------------------
-// K15 / K16
+// K16 (and the byte transpose and s8 mma K15 shares)
 // ---------------------------------------------------------------------------
 
-// 16 bytes of A's row m from column k into w[4] (zero beyond M and K).
+// 16 bytes of A's row m from column k into w[4] (zero beyond M and K); K15
+// also loads rows of B this way.
 __device__ __forceinline__ void load_a8(const uint8_t* __restrict__ A, int m, int k, int M, int K,
                                         bool vec, uint32_t w[4]) {
   if (m >= M) {
@@ -468,6 +488,217 @@ int launch_bf16(const void* a, const void* b, void* out, void* part, void* count
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K15
+// ---------------------------------------------------------------------------
+
+constexpr int I8_THREADS = 256;          // eight warps: four column groups x two K halves
+constexpr int I8_TN = 128;               // columns of B a block takes: 32 a column group
+constexpr int I8_BK = 128;               // K rows a ring stage: four k32 steps, two a K half
+constexpr int I8_NST = 4;                // ring stages
+constexpr int I8_SA = I8_BK + 16;        // shared row stride of A in bytes (144)
+constexpr int I8_RS = I8_TN + 4;         // row stride of the int32 tile staged for the stores
+constexpr int I8_LB = 8;                 // partials in flight a thread in the merge
+
+// bytes of one ring stage for NM n8 tiles of A's rows: B's 128 x 128 and A's 8 NM x 128
+__host__ __device__ constexpr int i8_stage(int nm) { return I8_BK * I8_TN + 8 * nm * I8_SA; }
+
+// byte offset in a B stage of the 16-byte piece p (of 8) of the stage's k-row
+// r: the piece index XOR 2 ((r >> 2) & 3), so that a k32 step's fragment
+// reads of the 32 lanes fall on 32 banks
+__device__ __forceinline__ int i8_swizzle(int r, int p) {
+  return r * I8_TN + ((p ^ (((r >> 2) & 3) << 1)) << 4);
+}
+
+// grid (column tiles of 128, K splits of `per` chunks of 128, row tiles of
+// 8 NM rows). With K split, block (x, y, z) writes its int32 partial to
+// part[y] [M, NP] (NP = 128 gridDim.x) and the last block of (x, z) to
+// arrive on its counter sums the gridDim.y partials in split order into out
+// and resets the counter.
+template <int NM>
+__global__ void __launch_bounds__(I8_THREADS, 2) int8_stream_kernel(
+    const uint8_t* __restrict__ A, const uint8_t* __restrict__ B, int* __restrict__ out,
+    int* __restrict__ part, int* __restrict__ counters, int M, int K, int N, int per, int vec_a,
+    int vec_b, int vec_out) {
+  constexpr int MB = 8 * NM;  // rows of A a block takes
+  constexpr int STAGE = i8_stage(NM);
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int last;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int cg = warp & 3, kh = warp >> 2;  // the warp's 32 columns and K half of a stage
+  const int n0 = blockIdx.x * I8_TN, ks = blockIdx.y, m0 = blockIdx.z * MB;
+  const int KS = gridDim.y, NP = gridDim.x * I8_TN;
+  const int c0 = ks * per, nc = min((K + I8_BK - 1) / I8_BK, c0 + per) - c0;  // >= 1
+
+  // chunk c of the split into stage c % I8_NST: B's rows [k0, k0 + 128) of
+  // the tile's columns (1024 pieces of 16 bytes, four a thread, at their
+  // swizzled places), then A's rows [m0, m0 + MB) of the same K range (MB * 8
+  // pieces); zero outside M, K, N
+  auto issue = [&](int c) {
+    if (c < nc) {
+      const int k0 = (c0 + c) * I8_BK;
+      unsigned char* sb = smem + (c % I8_NST) * STAGE;
+      unsigned char* sa = sb + I8_BK * I8_TN;
+#pragma unroll
+      for (int i = 0; i < I8_BK * I8_TN / 16 / I8_THREADS; ++i) {
+        const int piece = tid + i * I8_THREADS, r = piece >> 3, p = piece & 7;
+        const int k = k0 + r, n = n0 + 16 * p;
+        unsigned char* dst = sb + i8_swizzle(r, p);
+        if (vec_b) {  // N a multiple of 16: a piece lies wholly inside or outside
+          const bool ok = k < K && n < N;
+          cp_async16(dst, ok ? B + (size_t)k * N + n : B, ok ? 16 : 0);
+        } else {  // B's row k from column n, byte by byte
+          load_a8(B, k, n, K, N, 0, reinterpret_cast<uint32_t*>(dst));
+        }
+      }
+      for (int piece = tid; piece < MB * I8_BK / 16; piece += I8_THREADS) {
+        const int r = piece >> 3, kk = (piece & 7) * 16;
+        const int m = m0 + r, k = k0 + kk;
+        unsigned char* dst = sa + r * I8_SA + kk;
+        if (vec_a) {  // K a multiple of 16
+          const bool ok = m < M && k < K;
+          cp_async16(dst, ok ? A + (size_t)m * K + k : A, ok ? 16 : 0);
+        } else {
+          load_a8(A, m, k, M, K, 0, reinterpret_cast<uint32_t*>(dst));
+        }
+      }
+    }
+    cp_async_commit();  // an empty group past the end keeps the waits uniform
+  };
+
+#pragma unroll
+  for (int c = 0; c < I8_NST - 1; ++c) issue(c);
+  // lane (g, t) reads word g of its warp's 32 columns (columns 4g .. 4g + 3)
+  // at k-rows 4t + i and 16 + 4t + i of a k32 step; all eight rows share the
+  // swizzle 2t, so the word's byte offset in a row is fixed
+  const int wb = (((2 * cg + (g >> 2)) ^ (2 * t)) << 4) + 4 * (g & 3);
+  int acc[2][NM][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < NM; ++j) acc[h][j][0] = acc[h][j][1] = acc[h][j][2] = acc[h][j][3] = 0;
+  for (int c = 0; c < nc; ++c) {
+    cp_async_wait<I8_NST - 2>();  // chunk c has landed (this thread's pieces)
+    __syncthreads();              // everyone's; chunk c - 1's readers are done
+    issue(c + I8_NST - 1);
+    const unsigned char* sb = smem + (c % I8_NST) * STAGE;
+    const unsigned char* sa = sb + I8_BK * I8_TN;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int kb = 32 * (2 * kh + s);  // the k32 step's first row in the stage
+      uint32_t lo[4], hi[4], cl[4], ch[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        lo[i] = *reinterpret_cast<const uint32_t*>(sb + (kb + 4 * t + i) * I8_TN + wb);
+        hi[i] = *reinterpret_cast<const uint32_t*>(sb + (kb + 16 + 4 * t + i) * I8_TN + wb);
+      }
+      transpose4x4(lo, cl);  // cl[j]: column 4g + j at k 4t .. 4t + 3
+      transpose4x4(hi, ch);  // ch[j]: the same at k 16 + 4t .. 16 + 4t + 3
+#pragma unroll
+      for (int j = 0; j < NM; ++j) {
+        const unsigned char* ra = sa + (8 * j + g) * I8_SA + kb + 4 * t;  // A's row 8j + g
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(ra);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(ra + 16);
+        mma_s8(acc[0][j], cl[0], cl[1], ch[0], ch[1], b0, b1);  // rows g, g + 8: columns 4g, 4g + 1
+        mma_s8(acc[1][j], cl[2], cl[3], ch[2], ch[3], b0, b1);  // columns 4g + 2, 4g + 3
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the tile [MB][I8_RS] int32 reuses it
+
+  // acc[h][j] holds out^T[column 4g + 2h (+ 1 for 2, 3)][row 8j + 2t (+ 1 for
+  // 1, 3)] of the warp's 32: a lane has four neighbouring columns of each of
+  // its rows. The second K half adds its sums to the first's.
+  int* red = reinterpret_cast<int*>(smem);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    if (kh == half) {
+#pragma unroll
+      for (int j = 0; j < NM; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          int4* p = reinterpret_cast<int4*>(red + (8 * j + 2 * t + e) * I8_RS + 32 * cg + 4 * g);
+          int4 v = make_int4(acc[0][j][e], acc[0][j][2 + e], acc[1][j][e], acc[1][j][2 + e]);
+          if (half == 1) {
+            const int4 o = *p;
+            v.x += o.x, v.y += o.y, v.z += o.z, v.w += o.w;
+          }
+          *p = v;
+        }
+    }
+    __syncthreads();
+  }
+  const int Mb = min(MB, M - m0);
+  auto store4 = [&](int m, int col, int4 v) {  // out's columns below N
+    int* o = out + (size_t)(m0 + m) * N + col;
+    if (vec_out && col + 4 <= N) {
+      *reinterpret_cast<int4*>(o) = v;
+      return;
+    }
+    const int f[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (col + j < N) o[j] = f[j];
+  };
+  for (int e4 = 4 * tid; e4 < Mb * I8_TN; e4 += 4 * I8_THREADS) {
+    const int m = e4 / I8_TN, cc = e4 % I8_TN;
+    const int4 v = *reinterpret_cast<const int4*>(red + m * I8_RS + cc);
+    if (KS == 1) {
+      if (n0 + cc < N) store4(m, n0 + cc, v);
+    } else {  // the partial's rows are NP wide: every 16-byte store aligned
+      *reinterpret_cast<int4*>(part + ((size_t)ks * M + m0 + m) * NP + n0 + cc) = v;
+    }
+  }
+  if (KS == 1) return;
+
+  // every split of the tile has written its partial: the last block to
+  // arrive sums them in split order and resets the counter
+  __syncthreads();
+  if (tid == 0) {  // after the barrier, one fence orders the block's partials before its arrival
+    __threadfence();
+    int* cnt = counters + blockIdx.z * gridDim.x + blockIdx.x;
+    last = atomicAdd(cnt, 1) == KS - 1;
+    if (last) *cnt = 0;
+  }
+  __syncthreads();
+  if (!last) return;
+  const size_t MNP = (size_t)M * NP;
+  for (int e4 = 4 * tid; e4 < Mb * I8_TN; e4 += 4 * I8_THREADS) {
+    const int m = e4 / I8_TN, col = n0 + e4 % I8_TN;
+    if (col >= N) continue;
+    const int* src = part + (size_t)(m0 + m) * NP + col;
+    int4 v = make_int4(0, 0, 0, 0);
+    for (int k0 = 0; k0 < KS; k0 += I8_LB) {
+      int4 p[I8_LB];
+#pragma unroll
+      for (int u = 0; u < I8_LB; ++u)
+        p[u] = k0 + u < KS ? __ldcg(reinterpret_cast<const int4*>(src + (k0 + u) * MNP))
+                           : make_int4(0, 0, 0, 0);
+#pragma unroll
+      for (int u = 0; u < I8_LB; ++u)
+        if (k0 + u < KS) v.x += p[u].x, v.y += p[u].y, v.z += p[u].z, v.w += p[u].w;
+    }
+    store4(m, col, v);
+  }
+}
+
+template <int NM>
+int launch_i8(const void* a, const void* b, void* out, void* part, void* counters, int M, int K,
+              int N, int per, int split, int vec_a, int vec_b, int vec_out, cudaStream_t st) {
+  const auto kernel = int8_stream_kernel<NM>;
+  const int smem = I8_NST * i8_stage(NM);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((N + I8_TN - 1) / I8_TN, split, (M + 8 * NM - 1) / (8 * NM));
+  kernel<<<grid, I8_THREADS, smem, st>>>((const uint8_t*)a, (const uint8_t*)b, (int*)out,
+                                         (int*)part, (int*)counters, M, K, N, per, vec_a, vec_b,
+                                         vec_out);
+  return (int)cudaGetLastError();
+}
+
 // the K split: chunks of bk, `per` to a block, `split` blocks covering them
 // all; grid.y and grid.z stay within 65535
 bool bad_split(int M, int K, int N, int bk, int per, int split) {
@@ -507,17 +738,25 @@ extern "C" int paro_narrow_cast(const void* x, void* out, long long n, void* str
   return (int)cudaGetLastError();
 }
 
-// K15. a int8 [M, K], b int8 [K, N] -> out int32 [M, N]; the K range in
-// `split` blocks of `per` chunks of 128.
-extern "C" int paro_int8_dot(const void* a, const void* b, void* out, int M, int K, int N, int per,
-                             int split, void* stream) {
-  if (bad_split(M, K, N, BK8, per, split)) return (int)cudaErrorInvalidValue;
-  return launch_int8<false>(a, b, out, M, K, N, per, split, K % 16 == 0 && aligned16(a),
-                            N % 16 == 0 && aligned16(b), (cudaStream_t)stream);
+// K15. a int8 [M, K], b int8 [K, N] -> out int32 [M, N]; blocks of `rows`
+// rows of a (8, 16 or 32) and 128 columns of b, the K range in `split`
+// blocks of `per` chunks of 128; with split > 1 the scratch part int32
+// [split, M, 128 ceil(N / 128)] and counters int32, one per (column tile, row
+// tile), zero and left zero. Returns the first CUDA error (0 on success).
+extern "C" int paro_int8_dot(const void* a, const void* b, void* out, void* part, void* counters,
+                             int M, int K, int N, int per, int split, int rows, void* stream) {
+  if ((rows != 8 && rows != 16 && rows != 32) || bad_split(M, K, N, I8_BK, per, split) ||
+      (M + rows - 1) / rows > 65535 || (split > 1 && (part == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const int vec_a = K % 16 == 0 && aligned16(a), vec_b = N % 16 == 0 && aligned16(b);
+  const int vec_out = N % 4 == 0 && aligned16(out);
+  const auto launch = rows == 8 ? launch_i8<1> : rows == 16 ? launch_i8<2> : launch_i8<4>;
+  return launch(a, b, out, part, counters, M, K, N, per, split, vec_a, vec_b, vec_out,
+                (cudaStream_t)stream);
 }
 
-// K16. x int8 [M, S], w uint8 [S/2, O] (S even) -> out int32 [M, O]; the
-// split as K15's.
+// K16. x int8 [M, S], w uint8 [S/2, O] (S even) -> out int32 [M, O]; the K
+// range in `split` blocks of `per` chunks of 128.
 extern "C" int paro_fused_unpack_int8_dot(const void* x, const void* w, void* out, int M, int S,
                                           int O, int per, int split, void* stream) {
   if (S % 2 != 0 || bad_split(M, S, O, BK8, per, split)) return (int)cudaErrorInvalidValue;

@@ -49,26 +49,41 @@
 // Bound on this card at 4096 x 4096, M = 1, g128, bf16 scales and zeros:
 // bytes. K18 must read the 8,388,608-byte weight (2.50 us at 3.35 TB/s);
 // K19-K22 also read 32 x 4096 x (2 + 2) bytes of scales and zeros (8,912,896
-// bytes, 2.66 us). Design: one skeleton for all five, so that the GEMVs
-// differ from each other only by the unpack and from the stream only by the
-// arithmetic. A block of 8 warps owns a 512-byte tile of every byte-row: a
-// lane loads 16 bytes of a byte-row with one 16-byte load (16 columns of
-// the half-split layout, 32 of the output-pair one), the warps split the
-// group's byte-rows and each sends 8 rows' loads before it uses them, so a
-// thread keeps 128 bytes in flight; a group's first batch of loads goes out
-// before its activations, scales and zeros are staged in shared memory, so
-// the two wait together. The groups (K18: the blocks of Gb
-// groups) are split across blocks until about two blocks per SM are
-// resident (one group a block at 4096 x 4096); a GEMV's splits write f32
-// partials that a second pass sums in split order (8 loads in flight a
-// thread), and K18's blocks of the first split stage the first row of every
-// block of groups in shared memory and sum them in order (so those bytes
-// are read by them, the others by the streaming loads). K18's streaming loads are
-// `asm volatile` 16-byte loads whose words are folded into a sink the
-// compiler cannot prove dead, so none is removed. Each block of a GEMV
-// takes one row of x (a block per row for M > 1, re-reading its tile of the
-// weight from L2): the experiment is M = 1. Simple and right first: no TMA,
-// no tensor cores.
+// bytes, 2.66 us).
+//
+// K18 copies, as its TPU kernel's BlockSpec DMAs every byte of a block of Gb
+// groups into VMEM, each block's tile of every byte-row into shared memory
+// with bulk copies (cp.async.bulk ... mbarrier::complete_tx::bytes, one per
+// 512-byte row of a tile, completing on one mbarrier a stage): no thread
+// holds the bytes, and the compiler cannot drop a copy. A block of 8 warps
+// owns a 512-byte tile of the byte-rows of a range of blocks of groups; the
+// rows stream through a ring of up to 3 stages of 64 rows (32 KB each), all
+// in flight at once, so any Gb fits (at the bench one stage of 64 rows: one
+// block of one group a block, 256 blocks). Row 0 of each block of groups is
+// read from its stage, x[0, g S] added in f32, and written as one f32 row of
+// a partial; the last block of the tile to arrive on its counter sums the
+// G / Gb rows in g order (the plain version's bits), writes out and resets
+// the counter. So a call is one launch, one DRAM round and one L2 round.
+// What bounds it past the bytes (scripts/stream_only_phases.py, PERF.md §6):
+// the launch, the write-back of the dirty lines the copies evict after a
+// write, and the merge's chain of fence, atomic and L2 loads, which neither
+// arriving as soon as a block's row 0 lands nor one block taking every row
+// 0 itself took off the critical path. Where the rows are not 16-byte
+// aligned, the threads load the bytes into the same stages one by one.
+//
+// K19-K22's GEMV: one skeleton for all four, so that they differ from each
+// other only by the unpack. A block of 8 warps owns a 512-byte tile of every
+// byte-row: a lane loads 16 bytes of a byte-row with one 16-byte load (16
+// columns of the half-split layout, 32 of the output-pair one), the warps
+// split the group's byte-rows and each sends 8 rows' loads before it uses
+// them, so a thread keeps 128 bytes in flight; a group's first batch of
+// loads goes out before its activations, scales and zeros are staged in
+// shared memory, so the two wait together. The groups are split across
+// blocks until about two blocks per SM are resident (one group a block at
+// 4096 x 4096); the splits write f32 partials that a second pass sums in
+// split order (8 loads in flight a thread). Each block takes one row of x
+// (a block per row for M > 1, re-reading its tile of the weight from L2).
+// Simple and right first: no TMA, no tensor cores.
 
 #include "w4_passes.cuh"
 
@@ -93,25 +108,6 @@ __device__ __forceinline__ uint4 load16(const uint8_t* row, int c, int end, int 
   uint32_t w[4] = {0u, 0u, 0u, 0u};
   for (int i = 0; i < VB; ++i)
     if (c + i < end) w[i >> 2] |= (uint32_t)row[c + i] << (8 * (i & 3));
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-// the same through loads the compiler keeps whether or not the words are used
-__device__ __forceinline__ uint4 load16_volatile(const uint8_t* row, int c, int end, int vec) {
-  uint4 v = make_uint4(0u, 0u, 0u, 0u);
-  if (vec && c + VB <= end) {
-    asm volatile("ld.global.v4.u32 {%0, %1, %2, %3}, [%4];"
-                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-                 : "l"(row + c));
-    return v;
-  }
-  uint32_t w[4] = {0u, 0u, 0u, 0u};
-  for (int i = 0; i < VB; ++i) {
-    if (c + i >= end) break;
-    uint32_t b;
-    asm volatile("ld.global.u8 %0, [%1];" : "=r"(b) : "l"(row + c + i));
-    w[i >> 2] |= b << (8 * (i & 3));
-  }
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
@@ -289,64 +285,157 @@ __global__ void reduce_kernel(const float* __restrict__ partial, XT* __restrict_
   }
 }
 
-constexpr int CH = 32;  // K18: blocks of groups whose first rows are staged at once
+constexpr int SR = 64;   // K18: byte-rows a ring stage holds at most (32 KB of a tile)
+constexpr int SNST = 3;  // K18: ring stages at most, all in flight
+constexpr int SLB = 16;  // K18: partial rows in flight a thread in the merge
 
-// K18. Grid (tiles of TILE_B bytes, splits of the NB = G / Gb blocks).
-// Block (bx, ks) streams byte-rows 1 .. RG - 1 (RG = Gb S / 2) of its
-// blocks' tile. The split-0 block then stages row 0 of every block (CH
-// blocks at a time, all loads in flight at once) and x[0, g S] in shared
-// memory, and each thread sums (row + x[0, g S]) of its two columns in g
-// order into out [1, O] f32.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)));
+}
+
+// one arrival that expects `bytes` of bulk copies on the barrier's phase
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global to
+// shared memory by the bulk-copy engine, completing on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// K18. Grid (tiles of TILE_B bytes, KS splits of the NB = G / Gb blocks of
+// groups, `gps` a split). Block (bx, ks) copies its tile of every byte-row
+// (RG = Gb S / 2 a block of groups, row 0 included) of its blocks of groups
+// into shared memory, in chunks of `sr` rows through a ring of `nst` stages
+// of sr x TILE_B bytes: bulk copies completing on the stage's mbarrier where
+// qw and O are 16-byte aligned (`vec`), byte loads otherwise. From the first
+// chunk of each block of groups it takes row 0 plus x[0, gb S] in f32: with
+// KS = 1 each thread sums its two columns in g order into out [1, O];
+// otherwise it writes them to part[gb] [NB, OP] (OP = TILE_B gridDim.x) and
+// the last block of the tile to arrive on its counter sums the NB rows in g
+// order into out and resets the counter.
 template <typename XT>
 __global__ void __launch_bounds__(THREADS) stream_kernel(
     const XT* __restrict__ x, const uint8_t* __restrict__ qw, float* __restrict__ out,
-    uint32_t* __restrict__ sink, uint32_t sink_key, int O, int S, int RG, int NB, int gps,
-    int vec) {
-  __shared__ uint4 rows[CH][32];
-  __shared__ float xv[CH];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int bx = blockIdx.x, ks = blockIdx.y;
-  const int c = bx * TILE_B + lane * VB;
-  const int b_begin = ks * gps, b_end = min(NB, b_begin + gps);
+    float* __restrict__ part, int* __restrict__ counters, int O, int S, int RG, int NB, int gps,
+    int sr, int nst, int vec) {
+  extern __shared__ __align__(128) unsigned char stages[];
+  __shared__ __align__(8) uint64_t bars[SNST];
+  __shared__ int last;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int bx = blockIdx.x, KS = gridDim.y;
+  const int c0 = bx * TILE_B, tb = min(TILE_B, O - c0);  // the tile's bytes of a row
+  const int b_begin = blockIdx.y * gps, nb = min(NB, b_begin + gps) - b_begin;  // >= 1
+  const int cpb = (RG + sr - 1) / sr;  // chunks a block of groups
+  const int nq = nb * cpb;
+  if (vec && tid == 0) {
+    for (int i = 0; i < nst; ++i) mbar_init(bars + i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  uint32_t fold = 0u;
-  for (int gb = b_begin; gb < b_end; ++gb) {
-    const uint8_t* blk = qw + (size_t)gb * RG * O;
-    for (int h0 = 1; h0 < RG; h0 += WARPS * RB) {
-      uint4 v[RB];
-#pragma unroll
-      for (int r = 0; r < RB; ++r) {
-        const int kk = h0 + warp + WARPS * r;
-        v[r] = kk < RG ? load16_volatile(blk + (size_t)kk * O, c, O, vec) : make_uint4(0u, 0u, 0u, 0u);
+  // chunk q (rows [r0, r0 + nr) of block of groups b_begin + q / cpb) into
+  // stage q % nst
+  auto fill = [&](int q) {
+    const int r0 = (q % cpb) * sr, nr = min(sr, RG - r0);
+    unsigned char* dst = stages + (size_t)(q % nst) * sr * TILE_B;
+    const uint8_t* src = qw + ((size_t)(b_begin + q / cpb) * RG + r0) * O + c0;
+    if (vec) {
+      if (warp == 0) {
+        uint64_t* bar = bars + q % nst;
+        if (lane == 0) {  // the stage's last readers are past a barrier: order them before the copies
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          mbar_expect_tx(bar, nr * tb);
+        }
+        __syncwarp();
+        for (int r = lane; r < nr; r += 32) bulk_copy(dst + r * TILE_B, src + (size_t)r * O, tb, bar);
       }
-#pragma unroll
-      for (int r = 0; r < RB; ++r) fold ^= v[r].x ^ v[r].y ^ v[r].z ^ v[r].w;
+    } else {
+      for (int e = tid; e < nr * tb; e += THREADS)
+        dst[(e / tb) * TILE_B + e % tb] = src[(size_t)(e / tb) * O + e % tb];
     }
-  }
-  if (fold == sink_key) *sink = fold;  // never proven dead: the loads stay
+  };
 
-  if (ks != 0) return;
-  const int b0 = bx * TILE_B + 2 * threadIdx.x;  // this thread's two columns
+  for (int q = 0; q < min(nst, nq); ++q) fill(q);
+  const int col = 2 * tid;  // this thread's two columns of the tile
+  const size_t OP = (size_t)gridDim.x * TILE_B;
+  float xv = to_f32(x[(size_t)b_begin * S]);  // in flight beside the copies
   float o0 = 0.f, o1 = 0.f;
-  for (int c0 = 0; c0 < NB; c0 += CH) {
-    __syncthreads();  // the previous chunk's readers are done
-    for (int e = threadIdx.x; e < CH * 32; e += THREADS) {
-      const int gb = c0 + e / 32;
-      rows[e / 32][e % 32] = gb < NB ? load16(qw + (size_t)gb * RG * O, bx * TILE_B + (e % 32) * VB,
-                                              O, vec)
-                                     : make_uint4(0u, 0u, 0u, 0u);
+  for (int q = 0; q < nq; ++q) {
+    if (vec)
+      mbar_wait(bars + q % nst, (q / nst) & 1);
+    else
+      __syncthreads();
+    if (q % cpb == 0) {  // a block of groups' first chunk: its row 0
+      const int gb = b_begin + q / cpb;
+      const float xn = gb + 1 < b_begin + nb ? to_f32(x[(size_t)(gb + 1) * S]) : 0.f;
+      const unsigned char* row = stages + (size_t)(q % nst) * sr * TILE_B;
+      const float a = (float)row[col] + xv, b = (float)row[col + 1] + xv;
+      if (KS == 1) {
+        o0 = q == 0 ? a : o0 + a;
+        o1 = q == 0 ? b : o1 + b;
+      } else if (col < tb) {  // the partial's rows are OP wide: every 8-byte store aligned
+        *reinterpret_cast<float2*>(part + gb * OP + c0 + col) = make_float2(a, b);
+      }
+      xv = xn;
     }
-    if (threadIdx.x < CH) xv[threadIdx.x] = c0 + threadIdx.x < NB ? to_f32(x[(size_t)(c0 + threadIdx.x) * S]) : 0.f;
-    __syncthreads();
-    for (int i = 0; i < min(CH, NB - c0); ++i) {
-      const uint8_t* r = reinterpret_cast<const uint8_t*>(rows[i]);
-      const float a = (float)r[2 * threadIdx.x] + xv[i], b = (float)r[2 * threadIdx.x + 1] + xv[i];
-      o0 = c0 + i == 0 ? a : o0 + a;
-      o1 = c0 + i == 0 ? b : o1 + b;
+    if (q + nst < nq) {
+      __syncthreads();  // every reader of stage q % nst is done
+      fill(q + nst);
     }
   }
-  if (b0 < O) out[b0] = o0;
-  if (b0 + 1 < O) out[b0 + 1] = o1;
+  if (KS == 1) {
+    if (col < tb) out[c0 + col] = o0;
+    if (col + 1 < tb) out[c0 + col + 1] = o1;
+    return;
+  }
+
+  // every split of the tile has written its rows: the last block to arrive
+  // sums the NB rows in g order and resets the counter
+  __syncthreads();
+  if (tid == 0) {  // after the barrier, one fence orders the block's rows before its arrival
+    __threadfence();
+    last = atomicAdd(counters + bx, 1) == KS - 1;
+    if (last) counters[bx] = 0;
+  }
+  __syncthreads();
+  if (!last || col >= tb) return;
+  const float* src = part + c0 + col;
+  float2 v = make_float2(0.f, 0.f);
+  for (int g0 = 0; g0 < NB; g0 += SLB) {
+    float2 p[SLB];
+#pragma unroll
+    for (int u = 0; u < SLB; ++u)
+      p[u] = g0 + u < NB ? __ldcg(reinterpret_cast<const float2*>(src + (g0 + u) * OP))
+                         : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int u = 0; u < SLB; ++u)
+      if (g0 + u < NB) v.x += p[u].x, v.y += p[u].y;
+  }
+  out[c0 + col] = v.x;
+  if (col + 1 < tb) out[c0 + col + 1] = v.y;
 }
 
 int is_vec(const void* qw, int row_bytes) {
@@ -421,25 +510,37 @@ extern "C" int paro_unpack_gemv(const void* x, const void* qw, const void* scale
 }
 
 // K18. x [M <= 16, I] f32 or bf16 (only x[0, g S] is read); qw u8 [I/2, O];
-// out f32 [1, O]; G = I / S groups in NB = G / Gb blocks split KS ways;
-// sink a 4-byte scratch word written only when the streamed words fold to
-// sink_key. Returns the first CUDA error (0 on success).
-extern "C" int paro_stream_only(const void* x, const void* qw, void* out, void* sink,
-                                unsigned sink_key, int I, int S, int O, int Gb, int KS,
+// out f32 [1, O]; G = I / S groups in NB = G / Gb blocks split KS ways; with
+// KS > 1 the scratch part f32 [NB, 512 ceil(O / 512)] and counters int32,
+// one per tile of 512 bytes, zero and left zero. Returns the first CUDA
+// error (0 on success).
+extern "C" int paro_stream_only(const void* x, const void* qw, void* out, void* part,
+                                void* counters, int I, int S, int O, int Gb, int KS,
                                 int x_is_bf16, void* stream) {
   if (S < 2 || S % 2 != 0 || I % S != 0 || O < 1 || Gb < 1 || I / S / Gb < 1 || KS < 1 ||
-      KS > I / S / Gb)
+      KS > I / S / Gb || KS > 65535 || (KS > 1 && (part == nullptr || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int NB = I / S / Gb, RG = Gb * S / 2;
   const int gps = (NB + KS - 1) / KS;
+  if ((long long)(KS - 1) * gps >= NB) return (int)cudaErrorInvalidValue;  // an empty split
+  const int sr = RG < SR ? RG : SR;
+  const int chunks = gps * ((RG + sr - 1) / sr);  // a block's, at most
+  const int nst = chunks < SNST ? chunks : SNST;
+  const int smem = nst * sr * TILE_B;
   const dim3 grid((O + TILE_B - 1) / TILE_B, KS);
   cudaStream_t st = (cudaStream_t)stream;
   const int vec = is_vec(qw, O);
+  const auto kernel = x_is_bf16 ? (const void*)stream_kernel<bf16> : (const void*)stream_kernel<float>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
   if (x_is_bf16)
-    stream_kernel<bf16><<<grid, THREADS, 0, st>>>((const bf16*)x, (const uint8_t*)qw, (float*)out,
-                                                  (uint32_t*)sink, sink_key, O, S, RG, NB, gps, vec);
+    stream_kernel<bf16><<<grid, THREADS, smem, st>>>((const bf16*)x, (const uint8_t*)qw, (float*)out,
+                                                     (float*)part, (int*)counters, O, S, RG, NB,
+                                                     gps, sr, nst, vec);
   else
-    stream_kernel<float><<<grid, THREADS, 0, st>>>((const float*)x, (const uint8_t*)qw, (float*)out,
-                                                   (uint32_t*)sink, sink_key, O, S, RG, NB, gps, vec);
+    stream_kernel<float><<<grid, THREADS, smem, st>>>((const float*)x, (const uint8_t*)qw,
+                                                      (float*)out, (float*)part, (int*)counters, O,
+                                                      S, RG, NB, gps, sr, nst, vec);
   return (int)cudaGetLastError();
 }

@@ -13,16 +13,18 @@ Port of the four kernels of `scripts/kernel_int8_probe.py`:
     K17 bf16_dot (the bf16 arm of `bench_dots`):
           bf16 [M, K] @ bf16 [K, N] -> float32 [M, N]
 
-On the card K15/K16 run on the tensor cores with `mma.sync` s8 x s8 -> s32,
-the K range split across blocks where the columns alone would not fill the
-card (`k_splits`). K17 streams B through a `cp.async` ring (L2 policy
-evict_first) into `mma.sync` bf16 x bf16 -> f32 in one launch, its K splits
-merged in split order by the last block of each tile (`bf16_plan`). A
-wrapper launches the CUDA kernel
-for tensors on a CUDA device and runs the plain PyTorch version for tensors
-on the CPU (the counterpart of the Pallas interpreter). A failed build or
-launch raises; nothing falls back. Each CUDA call adds one to
-`launch_counts[name]`.
+On the card K15 and K17 stream B through a `cp.async` ring into `mma.sync`
+in one launch, out^T = B^T A^T (K15 s8 x s8 -> s32, its B stage transposed
+by byte permutes on the way out; K17 bf16 x bf16 -> f32, its ring read with
+the L2 policy evict_first), their K splits merged in split order by the last
+block of each tile (`int8_plan`, `bf16_plan`). K16 runs on `mma.sync` s8
+with B transposed on the way into shared memory, the K range split across
+blocks where the columns alone would not fill the card (`k_splits`) and
+the splits added with atomics into a zeroed output. A wrapper launches the
+CUDA kernel for tensors on a CUDA device and runs the plain PyTorch version
+for tensors on the CPU (the counterpart of the Pallas interpreter). A
+failed build or launch raises; nothing falls back. Each CUDA call adds one
+to `launch_counts[name]`.
 """
 
 from __future__ import annotations
@@ -36,9 +38,13 @@ from .rot_matmul import BLOCKS_PER_SM, MAX_SMEM_BYTES, _counters, _raise_on, _sm
 
 KERNELS = ("narrow_cast", "int8_dot", "fused_unpack_int8_dot", "bf16_dot")
 launch_counts = {name: 0 for name in KERNELS}
-TILE_M, TILE_N = 16, 64  # K15/K16: rows and columns of a block's output tile
-CHUNK_K = 128  # K15/K16: K bytes per stage of a block
-TARGET_BLOCKS = 132 * 8  # K15/K16: about eight blocks per SM of the H100
+TILE_M, TILE_N = 16, 64  # K16: rows and columns of a block's output tile
+CHUNK_K = 128  # K16: K bytes per stage of a block
+TARGET_BLOCKS = 132 * 8  # K16: about eight blocks per SM of the H100
+# K15 (csrc/int8_probe.cu, int8_stream_kernel): a block's columns of B, its K
+# rows a ring stage, the ring's stages and its shared rows of A's padding in
+# bytes; the rows of A a block takes are K17's (one, two or four n8 tiles)
+INT8_TILE_N, INT8_CHUNK_K, INT8_STAGES, INT8_PAD = 128, 128, 4, 16
 # K17 (csrc/int8_probe.cu, bf16_dot_kernel): a block's columns of B, its K
 # rows a ring stage, the ring's stages, the rows of A it takes (one, two or
 # four n8 tiles of the mma) and its shared rows' padding in bf16
@@ -117,7 +123,7 @@ def _check_fused(x, w) -> None:
 
 
 def k_splits(M: int, K: int, N: int) -> tuple[int, int]:
-    """K15/K16's (blocks along K, chunks of CHUNK_K per block): enough blocks
+    """K16's (blocks along K, chunks of CHUNK_K per block): enough blocks
     that about TARGET_BLOCKS are in flight, and no block without a chunk."""
     chunks = -(-K // CHUNK_K)
     tiles = -(-M // TILE_M) * -(-N // TILE_N)
@@ -133,30 +139,51 @@ def bf16_smem(rows: int) -> int:
                               + rows * (BF16_CHUNK_K + BF16_PAD))
 
 
-def bf16_plan(M: int, K: int, N: int, sms: int) -> tuple[int, int, int]:
-    """K17's launch on a card of `sms` SMs, from shapes alone: (K splits,
-    chunks of BF16_CHUNK_K rows a split, rows of A a block). A block takes
-    the least of BF16_ROWS that holds M (32 past it: more row tiles) and 128
-    columns of B; the K range splits into as many splits as fill one wave
-    of one block an SM with those tiles, at most one a chunk, and every
-    split non-empty. At 8 x 4096 x 4096: 4 splits of 16 chunks, 128 blocks
-    (on an H100 that beat 8 splits, two blocks an SM, at M 1, 8, 16 and 32:
-    PERF.md §6). Raises ValueError where two blocks of that many rows (the
-    kernel's launch bound) do not fit an SM's shared memory (none of
-    BF16_ROWS: at most 88 KB a block)."""
+def int8_smem(rows: int) -> int:
+    """K15's dynamic shared memory a block for `rows` rows of A: its ring of
+    INT8_STAGES stages of B's 128 x 128 and A's rows x 128 bytes, A's rows
+    padded by INT8_PAD (`i8_stage` in csrc/int8_probe.cu)."""
+    return INT8_STAGES * (INT8_CHUNK_K * INT8_TILE_N + rows * (INT8_CHUNK_K + INT8_PAD))
+
+
+def _one_wave(M: int, K: int, N: int, sms: int, tile_n: int, chunk_k: int,
+              smem) -> tuple[int, int, int]:
+    """(K splits, chunks of chunk_k rows a split, rows of A a block) of a
+    streaming dot whose block takes the least of BF16_ROWS that holds M (32
+    past it: more row tiles) and tile_n columns of B: as many splits as fill
+    one wave of one block an SM, at most one a chunk, every split non-empty.
+    Raises ValueError where two blocks (the kernels' launch bound) of
+    smem(rows) bytes do not fit an SM's shared memory."""
     rows = next((r for r in BF16_ROWS if r >= M), BF16_ROWS[-1])
-    if BLOCKS_PER_SM * bf16_smem(rows) > MAX_SMEM_BYTES:
-        raise ValueError(f"K17's ring at {rows} rows does not fit two blocks an SM")
-    tiles = -(-N // BF16_TILE_N) * -(-M // rows)
-    chunks = -(-K // BF16_CHUNK_K)
+    if BLOCKS_PER_SM * smem(rows) > MAX_SMEM_BYTES:
+        raise ValueError(f"the ring at {rows} rows does not fit two blocks an SM")
+    tiles = -(-N // tile_n) * -(-M // rows)
+    chunks = -(-K // chunk_k)
     per = -(-chunks // max(1, min(chunks, sms // tiles)))
     return -(-chunks // per), per, rows
+
+
+def bf16_plan(M: int, K: int, N: int, sms: int) -> tuple[int, int, int]:
+    """K17's launch on a card of `sms` SMs, from shapes alone: (K splits,
+    chunks of BF16_CHUNK_K rows a split, rows of A a block), `_one_wave`'s
+    rule with 128-column tiles. At 8 x 4096 x 4096: 4 splits of 16 chunks,
+    128 blocks (on an H100 that beat 8 splits, two blocks an SM, at M 1, 8,
+    16 and 32: PERF.md §6). Its rings take at most 88 KB a block."""
+    return _one_wave(M, K, N, sms, BF16_TILE_N, BF16_CHUNK_K, bf16_smem)
+
+
+def int8_plan(M: int, K: int, N: int, sms: int) -> tuple[int, int, int]:
+    """K15's launch on a card of `sms` SMs, from shapes alone: (K splits,
+    chunks of INT8_CHUNK_K rows a split, rows of A a block), K17's rule with
+    its 128-column tiles and 128-row chunks. At 8 x 4096 x 4096: 4 splits of
+    8 chunks, 128 blocks. Its rings take at most 84 KB a block."""
+    return _one_wave(M, K, N, sms, INT8_TILE_N, INT8_CHUNK_K, int8_smem)
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {  # entry point: argument types (all in csrc/int8_probe.cu)
     "paro_narrow_cast": [_P, _P, _L],
-    "paro_int8_dot": [_P] * 3 + [_I] * 5,
+    "paro_int8_dot": [_P] * 5 + [_I] * 6,
     "paro_fused_unpack_int8_dot": [_P] * 3 + [_I] * 5,
     "paro_bf16_dot": [_P] * 5 + [_I] * 6,
 }
@@ -197,6 +224,26 @@ def _launch_int8(name, entry, a, b, M, K, N):
     return out
 
 
+def _launch_stream(name, entry, a, b, plan, tile_n, out_dtype):
+    """K15 / K17: one launch of a streaming dot by `plan` (int8_plan /
+    bf16_plan) with its partials and counters where K is split."""
+    a, b = _on_card(a, b)
+    (M, K), N = a.shape, b.shape[1]
+    fn = _lib_fn(entry)  # before the device is queried
+    dev = a.device
+    split, per, rows = plan(M, K, N, _sm_count(dev))
+    n_tiles = -(-N // tile_n)
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    part = torch.empty((split, M, n_tiles * tile_n) if split > 1 else (0,), dtype=out_dtype,
+                       device=dev)
+    counters = _counters(n_tiles * -(-M // rows), dev) if split > 1 else part
+    err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), part.data_ptr(), counters.data_ptr(),
+             M, K, N, per, split, rows, _stream(dev))
+    _raise_on(err, name)
+    launch_counts[name] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Wrappers (the JAX probes' kernels)
 # ---------------------------------------------------------------------------
@@ -220,8 +267,7 @@ def int8_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _check_dot(a, b, I8)
     if a.device.type == "cpu":
         return int8_dot_plain(a, b)
-    (M, K), N = a.shape, b.shape[1]
-    return _launch_int8("int8_dot", "paro_int8_dot", a, b, M, K, N)
+    return _launch_stream("int8_dot", "paro_int8_dot", a, b, int8_plan, INT8_TILE_N, I32)
 
 
 def fused_unpack_int8_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -238,18 +284,4 @@ def bf16_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _check_dot(a, b, BF16)
     if a.device.type == "cpu":
         return bf16_dot_plain(a, b)
-    a, b = _on_card(a, b)
-    (M, K), N = a.shape, b.shape[1]
-    fn = _lib_fn("paro_bf16_dot")  # before the device is queried
-    dev = a.device
-    split, per, rows = bf16_plan(M, K, N, _sm_count(dev))
-    n_tiles = -(-N // BF16_TILE_N)
-    out = torch.empty((M, N), dtype=F32, device=dev)
-    part = torch.empty((split, M, n_tiles * BF16_TILE_N) if split > 1 else (0,), dtype=F32,
-                       device=dev)
-    counters = _counters(n_tiles * -(-M // rows), dev) if split > 1 else part
-    err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), part.data_ptr(), counters.data_ptr(),
-             M, K, N, per, split, rows, _stream(dev))
-    _raise_on(err, "bf16_dot")
-    launch_counts["bf16_dot"] += 1
-    return out
+    return _launch_stream("bf16_dot", "paro_bf16_dot", a, b, bf16_plan, BF16_TILE_N, F32)

@@ -10,7 +10,11 @@ in f32):
         blocks of Gb groups; returns float32 [1, O] =
             sum over g < G // Gb, in order, of (qweight[g Gb S/2, :] + x[0, g S])
         (the last G mod Gb groups are read by neither kernel). x is padded
-        to 16 rows as in JAX, so M > 16 raises ValueError.
+        to 16 rows as in JAX, so M > 16 raises ValueError. On the card each
+        block bulk-copies its tile of every byte-row of its blocks of groups
+        into shared memory, writes each block of groups' row (row 0 plus
+        x[0, g S]) to a partial, and the last block of a tile sums the rows
+        in g order (`stream_plan`): one launch.
     K19 w4_matmul_bitcast: the output-pair layout uint8 [I, O//2]
         (`scripts.kernel_unpack_exp.pack_w4_opair`); K20 w4_matmul_mulfloor,
         K21 w4_matmul_splitdot (and w4_matmul_splitdot_ce, the same kernel:
@@ -60,7 +64,6 @@ TM = 16  # the rows of x the JAX kernels' blocks hold
 TILE_BYTES = 512  # bytes of a byte-row one CUDA block owns
 MODES = {"w4_matmul_mulfloor": 0, "w4_matmul_splitdot_ce": 1, "w4_matmul_splitdot": 1,
          "w4_matmul_i8": 2, "w4_matmul_bitcast": 3}
-SINK_KEY = 0x9E3779B9  # K18 writes its scratch word only when its loads fold to this
 ONE_LAUNCH_ENTRY = {  # each GEMV's entry into the one-launch kernel, where `unpack_route` sends it
     "w4_matmul_bitcast": "paro_w4_opair_one_launch",  # K19: the BC variant
     "w4_matmul_mulfloor": "paro_w4_mulfloor_one_launch",  # K20: the MF variant
@@ -92,6 +95,14 @@ def unpack_route(M: int, I: int, S: int, O: int, sms: int):
     call takes the gemv."""
     route, plan = w4_route(M, I, S, O, sms)
     return ("one_launch", plan) if route == "one_launch" else ("gemv", None)
+
+
+def stream_plan(O: int, NB: int, sms: int) -> int:
+    """K18's split of its NB = G // Gb blocks of groups on a card of `sms`
+    SMs, from shapes alone: KS splits, every one non-empty, as many as give
+    the tiles of TILE_BYTES bytes about two blocks an SM (at 4096 x 4096,
+    g128, Gb 1: 32 splits of one block of groups, 8 tiles, 256 blocks)."""
+    return _group_splits(-(-O // TILE_BYTES), 1, NB, sms)
 
 
 # ---------------------------------------------------------------------------
@@ -188,7 +199,7 @@ def w4_matmul_bitcast_plain(x, qweight_opair, scales, zeros, *, group_size: int 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {  # entry point: (source stem, argument types), the stream last
     "paro_unpack_gemv": ("unpack_exp", [_P] * 6 + [_I] * 9 + [_P]),
-    "paro_stream_only": ("unpack_exp", [_P] * 4 + [ctypes.c_uint] + [_I] * 6 + [_P]),
+    "paro_stream_only": ("unpack_exp", [_P] * 5 + [_I] * 6 + [_P]),
     "paro_w4_opair_one_launch": ("w4_opair", [_P] * 7 + [_I] * 9 + [_P]),
     "paro_w4_matmul_one_launch": ("w4_plain", [_P] * 7 + [_I] * 9 + [_P]),
     "paro_w4_mulfloor_one_launch": ("w4_mulfloor", [_P] * 7 + [_I] * 9 + [_P]),
@@ -266,13 +277,16 @@ def stream_only(x, qweight, *, group_size: int = 128, groups_per_step: int = 1) 
     if qweight.device != x.device:
         raise ValueError("all operands must be on the same device")
     x, qweight = x.contiguous(), qweight.contiguous()
+    fn = _lib_fn("paro_stream_only")  # before the device is queried
     dev = x.device
-    KS = _group_splits(-(-O // TILE_BYTES), 1, G // Gb, _sm_count(dev))
+    NB, tiles = G // Gb, -(-O // TILE_BYTES)
+    KS = stream_plan(O, NB, _sm_count(dev))
     out = torch.empty((1, O), dtype=F32, device=dev)
-    sink = torch.empty(1, dtype=torch.int32, device=dev)
-    err = _lib_fn("paro_stream_only")(
-        x.data_ptr(), qweight.data_ptr(), out.data_ptr(), sink.data_ptr(), SINK_KEY, I, S, O, Gb,
-        KS, int(x.dtype == BF16), torch.cuda.current_stream(dev).cuda_stream)
+    part = torch.empty((NB, tiles * TILE_BYTES) if KS > 1 else (0,), dtype=F32, device=dev)
+    counters = _counters(tiles, dev) if KS > 1 else part
+    err = fn(x.data_ptr(), qweight.data_ptr(), out.data_ptr(), part.data_ptr(),
+             counters.data_ptr(), I, S, O, Gb, KS, int(x.dtype == BF16),
+             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "stream_only")
     launch_counts["stream_only"] += 1
     return out

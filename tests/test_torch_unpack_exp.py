@@ -20,11 +20,13 @@ nibbles on every byte value; MF and WM give PL's nibbles, so their models
 equal PL's bit for bit. The route, its plan and the wrappers' launches are
 checked on meta tensors with the library replaced by a recorder.
 
-Tolerances: the GEMVs (and the models) within one bf16 ulp (2**-7) of max
-|y| of the JAX output (the nibbles are exact everywhere; only the order of
-the f32 sums differs), plus 2e-3 for the rotated control arm, where a bf16
-rounding of a rotated activation can flip; `stream_only`, the packing and
-the unpack bit for bit.
+K18 runs on the card as bulk copies of every byte of the weight into shared
+memory, one partial row per block of groups (its row 0 plus x[0, g S]) and
+the NB rows summed in g order by the last block of each tile:
+`stream_chunks` models which block copies which rows through which ring
+stage (every row once, within shared memory) and `stream_only_model` the
+partials and the merge, held bit for bit against JAX's `stream_only` in
+interpret mode.
 """
 
 import functools
@@ -41,7 +43,7 @@ from jax.experimental import pallas as pl
 from paroquant_tpu.kernels import rot_matmul as jk
 from paroquant_tpu.ops.packing import pack_w4_tpu
 from paroquant_tpu_torch.kernels import rot_matmul as rm, unpack_exp as ux
-from paroquant_tpu_torch.scripts import kernel_unpack_exp
+from paroquant_tpu_torch.scripts import kernel_unpack_exp, stream_only_phases
 from test_torch_rot_w4_route import SMS, mulfloor_unpack, one_launch_model, wordmask_unpack
 
 SCRIPT = Path(__file__).resolve().parent.parent / "scripts" / "kernel_unpack_exp.py"
@@ -140,6 +142,151 @@ def test_stream_only_refuses_more_than_16_rows():
     x = torch.zeros((17, 2 * S), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="M <= 16"):
         ux.stream_only(x, torch.zeros((S, O), dtype=torch.uint8), group_size=S)
+
+
+SR, SNST = 64, 3  # K18: rows a ring stage holds at most, stages at most
+
+
+def stream_chunks(NB: int, RG: int, KS: int):
+    """K18's chunks, as csrc/unpack_exp.cu's entry and kernel cut them: the
+    rows a stage holds (sr), the stages (nst), and for each split the list
+    of its chunks, each a list of byte-rows of the weight."""
+    gps = -(-NB // KS)
+    assert (KS - 1) * gps < NB
+    sr = min(SR, RG)
+    nst = min(SNST, gps * -(-RG // sr))
+    splits = [[[gb * RG + r for r in range(r0, min(RG, r0 + sr))]
+               for gb in range(ks * gps, min(NB, (ks + 1) * gps)) for r0 in range(0, RG, sr)]
+              for ks in range(KS)]
+    return sr, nst, splits
+
+
+def stream_only_model(x, qw, S, Gb, KS):
+    """K18's kernel on the card: per 512-byte tile, each split's blocks of
+    groups in order, row 0 of each (the first row of its first chunk) plus
+    x[0, gb S] in f32; with KS = 1 the block sums them in g order itself,
+    otherwise each goes to part[gb] and the tile's last block sums the NB
+    rows in g order from 0."""
+    I, O = x.shape[1], qw.shape[1]
+    NB, RG = I // S // Gb, Gb * S // 2
+    _, _, splits = stream_chunks(NB, RG, KS)
+    out = torch.empty(O)
+    for c0 in range(0, O, ux.TILE_BYTES):
+        cols = slice(c0, min(O, c0 + ux.TILE_BYTES))
+        part = torch.empty(NB, cols.stop - c0)
+        for chunks in splits:
+            acc = None
+            for chunk in chunks:
+                if chunk[0] % RG:
+                    continue
+                gb = chunk[0] // RG
+                row = qw[chunk[0], cols].to(torch.float32) + x[0, gb * S].to(torch.float32)
+                acc = row if acc is None else acc + row
+                part[gb] = row
+            if KS == 1:
+                out[cols] = acc
+        if KS > 1:
+            acc = torch.zeros(cols.stop - c0)
+            for gb in range(NB):
+                acc = acc + part[gb]
+            out[cols] = acc
+    return out[None]
+
+
+@pytest.mark.parametrize("I, S_, Gb, n_out", [(1024, 128, 1, 256), (1024, 128, 2, 256),
+                                              (1024, 128, 3, 256), (4096, 128, 1, 4096),
+                                              (8192, 128, 4, 4096), (8192, 128, 8, 4096),
+                                              (1024, 128, 1, 153600), (768, 96, 1, 160),
+                                              (256, 2, 1, 130), (4096, 8, 1, 1024)])
+def test_stream_chunks_copy_every_row_once(I, S_, Gb, n_out):
+    """Over all splits K18 copies each byte-row of its NB blocks of groups
+    once (the last G mod Gb groups none), no chunk is empty or above a
+    stage, and the ring fits a block's shared memory (at most 96 KB)."""
+    NB, RG = I // S_ // Gb, Gb * S_ // 2
+    KS = ux.stream_plan(n_out, NB, SMS)
+    sr, nst, splits = stream_chunks(NB, RG, KS)
+    rows = sorted(r for chunks in splits for chunk in chunks for r in chunk)
+    assert rows == list(range(NB * RG))
+    assert all(0 < len(chunk) <= sr for chunks in splits for chunk in chunks)
+    assert 1 <= nst <= SNST and nst * sr * ux.TILE_BYTES <= 96 * 1024
+
+
+@pytest.mark.parametrize("Gb", [1, 2, 3])
+@pytest.mark.parametrize("n_out", [256, 640])
+def test_stream_only_model_bit_for_bit(js, interpret, Gb, n_out):
+    """G = 8 (Gb 3 leaves two groups unread), one tile and two (the second
+    ragged): the model at the plan's splits, at one split and at two,
+    against JAX's `stream_only`."""
+    rng = np.random.default_rng(50 + Gb)
+    I = 8 * S
+    x = rng.normal(size=(3, I)).astype(np.float32)
+    qw = rng.integers(0, 256, (I // 2, n_out), dtype=np.uint8)
+    yj = np.asarray(js.stream_only(jnp.asarray(x, jnp.bfloat16), jnp.asarray(qw), group_size=S,
+                                   groups_per_step=Gb))
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    NB = 8 // Gb
+    KS = ux.stream_plan(n_out, NB, SMS)
+    assert KS == NB  # few tiles: a block of groups a split
+    for ks in (KS, 1, 2):
+        got = stream_only_model(xt, torch.from_numpy(qw), S, Gb, ks)
+        np.testing.assert_array_equal(got.numpy(), yj)
+
+
+def test_stream_only_model_at_the_bench(js, interpret):
+    """The script's shape (4096 x 4096, g128, Gb 1): 32 splits of one block
+    of groups, 8 tiles, 256 blocks, bit for bit JAX's `stream_only`."""
+    rng = np.random.default_rng(60)
+    x = rng.normal(size=(1, 4096)).astype(np.float32)
+    qw = rng.integers(0, 256, (2048, 4096), dtype=np.uint8)
+    KS = ux.stream_plan(4096, 32, SMS)
+    assert KS == 32 and -(-4096 // ux.TILE_BYTES) * KS == 256 <= WAVE
+    yj = np.asarray(js.stream_only(jnp.asarray(x, jnp.bfloat16), jnp.asarray(qw), group_size=S))
+    got = stream_only_model(torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(qw), S, 1, KS)
+    np.testing.assert_array_equal(got.numpy(), yj)
+
+
+@pytest.mark.parametrize("O_, NB, want", [(4096, 32, 32), (4096, 64, 32), (65536, 64, 3),
+                                         (300 * 512, 8, 1), (256, 2, 2)])
+def test_stream_plan(O_, NB, want):
+    """K18's splits: about two blocks an SM over the tiles, every split
+    non-empty."""
+    KS = ux.stream_plan(O_, NB, SMS)
+    assert KS == want
+    gps = -(-NB // KS)
+    assert (KS - 1) * gps < NB <= KS * gps
+
+
+@pytest.mark.parametrize("variant", list(stream_only_phases.VARIANTS))
+def test_stream_phases_variants_find_their_anchors(variant):
+    """scripts/stream_only_phases.py cuts K18's merge and / or its copies out
+    of csrc/unpack_exp.cu: each anchor must be there once, the cuts touch
+    only K18 (the gemv's text stays), and the committed variant is the
+    source as it is."""
+    cuts = stream_only_phases.VARIANTS[variant]
+    src = stream_only_phases.variant_source(cuts)
+    committed = (stream_only_phases.build.CSRC / "unpack_exp.cu").read_text()
+    assert ("  return;\n" + stream_only_phases.ARRIVAL in src) == ("merge" in cuts)
+    assert (stream_only_phases.FIRST_FILLS in src) == ("copies" not in cuts)
+    gemv = committed[committed.index("gemv_kernel("):committed.index("constexpr int SR = 64;")]
+    assert gemv in src
+    if not cuts:
+        assert src == committed
+
+
+@pytest.mark.parametrize("Gb", [1, 3])
+def test_stream_only_launches_once(recorded, Gb):
+    """On a device tensor K18 makes one call of its entry with the plan's KS,
+    a partial of NB rows of 512 ceil(O / 512) floats and the shared
+    counters, and counts one launch."""
+    ux.reset_launch_counts()
+    x = torch.empty(1, 4096, dtype=torch.bfloat16, device="meta")
+    qw = torch.empty(2048, 4096, dtype=torch.uint8, device="meta")
+    out = ux.stream_only(x, qw, groups_per_step=Gb)
+    ((entry, args),) = recorded
+    KS = ux.stream_plan(4096, 32 // Gb, SMS)
+    assert entry == "paro_stream_only" and args[5:11] == (4096, S, 4096, Gb, KS, 1)
+    assert out.shape == (1, 4096) and out.dtype == torch.float32
+    assert ux.launch_counts["stream_only"] == 1 and sum(ux.launch_counts.values()) == 1
 
 
 def test_pack_w4_opair_matches_jax(js):
