@@ -34,9 +34,12 @@ Phases, each printing one or more lines:
      (K13 its A8 variant), two calls bitwise equal and one kernel a call;
      K8 and K11, one function, held to TOL_DEQUANT here and in their edges),
      K14-K17 (the int8 probe's narrowing cast and tensor-core
-     dots, at its shapes and on its integer inputs, exact; K15 and K17 one
-     launch a call, two calls bitwise equal, and timed after a clean flush
-     too); then their other branches (f32,
+     dots, at its shapes and on its integer inputs, exact, and K14 at 4096 x
+     4096, K16 at 8 x 4096 -> 4096 beside K15 on the unpacked weight; K15,
+     K16 and K17 one launch a call, two calls bitwise equal, and timed after
+     a clean flush too; K14 and K16 beside the launch floor, an empty kernel
+     and two events with nothing between them, in the `launch_floor`
+     line); then their other branches (f32,
      ragged M, head_dim 64, softcap, window, page sizes, K1/K2 at group
      sizes 1024/2048 and one row-spanning group of 96/320 with f32, f16
      and uint8 scales/zeros, K8 and K11 on fractional zero points where
@@ -58,10 +61,14 @@ Phases, each printing one or more lines:
      entry points) and their control arms K6 and K1 must run, each GEMV
      within TOL_KERNEL of K6, and K19-K22 (BC, MF, PL, WM) on the
      one-launch route at every call. Before the checks, cuobjdump's SASS of the
-     probe's library must show IMMA in K16 and in K15's three streaming
-     instances (with their 16-byte cp.async, LDGSTS) and HMMA in K17, that
-     of the unpack library K18's bulk copies (UBLKCP) in both of its
-     instances, with 0 spill bytes in ptxas's lines for K15's and K18's, that of the K1/K2
+     probe's library must show IMMA in K15's and K16's three streaming
+     instances each (with their 16-byte cp.async, LDGSTS), K15's SASS as it
+     was before K16 joined its kernel (`K15_SASS_SHA256`), HMMA in K17 and
+     no K16 of old (`int8_dot_kernel`), no library's ring copies may take
+     their memory descriptor from an odd uniform register
+     (`check_descriptors`), that of the unpack library K18's bulk copies
+     (UBLKCP) in both of its instances, with 0 spill bytes in ptxas's lines
+     for K15's, K16's and K18's, that of the K1/K2
      library 128-bit loads (LDG.E.128) and 16-byte cp.async (LDGSTS) in all
      16 one-launch instances, that of the experiments' library in all 32
      of K10/K12 and 8 of K13, that of the variants' library in all 8 of K7
@@ -175,6 +182,14 @@ UNPACK = ("stream_only", "w4_matmul_bitcast", "w4_matmul_mulfloor", "w4_matmul_s
 
 def emit(obj) -> None:
     print(json.dumps(obj) if not isinstance(obj, str) else obj, flush=True)
+
+
+def card() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
 
 
 def median_ms(fn, reps, flush):
@@ -1328,44 +1343,84 @@ def int_mm_yardstick(a, b):
         return None, f"torch._int_mm refused the shape: {str(e).splitlines()[0][:120]}"
 
 
+def launch_floor(flush, dev):
+    """What the harness charges any call (`kernel_time_ms`): an empty kernel
+    (`int8_probe.empty_kernel`, one block that does nothing, launched through
+    the same ctypes path as the kernels) and the two events with nothing
+    between them, each after the harness's flush and after a clean one.
+    Emits the `launch_floor` line beside the card's name and power limit."""
+    import torch
+
+    from paroquant_tpu_torch.kernels import int8_probe as ip
+    from paroquant_tpu_torch.utils.profiling import kernel_time_ms
+
+    empty = lambda: ip.empty_kernel(dev)
+    nothing = lambda: None
+    row = {"phase": "launch_floor", "device": torch.cuda.get_device_name(dev), "card": card()}
+    for name, fn in (("empty_kernel", empty), ("events_only", nothing)):
+        row[f"{name}_us"] = kernel_time_ms(fn, KERNEL_REPS, flush) * 1e3
+        row[f"{name}_us_clean_l2"] = kernel_time_ms(fn, KERNEL_REPS, flush, clean_l2=True) * 1e3
+    emit(row)
+    return row
+
+
 def check_int8_probe(flush, gen, dev):
-    """K14-K17 against their plain versions at the probe's shapes, on its
-    kinds of integer inputs (every product and sum exact, so the tolerance
-    is 0): K14 8 x 128, K15 8 x 256 x 128 and the bench's 8 x 4096 x 4096,
-    K16 8 x 256 -> 512, K17 8 x 4096 x 4096; timed beside the bound and one
-    library call (torch._int_mm for K15, and for K16 on the unpacked int8
-    weight; torch.matmul on bf16, which returns bf16, for K17; none for K14).
-    K15's rows and K17's name their plan and fail unless two calls give the
-    same bits and a call launches one kernel (profiler: no memset); they are
-    also timed, with the library call, after a flush that leaves the L2
+    """K14-K17 against their plain versions on the probe's kinds of integer
+    inputs (every product and sum exact, so the tolerance is 0): K14 at the
+    probe's 8 x 128 and at 4096 x 4096, K15 at 8 x 256 x 128 and the bench's
+    8 x 4096 x 4096, K16 at the probe's 8 x 256 -> 512 and at the bench's
+    geometry 8 x 4096 -> 4096, K17 at 8 x 4096 x 4096; timed beside the
+    bound and one library call (torch._int_mm for K15, and for K16 on the
+    unpacked int8 weight; torch.matmul on bf16, which returns bf16, for K17;
+    none for K14), K14's and K16's rows beside the launch floor
+    (`launch_floor`), K16's also beside K15 on the unpacked weight. K15's,
+    K16's and K17's rows name their plan and fail unless two calls give the
+    same bits and a call launches one kernel (profiler: no memset); they
+    are also timed, with the library call, after a flush that leaves the L2
     clean."""
     import torch
 
     from paroquant_tpu_torch.kernels import int8_probe as ip
+    from paroquant_tpu_torch.utils.profiling import kernel_time_ms
+
+    floor = launch_floor(flush, dev)
 
     def ints(lo, hi, shape, dtype=torch.int8):
         return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=dtype)
 
+    # kernel, case, call, plain, (library call, what it is), bytes, operations, kind, plan's shape
+    cases = []
     x32 = torch.arange(8 * 128, dtype=torch.int32, device=dev).reshape(8, 128)
-    cases = [("narrow_cast", "8x128", lambda: ip.narrow_cast(x32), lambda: ip.narrow_cast_plain(x32),
-              (None, "none: no single call computes it"), 5 * x32.numel(), 0, "int8")]
+    big32 = torch.randint(-2**31, 2**31 - 1, (4096, 4096), generator=gen, device=dev,
+                          dtype=torch.int32)
+    for case, x in (("8x128", x32), ("4096x4096", big32)):
+        cases.append(("narrow_cast", case, lambda x=x: ip.narrow_cast(x),
+                      lambda x=x: ip.narrow_cast_plain(x), (None, "none: no single call computes it"),
+                      5 * x.numel(), 0, "int8", None))
     for M, K, N in ((8, 256, 128), (8, 4096, 4096)):
         a, b = ints(-8, 8, (M, K)), ints(-8, 8, (K, N))
         cases.append(("int8_dot", f"{M}x{K}x{N}", lambda a=a, b=b: ip.int8_dot(a, b),
                       lambda a=a, b=b: ip.int8_dot_plain(a, b), int_mm_yardstick(a, b),
-                      M * K + K * N + 4 * M * N, 2 * M * K * N, "int8"))
-    x, w = ints(-127, 127, (8, 256)), ints(0, 256, (128, 512), torch.uint8)
-    cases.append(("fused_unpack_int8_dot", "8x256->512", lambda: ip.fused_unpack_int8_dot(x, w),
-                  lambda: ip.fused_unpack_int8_dot_plain(x, w),
-                  int_mm_yardstick(x, ip.unpack_nibbles(w)), 8 * 256 + 128 * 512 + 4 * 8 * 512,
-                  2 * 8 * 256 * 512, "int8"))
+                      M * K + K * N + 4 * M * N, 2 * M * K * N, "int8", (M, K, N)))
+    unpacked = {}
+    for M, S, O in ((8, 256, 512), (8, 4096, 4096)):
+        x, w = ints(-127, 127, (M, S)), ints(0, 256, (S // 2, O), torch.uint8)
+        unpacked[f"{M}x{S}->{O}"] = (x, ip.unpack_nibbles(w))
+        cases.append(("fused_unpack_int8_dot", f"{M}x{S}->{O}",
+                      lambda x=x, w=w: ip.fused_unpack_int8_dot(x, w),
+                      lambda x=x, w=w: ip.fused_unpack_int8_dot_plain(x, w),
+                      int_mm_yardstick(x, ip.unpack_nibbles(w)), M * S + S // 2 * O + 4 * M * O,
+                      2 * M * S * O, "int8", (M, S, O)))
     abf, bbf = ints(-8, 8, (8, 4096)).to(torch.bfloat16), ints(-8, 8, (4096, 4096)).to(torch.bfloat16)
     cases.append(("bf16_dot", "8x4096x4096", lambda: ip.bf16_dot(abf, bbf),
                   lambda: ip.bf16_dot_plain(abf, bbf),
                   (lambda: torch.matmul(abf, bbf), "torch.matmul (bf16 out)"),
-                  2 * 8 * 4096 + 2 * 4096 * 4096 + 4 * 8 * 4096, 2 * 8 * 4096 * 4096, "bf16"))
+                  2 * 8 * 4096 + 2 * 4096 * 4096 + 4 * 8 * 4096, 2 * 8 * 4096 * 4096, "bf16",
+                  (8, 4096, 4096)))
+    plans = {"int8_dot": ip.int8_plan, "fused_unpack_int8_dot": ip.fused_plan,
+             "bf16_dot": ip.bf16_plan}
     rows = []
-    for kernel, case, run, plain, (lib, lib_note), nbytes, ops, kind in cases:
+    for kernel, case, run, plain, (lib, lib_note), nbytes, ops, kind, shape in cases:
         y, y_ref = run(), plain()
         torch.cuda.synchronize()
         err = (y.double() - y_ref.double()).abs().max().item()
@@ -1377,12 +1432,14 @@ def check_int8_probe(flush, gen, dev):
                    plain_us=plain_ms * 1e3, library_us=None if lib_ms is None else lib_ms * 1e3,
                    library=lib_note, bound_us=b_ms * 1e3, bound_by=b_by,
                    ok=err == 0 and y.dtype == y_ref.dtype and y.shape == y_ref.shape)
-        if kernel in ("int8_dot", "bf16_dot"):  # one launch a call, its splits merged in a fixed order
-            from paroquant_tpu_torch.utils.profiling import kernel_time_ms
-
-            M, K, N = (int(v) for v in case.split("x"))
-            plan = ip.int8_plan if kernel == "int8_dot" else ip.bf16_plan
-            KS, per, rows_per_block = plan(M, K, N, ip._sm_count(dev))
+        if kernel in ("narrow_cast", "fused_unpack_int8_dot"):
+            row.update(floor_us=floor["empty_kernel_us"],
+                       floor_us_clean_l2=floor["empty_kernel_us_clean_l2"])
+        if kernel == "narrow_cast":  # and with its input left in the L2 (a 16-byte "flush")
+            row.update(us_clean_l2=kernel_time_ms(run, KERNEL_REPS, flush, clean_l2=True) * 1e3,
+                       us_l2_resident=kernel_time_ms(run, KERNEL_REPS, flush[:16]) * 1e3)
+        if shape is not None:  # one launch a call, its splits merged in a fixed order
+            KS, per, rows_per_block = plans[kernel](*shape, ip._sm_count(dev))
             row.update(KS=KS, chunks_per_split=per, rows_per_block=rows_per_block,
                        bitwise_equal=torch.equal(run(), run()), kernels_per_call=kernels_per_call(run),
                        us_clean_l2=kernel_time_ms(run, KERNEL_REPS, flush, clean_l2=True) * 1e3,
@@ -1391,6 +1448,11 @@ def check_int8_probe(flush, gen, dev):
             if not row["bitwise_equal"] or row["kernels_per_call"] != 1:
                 raise SystemExit(f"{kernel} {case}: two calls differ or a call ran "
                                  f"{row['kernels_per_call']} kernels")
+        if kernel == "fused_unpack_int8_dot" and case == "8x4096->4096":  # K15 on the unpacked weight
+            k15 = lambda xq=unpacked[case]: ip.int8_dot(*xq)
+            row.update(k15_unpacked_us=median_ms(k15, KERNEL_REPS, flush) * 1e3,
+                       k15_unpacked_us_clean_l2=kernel_time_ms(k15, KERNEL_REPS, flush,
+                                                               clean_l2=True) * 1e3)
         emit({"phase": "kernel_check", **row})
         rows.append(row)
     return rows
@@ -1483,17 +1545,106 @@ def sass_counts(lib_name, ops):
     return counts
 
 
-def check_sass(lib_name, ops, expect):
+def check_sass(lib_name, ops, expect, absent=()):
     """Emit the `sass` line of one library and check that every instance of
-    each kernel in `expect` ((name, op, instances), ...) holds its op."""
+    each kernel in `expect` ((name, op, instances), ...; the name a regular
+    expression searched in the mangled one) holds its op, and that no
+    function's name holds one of `absent`."""
+    import re
+
     counts = sass_counts(lib_name, ops)
     emit({"phase": "sass", "library": lib_name, "counts": counts})
     if counts is None:
         return
     for name, op, n in expect:
-        found = [c[op] for f, c in counts.items() if name in f]
+        found = [c[op] for f, c in counts.items() if re.search(name, f)]
         if len(found) != n or min(found) == 0:
             raise SystemExit(f"{name}: expected {op} in {n} instance(s), found {found}")
+    left = [f for f in counts for name in absent if name in f]
+    if left:
+        raise SystemExit(f"{lib_name}: functions that should be gone: {left}")
+
+
+# K15's three instances (int8_stream_kernel<NM>, NM 1, 2, 4): the sha256 of
+# their SASS (`stream_sass_digests`) as the card's toolkit built them before
+# K16 became the kernel's nibble instance; adding it must leave them as they were
+K15_SASS_SHA256 = {
+    1: "7ce02393b4a8bbd1079c54dadbe0df85de16144b48aed156ef3e333cd6cc3125",
+    2: "940e4a01e70443f53dceee0464c95b09ffe40244c0d5518b009689143bbb6b77",
+    4: "49103c3ab8133685c397021ddc9246e409a0880703c4bedc0fc82e72ffa7a639",
+}
+STREAM_NAME = r"int8_stream_kernelILi(\d+)E(?:Lb([01])E)?"  # NM, and NIB where the name has it
+
+
+def stream_sass_digests(lib_path):
+    """{(NM, NIB): sha256 of the instance's SASS, instruction and encoding
+    lines only} of int8_stream_kernel's instances in a built library, from
+    `cuobjdump -sass`; None where the toolkit has no cuobjdump."""
+    import hashlib
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    code = re.compile(r"/\*[0-9a-f]{4,}\*/|/\* 0x[0-9a-f]{16} \*/")
+    bodies, key = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            found = re.search(STREAM_NAME, line)
+            key = (int(found.group(1)), found.group(2) == "1") if found else None
+            if key:
+                bodies[key] = []
+        elif key and code.search(line):
+            bodies[key].append(" ".join(line.split()))
+    return {k: hashlib.sha256("\n".join(v).encode()).hexdigest() for k, v in bodies.items()}
+
+
+def check_descriptors():
+    """No ring copy (LDGSTS) of any built library takes its memory
+    descriptor (`desc[URn]`, a 64-bit uniform register pair: the L2 cache
+    policy of the copy) from an odd n. ptxas put one at UR1 in K15's ring
+    copies built with K17's evict_first policy (`int8_dot_sweep`'s arms), and
+    that instruction raised "illegal instruction" (CUDA error 715) on this
+    card; K17's own copies take UR4. Emits the `descriptors` line: each
+    library's descriptor registers."""
+    import shutil
+
+    from paroquant_tpu_torch.kernels import build
+    from paroquant_tpu_torch.scripts.int8_dot_sweep import descriptor_registers
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        emit({"phase": "descriptors", "checked": False, "why": "no cuobjdump"})
+        return
+    found, odd = {}, []
+    for lib in sorted(Path(build.build_info["dir"]).glob("lib*.so")):
+        text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                              check=True, timeout=120).stdout
+        regs = descriptor_registers(text)
+        found[lib.name] = regs
+        odd += [f"{lib.name}: UR{n}" for n in regs if n % 2]
+    emit({"phase": "descriptors", "checked": True, "registers": found, "odd": odd})
+    if odd:
+        raise SystemExit(f"memory descriptors in odd uniform registers: {odd}")
+
+
+def check_k15_sass():
+    """K15's three instances against K15_SASS_SHA256: identical, instruction
+    for instruction (the `k15_sass` line)."""
+    from paroquant_tpu_torch.kernels import build
+
+    digests = stream_sass_digests(Path(build.build_info["dir"]) / "libint8_probe.so")
+    if digests is None:
+        emit({"phase": "k15_sass", "identical": None, "why": "no cuobjdump"})
+        return
+    same = {nm: digests.get((nm, False)) == want for nm, want in K15_SASS_SHA256.items()}
+    emit({"phase": "k15_sass", "identical": same,
+          "digests": {f"{nm}{'_nib' if nib else ''}": d for (nm, nib), d in sorted(digests.items())}})
+    if not all(same.values()):
+        raise SystemExit(f"K15's SASS changed: {same}")
 
 
 MAGIC_SUB = "-128, -128"  # SASS of DQ's exact subtraction of the magic 128 (one per nibble pair)
@@ -1573,9 +1724,9 @@ def check_rot_spills(report):
 
 
 def check_stream_spills(report):
-    """K15's streaming instances (int8_stream_kernel, NM 1, 2, 4) and K18's
-    (stream_kernel, f32 and bf16 x) must report 0 spill bytes in ptxas's
-    lines."""
+    """K15's streaming instances (int8_stream_kernel<NM, false>, NM 1, 2, 4),
+    K16's (its nibble instances, <NM, true>) and K18's (stream_kernel, f32
+    and bf16 x) must report 0 spill bytes in ptxas's lines."""
     import re
 
     fn, spills = None, {}
@@ -1585,11 +1736,13 @@ def check_stream_spills(report):
         elif fn and "stream_kernel" in fn and "spill stores" in line:
             spills[fn] = (int(re.search(r"(\d+) bytes spill stores", line).group(1))
                           + int(re.search(r"(\d+) bytes spill loads", line).group(1)))
-    k15 = [b for f, b in spills.items() if "int8_stream_kernel" in f]
-    k18 = [b for f, b in spills.items() if "int8_stream_kernel" not in f]
-    emit({"phase": "stream_spills", "spill_bytes": {"k15": k15, "k18": k18}})
-    if len(k15) != 3 or len(k18) != 2 or any(spills.values()):
-        raise SystemExit(f"K15/K18's instances: spill bytes {spills}")
+    nib = {f: re.search(STREAM_NAME, f) for f in spills}
+    k15 = [b for f, b in spills.items() if nib[f] and nib[f].group(2) != "1"]
+    k16 = [b for f, b in spills.items() if nib[f] and nib[f].group(2) == "1"]
+    k18 = [b for f, b in spills.items() if not nib[f]]
+    emit({"phase": "stream_spills", "spill_bytes": {"k15": k15, "k16": k16, "k18": k18}})
+    if len(k15) != 3 or len(k16) != 3 or len(k18) != 2 or any(spills.values()):
+        raise SystemExit(f"K15/K16/K18's instances: spill bytes {spills}")
 
 
 def int8_probe(dev):
@@ -2852,10 +3005,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card()
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda})
     emit(smi)
@@ -2868,12 +3018,17 @@ def main() -> int:
     emit({"phase": "ptxas", "lines": report.splitlines()})
     check_flash_spills(report)
     check_rot_spills(report)
-    # the tensor-core instructions of K16 (IMMA), K15 (IMMA, its three row
-    # tilings, with their ring's 16-byte cp.async) and K17 (HMMA); K18's bulk
-    # copies (UBLKCP: cp.async.bulk into shared memory) for f32 and bf16 x
+    # the tensor-core instructions of K15 and K16 (IMMA, three row tilings
+    # each, with their ring's 16-byte cp.async, LDGSTS) and K17 (HMMA), with
+    # K16's former kernel (int8_dot_kernel) gone, and K15's SASS as it was
+    # before K16 joined its kernel; K18's bulk copies (UBLKCP: cp.async.bulk
+    # into shared memory) for f32 and bf16 x
+    k15, k16 = r"int8_stream_kernelILi\dELb0E", r"int8_stream_kernelILi\dELb1E"
     check_sass("libint8_probe.so", ("IMMA", "HMMA", "LDGSTS"),
-               (("int8_dot_kernel", "IMMA", 1), ("int8_stream_kernel", "IMMA", 3),
-                ("int8_stream_kernel", "LDGSTS", 3), ("bf16_dot_kernel", "HMMA", 3)))
+               ((k15, "IMMA", 3), (k15, "LDGSTS", 3), (k16, "IMMA", 3), (k16, "LDGSTS", 3),
+                ("bf16_dot_kernel", "HMMA", 3)), absent=("int8_dot_kernel",))
+    check_k15_sass()
+    check_descriptors()
     check_sass("libunpack_exp.so", ("UBLKCP",), (("stream_kernel", "UBLKCP", 2),))
     check_stream_spills(report)
     # K4/K5's tensor-core instances: bf16 queries over bf16 and int8 pools, 9 tilings each

@@ -13,18 +13,18 @@ Port of the four kernels of `scripts/kernel_int8_probe.py`:
     K17 bf16_dot (the bf16 arm of `bench_dots`):
           bf16 [M, K] @ bf16 [K, N] -> float32 [M, N]
 
-On the card K15 and K17 stream B through a `cp.async` ring into `mma.sync`
-in one launch, out^T = B^T A^T (K15 s8 x s8 -> s32, its B stage transposed
-by byte permutes on the way out; K17 bf16 x bf16 -> f32, its ring read with
-the L2 policy evict_first), their K splits merged in split order by the last
-block of each tile (`int8_plan`, `bf16_plan`). K16 runs on `mma.sync` s8
-with B transposed on the way into shared memory, the K range split across
-blocks where the columns alone would not fill the card (`k_splits`) and
-the splits added with atomics into a zeroed output. A wrapper launches the
-CUDA kernel for tensors on a CUDA device and runs the plain PyTorch version
-for tensors on the CPU (the counterpart of the Pallas interpreter). A
-failed build or launch raises; nothing falls back. Each CUDA call adds one
-to `launch_counts[name]`.
+On the card K15, K16 and K17 stream B through a `cp.async` ring into
+`mma.sync` in one launch, out^T = B^T A^T (K15 s8 x s8 -> s32, its B stage
+transposed by byte permutes on the way out; K16 the same kernel over w's
+S/2 byte-rows, each byte unpacked after the transpose into two rows of the
+dot; K17 bf16 x bf16 -> f32, its ring read with the L2 policy evict_first),
+their K splits merged in split order by the last block of each tile
+(`int8_plan`, `fused_plan`, `bf16_plan`). A wrapper launches the CUDA
+kernel for tensors on a CUDA device and runs the plain PyTorch version for
+tensors on the CPU (the counterpart of the Pallas interpreter). A failed
+build or launch raises; nothing falls back. Each CUDA call adds one to
+`launch_counts[name]`. `empty_kernel` launches a kernel that does nothing,
+to time what the harness charges a launch; it counts nowhere.
 """
 
 from __future__ import annotations
@@ -38,12 +38,10 @@ from .rot_matmul import BLOCKS_PER_SM, MAX_SMEM_BYTES, _counters, _raise_on, _sm
 
 KERNELS = ("narrow_cast", "int8_dot", "fused_unpack_int8_dot", "bf16_dot")
 launch_counts = {name: 0 for name in KERNELS}
-TILE_M, TILE_N = 16, 64  # K16: rows and columns of a block's output tile
-CHUNK_K = 128  # K16: K bytes per stage of a block
-TARGET_BLOCKS = 132 * 8  # K16: about eight blocks per SM of the H100
-# K15 (csrc/int8_probe.cu, int8_stream_kernel): a block's columns of B, its K
-# rows a ring stage, the ring's stages and its shared rows of A's padding in
-# bytes; the rows of A a block takes are K17's (one, two or four n8 tiles)
+# K15 and K16 (csrc/int8_probe.cu, int8_stream_kernel): a block's columns of
+# B, its K rows (K16: byte-rows of w) a ring stage, the ring's stages and its
+# shared rows of A's padding in bytes; the rows of A a block takes are K17's
+# (one, two or four n8 tiles)
 INT8_TILE_N, INT8_CHUNK_K, INT8_STAGES, INT8_PAD = 128, 128, 4, 16
 # K17 (csrc/int8_probe.cu, bf16_dot_kernel): a block's columns of B, its K
 # rows a ring stage, the ring's stages, the rows of A it takes (one, two or
@@ -122,15 +120,6 @@ def _check_fused(x, w) -> None:
         raise ValueError(f"w must be [S/2, O] = [{S // 2}, O], got {tuple(w.shape)}")
 
 
-def k_splits(M: int, K: int, N: int) -> tuple[int, int]:
-    """K16's (blocks along K, chunks of CHUNK_K per block): enough blocks
-    that about TARGET_BLOCKS are in flight, and no block without a chunk."""
-    chunks = -(-K // CHUNK_K)
-    tiles = -(-M // TILE_M) * -(-N // TILE_N)
-    per = -(-chunks // max(1, min(chunks, TARGET_BLOCKS // tiles)))
-    return -(-chunks // per), per
-
-
 def bf16_smem(rows: int) -> int:
     """K17's dynamic shared memory a block for `rows` rows of A: its ring of
     BF16_STAGES stages of B's 64 x 128 and A's rows x 64 bf16, each row
@@ -144,6 +133,12 @@ def int8_smem(rows: int) -> int:
     INT8_STAGES stages of B's 128 x 128 and A's rows x 128 bytes, A's rows
     padded by INT8_PAD (`i8_stage` in csrc/int8_probe.cu)."""
     return INT8_STAGES * (INT8_CHUNK_K * INT8_TILE_N + rows * (INT8_CHUNK_K + INT8_PAD))
+
+
+def fused_smem(rows: int) -> int:
+    """K16's dynamic shared memory a block: K15's ring with two padded rows
+    of x a row, one for each half of its columns (`i8_stage(nm, true)`)."""
+    return int8_smem(2 * rows)
 
 
 def _one_wave(M: int, K: int, N: int, sms: int, tile_n: int, chunk_k: int,
@@ -180,12 +175,22 @@ def int8_plan(M: int, K: int, N: int, sms: int) -> tuple[int, int, int]:
     return _one_wave(M, K, N, sms, INT8_TILE_N, INT8_CHUNK_K, int8_smem)
 
 
+def fused_plan(M: int, S: int, O: int, sms: int) -> tuple[int, int, int]:
+    """K16's launch on a card of `sms` SMs, from shapes alone: (K splits,
+    chunks of INT8_CHUNK_K byte-rows of w a split, rows of x a block), K15's
+    rule over w's S/2 byte-rows. At the probe's 8 x 256 -> 512: one split, 4
+    blocks; at 8 x 4096 -> 4096: 4 splits of 4 chunks, 128 blocks. Its rings
+    take at most 100 KB a block."""
+    return _one_wave(M, S // 2, O, sms, INT8_TILE_N, INT8_CHUNK_K, fused_smem)
+
+
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {  # entry point: argument types (all in csrc/int8_probe.cu)
     "paro_narrow_cast": [_P, _P, _L],
     "paro_int8_dot": [_P] * 5 + [_I] * 6,
-    "paro_fused_unpack_int8_dot": [_P] * 3 + [_I] * 5,
+    "paro_fused_unpack_int8_dot": [_P] * 5 + [_I] * 6,
     "paro_bf16_dot": [_P] * 5 + [_I] * 6,
+    "paro_empty": [],
 }
 _fns: dict[str, object] = {}
 
@@ -213,20 +218,10 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _launch_int8(name, entry, a, b, M, K, N):
-    a, b = _on_card(a, b)
-    out = torch.empty((M, N), dtype=I32, device=a.device)
-    split, per = k_splits(M, K, N)
-    err = _lib_fn(entry)(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, K, N, per, split,
-                         _stream(a.device))
-    _raise_on(err, name)
-    launch_counts[name] += 1
-    return out
-
-
 def _launch_stream(name, entry, a, b, plan, tile_n, out_dtype):
-    """K15 / K17: one launch of a streaming dot by `plan` (int8_plan /
-    bf16_plan) with its partials and counters where K is split."""
+    """K15 / K16 / K17: one launch of a streaming dot by `plan` (int8_plan /
+    fused_plan / bf16_plan, given a's [M, K] and b's N) with its partials
+    and counters where K is split."""
     a, b = _on_card(a, b)
     (M, K), N = a.shape, b.shape[1]
     fn = _lib_fn(entry)  # before the device is queried
@@ -275,8 +270,8 @@ def fused_unpack_int8_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check_fused(x, w)
     if x.device.type == "cpu":
         return fused_unpack_int8_dot_plain(x, w)
-    (M, S), O = x.shape, w.shape[1]
-    return _launch_int8("fused_unpack_int8_dot", "paro_fused_unpack_int8_dot", x, w, M, S, O)
+    return _launch_stream("fused_unpack_int8_dot", "paro_fused_unpack_int8_dot", x, w, fused_plan,
+                          INT8_TILE_N, I32)
 
 
 def bf16_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -285,3 +280,11 @@ def bf16_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cpu":
         return bf16_dot_plain(a, b)
     return _launch_stream("bf16_dot", "paro_bf16_dot", a, b, bf16_plan, BF16_TILE_N, F32)
+
+
+def empty_kernel(device) -> None:
+    """Launch a kernel that does nothing (one block of 32 threads) on
+    `device`'s current stream: the launch floor that chip_smoke.py times
+    beside K14. Counted nowhere; raises where the launch fails."""
+    dev = torch.device(device)
+    _raise_on(_lib_fn("paro_empty")(_stream(dev)), "empty_kernel")

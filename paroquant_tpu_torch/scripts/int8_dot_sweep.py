@@ -14,10 +14,17 @@ after a flush that leaves them clean (a read), beside `torch._int_mm` on A
 padded to 32 rows timed the same two ways
 (`utils/profiling.py::kernel_time_ms`). Prints the library's JSON line,
 then one a variant and split, the plain variants first: a variant whose
-call faults (evict_first has raised CUDA error 715, an illegal
-instruction, on this card) gets a line with the error, and the sweep stops
-there, since the fault leaves the process's CUDA context unusable. Runs
-where nvcc is installed (the card's machine).
+call faults gets a line with the error, and the sweep stops there, since
+the fault leaves the process's CUDA context unusable. Runs where nvcc is
+installed (the card's machine).
+
+Before any call, each variant's SASS (`cuobjdump -sass`) gives the uniform
+registers its ring copies (LDGSTS) take their memory descriptor from: a
+64-bit pair, the L2 policy where one is given. A variant with one at an odd
+register is not called: its line gives the registers and the reason. On
+the card's toolkit ptxas puts the evict_first arms' policy at UR1 (K17's
+own copies take UR4), and that instruction raised CUDA error 715 (illegal
+instruction) at its first call.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
+import shutil
 import subprocess
 
 import torch
@@ -65,7 +74,15 @@ def variant_source(stages: int, evict_first: bool) -> str:
     return src
 
 
-def _libraries() -> dict:
+def descriptor_registers(sass: str) -> list[int]:
+    """The uniform registers (n of `desc[URn]`) that a library's LDGSTS
+    instructions take their memory descriptor from, in `cuobjdump -sass`
+    text."""
+    return sorted({int(n) for line in sass.splitlines() if "LDGSTS" in line
+                   for n in re.findall(r"desc\[UR(\d+)\]", line)})
+
+
+def _libraries() -> tuple[dict, dict]:
     out = build.BUILD_ROOT / "int8_sweep"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -76,12 +93,16 @@ def _libraries() -> dict:
              str(out / f"{name}.cu")], stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)
     if any(p.wait() for p in procs.values()):
         raise RuntimeError("nvcc failed on a variant")
-    fns = {}
+    fns, regs = {}, {}
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for name in VARIANTS:
-        fn = ctypes.CDLL(str(out / f"lib{name}.so")).paro_int8_dot
+        lib = out / f"lib{name}.so"
+        regs[name] = descriptor_registers(subprocess.run(
+            [tool, "-sass", str(lib)], capture_output=True, text=True, check=True).stdout)
+        fn = ctypes.CDLL(str(lib)).paro_int8_dot
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fns[name] = fn
-    return fns
+    return fns, regs
 
 
 def main(argv=None) -> list[dict]:
@@ -93,7 +114,7 @@ def main(argv=None) -> list[dict]:
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")  # the kernels run on the card only
     M, K, N = args.M, args.K, args.N
-    fns = _libraries()
+    fns, regs = _libraries()
     gen = torch.Generator(device=dev).manual_seed(0)
     a = torch.randint(-128, 128, (M, K), generator=gen, device=dev, dtype=torch.int8)
     b = torch.randint(-128, 128, (K, N), generator=gen, device=dev, dtype=torch.int8)
@@ -116,6 +137,14 @@ def main(argv=None) -> list[dict]:
     out = [row]
     chunks = -(-K // ip.INT8_CHUNK_K)
     for name, (stages, ef) in VARIANTS.items():
+        odd = [n for n in regs[name] if n % 2]
+        if odd:  # a 64-bit descriptor in an odd register: not called
+            row = {"variant": name, "stages": stages, "evict_first": ef,
+                   "ldgsts_descriptor_registers": regs[name],
+                   "refused": f"LDGSTS takes its memory descriptor from UR{odd[0]}, an odd register"}
+            print(json.dumps(row), flush=True)
+            out.append(row)
+            continue
         for want_ks in SPLITS:
             per = -(-chunks // min(want_ks, chunks))
             ks = -(-chunks // per)
@@ -123,7 +152,8 @@ def main(argv=None) -> list[dict]:
             part = torch.empty((ks, M, n_tiles * ip.INT8_TILE_N), dtype=torch.int32, device=dev)
             call = lambda: fns[name](a.data_ptr(), b.data_ptr(), y.data_ptr(), part.data_ptr(),
                                      counters.data_ptr(), M, K, N, per, ks, rows, stream)
-            row = {"variant": name, "stages": stages, "evict_first": ef, "KS": ks}
+            row = {"variant": name, "stages": stages, "evict_first": ef, "KS": ks,
+                   "ldgsts_descriptor_registers": regs[name]}
             try:  # a fault in the first call or in the timed ones
                 if call():
                     raise RuntimeError(f"{name}: the launch failed")

@@ -12,20 +12,26 @@ a small shape. Every comparison with JAX is bit for bit: the inputs are
 small integers, so even the bf16 dot is exact in float32. The plain
 versions' edges are exact too, but for random bf16 (1e-5 of max |y|).
 
-K15's and K17's launch plans (`int8_plan`, `bf16_plan`) are pure functions
-of shapes and the card's SM count, tested at an H100's 132 SMs (one wave at
-the bench's shape, every split non-empty, two blocks an SM within shared
-memory). The kernels run only on the card. `bf16_dot_model` models K17's
-sums (an f32 partial per K split, the partials added in split order) and is
-held bit for bit against the JAX bench body on integer inputs.
-`int8_dot_model` models K15's dataflow byte by byte: the swizzled [k][n]
-stages of B and the [m][k] rows of A, each lane's 32-bit reads, its
-`transpose4x4` (the kernel's `__byte_perm` selectors), the
-`mma.sync.m16n8k32` fragments as PTX lays them out, the column-to-row map of
-the two m16 tiles and the store that undoes it, the two K halves of a stage
-and the merge in split order; it is held bit for bit against `probe_int8_dot`
-and the JAX bench's int8 body in interpret mode. The lanes' shared-memory
-addresses of one k32 step are checked to fall on 32 distinct banks.
+K15's, K16's and K17's launch plans (`int8_plan`, `fused_plan`,
+`bf16_plan`) are pure functions of shapes and the card's SM count, tested
+at an H100's 132 SMs (one wave at the bench's shape, every split non-empty,
+two blocks an SM within shared memory). The kernels run only on the card.
+`bf16_dot_model` models K17's sums (an f32 partial per K split, the
+partials added in split order) and is held bit for bit against the JAX
+bench body on integer inputs. `int8_dot_model` models K15's dataflow byte
+by byte (`_stream_model`): the swizzled [k][n] stages of B and the [m][k]
+rows of A, each lane's 32-bit reads, its `transpose4x4` (the kernel's
+`__byte_perm` selectors), the `mma.sync.m16n8k32` fragments as PTX lays
+them out, the column-to-row map of the two m16 tiles and the store that
+undoes it, the two K halves of a stage and the merge in split order; it is
+held bit for bit against `probe_int8_dot` and the JAX bench's int8 body in
+interpret mode. `fused_dot_model` runs the same dataflow as K16's nibble
+instance: stages of w's byte-rows, x's two column ranges in the stage, each
+word unpacked (`__vsub4`) after the transpose into a low and a high k32
+step; it is held bit for bit against `probe_fused_unpack_int8_dot` and its
+kernel body at other shapes, and shown to need x's stage columns past S/2
+zeroed. The lanes' shared-memory addresses of one k32 step are checked to
+fall on 32 distinct banks.
 """
 
 import importlib.util
@@ -215,19 +221,6 @@ def test_wrappers_refuse_other_dtypes_and_shapes():
         ip.fused_unpack_int8_dot(torch.zeros((2, 8), dtype=torch.int8), torch.zeros((3, 4), dtype=torch.uint8))
 
 
-@pytest.mark.parametrize("M, K, N, want", [
-    (8, 4096, 4096, (16, 2)),  # 64 column tiles: the K range splits 16 ways
-    (8, 96, 128, (1, 1)),  # one chunk: no split
-    (8, 16384, 256, (128, 1)),
-    (8, 4096, 300 * 64, (3, 11)),  # 300 tiles: every block keeps a chunk
-])
-def test_k_splits(M, K, N, want):
-    """K16's split of the K range."""
-    split, per = ip.k_splits(M, K, N)
-    chunks = -(-K // ip.CHUNK_K)
-    assert (split, per) == want and (split - 1) * per < chunks <= split * per
-
-
 # ---------------------------------------------------------------------------
 # K17's plan, and a model of its sums against the JAX bench body
 # ---------------------------------------------------------------------------
@@ -302,6 +295,19 @@ def test_int8_sweep_variants_find_their_anchors(variant):
         assert src == committed
 
 
+def test_int8_sweep_reads_ldgsts_descriptor_registers():
+    """The sweep's check before a call: the uniform registers of LDGSTS's
+    memory descriptors in SASS text, other instructions' ignored."""
+    sass = """
+        /*0390*/ LDGSTS.E.BYPASS.128 [R11+UR0], desc[UR1][R8.64], P0 ;  /* 0x00000000080b7dae */
+        /*03a0*/ LDG.E.U8 R7, desc[UR3][R8.64] ;  /* 0x0000000808078981 */
+        /*0410*/ LDGSTS.E.BYPASS.128 [R7], desc[UR4][R14.64], P0 ;  /* 0x000000000e077fae */
+        /*0420*/ @P1 LDGSTS.E.BYPASS.128 [R9], desc[UR8][R12.64], P0 ;  /* 0x000000000c097fae */
+    """
+    assert int8_dot_sweep.descriptor_registers(sass) == [1, 4, 8]
+    assert int8_dot_sweep.descriptor_registers("") == []
+
+
 @pytest.mark.parametrize("M, K, N", [(8, 256, 384), (5, 200, 130), (33, 1024, 256)])
 def test_bf16_dot_model_matches_the_jax_bench_body(js, monkeypatch, M, K, N):
     """On integer inputs every product and partial sum is exact in f32, so
@@ -358,6 +364,40 @@ def test_int8_ring_fits_two_blocks_an_sm(rows):
     block), and the int32 tile of the stores fits in the ring."""
     assert 65_000 < ip.int8_smem(rows) and 2 * ip.int8_smem(rows) <= rm.MAX_SMEM_BYTES
     assert rows * (ip.INT8_TILE_N + 4) * 4 <= ip.int8_smem(rows)
+
+
+@pytest.mark.parametrize("M, S, O, want", [
+    (8, 256, 512, (1, 1, 8)),  # the probe: one chunk of byte-rows, 4 column tiles
+    (8, 4096, 4096, (4, 4, 8)),  # the bench's geometry: 32 column tiles x 4 splits of 4 chunks
+    (1, 4096, 4096, (4, 4, 8)),
+    (16, 4096, 4096, (4, 4, 16)),
+    (32, 4096, 4096, (4, 4, 32)),
+    (33, 4096, 4096, (2, 8, 32)),  # two row tiles
+    (5, 198, 130, (1, 1, 8)),  # S/2 = 99: one ragged chunk
+    (32, 512, 256, (2, 1, 32)),
+    (8, 16384, 256, (64, 1, 8)),  # split K: 64 splits of one chunk
+    (8, 256, 300 * 128, (1, 1, 8)),  # past one wave: no split
+])
+def test_fused_plan(M, S, O, want):
+    """K15's rule over w's S/2 byte-rows: one wave of one block an SM where
+    the columns leave room for splits, every split non-empty, at most one
+    split a chunk of 128 byte-rows."""
+    KS, per, rows = plan = ip.fused_plan(M, S, O, SMS)
+    assert plan == want
+    chunks = -(-(S // 2) // ip.INT8_CHUNK_K)
+    assert (KS - 1) * per < chunks <= KS * per
+    blocks = -(-O // ip.INT8_TILE_N) * -(-M // rows) * KS
+    assert blocks <= SMS or KS == 1
+
+
+@pytest.mark.parametrize("rows", ip.BF16_ROWS)
+def test_fused_ring_fits_two_blocks_an_sm(rows):
+    """K16's ring of 4 stages (w's 128 x 128 bytes and x's rows twice, each
+    padded to 144 bytes) fits twice in an SM's shared memory: 100 KB a block
+    at 32 rows (4 x (16384 + 2 x 32 x 144))."""
+    assert ip.fused_smem(rows) == 4 * (128 * 128 + 2 * rows * 144)
+    assert 2 * ip.fused_smem(rows) <= rm.MAX_SMEM_BYTES
+    assert ip.fused_smem(32) == 102_400
 
 
 LANE = torch.arange(32)
@@ -461,24 +501,35 @@ def words(stage, offsets):
     return sum(st[offsets + i] << (8 * i) for i in range(4))
 
 
-def int8_dot_model(a: torch.Tensor, b: torch.Tensor, KS: int, per: int, rows: int) -> torch.Tensor:
-    """K15's kernel, byte by byte: per block (column tile of 128, split of
-    `per` chunks of 128 K rows, row tile of `rows` = 8 NM), each chunk's B
-    rows at their swizzled places and A's rows padded to 144 bytes, zero
-    outside M, K, N; the 8 warps (column group cg = w & 3, K half kh = w >>
-    2) read, transpose and multiply as the kernel does, columns 4g, 4g + 1
-    as rows g, g + 8 of tile 0 and 4g + 2, 4g + 3 of tile 1; the K halves
-    meet in the int32 tile; each split's partial, the partials summed in
-    split order."""
-    M, K = a.shape
-    N = b.shape[1]
+def vsub4(a, b):
+    """`__vsub4(a, b)` on int64 tensors of 32-bit words: byte-wise a - b
+    modulo 256."""
+    return sum(((((a >> (8 * n)) & 0xFF) - ((b >> (8 * n)) & 0xFF)) & 0xFF) << (8 * n)
+               for n in range(4))
+
+
+def nibbles_s8(c, h):
+    """csrc/int8_probe.cu::nibbles_s8: the low (h = 0) or high (h = 1)
+    nibble of each byte of the words c, minus 8, as int8 bytes."""
+    return vsub4((c >> (4 * h)) & 0x0F0F0F0F, 0x08080808)
+
+
+def _stream_model(a_stage, bp, M: int, N: int, KS: int, per: int, rows: int,
+                  nib: bool) -> torch.Tensor:
+    """`int8_stream_kernel<rows / 8, nib>`, byte by byte: per block (column
+    tile of 128, split of `per` chunks of 128 K rows, row tile of `rows` = 8
+    NM), each chunk's B rows (bp, uint8, zero-padded to whole chunks and
+    tiles) at their swizzled places and its A rows (`a_stage(mt, c)`,
+    uint8 [rows, 128], or [2 rows, 128] with nib: x's two column ranges)
+    padded to 144 bytes; the 8 warps (column group cg = w & 3, K half kh = w
+    >> 2) read, transpose and multiply as the kernel does, columns 4g, 4g +
+    1 as rows g, g + 8 of tile 0 and 4g + 2, 4g + 3 of tile 1 (nib: each
+    word unpacked after the transpose, its low nibbles against A's first
+    rows, its high ones against the second); the K halves meet in the int32
+    tile; each split's partial, the partials summed in split order."""
     NM, TN, BK = rows // 8, ip.INT8_TILE_N, ip.INT8_CHUNK_K
-    n_tiles, m_tiles, chunks = -(-N // TN), -(-M // rows), -(-K // BK)
+    n_tiles, m_tiles, chunks = -(-N // TN), -(-M // rows), bp.shape[0] // BK
     assert (KS - 1) * per < chunks <= KS * per
-    ap = torch.zeros(m_tiles * rows, chunks * BK, dtype=torch.uint8)
-    ap[:M, :K] = a.view(torch.uint8)
-    bp = torch.zeros(chunks * BK, n_tiles * TN, dtype=torch.uint8)
-    bp[:K, :N] = b.view(torch.uint8)
     r = torch.arange(BK)[:, None]
     n = torch.arange(TN)[None, :]
     place = b_swizzle(r, n // 16) + n % 16  # [k][n] -> byte of the B stage
@@ -493,19 +544,23 @@ def int8_dot_model(a: torch.Tensor, b: torch.Tensor, KS: int, per: int, rows: in
                 for c in range(ks * per, min(chunks, (ks + 1) * per)):
                     sb = torch.zeros(BK * TN, dtype=torch.uint8)
                     sb[place.flatten()] = bp[c * BK:(c + 1) * BK, nt * TN:(nt + 1) * TN].flatten()
-                    sa = torch.zeros(rows, I8_SA, dtype=torch.uint8)
-                    sa[:, :BK] = ap[mt * rows:(mt + 1) * rows, c * BK:(c + 1) * BK]
+                    rows_a = a_stage(mt, c)
+                    sa = torch.zeros(rows_a.shape[0], I8_SA, dtype=torch.uint8)
+                    sa[:, :BK] = rows_a
                     sa = sa.flatten()
                     for s in range(2):
                         kb = (32 * (2 * kh + s))[:, None]  # [8, 1]
                         lo = [words(sb, (kb + 4 * T_ + i) * TN + wb) for i in range(4)]
                         hi = [words(sb, (kb + 16 + 4 * T_ + i) * TN + wb) for i in range(4)]
                         cl, ch = transpose4x4(lo), transpose4x4(hi)
-                        for j in range(NM):
-                            ra = (8 * j + G_) * I8_SA + kb + 4 * T_  # [8, 32]
-                            b0, b1 = words(sa, ra), words(sa, ra + 16)
-                            acc[0, j] = mma_m16n8k32(acc[0, j], (cl[0], cl[1], ch[0], ch[1]), (b0, b1))
-                            acc[1, j] = mma_m16n8k32(acc[1, j], (cl[2], cl[3], ch[2], ch[3]), (b0, b1))
+                        halves = ([([nibbles_s8(v, h) for v in cl], [nibbles_s8(v, h) for v in ch],
+                                    h * rows) for h in (0, 1)] if nib else [(cl, ch, 0)])
+                        for ql, qh, r0 in halves:
+                            for j in range(NM):
+                                ra = (r0 + 8 * j + G_) * I8_SA + kb + 4 * T_  # [8, 32]
+                                b0, b1 = words(sa, ra), words(sa, ra + 16)
+                                acc[0, j] = mma_m16n8k32(acc[0, j], (ql[0], ql[1], qh[0], qh[1]), (b0, b1))
+                                acc[1, j] = mma_m16n8k32(acc[1, j], (ql[2], ql[3], qh[2], qh[3]), (b0, b1))
                 red = torch.zeros(rows, TN + 4, dtype=torch.int64)
                 for half in (0, 1):
                     for w in range(8):
@@ -523,6 +578,47 @@ def int8_dot_model(a: torch.Tensor, b: torch.Tensor, KS: int, per: int, rows: in
     for ks in range(KS):
         out = out + part[ks]
     return out[:M, :N].to(torch.int32)
+
+
+def int8_dot_model(a: torch.Tensor, b: torch.Tensor, KS: int, per: int, rows: int) -> torch.Tensor:
+    """K15's kernel, byte by byte (`_stream_model`): A's and B's rows zero
+    outside M, K, N."""
+    M, K = a.shape
+    N = b.shape[1]
+    TN, BK = ip.INT8_TILE_N, ip.INT8_CHUNK_K
+    chunks = -(-K // BK)
+    ap = torch.zeros(-(-M // rows) * rows, chunks * BK, dtype=torch.uint8)
+    ap[:M, :K] = a.view(torch.uint8)
+    bp = torch.zeros(chunks * BK, -(-N // TN) * TN, dtype=torch.uint8)
+    bp[:K, :N] = b.view(torch.uint8)
+    return _stream_model(lambda mt, c: ap[mt * rows:(mt + 1) * rows, c * BK:(c + 1) * BK],
+                         bp, M, N, KS, per, rows, nib=False)
+
+
+def fused_dot_model(x: torch.Tensor, w: torch.Tensor, KS: int, per: int, rows: int,
+                    x_masked: bool = True) -> torch.Tensor:
+    """K16's kernel, byte by byte (`_stream_model` over w's S/2 byte-rows):
+    a stage's A part holds x's columns [r0, r0 + 128) and [S/2 + r0, S/2 +
+    r0 + 128) (x as [2M, S/2], rows 2m and 2m + 1), zero past M and past
+    S/2 byte-rows; byte-rows of w past S/2 are zero, which unpack to q =
+    -8. With x_masked False the stage's x columns run on to x's end instead
+    (the low half reads the high half's columns): w's zero rows alone would
+    have to keep the dot right, and they do not."""
+    M, S = x.shape
+    K, N = w.shape
+    TN, BK = ip.INT8_TILE_N, ip.INT8_CHUNK_K
+    chunks = -(-K // BK)
+    xp = torch.zeros(-(-M // rows) * rows, 2, chunks * BK + K, dtype=torch.uint8)
+    if x_masked:
+        xp[:M, :, :K] = x.view(torch.uint8).reshape(M, 2, K)
+    else:
+        xp[:M, 0, :S] = x.view(torch.uint8)
+        xp[:M, 1, :K] = x.view(torch.uint8)[:, K:]
+    bp = torch.zeros(chunks * BK, -(-N // TN) * TN, dtype=torch.uint8)
+    bp[:K, :N] = w
+    return _stream_model(
+        lambda mt, c: xp[mt * rows:(mt + 1) * rows, :, c * BK:(c + 1) * BK].transpose(0, 1)
+        .reshape(2 * rows, BK), bp, M, N, KS, per, rows, nib=True)
 
 
 def test_int8_dot_model_matches_the_jax_probe(js, monkeypatch):
@@ -578,6 +674,105 @@ def test_int8_dot_model_takes_each_row_tiling(rows):
     assert torch.equal(int8_dot_model(a, b, 2, 1, rows), want)
 
 
+def _fused_body(js, monkeypatch):
+    """`probe_fused_unpack_int8_dot`'s kernel body (captured; the stand-in
+    raises before the probe's own call runs)."""
+    bodies = []
+
+    def capture(kernel, out_shape, **_):
+        bodies.append(kernel)
+
+        def stop(*_):
+            raise _Stop
+
+        return stop
+
+    monkeypatch.setattr(pl, "pallas_call", capture)
+    with pytest.raises(_Stop):
+        js.probe_fused_unpack_int8_dot()
+    monkeypatch.undo()
+    return bodies[0]
+
+
+def _fused_jax(js, monkeypatch, x, w):
+    kernel = _fused_body(js, monkeypatch)
+    call = REAL_PALLAS_CALL(kernel, out_shape=jax.ShapeDtypeStruct((x.shape[0], w.shape[1]), jnp.int32),
+                            interpret=True)
+    return call(jnp.asarray(x), jnp.asarray(w))
+
+
+def test_fused_dot_model_matches_the_jax_probe(js, monkeypatch):
+    """The probe's own inputs (x 8 x 256, w 128 x 512 from its seed) through
+    K16's model at its plan (one split, 4 column tiles), against
+    `probe_fused_unpack_int8_dot`'s pallas_call in interpret mode, bit for
+    bit."""
+    jax_out, port_out = [], []
+
+    def jax_recorder(*args, **kw):
+        call = REAL_PALLAS_CALL(*args, interpret=True, **kw)
+        return lambda *xs: jax_out.append(call(*xs)) or jax_out[-1]
+
+    def model(x, w):
+        port_out.append(fused_dot_model(x, w, *ip.fused_plan(*x.shape, w.shape[1], SMS)))
+        return port_out[-1]
+
+    monkeypatch.setattr(pl, "pallas_call", jax_recorder)
+    monkeypatch.setattr(ip, "fused_unpack_int8_dot", model)
+    assert kp.probe_fused_unpack_int8_dot("cpu") == js.probe_fused_unpack_int8_dot()
+    assert ip.fused_plan(8, 256, 512, SMS) == (1, 1, 8)
+    _same(port_out[0], jax_out[0])
+
+
+@pytest.mark.parametrize("M, S, O", [
+    (5, 198, 130),  # S/2 = 99: a row quad across the end of w, x's copies element by element
+    (8, 200, 128),  # S/2 = 100: not a multiple of 16
+    (16, 96, 136),  # S/2 = 48: one ragged chunk, 16-byte copies
+    (32, 512, 256),  # two splits at the plan
+    (33, 1024, 256),  # two row tiles, four splits
+])
+def test_fused_dot_model_matches_the_jax_probe_body(js, monkeypatch, M, S, O):
+    """K16's model at `fused_plan`'s splits, at one split and at one chunk a
+    split, on x over the whole int8 range and w over every byte, against the
+    JAX probe's kernel body in interpret mode at the same shape, bit for
+    bit."""
+    rng = np.random.default_rng(S + O)
+    x = rng.integers(-128, 128, (M, S), dtype=np.int8)
+    w = rng.integers(0, 256, (S // 2, O), dtype=np.uint8)
+    x[0, :] = -128  # the extremes in one row, nibbles 0 and 15 in two columns
+    w[:, 0], w[:, -1] = 0, 255
+    yj = _fused_jax(js, monkeypatch, x, w)
+    np.testing.assert_array_equal(np.asarray(yj), _fused_want(x, w))
+    KS, per, rows = ip.fused_plan(M, S, O, SMS)
+    chunks = -(-(S // 2) // ip.INT8_CHUNK_K)
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    for ks, p in {(KS, per), (1, chunks), (chunks, 1)}:
+        _same(fused_dot_model(tx, tw, ks, p, rows), yj)
+
+
+@pytest.mark.parametrize("rows", ip.BF16_ROWS)
+def test_fused_dot_model_takes_each_row_tiling(rows):
+    """NM = 1, 2 and 4 n8 tiles of x's rows (and M padded to them) give the
+    plain version's output, at two splits."""
+    rng = np.random.default_rng(rows)
+    x = torch.from_numpy(rng.integers(-128, 128, (7, 512), dtype=np.int8))
+    w = torch.from_numpy(rng.integers(0, 256, (256, 136), dtype=np.uint8))
+    assert torch.equal(fused_dot_model(x, w, 2, 1, rows), ip.fused_unpack_int8_dot_plain(x, w))
+
+
+def test_fused_dot_needs_x_masked_past_half_s(js, monkeypatch):
+    """At S/2 = 99 the stage's byte-rows 99..127 of w are zero-filled, and a
+    zero byte unpacks to q = -8 in both nibbles: with x's stage columns past
+    S/2 taken from x's memory (w's zero rows the only mask) the dot is wrong;
+    with them zero, as the kernel copies them, it is the JAX probe's."""
+    rng = np.random.default_rng(99)
+    x = rng.integers(-128, 128, (8, 198), dtype=np.int8)
+    w = rng.integers(0, 256, (99, 128), dtype=np.uint8)
+    yj = np.asarray(_fused_jax(js, monkeypatch, x, w))
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    _same(fused_dot_model(tx, tw, 1, 1, 8), yj)
+    assert not np.array_equal(fused_dot_model(tx, tw, 1, 1, 8, x_masked=False).numpy(), yj)
+
+
 @pytest.fixture
 def recorded(monkeypatch):
     """The library's entry points replaced by a recorder of (entry, args)."""
@@ -590,23 +785,40 @@ def recorded(monkeypatch):
     return calls
 
 
+STREAMING = {  # wrapper: (a's dtype, b's dtype and rows, plan)
+    "int8_dot": (torch.int8, torch.int8, 4096, ip.int8_plan),
+    "bf16_dot": (torch.bfloat16, torch.bfloat16, 4096, ip.bf16_plan),
+    "fused_unpack_int8_dot": (torch.int8, torch.uint8, 2048, ip.fused_plan),
+}
+
+
 @pytest.mark.parametrize("M", [1, 8, 16, 33])
-@pytest.mark.parametrize("kernel", ["int8_dot", "bf16_dot"])
+@pytest.mark.parametrize("kernel", list(STREAMING))
 def test_streaming_dots_launch_by_plan(recorded, kernel, M):
-    """On a device tensor K15 and K17 make one call of their entry with
-    their plan's (per, split, rows), a partial of split x M x 128 ceil(N /
-    128) of the output's dtype and the shared counters, and count one
-    launch."""
-    dtype, plan = (torch.int8, ip.int8_plan) if kernel == "int8_dot" else (torch.bfloat16, ip.bf16_plan)
+    """On a device tensor K15, K16 and K17 make one call of their entry with
+    a's K (K16: S) and their plan's (per, split, rows), a partial of split x
+    M x 128 ceil(N / 128) of the output's dtype and the shared counters, and
+    count one launch."""
+    a_dtype, b_dtype, b_rows, plan = STREAMING[kernel]
     ip.reset_launch_counts()
-    a = torch.empty(M, 4096, dtype=dtype, device="meta")
-    b = torch.empty(4096, 4096, dtype=dtype, device="meta")
+    a = torch.empty(M, 4096, dtype=a_dtype, device="meta")
+    b = torch.empty(b_rows, 4096, dtype=b_dtype, device="meta")
     out = getattr(ip, kernel)(a, b)
     ((entry, args),) = recorded
     KS, per, rows = plan(M, 4096, 4096, SMS)
     assert entry == f"paro_{kernel}" and args[5:11] == (M, 4096, 4096, per, KS, rows)
-    assert out.shape == (M, 4096) and out.dtype == (torch.int32 if kernel == "int8_dot" else torch.float32)
+    assert len(args) == 12  # and the stream
+    assert out.shape == (M, 4096) and out.dtype == (torch.float32 if kernel == "bf16_dot" else torch.int32)
     assert ip.launch_counts == {k: int(k == kernel) for k in ip.KERNELS}
+
+
+def test_empty_kernel_launches_its_entry_and_counts_nothing(recorded):
+    """The launch floor's empty kernel: one call of `paro_empty` with the
+    stream alone, no launch counted."""
+    ip.reset_launch_counts()
+    ip.empty_kernel("meta")
+    assert recorded == [("paro_empty", (0,))]
+    assert ip.launch_counts == dict.fromkeys(ip.KERNELS, 0)
 
 
 # ---------------------------------------------------------------------------
