@@ -133,7 +133,21 @@ Phases, each printing one or more lines:
      teacher-forced logits (prefill, 8 decode steps, a verify window) are
      held against the plain path, two paged decode steps run under sync
      debug mode "error", and one is profiled;
-  6. the `kernels` JSON line, then the result line.
+  6. slice 20's paths, each with the counts reset just before and read
+     just after: the port's `bench.py` at chains of 8 and 32 tokens, 1
+     warm-up and 1 rep (its JSON line, with every key of the JAX bench's
+     line), then each arm alone (K1/K2's routes: the W4 arm's lm_head on
+     the passes, every linear of the w4a8 arm on RA8, no kernel of the
+     port in the bf16 arm; and `profile_decode`'s device-busy ms per
+     token); the Generator's decode bursts (8 against 1, greedy and
+     sampled, token-identical, and a burst of each under sync debug mode
+     "error"); greedy prompt-lookup speculation (k 4) on a
+     repeated and a random prompt, equal to the sequential greedy run up
+     to its first near-tie (NEAR_TIE), with drafts accepted on the repeated
+     one, and a sampled speculative request; `kernel_dispatch` at M 1-512
+     (K1 on the one launch and the passes), `bench_prefill` (K1's passes
+     at M 512) and `bench_spec` at 32 tokens;
+  7. the `kernels` JSON line, then the result line.
 It imports nothing of JAX, catches no failure of the port (only a library
 yardstick's refusal of a shape, `int_mm_yardstick`), and exits non-zero without
 printing a result when CUDA is missing or the package is not beside it.
@@ -2992,6 +3006,342 @@ def check_paged_decode_has_no_sync(qparams, cfg, dev):
     emit({"phase": "paged_decode_no_sync", "batch": B, "steps": 2, "sampler": True, "ok": True})
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the decode-measurement entry points (bench.py, the Generator's
+# bursts and speculation, kernel_dispatch, bench_prefill, bench_spec)
+# ---------------------------------------------------------------------------
+
+NEAR_TIE = 2.0 ** -7  # top-two logit gap, relative to the top one, where an argmax may flip
+
+
+def reset_counts():
+    from paroquant_tpu_torch.kernels import attention as at, rot_matmul as rm
+
+    rm.reset_launch_counts()
+    at.reset_launch_counts()
+
+
+def port_launches() -> dict:
+    """The port's kernel wrappers' launches since the counts were reset, and
+    K1/K2's calls by route."""
+    from paroquant_tpu_torch.kernels import attention as at, rot_matmul as rm
+
+    counts = {k: v for k, v in {**rm.launch_counts, **at.launch_counts}.items() if v}
+    return {"counts": counts, "routes": {k: {r: n for r, n in v.items() if n}
+                                         for k, v in rm.route_counts.items()}}
+
+
+def root_bench_keys(root: Path) -> list:
+    """The keys of the line the JAX bench (root bench.py) prints, read with ast."""
+    import ast
+
+    for node in ast.walk(ast.parse((root / "bench.py").read_text())):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                and node.func.attr == "dumps" and node.args and isinstance(node.args[0], ast.Dict)):
+            return [k.value for k in node.args[0].keys]
+    raise SystemExit("bench: no json.dumps({...}) in bench.py")
+
+
+def check_bench_arm(arm, launched, n_tokens):
+    """The W4 arm's lm_head on K1's passes (W4A16 past one wave) and its other
+    linears on the one launch; every K1/K2 call of the w4a8 arm (prefill of
+    16 rows and decode at M 1) on RA8; no kernel of the port in the bf16 arm."""
+    routes, counts = launched["routes"], launched["counts"]
+    k1, k2 = routes.get("rot_w4_matmul", {}), routes.get("merged_rot_w4_matmul", {})
+    if arm == "bf16":
+        ok = not counts
+    elif arm == "w4":
+        ok = (k1.get("passes_w4a16_m16", 0) >= n_tokens and k1.get("one_launch", 0) > 0
+              and set(k2) == {"one_launch"})
+    else:
+        ok = set(k1) == {"ra8"} and set(k2) == {"ra8"}
+    if not ok:
+        raise SystemExit(f"bench: the {arm} arm's kernels are not on their routes: {launched}")
+
+
+def bench_phase(root, dev):
+    """The bench's protocol (`bench.run`, on the models `bench.main` builds)
+    at chains of 8 and 32 tokens, 1 warm-up and 1 rep (its JSON line printed
+    as it is), then each arm alone on the same models: one 8-token chain
+    with the counts reset before and read after (K1/K2's routes per arm),
+    and profile_decode under the arm's quant_mode: device-busy ms per token
+    (the chain's slope reads the host's dispatch as much as the device) and
+    the host's time in torch's ops."""
+    import torch
+
+    from paroquant_tpu_torch import bench
+    from paroquant_tpu_torch.models import PRESETS
+    from paroquant_tpu_torch.utils.profiling import profile_decode
+
+    t0 = time.perf_counter()
+    cfg = PRESETS["qwen3-0.6b"]
+    params, qparams = bench.build_models(cfg, dev)
+    reset_counts()
+    line = bench.run(params, qparams, cfg, dev, n_short=8, n_long=32, reps=1, warmup=1)
+    launched = port_launches()
+    missing = [k for k in root_bench_keys(root) if k not in line]
+    bad = [k for k, v in line.items() if isinstance(v, float) and not (v == v and v > 0)]
+    emit({"phase": "bench_launches", **launched, "missing_keys": missing, "not_positive": bad})
+    if missing or bad:
+        raise SystemExit(f"bench: keys missing {missing}, values not finite and positive {bad}")
+    for arm, mode in bench.arm_modes(dev).items():
+        p = params if arm == "bf16" else qparams
+        reset_counts()
+        secs, toks = bench.make_decode_runner(p, cfg, mode, dev, n_long=8)(8)
+        arm_launched = port_launches()
+        prof = profile_decode(p, cfg, prompt_len=bench.PROMPT_LEN, steps=8, quant_mode=mode,
+                              device=dev)
+        emit({"phase": "bench_arm", "arm": arm, "quant_mode": mode, "chain_tokens": 8,
+              "chain_s": secs, "tokens_in_range": bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+              **arm_launched,
+              "device_busy_ms_per_token": prof["device_busy_ms_per_step"],
+              "wall_ms_per_token": prof["wall_ms_per_step"],
+              "device_idle_share": prof.get("device_idle_share"),
+              "launches_per_token": prof["launches_per_step"],
+              "k1k2_device_ms_per_token": prof["k1k2_device_ms_per_step"],
+              "top_kernels": prof["top_kernels"][:5],
+              "profiled_wall_ms_per_token": prof["profiled_wall_ms_per_step"],
+              "host_op_ms_per_token": prof["host_op_ms_per_step"],
+              "top_host_ops": prof["top_host_ops"]})
+        check_bench_arm(arm, arm_launched, 8)
+    del params, qparams
+    torch.cuda.empty_cache()
+    emit({"phase": "bench_seconds", "s": time.perf_counter() - t0})
+
+
+def generator_burst(qparams, cfg, dev):
+    """Generator(decode_burst=8) against decode_burst=1 on a 128-token prompt
+    (K3's prefill) and 64 new tokens, greedy and sampled: the same kernels at
+    the same shapes and the same draws, so the tokens must be identical."""
+    import torch
+
+    from paroquant_tpu_torch.kernels import rot_matmul as rm
+    from paroquant_tpu_torch.serve import Generator, SamplingParams
+
+    gens = {n: Generator(qparams, cfg, quant_mode="auto", attn_mode="flash", decode_burst=n,
+                         device=dev) for n in (1, 8)}
+    prompt = torch.randint(0, cfg.vocab_size, (128,),
+                           generator=torch.Generator().manual_seed(5)).tolist()
+    for g in gens.values():  # warm-up
+        g.generate(prompt, SamplingParams(max_tokens=9, temperature=0.0))
+    cases = {"greedy": SamplingParams(max_tokens=64, temperature=0.0),
+             "sampled": SamplingParams(max_tokens=64, temperature=0.8, top_p=0.95, top_k=50)}
+    reset_counts()
+    for name, sp in cases.items():
+        res = {n: g.generate(prompt, sp, torch.Generator(device=dev).manual_seed(7))
+               for n, g in gens.items()}
+        same = res[1].token_ids == res[8].token_ids
+        emit({"phase": "generator_burst", "case": name, "new_tokens": len(res[8].token_ids),
+              "identical": same,
+              "decode_tok_s": {f"burst{n}": r.stats.tokens_per_second for n, r in res.items()},
+              "prefill_ms": {f"burst{n}": r.stats.ttft * 1e3 for n, r in res.items()}})
+        if not same or len(res[8].token_ids) != sp.max_tokens:
+            raise SystemExit(f"generator_burst: {name} tokens differ between bursts of 8 and 1")
+    launched = port_launches()
+    check_routes(rm, "generator_burst")
+    emit({"phase": "generator_burst_launches", **launched})
+    burst_has_no_sync(qparams, cfg, prompt, cases, dev)
+    if not all(launched["counts"].get(k) for k in (*SLICE1_W4, "flash_attention")):
+        raise SystemExit(f"generator_burst: K1, K2 or K3 not launched: {launched}")
+
+
+def burst_has_no_sync(qparams, cfg, prompt, cases, dev):
+    """A burst of 8 sample+decode steps, greedy and sampled, does not wait
+    for the device: torch raises on a synchronising call under sync debug
+    mode "error"."""
+    import torch
+
+    from paroquant_tpu_torch.models.decoder import KVCache, prefill
+    from paroquant_tpu_torch.serve.generator import _stream_burst_impl
+
+    for name, sp in cases.items():
+        cache = KVCache.create(cfg, 1, 256, torch.bfloat16, dev)
+        logits, cache = prefill(qparams, cfg, torch.tensor([prompt], dtype=torch.int32, device=dev),
+                                cache, quant_mode="auto", attn_mode="flash")
+        generator = torch.Generator(device=dev).manual_seed(1)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _stream_burst_impl(qparams, cfg, logits, cache, generator, None, quant_mode="auto",
+                               n_steps=8, temperature=sp.temperature, top_p=sp.top_p,
+                               top_k=sp.top_k, repetition_penalty=sp.repetition_penalty)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        emit({"phase": "burst_no_sync", "case": name, "steps": 8, "ok": True})
+
+
+def sequential_greedy(params, cfg, prompt, n, dev):
+    """The sequential greedy run (what Generator runs with lookup_spec_k 0:
+    prefill, then argmax and decode_step), with the top two logits' gap
+    relative to the top one at each token."""
+    import torch
+
+    from paroquant_tpu_torch.models.decoder import KVCache, decode_step, prefill
+
+    cache = KVCache.create(cfg, 1, len(prompt) + n + 8, torch.bfloat16, dev)
+    toks = torch.tensor([prompt], dtype=torch.int32, device=dev)
+    logits, cache = prefill(params, cfg, toks, cache, quant_mode="auto")
+    out, gaps = [], []
+    for i in range(n):
+        top = torch.topk(logits[0].float(), 2).values
+        gaps.append(((top[0] - top[1]) / top[0].abs()).item())
+        tok = torch.argmax(logits[0].float()).to(torch.int32)
+        out.append(int(tok))
+        if i + 1 < n:
+            logits, cache = decode_step(params, cfg, tok.view(1, 1), cache, quant_mode="auto")
+    return out, gaps
+
+
+def spec_with_windows(gen, prompt, sp):
+    """gen.generate(prompt, sp) with each verify forward's cache length and
+    logits [1 + k, V] recorded (kept on the device: no host sync added)."""
+    import paroquant_tpu_torch.serve.generator as generator
+
+    forward, windows = generator.model_forward, []
+
+    def recording(params, config, window, cache, **kw):
+        logits, out = forward(params, config, window, cache, **kw)
+        windows.append((cache.length.clone(), logits[0].float()))
+        return logits, out
+
+    generator.model_forward = recording
+    try:
+        res = gen.generate(prompt, sp)
+    finally:
+        generator.model_forward = forward
+    return res, windows
+
+
+def verify_rows(windows, n_prompt, n_emitted):
+    """The verify row that emitted each token 1 .. n_emitted - 1: a window at
+    cache length L holds sequence positions L .. L + k, and its row i (on
+    the true prefix for i <= its accepted drafts, L_next - L - 1) predicts
+    emitted token L + i + 1 - n_prompt. Token 0 comes from the prefill."""
+    Ls = [int(L) for L, _ in windows]
+    rows = {}
+    for w, (L, (_, logits)) in enumerate(zip(Ls, windows)):
+        n_rows = (Ls[w + 1] - L) if w + 1 < len(Ls) else logits.shape[0]
+        for i in range(n_rows):
+            j = L + i + 1 - n_prompt
+            if 0 < j < n_emitted:
+                rows[j] = logits[i]
+    if sorted(rows) != list(range(1, n_emitted)):
+        raise SystemExit(f"spec: the verify windows do not cover tokens 1-{n_emitted - 1}")
+    return [rows[j] for j in range(1, n_emitted)]
+
+
+def spec_phase(qparams, cfg, dev):
+    """Greedy prompt-lookup speculation (k 4, quant_mode "auto": windows of 5
+    rows on K1/K2's one launch and RA8's lm_head) on a repeated and a random
+    prompt, 64 new tokens, against the sequential greedy run: equal up to
+    its first near-tie (top two logits within NEAR_TIE of the top one,
+    relative), where a verify of 5 rows may round apart from a decode of 1.
+    Every token after the first is then held at its verify row: the token
+    is that row's argmax, and the row's logits lie within TOL_E2E (relative
+    Frobenius) of the sequential decode step's on the same prefix (the
+    speculative tokens teacher-forced), so a wrong rollback of the cache's
+    length, window offset or row shows at any of the 63 positions. The
+    same rows held one position off (the sequential step before) must move
+    further than the worst of those errors, or the check could not see an
+    offset. Acceptance above 0 on the repeated prompt. Then one sampled
+    speculative request."""
+    import torch
+
+    from paroquant_tpu_torch.kernels import rot_matmul as rm
+    from paroquant_tpu_torch.scripts.bench_spec import first_divergence, prompts
+    from paroquant_tpu_torch.serve import Generator, SamplingParams
+
+    gen = Generator(qparams, cfg, quant_mode="auto", lookup_spec_k=4, device=dev)
+    sp = SamplingParams(max_tokens=64, temperature=0.0)
+    gen.generate([1, 2, 3, 1, 2, 3], SamplingParams(max_tokens=8, temperature=0.0))  # warm-up
+    reset_counts()
+    for regime, prompt in prompts(cfg.vocab_size).items():
+        seq, gaps = sequential_greedy(qparams, cfg, prompt, sp.max_tokens, dev)
+        gen.spec_metrics.update(windows=0, drafted=0, accepted=0)
+        res, windows = spec_with_windows(gen, prompt, sp)
+        toks = res.token_ids
+        m = dict(gen.spec_metrics)
+        near = next((i for i, g in enumerate(gaps) if g <= NEAR_TIE), len(gaps))
+        div = first_divergence(toks, seq)
+        acceptance = m["accepted"] / max(m["drafted"], 1)
+        if len(toks) != sp.max_tokens:
+            raise SystemExit(f"spec: {regime} returned {len(toks)} tokens")
+        ver = torch.stack(verify_rows(windows, len(prompt), len(toks)))
+        forced = teacher_forced(qparams, cfg, torch.tensor([prompt + toks], dtype=torch.int32,
+                                                           device=dev),
+                                len(prompt), "auto", "einsum", dev)[1 : len(toks)]
+        err = ((ver - forced).norm(dim=-1) / forced.norm(dim=-1)).tolist()
+        off = ((ver[1:] - forced[:-1]).norm(dim=-1) / forced[:-1].norm(dim=-1)).tolist()
+        own_argmax = ver.argmax(-1).tolist() == toks[1:]
+        top = forced.max(dim=-1).values
+        gap = (top - forced.gather(-1, torch.tensor(toks[1:], device=dev)[:, None])[:, 0]) / top.abs()
+        emit({"phase": "spec", "regime": regime, "spec_k": 4, "new_tokens": len(toks),
+              "acceptance": acceptance, **m, "first_near_tie": near, "first_divergence": div,
+              "verify_rows": len(err), "tokens_are_their_rows_argmax": own_argmax,
+              "rel_fro_err_max": max(err), "rel_fro_err_median": sorted(err)[len(err) // 2],
+              "bound": TOL_E2E, "off_by_one_median": sorted(off)[len(off) // 2],
+              "off_by_one_min": min(off),
+              "not_sequential_argmax": int((gap > 0).sum()), "max_token_gap": float(gap.max()),
+              "decode_tok_s": res.stats.tokens_per_second})
+        if div < near:
+            raise SystemExit(f"spec: {regime} diverged at {div}, before the first near-tie {near}")
+        if not own_argmax or max(err) > TOL_E2E:
+            raise SystemExit(f"spec: {regime}: a verify row is not its token's argmax, or its "
+                             f"logits are over {TOL_E2E} from the sequential step's: {max(err)}")
+        if sorted(off)[len(off) // 2] <= max(err):
+            raise SystemExit(f"spec: {regime}: one position off moves the logits no more than "
+                             f"the worst verify error ({max(err)}): the check cannot see it")
+        if regime == "repeat" and not acceptance > 0:
+            raise SystemExit("spec: no draft accepted on the repeated prompt")
+    sampled = SamplingParams(max_tokens=64, temperature=0.8, top_p=0.95, top_k=50)
+    gen.spec_metrics.update(windows=0, drafted=0, accepted=0)
+    toks = gen.generate(prompts(cfg.vocab_size)["repeat"], sampled,
+                        torch.Generator(device=dev).manual_seed(3)).token_ids
+    in_range = len(toks) == 64 and all(0 <= t < cfg.vocab_size for t in toks)
+    emit({"phase": "spec_sampled", "new_tokens": len(toks), "in_range": in_range,
+          "windows": gen.spec_metrics["windows"], "first_tokens": toks[:8]})
+    if not in_range:
+        raise SystemExit("spec: the sampled speculative request's tokens are wrong")
+    launched = port_launches()
+    check_routes(rm, "spec")
+    emit({"phase": "spec_launches", **launched})
+
+
+def script_phase(name, fn, need):
+    """Run a ported script with the counts reset before and read after; the
+    kernels in `need` (name -> routes of K1/K2 that must be taken) must run."""
+    reset_counts()
+    t0 = time.perf_counter()
+    rows = fn()
+    launched = port_launches()
+    emit({"phase": f"{name}_launches", **launched, "s": time.perf_counter() - t0})
+    for kernel, routes in need.items():
+        taken = launched["routes"].get(kernel, {})
+        if not launched["counts"].get(kernel) or any(not taken.get(r) for r in routes):
+            raise SystemExit(f"{name}: {kernel} did not run on {routes}: {launched}")
+    return rows
+
+
+def measurement_paths(root, qparams, cfg, dev):
+    from paroquant_tpu_torch.scripts import bench_prefill, bench_spec, kernel_dispatch
+
+    bench_phase(root, dev)
+    generator_burst(qparams, cfg, dev)
+    spec_phase(qparams, cfg, dev)
+    rows = script_phase("kernel_dispatch",
+                        lambda: kernel_dispatch.main(dev, ms=(1, 16, 64, 128, 256, 512)),
+                        {"rot_w4_matmul": ("one_launch", "passes")})
+    emit({"phase": "kernel_dispatch", "rows": rows})
+    rows = script_phase("bench_prefill", lambda: bench_prefill.main(dev),
+                        {"rot_w4_matmul": ("passes",)})
+    emit({"phase": "bench_prefill", "rows": rows})
+    rows = script_phase("bench_spec", lambda: bench_spec.main(dev, tokens=32, reps=1),
+                        {"rot_w4_matmul": ("one_launch",), "merged_rot_w4_matmul": ("one_launch",)})
+    if any(r["len"] != 32 for r in rows):
+        raise SystemExit(f"bench_spec: a request did not return 32 tokens: {rows}")
+
+
 def main() -> int:
     import torch
 
@@ -3097,6 +3447,7 @@ def main() -> int:
 
     emit({"phase": "paged_decode_profile", "batch": 8, "context": 256, "quant_mode": "auto",
           **profile_paged_decode(qparams, cfg, batch=8, context=256, steps=16, device=dev)})
+    measurement_paths(root, qparams, cfg, dev)  # slice 20: bench, bursts, speculation, scripts
 
     counts.update({k: bench_counts[k] for k in W4_VARIANTS})  # their launches: the kernel_bench phase
     counts.update({k: exp_counts[k] for k in W4_EXPERIMENTS})  # and the w4_experiments phase

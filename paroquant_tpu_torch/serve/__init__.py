@@ -1,4 +1,11 @@
 from .engine import Engine, EngineOverloaded, Request
-from .generator import GenerationResult, GenerationStats, Generator
+from .generator import (
+    GenerationResult,
+    GenerationStats,
+    Generator,
+    create_generator,
+    detect_backend,
+    load_tokenizer,
+)
 from .paged import PagedKVCache, paged_decode_step, paged_verify_step
 from .sampling import SamplingParams, sample_batch, sample_token

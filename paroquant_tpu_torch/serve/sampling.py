@@ -7,9 +7,11 @@ engine's per-slot draws come from a counter hash of (the request's seed,
 its step), so a request's tokens do not depend on the other requests in
 the batch. Both give other numbers than `jax.random` for the same seed:
 sampled tokens are reproducible run to run within the port, not equal to
-the JAX package's. Greedy (temperature 0) is the same argmax in both.
-`spec_accept_sample` waits for a later slice (the Generator's sampled
-speculative stream).
+the JAX package's. Greedy (temperature 0) is the same argmax in both. `modified_probs` and `spec_accept_sample`
+(`paroquant_tpu/serve/sampling.py:90-171`) serve the Generator's sampled
+speculative stream; their draws come from a `torch.Generator` as well, so
+their accepted tokens follow the JAX package's distribution, not its
+numbers.
 """
 
 from __future__ import annotations
@@ -53,6 +55,32 @@ def apply_repetition_penalty(
     return torch.where(seen, torch.where(logits > 0, logits / penalty, logits * penalty), logits)
 
 
+def _top_k_top_p(logits: torch.Tensor, top_k: int, top_p: float) -> torch.Tensor:
+    """Mask logits [..., V] below the k-th largest (k > 0), then outside the
+    top-p nucleus (always keeping the top 1), with -inf. No host sync (the
+    fills are scalars, not tensors copied to the device)."""
+    if top_k > 0:
+        kth = torch.sort(logits, dim=-1).values[..., -top_k][..., None]
+        logits = logits.masked_fill(logits < kth, float("-inf"))
+    if top_p < 1.0:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_logits, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        # keep tokens until the cumulative probability exceeds top_p (always the top 1)
+        cutoff_logit = sorted_logits.masked_fill(cum - probs > top_p, float("inf")).amin(
+            dim=-1, keepdim=True)
+        logits = logits.masked_fill(logits < cutoff_logit, float("-inf"))
+    return logits
+
+
+def _gumbel_argmax(logits: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+    """One draw per row of logits [..., V] from softmax(logits) (int64):
+    argmax(logits + g) with g ~ Gumbel(0, 1)."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    u = u.clamp_(min=torch.finfo(torch.float32).tiny)
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+
+
 def sample_token(
     logits: torch.Tensor,  # [B, V]
     generator: torch.Generator | None = None,
@@ -69,25 +97,73 @@ def sample_token(
         logits = apply_repetition_penalty(logits, token_counts, repetition_penalty)
     if temperature == 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    logits = logits / temperature
-    neg_inf = torch.tensor(float("-inf"), device=logits.device)
-    if top_k > 0:
-        kth = torch.sort(logits, dim=-1).values[:, -top_k][:, None]
-        logits = torch.where(logits < kth, neg_inf, logits)
-    if top_p < 1.0:
-        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
-        probs = torch.softmax(sorted_logits, dim=-1)
-        cum = torch.cumsum(probs, dim=-1)
-        # keep tokens until the cumulative probability exceeds top_p (always the top 1)
-        cutoff_mask = cum - probs > top_p
-        cutoff_logit = torch.where(
-            cutoff_mask, torch.tensor(float("inf"), device=logits.device), sorted_logits
-        ).amin(dim=-1, keepdim=True)
-        logits = torch.where(logits < cutoff_logit, neg_inf, logits)
-    # Gumbel-max: argmax(logits + g) with g ~ Gumbel(0, 1) draws from softmax(logits)
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
-    u = u.clamp_(min=torch.finfo(torch.float32).tiny)
-    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1).to(torch.int32)
+    logits = _top_k_top_p(logits / temperature, top_k, top_p)
+    return _gumbel_argmax(logits, generator).to(torch.int32)
+
+
+def modified_probs(
+    logits: torch.Tensor,  # [..., V]
+    *,
+    temperature: float,
+    top_p: float = 1.0,
+    top_k: int = 0,
+) -> torch.Tensor:
+    """The distribution sample_token draws from at temperature > 0 (the same
+    masking order: temperature, top-k, top-p), as probabilities [..., V] f32.
+    Speculative sampling needs it in closed form for its accept/reject math."""
+    logits = _top_k_top_p(logits.to(torch.float32) / temperature, top_k, top_p)
+    return torch.softmax(logits, dim=-1)
+
+
+def spec_accept_sample(
+    logits: torch.Tensor,  # [W, V]: verify-window logits (W = 1 + k)
+    draft: torch.Tensor,  # [k] int: drafted tokens (a point-mass proposal)
+    d_len: int,  # the number of real drafts (the rest is padding)
+    generator: torch.Generator | None = None,
+    *,
+    temperature: float,
+    top_p: float = 1.0,
+    top_k: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Speculative sampling (Leviathan et al., with a deterministic
+    point-mass proposal): accept draft i with probability p_i(d_i) under the
+    modified distribution p; at the first rejection emit one token from the
+    residual (p_i without d_i's mass, renormalised); if every real draft is
+    accepted, emit a bonus token from p at position d_len. Padding positions
+    (i >= d_len) neither accept nor end the chain.
+
+    Returns (tokens [W] int32, n_accepted 0-d int32, raw logprobs [W]); the
+    caller emits tokens[: n_accepted + 1], laid out by position as the JAX
+    function lays them out. The emitted tokens follow the sequential
+    sampler's law (P(x) = p(d) 1[x = d] + (1 - p(d)) residual(x) = p(x)).
+    JAX's `lax.scan` over the drafts is vectorised here: the uniforms, the
+    residual draws and the bonus draw come from `generator` up front, and
+    the chain is a cumulative product. No host sync."""
+    W, _ = logits.shape
+    k = draft.shape[0]
+    dev = logits.device
+    p = modified_probs(logits, temperature=temperature, top_p=top_p, top_k=top_k)
+    raw_lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    draft = draft.to(device=dev, dtype=torch.int64)
+    real = torch.arange(k, device=dev) < d_len
+    p_draft = p[:k].gather(1, draft[:, None])[:, 0]
+    u = torch.rand(k, generator=generator, device=dev)
+    ok = u < p_draft
+    resid = p[:k].scatter(1, draft[:, None], 0.0)
+    resid_tok = _gumbel_argmax(torch.log(resid.clamp_min(1e-30)), generator)
+    bonus = _gumbel_argmax(torch.log(p[d_len].clamp_min(1e-30)), generator)
+    # the chain lives on through accepted and padding positions and dies at
+    # the first real rejection; the accepted count is the leading run of
+    # real, accepted drafts
+    passed = (ok | ~real).to(torch.int32)
+    alive = torch.cat([passed.new_ones(1), torch.cumprod(passed, dim=0)[:-1]]).bool()
+    n_acc = torch.cumprod((real & ok).to(torch.int32), dim=0).sum()
+    all_real_accepted = passed.bool().all()
+    toks = torch.cat([torch.where(alive & real & ok, draft, resid_tok), draft.new_zeros(W - k)])
+    at = n_acc.to(torch.int64).view(1)
+    toks = toks.scatter(0, at, torch.where(all_real_accepted, bonus, toks.gather(0, at)[0]).view(1))
+    lps = raw_lp.gather(1, toks[:, None])[:, 0]
+    return toks.to(torch.int32), n_acc.to(torch.int32), lps
 
 
 # ---------------------------------------------------------------------------

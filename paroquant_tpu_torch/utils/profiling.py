@@ -17,14 +17,22 @@ work and not the host's; the median of the reps. The flush writes a buffer
 larger than the L2, which leaves the L2 full of dirty lines: a call that
 evicts one costs a write to device memory too. `clean_l2=True` flushes by
 reading the buffer instead, for the same call beside a clean L2.
+
+`trace`, `annotate` and `StepTimer` are the JAX module's three tools on
+`torch.profiler`: a Chrome trace of a region written under a directory,
+named regions inside it, and a rolling wall-clock timer with percentiles.
 """
 
 from __future__ import annotations
 
+import contextlib
 import re
 import statistics
 import time
+from collections import deque
+from pathlib import Path
 
+import numpy as np
 import torch
 
 from ..kernels import attention as at, rot_matmul as rm
@@ -89,11 +97,65 @@ def kernel_time_ms(fn, reps: int = 30, flush: torch.Tensor | None = None,
     return statistics.median(times)
 
 
+@contextlib.contextmanager
+def trace(logdir: str | Path, device="cuda"):
+    """Profile a region (`with trace("prof"): step()`): the host's operators
+    and, on CUDA, the device's kernels, written as a Chrome trace
+    (`trace.json`, viewable in Perfetto or chrome://tracing) under logdir."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = resolve_device(device)
+    activities = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    logdir = Path(logdir)
+    logdir.mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    prof.export_chrome_trace(str(logdir / "trace.json"))
+
+
+def annotate(name: str):
+    """A named region inside a trace (`with annotate("decode"): ...`)."""
+    return torch.profiler.record_function(name)
+
+
+class StepTimer:
+    """Rolling wall-clock step timer with percentile summaries
+    (`with timer: step()`, then `timer.summary()`)."""
+
+    def __init__(self, window: int = 512):
+        self.samples: deque[float] = deque(maxlen=window)
+        self._t0: float | None = None
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.samples.append(time.perf_counter() - self._t0)
+
+    def summary(self) -> dict[str, float]:
+        if not self.samples:
+            return {}
+        a = np.asarray(self.samples)
+        return {
+            "count": float(len(a)),
+            "mean_ms": float(a.mean() * 1e3),
+            "p50_ms": float(np.percentile(a, 50) * 1e3),
+            "p99_ms": float(np.percentile(a, 99) * 1e3),
+            "max_ms": float(a.max() * 1e3),
+        }
+
+
 def profile_decode(params, config: ModelConfig, *, prompt_len: int = 256, steps: int = 16,
                    quant_mode: str = "auto", device="cuda", top: int = 8) -> dict:
     """Wall ms per decode step (plain and profiled), device-busy ms per
     step, idle share, kernel launches per step (all, and the port's kernel wrappers' calls), K1/K2's
-    calls and device ms per step by route and the `top` kernels by device time."""
+    calls and device ms per step by route, the `top` kernels by device time,
+    and the host's self time in torch's ops per step with the `top` ops."""
     dev = resolve_device(device)
     gen = torch.Generator(device="cpu").manual_seed(0)
     prompt = torch.randint(0, config.vocab_size, (1, prompt_len), generator=gen).to(dev)
@@ -147,8 +209,11 @@ def _profile(run, steps: int, top: int, focus: str | None = None) -> dict:
         t0 = time.perf_counter()
         run(steps)
         profiled_wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    kernels = [e for e in prof.key_averages()
+    events = prof.key_averages()
+    kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    host_ops = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CPU
+                       and e.self_cpu_time_total > 0), key=lambda e: -e.self_cpu_time_total)
     busy_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in kernels)
     kernels.sort(key=lambda e: -e.self_device_time_total)
@@ -167,6 +232,14 @@ def _profile(run, steps: int, top: int, focus: str | None = None) -> dict:
             {"name": e.key[:80], "ms_per_step": e.self_device_time_total / 1e3 / steps,
              "calls_per_step": e.count / steps}
             for e in kernels[:top]
+        ],
+        # host time inside torch's ops (self time, under the profiler); the
+        # rest of the profiled wall is Python and the ctypes calls
+        "host_op_ms_per_step": sum(e.self_cpu_time_total for e in host_ops) / 1e3 / steps,
+        "top_host_ops": [
+            {"name": e.key[:80], "ms_per_step": e.self_cpu_time_total / 1e3 / steps,
+             "calls_per_step": e.count / steps}
+            for e in host_ops[:top]
         ],
     }
     if kernels:

@@ -29,6 +29,9 @@ EXPERIMENT_MODULES = (
     "paroquant_tpu_torch.scripts.kernel_w4a8_exp", "paroquant_tpu_torch.kernels.int8_probe",
     "paroquant_tpu_torch.scripts.kernel_int8_probe", "paroquant_tpu_torch.kernels.unpack_exp",
     "paroquant_tpu_torch.scripts.kernel_unpack_exp", "paroquant_tpu_torch.scripts.one_launch_phases",
+    "paroquant_tpu_torch.bench", "paroquant_tpu_torch.cli.benchmark",
+    "paroquant_tpu_torch.scripts.kernel_dispatch", "paroquant_tpu_torch.scripts.bench_prefill",
+    "paroquant_tpu_torch.scripts.bench_spec", "paroquant_tpu_torch.utils.cache",
 )
 
 
@@ -67,7 +70,12 @@ def _entry_points():
     from paroquant_tpu_torch.scripts import (kernel_bench3, kernel_bench4, kernel_dma_pipeline,
                                              kernel_edge_test, kernel_int8_probe, kernel_tune,
                                              kernel_unpack_exp, kernel_w4a8_exp, one_launch_phases)
-    from paroquant_tpu_torch.serve import Engine, Generator, PagedKVCache
+    from paroquant_tpu_torch import bench
+    from paroquant_tpu_torch.cli import benchmark as cli_benchmark
+    from paroquant_tpu_torch.scripts import bench_prefill, bench_spec, kernel_dispatch
+    from paroquant_tpu_torch.serve import Engine, Generator, PagedKVCache, create_generator
+    from paroquant_tpu_torch.utils.cache import enable_compilation_cache
+    from paroquant_tpu_torch.utils.profiling import trace
     from paroquant_tpu_torch.utils.device import resolve_device
     from paroquant_tpu_torch.kernels.attention import flash_key_groups
     from paroquant_tpu_torch.utils.profiling import (kernel_time_ms, profile_paged_decode,
@@ -100,6 +108,15 @@ def _entry_points():
         "kernel_int8_probe.main": lambda: kernel_int8_probe.main(),
         "kernel_unpack_exp.main": lambda: kernel_unpack_exp.main(),
         "one_launch_phases.main": lambda: one_launch_phases.main([]),
+        "bench.main": lambda: bench.main(["--preset", "tiny"]),
+        "bench.make_decode_runner": lambda: bench.make_decode_runner({}, cfg, "xla", "cuda"),
+        "cli.benchmark.main": lambda: cli_benchmark.main(["--model", "/nonexistent"]),
+        "kernel_dispatch.main": lambda: kernel_dispatch.main(),
+        "bench_prefill.main": lambda: bench_prefill.main(),
+        "bench_spec.main": lambda: bench_spec.main(),
+        "create_generator": lambda: create_generator("/nonexistent"),
+        "enable_compilation_cache": lambda: enable_compilation_cache(),
+        "trace": lambda: trace("/nonexistent").__enter__(),
     }
 
 
@@ -111,7 +128,9 @@ def _entry_points():
      "plot_kernel_speedup.main", "w4_i4_from_jax", "kernel_time_ms", "kernel_edge_test.main",
      "kernel_dma_pipeline.main", "kernel_tune.main", "kernel_w4a8_exp.main",
      "kernel_int8_probe.main", "kernel_unpack_exp.main", "profile_prefill", "flash_key_groups",
-     "one_launch_phases.main"],
+     "one_launch_phases.main", "bench.main", "bench.make_decode_runner", "cli.benchmark.main",
+     "kernel_dispatch.main", "bench_prefill.main", "bench_spec.main", "create_generator",
+     "enable_compilation_cache", "trace"],
 )
 def test_cuda_default_raises_without_cuda(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
