@@ -147,7 +147,18 @@ Phases, each printing one or more lines:
      one, and a sampled speculative request; `kernel_dispatch` at M 1-512
      (K1 on the one launch and the passes), `bench_prefill` (K1's passes
      at M 512) and `bench_spec` at 32 tokens;
-  7. the `kernels` JSON line, then the result line.
+  7. slice 21's paths (`bench_scripts`), the five ported bench scripts, each
+     with the counts reset just before and read just after: `bench_7b` at
+     full llama-2-7b width cut to 2 layers (batch 1 and 8, arms fused and
+     w4a8, 16 tokens; K1/K2 on the one launch and RA8), the decode
+     accounting on that model (B 32, 16 tokens; K1/K2 on the passes; its
+     buckets add up to its device-busy time, its attention ablation through
+     a callable attn_mode finite), `bench_kv_quant` at its full size (K4 on
+     bf16 and int8 pools), `bench_serving` on qwen3-0.6b cut to 4 layers
+     (8 requests, spec_k 4; K1/K2, K4 and K5; every request returns its
+     tokens) and `bench_a8_accuracy` on qwen3-0.6b (one sequence of 128
+     tokens, the plain path);
+  8. the `kernels` JSON line, then the result line.
 It imports nothing of JAX, catches no failure of the port (only a library
 yardstick's refusal of a shape, `int_mm_yardstick`), and exits non-zero without
 printing a result when CUDA is missing or the package is not beside it.
@@ -3342,6 +3353,94 @@ def measurement_paths(root, qparams, cfg, dev):
         raise SystemExit(f"bench_spec: a request did not return 32 tokens: {rows}")
 
 
+def finite(x) -> bool:
+    return isinstance(x, (int, float)) and x == x and abs(x) != float("inf")
+
+
+def bench_scripts(dev):
+    """Slice 21's paths, the five ported bench scripts at cut sizes, each
+    through `script_phase` (counts reset before, read after): bench_7b at
+    full llama-2-7b width with 2 layers (batch 1 and 8, arms fused and w4a8,
+    16 tokens: K1/K2 on the one launch and RA8); bench_decode_accounting on
+    the same model (B 32, 16 tokens: K1/K2 on the passes), whose buckets must
+    add up to its device-busy time, with a finite attention ablation;
+    bench_kv_quant at its full size (K4 on both pools); bench_serving on
+    qwen3-0.6b cut to 4 layers, 8 requests, spec_k 4 (K1/K2, K4, K5; every
+    request returns its max_tokens); bench_a8_accuracy on qwen3-0.6b, one
+    sequence of 128 tokens (the plain path: no kernel), finite."""
+    import dataclasses
+
+    import torch
+
+    from paroquant_tpu_torch.models import PRESETS, merge_projections
+    from paroquant_tpu_torch.scripts import (bench_7b, bench_a8_accuracy,
+                                             bench_decode_accounting as bda, bench_kv_quant,
+                                             bench_serving)
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(PRESETS["llama-2-7b"], num_hidden_layers=2)
+    params, cfg = bench_7b.build_quantized_llama7b(config=cfg, device=dev)
+    params = merge_projections(params, cfg)
+    emit({"phase": "bench_7b_model", "layers": 2, "hidden": cfg.hidden_size,
+          "build_s": time.perf_counter() - t0})
+    rows = script_phase("bench_7b", lambda: bench_7b.run(params, cfg, [1, 8], 16,
+                                                         ["fused", "w4a8"], dev),
+                        {"rot_w4_matmul": ("one_launch", "ra8")})
+    emit({"phase": "bench_7b", "rows": rows})
+    if len(rows) != 4 or not all(finite(r["tok_s"]) and r["tok_s"] > 0 for r in rows):
+        raise SystemExit(f"bench_7b: rows missing or not positive: {rows}")
+
+    names: dict[str, str] = {}
+    bucket_of = bda.bucket_of
+    bda.bucket_of = lambda n: names.setdefault(n, bucket_of(n))
+    try:
+        rows = script_phase("bench_decode_accounting",
+                            lambda: bda.account(params, cfg, 32, [16], dev),
+                            {"rot_w4_matmul": ("passes",)})
+    finally:
+        bda.bucket_of = bucket_of
+    emit({"phase": "bench_decode_accounting_names", "names": {n[:160]: b for n, b in names.items()}})
+    row = rows[0]
+    buckets = row["device_profile_per_step_ms"]
+    gap = abs(sum(buckets.values()) - row["device_busy_ms_per_step"])
+    if (not finite(row["attention_ms_ab (full - identity-attn)"])
+            or gap > 0.005 + 0.0005 * len(buckets) or not buckets.get("quant_matmuls")):
+        raise SystemExit(f"bench_decode_accounting: ablation not finite, buckets off their "
+                         f"busy time by {gap} ms, or no quantized matmul: {row}")
+    del params
+    torch.cuda.empty_cache()
+
+    rows = script_phase("bench_kv_quant", lambda: bench_kv_quant.main(dev),
+                        {"paged_decode_attention": ()})
+    if not all(finite(r["us_per_step"]) and r["us_per_step"] > 0 for r in rows):
+        raise SystemExit(f"bench_kv_quant: {rows}")
+
+    args = bench_serving.parse_args(["--preset", "qwen3-0.6b", "--layers", "4",
+                                     "--requests", "8", "--spec-k", "4"])
+    scfg = dataclasses.replace(PRESETS["qwen3-0.6b"], num_hidden_layers=4)
+    qparams = bench_serving.build(scfg, dev)
+    out, reqs = script_phase(
+        "bench_serving", lambda: bench_serving.run(qparams, scfg, args, dev),
+        {"rot_w4_matmul": (), "paged_decode_attention": (), "paged_window_attention_kernel": ()})
+    lens = []
+    for r in reqs:
+        n = 0
+        while not r.out_queue.empty():
+            n += r.out_queue.get_nowait()[0] == "token"
+        lens.append(n)
+    emit({"phase": "bench_serving", **out, "tokens_per_request": lens})
+    if len(reqs) != 8 or any(n != args.max_tokens for n in lens):
+        raise SystemExit(f"bench_serving: a request did not return {args.max_tokens} tokens: {lens}")
+    del qparams
+    torch.cuda.empty_cache()
+
+    row = script_phase("bench_a8_accuracy",
+                       lambda: bench_a8_accuracy.main(["--n-seq", "1", "--seqlen", "128"]), {})
+    if not all(finite(v) for k, v in row.items() if k not in ("metric", "preset")):
+        raise SystemExit(f"bench_a8_accuracy: {row}")
+    emit({"phase": "bench_scripts_seconds", "s": time.perf_counter() - t0})
+
+
 def main() -> int:
     import torch
 
@@ -3448,6 +3547,9 @@ def main() -> int:
     emit({"phase": "paged_decode_profile", "batch": 8, "context": 256, "quant_mode": "auto",
           **profile_paged_decode(qparams, cfg, batch=8, context=256, steps=16, device=dev)})
     measurement_paths(root, qparams, cfg, dev)  # slice 20: bench, bursts, speculation, scripts
+    del qparams
+    torch.cuda.empty_cache()
+    bench_scripts(dev)  # slice 21: bench_7b, decode accounting, kv quant, serving, a8 accuracy
 
     counts.update({k: bench_counts[k] for k in W4_VARIANTS})  # their launches: the kernel_bench phase
     counts.update({k: exp_counts[k] for k in W4_EXPERIMENTS})  # and the w4_experiments phase

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -291,7 +291,7 @@ def layer_forward(
     kv_cache_layer: tuple | None,
     cache_offset: torch.Tensor,
     quant_mode: str,
-    attn_mode: str = "einsum",
+    attn_mode: str | Callable = "einsum",
 ):
     B, T, _ = x.shape
     Hq, D = config.num_attention_heads, config.head_dim
@@ -326,6 +326,13 @@ def layer_forward(
             scale=config.attn_scale, q_offset=cache_offset, sliding_window=window,
             logit_softcap=config.attn_logit_softcap,
         ).transpose(1, 2)
+    elif callable(attn_mode):
+        # an injected attention (bench ablations, later the parallel paths):
+        # q [B, T, Hq, D] and head-major k/v [B, Hkv, S, D], the cache layout
+        attn_out = attn_mode(
+            q, k_all, v_all, q_positions, valid, scale=config.attn_scale,
+            sliding_window=window, logit_softcap=config.attn_logit_softcap,
+        )
     else:
         attn_out = attention_kvmajor(
             q, k_all, v_all, q_positions, valid, scale=config.attn_scale,
@@ -371,11 +378,15 @@ def model_forward(
     cache: KVCache | None = None,
     *,
     quant_mode: str = "xla",
-    attn_mode: str = "einsum",
+    attn_mode: str | Callable = "einsum",
     return_hidden: bool = False,
 ):
     """Returns (logits [B, T, V] f32, or final hidden [B, T, H] with
-    return_hidden=True, and the updated cache)."""
+    return_hidden=True, and the updated cache). attn_mode: "flash" (K3
+    where the prefill fits its tiles), a callable taking q [B, T, Hq, D],
+    head-major k/v [B, Hkv, S, D], the query positions and the valid kv
+    length (plus scale=, sliding_window=, logit_softcap=), or any other
+    string for the einsum attention."""
     _unsupported(config)
     B, T = tokens.shape
     x = embed(params, config, tokens)

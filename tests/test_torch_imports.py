@@ -32,6 +32,10 @@ EXPERIMENT_MODULES = (
     "paroquant_tpu_torch.bench", "paroquant_tpu_torch.cli.benchmark",
     "paroquant_tpu_torch.scripts.kernel_dispatch", "paroquant_tpu_torch.scripts.bench_prefill",
     "paroquant_tpu_torch.scripts.bench_spec", "paroquant_tpu_torch.utils.cache",
+    "paroquant_tpu_torch.scripts.bench_serving", "paroquant_tpu_torch.scripts.bench_7b",
+    "paroquant_tpu_torch.scripts.bench_decode_accounting",
+    "paroquant_tpu_torch.scripts.bench_kv_quant", "paroquant_tpu_torch.scripts.bench_a8_accuracy",
+    "paroquant_tpu_torch.experiments.baselines.quality_ladder",
 )
 
 
@@ -73,6 +77,9 @@ def _entry_points():
     from paroquant_tpu_torch import bench
     from paroquant_tpu_torch.cli import benchmark as cli_benchmark
     from paroquant_tpu_torch.scripts import bench_prefill, bench_spec, kernel_dispatch
+    from paroquant_tpu_torch.scripts import (bench_7b, bench_a8_accuracy,
+                                             bench_decode_accounting, bench_kv_quant,
+                                             bench_serving)
     from paroquant_tpu_torch.serve import Engine, Generator, PagedKVCache, create_generator
     from paroquant_tpu_torch.utils.cache import enable_compilation_cache
     from paroquant_tpu_torch.utils.profiling import trace
@@ -117,6 +124,13 @@ def _entry_points():
         "create_generator": lambda: create_generator("/nonexistent"),
         "enable_compilation_cache": lambda: enable_compilation_cache(),
         "trace": lambda: trace("/nonexistent").__enter__(),
+        "bench_serving.main": lambda: bench_serving.main(["--preset", "tiny"]),
+        "bench_7b.main": lambda: bench_7b.main([]),
+        "bench_7b.build_quantized_llama7b": lambda: bench_7b.build_quantized_llama7b(),
+        "bench_decode_accounting.main": lambda: bench_decode_accounting.main(["--preset", "tiny"]),
+        "bench_decode_accounting.account": lambda: bench_decode_accounting.account({}, cfg, 1, [1]),
+        "bench_kv_quant.main": lambda: bench_kv_quant.main(),
+        "bench_a8_accuracy.main": lambda: bench_a8_accuracy.main(["--preset", "tiny"]),
     }
 
 
@@ -130,7 +144,9 @@ def _entry_points():
      "kernel_int8_probe.main", "kernel_unpack_exp.main", "profile_prefill", "flash_key_groups",
      "one_launch_phases.main", "bench.main", "bench.make_decode_runner", "cli.benchmark.main",
      "kernel_dispatch.main", "bench_prefill.main", "bench_spec.main", "create_generator",
-     "enable_compilation_cache", "trace"],
+     "enable_compilation_cache", "trace", "bench_serving.main", "bench_7b.main",
+     "bench_7b.build_quantized_llama7b", "bench_decode_accounting.main",
+     "bench_decode_accounting.account", "bench_kv_quant.main", "bench_a8_accuracy.main"],
 )
 def test_cuda_default_raises_without_cuda(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
