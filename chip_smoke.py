@@ -158,7 +158,26 @@ Phases, each printing one or more lines:
      (8 requests, spec_k 4; K1/K2, K4 and K5; every request returns its
      tokens) and `bench_a8_accuracy` on qwen3-0.6b (one sequence of 128
      tokens, the plain path);
-  8. the `kernels` JSON line, then the result line.
+  8. the user entry points' paths (`user_paths`): the native packer built from
+     native/paropack.cpp (a missing library fails), the AWQ pair and
+     pack_w4_tpu bit for bit the numpy path's on an 8 MB tensor, and
+     `_lookup_draft` the numpy scan's drafts on 4096-token contexts; a
+     Qwen3-0.6B AWQ directory (28 layers, random bf16 weights, Hadamard RTN
+     W4 g128, written with `write_safetensors`) whose loaded logits and
+     greedy tokens equal, bit for bit, those of the model built in memory
+     from the same tensors; `cli/evaluate.main --synthetic --seqlen 2048
+     --num-tokens 4096` on it printing `perplexity`'s PPL of the in-memory
+     model (1e-5 relative; K3 once a layer a window), a 4096-token window
+     chunked and unchunked (TOL_PPL_CHUNK); cli/chat's turn loop on the
+     loaded model with a stand-in byte tokenizer (hi, /think, a turn,
+     /clear, a turn; K1/K2); K3 at bench_longcontext's 16k chunk and
+     window held against its plain version on one kv head's group, and K4
+     over one slot of 32768 keys, each timed beside SDPA; then
+     bench_longcontext's ttft16k at its defaults (K3 on every chunk of
+     every layer, K4), gen32k at --gen-total 1024 (992 tokens, "done";
+     K4) and ppl16k at qwen3-8b width cut to 2 layers over the 16384-token
+     window (K3; PPL and peak bytes finite);
+  9. the `kernels` JSON line, then the result line.
 It imports nothing of JAX, catches no failure of the port (only a library
 yardstick's refusal of a shape, `int_mm_yardstick`), and exits non-zero without
 printing a result when CUDA is missing or the package is not beside it.
@@ -402,62 +421,105 @@ def sdpa_mask(T, S, q_offset, window, dev):
     return m
 
 
-def check_flash(flush, gen, dev):
-    """K3 at Qwen3-0.6B's prefill (B 1, Hq 16, Hkv 8, D 128, T 512) from
-    offset 0, from offset 256 and with a window of 128: each query row
-    (batch, head, row) held to its own output's scale, two calls bitwise
-    equal; timed beside the plain version, SDPA given the same mask as a
-    tensor and, from offset 0, SDPA with is_causal=True and no mask tensor
-    (what a user would call)."""
+# case: (Hq, Hkv, T, S, q_offset, sliding window, held on one kv head's group);
+# B 1, D 128, q_offset + T keys valid. Qwen3-0.6B's prefill from offset 0, from
+# offset 256 and with a window of 128:
+FLASH_CASES = {
+    "q_offset0": (16, 8, 512, 512, 0, None, False),
+    "q_offset256": (16, 8, 512, 768, 256, None, False),
+    "window128": (16, 8, 512, 512, 0, 128, False),
+}
+# bench_longcontext's shapes: the Engine's last 2048-row chunk of a 16384-token
+# prompt against a cache of bucket + chunk = 18432 rows (Qwen3-0.6B), and
+# ppl16k's window (Qwen3-8B heads). The plain version cannot take the whole call
+# (its f32 scores alone are 19-34 GB), so these are held on one kv head's group.
+LONG_FLASH_CASES = {
+    "chunk16k": (16, 8, 2048, 18432, 14336, None, True),
+    "window16k": (32, 8, 16384, 16384, 0, None, True),
+}
+LONG_REPS = 5  # timed calls of K3 at the 16k shapes
+
+
+def check_flash(flush, gen, dev, cases=FLASH_CASES):
+    """K3 on each case: each query row (batch, head, row) held to its own
+    output's scale against the plain version, on the same inputs sliced to
+    one kv head's group (the Hq/Hkv query heads and that kv head) where the
+    case says so; two calls of the whole call bitwise equal; timed beside
+    the plain version (on the group where held), SDPA given the same mask as
+    a tensor and, from offset 0 without a window, SDPA with is_causal=True
+    and no mask tensor (what a user would call). For the held cases SDPA
+    takes K/V expanded to the query heads beforehand (not timed), and no
+    [T, S] mask tensor where is_causal is the same mask."""
     import torch
 
     from paroquant_tpu_torch.kernels import attention as at
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    B, Hq, Hkv, D, T = 1, 16, 8, 128, 512
+    B, D = 1, 128
     rows = []
-    for case, q_off, window in (("q_offset0", 0, None), ("q_offset256", 256, None),
-                                ("window128", 0, 128)):
-        S = T + q_off
+    for case, (Hq, Hkv, T, S, q_off, window, held) in cases.items():
+        kv_len = q_off + T
+        reps, plain_reps = (LONG_REPS, LONG_REPS) if held else (KERNEL_REPS, PLAIN_REPS)
         q = torch.randn(B, Hq, T, D, generator=gen, device=dev).to(torch.bfloat16)
         k = torch.randn(B, Hkv, S, D, generator=gen, device=dev).to(torch.bfloat16)
         v = torch.randn(B, Hkv, S, D, generator=gen, device=dev).to(torch.bfloat16)
-        lens = torch.full((B,), S, dtype=torch.int32, device=dev)
+        lens = torch.full((B,), kv_len, dtype=torch.int32, device=dev)
         qo = torch.full((B,), q_off, dtype=torch.int32, device=dev)
         kw = dict(scale=D**-0.5, q_offset=qo, sliding_window=window)
+        qg, kg, vg = ((q[:, :Hq // Hkv].contiguous(), k[:, :1].contiguous(), v[:, :1].contiguous())
+                      if held else (q, k, v))
         run = lambda: at.flash_attention(q, k, v, lens, **kw)
-        plain = lambda: at.flash_attention_plain(q, k, v, lens, **kw)
-        y, y_ref = run().float(), plain().float()
+        run_held = lambda: at.flash_attention(qg, kg, vg, lens, **kw)
+        plain = lambda: at.flash_attention_plain(qg, kg, vg, lens, **kw)
+        y, y_ref = run_held().float(), plain().float()
         torch.cuda.synchronize()
         err = (y - y_ref).abs().max().item()
         ratio = row_err_ratio(y, y_ref, 3)
+        y_finite = bool(torch.isfinite(y).all())
+        del y, y_ref
         same = torch.equal(run(), run())  # no atomics: a second call gives the same bits
         emit({"phase": "flash_determinism", "case": case, "bitwise_equal": same})
         if not same:
             raise SystemExit(f"flash_attention {case}: two calls on the same inputs differ")
-        mask = sdpa_mask(T, S, q_off, window, dev)
-        lib = lambda: sdpa(q, k, v, attn_mask=mask, scale=D**-0.5, enable_gqa=True)
-        ms = median_ms(run, KERNEL_REPS, flush)
-        plain_ms = median_ms(plain, PLAIN_REPS, flush)
-        lib_ms = median_ms(lib, KERNEL_REPS, flush)
-        lib_causal_ms = None
-        if q_off == 0 and window is None:  # S == T: is_causal's top-left diagonal is this mask
+        ms = median_ms(run, reps, flush)
+        group_ms = median_ms(run_held, reps, flush) if held else None
+        plain_ms = median_ms(plain, plain_reps, flush)
+        torch.cuda.empty_cache()
+        if held:
+            ke = k[:, :, :kv_len].repeat_interleave(Hq // Hkv, dim=1)
+            ve = v[:, :, :kv_len].repeat_interleave(Hq // Hkv, dim=1)
+            gqa, library = {}, "sdpa, K/V expanded to the query heads"
+        else:
+            ke, ve, gqa, library = k, v, dict(enable_gqa=True), "sdpa(enable_gqa)"
+        causal = q_off == 0 and window is None  # is_causal's top-left diagonal is this mask
+        lib_causal_ms = lib_mask_ms = None
+        if causal:
             lib_causal_ms = median_ms(
-                lambda: sdpa(q, k, v, is_causal=True, scale=D**-0.5, enable_gqa=True),
-                KERNEL_REPS, flush)
-        pairs = int(mask.sum().item())  # the (query, key) pairs this input needs
-        nbytes = 2 * (2 * B * Hq * T * D + 2 * B * Hkv * S * D)
-        ops = 4 * B * Hq * pairs * D
-        b_ms, b_by = bound(nbytes, ops, "bf16")
-        row = dict(kernel="flash_attention", case=case, T=T, S=S,
-                   key_groups=at.flash_key_groups(B, Hq, T, D, dev), max_abs_err=err,
-                   row_err_ratio=ratio, tol=TOL_KERNEL, us=ms * 1e3, plain_us=plain_ms * 1e3,
-                   library_us=lib_ms * 1e3,
+                lambda: sdpa(q, ke, ve, is_causal=True, scale=D**-0.5, **gqa), reps, flush)
+        if not (held and causal):
+            mask = sdpa_mask(T, ke.shape[2], q_off, window, dev)
+            lib_mask_ms = median_ms(
+                lambda: sdpa(q, ke, ve, attn_mask=mask, scale=D**-0.5, **gqa), reps, flush)
+            del mask
+        del ke, ve
+        # the (query, key) pairs this input needs: every key up to the row's position, in its window
+        pairs = sum(min(q_off + t + 1, window or S) for t in range(T))
+        nbytes = 2 * (2 * B * Hq * T * D + 2 * B * Hkv * kv_len * D)
+        b_ms, b_by = bound(nbytes, 4 * B * Hq * pairs * D, "bf16")
+        row = dict(kernel="flash_attention", case=case, Hq=Hq, Hkv=Hkv, T=T, S=S, q_offset=q_off,
+                   kv_len=kv_len, key_groups=at.flash_key_groups(B, Hq, T, D, dev),
+                   held_on="one kv head's group" if held else "the whole call",
+                   max_abs_err=err, row_err_ratio=ratio, tol=TOL_KERNEL, bitwise_equal=same,
+                   us=ms * 1e3, group_us=None if group_ms is None else group_ms * 1e3,
+                   plain_us=plain_ms * 1e3,
+                   library_us=(lib_mask_ms if lib_mask_ms is not None else lib_causal_ms) * 1e3,
                    library_causal_us=None if lib_causal_ms is None else lib_causal_ms * 1e3,
-                   bound_us=b_ms * 1e3, bound_by=b_by,
-                   ok=ratio <= TOL_KERNEL and bool(torch.isfinite(y).all()))
+                   library=library + (", mask tensor" if lib_mask_ms is not None else ", is_causal"),
+                   bound_us=b_ms * 1e3, bound_by=b_by, ok=ratio <= TOL_KERNEL and y_finite)
         emit({"phase": "kernel_check", **row})
         rows.append(row)
+        del q, k, v, qg, kg, vg
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -2523,18 +2585,30 @@ def paged_bound(lens_keys, W, quant, *, B, Hq, Hkv, D, ps, maxP):
     return bound(nbytes, 4 * Hq * D * pairs, "bf16")
 
 
-def check_paged(flush, gen, dev):
+BOTH_PAGED = ("paged_decode_attention", "paged_window_attention_kernel")
+# case: (pool shape, slot lengths (the current token included), int8 pool, kernels)
+PAGED_CASES = {"bf16": (PAGED, PAGED_LENS, False, BOTH_PAGED),
+               "int8": (PAGED, PAGED_LENS, True, BOTH_PAGED)}
+# gen32k's one slot at its last step, 32768 keys (Qwen3-0.6B heads, pages of 128)
+SLOT32K = {"slot32k": (dict(B=1, Hq=16, Hkv=8, D=128, ps=128, maxP=256), (32768,), False,
+                       ("paged_decode_attention",))}
+
+
+def check_paged(flush, gen, dev, cases=PAGED_CASES):
+    """K4 (one query row a slot) and K5 (a window of PAGED_W rows ending at
+    each slot's current token) on each case's pool: each query row held to
+    its own scale against the plain version, two calls bitwise equal, timed
+    beside the plain version and SDPA on the K/V gathered beforehand."""
     import torch
 
     from paroquant_tpu_torch.kernels import attention as at
 
-    shp = PAGED
-    B, Hq, D = shp["B"], shp["Hq"], shp["D"]
-    lens = torch.tensor(PAGED_LENS, dtype=torch.int32, device=dev)
     rows = []
-    for quant in (False, True):
+    for case, (shp, slot_lens, quant, kernels) in cases.items():
+        B, Hq, D = shp["B"], shp["Hq"], shp["D"]
+        lens = torch.tensor(slot_lens, dtype=torch.int32, device=dev)
         table, k, v, ks, vs = paged_inputs(gen, dev, quant=quant, **shp)
-        for kernel in ("paged_decode_attention", "paged_window_attention_kernel"):
+        for kernel in kernels:
             W = 1 if kernel == "paged_decode_attention" else PAGED_W
             if W == 1:
                 q = torch.randn(B, Hq, D, generator=gen, device=dev).to(torch.bfloat16)
@@ -2558,8 +2632,8 @@ def check_paged(flush, gen, dev):
             ratio = row_err_ratio(y, y_ref, y.dim() - 1)
             # the split's partials merge in a fixed order: a second call gives the same bits
             same = torch.equal(run(), run())
-            emit({"phase": "paged_determinism", "kernel": kernel,
-                  "case": "int8" if quant else "bf16", "bitwise_equal": same})
+            emit({"phase": "paged_determinism", "kernel": kernel, "case": case,
+                  "bitwise_equal": same})
             if not same:
                 raise SystemExit(f"{kernel}: two calls on the same inputs differ")
             ms = median_ms(run, KERNEL_REPS, flush)
@@ -2567,11 +2641,11 @@ def check_paged(flush, gen, dev):
             lib_ms = median_ms(paged_sdpa(q4, table, k, v, ks, vs, base, dev), KERNEL_REPS, flush)
             n_keys = [int(n) + W for n in base.tolist()]
             b_ms, b_by = paged_bound(n_keys, W, quant, **shp)
-            row = dict(kernel=kernel, case="int8" if quant else "bf16", B=B, W=W,
-                       lens=list(PAGED_LENS), split=at.paged_split(B, shp["Hkv"], 1, shp["maxP"],
-                                                                   shp["ps"]),
+            row = dict(kernel=kernel, case=case, B=B, W=W,
+                       lens=list(slot_lens), split=at.paged_split(B, shp["Hkv"], 1, shp["maxP"],
+                                                                  shp["ps"]),
                        max_abs_err=err, row_err_ratio=ratio,
-                       tol=TOL_KERNEL, us=ms * 1e3,
+                       tol=TOL_KERNEL, bitwise_equal=same, us=ms * 1e3,
                        plain_us=plain_ms * 1e3, library_us=lib_ms * 1e3,
                        library="sdpa(enable_gqa) on K/V gathered to contiguous bf16 beforehand; "
                                "the gather is not timed",
@@ -2580,8 +2654,7 @@ def check_paged(flush, gen, dev):
             emit({"phase": "kernel_check", **row})
             rows.append(row)
         del table, k, v, ks, vs
-    rows += check_paged_step(flush, gen, dev)
-    rows += check_paged_rows(flush, gen, dev)
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -3441,6 +3514,392 @@ def bench_scripts(dev):
     emit({"phase": "bench_scripts_seconds", "s": time.perf_counter() - t0})
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the user entry points' paths (the native packer, an AWQ checkpoint at
+# full width, cli/evaluate, cli/chat, bench_longcontext)
+# ---------------------------------------------------------------------------
+
+TOL_PPL_CHUNK = 1e-4  # a 4096-token window's PPL, chunked CE against unchunked
+
+
+def native_packer():
+    """The native packer is built and loaded from native/paropack.cpp (a
+    missing library fails the phase); the AWQ pair and pack_w4_tpu give the
+    numpy path's bits on an 8 MB tensor; _lookup_draft gives the numpy scan's
+    drafts on random 4096-token contexts with planted repeats."""
+    import numpy as np
+
+    from paroquant_tpu_torch.ops import native_packing as nat, packing as pk
+    from paroquant_tpu_torch.serve.generator import _lookup_draft
+
+    t0 = time.perf_counter()
+    if nat.library() is None:
+        raise SystemExit(f"native packer: {nat.library_path()} did not build or load")
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    q = rng.integers(0, 16, size=(1024, 2048)).astype(np.int32)  # 8 MB: past the 1 MB routing
+    words = rng.integers(-(1 << 31), 1 << 31, size=(1024, 256)).astype(np.int32)
+
+    def run_all():
+        out, ms = {}, {}
+        for name, fn in (("pack_awq", lambda: pk.pack_awq(q)),
+                         ("unpack_awq", lambda: pk.unpack_awq(words)),
+                         ("pack_w4_tpu", lambda: pk.pack_w4_tpu(q).numpy())):
+            t = time.perf_counter()
+            out[name] = fn()
+            ms[name] = (time.perf_counter() - t) * 1e3
+        return out, ms
+
+    native, native_ms = run_all()
+    saved = pk._NATIVE_MIN_BYTES
+    pk._NATIVE_MIN_BYTES = 1 << 62  # every size on the numpy path
+    try:
+        plain, plain_ms = run_all()
+    finally:
+        pk._NATIVE_MIN_BYTES = saved
+    equal = {k: bool(np.array_equal(native[k], plain[k])) for k in native}
+    ctxs = []
+    for _ in range(8):
+        ctx = rng.integers(0, 2000, size=4096).tolist()
+        for _ in range(16):  # planted repeats of 1-3 grams
+            n = int(rng.integers(1, 4))
+            i, j = sorted(rng.choice(4096 - n, size=2, replace=False).tolist())
+            ctx[j : j + n] = ctx[i : i + n]
+        ctx[-3:] = ctx[1000:1003]  # a suffix that recurs
+        ctxs.append(ctx)
+    t = time.perf_counter()
+    drafts = [_lookup_draft(c, 4) for c in ctxs]
+    draft_ms = (time.perf_counter() - t) * 1e3 / len(ctxs)
+    library = nat.library
+    nat.library = lambda: None  # the numpy scan
+    try:
+        t = time.perf_counter()
+        scans = [_lookup_draft(c, 4) for c in ctxs]
+        scan_ms = (time.perf_counter() - t) * 1e3 / len(ctxs)
+    finally:
+        nat.library = library
+    row = {"phase": "native_packer", "library": str(nat.library_path()), "build_s": build_s,
+           "bitwise_equal": equal, "native_host_ms": native_ms, "numpy_host_ms": plain_ms,
+           "lookup_equal": drafts == scans, "lookup_drafted": sum(map(len, drafts)),
+           "lookup_native_host_ms": draft_ms, "lookup_numpy_host_ms": scan_ms}
+    emit(row)
+    if not all(equal.values()) or drafts != scans or not any(drafts):
+        raise SystemExit(f"native packer: the native path differs from the numpy path: {row}")
+
+
+def qwen3_hf_config(cfg) -> dict:
+    """config.json of a Qwen3 preset with the AWQ-format quantization_config."""
+    keys = ("model_type", "vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers",
+            "num_attention_heads", "num_key_value_heads", "head_dim", "rms_norm_eps", "rope_theta",
+            "max_position_embeddings", "tie_word_embeddings")
+    out = {k: getattr(cfg, k) for k in keys}
+    out["quantization_config"] = {"quant_method": "paroquant", "bits": 4, "group_size": 128,
+                                  "krot": 7}  # log2(128) butterfly stages
+    return out
+
+
+def write_awq_model(path, dev):
+    """A Qwen3-0.6B AWQ directory (28 layers, random bf16 weights from seed 0,
+    Hadamard RTN W4 g128): each linear's interchange tensors made from the
+    port's RTN pieces (`convert/rtn.py::_rotation_params`, `ops/quant.py`),
+    scales rounded to f16, packed with `pack_awq`, written with
+    `write_safetensors`. Returns the model built in memory from the same
+    tensors with `make_quantized_linear` (projections unmerged, as the loader
+    leaves them)."""
+    import math
+
+    import torch
+
+    from paroquant_tpu_torch.convert.checkpoint import write_safetensors
+    from paroquant_tpu_torch.convert.rtn import _rotation_params
+    from paroquant_tpu_torch.models import PRESETS
+    from paroquant_tpu_torch.ops import quant, rotation as rot_ops
+    from paroquant_tpu_torch.ops.packing import pack_awq
+    from paroquant_tpu_torch.ops.qlinear import make_quantized_linear
+
+    t0 = time.perf_counter()
+    cfg = PRESETS["qwen3-0.6b"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    H, D, I = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size
+    Hq, Hkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    bf16 = torch.bfloat16
+    tensors = {}
+
+    def ones(name, n):
+        tensors[name] = torch.ones(n, dtype=bf16)
+        return torch.ones(n, dtype=bf16, device=dev)
+
+    def linear(prefix, fan_in, fan_out):
+        w = (torch.randn(fan_in, fan_out, generator=gen, device=dev) / math.sqrt(fan_in)).to(bf16)
+        w = w.to(torch.float32).T  # [O, I]
+        rp, theta = _rotation_params(fan_in, 128, 8, 0, True)
+        w_rot = rot_ops.apply_rotation_stages(w, theta.to(dev), rot_ops.to_permutation_form(
+            rp.pairs, 128, dev))
+        qp = quant.calc_scales_and_zero_points(w_rot, 128, 4)
+        q, s, z = quant.quantize_to_int(w_rot, qp, 4, 128)
+        s16, theta16 = s.to(torch.float16), theta.to(torch.float16)
+        pairs16 = torch.as_tensor(rp.pairs).to(torch.int16)
+        tensors[f"{prefix}.qweight"] = torch.from_numpy(pack_awq(q.T.cpu().numpy()))
+        tensors[f"{prefix}.qzeros"] = torch.from_numpy(pack_awq(z.T.cpu().numpy()))
+        tensors[f"{prefix}.scales"] = s16.T.contiguous().cpu()
+        tensors[f"{prefix}.theta"] = theta16
+        tensors[f"{prefix}.pairs"] = pairs16
+        tensors[f"{prefix}.channel_scales"] = torch.ones(1, fan_in, dtype=torch.float16)
+        return make_quantized_linear(q, s16.to(torch.float32), z.to(torch.float32),
+                                     pairs16.to(torch.int32), theta16.to(torch.float32),
+                                     torch.ones(fan_in), 128, device=dev)
+
+    embed = (torch.randn(cfg.vocab_size, H, generator=gen, device=dev) * 0.02).to(bf16)
+    tensors["model.embed_tokens.weight"] = embed.cpu()
+    params = {"embed_tokens": embed, "norm": ones("model.norm.weight", H), "layers": []}
+    for li in range(cfg.num_hidden_layers):
+        b = f"model.layers.{li}"
+        lp = {"input_layernorm": ones(f"{b}.input_layernorm.weight", H),
+              "post_attention_layernorm": ones(f"{b}.post_attention_layernorm.weight", H),
+              "q_norm": ones(f"{b}.self_attn.q_norm.weight", D),
+              "k_norm": ones(f"{b}.self_attn.k_norm.weight", D)}
+        for name, fi, fo in (("q_proj", H, Hq * D), ("k_proj", H, Hkv * D), ("v_proj", H, Hkv * D),
+                             ("o_proj", Hq * D, H)):
+            lp[name] = linear(f"{b}.self_attn.{name}", fi, fo)
+        lp["mlp"] = {name: linear(f"{b}.mlp.{name}", fi, fo) for name, fi, fo in (
+            ("gate_proj", H, I), ("up_proj", H, I), ("down_proj", I, H))}
+        params["layers"].append(lp)
+    path.mkdir(parents=True, exist_ok=True)
+    write_safetensors(path / "model.safetensors", tensors)
+    (path / "config.json").write_text(json.dumps(qwen3_hf_config(cfg)))
+    emit({"phase": "awq_model", "preset": "qwen3-0.6b", "layers": cfg.num_hidden_layers,
+          "tensors": len(tensors), "file_bytes": (path / "model.safetensors").stat().st_size,
+          "build_s": time.perf_counter() - t0})
+    return params
+
+
+def awq_logits(path, inmem, dev):
+    """load_checkpoint on the AWQ directory against the model built in memory
+    from the same tensors: a 256-token prefill (K3, the plain W4 path) and 8
+    greedy decode steps (K1/K2). Identical inputs on one device: the logits
+    and tokens must be equal, bit for bit."""
+    import torch
+
+    from paroquant_tpu_torch.convert.checkpoint import load_checkpoint
+    from paroquant_tpu_torch.models import KVCache
+    from paroquant_tpu_torch.models.decoder import greedy_decode_scan, model_forward
+
+    t0 = time.perf_counter()
+    loaded, cfg = load_checkpoint(path, device=dev)
+    load_s = time.perf_counter() - t0
+    toks = torch.randint(0, cfg.vocab_size, (1, 256), generator=torch.Generator().manual_seed(1))
+    toks = toks.to(device=dev, dtype=torch.int32)
+    out = {}
+    for name, p in (("loaded", loaded), ("in_memory", inmem)):
+        cache = KVCache.create(cfg, 1, 512, torch.bfloat16, dev)
+        logits, cache = model_forward(p, cfg, toks, cache, quant_mode="auto", attn_mode="flash")
+        first = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        gen_toks, cache = greedy_decode_scan(p, cfg, first, cache, 8, quant_mode="auto")
+        out[name] = (logits, gen_toks)
+    err = (out["loaded"][0] - out["in_memory"][0]).abs().max().item()
+    same_toks = torch.equal(out["loaded"][1], out["in_memory"][1])
+    row = {"phase": "awq_logits_check", "load_s": load_s, "max_abs_err": err, "bound": 0.0,
+           "tokens_equal": same_toks, "finite": bool(torch.isfinite(out["loaded"][0]).all())}
+    emit(row)
+    if err != 0.0 or not same_toks or not row["finite"]:
+        raise SystemExit(f"awq: the loaded model differs from the in-memory one: {row}")
+    return loaded, cfg
+
+
+def evaluate_paths(path, inmem, cfg, dev):
+    """cli/evaluate.main on the AWQ directory (--synthetic --seqlen 2048
+    --num-tokens 4096) prints the PPL of `perplexity` on the in-memory model
+    within 1e-5 relative (its 4 decimals), with K3 once a layer a window; one
+    4096-token window with chunk_ce 2048 and 8192 (unchunked) within
+    TOL_PPL_CHUNK relative."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from paroquant_tpu_torch.cli import evaluate
+
+    buf = io.StringIO()
+    args = ["--model", str(path), "--synthetic", "--seqlen", "2048", "--num-tokens", "4096"]
+
+    def run_main():
+        with contextlib.redirect_stdout(buf):
+            evaluate.main(args)
+
+    script_phase("evaluate_main", run_main, {"flash_attention": ()})
+    launched = port_launches()["counts"]
+    line = buf.getvalue().strip().splitlines()[-1]
+    got = float(line.split()[-1])
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, 4096).astype(np.int32)
+    t0 = time.perf_counter()
+    want = evaluate.perplexity(inmem, cfg, toks, 2048, "auto")
+    ppl_s = time.perf_counter() - t0
+    chunked = evaluate.perplexity(inmem, cfg, toks, 4096, "auto", chunk_ce=2048)
+    whole = evaluate.perplexity(inmem, cfg, toks, 4096, "auto", chunk_ce=8192)
+    row = {"phase": "evaluate", "line": line, "ppl": got, "ppl_in_memory": want,
+           "rel_err": abs(got - want) / want, "k3_launches": launched.get("flash_attention"),
+           "perplexity_s_2_windows": ppl_s, "ppl_4096_chunked": chunked,
+           "ppl_4096_unchunked": whole, "chunk_rel_err": abs(chunked - whole) / whole,
+           "card": card()}
+    emit(row)
+    if (row["rel_err"] > 1e-5 or row["k3_launches"] != 2 * cfg.num_hidden_layers
+            or row["chunk_rel_err"] > TOL_PPL_CHUNK or not finite(got)):
+        raise SystemExit(f"evaluate: {row}")
+
+
+class ByteTokenizer:
+    """A stand-in tokenizer for the chat phase: bytes as ids 0-255, a chat
+    template of tagged turns; other ids decode to nothing."""
+
+    eos_token_id = 151645
+
+    def apply_chat_template(self, messages, add_generation_prompt=True, enable_thinking=True):
+        text = "".join(f"<|{m['role']}|>{m['content']}" for m in messages)
+        text += "<|assistant|>" if add_generation_prompt else ""
+        text += "" if enable_thinking else "<|nothink|>"
+        return list(text.encode())
+
+    def decode(self, ids, skip_special_tokens=True):
+        return bytes(i for i in ids if i < 256).decode("utf-8", errors="replace")
+
+
+def chat_phase(params, cfg, dev):
+    """cli/chat's turn loop on the AWQ-loaded model (the Generator, W4 decode
+    on K1/K2) with scripted lines: hi, /think, a second turn, /clear, a third
+    turn; each turn streams at most --max-tokens tokens and prints its stats
+    line, and the third turn's prompt holds only its own line."""
+    import io
+
+    from rich.console import Console
+
+    from paroquant_tpu_torch.cli.chat import chat_turns
+    from paroquant_tpu_torch.serve import Generator, SamplingParams
+
+    max_tokens = 32
+    gen = Generator(params, cfg, ByteTokenizer(), max_len=2 * max_tokens + 512, device=dev)
+    sp = SamplingParams(max_tokens=max_tokens, temperature=0.6, top_p=0.95)
+    lines = iter(["hi", "/think", "and a second turn", "/clear", "a third turn"])
+
+    def read_line():
+        try:
+            return next(lines)
+        except StopIteration:
+            raise EOFError from None
+
+    buf = io.StringIO()
+    history = []
+    console = Console(file=buf, width=120)
+    turns = script_phase("chat", lambda: chat_turns(gen, sp, read_line, console, history=history),
+                         {"rot_w4_matmul": ()})
+    text = buf.getvalue()
+    stats = [ln[ln.index("ttft"):].strip() for ln in text.splitlines() if "tok/s" in ln]
+    row = {"phase": "chat",
+           "turns": [{"prompt_tokens": len(t["prompt"]), "tokens": len(t["tokens"]),
+                      "ttft_s": t["ttft_s"], "tok_s": t["tok_s"]} for t in turns],
+           "stats_lines": stats, "thinking_toggled": "thinking off" in text,
+           "cleared": "history cleared" in text}
+    emit(row)
+    third = gen.build_prompt([{"role": "user", "content": "a third turn"}], False)
+    if (len(turns) != 3 or len(stats) != 3 or not row["thinking_toggled"] or not row["cleared"]
+            or any(not 1 <= len(t["tokens"]) <= max_tokens for t in turns)
+            or turns[2]["prompt"] != third or len(history) != 2):
+        raise SystemExit(f"chat: {row}")
+
+
+def long_attention(dev):
+    """K3 at bench_longcontext's two 16k shapes (held on one kv head's
+    group) and K4 over one slot of 32k keys, through check_flash's and
+    check_paged's checks."""
+    import torch
+
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    rows = check_flash(flush, gen, dev, LONG_FLASH_CASES) + check_paged(flush, gen, dev, SLOT32K)
+    del flush
+    torch.cuda.empty_cache()
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise SystemExit(f"long_attention: {len(bad)} checks missed their tolerance: {bad}")
+    return rows
+
+
+def bench_longcontext_phase(dev):
+    """The three arms through script_phase: ttft16k at its defaults (16384
+    tokens in chunks of 2048: K3 on every chunk of each layer, twice, and K4
+    in the decode), gen32k at --gen-total 1024 (992 tokens, finish "done",
+    K4), ppl16k at qwen3-8b width cut to 2 layers over the full 16384-token
+    window (K3 once a layer; PPL and peak bytes finite)."""
+    import torch
+
+    from paroquant_tpu_torch.scripts import bench_longcontext as bl
+
+    def build(preset, layers=None):
+        """build_w4's model; prints its time and its peak device memory above
+        what was allocated before it."""
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        model = bl.build_w4(preset, layers=layers, device=dev)
+        torch.cuda.synchronize(dev)
+        emit({"phase": "bench_longcontext_model", "preset": preset, "layers": layers,
+              "build_s": time.perf_counter() - t0,
+              "build_peak_bytes": torch.cuda.max_memory_allocated(dev) - before,
+              "held_bytes": torch.cuda.memory_allocated(dev) - before})
+        return model
+
+    model = build("qwen3-0.6b")
+    L = model[1].num_hidden_layers
+    args = bl.parse_args(["--arm", "ttft16k"])
+    out = script_phase("bench_longcontext_ttft16k", lambda: bl.arm_ttft16k(args, dev, model),
+                       {"flash_attention": (), "paged_decode_attention": ()})
+    k3 = port_launches()["counts"].get("flash_attention")
+    if (k3 != 2 * out["chunks"] * L
+            or not (finite(out["ttft_cold_s"]) and finite(out["ttft_warm_s"]))):
+        raise SystemExit(f"ttft16k: K3 ran {k3} times, not {2 * out['chunks'] * L}: {out}")
+    args = bl.parse_args(["--arm", "gen32k", "--gen-total", "1024"])
+    out = script_phase("bench_longcontext_gen32k", lambda: bl.arm_gen32k(args, dev, model),
+                       {"paged_decode_attention": (), "rot_w4_matmul": ()})
+    if out["finish"] != "done" or out["generated"] != 1024 - 32:
+        raise SystemExit(f"gen32k: {out}")
+    del model
+    torch.cuda.empty_cache()
+    args = bl.parse_args(["--arm", "ppl16k", "--layers", "2"])
+    model = build("qwen3-8b", args.layers)
+    out = script_phase("bench_longcontext_ppl16k", lambda: bl.arm_ppl16k(args, dev, model),
+                       {"flash_attention": ()})
+    del model
+    k3 = port_launches()["counts"].get("flash_attention")
+    if k3 != 2 or not finite(out["ppl_random_weights"]) or not finite(out["peak_bytes_in_use"]):
+        raise SystemExit(f"ppl16k: K3 ran {k3} times, not 2: {out}")
+    torch.cuda.empty_cache()
+
+
+def user_paths(dev):
+    """The user entry points' paths: the native packer, a Qwen3-0.6B AWQ checkpoint at
+    full width loaded and held against the same model built in memory,
+    cli/evaluate and its chunked CE, cli/chat's turn loop, K3 and K4 at the
+    long-context shapes, and bench_longcontext's three arms."""
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    native_packer()
+    with tempfile.TemporaryDirectory(prefix="paro_awq_") as tmp:
+        path = Path(tmp) / "qwen3-0.6b-awq"
+        inmem = write_awq_model(path, dev)
+        loaded, cfg = awq_logits(path, inmem, dev)
+        evaluate_paths(path, inmem, cfg, dev)
+        chat_phase(loaded, cfg, dev)
+    del inmem, loaded
+    torch.cuda.empty_cache()
+    rows = long_attention(dev)
+    bench_longcontext_phase(dev)
+    emit({"phase": "user_paths_seconds", "s": time.perf_counter() - t0})
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -3517,7 +3976,8 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(123)
     mm_rows = check_matmuls(flush, gen, dev)
     fa_rows = check_flash(flush, gen, dev)
-    pa_rows = check_paged(flush, gen, dev)
+    pa_rows = (check_paged(flush, gen, dev) + check_paged_step(flush, gen, dev)
+               + check_paged_rows(flush, gen, dev))
     w4_rows = check_w4_variants(flush, gen, dev)
     w4x_rows = check_w4_experiments(flush, gen, dev)
     i8_rows = check_int8_probe(flush, gen, dev)
@@ -3550,6 +4010,7 @@ def main() -> int:
     del qparams
     torch.cuda.empty_cache()
     bench_scripts(dev)  # slice 21: bench_7b, decode accounting, kv quant, serving, a8 accuracy
+    user_paths(dev)  # native packer, AWQ load, evaluate, chat, bench_longcontext
 
     counts.update({k: bench_counts[k] for k in W4_VARIANTS})  # their launches: the kernel_bench phase
     counts.update({k: exp_counts[k] for k in W4_EXPERIMENTS})  # and the w4_experiments phase

@@ -1,18 +1,26 @@
-"""Checkpoint loading: PARO-TPU and HF-dense directories of the dense families.
+"""Checkpoint loading: PARO-TPU, AWQ-format PARO and HF-dense directories of
+the dense families.
 
 Counterpart of the load side of `paroquant_tpu/convert/checkpoint.py`
-(`load_checkpoint`, :476). The safetensors format is read here directly,
-without the `safetensors` package: an 8-byte little-endian header length, a
-JSON header mapping each name to its dtype, shape and byte range, then the
-raw buffer, viewed with `torch.frombuffer` (BF16 included).
+(`load_checkpoint`, :476). The safetensors format is read and written here
+directly, without the `safetensors` package: an 8-byte little-endian
+header length, a JSON header mapping each name to its dtype, shape and
+byte range, then the raw little-endian buffer (`read_safetensors` views it
+with `torch.frombuffer`, BF16 included; `write_safetensors` writes it).
 
-AWQ-format import and the save side wait for later slices.
+AWQ-format checkpoints (the reference's published layout, z-lab/*-PARO):
+qweight int32 [I, O//8] with the (0,2,4,6,1,3,5,7) nibble reorder, qzeros
+int32 [G, O//8], scales f16 [G, O], and theta / pairs / channel_scales as
+in the PARO-TPU format; imported by undoing the AWQ packing
+(`ops/packing.py::unpack_awq`). The save side (`save_paro_checkpoint`,
+`save_awq_checkpoint`) waits for a later slice.
 """
 
 from __future__ import annotations
 
 import json
 import struct
+import sys
 from pathlib import Path
 from typing import Any
 
@@ -20,7 +28,7 @@ import torch
 
 from ..models.config import ModelConfig, from_hf_dict
 from ..models.decoder import DenseLinear, _unsupported
-from ..ops.packing import unpack_w4_tpu
+from ..ops.packing import unpack_awq, unpack_w4_tpu
 from ..ops.qlinear import make_quantized_linear
 from ..utils.device import resolve_device
 
@@ -63,6 +71,37 @@ def read_safetensors(path: str | Path) -> dict[str, torch.Tensor]:
     return out
 
 
+_DTYPE_NAMES = {dt: name for name, dt in _DTYPES.items()}
+
+
+def write_safetensors(path: str | Path, tensors: dict[str, torch.Tensor]) -> None:
+    """Write tensors (any device; the dtypes of `_DTYPES`) as one .safetensors
+    file: the header's JSON padded with spaces to 8 bytes, then each tensor's
+    raw little-endian bytes in name order."""
+    if sys.byteorder != "little":
+        raise RuntimeError("write_safetensors writes the host's byte order, "
+                           "which must be little-endian")
+    header: dict[str, Any] = {"__metadata__": {"format": "pt"}}
+    flat = {}
+    offset = 0
+    for name in sorted(tensors):
+        t = tensors[name]
+        if t.dtype not in _DTYPE_NAMES:
+            raise ValueError(f"tensor {name} has unsupported dtype {t.dtype}")
+        flat[name] = t.detach().to("cpu").contiguous().reshape(-1).view(torch.uint8)
+        n = flat[name].numel()
+        header[name] = {"dtype": _DTYPE_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    head = json.dumps(header, separators=(",", ":")).encode("utf-8")
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for name in sorted(flat):
+            f.write(memoryview(flat[name].numpy()))
+
+
 def _open_all(model_dir: Path) -> dict[str, torch.Tensor]:
     files = sorted(model_dir.glob("*.safetensors"))
     if not files:
@@ -76,7 +115,7 @@ def _open_all(model_dir: Path) -> dict[str, torch.Tensor]:
 def load_checkpoint(
     model_dir: str | Path, rot_dtype=torch.bfloat16, dtype=torch.bfloat16, device="cuda",
 ) -> tuple[dict[str, Any], ModelConfig]:
-    """Load a PARO-TPU or plain HF-dense model directory onto `device`."""
+    """Load a PARO-TPU, AWQ-format PARO or plain HF-dense model directory onto `device`."""
     dev = resolve_device(device)
     model_dir = Path(model_dir)
     config = from_hf_dict(json.loads((model_dir / "config.json").read_text()))
@@ -88,8 +127,6 @@ def load_checkpoint(
     qc = config.quantization or {}
     is_quant = qc.get("quant_method") in ("paroquant", "awq")
     fmt = qc.get("format", "awq" if qc.get("quant_method") else None)
-    if is_quant and fmt != "paro-tpu":
-        raise NotImplementedError("AWQ-format checkpoints come with the AWQ import of the port")
     group_size = int(qc.get("group_size", 128))
     n_bits = int(qc.get("bits", 4))
 
@@ -105,11 +142,16 @@ def load_checkpoint(
     def quant_linear(prefix):
         bk = f"{prefix}.bias"
         bias = tensors[bk].to(torch.float32) if bk in tensors else None
-        q = unpack_w4_tpu(tensors[f"{prefix}.qweight"].to(dev), group_size)  # [I, O]
+        if fmt == "paro-tpu":
+            q = unpack_w4_tpu(tensors[f"{prefix}.qweight"].to(dev), group_size)  # [I, O]
+            zeros = tensors[f"{prefix}.zeros"]  # [G, O]
+        else:  # AWQ layout from reference checkpoints
+            q = torch.from_numpy(unpack_awq(tensors[f"{prefix}.qweight"].numpy(), n_bits)).to(dev)
+            zeros = torch.from_numpy(unpack_awq(tensors[f"{prefix}.qzeros"].numpy(), n_bits))
         return make_quantized_linear(
             q.T,
             tensors[f"{prefix}.scales"].to(torch.float32).T,
-            tensors[f"{prefix}.zeros"].to(torch.float32).T,
+            zeros.to(torch.float32).T,
             tensors[f"{prefix}.pairs"].to(torch.int32),
             tensors[f"{prefix}.theta"].to(torch.float32),
             tensors[f"{prefix}.channel_scales"].to(torch.float32).reshape(-1),

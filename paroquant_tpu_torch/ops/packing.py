@@ -1,7 +1,8 @@
-"""PARO-TPU weight packing, in torch.
+"""INT4 weight packing layouts, in torch and numpy.
 
-Counterpart of `paroquant_tpu/ops/packing.py` (the PARO-TPU layout only;
-AWQ interchange waits for the AWQ loader). `qweight` is uint8 [I//2, O].
+Counterpart of `paroquant_tpu/ops/packing.py`. Two layouts:
+
+1. **PARO-TPU layout** (runtime): `qweight` is uint8 [I//2, O].
 Within each 128-channel input group, channel k (k < 64) shares a byte with
 channel k + 64: low nibble = q[g*128 + k], high nibble = q[g*128 + 64 + k].
 This is not the AWQ nibble order. 8-bit weights are stored as uint8 [I, O].
@@ -14,8 +15,16 @@ in its low nibble and channel 2k + 1 in its high nibble, the same bytes as
 JAX's array (`pack_w4_i4`, `unpack_w4_i4`; `convert/interop.py::w4_i4_from_jax`
 takes JAX's array).
 
+2. **AWQ layout** (interchange with the reference's checkpoints): int32
+[R, C//8], 8 nibbles along the output dim in the order (0, 2, 4, 6, 1, 3,
+5, 7). `pack_awq` / `unpack_awq` take and return numpy arrays, as JAX's
+do: they are host-side checkpoint code.
+
 Packing runs on whatever device the input lies on, so a model quantized on
-the card is packed there.
+the card is packed there. As in JAX, a host input of 1 MB or more (a numpy
+array or a CPU tensor; an AWQ input to unpack of 128 KB or more) goes
+through the native packer (`ops/native_packing.py`, C++ with OpenMP) when
+it builds, with the same bits as the numpy path.
 """
 
 from __future__ import annotations
@@ -24,16 +33,32 @@ import numpy as np
 import torch
 
 
+AWQ_REORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+
+_NATIVE_MIN_BYTES = 1 << 20  # use the C++ path for >= 1 MB host tensors
+
+
 def _as_tensor(q) -> torch.Tensor:
     return q if isinstance(q, torch.Tensor) else torch.from_numpy(np.asarray(q))
 
 
+def _nbytes(q) -> int:
+    return q.numel() * q.element_size() if isinstance(q, torch.Tensor) else np.asarray(q).nbytes
+
+
 def pack_w4_tpu(q, group_size: int = 128) -> torch.Tensor:
     """q int [I, O] in [0,16) -> uint8 [I//2, O] (group-aligned half-split)."""
-    q = _as_tensor(q)
     I, O = q.shape
     if I % group_size:
         raise ValueError(f"in_features {I} is not a multiple of group_size {group_size}")
+    on_host = not isinstance(q, torch.Tensor) or q.device.type == "cpu"
+    if on_host and _nbytes(q) >= _NATIVE_MIN_BYTES:
+        from .native_packing import pack_w4_tpu_native
+
+        out = pack_w4_tpu_native(q.numpy() if isinstance(q, torch.Tensor) else q, group_size)
+        if out is not None:
+            return torch.from_numpy(out)
+    q = _as_tensor(q)
     half = group_size // 2
     qg = q.reshape(I // group_size, group_size, O).to(torch.uint8)
     lo = qg[:, :half, :] & 0xF
@@ -83,3 +108,47 @@ def unpack_w4_i4(packed: torch.Tensor) -> torch.Tensor:
     """uint8 [I//2, O] (interleaved) -> int32 [I, O]."""
     p = packed.to(torch.int32)
     return torch.stack([p & 0xF, (p >> 4) & 0xF], dim=1).reshape(2 * p.shape[0], -1)
+
+
+# ---------------------------------------------------------------------------
+# AWQ layout (interchange with reference checkpoints)
+# ---------------------------------------------------------------------------
+
+
+def pack_awq(values: np.ndarray, bits: int = 4) -> np.ndarray:
+    """int [R, C] -> int32 [R, C//8] with the AWQ nibble reorder."""
+    if bits == 4:
+        v = np.asarray(values)
+        if v.nbytes >= _NATIVE_MIN_BYTES:
+            from .native_packing import pack_awq_native
+
+            out = pack_awq_native(v)
+            if out is not None:
+                return out
+    pack_factor = 32 // bits
+    values = np.asarray(values, dtype=np.int64)
+    R = values.shape[0]
+    reordered = values.reshape(R, -1, pack_factor)[:, :, list(AWQ_REORDER)]
+    packed = np.zeros((R, reordered.shape[1]), dtype=np.int64)
+    for i in range(pack_factor):
+        packed |= (reordered[:, :, i] & 0xF) << (bits * i)
+    return packed.astype(np.uint32).view(np.int32)
+
+
+def unpack_awq(packed: np.ndarray, bits: int = 4) -> np.ndarray:
+    """int32 [R, C//8] -> int32 [R, C], undoing the nibble reorder."""
+    if bits == 4:
+        pk = np.asarray(packed)
+        if pk.nbytes >= _NATIVE_MIN_BYTES // 8:
+            from .native_packing import unpack_awq_native
+
+            out = unpack_awq_native(pk)
+            if out is not None:
+                return out
+    pack_factor = 32 // bits
+    p = np.asarray(packed).view(np.uint32).astype(np.int64)
+    R, Cp = p.shape
+    out = np.zeros((R, Cp, pack_factor), dtype=np.int32)
+    for i in range(pack_factor):
+        out[:, :, AWQ_REORDER[i]] = ((p >> (bits * i)) & 0xF).astype(np.int32)
+    return out.reshape(R, Cp * pack_factor)

@@ -79,10 +79,18 @@ def _verify_window_sampled(params, config, window, cache, generator, d_len, quan
 def _lookup_draft(ctx: list[int], k: int, max_ngram: int = 3) -> list[int]:
     """Prompt-lookup drafting: find the most recent earlier occurrence of the
     longest suffix n-gram (n <= max_ngram) of the context and propose the k
-    tokens that followed it; [] when no n-gram recurs. The JAX package scans
-    contexts over 512 tokens in C++ (native/paropack.cpp) and shorter ones in
-    Python, with the same result; here one numpy scan serves every length."""
+    tokens that followed it; [] when no n-gram recurs. As in JAX, contexts
+    over 512 tokens go through the C++ scan (native/paropack.cpp via
+    `ops/native_packing.py`): this runs per slot per scheduler tick, up to
+    32k-token contexts. Shorter ones, and every length when the native
+    library is unavailable, take the numpy scan, with the same result."""
     L = len(ctx)
+    if L > 512:
+        from ..ops.native_packing import native_lookup_draft
+
+        d = native_lookup_draft(np.asarray(ctx, np.int32), max_ngram, k)
+        if d is not None:
+            return d
     if L < 2:
         return []
     arr = np.asarray(ctx, np.int64)

@@ -36,6 +36,8 @@ EXPERIMENT_MODULES = (
     "paroquant_tpu_torch.scripts.bench_decode_accounting",
     "paroquant_tpu_torch.scripts.bench_kv_quant", "paroquant_tpu_torch.scripts.bench_a8_accuracy",
     "paroquant_tpu_torch.experiments.baselines.quality_ladder",
+    "paroquant_tpu_torch.cli.evaluate", "paroquant_tpu_torch.cli.chat",
+    "paroquant_tpu_torch.scripts.bench_longcontext", "paroquant_tpu_torch.ops.native_packing",
 )
 
 
@@ -80,6 +82,9 @@ def _entry_points():
     from paroquant_tpu_torch.scripts import (bench_7b, bench_a8_accuracy,
                                              bench_decode_accounting, bench_kv_quant,
                                              bench_serving)
+    from paroquant_tpu_torch.cli import chat as cli_chat
+    from paroquant_tpu_torch.cli import evaluate as cli_evaluate
+    from paroquant_tpu_torch.scripts import bench_longcontext
     from paroquant_tpu_torch.serve import Engine, Generator, PagedKVCache, create_generator
     from paroquant_tpu_torch.utils.cache import enable_compilation_cache
     from paroquant_tpu_torch.utils.profiling import trace
@@ -131,6 +136,10 @@ def _entry_points():
         "bench_decode_accounting.account": lambda: bench_decode_accounting.account({}, cfg, 1, [1]),
         "bench_kv_quant.main": lambda: bench_kv_quant.main(),
         "bench_a8_accuracy.main": lambda: bench_a8_accuracy.main(["--preset", "tiny"]),
+        "cli.evaluate.main": lambda: cli_evaluate.main(["--model", "/nonexistent", "--synthetic"]),
+        "cli.chat.main": lambda: cli_chat.main(["--model", "/nonexistent"]),
+        "bench_longcontext.main": lambda: bench_longcontext.main(["--arm", "ppl16k"]),
+        "bench_longcontext.build_w4": lambda: bench_longcontext.build_w4("tiny"),
     }
 
 
@@ -146,7 +155,8 @@ def _entry_points():
      "kernel_dispatch.main", "bench_prefill.main", "bench_spec.main", "create_generator",
      "enable_compilation_cache", "trace", "bench_serving.main", "bench_7b.main",
      "bench_7b.build_quantized_llama7b", "bench_decode_accounting.main",
-     "bench_decode_accounting.account", "bench_kv_quant.main", "bench_a8_accuracy.main"],
+     "bench_decode_accounting.account", "bench_kv_quant.main", "bench_a8_accuracy.main",
+     "cli.evaluate.main", "cli.chat.main", "bench_longcontext.main", "bench_longcontext.build_w4"],
 )
 def test_cuda_default_raises_without_cuda(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
