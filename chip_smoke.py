@@ -177,7 +177,25 @@ Phases, each printing one or more lines:
      every layer, K4), gen32k at --gen-total 1024 (992 tokens, "done";
      K4) and ppl16k at qwen3-8b width cut to 2 layers over the 16384-token
      window (K3; PPL and peak bytes finite);
-  9. the `kernels` JSON line, then the result line.
+  9. the conversion and HTTP serving paths, each with the counts reset
+     just before and read just after: `convert_paths` (Qwen3-0.6B at full
+     width, Hadamard RTN
+     exports saved as PARO-TPU and AWQ directories, each loaded to the
+     in-memory model's logits and greedy tokens bit for bit, K1 and K3;
+     then `gptq_baseline.main` at full width, GPTQ_LAYERS deep, over 8 x
+     512 synthetic tokens, each layer's output error below RTN's, the
+     directory loaded and decoded) and `serve_http` (`cli/serve.build` on
+     the PARO-TPU directory, served on a loopback port: /health,
+     /v1/models, /metrics; 8 concurrent greedy completions by token ids,
+     not streamed, streamed and on the Engine itself, each token its
+     prefix's greedy choice up to a near-tie (NEAR_TIE_NATS), logprobs
+     within TOL_LOGPROB of Engine.score_sync, first SSE bytes paired with
+     each request's first token; n 2 with
+     a seed; echo scoring; a 429; a stop-string chat over the
+     ByteTokenizer; an EngineRouter over two Engines sharing merged weights
+     with a W4 lm_head; K1-K5 and RA8 must run, every client call end
+     within HTTP_TIMEOUT and every engine thread be alive);
+  10. the `kernels` JSON line, then the result line.
 It imports nothing of JAX, catches no failure of the port (only a library
 yardstick's refusal of a shape, `int_mm_yardstick`), and exits non-zero without
 printing a result when CUDA is missing or the package is not beside it.
@@ -189,6 +207,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -3673,6 +3692,23 @@ def write_awq_model(path, dev):
     return params
 
 
+def prefill_and_decode(params, cfg, dev, n_prompt=256, n_new=8):
+    """(logits, tokens): a prefill of n_prompt random tokens (seed 1; K3, the
+    plain W4 path) and n_new greedy decode steps (K1/K2), quant_mode "auto"."""
+    import torch
+
+    from paroquant_tpu_torch.models import KVCache
+    from paroquant_tpu_torch.models.decoder import greedy_decode_scan, model_forward
+
+    toks = torch.randint(0, cfg.vocab_size, (1, n_prompt), generator=torch.Generator().manual_seed(1))
+    toks = toks.to(device=dev, dtype=torch.int32)
+    cache = KVCache.create(cfg, 1, 512, torch.bfloat16, dev)  # 512 keys: K3's tiles
+    logits, cache = model_forward(params, cfg, toks, cache, quant_mode="auto", attn_mode="flash")
+    first = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    gen_toks, _ = greedy_decode_scan(params, cfg, first, cache, n_new, quant_mode="auto")
+    return logits, gen_toks
+
+
 def awq_logits(path, inmem, dev):
     """load_checkpoint on the AWQ directory against the model built in memory
     from the same tensors: a 256-token prefill (K3, the plain W4 path) and 8
@@ -3681,21 +3717,12 @@ def awq_logits(path, inmem, dev):
     import torch
 
     from paroquant_tpu_torch.convert.checkpoint import load_checkpoint
-    from paroquant_tpu_torch.models import KVCache
-    from paroquant_tpu_torch.models.decoder import greedy_decode_scan, model_forward
 
     t0 = time.perf_counter()
     loaded, cfg = load_checkpoint(path, device=dev)
     load_s = time.perf_counter() - t0
-    toks = torch.randint(0, cfg.vocab_size, (1, 256), generator=torch.Generator().manual_seed(1))
-    toks = toks.to(device=dev, dtype=torch.int32)
-    out = {}
-    for name, p in (("loaded", loaded), ("in_memory", inmem)):
-        cache = KVCache.create(cfg, 1, 512, torch.bfloat16, dev)
-        logits, cache = model_forward(p, cfg, toks, cache, quant_mode="auto", attn_mode="flash")
-        first = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-        gen_toks, cache = greedy_decode_scan(p, cfg, first, cache, 8, quant_mode="auto")
-        out[name] = (logits, gen_toks)
+    out = {name: prefill_and_decode(p, cfg, dev)
+           for name, p in (("loaded", loaded), ("in_memory", inmem))}
     err = (out["loaded"][0] - out["in_memory"][0]).abs().max().item()
     same_toks = torch.equal(out["loaded"][1], out["in_memory"][1])
     row = {"phase": "awq_logits_check", "load_s": load_s, "max_abs_err": err, "bound": 0.0,
@@ -3900,6 +3927,529 @@ def user_paths(dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# conversion without calibration, and serving over HTTP
+# ---------------------------------------------------------------------------
+
+# GPTQ's depth, cut from Qwen3-0.6B's 28 layers (never the width): at 28 the
+# step took 85.2 s of GPTQ alone in one run on an NVIDIA H100 80GB HBM3 at
+# 700.00 W, over the ~90 s it may take
+GPTQ_LAYERS = 14
+GPTQ_SAMPLES, GPTQ_SEQLEN = 8, 512
+HTTP_TIMEOUT = 120.0  # seconds a client call may take; an engine thread that died shows here
+# nats: a served token may sit this far below its prefix's top token in a
+# prefill of the whole sequence (a near-tie that batching's arithmetic may
+# flip): two steps of these bf16 logits (0.03125 at magnitudes 4-8), one for
+# each side's rounding. On an NVIDIA H100 80GB HBM3 at 700.00 W, serve_http's
+# tokens sat at most 0.044 below the top (the first forks between runs
+# 0.0008-0.033), and the median top-two gap, which must stay above this
+# limit, was 0.103 (0.078 in the router's rounds)
+NEAR_TIE_NATS = 0.0625
+
+
+def model_from_exports(params, exports, fmt, dev):
+    """The model a saved directory should load to, built in memory from the
+    exports: dense tensors rounded to f16 as the file holds them (loaded as
+    bf16), theta and channel scales to f16, and the AWQ format's scales to
+    f16 (the PARO-TPU format keeps them f32)."""
+    import torch
+
+    from paroquant_tpu_torch.ops.qlinear import make_quantized_linear
+
+    def f16(t):
+        return t.to(torch.float16).to(torch.bfloat16)
+
+    def r16(a):
+        return torch.from_numpy(a).to(torch.float16).to(torch.float32)
+
+    def qlin(e):
+        s = r16(e["scales"]) if fmt == "awq" else torch.from_numpy(e["scales"])
+        return make_quantized_linear(e["q"], s, e["zeros"].astype("float32"), e["pairs"],
+                                     r16(e["theta"]), r16(e["inv_channel_scales"]),
+                                     e["group_size"], n_bits=e["n_bits"], device=dev)
+
+    out = {"embed_tokens": f16(params["embed_tokens"]), "norm": f16(params["norm"]), "layers": []}
+    for lp, exp in zip(params["layers"], exports):
+        nlp = {k: f16(v) for k, v in lp.items() if k.endswith("norm")}
+        nlp.update({k: qlin(exp[k]) for k in ("q_proj", "k_proj", "v_proj", "o_proj")})
+        nlp["mlp"] = {k: qlin(exp[f"mlp.{k}"]) for k in ("gate_proj", "up_proj", "down_proj")}
+        out["layers"].append(nlp)
+    return out
+
+
+class LineClock:
+    """A stdout stand-in that keeps each printed line with its perf_counter."""
+
+    def __init__(self):
+        self.lines, self._buf = [], ""
+
+    def write(self, text):
+        self._buf += text
+        while "\n" in self._buf:
+            line, self._buf = self._buf.split("\n", 1)
+            self.lines.append((time.perf_counter(), line))
+        return len(text)
+
+    def flush(self):
+        pass
+
+
+def gptq_layers_check(tmp, dev):
+    """experiments/baselines/gptq_baseline.main on a dense directory of
+    Qwen3-0.6B's width (GPTQ_LAYERS layers, random f32 weights from a seeded
+    torch.Generator, written in f16) over GPTQ_SAMPLES synthetic sequences
+    of GPTQ_SEQLEN tokens. On those tokens each layer's output error (GPTQ
+    student chain, quant_mode "xla") must be below RTN's on the same
+    inputs; the written directory loads, and its prefill and greedy decode
+    (K3, K1) give finite logits and tokens in the vocabulary."""
+    import contextlib
+    import dataclasses
+
+    import torch
+
+    from paroquant_tpu_torch.convert import load_checkpoint, quantize_model_rtn, save_paro_checkpoint
+    from paroquant_tpu_torch.experiments.baselines import gptq_baseline
+    from paroquant_tpu_torch.models import PRESETS, init_params
+    from paroquant_tpu_torch.models.decoder import embed, layer_forward, rope_tables_per_layer
+    from paroquant_tpu_torch.optim.data import get_mixed_calib_dataset
+
+    cfg = dataclasses.replace(PRESETS["qwen3-0.6b"], num_hidden_layers=GPTQ_LAYERS)
+    dense_dir, gptq_dir = tmp / "qwen3-0.6b-dense", tmp / "qwen3-0.6b-gptq"
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(24), torch.float32, dev)
+    save_paro_checkpoint(dense_dir, params, cfg, [])  # every linear dense, in f16
+    del params
+    clock = LineClock()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(clock):
+        gptq_baseline.main(["--model", str(dense_dir), "--output", str(gptq_dir), "--datasets",
+                            "synthetic", "--n-samples", str(GPTQ_SAMPLES), "--seqlen",
+                            str(GPTQ_SEQLEN), "--device", dev.type])
+    main_s = time.perf_counter() - t0
+    stamps = [t0] + [t for t, line in clock.lines if line.startswith("gptq layer")]
+    layer_s = [b - a for a, b in zip(stamps, stamps[1:])]
+
+    dense, _ = load_checkpoint(dense_dir, dtype=torch.float32, device=dev)
+    gptq, _ = load_checkpoint(gptq_dir, dtype=torch.float32, device=dev)
+    rtn = quantize_model_rtn(dense, cfg, device=dev)
+    tokens = get_mixed_calib_dataset(["synthetic"], None, GPTQ_SAMPLES, GPTQ_SEQLEN,
+                                     vocab_size=cfg.vocab_size)
+    rows = []
+    with torch.no_grad():
+        x = embed(dense, cfg, torch.from_numpy(tokens).to(dev))
+        pos = torch.arange(GPTQ_SEQLEN, dtype=torch.int32, device=dev)[None].expand(
+            GPTQ_SAMPLES, GPTQ_SEQLEN)
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        for li, (cos, sin) in enumerate(rope_tables_per_layer(pos, cfg)):
+            out = {name: layer_forward(p["layers"][li], x, cfg, li, cos, sin, pos, None, zero,
+                                       "xla")[0] for name, p in (("dense", dense), ("gptq", gptq),
+                                                                 ("rtn", rtn))}
+            ref = out["dense"].norm()
+            rows.append({"layer": li, "gptq_rel_err": ((out["gptq"] - out["dense"]).norm() / ref).item(),
+                         "rtn_rel_err": ((out["rtn"] - out["dense"]).norm() / ref).item()})
+            x = out["gptq"]  # the inputs GPTQ calibrated the next layer on
+    del dense, rtn
+    gq, _ = load_checkpoint(gptq_dir, device=dev)
+    logits, toks = prefill_and_decode(gq, cfg, dev)
+    row = {"phase": "gptq_check", "preset": "qwen3-0.6b", "layers": cfg.num_hidden_layers,
+           "cut": f"depth {cfg.num_hidden_layers} of 28" if cfg.num_hidden_layers < 28 else None,
+           "samples": GPTQ_SAMPLES, "seqlen": GPTQ_SEQLEN, "main_s": main_s,
+           "layer_s_median": statistics.median(layer_s), "layer_s": layer_s,
+           "worse_than_rtn": [r["layer"] for r in rows if r["gptq_rel_err"] >= r["rtn_rel_err"]],
+           "rel_err": rows, "finite": bool(torch.isfinite(logits).all()),
+           "tokens_in_vocab": bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "card": card()}
+    emit(row)
+    if (len(layer_s) != cfg.num_hidden_layers or row["worse_than_rtn"] or not row["finite"]
+            or not row["tokens_in_vocab"]):
+        raise SystemExit(f"gptq: {row}")
+
+
+def convert_paths(tmp, dev):
+    """Conversion without calibration at Qwen3-0.6B's full width
+    (28 layers, random bf16 weights from a seeded torch.Generator):
+    rtn_export_model(hadamard=True) through save_paro_checkpoint and
+    save_awq_checkpoint, each directory loaded with load_checkpoint to the
+    logits and greedy tokens, bit for bit, of the model built in memory from
+    the same exports rounded as the file rounds them (K3 and K1 on the
+    unmerged layers); then `gptq_layers_check`. Counts reset just before and
+    read just after: K1 and K3 must run. Returns the PARO-TPU directory."""
+    import dataclasses
+
+    import torch
+
+    from paroquant_tpu_torch.convert import (load_checkpoint, rtn_export_model,
+                                             save_awq_checkpoint, save_paro_checkpoint)
+    from paroquant_tpu_torch.models import PRESETS, init_params
+
+    cfg = PRESETS["qwen3-0.6b"]
+    reset_counts()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(23), torch.bfloat16, dev)
+    t = time.perf_counter()
+    exports = rtn_export_model(params, cfg, hadamard=True)
+    timings = {"export_s": time.perf_counter() - t}
+    dirs = {"paro": tmp / "qwen3-0.6b-paro", "awq": tmp / "qwen3-0.6b-awq"}
+    for fmt, save in (("paro", save_paro_checkpoint), ("awq", save_awq_checkpoint)):
+        t = time.perf_counter()
+        save(dirs[fmt], params, cfg, exports)
+        timings[f"save_{fmt}_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        loaded, lcfg = load_checkpoint(dirs[fmt], device=dev)
+        timings[f"load_{fmt}_s"] = time.perf_counter() - t
+        inmem = model_from_exports(params, exports, fmt, dev)
+        (la, lt), (ma, mt) = prefill_and_decode(loaded, lcfg, dev), prefill_and_decode(inmem, cfg, dev)
+        err = (la - ma).abs().max().item()
+        row = {"phase": f"convert_{fmt}_check", "file_bytes": (dirs[fmt] / "model.safetensors").stat().st_size,
+               "config_equal": dataclasses.replace(lcfg, quantization_items=None) == cfg,
+               "quantization": lcfg.quantization, "max_abs_err": err, "bound": 0.0,
+               "tokens_equal": torch.equal(lt, mt), "finite": bool(torch.isfinite(la).all())}
+        emit(row)
+        if err != 0.0 or not row["tokens_equal"] or not row["finite"] or not row["config_equal"]:
+            raise SystemExit(f"convert: the {fmt} directory loads to another model: {row}")
+        del loaded, inmem
+    del params, exports
+    torch.cuda.empty_cache()
+    gptq_layers_check(tmp, dev)
+    launched = port_launches()
+    emit({"phase": "convert_paths_launches", **launched, **timings,
+          "s": time.perf_counter() - t0})
+    for kernel in ("rot_w4_matmul", "flash_attention"):
+        if not launched["counts"].get(kernel):
+            raise SystemExit(f"convert_paths: {kernel} did not run: {launched}")
+    torch.cuda.empty_cache()
+    return dirs["paro"]
+
+
+def http_call(url, method, path, body=None, stream=False):
+    """(status, headers, body bytes, seconds to the first body bytes, seconds
+    in all) of one call on a fresh connection, within HTTP_TIMEOUT."""
+    import http.client
+
+    host, port = url.split("//")[1].split(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=HTTP_TIMEOUT)
+    t0 = time.perf_counter()
+    try:
+        conn.request(method, path, body=None if body is None else json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        first = r.read1(1 << 16) if stream else b""
+        t_first = time.perf_counter() - t0
+        data = first + r.read()
+        return r.status, dict(r.getheaders()), data, t_first, time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def sse_tokens(data: bytes) -> tuple:
+    """(token ids, finish reason) of a token-ids-only SSE stream."""
+    toks, reason = [], None
+    for block in data.decode().split("\n\n"):
+        if not block or block == "data: [DONE]":
+            continue
+        choice = json.loads(block[len("data: "):])["choices"][0]
+        toks += choice.get("token_ids", [])
+        reason = choice["finish_reason"] or reason
+    return toks, reason
+
+
+def greedy_deficits(params, cfg, prompt, toks, quant_mode) -> tuple:
+    """(deficits, top-two gaps) at each of `toks`' positions, from one
+    prefill of prompt + toks: how far each token's logprob sits below its
+    prefix's top one, and the gap between the two most likely tokens."""
+    import torch
+
+    from paroquant_tpu_torch.models.decoder import model_forward
+
+    dev = params["embed_tokens"].device
+    with torch.no_grad():
+        logits, _ = model_forward(params, cfg, torch.tensor([prompt + toks], device=dev),
+                                  quant_mode=quant_mode)
+    lp = torch.log_softmax(logits[0, len(prompt) - 1:-1].float(), -1)
+    top = torch.topk(lp, 2, dim=-1).values
+    chosen = lp.gather(1, torch.tensor(toks, device=dev)[:, None])[:, 0]
+    return (top[:, 0] - chosen).tolist(), (top[:, 0] - top[:, 1]).tolist()
+
+
+def check_greedy(runs, prompts, params, cfg, quant_mode, phase) -> dict:
+    """runs: {name: tokens of each prompt}, the first the reference. Every
+    token of every run must be its prefix's greedy choice up to a near-tie
+    (NEAR_TIE_NATS) in a prefill of the run's own sequence, so a token
+    dropped, repeated or out of order anywhere fails, also after two runs
+    part. The runs must have the reference's lengths, and the median top-two
+    gap must exceed NEAR_TIE_NATS. Returns each run's worst deficit and
+    first fork from the reference, and the gaps' median."""
+    ref = next(iter(runs.values()))
+    out, gaps = {}, []
+    for name, seqs in runs.items():
+        worst, forks = 0.0, []
+        for p, toks, r in zip(prompts, seqs, ref):
+            if len(toks) != len(r):
+                raise SystemExit(f"{phase} {name}: {len(toks)} tokens, not {len(r)}")
+            deficits, top2 = greedy_deficits(params, cfg, p, toks, quant_mode)
+            worst = max(worst, *deficits)
+            gaps += top2 if seqs is ref else []
+            forks.append(next((i for i, (x, y) in enumerate(zip(toks, r)) if x != y), None))
+        out[name] = {"worst_deficit": worst, "forks": forks}
+    out["median_top_two_gap"] = statistics.median(gaps)
+    out["share_gaps_below_limit"] = sum(g <= NEAR_TIE_NATS for g in gaps) / len(gaps)
+    emit({"phase": f"{phase} greedy", "limit": NEAR_TIE_NATS, **out})
+    bad = {k: v["worst_deficit"] for k, v in out.items()
+           if isinstance(v, dict) and v["worst_deficit"] > NEAR_TIE_NATS}
+    if bad or out["median_top_two_gap"] <= NEAR_TIE_NATS:
+        raise SystemExit(f"{phase}: tokens off the greedy choice {bad}, or near-ties too common "
+                         f"for the check ({out})")
+    return out
+
+
+def http_prompts(cfg):
+    """8 prompts of 16 to 1000 tokens; two repeat a block, so prompt lookup
+    finds drafts (K5)."""
+    import torch
+
+    g = torch.Generator().manual_seed(31)
+
+    def rand(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+
+    return [rand(16), rand(24) * 8, rand(100), rand(300), rand(32) * 10, rand(550), rand(800),
+            rand(1000)]
+
+
+def serve_http(paro_dir, dev):
+    """Serving over HTTP: `cli/serve.build` on the 28-layer PARO-TPU
+    directory of `convert_paths` (spec_k 4, prefix caching, 8 slots; the
+    checkpoint's layout, unmerged with a dense tied head, as JAX serves it:
+    K1, K3, K4, K5), served on a loopback port from a thread. /health,
+    /v1/models, /metrics; 8 concurrent greedy completions by
+    prompt_token_ids (64 new tokens) not streamed (with logprobs), then
+    streamed, then submitted to the Engine directly: every token of every
+    round is its prefix's greedy choice up to a near-tie (check_greedy), the
+    logprobs within TOL_LOGPROB of Engine.score_sync; the Engine's own round
+    first, so that every timed round finds the prompts' pages cached; each
+    streamed request's first SSE bytes against its own Request's first
+    token, on one clock; n 2 with a seed; echo scoring; a 429 from a --max-queue 1 server; chat with
+    a stop string on a Server over the ByteTokenizer; an EngineRouter over two Engines on the card sharing
+    one merged copy of the weights with a W4 lm_head (K2 and RA8), whose
+    greedy outputs are greedy choices as one Engine's are. Counts reset just
+    before and read just after: K1-K5 must run; every client call finishes
+    within HTTP_TIMEOUT and every engine thread is alive at the end."""
+    import concurrent.futures as cf
+
+    import torch
+
+    from paroquant_tpu_torch.cli import serve as cli_serve
+    from paroquant_tpu_torch.convert.rtn import quantize_linear_rtn
+    from paroquant_tpu_torch.kernels import rot_matmul as rm
+    from paroquant_tpu_torch.models import merge_projections
+    from paroquant_tpu_torch.models.decoder import DenseLinear
+    from paroquant_tpu_torch.serve import Engine, EngineRouter, SamplingParams
+    from paroquant_tpu_torch.serve.api import Server
+
+    t_phase = time.perf_counter()
+    base = ["--model", str(paro_dir), "--host", "127.0.0.1", "--port", "0", "--max-len", "2048",
+            "--device", dev.type]
+    server, args = cli_serve.build(base + ["--spec-k", "4", "--prefix-caching", "--max-batch", "8"])
+    eng, cfg = server.engine, server.engine.config
+    engines = [eng]
+    prompts = http_prompts(cfg)
+    greedy = {"max_tokens": 64, "temperature": 0.0}
+    calls = []
+
+    def call(url, method, path, body=None, stream=False):
+        status, headers, data, t_first, t_all = http_call(url, method, path, body, stream)
+        calls.append(t_all)
+        return status, headers, data, t_first
+
+    reset_counts()
+    eng.start()
+    row = {"phase": "serve_http", "quant_mode": args.quant_mode, "decode_burst": args.decode_burst}
+    with server.serving() as url, cf.ThreadPoolExecutor(8) as pool:
+        for path in ("/health", "/v1/models", "/metrics"):
+            status, _, data, _ = call(url, "GET", path)
+            if status != 200:
+                raise SystemExit(f"serve_http: GET {path} gave {status}: {data[:200]}")
+        row["models"] = json.loads(call(url, "GET", "/v1/models")[2])["data"][0]["id"]
+
+        def completion(p, stream):
+            body = {"prompt_token_ids": p, **greedy, "stream": stream}
+            if not stream:
+                # each token's logprob; no top ones, which would turn the
+                # request's speculation off and so change its arithmetic
+                body["logprobs"] = True
+            t_start = time.perf_counter()
+            return (*call(url, "POST", "/v1/completions", body, stream), t_start)
+
+        def engine_round():
+            """The same requests submitted to the Engine itself."""
+            t0 = time.perf_counter()
+            reqs = [eng.submit(p, SamplingParams(**greedy)) for p in prompts]
+            toks = []
+            for r in reqs:
+                out = []
+                while (item := r.out_queue.get(timeout=HTTP_TIMEOUT))[0] != "done":
+                    out.append(item[1])
+                toks.append(out)
+            wall = time.perf_counter() - t0
+            return {"tokens": toks, "wall_s": wall, "tok_s": sum(len(t) for t in toks) / wall,
+                    "ttft_ms": sorted(r.ttft * 1e3 for r in reqs)}
+
+        def recording_submit(prompt_tokens, *args, **kw):
+            req = Engine.submit(eng, prompt_tokens, *args, **kw)
+            submitted[tuple(prompt_tokens)] = req
+            return req
+
+        rounds = {"engine_cold": engine_round()}  # fills the prefix cache
+        for name, stream in (("http", False), ("http_stream", True)):
+            submitted = {}  # the Server's Requests by prompt, to pair timings per request
+            eng.submit = recording_submit
+            t0 = time.perf_counter()
+            try:
+                answers = list(pool.map(lambda p: completion(p, stream), prompts))
+            finally:
+                del eng.submit
+            wall = time.perf_counter() - t0
+            if any(a[0] != 200 for a in answers):
+                raise SystemExit(f"serve_http: {[a[0] for a in answers]}")
+            reqs = [submitted[tuple(p)] for p in prompts]
+            if stream:
+                outs = [sse_tokens(a[2]) for a in answers]
+                # per request, on the process's one clock: client send to
+                # Engine enqueue, the Engine's TTFT, and its first token to
+                # the client's first SSE bytes
+                rounds[name] = {
+                    "tokens": [o[0] for o in outs], "finish": [o[1] for o in outs],
+                    "submit_ms": [(r.enqueue_time - a[4]) * 1e3 for r, a in zip(reqs, answers)],
+                    "ttft_ms": [r.ttft * 1e3 for r in reqs],
+                    "first_bytes_after_first_token_ms": [
+                        (a[4] + a[3] - r.first_token_time) * 1e3 for r, a in zip(reqs, answers)]}
+            else:
+                choices = [json.loads(a[2])["choices"][0] for a in answers]
+                rounds[name] = {"tokens": [c["token_ids"] for c in choices],
+                                "finish": [c["finish_reason"] for c in choices],
+                                "lps": [c["logprobs"]["token_logprobs"] for c in choices]}
+            n_tok = sum(len(t) for t in rounds[name]["tokens"])
+            rounds[name].update(wall_s=wall, tok_s=n_tok / wall,
+                                client_first_bytes_ms=[a[3] * 1e3 for a in answers])
+        rounds["engine"] = engine_round()
+        ref = rounds["http"]
+        if any(len(t) != 64 for t in ref["tokens"]) or set(ref["finish"]) != {"length"}:
+            raise SystemExit(f"serve_http: {ref['finish']}, {[len(t) for t in ref['tokens']]}")
+        row["greedy"] = check_greedy(
+            {k: rounds[k]["tokens"] for k in ("http", "http_stream", "engine", "engine_cold")},
+            prompts, eng.params, cfg, eng.quant_mode, "serve_http")
+        gaps = [max(abs(a - b) for a, b in zip(lps, eng.score_sync(p + toks)[len(p):]))
+                for p, toks, lps in zip(prompts, ref["tokens"], ref["lps"])]
+        row["logprob_worst_gap"] = max(gaps)
+        if max(gaps) > TOL_LOGPROB:
+            raise SystemExit(f"serve_http: logprobs off score_sync by {gaps}")
+        metrics = json.loads(call(url, "GET", "/metrics")[2])
+        row.update({f"{k}_{m}": v for k, r in rounds.items() for m, v in r.items()
+                    if m not in ("tokens", "finish", "lps")})
+        row["metrics"] = metrics
+
+        # n 2 with a seed: two draws, the same again
+        body = {"prompt_token_ids": prompts[2], "n": 2, "max_tokens": 16, "temperature": 0.8,
+                "seed": 7}
+        a, b = (json.loads(call(url, "POST", "/v1/completions", body)[2])["choices"]
+                for _ in range(2))
+        row["n2_lengths"] = [len(c["token_ids"]) for c in a]
+        if ([c["token_ids"] for c in a] != [c["token_ids"] for c in b]
+                or a[0]["token_ids"] == a[1]["token_ids"] or row["n2_lengths"] != [16, 16]):
+            raise SystemExit(f"serve_http: n 2 with a seed: {a}, {b}")
+        # echo scoring: the prompt's logprobs, Engine.score_sync's
+        status, _, data, _ = call(url, "POST", "/v1/completions", {
+            "prompt_token_ids": prompts[3], "echo": True, "max_tokens": 0, "logprobs": 1})
+        lps = json.loads(data)["choices"][0]["logprobs"]["token_logprobs"]
+        want = eng.score_sync(prompts[3])
+        row["echo_worst_gap"] = max(abs(x - y) for x, y in zip(lps[1:], want[1:]))
+        if status != 200 or lps[0] is not None or row["echo_worst_gap"] > TOL_LOGPROB:
+            raise SystemExit(f"serve_http: echo {status}, {row['echo_worst_gap']}")
+    shared = server.engine.params
+
+    # a --max-queue 1 server: its engine not started, one request fills the queue
+    full, _ = cli_serve.build(base + ["--max-queue", "1"])
+    blocker = full.engine.submit(prompts[0], SamplingParams(max_tokens=2, temperature=0.0))
+    with full.serving() as url:
+        status, headers, data, _ = call(url, "POST", "/v1/completions",
+                                        {"prompt_token_ids": prompts[0], "max_tokens": 2})
+    full.engine.cancel(blocker)
+    row["overloaded"] = [status, headers.get("Retry-After")]
+    if row["overloaded"] != [429, "1"]:
+        raise SystemExit(f"serve_http: a full queue gave {status} {headers}: {data}")
+    del full, blocker
+
+    # chat with a stop string, over the ByteTokenizer; the bias keeps the
+    # greedy answer to lowercase letters
+    chat = Engine(shared, cfg, ByteTokenizer(), max_batch=2, max_len=1024, device=dev)
+    engines.append(chat)
+    chat.start()
+    body = {"messages": [{"role": "user", "content": "hello"}], "max_tokens": 24,
+            "temperature": 0.0, "logit_bias": {str(c): 30.0 for c in range(97, 123)}}
+    with Server(chat, "chat").serving() as url:
+        text = json.loads(call(url, "POST", "/v1/chat/completions", body)[2])
+        text = text["choices"][0]["message"]["content"]
+        stop = text[6:8]
+        want = text[:text.find(stop)]
+        got = json.loads(call(url, "POST", "/v1/chat/completions", {**body, "stop": stop})[2])
+        streamed = call(url, "POST", "/v1/chat/completions", {**body, "stop": stop, "stream": True},
+                        stream=True)[2]
+    events = [json.loads(b[len("data: "):]) for b in streamed.decode().split("\n\n")
+              if b and b != "data: [DONE]"]
+    row["chat"] = {"text": text, "stop": stop, "stopped_text": got["choices"][0]["message"]["content"],
+                   "finish": got["choices"][0]["finish_reason"],
+                   "streamed_text": "".join(e["choices"][0]["delta"]["content"] for e in events),
+                   "stream_finish": events[-1]["choices"][0]["finish_reason"]}
+    c = row["chat"]
+    if (len(text) != 24 or not text.isalpha() or c["stopped_text"] != want or c["finish"] != "stop"
+            or c["streamed_text"] != want or c["stream_finish"] != "stop"):
+        raise SystemExit(f"serve_http: chat with a stop string: {c}")
+
+    # an EngineRouter over two Engines sharing one merged copy of the weights
+    # with a W4 lm_head: its greedy outputs are one Engine's
+    merged = merge_projections(dict(shared, lm_head=quantize_linear_rtn(
+        DenseLinear(shared["embed_tokens"].T, None), hadamard=True, seed=10_000)), cfg)
+    pair = [Engine(merged, cfg, max_batch=4, max_len=2048, decode_burst=8, device=dev)
+            for _ in range(2)]
+    engines += pair
+    sp = SamplingParams(max_tokens=32, temperature=0.0)
+    four = prompts[2:6]
+    solo = [pair[0].submit(p, sp) for p in four]
+    while pair[0].step():
+        pass
+    solo_toks = [[t for kind, t in iter(r.out_queue.get_nowait, ("done", None))] for r in solo]
+    before = [e.metrics["requests"] for e in pair]
+    router = EngineRouter(pair)
+    router.start()
+    with Server(router, "router").serving() as url:
+        body = {"max_tokens": 32, "temperature": 0.0}
+        answers = list(cf.ThreadPoolExecutor(4).map(lambda p: json.loads(call(
+            url, "POST", "/v1/completions", {"prompt_token_ids": p, **body})[2]), four))
+        rmetrics = json.loads(call(url, "GET", "/metrics")[2])
+    got = [a["choices"][0]["token_ids"] for a in answers]
+    row["greedy_router"] = check_greedy({"engine": solo_toks, "router": got}, four, merged, cfg,
+                                        "auto", "serve_http router")
+    row["router_requests"] = [e.metrics["requests"] - b for e, b in zip(pair, before)]
+    row["router_replicas"] = rmetrics["replicas"]
+    if rmetrics["replicas"] != 2 or min(row["router_requests"]) == 0:
+        raise SystemExit(f"serve_http: router placement {row['router_requests']}")
+
+    launched = port_launches()
+    routes = check_routes(rm, "serve_http")
+    row.update(calls=len(calls), slowest_call_s=max(calls), threads_alive=[
+        e._thread.is_alive() for e in engines], launches=launched, routes=routes,
+        s=time.perf_counter() - t_phase, card=card())
+    emit(row)
+    for e in engines:
+        e.stop()
+    missing = [k for k in SLICE1_W4 + ("flash_attention", "paged_decode_attention",
+                                      "paged_window_attention_kernel")
+               if not launched["counts"].get(k)]
+    if missing or not all(row["threads_alive"]):
+        raise SystemExit(f"serve_http: kernels not launched {missing} or an engine thread died: "
+                         f"{row['threads_alive']}")
+    del server, chat, pair, router, merged, shared
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -4011,6 +4561,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     bench_scripts(dev)  # slice 21: bench_7b, decode accounting, kv quant, serving, a8 accuracy
     user_paths(dev)  # native packer, AWQ load, evaluate, chat, bench_longcontext
+    with tempfile.TemporaryDirectory(prefix="paro_convert_") as tmp:
+        paro_dir = convert_paths(Path(tmp), dev)  # RTN / GPTQ checkpoints written and loaded
+        serve_http(paro_dir, dev)  # the OpenAI API over HTTP, the router
 
     counts.update({k: bench_counts[k] for k in W4_VARIANTS})  # their launches: the kernel_bench phase
     counts.update({k: exp_counts[k] for k in W4_EXPERIMENTS})  # and the w4_experiments phase

@@ -1,8 +1,9 @@
-"""Checkpoint loading: PARO-TPU, AWQ-format PARO and HF-dense directories of
+"""Checkpoint I/O: PARO-TPU, AWQ-format PARO and HF-dense directories of
 the dense families.
 
-Counterpart of the load side of `paroquant_tpu/convert/checkpoint.py`
-(`load_checkpoint`, :476). The safetensors format is read and written here
+Counterpart of `paroquant_tpu/convert/checkpoint.py`: the save side
+(`hf_prefix`, `save_paro_checkpoint`, `save_awq_checkpoint`, :55-453) and
+the load side (`load_checkpoint`, :476). The safetensors format is read and written here
 directly, without the `safetensors` package: an 8-byte little-endian
 header length, a JSON header mapping each name to its dtype, shape and
 byte range, then the raw little-endian buffer (`read_safetensors` views it
@@ -12,8 +13,14 @@ AWQ-format checkpoints (the reference's published layout, z-lab/*-PARO):
 qweight int32 [I, O//8] with the (0,2,4,6,1,3,5,7) nibble reorder, qzeros
 int32 [G, O//8], scales f16 [G, O], and theta / pairs / channel_scales as
 in the PARO-TPU format; imported by undoing the AWQ packing
-(`ops/packing.py::unpack_awq`). The save side (`save_paro_checkpoint`,
-`save_awq_checkpoint`) waits for a later slice.
+(`ops/packing.py::unpack_awq`).
+
+The save side writes JAX's tensor names, dtypes, shapes and bytes and an
+equal config.json, from the per-layer export dicts of
+`convert/rtn.py::rtn_export_model` or `convert/gptq.py::gptq_quantize_model`;
+dense tensors go to f16 as JAX's do (the reference forces fp16). The
+gemma3n, stacked-expert (MoE) and linear-attention branches of JAX's save
+side are not ported: those families refuse (ROADMAP §A 5).
 """
 
 from __future__ import annotations
@@ -24,11 +31,12 @@ import sys
 from pathlib import Path
 from typing import Any
 
+import numpy as np
 import torch
 
 from ..models.config import ModelConfig, from_hf_dict
 from ..models.decoder import DenseLinear, _unsupported
-from ..ops.packing import unpack_awq, unpack_w4_tpu
+from ..ops.packing import pack_awq, pack_wq_tpu, unpack_awq, unpack_w4_tpu
 from ..ops.qlinear import make_quantized_linear
 from ..utils.device import resolve_device
 
@@ -40,6 +48,178 @@ _DTYPES = {
 
 _ATTN = ("q_proj", "k_proj", "v_proj", "o_proj")
 _MLP = ("gate_proj", "up_proj", "down_proj")
+
+
+def hf_prefix(layer_idx: int, name: str) -> str:
+    """The port's layer-param name -> HF tensor prefix."""
+    if name.startswith("mlp.") or name.startswith("linear_attn."):
+        return f"model.layers.{layer_idx}.{name}"
+    if name in _ATTN:
+        return f"model.layers.{layer_idx}.self_attn.{name}"
+    raise ValueError(name)
+
+
+def _holder_for(lp: dict, name: str):
+    """Walk a dotted module path inside a layer dict -> (container, leaf),
+    or (None, None) when any segment is absent."""
+    parts = name.split(".")
+    holder = lp
+    for p in parts[:-1]:
+        if not isinstance(holder, dict) or p not in holder:
+            return None, None
+        holder = holder[p]
+    if not isinstance(holder, dict) or parts[-1] not in holder:
+        return None, None
+    return holder, parts[-1]
+
+
+def _host(a, dtype=None) -> torch.Tensor:
+    """A CPU tensor of a numpy array or tensor (optionally cast)."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
+    t = t.detach().to("cpu")
+    return t if dtype is None else t.to(dtype)
+
+
+def _to_f16(a) -> torch.Tensor:
+    """f16 through f32, as JAX's `np.asarray(a, np.float32).astype(np.float16)`."""
+    return _host(a, torch.float32).to(torch.float16)
+
+
+def _refuse_unported(config: ModelConfig, layer_exports) -> None:
+    """The gemma3n, MoE and linear-attention families raise (ROADMAP §A 5)."""
+    _unsupported(config)
+    if any("mlp.experts" in e for e in layer_exports):
+        raise NotImplementedError(
+            "stacked-expert exports need ops/moe.py, which the port has not yet (ROADMAP §A 5)")
+
+
+def _dense_tensors(params: dict[str, Any]) -> dict[str, torch.Tensor]:
+    """The tensors outside the layers: embedding, final norm, lm_head."""
+    tensors = {"model.embed_tokens.weight": _to_f16(params["embed_tokens"]),
+               "model.norm.weight": _to_f16(params["norm"])}
+    if "lm_head" in params:
+        tensors["lm_head.weight"] = _to_f16(params["lm_head"].w.T)
+    return tensors
+
+
+def _layer_dense_tensors(tensors: dict, li: int, lp: dict) -> None:
+    for name in ("input_layernorm", "post_attention_layernorm",
+                 "pre_feedforward_layernorm", "post_feedforward_layernorm"):
+        if name in lp:
+            tensors[f"model.layers.{li}.{name}.weight"] = _to_f16(lp[name])
+    for name in ("q_norm", "k_norm"):
+        if name in lp:
+            tensors[f"model.layers.{li}.self_attn.{name}.weight"] = _to_f16(lp[name])
+
+
+def _layer_linears(tensors: dict, li: int, lp: dict, exp_layer: dict, quant_tensors) -> tuple:
+    """Each linear of a layer: quant_tensors(tensors, prefix, export) for an
+    exported one, else its dense f16 weight (and bias). Returns the last
+    export's (n_bits, group_size, krot), or None when the layer exported
+    nothing."""
+    meta = None
+    for name in list(_ATTN) + [f"mlp.{m}" for m in _MLP]:
+        holder, base = _holder_for(lp, name)
+        if holder is None:
+            continue
+        prefix = hf_prefix(li, name)
+        if name in exp_layer:
+            exp = exp_layer[name]
+            meta = (int(exp["n_bits"]), int(exp["group_size"]), int(exp["theta"].shape[0]))
+            quant_tensors(tensors, prefix, exp)
+            tensors[f"{prefix}.theta"] = _host(exp["theta"], torch.float16)
+            tensors[f"{prefix}.pairs"] = _host(exp["pairs"], torch.int16)
+            tensors[f"{prefix}.channel_scales"] = _host(
+                exp["inv_channel_scales"], torch.float16).reshape(1, -1)
+            if exp.get("bias") is not None:
+                tensors[f"{prefix}.bias"] = _to_f16(exp["bias"])
+        else:
+            lin = holder[base]
+            tensors[f"{prefix}.weight"] = _to_f16(lin.w.T)
+            if lin.b is not None:
+                tensors[f"{prefix}.bias"] = _to_f16(lin.b)
+    return meta
+
+
+def _save(path, params, config, layer_exports, hf_config, quant_tensors, qconfig) -> None:
+    _refuse_unported(config, layer_exports)
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    tensors = _dense_tensors(params)
+    n_bits, group_size, krot = 4, 128, 8
+    for li, lp in enumerate(params["layers"]):
+        exp_layer = layer_exports[li] if li < len(layer_exports) else {}
+        _layer_dense_tensors(tensors, li, lp)
+        meta = _layer_linears(tensors, li, lp, exp_layer, quant_tensors)
+        if meta is not None:
+            n_bits, group_size, krot = meta
+    write_safetensors(path / "model.safetensors", tensors)
+    cfg = dict(hf_config) if hf_config else _config_to_hf(config)
+    cfg["quantization_config"] = {**qconfig, "bits": n_bits, "group_size": group_size,
+                                  "krot": krot}
+    (path / "config.json").write_text(json.dumps(cfg, indent=2) + "\n")
+
+
+def _paro_tensors(tensors: dict, prefix: str, exp: dict) -> None:
+    n_bits, group_size = int(exp["n_bits"]), int(exp["group_size"])
+    tensors[f"{prefix}.qweight"] = pack_wq_tpu(_host(exp["q"]).T, n_bits, group_size)
+    tensors[f"{prefix}.scales"] = _host(exp["scales"], torch.float32).T.contiguous()
+    tensors[f"{prefix}.zeros"] = _host(exp["zeros"], torch.uint8).T.contiguous()
+
+
+def _awq_tensors(tensors: dict, prefix: str, exp: dict) -> None:
+    n_bits = int(exp["n_bits"])
+    tensors[f"{prefix}.qweight"] = torch.from_numpy(pack_awq(np.asarray(exp["q"]).T, n_bits))
+    tensors[f"{prefix}.qzeros"] = torch.from_numpy(pack_awq(np.asarray(exp["zeros"]).T, n_bits))
+    tensors[f"{prefix}.scales"] = _host(exp["scales"], torch.float32).T.to(torch.float16)
+
+
+def save_paro_checkpoint(
+    path: str | Path,
+    params: dict[str, Any],
+    config: ModelConfig,
+    layer_exports: list[dict[str, dict[str, Any]]],
+    hf_config: dict[str, Any] | None = None,
+) -> None:
+    """Write a PARO-TPU checkpoint: per exported linear, qweight uint8 [I//2,
+    O] (the half-split packing), scales f32 [G, O], zeros uint8 [G, O],
+    theta f16, pairs i16, channel_scales f16 [1, I]; every other tensor in
+    f16. `layer_exports[i][name]` are export dicts (`rtn_export_model`,
+    `gptq_quantize_model`)."""
+    _save(path, params, config, layer_exports, hf_config, _paro_tensors,
+          {"quant_method": "paroquant", "format": "paro-tpu"})
+
+
+def save_awq_checkpoint(
+    path: str | Path,
+    params: dict[str, Any],
+    config: ModelConfig,
+    layer_exports: list[dict[str, dict[str, Any]]],
+    hf_config: dict[str, Any] | None = None,
+) -> None:
+    """Write the reference's AWQ-packed layout: qweight int32 [I, O//8]
+    nibble-reordered, qzeros int32 [G, O//8], scales f16 [G, O], and
+    theta / pairs / channel_scales as in the PARO-TPU format."""
+    _save(path, params, config, layer_exports, hf_config, _awq_tensors,
+          {"quant_method": "paroquant"})
+
+
+def _config_to_hf(config: ModelConfig) -> dict[str, Any]:
+    """config.json of a dense-family config (JAX's keys for those families)."""
+    return {
+        "model_type": config.model_type,
+        "vocab_size": config.vocab_size,
+        "hidden_size": config.hidden_size,
+        "intermediate_size": config.intermediate_size,
+        "num_hidden_layers": config.num_hidden_layers,
+        "num_attention_heads": config.num_attention_heads,
+        "num_key_value_heads": config.num_key_value_heads,
+        "head_dim": config.head_dim,
+        "rms_norm_eps": config.rms_norm_eps,
+        "rope_theta": config.rope_theta,
+        "max_position_embeddings": config.max_position_embeddings,
+        "tie_word_embeddings": config.tie_word_embeddings,
+    }
 
 
 def read_safetensors(path: str | Path) -> dict[str, torch.Tensor]:

@@ -1,10 +1,15 @@
 """Round-to-nearest quantization of a dense model (no calibration), on the device.
 
-Counterpart of `paroquant_tpu/convert/rtn.py:36-116, 160-247` for the dense
+Counterpart of `paroquant_tpu/convert/rtn.py:36-116, 160-309` for the dense
 families: identity rotation (theta = 0), seeded random rotation, or the
 Hadamard-equivalent butterfly rotation, then per-group min/max RTN into the
 runtime format of ops/qlinear.py. `quantize_model_rtn` runs on the device it
 is given (the card by default); only the pair tables are built on the host.
+`rtn_export_linear` / `rtn_export_model` give the same quantization as
+checkpoint interchange dicts (numpy, JAX's keys) for
+`convert/checkpoint.py::save_paro_checkpoint` / `save_awq_checkpoint`: the
+RTN and Hadamard-RTN (QuaRot-style) baselines. They run on the device the
+weights lie on.
 """
 
 from __future__ import annotations
@@ -21,6 +26,12 @@ from ..ops import quant, rotation as rot_ops
 from ..ops.butterfly import make_butterfly_params
 from ..ops.qlinear import QuantizedLinear, make_quantized_linear
 from ..utils.device import resolve_device
+
+
+def _rtn_quantize(w: torch.Tensor, n_bits: int, group_size: int):
+    """(q, scales, zeros) of w [O, I] by round-to-nearest (quantize_to_int)."""
+    qp = quant.calc_scales_and_zero_points(w, group_size, n_bits, jit=True)
+    return quant.quantize_to_int(w, qp, n_bits, group_size)
 
 
 @functools.lru_cache(maxsize=None)
@@ -64,8 +75,7 @@ def quantize_linear_rtn(
     else:
         theta = torch.zeros_like(params.theta)  # identity rotation
         w_rot = w
-    qp = quant.calc_scales_and_zero_points(w_rot, group_size, n_bits)
-    q, s, z = quant.quantize_to_int(w_rot, qp, n_bits, group_size)
+    q, s, z = _rtn_quantize(w_rot, n_bits, group_size)
     return make_quantized_linear(
         q, s, z, params.pairs, theta, torch.ones(I, dtype=torch.float32, device=dev),
         group_size, bias=None if lin.b is None else lin.b.to(torch.float32),
@@ -131,3 +141,60 @@ def quantize_model_rtn(
         layers.append(nlp)
     out["layers"] = layers
     return out
+
+
+def rtn_export_linear(
+    lin: DenseLinear, *, n_bits: int = 4, group_size: int = 128,
+    num_rotations: int = 8, hadamard: bool = False,
+) -> dict[str, Any]:
+    """Export dict (checkpoint interchange form) of an RTN-quantized linear:
+    identity rotation (theta = 0) or the Hadamard-equivalent butterfly stages
+    (hadamard=True, the QuaRot/SpinQuant-style baseline); unit channel
+    scales. Arrays are numpy: q int32 [O, I], scales f32 [O, G], zeros int32
+    [O, G], pairs int32 [K, I], theta f32 [K, I//2]."""
+    w = lin.w.to(torch.float32).T  # [O, I]
+    dev = w.device
+    params, theta = _rotation_params(w.shape[1], group_size, num_rotations, 0, hadamard)
+    if hadamard:
+        form = rot_ops.to_permutation_form(params.pairs, group_size, dev)
+        w = rot_ops.apply_rotation_stages(w, theta.to(dev), form)
+    else:
+        theta = torch.zeros_like(params.theta)
+    q, s, z = _rtn_quantize(w, n_bits, group_size)
+    return {
+        "q": q.cpu().numpy(),
+        "scales": s.cpu().numpy(),
+        "zeros": z.cpu().numpy(),
+        "pairs": params.pairs.cpu().numpy(),
+        "theta": theta.to(torch.float32).cpu().numpy(),
+        "inv_channel_scales": np.ones(w.shape[1], np.float32),
+        "bias": None if lin.b is None else lin.b.to(torch.float32).cpu().numpy(),
+        "n_bits": n_bits,
+        "group_size": group_size,
+    }
+
+
+def rtn_export_model(
+    params: dict[str, Any], config: ModelConfig, *,
+    n_bits: int = 4, group_size: int = 128, hadamard: bool = False,
+) -> list[dict[str, Any]]:
+    """Per-layer export dicts for save_paro_checkpoint / save_awq_checkpoint
+    (the RTN baseline). hadamard=True rotates each group by the
+    Hadamard-equivalent butterfly before quantizing (QuaRot/SpinQuant-style
+    no-training baseline)."""
+    _unsupported(config)
+    kw = dict(n_bits=n_bits, group_size=group_size, hadamard=hadamard)
+    exports: list[dict[str, Any]] = []
+    for lp in params["layers"]:
+        e: dict[str, Any] = {}
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            lin = lp.get(name)
+            if isinstance(lin, DenseLinear) and lin.w.shape[0] % group_size == 0:
+                e[name] = rtn_export_linear(lin, **kw)
+        mlp = lp.get("mlp", {})
+        for name in ("gate_proj", "up_proj", "down_proj"):
+            lin = mlp.get(name)
+            if isinstance(lin, DenseLinear) and lin.w.shape[0] % group_size == 0:
+                e[f"mlp.{name}"] = rtn_export_linear(lin, **kw)
+        exports.append(e)
+    return exports

@@ -62,12 +62,13 @@ def merged_forward_parts(layer: MergedQuantizedLinear, x: torch.Tensor, quant_mo
 
 def _unsupported(config: ModelConfig) -> None:
     if config.is_gemma3n:
-        raise NotImplementedError("gemma3n models come with slice 3 of the port (VLM/gemma3n)")
+        raise NotImplementedError("gemma3n models are not ported yet (ROADMAP §A 5: models/gemma3n.py)")
     if config.is_moe:
-        raise NotImplementedError("MoE models come with slice 3 of the port (ops/moe.py)")
+        raise NotImplementedError("MoE models are not ported yet (ROADMAP §A 5: ops/moe.py)")
     if config.num_linear_layers or config.attn_gate:
         raise NotImplementedError(
-            "linear-attention (qwen3_next) models come with slice 3 of the port")
+            "linear-attention (qwen3_next) models are not ported yet "
+            "(ROADMAP §A 5: models/linear_attn.py)")
 
 
 # ---------------------------------------------------------------------------
@@ -202,13 +203,17 @@ def _act(x: torch.Tensor, name: str) -> torch.Tensor:
     return torch.nn.functional.silu(xf).to(x.dtype)
 
 
-def mlp_forward(p: dict, x: torch.Tensor, quant_mode: str, act: str = "silu") -> torch.Tensor:
+def mlp_forward(p: dict, x: torch.Tensor, quant_mode: str, act: str = "silu",
+                taps: dict | None = None) -> torch.Tensor:
     if "gate_up_proj" in p:  # merged projections (one kernel launch)
         gate, up = merged_forward_parts(p["gate_up_proj"], x, quant_mode)
     else:
         gate = apply_linear(p["gate_proj"], x, quant_mode=quant_mode)
         up = apply_linear(p["up_proj"], x, quant_mode=quant_mode)
-    return apply_linear(p["down_proj"], _act(gate, act) * up, quant_mode=quant_mode)
+    hidden = _act(gate, act) * up
+    if taps is not None:
+        taps["down"] = hidden  # input to down_proj
+    return apply_linear(p["down_proj"], hidden, quant_mode=quant_mode)
 
 
 def qkv_forward(p: dict, h: torch.Tensor, config: ModelConfig, quant_mode: str):
@@ -249,11 +254,15 @@ def merge_projections(params: dict, config: ModelConfig) -> dict:
     return out
 
 
-def qkv_rope(p: dict, x: torch.Tensor, config: ModelConfig, cos, sin, quant_mode: str):
+def qkv_rope(p: dict, x: torch.Tensor, config: ModelConfig, cos, sin, quant_mode: str,
+             taps: dict | None = None):
     """Input norm, q/k/v projections, qk-norm and RoPE of one layer:
-    q [B, T, Hq, D], k/v [B, T, Hkv, D]."""
+    q [B, T, Hq, D], k/v [B, T, Hkv, D]. `taps` (a dict) receives the
+    projections' input as "qkv"."""
     norm, eps = config.zero_centered_norm, config.rms_norm_eps
     h = rms_norm(x, p["input_layernorm"], eps, norm)
+    if taps is not None:
+        taps["qkv"] = h
     q, k, v = qkv_forward(p, h, config, quant_mode)
     if config.qk_norm:
         q = rms_norm(q, p["q_norm"], eps, norm)
@@ -262,10 +271,13 @@ def qkv_rope(p: dict, x: torch.Tensor, config: ModelConfig, cos, sin, quant_mode
 
 
 def layer_tail(p: dict, x: torch.Tensor, attn_out: torch.Tensor, config: ModelConfig,
-               quant_mode: str) -> torch.Tensor:
+               quant_mode: str, taps: dict | None = None) -> torch.Tensor:
     """o_proj, residuals, norms and MLP after a layer's attention output
-    attn_out [B, T, Hq * D]."""
+    attn_out [B, T, Hq * D]. `taps` (a dict) receives the inputs of o_proj
+    ("o"), of gate/up ("mlp") and of down_proj ("down")."""
     norm, eps = config.zero_centered_norm, config.rms_norm_eps
+    if taps is not None:
+        taps["o"] = attn_out
     attn_out = apply_linear(p["o_proj"], attn_out, quant_mode=quant_mode)
     if config.post_norms:
         attn_out = rms_norm(attn_out, p["post_attention_layernorm"], eps, norm)
@@ -274,7 +286,9 @@ def layer_tail(p: dict, x: torch.Tensor, attn_out: torch.Tensor, config: ModelCo
     else:
         x = x + attn_out
         h2 = rms_norm(x, p["post_attention_layernorm"], eps, norm)
-    mlp_out = mlp_forward(p["mlp"], h2, quant_mode, config.hidden_act)
+    if taps is not None:
+        taps["mlp"] = h2
+    mlp_out = mlp_forward(p["mlp"], h2, quant_mode, config.hidden_act, taps)
     if config.post_norms:
         mlp_out = rms_norm(mlp_out, p["post_feedforward_layernorm"], eps, norm)
     return x + mlp_out
@@ -292,10 +306,19 @@ def layer_forward(
     cache_offset: torch.Tensor,
     quant_mode: str,
     attn_mode: str | Callable = "einsum",
+    return_taps: bool = False,
 ):
+    """One decoder layer: (output, updated kv), or with return_taps=True
+    (output, updated kv, taps): the inputs of the layer's linears, "qkv",
+    "o", "mlp" and "down", which GPTQ's Hessians are built from."""
     B, T, _ = x.shape
     Hq, D = config.num_attention_heads, config.head_dim
-    q, k, v = qkv_rope(p, x, config, cos, sin, quant_mode)
+    if return_taps and config.layer_is_sparse(layer_idx):
+        raise NotImplementedError(
+            "the taps of an MoE layer (moe_down, shared_down) need ops/moe.py, "
+            "which the port has not yet (ROADMAP §A 5)")
+    taps = {} if return_taps else None
+    q, k, v = qkv_rope(p, x, config, cos, sin, quant_mode, taps)
 
     kh = k.transpose(1, 2)
     vh = v.transpose(1, 2)
@@ -338,7 +361,8 @@ def layer_forward(
             q, k_all, v_all, q_positions, valid, scale=config.attn_scale,
             sliding_window=window, logit_softcap=config.attn_logit_softcap,
         )
-    return layer_tail(p, x, attn_out.reshape(B, T, Hq * D), config, quant_mode), new_cache
+    out = layer_tail(p, x, attn_out.reshape(B, T, Hq * D), config, quant_mode, taps)
+    return (out, new_cache, taps) if return_taps else (out, new_cache)
 
 
 # ---------------------------------------------------------------------------

@@ -134,6 +134,16 @@ def dequantized_weight(layer, dtype=torch.float32) -> torch.Tensor:
     return w.reshape(q.shape).to(dtype)
 
 
+def effective_weight(layer, dtype=torch.float32) -> torch.Tensor:
+    """Dense effective weight We [I, O] with rotation and scales folded
+    ("pseudo"): y = x @ We with We = M_blockdiag^T @ Wd."""
+    wd = dequantized_weight(layer, torch.float32)  # [I, O]
+    G, S, _ = layer.rot.shape
+    rot_t = layer.rot.to(torch.float32).transpose(1, 2)
+    we = torch.einsum("gij,gjo->gio", rot_t, wd.reshape(G, S, -1))
+    return we.reshape(wd.shape).to(dtype)
+
+
 def _a8_sim(xr: torch.Tensor) -> torch.Tensor:
     """The kernels' per-(row, group) int8 activation rounding, simulated:
     round(xr / sx) * sx with sx = max|xr| / 127 per row (1 for a zero row)."""

@@ -23,16 +23,27 @@ class QuantizerParams(NamedTuple):
 
 
 def calc_scales_and_zero_points(
-    weight: torch.Tensor, group_size: int, n_bits: int
+    weight: torch.Tensor, group_size: int, n_bits: int, *, jit: bool = False
 ) -> QuantizerParams:
-    """Min/max asymmetric init per group."""
+    """Min/max asymmetric init per group.
+
+    jit=True takes the scale as (max - min) * f32(1 / qmax), which is what
+    XLA compiles JAX's (max - min) / qmax to under jit, where JAX's RTN,
+    GPTQ and calibration run it: the port's RTN and GPTQ pass it, so their
+    codes are JAX's bit for bit. The default divides, as JAX's eager call
+    does; on weights stored in f16 or bf16 about 0.1% of the codes (rounding
+    ties) differ between the two."""
     if weight.ndim != 2 or weight.shape[-1] % group_size:
         raise ValueError(f"weight {tuple(weight.shape)} is not [O, k*{group_size}]")
     qmax = 2**n_bits - 1
     x = weight.to(torch.float32).reshape(-1, group_size)
     min_val = x.amin(dim=1, keepdim=True)
     max_val = x.amax(dim=1, keepdim=True)
-    scale = torch.clamp(max_val - min_val, min=1e-5) / qmax
+    span = torch.clamp(max_val - min_val, min=1e-5)
+    if jit:
+        scale = span * torch.tensor(1.0 / qmax, dtype=torch.float32, device=x.device)
+    else:
+        scale = span / qmax
     zero_point = min_val / scale
     return QuantizerParams(scale=scale, zero_point_float=zero_point)
 

@@ -8,4 +8,5 @@ from .generator import (
     load_tokenizer,
 )
 from .paged import PagedKVCache, paged_decode_step, paged_verify_step
+from .router import EngineRouter
 from .sampling import SamplingParams, sample_batch, sample_token

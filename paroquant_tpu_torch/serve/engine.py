@@ -34,6 +34,7 @@ import queue
 import threading
 import time
 from collections import OrderedDict, deque
+from typing import Any
 
 import numpy as np
 import torch
@@ -72,6 +73,8 @@ class Request:
     # per generated token: [(token_id, logprob)] x TOPN, kept only when
     # sampling.top_logprobs > 0
     top_logprobs: list[list[tuple[int, float]]] = dataclasses.field(default_factory=list)
+    # the replica that holds the request (EngineRouter routes cancel() by it)
+    owner: Any = None
 
     @property
     def ttft(self) -> float | None:

@@ -13,7 +13,7 @@ import torch
 import paroquant_tpu_torch
 
 PKG = Path(paroquant_tpu_torch.__file__).resolve().parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "safetensors", "paroquant_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "safetensors", "aiohttp", "paroquant_tpu")
 
 
 def _modules():
@@ -38,6 +38,10 @@ EXPERIMENT_MODULES = (
     "paroquant_tpu_torch.experiments.baselines.quality_ladder",
     "paroquant_tpu_torch.cli.evaluate", "paroquant_tpu_torch.cli.chat",
     "paroquant_tpu_torch.scripts.bench_longcontext", "paroquant_tpu_torch.ops.native_packing",
+    "paroquant_tpu_torch.serve.router", "paroquant_tpu_torch.serve.api",
+    "paroquant_tpu_torch.cli.serve", "paroquant_tpu_torch.convert.gptq",
+    "paroquant_tpu_torch.optim.data", "paroquant_tpu_torch.experiments.baselines.rtn_baseline",
+    "paroquant_tpu_torch.experiments.baselines.gptq_baseline",
 )
 
 
@@ -46,7 +50,7 @@ def test_import_leaves_jax_and_reference_unloaded():
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}: importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'safetensors', 'paroquant_tpu')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'safetensors', 'aiohttp', 'paroquant_tpu')]\n"
         "print(len(sys.modules)); assert not bad, bad\n"
     )
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -85,6 +89,9 @@ def _entry_points():
     from paroquant_tpu_torch.cli import chat as cli_chat
     from paroquant_tpu_torch.cli import evaluate as cli_evaluate
     from paroquant_tpu_torch.scripts import bench_longcontext
+    from paroquant_tpu_torch.cli import serve as cli_serve
+    from paroquant_tpu_torch.convert.gptq import gptq_quantize_model
+    from paroquant_tpu_torch.experiments.baselines import gptq_baseline, rtn_baseline
     from paroquant_tpu_torch.serve import Engine, Generator, PagedKVCache, create_generator
     from paroquant_tpu_torch.utils.cache import enable_compilation_cache
     from paroquant_tpu_torch.utils.profiling import trace
@@ -140,6 +147,14 @@ def _entry_points():
         "cli.chat.main": lambda: cli_chat.main(["--model", "/nonexistent"]),
         "bench_longcontext.main": lambda: bench_longcontext.main(["--arm", "ppl16k"]),
         "bench_longcontext.build_w4": lambda: bench_longcontext.build_w4("tiny"),
+        "cli.serve.main": lambda: cli_serve.main(["--model", "/nonexistent"]),
+        "cli.serve.build": lambda: cli_serve.build(["--model", "/nonexistent"]),
+        "rtn_baseline.main": lambda: rtn_baseline.main(["--model", "preset:tiny",
+                                                        "--output", "/nonexistent"]),
+        "gptq_baseline.main": lambda: gptq_baseline.main(["--model", "preset:tiny",
+                                                          "--output", "/nonexistent"]),
+        "gptq_quantize_model": lambda: gptq_quantize_model({"layers": []}, cfg,
+                                                           np.zeros((1, 8), np.int32)),
     }
 
 
@@ -156,7 +171,9 @@ def _entry_points():
      "enable_compilation_cache", "trace", "bench_serving.main", "bench_7b.main",
      "bench_7b.build_quantized_llama7b", "bench_decode_accounting.main",
      "bench_decode_accounting.account", "bench_kv_quant.main", "bench_a8_accuracy.main",
-     "cli.evaluate.main", "cli.chat.main", "bench_longcontext.main", "bench_longcontext.build_w4"],
+     "cli.evaluate.main", "cli.chat.main", "bench_longcontext.main", "bench_longcontext.build_w4",
+     "cli.serve.main", "cli.serve.build", "rtn_baseline.main", "gptq_baseline.main",
+     "gptq_quantize_model"],
 )
 def test_cuda_default_raises_without_cuda(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
