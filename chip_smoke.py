@@ -195,7 +195,21 @@ Phases, each printing one or more lines:
      ByteTokenizer; an EngineRouter over two Engines sharing merged weights
      with a W4 lm_head; K1-K5 and RA8 must run, every client call end
      within HTTP_TIMEOUT and every engine thread be alive);
-  10. the `kernels` JSON line, then the result line.
+  10. calibration (`calibrate_paths`, the counts reset just before and read
+     just after): `calibrate_model` on Qwen3-0.6B at full width cut to
+     CALIB_LAYERS layers (random f32 weights from a seeded torch.Generator,
+     outlier input channels x6) over 4 x 2 x 256 synthetic tokens, the
+     canonical two stages at 2 epochs each with GPTQ init (a line per layer:
+     its seconds, each stage's validation loss before and after); every
+     loss finite, its logits' MSE to the dense model's below RTN W4 g128's,
+     a 1-layer hidden-256 calibration on the card within the CPU tests'
+     tolerance of the same one on the host, the written directory loaded
+     to the in-memory model's logits and tokens bit for bit and its kernel
+     path within TOL_E2E of quant_mode "xla" with the einsum attention (K1,
+     K3); then `cli.optimize` and `cli.convert` (real paro-tpu, real awq,
+     pseudo; each output loaded and decoded) and `bench_calibration
+     --tokens 8192`, each printing its line;
+  11. the `kernels` JSON line, then the result line.
 It imports nothing of JAX, catches no failure of the port (only a library
 yardstick's refusal of a shape, `int_mm_yardstick`), and exits non-zero without
 printing a result when CUDA is missing or the package is not beside it.
@@ -4119,6 +4133,226 @@ def convert_paths(tmp, dev):
     return dirs["paro"]
 
 
+CALIB_LAYERS = 2  # of Qwen3-0.6B's 28
+CALIB_TOKENS = (4, 2, 256)  # batches, batch size, sequence length
+CALIB_STAGES = (({"channel_scales": 5e-2, "angles": 5e-2}, 2), ({"weight": 1e-5, "quantizer": 1e-6}, 2))
+# tests/test_torch_calibrate.py's small calibration, with stage 1 at 4
+# epochs, where the first layer's rotations move off their start (at 2 no
+# epoch beats the first validation loss, and both devices return the start)
+SMALL_CALIB = dict(n_bits=4, group_size=64, num_rotations=6,
+                   stages=(({"channel_scales": 5e-3, "angles": 5e-3}, 4),
+                           ({"weight": 1e-5, "quantizer": 1e-6}, 2)))
+
+
+def calib_exports_close(a, b) -> dict:
+    """The CPU tests' rule between two calibrations' exports: theta and the
+    inverse channel scales within 2e-3, codes equal in at least 99.5%, never
+    more than 1 apart."""
+    worst = {"theta": 0.0, "inv_channel_scales": 0.0, "codes_equal": 1.0, "max_code_diff": 0}
+    for la, lb in zip(a, b):
+        for name in la:
+            for k in ("theta", "inv_channel_scales"):
+                d = abs(la[name][k] - lb[name][k]).max() / max(abs(la[name][k]).max(), 1.0)
+                worst[k] = max(worst[k], float(d))
+            qa, qb = la[name]["q"].astype("int64"), lb[name]["q"].astype("int64")
+            worst["codes_equal"] = min(worst["codes_equal"], float((qa == qb).mean()))
+            worst["max_code_diff"] = max(worst["max_code_diff"], int(abs(qa - qb).max()))
+    worst["ok"] = (worst["theta"] <= 2e-3 and worst["inv_channel_scales"] <= 2e-3
+                   and worst["codes_equal"] >= 0.995 and worst["max_code_diff"] <= 1)
+    return worst
+
+
+def small_calibration_on_both(dev) -> None:
+    """The port's 1-layer, hidden-256 calibration (the tiny preset, outlier
+    input channels) on the card against the same calibration on the host."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from paroquant_tpu_torch.experiments.baselines.quality_ladder import inject_outlier_channels
+    from paroquant_tpu_torch.models import PRESETS, init_params
+    from paroquant_tpu_torch.models.decoder import model_forward
+    from paroquant_tpu_torch.optim import CalibConfig, calibrate_model
+
+    cfg = dataclasses.replace(PRESETS["tiny"], num_hidden_layers=1)
+    cpu = torch.device("cpu")
+    params = inject_outlier_channels(init_params(cfg, 5, torch.float32, cpu), cfg, scale=6.0,
+                                     frac=0.03)
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, cfg.vocab_size, (4, 2, 16)).astype(np.int32)
+    test = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 16)))
+    out = []  # (exports, logits) on the host, then on the card
+    for d in (cpu, dev):
+        q, exps = calibrate_model(params, cfg, tokens, CalibConfig(**SMALL_CALIB), device=d)
+        with torch.no_grad():
+            out.append((exps, model_forward(q, cfg, test.to(d))[0].float().cpu()))
+    (host_exps, host), (card_exps, card_logits) = out
+    worst = calib_exports_close(host_exps, card_exps)
+    err = ((card_logits - host).abs().max() / host.abs().max()).item()
+    moved = max(float(abs(e["theta"]).max()) for e in host_exps[0].values())
+    row = {"phase": "calibrate_card_vs_host", "layers": 1, "hidden": cfg.hidden_size, **worst,
+           "logits_rel_max_err": err, "bound": 0.02, "host_theta_max": moved}
+    emit(row)
+    if not worst["ok"] or err > 0.02 or moved == 0.0:
+        raise SystemExit(f"calibrate: the card's calibration left the CPU tests' tolerance: {row}")
+
+
+def calibrate_paths(tmp, dev):
+    """Calibration at Qwen3-0.6B's full width cut to CALIB_LAYERS layers
+    (random f32 weights from a seeded torch.Generator, outlier input
+    channels x6), the canonical two stages at 2 epochs each with GPTQ init
+    over 4 x 2 x 256 synthetic tokens: a line per layer (seconds, each
+    stage's validation loss before and after); every loss finite; the
+    calibrated model's logits MSE to the dense model below RTN W4 g128's;
+    `small_calibration_on_both`; the directory written with
+    save_paro_checkpoint loads to the in-memory model's logits and tokens
+    bit for bit, and its kernel path (quant_mode "auto", flash) lies within
+    TOL_E2E of quant_mode "xla" with the einsum attention. Then the CLIs
+    (cli.optimize with --save-checkpoint on a dense directory of the same
+    width, cli.convert in its three outputs, each loaded and decoded) and
+    bench_calibration --tokens 8192. Counts reset just before, read just
+    after: K1 and K3 must run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from paroquant_tpu_torch.cli import convert as convert_cli, optimize as optimize_cli
+    from paroquant_tpu_torch.convert import load_checkpoint, quantize_model_rtn, save_paro_checkpoint
+    from paroquant_tpu_torch.experiments.baselines.quality_ladder import inject_outlier_channels
+    from paroquant_tpu_torch.models import KVCache, PRESETS, init_params
+    from paroquant_tpu_torch.models.decoder import model_forward
+    from paroquant_tpu_torch.optim import CalibConfig, calibrate_model
+    from paroquant_tpu_torch.scripts import bench_calibration
+
+    reset_counts()
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(PRESETS["qwen3-0.6b"], num_hidden_layers=CALIB_LAYERS)
+    params = inject_outlier_channels(
+        init_params(cfg, torch.Generator(device=dev).manual_seed(24), torch.float32, dev), cfg,
+        scale=6.0)
+    rng = np.random.default_rng(24)
+    tokens = rng.integers(0, cfg.vocab_size, CALIB_TOKENS).astype(np.int32)
+    test = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 256))).to(dev)
+    logs, layer_s, precisions = [], [], set()
+
+    def _log(m, step):
+        logs.append(m)
+        precisions.add(torch.get_float32_matmul_precision())
+
+    # the caller allows TF32; calibrate_model must run its matmuls at "highest"
+    # all the same (read from inside, at every logged loss and every layer's end)
+    caller_precision = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    tc = time.perf_counter()
+    try:
+        qparams, exports = calibrate_model(
+            params, cfg, tokens, CalibConfig(stages=CALIB_STAGES, gptq_init=True), device=dev,
+            progress_fn=lambda li, n, info: (layer_s.append(info["seconds"]),
+                                             precisions.add(torch.get_float32_matmul_precision())),
+            log_fn=_log)
+    finally:
+        torch.set_float32_matmul_precision(caller_precision)
+    calib_s = time.perf_counter() - tc
+    for li, s_ in enumerate(layer_s):
+        stages = []
+        for si in range(len(CALIB_STAGES)):
+            vals = [m["val_loss"] for m in logs if m["layer"] == li and m["stage"] == si
+                    and "val_loss" in m]
+            best = [m["best_val_loss"] for m in logs if m["layer"] == li and m["stage"] == si
+                    and "best_val_loss" in m]
+            stages.append({"stage": si, "val_before": vals[0], "val_after": best[-1],
+                           "epochs_logged": len(vals) - 1})
+        emit({"phase": "calibrate_layer", "layer": li, "s": s_, "stages": stages})
+    losses = [v for m in logs for k, v in m.items() if k.endswith("loss")]
+    with torch.no_grad():
+        fp = model_forward(params, cfg, test)[0]
+        cal = model_forward(qparams, cfg, test)[0]
+        rtn = model_forward(quantize_model_rtn(params, cfg, device=dev), cfg, test)[0]
+    e_cal, e_rtn = torch.mean((cal - fp) ** 2).item(), torch.mean((rtn - fp) ** 2).item()
+    row = {"phase": "calibrate_check", "preset": "qwen3-0.6b", "layers": CALIB_LAYERS,
+           "cut": f"depth {CALIB_LAYERS} of 28", "tokens": list(CALIB_TOKENS),
+           "stages": [[g, e] for g, e in CALIB_STAGES], "gptq_init": True,
+           "s": calib_s, "s_per_layer": layer_s, "losses_logged": len(losses),
+           "losses_finite": all(np.isfinite(losses)), "logits_mse_calibrated": e_cal,
+           "logits_mse_rtn_w4g128": e_rtn, "matmul_precision_inside": sorted(precisions),
+           "card": card()}
+    emit(row)
+    if (not row["losses_finite"] or not losses or not e_cal < e_rtn
+            or row["matmul_precision_inside"] != ["highest"]):
+        raise SystemExit(f"calibrate: {row}")
+    del qparams
+    small_calibration_on_both(dev)
+
+    # the written directory against the in-memory model built from the same exports
+    calib_dir = tmp / "qwen3-0.6b-calibrated"
+    save_paro_checkpoint(calib_dir, params, cfg, exports)
+    loaded, lcfg = load_checkpoint(calib_dir, device=dev)
+    (la, lt), (ma, mt) = (prefill_and_decode(loaded, lcfg, dev),
+                          prefill_and_decode(model_from_exports(params, exports, "paro", dev), cfg, dev))
+    with torch.no_grad():
+        ker = model_forward(loaded, lcfg, test.to(torch.int32), KVCache.create(
+            lcfg, 1, 512, torch.bfloat16, dev), quant_mode="auto", attn_mode="flash")[0].float()
+        ref = model_forward(loaded, lcfg, test.to(torch.int32), KVCache.create(
+            lcfg, 1, 512, torch.bfloat16, dev), quant_mode="xla", attn_mode="einsum")[0].float()
+    rel = ((ker - ref).norm() / ref.norm()).item()
+    row = {"phase": "calibrate_dir_check", "max_abs_err": (la - ma).abs().max().item(),
+           "bound": 0.0, "tokens_equal": torch.equal(lt, mt), "finite": bool(torch.isfinite(la).all()),
+           "kernel_vs_xla_rel_fro_err": rel, "e2e_bound": TOL_E2E}
+    emit(row)
+    if row["max_abs_err"] != 0.0 or not row["tokens_equal"] or not row["finite"] or rel > TOL_E2E:
+        raise SystemExit(f"calibrate: the calibrated directory: {row}")
+    del loaded, params, exports
+    torch.cuda.empty_cache()
+
+    # the CLIs, then the bench, at cut sizes
+    dense_dir, out_dir = tmp / "calib-dense", tmp / "calib-cli"
+    dense = init_params(cfg, torch.Generator(device=dev).manual_seed(25), torch.float32, dev)
+    save_paro_checkpoint(dense_dir, dense, cfg, [])
+    del dense
+    t = time.perf_counter()
+    optimize_cli.main(["--model", str(dense_dir), "--output", str(out_dir), "--datasets",
+                       "synthetic", "--train-size", "8", "--batch-size", "2", "--seqlen", "256",
+                       "--epochs", "1", "1", "--save-checkpoint", "--device", dev.type])
+    cli_s = {"optimize_s": time.perf_counter() - t}
+    outs = {"optimize": out_dir / "model"}
+    for mode, fmt in (("real", "paro-tpu"), ("real", "awq"), ("pseudo", "paro-tpu")):
+        name = f"{mode}-{fmt}"
+        t = time.perf_counter()
+        convert_cli.main(["--model", str(dense_dir), "--results", str(out_dir), "--output",
+                          str(tmp / f"calib-{name}"), "--mode", mode, "--format", fmt,
+                          "--device", dev.type])
+        cli_s[f"convert_{name}_s"] = time.perf_counter() - t
+        outs[name] = tmp / f"calib-{name}"
+    loaded_rows = []
+    for name, d in outs.items():
+        m, mc = load_checkpoint(d, device=dev)
+        logits, toks = prefill_and_decode(m, mc, dev)
+        loaded_rows.append({"output": name, "quantized": mc.quantization is not None,
+                            "finite": bool(torch.isfinite(logits).all()),
+                            "tokens_in_vocab": bool(((toks >= 0) & (toks < mc.vocab_size)).all())})
+        del m
+    row = {"phase": "calibrate_cli_check", **cli_s, "outputs": loaded_rows}
+    emit(row)
+    if (not all(r["finite"] and r["tokens_in_vocab"] for r in loaded_rows)
+            or [r["quantized"] for r in loaded_rows] != [True, True, True, False]):
+        raise SystemExit(f"calibrate: the CLIs' outputs: {row}")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    bench = bench_calibration.main(["--tokens", "8192", "--device", dev.type])
+    bench_s = time.perf_counter() - t
+    if not all(np.isfinite([bench["value"], bench["est_full_recipe_hours_36L_4M_tokens"]])):
+        raise SystemExit(f"calibrate: bench_calibration: {bench}")
+    launched = port_launches()
+    emit({"phase": "calibrate_paths_launches", **launched, "bench_calibration_s": bench_s,
+          "s": time.perf_counter() - t0})
+    for kernel in ("rot_w4_matmul", "flash_attention"):
+        if not launched["counts"].get(kernel):
+            raise SystemExit(f"calibrate_paths: {kernel} did not run: {launched}")
+    torch.cuda.empty_cache()
+
+
 def http_call(url, method, path, body=None, stream=False):
     """(status, headers, body bytes, seconds to the first body bytes, seconds
     in all) of one call on a fresh connection, within HTTP_TIMEOUT."""
@@ -4564,6 +4798,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="paro_convert_") as tmp:
         paro_dir = convert_paths(Path(tmp), dev)  # RTN / GPTQ checkpoints written and loaded
         serve_http(paro_dir, dev)  # the OpenAI API over HTTP, the router
+        calibrate_paths(Path(tmp), dev)  # calibration, its CLIs and its bench
 
     counts.update({k: bench_counts[k] for k in W4_VARIANTS})  # their launches: the kernel_bench phase
     counts.update({k: exp_counts[k] for k in W4_EXPERIMENTS})  # and the w4_experiments phase

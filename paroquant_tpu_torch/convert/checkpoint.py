@@ -252,22 +252,29 @@ def read_safetensors(path: str | Path) -> dict[str, torch.Tensor]:
 
 
 _DTYPE_NAMES = {dt: name for name, dt in _DTYPES.items()}
+# the safetensors library's order of the tensors in a file: by dtype, in
+# this order, then by name (its Dtype enum, descending)
+_DTYPE_ORDER = ("I64", "F64", "F32", "I32", "BF16", "F16", "I16", "I8", "U8", "BOOL")
 
 
 def write_safetensors(path: str | Path, tensors: dict[str, torch.Tensor]) -> None:
     """Write tensors (any device; the dtypes of `_DTYPES`) as one .safetensors
-    file: the header's JSON padded with spaces to 8 bytes, then each tensor's
-    raw little-endian bytes in name order."""
+    file laid out as the safetensors library lays it out (so a file equals
+    the library's byte for byte): the header's JSON, no metadata, padded
+    with spaces to 8 bytes, then each tensor's raw little-endian bytes,
+    ordered by dtype (`_DTYPE_ORDER`) and then by name."""
     if sys.byteorder != "little":
         raise RuntimeError("write_safetensors writes the host's byte order, "
                            "which must be little-endian")
-    header: dict[str, Any] = {"__metadata__": {"format": "pt"}}
-    flat = {}
-    offset = 0
-    for name in sorted(tensors):
-        t = tensors[name]
+    for name, t in tensors.items():
         if t.dtype not in _DTYPE_NAMES:
             raise ValueError(f"tensor {name} has unsupported dtype {t.dtype}")
+    order = sorted(tensors, key=lambda n: (_DTYPE_ORDER.index(_DTYPE_NAMES[tensors[n].dtype]), n))
+    header: dict[str, Any] = {}
+    flat = {}
+    offset = 0
+    for name in order:
+        t = tensors[name]
         flat[name] = t.detach().to("cpu").contiguous().reshape(-1).view(torch.uint8)
         n = flat[name].numel()
         header[name] = {"dtype": _DTYPE_NAMES[t.dtype], "shape": list(t.shape),
@@ -278,7 +285,7 @@ def write_safetensors(path: str | Path, tensors: dict[str, torch.Tensor]) -> Non
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(head)))
         f.write(head)
-        for name in sorted(flat):
+        for name in order:
             f.write(memoryview(flat[name].numpy()))
 
 

@@ -2,8 +2,9 @@
 
 Counterpart of `paroquant_tpu/models/decoder.py:38-353, 407-680, 693-843`:
 plain functions over a params dict, with the same names, so each JAX
-function has its twin here. Linears are `DenseLinear` or the quantized
-modules of ops/qlinear.py.
+function has its twin here. Linears are `DenseLinear`, the quantized
+modules of ops/qlinear.py, or calibration's `optim/pseudo.py::
+PseudoQuantLinear` (unmerged, on the q/k/v and MLP paths alike).
 
 The decode step makes no host sync: the cache length is a 0-d device
 tensor, new K/V rows are written with `index_copy_` at that position, and
@@ -48,6 +49,10 @@ class DenseLinear(nn.Module):
 def apply_linear(lin, x: torch.Tensor, *, quant_mode: str = "xla") -> torch.Tensor:
     if isinstance(lin, QuantizedLinear):
         return quantized_linear_forward(lin, x, mode=quant_mode)
+    if type(lin).__name__ == "PseudoQuantLinear":  # calibration path
+        from ..optim.pseudo import pseudo_linear_forward
+
+        return pseudo_linear_forward(lin, x)
     y = (x @ lin.w.to(x.dtype)).to(x.dtype)
     if lin.b is not None:
         y = y + lin.b.to(y.dtype)

@@ -11,6 +11,12 @@ Interchange layout (the reference checkpoint schema):
   theta  f32   [K, H/2]  one angle per pair
   mask   bool  [K, H/2]  True for dummy (identity-padding) pairs
 
+Calibration differentiates through `apply_rotation_stages` in theta, x and
+the channel scales (`scaled_pairwise_rotation`) by plain autograd, as JAX's
+calibration differentiates through its twin: each stage's `perm` is a
+permutation, so the `index_select` backward adds one contribution per
+channel.
+
 Pair generation and packing run on the host with numpy and Python's
 `random.Random(seed)`, line for line as in the JAX package, so a seed gives
 the same pairs in both.
@@ -224,6 +230,12 @@ def to_permutation_form(pairs, group_size: int, device=None) -> PermutationForm:
 # ---------------------------------------------------------------------------
 
 
+def effective_theta(params: RotationParams) -> torch.Tensor:
+    """theta with the dummy pairs' angles pinned to zero (masked inside the
+    forward, so no step needs to re-zero them)."""
+    return torch.where(params.mask, torch.zeros_like(params.theta), params.theta)
+
+
 def apply_rotation_stages(
     x: torch.Tensor,
     theta: torch.Tensor,
@@ -249,6 +261,18 @@ def apply_rotation_stages(
         s = torch.sin(th_ch) * form.sign[r]
         y = c * y + s * torch.index_select(y, -1, form.perm[r])
     return y.to(orig_dtype)
+
+
+def scaled_pairwise_rotation(
+    x: torch.Tensor,
+    theta: torch.Tensor,
+    form: PermutationForm,
+    channel_scales: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Scale, then rotate: y = R (x * channel_scales) rowwise."""
+    if channel_scales is not None:
+        x = x * channel_scales.to(x.dtype)
+    return apply_rotation_stages(x, theta, form)
 
 
 # ---------------------------------------------------------------------------
@@ -282,3 +306,16 @@ def build_rotation_matrices(
         stage = c[..., None] * eye + s[..., None] * onehot
         R = torch.bmm(stage, R)
     return R.to(dtype)
+
+
+def apply_rotation_matrices(
+    x: torch.Tensor, rot: torch.Tensor, *, inverse: bool = False
+) -> torch.Tensor:
+    """y[..., g*S+i] = sum_j rot[g, i, j] * x[..., g*S+j] (rot^T with
+    inverse=True), accumulated in f32 and cast back to x's dtype."""
+    G, S, _ = rot.shape
+    shape = x.shape
+    xg = x.reshape(*shape[:-1], G, S).to(rot.dtype).to(torch.float32)
+    eq = "gji,...gj->...gi" if inverse else "gij,...gj->...gi"
+    y = torch.einsum(eq, rot.to(torch.float32), xg)
+    return y.reshape(shape).to(x.dtype)

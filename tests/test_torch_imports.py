@@ -42,6 +42,9 @@ EXPERIMENT_MODULES = (
     "paroquant_tpu_torch.cli.serve", "paroquant_tpu_torch.convert.gptq",
     "paroquant_tpu_torch.optim.data", "paroquant_tpu_torch.experiments.baselines.rtn_baseline",
     "paroquant_tpu_torch.experiments.baselines.gptq_baseline",
+    "paroquant_tpu_torch.optim.pseudo", "paroquant_tpu_torch.optim.train",
+    "paroquant_tpu_torch.optim.calibrate", "paroquant_tpu_torch.cli.optimize",
+    "paroquant_tpu_torch.cli.convert", "paroquant_tpu_torch.scripts.bench_calibration",
 )
 
 
@@ -91,6 +94,10 @@ def _entry_points():
     from paroquant_tpu_torch.scripts import bench_longcontext
     from paroquant_tpu_torch.cli import serve as cli_serve
     from paroquant_tpu_torch.convert.gptq import gptq_quantize_model
+    from paroquant_tpu_torch.cli import convert as cli_convert
+    from paroquant_tpu_torch.cli import optimize as cli_optimize
+    from paroquant_tpu_torch.optim import CalibConfig, calibrate_model
+    from paroquant_tpu_torch.scripts import bench_calibration
     from paroquant_tpu_torch.experiments.baselines import gptq_baseline, rtn_baseline
     from paroquant_tpu_torch.serve import Engine, Generator, PagedKVCache, create_generator
     from paroquant_tpu_torch.utils.cache import enable_compilation_cache
@@ -155,6 +162,13 @@ def _entry_points():
                                                           "--output", "/nonexistent"]),
         "gptq_quantize_model": lambda: gptq_quantize_model({"layers": []}, cfg,
                                                            np.zeros((1, 8), np.int32)),
+        "calibrate_model": lambda: calibrate_model({"layers": []}, cfg,
+                                                   np.zeros((1, 1, 8), np.int32), CalibConfig()),
+        "cli.optimize.main": lambda: cli_optimize.main(["--model", "preset:tiny",
+                                                        "--output", "/nonexistent"]),
+        "cli.convert.main": lambda: cli_convert.main(["--model", "preset:tiny", "--results",
+                                                      "/nonexistent", "--output", "/nonexistent"]),
+        "bench_calibration.main": lambda: bench_calibration.main([]),
     }
 
 
@@ -173,7 +187,8 @@ def _entry_points():
      "bench_decode_accounting.account", "bench_kv_quant.main", "bench_a8_accuracy.main",
      "cli.evaluate.main", "cli.chat.main", "bench_longcontext.main", "bench_longcontext.build_w4",
      "cli.serve.main", "cli.serve.build", "rtn_baseline.main", "gptq_baseline.main",
-     "gptq_quantize_model"],
+     "gptq_quantize_model", "calibrate_model", "cli.optimize.main", "cli.convert.main",
+     "bench_calibration.main"],
 )
 def test_cuda_default_raises_without_cuda(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
