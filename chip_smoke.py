@@ -174,7 +174,7 @@ Phases, each printing one or more lines:
      window held against its plain version on one kv head's group, and K4
      over one slot of 32768 keys, each timed beside SDPA; then
      bench_longcontext's ttft16k at its defaults (K3 on every chunk of
-     every layer, K4), gen32k at --gen-total 1024 (992 tokens, "done";
+     every layer, K4), gen32k at --gen-total 384 (352 tokens, "done";
      K4) and ppl16k at qwen3-8b width cut to 2 layers over the 16384-token
      window (K3; PPL and peak bytes finite);
   9. the conversion and HTTP serving paths, each with the counts reset
@@ -208,8 +208,27 @@ Phases, each printing one or more lines:
      path within TOL_E2E of quant_mode "xla" with the einsum attention (K1,
      K3); then `cli.optimize` and `cli.convert` (real paro-tpu, real awq,
      pseudo; each output loaded and decoded) and `bench_calibration
-     --tokens 8192`, each printing its line;
-  11. the `kernels` JSON line, then the result line.
+     --tokens 2048`, each printing its line;
+  11. the MoE family (`moe_paths`, the counts reset just before and read
+     just after; K1-K5 must run): Qwen3-30B-A3B's published widths (48
+     layers, 128 experts, top 8) with random bf16 weights from a seeded
+     torch.Generator, built layer by layer on the card (RTN W4 g128, the
+     experts through quantize_experts_rtn, a W4 lm_head, merged
+     projections; its seconds and peak bytes); the Generator (quant_mode
+     "auto", flash) over four greedy requests of 16-512 prompt tokens, 32
+     new each (tok/s, ms a step), its decode step under sync debug mode
+     "error", profile_decode's busy ms, idle share and launches a step, and
+     the kernel path's teacher-forced logits against "xla" + einsum within
+     TOL_E2E; the Engine (8 slots, pages of 128, spec_k 4, bf16 pool) over
+     eight greedy requests, each one's logprobs within TOL_LOGPROB of one
+     contiguous prefill; at 2 of the 48 layers a PARO-TPU directory
+     (stacked experts) and an AWQ one (per-expert), each loaded to the
+     in-memory model's logits and tokens bit for bit; GPTQ of one layer at
+     this width over 4 x 512 tokens (its seconds, each projection's error
+     below RTN's); and a 1-layer tiny-moe calibration on the card within
+     the CPU tests' tolerance of the same one on the host;
+  12. a `phase_seconds` line after each phase, the `kernels` JSON line,
+     then the result line.
 It imports nothing of JAX, catches no failure of the port (only a library
 yardstick's refusal of a shape, `int_mm_yardstick`), and exits non-zero without
 printing a result when CUDA is missing or the package is not beside it.
@@ -1641,19 +1660,44 @@ def int8_edges(gen, dev, record, record_exact):
         raise SystemExit("fused_unpack_int8_dot ran an odd S")
 
 
-def sass_counts(lib_name, ops):
-    """Per function of a built library (`cuobjdump -sass`), the number of
-    SASS lines holding each of `ops`; None where the toolkit has no cuobjdump."""
-    import shutil
+_SASS: dict[str, str] = {}
 
-    from paroquant_tpu_torch.kernels import build
+
+def sass_text(lib_path):
+    """`cuobjdump -sass` of a built library, dumped once a library; None where
+    the toolkit has no cuobjdump."""
+    import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return None
-    lib = Path(build.build_info["dir"]) / lib_name
-    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True,
-                          timeout=120).stdout
+    key = str(lib_path)
+    if key not in _SASS:
+        _SASS[key] = subprocess.run([tool, "-sass", key], capture_output=True, text=True,
+                                    check=True, timeout=120).stdout
+    return _SASS[key]
+
+
+def prefetch_sass():
+    """Every built library's SASS, one cuobjdump each, all started together
+    (the checks below read them from `sass_text`'s cache)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from paroquant_tpu_torch.kernels import build
+
+    libs = sorted(Path(build.build_info["dir"]).glob("lib*.so"))
+    with ThreadPoolExecutor(max(len(libs), 1)) as pool:
+        list(pool.map(sass_text, libs))
+
+
+def sass_counts(lib_name, ops):
+    """Per function of a built library (`cuobjdump -sass`), the number of
+    SASS lines holding each of `ops`; None where the toolkit has no cuobjdump."""
+    from paroquant_tpu_torch.kernels import build
+
+    text = sass_text(Path(build.build_info["dir"]) / lib_name)
+    if text is None:
+        return None
     counts, fn = {}, None
     for line in text.splitlines():
         if "Function :" in line:
@@ -1702,13 +1746,10 @@ def stream_sass_digests(lib_path):
     `cuobjdump -sass`; None where the toolkit has no cuobjdump."""
     import hashlib
     import re
-    import shutil
 
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not Path(tool).exists():
+    text = sass_text(lib_path)
+    if text is None:
         return None
-    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
-                          check=True, timeout=120).stdout
     code = re.compile(r"/\*[0-9a-f]{4,}\*/|/\* 0x[0-9a-f]{16} \*/")
     bodies, key = {}, None
     for line in text.splitlines():
@@ -1730,20 +1771,16 @@ def check_descriptors():
     that instruction raised "illegal instruction" (CUDA error 715) on this
     card; K17's own copies take UR4. Emits the `descriptors` line: each
     library's descriptor registers."""
-    import shutil
-
     from paroquant_tpu_torch.kernels import build
     from paroquant_tpu_torch.scripts.int8_dot_sweep import descriptor_registers
 
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not Path(tool).exists():
+    libs = sorted(Path(build.build_info["dir"]).glob("lib*.so"))
+    if libs and sass_text(libs[0]) is None:
         emit({"phase": "descriptors", "checked": False, "why": "no cuobjdump"})
         return
     found, odd = {}, []
-    for lib in sorted(Path(build.build_info["dir"]).glob("lib*.so")):
-        text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
-                              check=True, timeout=120).stdout
-        regs = descriptor_registers(text)
+    for lib in libs:
+        regs = descriptor_registers(sass_text(lib))
         found[lib.name] = regs
         odd += [f"{lib.name}: UR{n}" for n in regs if n % 2]
     emit({"phase": "descriptors", "checked": True, "registers": found, "odd": odd})
@@ -2452,17 +2489,17 @@ def qwen3_model(dev):
     return qparams, cfg
 
 
-def check_routes(rm, phase):
+def check_routes(rm, phase, need=ONE_LAUNCH_ROUTES):
     """K1/K2's calls by route since the counts were reset; every W4A16 call at
     M <= 16 must have taken the one-launch route, every a8 call at M <= 16
-    the RA8 route (the lm_head's, once a decode step), and both must have
-    run."""
+    the RA8 route (the lm_head's, once a decode step), and each route of
+    `need` must have run."""
     routes = {k: dict(v) for k, v in rm.route_counts.items()}
     stray = {k: (v["passes_w4a16_m16"], v["passes_a8_m16"]) for k, v in routes.items()
              if v["passes_w4a16_m16"] or v["passes_a8_m16"]}
     if stray:
         raise SystemExit(f"{phase}: K1/K2 calls at M <= 16 (W4A16, a8) took the passes: {stray}")
-    for route in ONE_LAUNCH_ROUTES:
+    for route in need:
         if not any(v[route] for v in routes.values()):
             raise SystemExit(f"{phase}: no K1/K2 call took the {route} route")
     return routes
@@ -3864,11 +3901,14 @@ def long_attention(dev):
     return rows
 
 
+GEN32K_TOTAL = 384  # gen32k's context: its 32-token prompt and 352 generated
+
+
 def bench_longcontext_phase(dev):
     """The three arms through script_phase: ttft16k at its defaults (16384
     tokens in chunks of 2048: K3 on every chunk of each layer, twice, and K4
-    in the decode), gen32k at --gen-total 1024 (992 tokens, finish "done",
-    K4), ppl16k at qwen3-8b width cut to 2 layers over the full 16384-token
+    in the decode), gen32k at --gen-total GEN32K_TOTAL (finish "done", K4),
+    ppl16k at qwen3-8b width cut to 2 layers over the full 16384-token
     window (K3 once a layer; PPL and peak bytes finite)."""
     import torch
 
@@ -3898,10 +3938,10 @@ def bench_longcontext_phase(dev):
     if (k3 != 2 * out["chunks"] * L
             or not (finite(out["ttft_cold_s"]) and finite(out["ttft_warm_s"]))):
         raise SystemExit(f"ttft16k: K3 ran {k3} times, not {2 * out['chunks'] * L}: {out}")
-    args = bl.parse_args(["--arm", "gen32k", "--gen-total", "1024"])
+    args = bl.parse_args(["--arm", "gen32k", "--gen-total", str(GEN32K_TOTAL)])
     out = script_phase("bench_longcontext_gen32k", lambda: bl.arm_gen32k(args, dev, model),
                        {"paged_decode_attention": (), "rot_w4_matmul": ()})
-    if out["finish"] != "done" or out["generated"] != 1024 - 32:
+    if out["finish"] != "done" or out["generated"] != GEN32K_TOTAL - 32:
         raise SystemExit(f"gen32k: {out}")
     del model
     torch.cuda.empty_cache()
@@ -3948,9 +3988,10 @@ def user_paths(dev):
 # GPTQ's depth, cut from Qwen3-0.6B's 28 layers (never the width): at 28 the
 # step took 85.2 s of GPTQ alone in one run on an NVIDIA H100 80GB HBM3 at
 # 700.00 W, over the ~90 s it may take
-GPTQ_LAYERS = 14
+GPTQ_LAYERS = 4
 GPTQ_SAMPLES, GPTQ_SEQLEN = 8, 512
 HTTP_TIMEOUT = 120.0  # seconds a client call may take; an engine thread that died shows here
+HTTP_NEW_TOKENS = 32  # each greedy completion of serve_http's rounds
 # nats: a served token may sit this far below its prefix's top token in a
 # prefill of the whole sequence (a near-tie that batching's arithmetic may
 # flip): two steps of these bf16 logits (0.03125 at magnitudes 4-8), one for
@@ -3965,10 +4006,14 @@ def model_from_exports(params, exports, fmt, dev):
     """The model a saved directory should load to, built in memory from the
     exports: dense tensors rounded to f16 as the file holds them (loaded as
     bf16), theta and channel scales to f16, and the AWQ format's scales to
-    f16 (the PARO-TPU format keeps them f32)."""
+    f16 (the PARO-TPU format keeps them f32). A sparse layer's router (and
+    an untied lm_head) are dense; its stacked experts come from the
+    "mlp.experts" export through `quantized_moe_from_export`."""
     import torch
 
+    from paroquant_tpu_torch.models import DenseLinear
     from paroquant_tpu_torch.ops.qlinear import make_quantized_linear
+    from paroquant_tpu_torch.optim.pseudo_moe import quantized_moe_from_export
 
     def f16(t):
         return t.to(torch.float16).to(torch.bfloat16)
@@ -3982,11 +4027,24 @@ def model_from_exports(params, exports, fmt, dev):
                                      r16(e["theta"]), r16(e["inv_channel_scales"]),
                                      e["group_size"], n_bits=e["n_bits"], device=dev)
 
+    def experts(e):
+        e = dict(e, **{k: r16(e[k]).numpy() for k in e if k.endswith(("_theta", "_scales"))})
+        if fmt == "awq":
+            e.update({p: dict(e[p], scales=r16(e[p]["scales"]).numpy())
+                      for p in ("gate", "up", "down")})
+        return quantized_moe_from_export(e, torch.bfloat16, dev)
+
     out = {"embed_tokens": f16(params["embed_tokens"]), "norm": f16(params["norm"]), "layers": []}
+    if "lm_head" in params:
+        out["lm_head"] = DenseLinear(f16(params["lm_head"].w))
     for lp, exp in zip(params["layers"], exports):
         nlp = {k: f16(v) for k, v in lp.items() if k.endswith("norm")}
         nlp.update({k: qlin(exp[k]) for k in ("q_proj", "k_proj", "v_proj", "o_proj")})
-        nlp["mlp"] = {k: qlin(exp[f"mlp.{k}"]) for k in ("gate_proj", "up_proj", "down_proj")}
+        if "mlp.experts" in exp:
+            nlp["mlp"] = {"router": DenseLinear(f16(lp["mlp"]["router"].w)),
+                          "experts": experts(exp["mlp.experts"])}
+        else:
+            nlp["mlp"] = {k: qlin(exp[f"mlp.{k}"]) for k in ("gate_proj", "up_proj", "down_proj")}
         out["layers"].append(nlp)
     return out
 
@@ -4144,12 +4202,24 @@ SMALL_CALIB = dict(n_bits=4, group_size=64, num_rotations=6,
                            ({"weight": 1e-5, "quantizer": 1e-6}, 2)))
 
 
+def linear_exports(layer: dict) -> dict:
+    """A layer's exports with the stacked experts' export split into one
+    entry a projection in the linears' keys (q, theta, inv_channel_scales)."""
+    out = {k: v for k, v in layer.items() if k != "mlp.experts"}
+    if "mlp.experts" in layer:
+        e = layer["mlp.experts"]
+        for p, side in (("gate", "gate_up"), ("up", "gate_up"), ("down", "down")):
+            out[f"mlp.experts.{p}"] = {"q": e[p]["q"], "theta": e[f"{side}_theta"],
+                                       "inv_channel_scales": e[f"{side}_inv_channel_scales"]}
+    return out
+
+
 def calib_exports_close(a, b) -> dict:
     """The CPU tests' rule between two calibrations' exports: theta and the
     inverse channel scales within 2e-3, codes equal in at least 99.5%, never
-    more than 1 apart."""
+    more than 1 apart (stacked experts: each projection)."""
     worst = {"theta": 0.0, "inv_channel_scales": 0.0, "codes_equal": 1.0, "max_code_diff": 0}
-    for la, lb in zip(a, b):
+    for la, lb in zip(map(linear_exports, a), map(linear_exports, b)):
         for name in la:
             for k in ("theta", "inv_channel_scales"):
                 d = abs(la[name][k] - lb[name][k]).max() / max(abs(la[name][k]).max(), 1.0)
@@ -4162,8 +4232,8 @@ def calib_exports_close(a, b) -> dict:
     return worst
 
 
-def small_calibration_on_both(dev) -> None:
-    """The port's 1-layer, hidden-256 calibration (the tiny preset, outlier
+def small_calibration_on_both(dev, preset="tiny", calib=SMALL_CALIB) -> None:
+    """The port's 1-layer calibration of a small preset (hidden 256, outlier
     input channels) on the card against the same calibration on the host."""
     import dataclasses
 
@@ -4175,7 +4245,7 @@ def small_calibration_on_both(dev) -> None:
     from paroquant_tpu_torch.models.decoder import model_forward
     from paroquant_tpu_torch.optim import CalibConfig, calibrate_model
 
-    cfg = dataclasses.replace(PRESETS["tiny"], num_hidden_layers=1)
+    cfg = dataclasses.replace(PRESETS[preset], num_hidden_layers=1)
     cpu = torch.device("cpu")
     params = inject_outlier_channels(init_params(cfg, 5, torch.float32, cpu), cfg, scale=6.0,
                                      frac=0.03)
@@ -4184,14 +4254,15 @@ def small_calibration_on_both(dev) -> None:
     test = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 16)))
     out = []  # (exports, logits) on the host, then on the card
     for d in (cpu, dev):
-        q, exps = calibrate_model(params, cfg, tokens, CalibConfig(**SMALL_CALIB), device=d)
+        q, exps = calibrate_model(params, cfg, tokens, CalibConfig(**calib), device=d)
         with torch.no_grad():
             out.append((exps, model_forward(q, cfg, test.to(d))[0].float().cpu()))
     (host_exps, host), (card_exps, card_logits) = out
     worst = calib_exports_close(host_exps, card_exps)
     err = ((card_logits - host).abs().max() / host.abs().max()).item()
-    moved = max(float(abs(e["theta"]).max()) for e in host_exps[0].values())
-    row = {"phase": "calibrate_card_vs_host", "layers": 1, "hidden": cfg.hidden_size, **worst,
+    moved = max(float(abs(e["theta"]).max()) for e in linear_exports(host_exps[0]).values())
+    row = {"phase": "calibrate_card_vs_host", "preset": preset, "layers": 1,
+           "hidden": cfg.hidden_size, "stages": [[g, e] for g, e in calib["stages"]], **worst,
            "logits_rel_max_err": err, "bound": 0.02, "host_theta_max": moved}
     emit(row)
     if not worst["ok"] or err > 0.02 or moved == 0.0:
@@ -4211,7 +4282,7 @@ def calibrate_paths(tmp, dev):
     TOL_E2E of quant_mode "xla" with the einsum attention. Then the CLIs
     (cli.optimize with --save-checkpoint on a dense directory of the same
     width, cli.convert in its three outputs, each loaded and decoded) and
-    bench_calibration --tokens 8192. Counts reset just before, read just
+    bench_calibration --tokens 2048. Counts reset just before, read just
     after: K1 and K3 must run."""
     import dataclasses
 
@@ -4340,7 +4411,7 @@ def calibrate_paths(tmp, dev):
         raise SystemExit(f"calibrate: the CLIs' outputs: {row}")
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    bench = bench_calibration.main(["--tokens", "8192", "--device", dev.type])
+    bench = bench_calibration.main(["--tokens", "2048", "--device", dev.type])
     bench_s = time.perf_counter() - t
     if not all(np.isfinite([bench["value"], bench["est_full_recipe_hours_36L_4M_tokens"]])):
         raise SystemExit(f"calibrate: bench_calibration: {bench}")
@@ -4350,6 +4421,534 @@ def calibrate_paths(tmp, dev):
     for kernel in ("rot_w4_matmul", "flash_attention"):
         if not launched["counts"].get(kernel):
             raise SystemExit(f"calibrate_paths: {kernel} did not run: {launched}")
+    torch.cuda.empty_cache()
+
+
+# Qwen3-30B-A3B's published widths (config.json of Qwen/Qwen3-30B-A3B on the
+# Hugging Face hub), with random weights from seeds
+QWEN3_30B_A3B = dict(model_type="qwen3_moe", vocab_size=151936, hidden_size=2048,
+                     intermediate_size=6144, num_hidden_layers=48, num_attention_heads=32,
+                     num_key_value_heads=4, head_dim=128, num_experts=128, num_experts_per_tok=8,
+                     moe_intermediate_size=768, norm_topk_prob=True, decoder_sparse_step=1,
+                     mlp_only_layers=[], rope_theta=1e6, rms_norm_eps=1e-6,
+                     tie_word_embeddings=False)
+MOE_LAYERS = 48  # the served model's depth (all of Qwen3-30B-A3B's)
+MOE_CKPT_LAYERS = 2  # the checkpoints' depth
+MOE_PROMPTS = (16, 128, 256, 512)  # the Generator's requests, MOE_NEW_TOKENS each
+MOE_NEW_TOKENS = 32
+MOE_GPTQ_TOKENS = (4, 512)  # sequences x tokens
+# the 1-layer calibration of tiny-moe, card against host (stage 1 at
+# tests/test_torch_pseudo_moe.py's LR, one epoch a stage)
+MOE_CALIB = dict(n_bits=4, group_size=64, num_rotations=4,
+                 stages=(({"channel_scales": 5e-3, "angles": 5e-3}, 1),
+                         ({"weight": 1e-5, "quantizer": 1e-6}, 1)))
+
+
+def moe_config(layers):
+    from paroquant_tpu_torch.models import from_hf_dict
+
+    return from_hf_dict(dict(QWEN3_30B_A3B, num_hidden_layers=layers))
+
+
+def moe_model(dev, layers):
+    """Qwen3-30B-A3B at full width, built layer by layer on the card from a
+    seeded torch.Generator: random bf16 weights, Hadamard RTN W4 g128 of the
+    attention (the 128 experts through quantize_experts_rtn, identity
+    rotations; the router dense), a W4 lm_head, merged projections. Emits
+    the build's seconds, peak bytes and the model's bytes."""
+    import dataclasses
+
+    import torch
+
+    from paroquant_tpu_torch.convert.rtn import quantize_model_rtn
+    from paroquant_tpu_torch.models import init_params, merge_projections
+    from paroquant_tpu_torch.models.decoder import _init_layer
+
+    cfg = moe_config(layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(30)
+    outer = dataclasses.replace(cfg, num_hidden_layers=0)
+    qparams = quantize_model_rtn(init_params(outer, gen, torch.bfloat16, dev), outer,
+                                 hadamard=True, quantize_lm_head=True, device=dev)
+    layers_q = []
+    for i in range(cfg.num_hidden_layers):
+        lp = _init_layer(cfg, gen, i, torch.bfloat16, dev)
+        layers_q.append(quantize_model_rtn({"layers": [lp]}, cfg, hadamard=True,
+                                           device=dev)["layers"][0])
+        del lp
+    qparams["layers"] = layers_q
+    qparams = merge_projections(qparams, cfg)
+    torch.cuda.synchronize()
+    emit({"phase": "moe_model", "config": "Qwen3-30B-A3B", "layers": cfg.num_hidden_layers,
+          "cut": None if layers == 48 else f"depth {layers} of 48",
+          "experts": cfg.num_experts, "top_k": cfg.num_experts_per_tok,
+          "build_s": time.perf_counter() - t0,
+          "model_bytes": torch.cuda.memory_allocated(dev) - base,
+          "peak_bytes": torch.cuda.max_memory_allocated(dev) - base})
+    return qparams, cfg
+
+
+def moe_generator(qparams, cfg, dev):
+    """The Generator (quant_mode "auto", flash) over MOE_PROMPTS, greedy, with
+    its tok/s and ms a step; the decode step under sync debug mode "error";
+    profile_decode's busy ms, idle share and launches a step; then the
+    teacher-forced logits (prefill of 256 + 8 steps) of the kernel path
+    against quant_mode "xla" with the einsum attention, within TOL_E2E."""
+    import torch
+
+    from paroquant_tpu_torch.serve import Generator, SamplingParams
+    from paroquant_tpu_torch.utils.profiling import profile_decode
+
+    gen = Generator(qparams, cfg, max_len=1024, quant_mode="auto", attn_mode="flash", device=dev)
+    g = torch.Generator().manual_seed(41)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist() for n in MOE_PROMPTS]
+    gen.generate(prompts[0], SamplingParams(max_tokens=4, temperature=0.0))  # warm-up
+    results = []
+    for p in prompts:
+        torch.cuda.synchronize()
+        res = gen.generate(p, SamplingParams(max_tokens=MOE_NEW_TOKENS, temperature=0.0))
+        toks = res.token_ids
+        ok = len(toks) == MOE_NEW_TOKENS and all(0 <= t < cfg.vocab_size for t in toks)
+        emit({"phase": "moe_request", "prompt_tokens": len(p), "new_tokens": len(toks),
+              "prefill_ms": res.stats.ttft * 1e3, "decode_tok_s": res.stats.tokens_per_second,
+              "decode_ms_per_step": 1e3 / res.stats.tokens_per_second, "ok": ok,
+              "first_tokens": toks[:8]})
+        if not ok:
+            raise SystemExit(f"moe: a {len(p)}-token prompt returned {len(toks)} tokens")
+        results.append(res)
+    check_decode_has_no_sync({"qwen3-30b-a3b": (qparams, cfg)}, dev)
+    prof = profile_decode(qparams, cfg, prompt_len=256, steps=8, device=dev)
+    emit({"phase": "moe_decode_profile", "prompt_tokens": 256, "quant_mode": "auto",
+          "card": card(), **prof})
+    tokens = torch.tensor([prompts[2] + results[2].token_ids[:8]], dtype=torch.int32, device=dev)
+    moe_logits_check(qparams, cfg, tokens, len(prompts[2]), dev)
+
+
+def moe_logits_check(qparams, cfg, tokens, n, dev):
+    """The kernel path's teacher-forced logits (a prefill of n tokens, then
+    a decode step a token) against quant_mode "xla" with the einsum
+    attention. An expert choice is a discontinuous function of the router's
+    inputs, so where the two paths' hidden states differ in their last bits
+    a token near a routing tie takes another expert in one path only, and
+    the change flows through the later layers. So the kernel path runs
+    twice: free (its own routing; its error and the share of routed rows
+    whose expert set differs from the reference's are recorded) and pinned
+    to the reference's routing (each MoE block given the reference's expert
+    choices and gates, in call order), which holds the kernels' numerics:
+    the pinned error must stay within TOL_E2E."""
+    import torch
+
+    from paroquant_tpu_torch.ops import moe as moe_ops
+
+    plain = moe_ops.moe_apply
+    routes, replay = [], []
+
+    def routed(experts, x, idx, gates, *a, **k):
+        if replay:
+            idx, gates = replay.pop(0)
+        else:
+            routes.append((idx.clone(), gates.clone()))
+        return plain(experts, x, idx, gates, *a, **k)
+
+    moe_ops.moe_apply = routed
+    try:
+        ref = teacher_forced(qparams, cfg, tokens, n, "xla", "einsum", dev)
+        ref_routes, routes = routes, []
+        free = teacher_forced(qparams, cfg, tokens, n, "auto", "flash", dev)
+        replay[:] = ref_routes
+        pinned = teacher_forced(qparams, cfg, tokens, n, "auto", "flash", dev)
+        if replay:
+            raise SystemExit(f"moe: {len(replay)} recorded routings were not replayed")
+    finally:
+        moe_ops.moe_apply = plain
+    flips = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                for (a, _), (b, _) in zip(ref_routes, routes))
+    rows = sum(a.shape[0] for a, _ in ref_routes)
+
+    def rel(x):
+        return ((x - ref).norm(dim=-1) / ref.norm(dim=-1)).tolist()
+
+    finite = bool(torch.isfinite(pinned).all() and torch.isfinite(free).all()
+                  and torch.isfinite(ref).all())
+    agree = sum(int(a) == int(b) for a, b in zip(pinned.argmax(-1), ref.argmax(-1)))
+    row = {"phase": "moe_logits_check", "rel_fro_err": rel(pinned), "bound": TOL_E2E,
+           "routing": "pinned to the reference's", "free_rel_fro_err": rel(free),
+           "free_routed_rows_flipped": flips, "routed_rows": rows, "finite": finite,
+           "argmax_agree": agree, "steps": pinned.shape[0], "shape": list(pinned.shape)}
+    emit(row)
+    if (not finite or max(row["rel_fro_err"]) > TOL_E2E
+            or pinned.shape != (tokens.shape[1] - n + 1, cfg.vocab_size)):
+        raise SystemExit("moe: kernel-path logits disagree with the reference path")
+
+
+class RoutingLog:
+    """Records and replays the MoE blocks' routing by (request, position,
+    layer). While installed, `ops.moe.moe_apply` is wrapped: `keys` names
+    each row of the current forward (a (request, position) pair, or None
+    for padding and idle slots) and `layer` counts the forward's MoE calls.
+    Recording keeps each row's expert ids and gates (the last computation
+    of a position wins, as it wrote the position's KV); replay hands each
+    keyed row the recorded routing where there is one. The Engine's forwards
+    are keyed by wrapping its model_forward (prefill: the request whose
+    prompt holds the chunk at the cache's offset), paged_decode_step (slot
+    b at seq_lens[b]) and paged_verify_step (slot b at seq_lens[b] + w);
+    the rows of idle slots and of slots still prefilling are not keyed."""
+
+    def __init__(self, eng, prompts):
+        self.eng, self.prompts = eng, prompts
+        self.keys, self.layer, self.replay = None, 0, None
+        self.log, self.saved = {}, []
+
+    def _apply(self, experts, x, idx, gates, *a, **k):
+        keys, layer = self.keys, self.layer
+        self.layer += 1
+        if keys is not None:
+            if self.replay is not None:
+                import torch
+
+                i_h, g_h = idx.cpu().numpy().copy(), gates.float().cpu().numpy().copy()
+                for r, key in enumerate(keys):
+                    got = self.replay.get((*key, layer)) if key else None
+                    if got is not None:
+                        i_h[r], g_h[r] = got
+                idx = torch.from_numpy(i_h).to(idx.device)
+                gates = torch.from_numpy(g_h).to(gates.device, gates.dtype)
+            else:
+                i_h, g_h = idx.cpu().numpy(), gates.float().cpu().numpy()
+                for r, key in enumerate(keys):
+                    if key:
+                        self.log[(*key, layer)] = (i_h[r].copy(), g_h[r].copy())
+        return self.plain(experts, x, idx, gates, *a, **k)
+
+    def _keyed(self, fn, keys_of):
+        def call(*args, **kw):
+            self.keys, self.layer = keys_of(*args, **kw), 0
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.keys = None
+        return call
+
+    def _prefill_keys(self, params, config, tokens, cache=None, **kw):
+        toks = tokens.cpu().numpy()[0].tolist()
+        off = 0 if cache is None else int(cache.length)
+        for rid, p in enumerate(self.prompts):
+            n = min(len(toks), len(p) - off)
+            if n > 0 and p[off:off + n] == toks[:n]:
+                return [(rid, off + t) if off + t < len(p) else None for t in range(len(toks))]
+        return None
+
+    def _slot_keys(self, width):
+        def keys_of(params, config, tokens, seq_lens, *args, **kw):
+            rid = {id(r): i for i, r in enumerate(self.requests)}
+            lens = seq_lens.cpu().tolist()
+            out = []
+            for b, slot in enumerate(self.eng.slots):
+                # a slot still prefilling computes a garbage row at length 0
+                r = None if slot.prefilling else rid.get(id(slot.request))
+                out += [None if r is None else (r, lens[b] + w) for w in range(width(tokens))]
+            return out
+        return keys_of
+
+    def install(self, requests):
+        from paroquant_tpu_torch.ops import moe as moe_ops
+        from paroquant_tpu_torch.serve import engine as engine_mod
+
+        self.requests = requests
+        self.plain = moe_ops.moe_apply
+        self.forward = engine_mod.model_forward
+        self.saved = [(moe_ops, "moe_apply", moe_ops.moe_apply)] + [
+            (engine_mod, n, getattr(engine_mod, n))
+            for n in ("model_forward", "paged_decode_step", "paged_verify_step")]
+        moe_ops.moe_apply = self._apply
+        engine_mod.model_forward = self._keyed(self.forward, self._prefill_keys)
+        engine_mod.paged_decode_step = self._keyed(engine_mod.paged_decode_step,
+                                                   self._slot_keys(lambda t: 1))
+        engine_mod.paged_verify_step = self._keyed(engine_mod.paged_verify_step,
+                                                   self._slot_keys(lambda t: t.shape[1]))
+
+    def uninstall(self):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        self.saved = []
+
+    def score(self, rid, seq, replay):
+        """eng.score_sync(seq) of request rid's sequence, its rows keyed, with
+        the recorded routing replayed or not; returns (scores, its routing)."""
+        from paroquant_tpu_torch.serve import engine as engine_mod
+
+        n = len(seq)
+        self.replay = self.log if replay else None
+        own, self.log = self.log, {}
+        engine_mod.model_forward = self._keyed(
+            self.forward, lambda *a, **k: [(rid, t) if t < n else None
+                                           for t in range(a[2].shape[1])])
+        try:
+            scores = self.eng.score_sync(seq)
+        finally:
+            engine_mod.model_forward = self._keyed(self.forward, self._prefill_keys)
+            self.replay, routing, self.log = None, self.log, own
+        return scores, routing
+
+
+def moe_engine(qparams, cfg, dev):
+    """The Engine (8 slots, pages of 128, chunked prefill, prompt-lookup
+    speculation k 4, bf16 pool, quant_mode "auto") over eight greedy
+    requests of 16-512 prompt tokens (three of them repeated blocks, so that
+    drafts are found): every request returns its tokens. Each one's
+    logprobs against one contiguous prefill of its sequence
+    (Engine.score_sync): free, and with the prefill's routing pinned to the
+    Engine's (`RoutingLog`), which must lie within TOL_LOGPROB (routing
+    flips between the two computations are recorded, not held; see
+    `moe_logits_check`); a wrong context (the first half of the longest
+    prompt replaced) must move the scores by more than TOL_LOGPROB on
+    average. A decode step of 8 slots takes the experts' gather path (8 x
+    top 8 = 64), a verify window of 8 x 5 rows the ragged one."""
+    import numpy as np
+    import torch
+
+    from paroquant_tpu_torch.serve import Engine, SamplingParams
+
+    eng = Engine(qparams, cfg, max_batch=8, max_len=1024, page_size=128, prefill_chunk=256,
+                 quant_mode="auto", decode_burst=8, spec_k=4, device=dev)
+    g = torch.Generator().manual_seed(42)
+
+    def rand(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+
+    prompts = [rand(16), rand(24) * 8, rand(100), rand(512), rand(16) * 12, rand(300),
+               rand(32) * 10, rand(64)]
+    sp = SamplingParams(max_tokens=MOE_NEW_TOKENS, temperature=0.0)
+    eng.generate_sync(rand(40), SamplingParams(max_tokens=4, temperature=0.0))  # warm-up
+    for key in eng.metrics:
+        eng.metrics[key] = 0
+    eng._ttfts.clear()
+    eng._step_samples.clear()
+    log = RoutingLog(eng, prompts)
+    log.install(reqs := [])
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs += [eng.submit(p, sp) for p in prompts]
+        ticks = 0
+        while eng.step():
+            ticks += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        emit({"phase": "moe_serve", "requests": len(prompts), "wall_s": wall, "ticks": ticks,
+              "generated_tok_s": eng.metrics["tokens_generated"] / wall,
+              "timing": "routing recorded (a host copy of each MoE block's routing)",
+              "metrics": eng.metrics, "ttft": eng.ttft_stats(), "step_time": eng.step_time_stats()})
+        outs = []
+        for r, p in zip(reqs, prompts):
+            toks = []
+            while not r.out_queue.empty():
+                kind, t = r.out_queue.get_nowait()
+                if kind == "token":
+                    toks.append(t)
+            if len(toks) != MOE_NEW_TOKENS or not all(0 <= t < cfg.vocab_size for t in toks):
+                raise SystemExit(f"moe_serve: a {len(p)}-token prompt returned {len(toks)} tokens")
+            outs.append(toks)
+        if eng.metrics["spec_windows"] <= 0:
+            raise SystemExit(f"moe_serve: no speculative window: {eng.metrics}")
+        free, pinned, flips, scored = [], [], 0, 0
+        for rid, (r, p, toks) in enumerate(zip(reqs, prompts, outs)):
+            seq = p + toks
+            ref_free, routing = log.score(rid, seq, replay=False)
+            ref_pin, _ = log.score(rid, seq, replay=True)
+            free.append(max(abs(a - b) for a, b in zip(r.logprobs, ref_free[len(p):])))
+            pinned.append(max(abs(a - b) for a, b in zip(r.logprobs, ref_pin[len(p):])))
+            for key, (i_e, _) in log.log.items():
+                if key[0] == rid and key in routing:
+                    scored += 1
+                    flips += int(not np.array_equal(np.sort(i_e), np.sort(routing[key][0])))
+    finally:
+        log.uninstall()
+    _, p, toks = max(zip(reqs, prompts, outs), key=lambda t: len(t[1]))
+    half = len(p) // 2
+    wrong = torch.randint(0, cfg.vocab_size, (half,), generator=torch.Generator().manual_seed(13))
+    ref = eng.score_sync(p + toks)[len(p):]
+    moved = eng.score_sync(wrong.tolist() + p[half:] + toks)[len(p):]
+    context_move = statistics.mean(abs(a - b) for a, b in zip(ref, moved))
+    row = {"phase": "moe_serve_logprob_check", "requests": len(prompts),
+           "worst_gap": max(pinned), "gaps": pinned, "routing": "pinned to the Engine's",
+           "free_worst_gap": max(free), "free_gaps": free, "bound": TOL_LOGPROB,
+           "routed_rows_flipped": flips, "routed_rows": scored,
+           "wrong_context_mean_move": context_move}
+    emit(row)
+    if max(pinned) > TOL_LOGPROB or context_move <= TOL_LOGPROB or not scored:
+        raise SystemExit(f"moe_serve: engine logprobs off the contiguous prefill's: {row}")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def moe_checkpoints(tmp, dev):
+    """Qwen3-30B-A3B at MOE_CKPT_LAYERS layers (random bf16 weights): the
+    attention's Hadamard RTN exports and the experts' export of pseudo
+    experts with random shared rotations (`export_quantized_moe`), written
+    as a PARO-TPU directory (stacked experts) and an AWQ one (per-expert
+    buffers); each loads to the logits and greedy tokens, bit for bit, of
+    the model built in memory from the same exports rounded as the file
+    rounds them."""
+    import dataclasses
+
+    import torch
+
+    from paroquant_tpu_torch.convert import (load_checkpoint, rtn_export_model,
+                                             save_awq_checkpoint, save_paro_checkpoint)
+    from paroquant_tpu_torch.models import init_params
+    from paroquant_tpu_torch.ops import rotation as rot_ops
+    from paroquant_tpu_torch.optim.pseudo_moe import export_quantized_moe, make_pseudo_moe
+
+    cfg = moe_config(MOE_CKPT_LAYERS)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(31), torch.bfloat16, dev)
+    exports = rtn_export_model(params, cfg, hadamard=True)
+    g = torch.Generator(device=dev).manual_seed(32)
+    for li, lp in enumerate(params["layers"]):
+        ex = lp["mlp"]["experts"]
+        H, I = ex["gate_proj"].shape[1:]
+        pm = make_pseudo_moe(ex, rot_ops.make_rotation_params(H, 128, 8, li),
+                             rot_ops.make_rotation_params(I, 128, 8, li + 1000))
+        with torch.no_grad():
+            for side in ("gate_up", "down"):
+                th = getattr(pm, f"{side}_theta")
+                th.copy_(0.1 * torch.randn(th.shape, generator=g, device=dev))
+        exports[li]["mlp.experts"] = export_quantized_moe(pm)
+        del pm
+    timings = {"export_s": time.perf_counter() - t0}
+    for fmt, save in (("paro", save_paro_checkpoint), ("awq", save_awq_checkpoint)):
+        d = tmp / f"qwen3-30b-a3b-{fmt}"
+        t = time.perf_counter()
+        save(d, params, cfg, exports)
+        timings[f"save_{fmt}_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        loaded, lcfg = load_checkpoint(d, device=dev)
+        timings[f"load_{fmt}_s"] = time.perf_counter() - t
+        inmem = model_from_exports(params, exports, fmt, dev)
+        (la, lt), (ma, mt) = prefill_and_decode(loaded, lcfg, dev), prefill_and_decode(inmem, cfg, dev)
+        row = {"phase": f"moe_{fmt}_check", "layers": MOE_CKPT_LAYERS,
+               "file_bytes": (d / "model.safetensors").stat().st_size,
+               "config_equal": dataclasses.replace(lcfg, quantization_items=None) == cfg,
+               "experts_type": type(loaded["layers"][0]["mlp"]["experts"]).__name__,
+               "max_abs_err": (la - ma).abs().max().item(), "bound": 0.0,
+               "tokens_equal": torch.equal(lt, mt), "finite": bool(torch.isfinite(la).all())}
+        emit(row)
+        if (row["max_abs_err"] != 0.0 or not row["tokens_equal"] or not row["finite"]
+                or not row["config_equal"] or row["experts_type"] != "QuantizedMoEExperts"):
+            raise SystemExit(f"moe: the {fmt} directory loads to another model: {row}")
+        del loaded, inmem
+        torch.cuda.empty_cache()
+    emit({"phase": "moe_checkpoint_seconds", **timings})
+    del params, exports
+    torch.cuda.empty_cache()
+
+
+def moe_gptq(dev):
+    """gptq_quantize_model on one Qwen3-30B-A3B layer at full width (random
+    bf16 weights) over MOE_GPTQ_TOKENS synthetic tokens: its seconds, and
+    each projection's output error on those tokens, tr(D^T H D) with D the
+    weight's error and H its input's Hessian (the experts': summed over
+    experts, the shared Hessian GPTQ uses), below RTN's."""
+    import numpy as np
+    import torch
+
+    from paroquant_tpu_torch.convert.gptq import _tap_hessians, gptq_quantize_model
+    from paroquant_tpu_torch.convert.rtn import quantize_experts_rtn, quantize_linear_rtn
+    from paroquant_tpu_torch.models import init_params
+    from paroquant_tpu_torch.models.decoder import embed, rope_tables_per_layer
+    from paroquant_tpu_torch.ops.moe import _dequant_stacked
+    from paroquant_tpu_torch.ops.qlinear import effective_weight
+
+    cfg = moe_config(1)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(33), torch.bfloat16, dev)
+    N, T = MOE_GPTQ_TOKENS
+    tokens = np.random.default_rng(33).integers(0, cfg.vocab_size, (N, T)).astype(np.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qp, exports = gptq_quantize_model(params, cfg, tokens, batch_size=N, device=dev)
+    torch.cuda.synchronize()
+    gptq_s = time.perf_counter() - t0
+    lp, qlp = params["layers"][0], qp["layers"][0]
+    with torch.no_grad():
+        x = embed(params, cfg, torch.from_numpy(tokens).to(dev))
+        pos = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(N, T)
+        cos, sin = rope_tables_per_layer(pos, cfg)[0]
+        _, hs = _tap_hessians(lp, x, cfg, 0, cos, sin, pos)
+
+        def err(w, we, h):  # w, we [..., I, O]: sum of (w - we)^T H (w - we)'s trace
+            d = (we - w.to(torch.float32))
+            return float(((h @ d) * d).sum())
+
+        def experts_eff(q):  # the shared rotation applied back: M^T per group
+            outs = []
+            for p, rot in (("gate", q.gate_up_rot), ("up", q.gate_up_rot), ("down", q.down_rot)):
+                wd = _dequant_stacked(getattr(q, f"{p}_qweight"), getattr(q, f"{p}_scales"),
+                                      getattr(q, f"{p}_zeros"), q.group_size)
+                E, I, O = wd.shape
+                G, S, _ = rot.shape
+                outs.append(torch.einsum("gji,egjo->egio", rot.to(torch.float32),
+                                         wd.reshape(E, G, S, O)).reshape(E, I, O))
+            return outs
+
+        rows = []
+        for name, tap in (("q_proj", "qkv"), ("k_proj", "qkv"), ("v_proj", "qkv"), ("o_proj", "o")):
+            rtn = quantize_linear_rtn(lp[name])
+            rows.append({"projection": name,
+                         "gptq": err(lp[name].w, effective_weight(qlp[name]), hs[tap]),
+                         "rtn": err(lp[name].w, effective_weight(rtn), hs[tap])})
+        ex = lp["mlp"]["experts"]
+        got = experts_eff(qlp["mlp"]["experts"])
+        ref = experts_eff(quantize_experts_rtn(ex))
+        for (p, tap), g_, r_ in zip((("gate_proj", "mlp"), ("up_proj", "mlp"),
+                                     ("down_proj", "moe_down")), got, ref):
+            rows.append({"projection": f"experts.{p}", "gptq": err(ex[p], g_, hs[tap]),
+                         "rtn": err(ex[p], r_, hs[tap])})
+    worse = [r["projection"] for r in rows if not r["gptq"] < r["rtn"]]
+    row = {"phase": "moe_gptq_check", "layers": 1, "tokens": [N, T], "s": gptq_s,
+           "exported": sorted(exports[0]), "errors": rows, "worse_than_rtn": worse,
+           "card": card()}
+    emit(row)
+    if worse or "mlp.experts" not in exports[0]:
+        raise SystemExit(f"moe: GPTQ {row}")
+    del params, qp, exports, hs
+    torch.cuda.empty_cache()
+
+
+def moe_paths(tmp, dev):
+    """The MoE family at Qwen3-30B-A3B's full width (`moe_model`): the
+    Generator (`moe_generator`) and the Engine (`moe_engine`) at all 48
+    layers, the checkpoints (`moe_checkpoints`), GPTQ of one layer
+    (`moe_gptq`) and the card-against-host calibration of tiny-moe's
+    experts. Counts reset just before, read just after: K1-K5 must run."""
+    import torch
+
+    from paroquant_tpu_torch.kernels import rot_matmul as rm
+
+    reset_counts()
+    t0 = time.perf_counter()
+    qparams, cfg = moe_model(dev, MOE_LAYERS)
+    moe_generator(qparams, cfg, dev)
+    moe_engine(qparams, cfg, dev)
+    # at this width `auto` gives every W4 linear int8 activations (K x N >=
+    # AUTO_W4A8_MIN_KN), so at M <= 16 K1/K2 take RA8 only
+    routes = check_routes(rm, "moe_paths", need=("ra8",))
+    del qparams
+    torch.cuda.empty_cache()
+    moe_checkpoints(tmp, dev)
+    moe_gptq(dev)
+    small_calibration_on_both(dev, "tiny-moe", MOE_CALIB)
+    launched = port_launches()
+    emit({"phase": "moe_paths_launches", **launched, "routes_checked": routes,
+          "s": time.perf_counter() - t0})
+    missing = [k for k in ("rot_w4_matmul", "merged_rot_w4_matmul", "flash_attention",
+                           "paged_decode_attention", "paged_window_attention_kernel")
+               if not launched["counts"].get(k)]
+    if missing:
+        raise SystemExit(f"moe_paths: kernels not launched: {missing}")
     torch.cuda.empty_cache()
 
 
@@ -4454,7 +5053,7 @@ def serve_http(paro_dir, dev):
     checkpoint's layout, unmerged with a dense tied head, as JAX serves it:
     K1, K3, K4, K5), served on a loopback port from a thread. /health,
     /v1/models, /metrics; 8 concurrent greedy completions by
-    prompt_token_ids (64 new tokens) not streamed (with logprobs), then
+    prompt_token_ids (HTTP_NEW_TOKENS each) not streamed (with logprobs), then
     streamed, then submitted to the Engine directly: every token of every
     round is its prefix's greedy choice up to a near-tie (check_greedy), the
     logprobs within TOL_LOGPROB of Engine.score_sync; the Engine's own round
@@ -4485,7 +5084,7 @@ def serve_http(paro_dir, dev):
     eng, cfg = server.engine, server.engine.config
     engines = [eng]
     prompts = http_prompts(cfg)
-    greedy = {"max_tokens": 64, "temperature": 0.0}
+    greedy = {"max_tokens": HTTP_NEW_TOKENS, "temperature": 0.0}
     calls = []
 
     def call(url, method, path, body=None, stream=False):
@@ -4565,7 +5164,7 @@ def serve_http(paro_dir, dev):
                                 client_first_bytes_ms=[a[3] * 1e3 for a in answers])
         rounds["engine"] = engine_round()
         ref = rounds["http"]
-        if any(len(t) != 64 for t in ref["tokens"]) or set(ref["finish"]) != {"length"}:
+        if any(len(t) != HTTP_NEW_TOKENS for t in ref["tokens"]) or set(ref["finish"]) != {"length"}:
             raise SystemExit(f"serve_http: {ref['finish']}, {[len(t) for t in ref['tokens']]}")
         row["greedy"] = check_greedy(
             {k: rounds[k]["tokens"] for k in ("http", "http_stream", "engine", "engine_cold")},
@@ -4696,6 +5295,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    t_start = t_mark = time.perf_counter()
+
+    def mark(name):
+        """A `phase_seconds` line: the seconds since the last mark and since
+        the start, so that a phase's share of the time limit is on record."""
+        nonlocal t_mark
+        now = time.perf_counter()
+        emit({"phase": "phase_seconds", "name": name, "s": now - t_mark, "total_s": now - t_start})
+        t_mark = now
 
     smi = card()
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
@@ -4706,10 +5314,12 @@ def main() -> int:
 
     build.build_all()
     emit({"phase": "build", **build.build_info})
+    mark("build")
     report = build.ptxas_report()
     emit({"phase": "ptxas", "lines": report.splitlines()})
     check_flash_spills(report)
     check_rot_spills(report)
+    prefetch_sass()
     # the tensor-core instructions of K15 and K16 (IMMA, three row tilings
     # each, with their ring's 16-byte cp.async, LDGSTS) and K17 (HMMA), with
     # K16's former kernel (int8_dot_kernel) gone, and K15's SASS as it was
@@ -4755,6 +5365,7 @@ def main() -> int:
                     ("rot_w4_one_launch_kernel", "LDGSTS", 8)))
     # and K8/K11's DQ instances, with the dequant's two roundings
     check_dequant_sass()
+    mark("sass")
 
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(123)
@@ -4771,15 +5382,19 @@ def main() -> int:
            + edge_rows if not r["ok"]]
     if bad:
         raise SystemExit(f"{len(bad)} kernel checks missed their tolerance")
+    mark("kernel_checks")
     del flush
     bench_counts = kernel_bench(dev)  # slice 3: the kernel benchmarks (K1, K6-K9)
     exp_counts = w4_experiments(dev)  # slice 4: the experiment scripts (K10-K13)
     probe_counts = int8_probe(dev)  # slice 5: the int8 tensor-core probe (K14-K17)
     unpack_counts = unpack_exp(dev)  # slice 6: the unpack experiments (K18-K22)
+    mark("slices_3_6")
     serve_head_dims(dev)  # K3-K5 at head dims 32 and 256, 80 rows
+    mark("serve_head_dims")
 
     qparams, cfg = qwen3_model(dev)
     counts = main_path(qparams, cfg, dev)  # slice 1: the Generator (K1-K3)
+    mark("main_path")
     counts.update({k: v for k, v in serve(qparams, cfg, dev).items()  # slice 2: the Engine (K1-K5)
                    if k.startswith("paged")})
     serve(qparams, cfg, dev, kv_quant="int8")
@@ -4790,15 +5405,24 @@ def main() -> int:
 
     emit({"phase": "paged_decode_profile", "batch": 8, "context": 256, "quant_mode": "auto",
           **profile_paged_decode(qparams, cfg, batch=8, context=256, steps=16, device=dev)})
+    mark("serve")
     measurement_paths(root, qparams, cfg, dev)  # slice 20: bench, bursts, speculation, scripts
+    mark("measurement_paths")
     del qparams
     torch.cuda.empty_cache()
     bench_scripts(dev)  # slice 21: bench_7b, decode accounting, kv quant, serving, a8 accuracy
+    mark("bench_scripts")
     user_paths(dev)  # native packer, AWQ load, evaluate, chat, bench_longcontext
+    mark("user_paths")
     with tempfile.TemporaryDirectory(prefix="paro_convert_") as tmp:
         paro_dir = convert_paths(Path(tmp), dev)  # RTN / GPTQ checkpoints written and loaded
+        mark("convert_paths")
         serve_http(paro_dir, dev)  # the OpenAI API over HTTP, the router
+        mark("serve_http")
         calibrate_paths(Path(tmp), dev)  # calibration, its CLIs and its bench
+        mark("calibrate_paths")
+        moe_paths(Path(tmp), dev)  # the MoE family at Qwen3-30B-A3B width
+        mark("moe_paths")
 
     counts.update({k: bench_counts[k] for k in W4_VARIANTS})  # their launches: the kernel_bench phase
     counts.update({k: exp_counts[k] for k in W4_EXPERIMENTS})  # and the w4_experiments phase

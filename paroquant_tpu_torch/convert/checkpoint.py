@@ -1,5 +1,5 @@
 """Checkpoint I/O: PARO-TPU, AWQ-format PARO and HF-dense directories of
-the dense families.
+the dense and MoE families.
 
 Counterpart of `paroquant_tpu/convert/checkpoint.py`: the save side
 (`hf_prefix`, `save_paro_checkpoint`, `save_awq_checkpoint`, :55-453) and
@@ -18,9 +18,18 @@ in the PARO-TPU format; imported by undoing the AWQ packing
 The save side writes JAX's tensor names, dtypes, shapes and bytes and an
 equal config.json, from the per-layer export dicts of
 `convert/rtn.py::rtn_export_model` or `convert/gptq.py::gptq_quantize_model`;
-dense tensors go to f16 as JAX's do (the reference forces fp16). The
-gemma3n, stacked-expert (MoE) and linear-attention branches of JAX's save
-side are not ported: those families refuse (ROADMAP §A 5).
+dense tensors go to f16 as JAX's do (the reference forces fp16).
+
+MoE layers, as JAX's: the router is `mlp.gate`; quantized experts are
+stacked PARO-TPU buffers (`mlp.experts.{gate,up,down}_{qweight,scales,
+zeros}` with the shared rotations `mlp.experts.{gate_up,down}_{theta,pairs,
+channel_scales}`) or the reference's per-expert AWQ layout
+(`mlp.experts.{e}.{proj}.{qweight,qzeros,scales}`, rotations
+`{side}_weight_*`); dense experts are per-expert HF weights, and the HF
+Mixtral layout (`block_sparse_moe.gate`, `experts.{e}.{w1,w3,w2}`) loads
+into stacked dense experts. A shared expert is saved like any GLU and its
+gate dense. The gemma3n and linear-attention families refuse (ROADMAP
+§A 5).
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ import torch
 
 from ..models.config import ModelConfig, from_hf_dict
 from ..models.decoder import DenseLinear, _unsupported
+from ..ops.moe import QuantizedMoEExperts, pack_stacked, shared_rotation
 from ..ops.packing import pack_awq, pack_wq_tpu, unpack_awq, unpack_w4_tpu
 from ..ops.qlinear import make_quantized_linear
 from ..utils.device import resolve_device
@@ -48,6 +58,9 @@ _DTYPES = {
 
 _ATTN = ("q_proj", "k_proj", "v_proj", "o_proj")
 _MLP = ("gate_proj", "up_proj", "down_proj")
+# a shared expert is quantized like any GLU; only its sigmoid gate stays dense
+_SHARED_EXPERT = tuple(sorted(f"mlp.shared_expert.{m}" for m in _MLP))
+_PROJ = {"gate": "gate_proj", "up": "up_proj", "down": "down_proj"}
 
 
 def hf_prefix(layer_idx: int, name: str) -> str:
@@ -85,14 +98,6 @@ def _to_f16(a) -> torch.Tensor:
     return _host(a, torch.float32).to(torch.float16)
 
 
-def _refuse_unported(config: ModelConfig, layer_exports) -> None:
-    """The gemma3n, MoE and linear-attention families raise (ROADMAP §A 5)."""
-    _unsupported(config)
-    if any("mlp.experts" in e for e in layer_exports):
-        raise NotImplementedError(
-            "stacked-expert exports need ops/moe.py, which the port has not yet (ROADMAP §A 5)")
-
-
 def _dense_tensors(params: dict[str, Any]) -> dict[str, torch.Tensor]:
     """The tensors outside the layers: embedding, final norm, lm_head."""
     tensors = {"model.embed_tokens.weight": _to_f16(params["embed_tokens"]),
@@ -118,7 +123,7 @@ def _layer_linears(tensors: dict, li: int, lp: dict, exp_layer: dict, quant_tens
     export's (n_bits, group_size, krot), or None when the layer exported
     nothing."""
     meta = None
-    for name in list(_ATTN) + [f"mlp.{m}" for m in _MLP]:
+    for name in list(_ATTN) + [f"mlp.{m}" for m in _MLP] + list(_SHARED_EXPERT):
         holder, base = _holder_for(lp, name)
         if holder is None:
             continue
@@ -141,8 +146,64 @@ def _layer_linears(tensors: dict, li: int, lp: dict, exp_layer: dict, quant_tens
     return meta
 
 
-def _save(path, params, config, layer_exports, hf_config, quant_tensors, qconfig) -> None:
-    _refuse_unported(config, layer_exports)
+def _moe_tensors(tensors: dict, li: int, mlp: dict, exp_layer: dict, awq: bool) -> tuple:
+    """A sparse layer's router, experts and shared-expert gate. Exported
+    experts go in the PARO-TPU stacked or the per-expert AWQ layout; dense
+    experts as per-expert HF weights. Returns the experts' (n_bits,
+    group_size, krot), or None where they exported nothing."""
+    base = f"model.layers.{li}.mlp"
+    if "router" in mlp:
+        tensors[f"{base}.gate.weight"] = _to_f16(mlp["router"].w.T)
+    meta = None
+    if "mlp.experts" in exp_layer:
+        exp = exp_layer["mlp.experts"]
+        n_bits, gs = int(exp["n_bits"]), int(exp["group_size"])
+        meta = (n_bits, gs, int(exp["gate_up_theta"].shape[0]))
+        for pn, proj in _PROJ.items():
+            sub = exp[pn]
+            q = _host(sub["q"])  # [E, O, In]
+            scales = _host(sub["scales"], torch.float32)  # [E, O, G]
+            zeros = _host(sub["zeros"])
+            if awq:
+                # pack_awq packs each row on its own: every expert's rows in one call
+                E = q.shape[0]
+                qw = torch.from_numpy(pack_awq(q.transpose(1, 2).reshape(-1, q.shape[1]).numpy(),
+                                               n_bits)).reshape(E, -1, q.shape[1] * n_bits // 32)
+                qz = torch.from_numpy(pack_awq(zeros.transpose(1, 2).reshape(-1, q.shape[1]).numpy(),
+                                               n_bits)).reshape(E, -1, q.shape[1] * n_bits // 32)
+                for e in range(E):
+                    eb = f"{base}.experts.{e}.{proj}"
+                    tensors[f"{eb}.qweight"], tensors[f"{eb}.qzeros"] = qw[e], qz[e]
+                    tensors[f"{eb}.scales"] = scales[e].T.to(torch.float16)
+            else:
+                tensors[f"{base}.experts.{pn}_qweight"] = pack_stacked(q.transpose(1, 2), n_bits, gs)
+                tensors[f"{base}.experts.{pn}_scales"] = scales.transpose(1, 2).contiguous()
+                tensors[f"{base}.experts.{pn}_zeros"] = zeros.to(torch.uint8).transpose(
+                    1, 2).contiguous()
+        for side in ("gate_up", "down"):
+            key = f"{base}.experts.{side}_weight" if awq else f"{base}.experts.{side}"
+            tensors[f"{key}_theta"] = _host(exp[f"{side}_theta"], torch.float16)
+            tensors[f"{key}_pairs"] = _host(exp[f"{side}_pairs"], torch.int16)
+            tensors[f"{key}_channel_scales"] = _host(
+                exp[f"{side}_inv_channel_scales"], torch.float16).reshape(1, -1)
+    elif isinstance(mlp.get("experts"), dict):
+        ex = mlp["experts"]
+        for e in range(ex["gate_proj"].shape[0]):
+            for pn in _MLP:
+                tensors[f"{base}.experts.{e}.{pn}.weight"] = _to_f16(ex[pn][e].T)
+    elif awq and "experts" in mlp:
+        raise NotImplementedError(
+            "AWQ export of already-quantized stacked experts requires the calibration "
+            "export dicts (run convert from optimizer results); re-exporting runtime "
+            "QuantizedMoEExperts to AWQ is not supported")
+    if "shared_expert_gate" in mlp:
+        tensors[f"{base}.shared_expert_gate.weight"] = _to_f16(mlp["shared_expert_gate"].w.T)
+    return meta
+
+
+def _save(path, params, config, layer_exports, hf_config, quant_tensors, qconfig,
+          awq: bool) -> None:
+    _unsupported(config)  # gemma3n and linear attention: ROADMAP §A 5
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
     tensors = _dense_tensors(params)
@@ -150,9 +211,10 @@ def _save(path, params, config, layer_exports, hf_config, quant_tensors, qconfig
     for li, lp in enumerate(params["layers"]):
         exp_layer = layer_exports[li] if li < len(layer_exports) else {}
         _layer_dense_tensors(tensors, li, lp)
-        meta = _layer_linears(tensors, li, lp, exp_layer, quant_tensors)
-        if meta is not None:
-            n_bits, group_size, krot = meta
+        for meta in (_moe_tensors(tensors, li, lp.get("mlp", {}), exp_layer, awq),
+                     _layer_linears(tensors, li, lp, exp_layer, quant_tensors)):
+            if meta is not None:
+                n_bits, group_size, krot = meta
     write_safetensors(path / "model.safetensors", tensors)
     cfg = dict(hf_config) if hf_config else _config_to_hf(config)
     cfg["quantization_config"] = {**qconfig, "bits": n_bits, "group_size": group_size,
@@ -187,7 +249,7 @@ def save_paro_checkpoint(
     f16. `layer_exports[i][name]` are export dicts (`rtn_export_model`,
     `gptq_quantize_model`)."""
     _save(path, params, config, layer_exports, hf_config, _paro_tensors,
-          {"quant_method": "paroquant", "format": "paro-tpu"})
+          {"quant_method": "paroquant", "format": "paro-tpu"}, awq=False)
 
 
 def save_awq_checkpoint(
@@ -201,11 +263,20 @@ def save_awq_checkpoint(
     nibble-reordered, qzeros int32 [G, O//8], scales f16 [G, O], and
     theta / pairs / channel_scales as in the PARO-TPU format."""
     _save(path, params, config, layer_exports, hf_config, _awq_tensors,
-          {"quant_method": "paroquant"})
+          {"quant_method": "paroquant"}, awq=True)
 
 
 def _config_to_hf(config: ModelConfig) -> dict[str, Any]:
-    """config.json of a dense-family config (JAX's keys for those families)."""
+    """config.json of a dense- or MoE-family config (JAX's keys, in JAX's order)."""
+    out: dict[str, Any] = {}
+    if config.is_moe:
+        out.update(
+            num_experts=config.num_experts,
+            num_experts_per_tok=config.num_experts_per_tok,
+            moe_intermediate_size=config.moe_intermediate_size,
+            norm_topk_prob=config.norm_topk_prob,
+            decoder_sparse_step=config.decoder_sparse_step,
+        )
     return {
         "model_type": config.model_type,
         "vocab_size": config.vocab_size,
@@ -219,7 +290,7 @@ def _config_to_hf(config: ModelConfig) -> dict[str, Any]:
         "rope_theta": config.rope_theta,
         "max_position_embeddings": config.max_position_embeddings,
         "tie_word_embeddings": config.tie_word_embeddings,
-    }
+    } | out
 
 
 def read_safetensors(path: str | Path) -> dict[str, torch.Tensor]:
@@ -302,7 +373,8 @@ def _open_all(model_dir: Path) -> dict[str, torch.Tensor]:
 def load_checkpoint(
     model_dir: str | Path, rot_dtype=torch.bfloat16, dtype=torch.bfloat16, device="cuda",
 ) -> tuple[dict[str, Any], ModelConfig]:
-    """Load a PARO-TPU, AWQ-format PARO or plain HF-dense model directory onto `device`."""
+    """Load a PARO-TPU, AWQ-format PARO or plain HF-dense model directory
+    (dense or MoE family, and HF Mixtral) onto `device`."""
     dev = resolve_device(device)
     model_dir = Path(model_dir)
     config = from_hf_dict(json.loads((model_dir / "config.json").read_text()))
@@ -350,6 +422,74 @@ def load_checkpoint(
             return quant_linear(prefix)
         return dense_linear(prefix)
 
+    def router(name):
+        return DenseLinear(tensors[name].T.contiguous().to(device=dev, dtype=dtype))
+
+    def dense_experts(key_of):
+        """Stacked dense experts from per-expert HF weights [O, In]: key_of(e,
+        proj) names expert e's weight, as long as the gate's exists."""
+        stacks: dict[str, list] = {pn: [] for pn in _MLP}
+        e = 0
+        while key_of(e, "gate_proj") in tensors:
+            for pn in _MLP:
+                stacks[pn].append(tensors[key_of(e, pn)].T)
+            e += 1
+        return {pn: torch.stack(ws).to(device=dev, dtype=dtype) for pn, ws in stacks.items()}
+
+    def mixtral_mlp(base):
+        """HF Mixtral: block_sparse_moe.gate and experts.{e}.{w1, w3, w2}
+        (gate, up, down) -> the router and stacked dense experts."""
+        names = {"gate_proj": "w1", "up_proj": "w3", "down_proj": "w2"}
+        return {"router": router(f"{base}.gate.weight"),
+                "experts": dense_experts(lambda e, pn: f"{base}.experts.{e}.{names[pn]}.weight")}
+
+    def quant_experts(eb, awq_moe):
+        """Stacked PARO-TPU buffers, or the reference's per-expert AWQ
+        buffers repacked, as QuantizedMoEExperts (bf16 scales and zeros, as
+        `optim/pseudo_moe.py::quantized_moe_from_export` stores them)."""
+        def rot(side):
+            key = f"{eb}.{side}_weight" if awq_moe else f"{eb}.{side}"
+            return shared_rotation(tensors[f"{key}_pairs"], tensors[f"{key}_theta"],
+                                   tensors[f"{key}_channel_scales"], group_size, rot_dtype, dev)
+
+        def stack(pn):
+            if not awq_moe:
+                return (tensors[f"{eb}.{pn}_qweight"].to(dev),
+                        tensors[f"{eb}.{pn}_scales"].to(torch.float32).to(dev, torch.bfloat16),
+                        tensors[f"{eb}.{pn}_zeros"].to(torch.float32).to(dev, torch.bfloat16))
+            pbs = []
+            while f"{eb}.{len(pbs)}.{_PROJ[pn]}.qweight" in tensors:
+                pbs.append(f"{eb}.{len(pbs)}.{_PROJ[pn]}")
+
+            def unpacked(leaf):  # unpack_awq works row by row: every expert's rows in one call
+                packed = torch.stack([tensors[f"{pb}.{leaf}"] for pb in pbs])
+                rows = unpack_awq(packed.reshape(-1, packed.shape[-1]).numpy(), n_bits)
+                return torch.from_numpy(rows).reshape(len(pbs), packed.shape[1], -1)
+
+            scales = torch.stack([tensors[f"{pb}.scales"].to(torch.float32) for pb in pbs])
+            return (pack_stacked(unpacked("qweight").to(dev), n_bits, group_size),
+                    scales.to(dev, torch.bfloat16),
+                    unpacked("qzeros").to(torch.float32).to(dev, torch.bfloat16))
+
+        return QuantizedMoEExperts(*stack("gate"), *stack("up"), *stack("down"),
+                                   rot("gate_up"), rot("down"))
+
+    def moe_mlp(base):
+        """The router `mlp.gate`, the experts (stacked PARO-TPU, per-expert
+        AWQ or dense), and a shared expert with its dense sigmoid gate."""
+        eb = f"{base}.experts"
+        awq_moe = f"{eb}.0.gate_proj.qweight" in tensors
+        mlp: dict[str, Any] = {"router": router(f"{base}.gate.weight")}
+        if f"{eb}.gate_qweight" in tensors or awq_moe:
+            mlp["experts"] = quant_experts(eb, awq_moe)
+        else:
+            mlp["experts"] = dense_experts(lambda e, pn: f"{eb}.{e}.{pn}.weight")
+        sb = f"{base}.shared_expert"
+        if f"{sb}.gate_proj.weight" in tensors or f"{sb}.gate_proj.qweight" in tensors:
+            mlp["shared_expert"] = {name: pick_linear(f"{sb}.{name}") for name in _MLP}
+            mlp["shared_expert_gate"] = router(f"{base}.shared_expert_gate.weight")
+        return mlp
+
     params: dict[str, Any] = {
         "embed_tokens": dense("model.embed_tokens.weight"),
         "norm": dense("model.norm.weight"),
@@ -371,6 +511,11 @@ def load_checkpoint(
                 lp[name] = dense(f"{lbase}.self_attn.{name}.weight")
         for name in _ATTN:
             lp[name] = pick_linear(f"{lbase}.self_attn.{name}")
-        lp["mlp"] = {name: pick_linear(f"{lbase}.mlp.{name}") for name in _MLP}
+        if f"{lbase}.block_sparse_moe.gate.weight" in tensors:
+            lp["mlp"] = mixtral_mlp(f"{lbase}.block_sparse_moe")
+        elif f"{lbase}.mlp.gate.weight" in tensors:
+            lp["mlp"] = moe_mlp(f"{lbase}.mlp")
+        else:
+            lp["mlp"] = {name: pick_linear(f"{lbase}.mlp.{name}") for name in _MLP}
         params["layers"].append(lp)
     return params, config

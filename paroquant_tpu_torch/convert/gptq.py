@@ -1,6 +1,6 @@
 """GPTQ baseline: Hessian-compensated round-to-nearest W4 quantization.
 
-Counterpart of `paroquant_tpu/convert/gptq.py` for the dense families:
+Counterpart of `paroquant_tpu/convert/gptq.py` for the dense and MoE families:
 classic GPTQ (Frantar et al., arXiv 2210.17323). Per output row, input
 channels are quantized in order and each column's rounding error is
 compensated into the columns not yet quantized through the upper Cholesky
@@ -25,8 +25,17 @@ checkpoints load through the standard loaders.
 - `torch.linalg.cholesky` raises on a matrix that is not positive definite,
   where JAX's returns NaN.
 
-MoE experts (JAX's `_gptq_moe`), gemma3n and the hybrid delta-net layers
-raise NotImplementedError in `gptq_quantize_model` (ROADMAP §A 5).
+- MoE layers (`_gptq_moe`): each stacked projection is GPTQ'd against ONE
+  Hessian shared by the experts (gate/up the layer input's, down the routed
+  down_proj inputs pooled over every assignment), the counterpart of the
+  runtime's shared rotations. JAX runs the experts one by one under
+  `lax.map`; with a shared Hessian every output row is quantized on its own,
+  so the port runs the [E * O, I] rows of all experts in one pass. A shared
+  expert is GPTQ'd as a standard GLU; the router and the shared expert's
+  gate stay dense.
+
+gemma3n and the hybrid delta-net layers raise NotImplementedError in
+`gptq_quantize_model` (ROADMAP §A 5).
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ import torch
 from ..models.config import ModelConfig
 from ..models.decoder import DenseLinear, _unsupported, embed, layer_forward, rope_tables_per_layer
 from ..ops import quant, rotation as rot_ops
+from ..ops.moe import QuantizedMoEExperts
 from ..ops.qlinear import QuantizedLinear, make_quantized_linear
 from ..utils.device import resolve_device
 from .rtn import _rotation_params, _to_device
@@ -216,6 +226,47 @@ def _gptq_linear(
     return runtime, export
 
 
+def _gptq_moe(
+    experts: dict[str, Any], h_gu: torch.Tensor, h_down: torch.Tensor, *, n_bits: int,
+    group_size: int, percdamp: float, rot_dtype, hadamard: bool,
+) -> tuple[QuantizedMoEExperts, dict[str, Any]]:
+    """GPTQ the stacked expert projections with a SHARED Hessian per
+    projection across experts. Returns (QuantizedMoEExperts, export dict in
+    `optim/pseudo_moe.py::export_quantized_moe`'s schema with identity or
+    Hadamard rotations)."""
+    from ..optim.pseudo_moe import quantized_moe_from_export
+
+    dev = experts["gate_proj"].device
+    E, H, I_moe = experts["gate_proj"].shape
+
+    def quantize_stack(w_stack, hessian, in_dim):
+        """w_stack [E, in_dim, O] GPTQ'd row by row against one Hessian."""
+        O = w_stack.shape[2]
+        ws = w_stack.to(torch.float32).transpose(1, 2).reshape(E * O, in_dim)
+        if hadamard:
+            M = _hadamard_matrices(in_dim, group_size, str(dev))
+            ws, hessian = _rotate_weight_and_hessian(ws, hessian, M)
+        U, dead = _hessian_chol(hessian, percdamp)
+        q, s, z = _gptq_core(ws, U, dead, n_bits=n_bits, group_size=group_size)
+        del ws
+        return {"q": q.reshape(E, O, in_dim).cpu().numpy(),
+                "scales": s.reshape(E, O, -1).cpu().numpy(),
+                "zeros": z.reshape(E, O, -1).cpu().numpy()}
+
+    export: dict[str, Any] = {"moe": True, "n_bits": n_bits, "group_size": group_size}
+    # gate/up share the layer input's Hessian
+    export["gate"] = quantize_stack(experts["gate_proj"], h_gu, H)
+    export["up"] = quantize_stack(experts["up_proj"], h_gu, H)
+    export["down"] = quantize_stack(experts["down_proj"], h_down, I_moe)
+    for side, in_dim in (("gate_up", H), ("down", I_moe)):
+        prm, theta = _rotation_params(in_dim, group_size, 8, 0, hadamard)
+        theta = torch.zeros_like(prm.theta) if theta is None else theta
+        export[f"{side}_theta"] = theta.to(torch.float32).cpu().numpy()
+        export[f"{side}_pairs"] = prm.pairs.cpu().numpy()
+        export[f"{side}_inv_channel_scales"] = np.ones(in_dim, np.float32)
+    return quantized_moe_from_export(export, rot_dtype, dev), export
+
+
 @torch.no_grad()
 def gptq_quantize_model(
     params: dict[str, Any],
@@ -238,10 +289,13 @@ def gptq_quantize_model(
     swapped in before the next layer. The last batch takes the remainder
     N mod batch_size, so every sample counts.
 
+    MoE layers: the routed experts' stacks with a shared Hessian per
+    projection, the shared expert as a standard GLU.
+
     Returns (quantized runtime params on `device`, per-layer export dicts
     for save_paro_checkpoint: the schema of convert/rtn.py::rtn_export_model).
     """
-    _unsupported(config)  # gemma3n, MoE and hybrid layers: ROADMAP §A 5
+    _unsupported(config)  # gemma3n and hybrid layers: ROADMAP §A 5
     dev = resolve_device(device)
     params = _to_device(params, dev)
     tokens = np.asarray(tokens, np.int32)
@@ -288,6 +342,23 @@ def gptq_quantize_model(
                     lin, hs_acc[tap], n_bits=n_bits, group_size=group_size,
                     percdamp=percdamp, rot_dtype=rot_dtype, hadamard=hadamard,
                 )
+        kw = dict(n_bits=n_bits, group_size=group_size, percdamp=percdamp,
+                  rot_dtype=rot_dtype, hadamard=hadamard)
+        # MoE: the routed experts, one shared Hessian per projection
+        if isinstance(mlp.get("experts"), dict) and "moe_down" in hs_acc:
+            mlp["experts"], exp["mlp.experts"] = _gptq_moe(
+                mlp["experts"], hs_acc["mlp"], hs_acc["moe_down"], **kw)
+        # a shared expert: a standard GLU whose gate/up see the layer input
+        if isinstance(mlp.get("shared_expert"), dict) and "shared_down" in hs_acc:
+            se = dict(mlp["shared_expert"])
+            for name, hkey in (("gate_proj", "mlp"), ("up_proj", "mlp"),
+                               ("down_proj", "shared_down")):
+                lin = se.get(name)
+                if not isinstance(lin, DenseLinear) or lin.w.shape[0] % group_size:
+                    continue
+                se[name], exp[f"mlp.shared_expert.{name}"] = _gptq_linear(
+                    lin, hs_acc[hkey], **kw)
+            mlp["shared_expert"] = se
         nlp["mlp"] = mlp
         out_layers.append(nlp)
         exports.append(exp)

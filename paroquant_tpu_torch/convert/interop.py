@@ -3,8 +3,11 @@
 `params_from_jax(tree, config, device)` takes the JAX param tree after
 `jax.tree.map(np.asarray, params)`: nested dicts and lists whose linears are
 `DenseLinear`, `QuantizedLinear` or `MergedQuantizedLinear` objects with
-numpy leaves. The classes are recognised by name, so this module imports
-nothing of JAX and both packages can compute from the same weights. bf16
+numpy leaves; a sparse layer's router and shared-expert gate are
+`DenseLinear`s, its experts a dict of stacked arrays or a
+`QuantizedMoEExperts`. The classes are recognised by name, so this module
+imports nothing of JAX and both packages can compute from the same
+weights. bf16
 leaves arrive as numpy arrays of the ml_dtypes `bfloat16` type and are
 reinterpreted bit for bit.
 
@@ -27,6 +30,7 @@ import torch
 
 from ..models.config import ModelConfig
 from ..models.decoder import DenseLinear, _unsupported
+from ..ops.moe import QuantizedMoEExperts
 from ..ops.packing import pack_w4_i4
 from ..ops.qlinear import MergedQuantizedLinear, QuantizedLinear
 from ..utils.device import resolve_device
@@ -57,6 +61,8 @@ def _convert(node, dev):
             to_torch(node.rot, dev), None if node.bias is None else to_torch(node.bias, dev),
             tuple(node.out_splits),
         )
+    if kind == "QuantizedMoEExperts":
+        return QuantizedMoEExperts(*(to_torch(a, dev) for a in node))
     if isinstance(node, dict):
         return {k: _convert(v, dev) for k, v in node.items()}
     if isinstance(node, (list, tuple)):
@@ -67,7 +73,8 @@ def _convert(node, dev):
 
 
 def params_from_jax(tree: dict[str, Any], config: ModelConfig, device="cuda") -> dict[str, Any]:
-    """The port's params dict for a dense-family JAX param tree of numpy leaves."""
+    """The port's params dict for a JAX param tree of numpy leaves (the dense
+    and MoE families)."""
     _unsupported(config)
     return _convert(tree, resolve_device(device))
 

@@ -1,15 +1,20 @@
-"""Round-to-nearest quantization of a dense model (no calibration), on the device.
+"""Round-to-nearest quantization of a model (no calibration), on the device.
 
-Counterpart of `paroquant_tpu/convert/rtn.py:36-116, 160-309` for the dense
-families: identity rotation (theta = 0), seeded random rotation, or the
-Hadamard-equivalent butterfly rotation, then per-group min/max RTN into the
-runtime format of ops/qlinear.py. `quantize_model_rtn` runs on the device it
-is given (the card by default); only the pair tables are built on the host.
+Counterpart of `paroquant_tpu/convert/rtn.py`: identity rotation
+(theta = 0), seeded random rotation, or the Hadamard-equivalent butterfly
+rotation, then per-group min/max RTN into the runtime format of
+ops/qlinear.py. MoE layers: `quantize_experts_rtn` quantizes the stacked
+experts with identity shared rotations into `ops/moe.py::
+QuantizedMoEExperts` (every expert at once: the quantizer works row by
+row, so this is JAX's per-expert loop); a shared expert is quantized like
+any GLU, the router and the shared expert's gate stay dense.
+`quantize_model_rtn` runs on the device it is given (the card by default);
+only the pair tables are built on the host.
 `rtn_export_linear` / `rtn_export_model` give the same quantization as
 checkpoint interchange dicts (numpy, JAX's keys) for
 `convert/checkpoint.py::save_paro_checkpoint` / `save_awq_checkpoint`: the
-RTN and Hadamard-RTN (QuaRot-style) baselines. They run on the device the
-weights lie on.
+RTN and Hadamard-RTN (QuaRot-style) baselines; as in JAX, they leave MoE
+experts dense. They run on the device the weights lie on.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from ..models.config import ModelConfig
 from ..models.decoder import DenseLinear, _unsupported
 from ..ops import quant, rotation as rot_ops
 from ..ops.butterfly import make_butterfly_params
+from ..ops.moe import QuantizedMoEExperts, pack_stacked
 from ..ops.qlinear import QuantizedLinear, make_quantized_linear
 from ..utils.device import resolve_device
 
@@ -83,9 +89,44 @@ def quantize_linear_rtn(
     )
 
 
+def quantize_experts_rtn(
+    experts: dict[str, Any], *, n_bits: int = 4, group_size: int = 128,
+    num_rotations: int = 8, seed: int = 0, rot_dtype=torch.bfloat16,
+) -> QuantizedMoEExperts:
+    """Quantize stacked MoE experts (gate/up [E, H, I], down [E, I, H]) with
+    identity shared rotations, on the experts' device: per (expert, output
+    row) groups of the input dim, scales and zeros stored in bf16.
+    num_rotations and seed are JAX's arguments; the identity uses neither."""
+    dev = experts["gate_proj"].device
+
+    def quant_stack(w_stack):  # [E, In, Out]: quantize along In per (e, out) row
+        E, In, Out = w_stack.shape
+        rows = w_stack.to(torch.float32).transpose(1, 2).reshape(E * Out, In)
+        q, s, z = _rtn_quantize(rows, n_bits, group_size)
+        del rows
+        G = In // group_size
+        return (pack_stacked(q.reshape(E, Out, In).transpose(1, 2), n_bits, group_size),
+                s.reshape(E, Out, G).transpose(1, 2).to(torch.bfloat16).contiguous(),
+                z.reshape(E, Out, G).transpose(1, 2).to(torch.bfloat16).contiguous())
+
+    gq, gs, gz = quant_stack(experts["gate_proj"])
+    uq, us, uz = quant_stack(experts["up_proj"])
+    dq, ds, dz = quant_stack(experts["down_proj"])
+    H, I_moe = experts["gate_proj"].shape[1:]
+
+    def eye(n):
+        return torch.eye(group_size, dtype=rot_dtype, device=dev).expand(
+            n // group_size, group_size, group_size).contiguous()
+
+    return QuantizedMoEExperts(gq, gs, gz, uq, us, uz, dq, ds, dz, eye(H), eye(I_moe))
+
+
 def _to_device(tree, dev):
-    """A copy of a params tree (dicts, lists, DenseLinear, tensors) on `dev`."""
+    """A copy of a params tree (dicts, lists, DenseLinear, QuantizedMoEExperts,
+    tensors) on `dev`."""
     if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, QuantizedMoEExperts):
         return tree.to(dev)
     if isinstance(tree, DenseLinear):
         return DenseLinear(tree.w.to(dev), None if tree.b is None else tree.b.to(dev))
@@ -134,9 +175,21 @@ def quantize_model_rtn(
             if name in lp and lp[name].w.shape[0] % group_size == 0:
                 nlp[name] = quantize_linear_rtn(lp[name], seed=seed + i, **kw)
         mlp = dict(lp["mlp"])
-        for name in ("gate_proj", "up_proj", "down_proj"):
-            if name in mlp:
-                mlp[name] = quantize_linear_rtn(mlp[name], seed=seed + i, **kw)
+        if "experts" in mlp and not isinstance(mlp["experts"], QuantizedMoEExperts):
+            if config.moe_intermediate_size % group_size == 0:
+                mlp["experts"] = quantize_experts_rtn(
+                    mlp["experts"], n_bits=n_bits, group_size=group_size,
+                    num_rotations=num_rotations, seed=seed + i, rot_dtype=rot_dtype)
+        else:
+            for name in ("gate_proj", "up_proj", "down_proj"):
+                if name in mlp:
+                    mlp[name] = quantize_linear_rtn(mlp[name], seed=seed + i, **kw)
+        if "shared_expert" in mlp:
+            # quantized like any GLU; its sigmoid gate stays dense
+            mlp["shared_expert"] = {
+                name: lin if lin.w.shape[0] % group_size
+                else quantize_linear_rtn(lin, seed=seed + i, **kw)
+                for name, lin in mlp["shared_expert"].items()}
         nlp["mlp"] = mlp
         layers.append(nlp)
     out["layers"] = layers

@@ -1,10 +1,15 @@
-"""Dense decoder (Llama / Qwen2 / Qwen3 / Gemma-class) in torch.
+"""Decoder (Llama / Qwen2 / Qwen3 / Gemma-class, and the Qwen3-MoE /
+Qwen2-MoE / Mixtral MoE family) in torch.
 
-Counterpart of `paroquant_tpu/models/decoder.py:38-353, 407-680, 693-843`:
-plain functions over a params dict, with the same names, so each JAX
-function has its twin here. Linears are `DenseLinear`, the quantized
-modules of ops/qlinear.py, or calibration's `optim/pseudo.py::
-PseudoQuantLinear` (unmerged, on the q/k/v and MLP paths alike).
+Counterpart of `paroquant_tpu/models/decoder.py:38-680, 693-843`: plain
+functions over a params dict, with the same names, so each JAX function
+has its twin here. Linears are `DenseLinear`, the quantized modules of
+ops/qlinear.py, or calibration's `optim/pseudo.py::PseudoQuantLinear`
+(unmerged, on the q/k/v and MLP paths alike). A sparse layer's MLP is
+`moe_forward`: an f32 router, top-k routing and the experts of
+`ops/moe.py` (dense stacks, `QuantizedMoEExperts`, or calibration's
+`optim/pseudo_moe.py::PseudoQuantMoEExperts`), plus an optional
+sigmoid-gated shared expert.
 
 The decode step makes no host sync: the cache length is a 0-d device
 tensor, new K/V rows are written with `index_copy_` at that position, and
@@ -12,12 +17,13 @@ the masks are built from it. (A later change can capture the step in a CUDA
 graph, the counterpart of JAX's one-dispatch `greedy_decode_scan`.) The KV
 cache buffers are updated in place.
 
-MoE, linear attention (qwen3_next), gemma3n and the VLM path are later
-slices of the port and raise NotImplementedError.
+Linear attention (qwen3_next), gemma3n and the VLM path are later slices
+of the port and raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Callable
@@ -68,8 +74,6 @@ def merged_forward_parts(layer: MergedQuantizedLinear, x: torch.Tensor, quant_mo
 def _unsupported(config: ModelConfig) -> None:
     if config.is_gemma3n:
         raise NotImplementedError("gemma3n models are not ported yet (ROADMAP §A 5: models/gemma3n.py)")
-    if config.is_moe:
-        raise NotImplementedError("MoE models are not ported yet (ROADMAP §A 5: ops/moe.py)")
     if config.num_linear_layers or config.attn_gate:
         raise NotImplementedError(
             "linear-attention (qwen3_next) models are not ported yet "
@@ -275,11 +279,55 @@ def qkv_rope(p: dict, x: torch.Tensor, config: ModelConfig, cos, sin, quant_mode
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
+def moe_forward(p: dict, x: torch.Tensor, config: ModelConfig, quant_mode: str,
+                return_act: bool = False):
+    """Token-choice top-k MoE (Qwen3-MoE semantics): the router in f32, a
+    softmax over all experts, the top k (ties to the lower expert index, as
+    `lax.top_k`: a stable descending sort), renormalized when
+    norm_topk_prob, then `ops/moe.py::moe_apply`; a shared expert, when
+    present, adds its GLU output times sigmoid(x @ shared_expert_gate).
+    With return_act=True returns (y, routed down_proj inputs [T*K, I_moe],
+    the shared expert's down_proj input or None)."""
+    from ..ops.moe import moe_apply
+
+    experts = p["experts"]
+    if type(experts).__name__ == "PseudoQuantMoEExperts":  # calibration path
+        from ..optim.pseudo_moe import pseudo_moe_effective_experts
+
+        p = dict(p)
+        p["experts"] = pseudo_moe_effective_experts(experts)
+
+    shape = x.shape
+    xt = x.reshape(-1, shape[-1])
+    router_logits = xt.to(torch.float32) @ p["router"].w.to(torch.float32)
+    probs = torch.softmax(router_logits, dim=-1)
+    gate_vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals = gate_vals[:, :config.num_experts_per_tok]
+    idx = idx[:, :config.num_experts_per_tok]
+    if config.norm_topk_prob:
+        gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
+    out = moe_apply(p["experts"], xt, idx, gate_vals.to(x.dtype), quant_mode,
+                    return_act=return_act)
+    y, act = out if return_act else (out, None)
+    shared_act = None
+    if "shared_expert" in p:
+        taps = {} if return_act else None
+        shared = mlp_forward(p["shared_expert"], xt, quant_mode, taps=taps)
+        if return_act:
+            shared_act = taps["down"]
+        sg = torch.sigmoid(xt.to(torch.float32) @ p["shared_expert_gate"].w.to(torch.float32))
+        y = y + shared * sg.to(x.dtype)
+    y = y.reshape(shape)
+    return (y, act, shared_act) if return_act else y
+
+
 def layer_tail(p: dict, x: torch.Tensor, attn_out: torch.Tensor, config: ModelConfig,
-               quant_mode: str, taps: dict | None = None) -> torch.Tensor:
-    """o_proj, residuals, norms and MLP after a layer's attention output
-    attn_out [B, T, Hq * D]. `taps` (a dict) receives the inputs of o_proj
-    ("o"), of gate/up ("mlp") and of down_proj ("down")."""
+               layer_idx: int, quant_mode: str, taps: dict | None = None) -> torch.Tensor:
+    """o_proj, residuals, norms and MLP (the MoE block on a sparse layer)
+    after a layer's attention output attn_out [B, T, Hq * D]. `taps` (a
+    dict) receives the inputs of o_proj ("o"), of gate/up or the router and
+    experts ("mlp"), and of down_proj ("down"; on a sparse layer the routed
+    experts' "moe_down" and a shared expert's "shared_down")."""
     norm, eps = config.zero_centered_norm, config.rms_norm_eps
     if taps is not None:
         taps["o"] = attn_out
@@ -293,7 +341,15 @@ def layer_tail(p: dict, x: torch.Tensor, attn_out: torch.Tensor, config: ModelCo
         h2 = rms_norm(x, p["post_attention_layernorm"], eps, norm)
     if taps is not None:
         taps["mlp"] = h2
-    mlp_out = mlp_forward(p["mlp"], h2, quant_mode, config.hidden_act, taps)
+    if config.layer_is_sparse(layer_idx) and taps is not None:
+        mlp_out, taps["moe_down"], shared_act = moe_forward(p["mlp"], h2, config, quant_mode,
+                                                            return_act=True)
+        if shared_act is not None:
+            taps["shared_down"] = shared_act
+    elif config.layer_is_sparse(layer_idx):
+        mlp_out = moe_forward(p["mlp"], h2, config, quant_mode)
+    else:
+        mlp_out = mlp_forward(p["mlp"], h2, quant_mode, config.hidden_act, taps)
     if config.post_norms:
         mlp_out = rms_norm(mlp_out, p["post_feedforward_layernorm"], eps, norm)
     return x + mlp_out
@@ -315,13 +371,10 @@ def layer_forward(
 ):
     """One decoder layer: (output, updated kv), or with return_taps=True
     (output, updated kv, taps): the inputs of the layer's linears, "qkv",
-    "o", "mlp" and "down", which GPTQ's Hessians are built from."""
+    "o", "mlp" and "down" (a sparse layer: "moe_down" and, with a shared
+    expert, "shared_down"), which GPTQ's Hessians are built from."""
     B, T, _ = x.shape
     Hq, D = config.num_attention_heads, config.head_dim
-    if return_taps and config.layer_is_sparse(layer_idx):
-        raise NotImplementedError(
-            "the taps of an MoE layer (moe_down, shared_down) need ops/moe.py, "
-            "which the port has not yet (ROADMAP §A 5)")
     taps = {} if return_taps else None
     q, k, v = qkv_rope(p, x, config, cos, sin, quant_mode, taps)
 
@@ -366,7 +419,7 @@ def layer_forward(
             q, k_all, v_all, q_positions, valid, scale=config.attn_scale,
             sliding_window=window, logit_softcap=config.attn_logit_softcap,
         )
-    out = layer_tail(p, x, attn_out.reshape(B, T, Hq * D), config, quant_mode, taps)
+    out = layer_tail(p, x, attn_out.reshape(B, T, Hq * D), config, layer_idx, quant_mode, taps)
     return (out, new_cache, taps) if return_taps else (out, new_cache)
 
 
@@ -465,39 +518,74 @@ def init_params(config: ModelConfig, generator: torch.Generator | int = 0,
     dev = resolve_device(device)
     if isinstance(generator, int):
         generator = torch.Generator(device=dev).manual_seed(generator)
-    H, D = config.hidden_size, config.head_dim
-    Hq, Hkv = config.num_attention_heads, config.num_key_value_heads
-
-    def ones(n):
-        return torch.ones(n, dtype=dtype, device=dev)
-
+    H = config.hidden_size
     embed = torch.randn(config.vocab_size, H, generator=generator, dtype=torch.float32, device=dev)
-    params: dict[str, Any] = {"embed_tokens": (embed * 0.02).to(dtype), "norm": ones(H), "layers": []}
+    params: dict[str, Any] = {"embed_tokens": (embed * 0.02).to(dtype),
+                              "norm": torch.ones(H, dtype=dtype, device=dev), "layers": []}
     if not config.tie_word_embeddings:
         params["lm_head"] = _dense(generator, H, config.vocab_size, dtype, dev)
-    for _ in range(config.num_hidden_layers):
-        lp: dict[str, Any] = {
-            "input_layernorm": ones(H),
-            "post_attention_layernorm": ones(H),
-            "q_proj": _dense(generator, H, Hq * D, dtype, dev, config.attention_bias),
-            "k_proj": _dense(generator, H, Hkv * D, dtype, dev, config.attention_bias),
-            "v_proj": _dense(generator, H, Hkv * D, dtype, dev, config.attention_bias),
-            "o_proj": _dense(generator, Hq * D, H, dtype, dev),
-        }
-        if config.qk_norm:
-            lp["q_norm"] = ones(D)
-            lp["k_norm"] = ones(D)
-        if config.post_norms:
-            lp["pre_feedforward_layernorm"] = ones(H)
-            lp["post_feedforward_layernorm"] = ones(H)
-        inter = config.intermediate_size
-        lp["mlp"] = {
-            "gate_proj": _dense(generator, H, inter, dtype, dev, config.mlp_bias),
-            "up_proj": _dense(generator, H, inter, dtype, dev, config.mlp_bias),
-            "down_proj": _dense(generator, inter, H, dtype, dev, config.mlp_bias),
-        }
-        params["layers"].append(lp)
+    for i in range(config.num_hidden_layers):
+        params["layers"].append(_init_layer(config, generator, i, dtype, dev))
     return params
+
+
+def _init_layer(config: ModelConfig, gen: torch.Generator, i: int, dtype, dev) -> dict[str, Any]:
+    """Random weights of decoder layer i (its MLP from `_init_mlp`)."""
+    H, D = config.hidden_size, config.head_dim
+    Hq, Hkv = config.num_attention_heads, config.num_key_value_heads
+    ones = functools.partial(torch.ones, dtype=dtype, device=dev)
+    lp: dict[str, Any] = {
+        "input_layernorm": ones(H),
+        "post_attention_layernorm": ones(H),
+        "q_proj": _dense(gen, H, Hq * D, dtype, dev, config.attention_bias),
+        "k_proj": _dense(gen, H, Hkv * D, dtype, dev, config.attention_bias),
+        "v_proj": _dense(gen, H, Hkv * D, dtype, dev, config.attention_bias),
+        "o_proj": _dense(gen, Hq * D, H, dtype, dev),
+    }
+    if config.qk_norm:
+        lp["q_norm"] = ones(D)
+        lp["k_norm"] = ones(D)
+    if config.post_norms:
+        lp["pre_feedforward_layernorm"] = ones(H)
+        lp["post_feedforward_layernorm"] = ones(H)
+    lp["mlp"] = _init_mlp(config, gen, i, dtype, dev)
+    return lp
+
+
+def _init_mlp(config: ModelConfig, gen: torch.Generator, i: int, dtype, dev) -> dict[str, Any]:
+    """A dense GLU, or on a sparse layer the router (std 0.02), the stacked
+    experts (fan-in scaled) and, where configured, a shared expert with its
+    sigmoid gate: JAX's `_init_mlp` layout."""
+    H = config.hidden_size
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, dtype=torch.float32, device=dev)
+
+    if config.layer_is_sparse(i):
+        E, I_moe = config.num_experts, config.moe_intermediate_size
+        mlp: dict[str, Any] = {
+            "router": DenseLinear((randn(H, E) * 0.02).to(dtype)),
+            "experts": {
+                "gate_proj": (randn(E, H, I_moe) / math.sqrt(H)).to(dtype),
+                "up_proj": (randn(E, H, I_moe) / math.sqrt(H)).to(dtype),
+                "down_proj": (randn(E, I_moe, H) / math.sqrt(I_moe)).to(dtype),
+            },
+        }
+        if config.shared_expert_intermediate_size:
+            I_sh = config.shared_expert_intermediate_size
+            mlp["shared_expert"] = {
+                "gate_proj": _dense(gen, H, I_sh, dtype, dev),
+                "up_proj": _dense(gen, H, I_sh, dtype, dev),
+                "down_proj": _dense(gen, I_sh, H, dtype, dev),
+            }
+            mlp["shared_expert_gate"] = DenseLinear((randn(H, 1) * 0.02).to(dtype))
+        return mlp
+    inter = config.intermediate_size
+    return {
+        "gate_proj": _dense(gen, H, inter, dtype, dev, config.mlp_bias),
+        "up_proj": _dense(gen, H, inter, dtype, dev, config.mlp_bias),
+        "down_proj": _dense(gen, inter, H, dtype, dev, config.mlp_bias),
+    }
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Layer-wise calibration of the dense decoders, in torch.
+"""Layer-wise calibration of the dense and MoE decoders, in torch.
 
 Counterpart of `paroquant_tpu/optim/calibrate.py`:
   1. embed the calibration token batches once
@@ -6,7 +6,9 @@ Counterpart of `paroquant_tpu/optim/calibrate.py`:
      a. run the FP layer -> teacher outputs
      b. swap each eligible linear for a PseudoQuantLinear with fresh rotation
         params (seeded random independent pairs, seed cfg.seed + layer, or
-        the butterfly)
+        the butterfly); a sparse layer's stacked experts for one
+        PseudoQuantMoEExperts (optim/pseudo_moe.py: shared rotations, the
+        down side seeded cfg.seed + layer + 1000)
      c. run the optimization stages (default: stage 1 channel_scales+angles
         @5e-2, stage 2 weight@1e-5 + quantizer@1e-6), optionally
         GPTQ-initializing the last one
@@ -25,8 +27,10 @@ Activations stay on the device while a layer's set (inputs and teacher
 targets) fits `resident_act_bytes`; past it they are staged on the host and
 each batch is copied to the device when a step takes it.
 
-The gemma3n and delta-net (qwen3_next) branches, stacked MoE experts and a
-data-parallel `mesh` raise NotImplementedError (ROADMAP §A 5, §A 7).
+The gemma3n and delta-net (qwen3_next) branches and a data-parallel `mesh`
+raise NotImplementedError (ROADMAP §A 5, §A 7). GPTQ init re-initializes
+the standard linears only (the experts and a shared expert keep the plain
+init), as JAX's does.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from ..convert.rtn import _to_device
 from ..ops.qlinear import make_quantized_linear
 from ..utils.device import resolve_device
 from .pseudo import PseudoQuantLinear, export_quantized, make_pseudo_linear
+from .pseudo_moe import export_quantized_moe, make_pseudo_moe, quantized_moe_from_export
 from .train import optimize_linears
 
 logger = logging.getLogger("paroquant_tpu_torch.optim")
@@ -220,11 +225,10 @@ def gptq_init_linear(lin: PseudoQuantLinear, hessian: torch.Tensor,
 
 
 def quantized_from_export(exp: dict[str, Any], rot_dtype=torch.float32, device=None):
-    """The runtime QuantizedLinear of an export dict (numpy or tensors)."""
+    """The runtime QuantizedLinear (QuantizedMoEExperts for stacked experts)
+    of an export dict (numpy or tensors)."""
     if exp.get("moe"):
-        raise NotImplementedError(
-            "stacked-expert results need optim/pseudo_moe.py and ops/moe.py, which the port "
-            "has not yet (ROADMAP §A 5)")
+        return quantized_moe_from_export(exp, rot_dtype, device)
     return make_quantized_linear(
         exp["q"], exp["scales"], exp["zeros"], exp["pairs"], exp["theta"],
         exp["inv_channel_scales"], exp["group_size"], bias=exp["bias"],
@@ -245,10 +249,6 @@ def _refuse(config: ModelConfig, mesh) -> None:
         raise NotImplementedError(
             "delta-net (qwen3_next) calibration needs models/linear_attn.py, which the port "
             "has not yet (ROADMAP §A 5)")
-    if config.is_moe:
-        raise NotImplementedError(
-            "calibrating mlp.experts needs optim/pseudo_moe.py and ops/moe.py, which the "
-            "port has not yet (ROADMAP §A 5)")
     _unsupported(config)
 
 
@@ -276,8 +276,8 @@ def calibrate_model(
     log_fn: Callable[[dict, int], None] | None = None,
     device="cuda",
 ) -> tuple[dict[str, Any], list[dict[str, Any]]]:
-    """Calibrate and quantize a dense model on `device` (params are copied
-    there). Returns (quantized params, per-layer export dicts).
+    """Calibrate and quantize a dense or MoE model on `device` (params are
+    copied there). Returns (quantized params, per-layer export dicts).
 
     With output_dir, each layer's results are written as
     `{layer_idx}.{name}.npz`, and with resume=True a layer whose files are
@@ -354,8 +354,16 @@ def _calibrate(params, config, token_batches, cfg, output_dir, resume, progress_
                 layer_result[name] = exp
             layers[li] = new_lp
         else:
-            linears: dict[str, PseudoQuantLinear] = {}
+            linears: dict[str, Any] = {}
             for name in names:
+                if name == "mlp.experts":
+                    experts = lp["mlp"]["experts"]
+                    H, I_moe = experts["gate_proj"].shape[1:]
+                    linears[name] = make_pseudo_moe(
+                        experts, _rotation_for(cfg, H, cfg.seed + li),
+                        _rotation_for(cfg, I_moe, cfg.seed + li + 1000),
+                        n_bits=cfg.n_bits, group_size=cfg.group_size, device=dev)
+                    continue
                 dense = _get_linear(lp, name)
                 w = dense.w.to(torch.float32).T  # [O, I]
                 rot = _rotation_for(cfg, w.shape[1], cfg.seed + li)
@@ -390,11 +398,12 @@ def _calibrate(params, config, token_batches, cfg, output_dir, resume, progress_
                 weights baked dense), then gptq_init_linear per linear."""
                 from .pseudo import pseudo_quantized_weight
 
-                todo = [n for n in lins if n in _TAP_OF]
+                pql = {n: l for n, l in lins.items() if isinstance(l, PseudoQuantLinear)}
+                todo = [n for n in pql if n in _TAP_OF]
                 if not todo:
                     return
                 eff = lp
-                for n2, l2 in lins.items():
+                for n2, l2 in pql.items():
                     eff = _set_linear(eff, n2, DenseLinear(
                         pseudo_quantized_weight(l2).T,
                         None if l2.bias is None else l2.bias.detach()))
@@ -429,7 +438,7 @@ def _calibrate(params, config, token_batches, cfg, output_dir, resume, progress_
             # export, and swap in the runtime quantized linears
             new_lp = lp
             for name, lin in linears.items():
-                exp = export_quantized(lin)
+                exp = export_quantized_moe(lin) if name == "mlp.experts" else export_quantized(lin)
                 layer_result[name] = exp
                 if outdir is not None:
                     np.savez(outdir / f"{li}.{name}.npz", **flatten_export(exp))

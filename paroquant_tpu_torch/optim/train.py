@@ -30,7 +30,7 @@ import torch
 
 from .pseudo import PARAM_GROUPS, PseudoQuantLinear, init_quantizer, jit_form
 
-LinearDict = dict[str, PseudoQuantLinear]
+LinearDict = dict[str, PseudoQuantLinear]  # and optim/pseudo_moe.py's PseudoQuantMoEExperts
 
 
 def split_trainable(
@@ -90,10 +90,10 @@ def cosine_lr(lr: float, count: int, total_steps: int, alpha: float = 1 / 20) ->
 
 
 def _ensure_quantizer(lin):
-    if not isinstance(lin, PseudoQuantLinear):
-        raise NotImplementedError(
-            f"{type(lin).__name__}: the MoE experts' quantizer (optim/pseudo_moe.py) is not "
-            "ported yet (ROADMAP §A 5)")
+    from .pseudo_moe import PseudoQuantMoEExperts, init_moe_quantizers
+
+    if isinstance(lin, PseudoQuantMoEExperts):
+        return lin if lin.gate_up_q_scale is not None else init_moe_quantizers(lin)
     return lin if lin.q_scale is not None else init_quantizer(lin)
 
 

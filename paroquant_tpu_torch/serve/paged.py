@@ -1,6 +1,7 @@
 """Paged KV cache, paged decode step and speculative verify step.
 
-Counterpart of `paroquant_tpu/serve/paged.py` for the dense families:
+Counterpart of `paroquant_tpu/serve/paged.py` for the dense and MoE
+families (a sparse layer's MoE block runs in `layer_tail`):
 
 - a global page pool k/v [Lf, P, page_size, Hkv, D] (with kv_quant="int8",
   int8 pools plus per-(token, head) scales k_scale/v_scale [Lf, P, Hkv, ps]
@@ -171,7 +172,7 @@ def paged_decode_step(params: dict[str, Any], config: ModelConfig, tokens, seq_l
             attn = paged_attention(q, k_pages, v_pages, lens_incl, **kw)
         else:
             raise ValueError(f"unknown attn_mode {attn_mode!r}")
-        x = layer_tail(lp, x, attn.to(x.dtype).reshape(B, 1, Hq * D), config, quant_mode)
+        x = layer_tail(lp, x, attn.to(x.dtype).reshape(B, 1, Hq * D), config, li, quant_mode)
     x = rms_norm(x[:, 0], params["norm"], config.rms_norm_eps, config.zero_centered_norm)
     return lm_head_logits(params, config, x, quant_mode), cache
 
@@ -219,7 +220,7 @@ def paged_verify_step(params: dict[str, Any], config: ModelConfig, windows, seq_
             attn = paged_window_attention(q, k_pages, v_pages, positions, **kw)
         else:
             raise ValueError(f"unknown attn_mode {attn_mode!r}")
-        x = layer_tail(lp, x, attn.to(x.dtype).reshape(B, W, Hq * D), config, quant_mode)
+        x = layer_tail(lp, x, attn.to(x.dtype).reshape(B, W, Hq * D), config, li, quant_mode)
     x = rms_norm(x, params["norm"], config.rms_norm_eps, config.zero_centered_norm)
     logits = lm_head_logits(params, config, x, quant_mode)  # [B, W, V] f32
     toks = torch.argmax(logits, dim=-1)

@@ -114,10 +114,27 @@ def test_inject_outlier_channels_bit_for_bit(js, dtype_name):
     assert int(rows.sum()) == max(1, int(CFG.hidden_size * 0.01))
 
 
-def test_inject_outlier_channels_refuses_moe():
-    params = {"layers": [{"mlp": {"experts": {}}}]}
-    with pytest.raises(NotImplementedError):
-        inject_outlier_channels(params, CFG, 8.0)
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_inject_outlier_channels_refuses_moe(js, dtype_name):
+    """MoE layers used to be refused; the port now scales them as JAX does:
+    one channel set per expert projection (axis 1 of [E, In, Out]), shared
+    by every expert, and a shared expert's linears, bit for bit JAX's."""
+    jcfg = dataclasses.replace(J_PRESETS["tiny-moe"], shared_expert_intermediate_size=256)
+    cfg = dataclasses.replace(PRESETS["tiny-moe"], shared_expert_intermediate_size=256)
+    dense = jd.init_params(jcfg, jax.random.PRNGKey(4), dtype=getattr(jnp, dtype_name))
+    want = params_from_jax(jax.tree.map(np.asarray, js["quality_ladder"].inject_outlier_channels(
+        dense, jcfg, 8.0)), cfg, "cpu")
+    before = params_from_jax(jax.tree.map(np.asarray, dense), cfg, "cpu")
+    got = inject_outlier_channels(before, cfg, 8.0)
+    for lw, lg, lb in zip(want["layers"], got["layers"], before["layers"]):
+        for name in ("gate_proj", "up_proj", "down_proj"):
+            w, g, b = (lp["mlp"]["experts"][name] for lp in (lw, lg, lb))
+            assert torch.equal(g, w), name
+            moved = (g != b).any(dim=2)  # [E, In]: the same input channels in every expert
+            assert moved.any() and torch.equal(moved, moved[:1].expand_as(moved)), name
+            assert torch.equal(lg["mlp"]["shared_expert"][name].w,
+                               lw["mlp"]["shared_expert"][name].w)
+        assert torch.equal(lg["mlp"]["router"].w, lb["mlp"]["router"].w)
 
 
 def test_bench_a8_accuracy_matches_jax(js):

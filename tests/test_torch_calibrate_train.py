@@ -594,6 +594,21 @@ HYBRID = dict(model_type="qwen3_next", vocab_size=64, hidden_size=64, intermedia
 def test_unported_branches_raise(kind):
     cfg = {"mesh": T_CFG, "gemma3n": PRESETS["tiny-gemma3n"], "moe": PRESETS["tiny-moe"],
            "delta_net": from_hf_dict(HYBRID)}[kind]
+    if kind == "moe":
+        # ported: a one-layer tiny-moe calibrates its experts into
+        # QuantizedMoEExperts (tests/test_torch_pseudo_moe.py holds the
+        # calibration against JAX's)
+        cfg = dataclasses.replace(cfg, num_hidden_layers=1)
+        jp = j_init_params(dataclasses.replace(J_PRESETS["tiny-moe"], num_hidden_layers=1),
+                           jax.random.PRNGKey(1), dtype=jnp.float32)
+        tp = params_from_jax(jax.tree.map(np.asarray, jp), cfg, "cpu")
+        tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 1, 8)).astype(np.int32)
+        q, exps = calibrate_model(tp, cfg, tokens, CalibConfig(
+            group_size=64, num_rotations=4, stages=(({"channel_scales": 5e-3}, 1),)), device="cpu")
+        assert exps[0]["mlp.experts"]["moe"] and exps[0]["mlp.experts"]["gate"]["q"].shape == (
+            cfg.num_experts, cfg.moe_intermediate_size, cfg.hidden_size)
+        assert type(q["layers"][0]["mlp"]["experts"]).__name__ == "QuantizedMoEExperts"
+        return
     where = "§A 7" if kind == "mesh" else "§A 5"
     with pytest.raises(NotImplementedError, match=where):
         calibrate_model({"layers": []}, cfg, np.zeros((1, 1, 8), np.int32), CalibConfig(),
@@ -601,6 +616,24 @@ def test_unported_branches_raise(kind):
 
 
 def test_moe_quantizer_init_raises():
-    with pytest.raises(NotImplementedError, match="§A 5"):
-        ttrain.optimize_linears(lambda d, x: x, {"experts": torch.nn.Linear(2, 2)}, [], [],
-                                {"quantizer": 1e-6}, n_epochs=1)
+    """The experts' quantizer init used to raise; a quantizer stage now
+    initializes a PseudoQuantMoEExperts' both sides (gate_up over the
+    concatenated gate and up rows, down) as JAX's init_moe_quantizers does,
+    bit for bit."""
+    from paroquant_tpu.optim import pseudo_moe as jpm
+    from paroquant_tpu_torch.optim import pseudo_moe as tpm
+
+    rng = np.random.default_rng(12)
+    ex = {"gate_proj": rng.normal(size=(2, 128, 64)).astype(np.float32),
+          "up_proj": rng.normal(size=(2, 128, 64)).astype(np.float32),
+          "down_proj": rng.normal(size=(2, 64, 128)).astype(np.float32)}
+    jr = (jrot.make_rotation_params(128, 64, 4, 0), jrot.make_rotation_params(64, 64, 4, 1))
+    tr = (trot.make_rotation_params(128, 64, 4, 0), trot.make_rotation_params(64, 64, 4, 1))
+    jm = jpm.init_moe_quantizers(jpm.make_pseudo_moe(ex, *jr, group_size=64))
+    tm = tpm.make_pseudo_moe({k: torch.from_numpy(v) for k, v in ex.items()}, *tr, group_size=64)
+    x = torch.zeros(1)
+    ttrain.optimize_linears(lambda d, b: x, {"experts": tm}, [], [(x, x)],
+                            {"quantizer": 1e-6}, n_epochs=0)
+    for f in ("gate_up_q_scale", "gate_up_q_zp", "down_q_scale", "down_q_zp"):
+        np.testing.assert_array_equal(_np(getattr(tm, f)), np.asarray(getattr(jm, f)), f)
+    assert tm.gate_up_q_scale.shape == (2 * 2 * 64 * 2, 1)

@@ -236,18 +236,41 @@ def test_layer_taps_match_jax(name):
 
 
 def test_moe_and_gemma3n_are_refused(tmp_path):
-    cfg = PRESETS["tiny-moe"]
-    x = torch.zeros(1, 2, cfg.hidden_size)
-    z = torch.zeros(1, 2, 32)
-    with pytest.raises(NotImplementedError, match="§A 5"):
-        td.layer_forward({}, x, cfg, 0, z, z, None, None, torch.zeros((), dtype=torch.int32),
-                         "xla", return_taps=True)
-    for name in ("tiny-moe", "tiny-gemma3n"):
-        for save in (save_paro_checkpoint, save_awq_checkpoint):
-            with pytest.raises(NotImplementedError, match="§A 5"):
-                save(tmp_path / name, {"layers": []}, PRESETS[name], [])
+    """gemma3n still refuses every save and RTN export (ROADMAP §A 5). The
+    MoE family, refused before, is ported: an MoE layer's taps (router and
+    experts' input "mlp", the routed down_proj inputs "moe_down", a shared
+    expert's "shared_down") match JAX's, and its RTN exports (experts left
+    dense, as JAX's) are JAX's."""
+    name = "tiny-gemma3n"
+    for save in (save_paro_checkpoint, save_awq_checkpoint):
         with pytest.raises(NotImplementedError, match="§A 5"):
-            rtn_export_model({"layers": []}, PRESETS[name])
+            save(tmp_path / name, {"layers": []}, PRESETS[name], [])
     with pytest.raises(NotImplementedError, match="§A 5"):
-        save_paro_checkpoint(tmp_path / "x", {"layers": []}, PRESETS["tiny"],
-                             [{"mlp.experts": {}}])
+        rtn_export_model({"layers": []}, PRESETS[name])
+    cfg = dataclasses.replace(PRESETS["tiny-moe"], shared_expert_intermediate_size=256)
+    jcfg = dataclasses.replace(J_PRESETS["tiny-moe"], shared_expert_intermediate_size=256)
+    jp = jd.init_params(jcfg, jax.random.PRNGKey(8), dtype=jnp.float32)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), cfg, "cpu")
+    B, T = 2, 16
+    x = np.random.default_rng(9).normal(size=(B, T, cfg.hidden_size)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(T, dtype=np.int32)[None], (B, T)).copy()
+    jcos, jsin = jd.rope_tables_per_layer(jnp.asarray(pos), jcfg)[0]
+    tcos, tsin = td.rope_tables_per_layer(torch.from_numpy(pos), cfg)[0]
+    jout, _, jtaps = jd.layer_forward(jp["layers"][0], jnp.asarray(x), jcfg, 0, jcos, jsin,
+                                      jnp.asarray(pos), None, jnp.zeros((), jnp.int32), "xla",
+                                      return_taps=True)
+    tout, _, ttaps = td.layer_forward(tp["layers"][0], torch.from_numpy(x), cfg, 0, tcos, tsin,
+                                      torch.from_numpy(pos), None,
+                                      torch.zeros((), dtype=torch.int32), "xla", return_taps=True)
+    assert list(ttaps) == list(jtaps) == ["qkv", "o", "mlp", "moe_down", "shared_down"]
+    assert ttaps["moe_down"].shape == (B * T * cfg.num_experts_per_tok, cfg.moe_intermediate_size)
+    for k in jtaps:
+        want = np.asarray(jtaps[k])
+        assert np.abs(ttaps[k].numpy() - want).max() <= 1e-5 * np.abs(want).max(), k
+    assert np.abs(tout.numpy() - np.asarray(jout)).max() <= 1e-5 * np.abs(np.asarray(jout)).max()
+    want_exp, got_exp = j_export(jp, jcfg), rtn_export_model(tp, cfg)
+    assert [sorted(e) for e in got_exp] == [sorted(e) for e in want_exp]
+    assert all("mlp.experts" not in e for e in got_exp)
+    for we, ge in zip(want_exp, got_exp):
+        for n in we:
+            np.testing.assert_array_equal(ge[n]["q"], np.asarray(we[n]["q"]))

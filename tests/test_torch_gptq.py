@@ -223,6 +223,21 @@ def test_merged_projections_are_left_dense_and_logged(tiny):
 
 @pytest.mark.parametrize("name", ("tiny-moe", "tiny-gemma3n"))
 def test_moe_and_gemma3n_are_refused(name):
-    with pytest.raises(NotImplementedError, match="§A 5"):
-        gptq_quantize_model({"layers": []}, PRESETS[name], np.zeros((1, 8), np.int32),
-                            device="cpu")
+    """gemma3n still refuses (ROADMAP §A 5). tiny-moe, refused before, is
+    ported: each layer's experts are GPTQ'd into QuantizedMoEExperts with an
+    "mlp.experts" export (tests/test_torch_moe_convert.py holds the codes
+    against JAX's)."""
+    if name == "tiny-gemma3n":
+        with pytest.raises(NotImplementedError, match="§A 5"):
+            gptq_quantize_model({"layers": []}, PRESETS[name], np.zeros((1, 8), np.int32),
+                                device="cpu")
+        return
+    jp = jd.init_params(J_PRESETS[name], jax.random.PRNGKey(2), dtype=jnp.float32)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), PRESETS[name], device="cpu")
+    tokens = np.random.default_rng(4).integers(0, 512, (2, 32)).astype(np.int32)
+    qp, exp = gptq_quantize_model(tp, PRESETS[name], tokens, rot_dtype=torch.float32,
+                                  device="cpu")
+    for lp, e in zip(qp["layers"], exp):
+        assert sorted(e) == ["k_proj", "mlp.experts", "o_proj", "q_proj", "v_proj"]
+        assert type(lp["mlp"]["experts"]).__name__ == "QuantizedMoEExperts"
+        assert isinstance(lp["mlp"]["router"], td.DenseLinear)

@@ -45,6 +45,7 @@ EXPERIMENT_MODULES = (
     "paroquant_tpu_torch.optim.pseudo", "paroquant_tpu_torch.optim.train",
     "paroquant_tpu_torch.optim.calibrate", "paroquant_tpu_torch.cli.optimize",
     "paroquant_tpu_torch.cli.convert", "paroquant_tpu_torch.scripts.bench_calibration",
+    "paroquant_tpu_torch.ops.moe", "paroquant_tpu_torch.optim.pseudo_moe",
 )
 
 
