@@ -210,8 +210,10 @@ Phases, each printing one or more lines:
      pseudo; each output loaded and decoded) and `bench_calibration
      --tokens 2048`, each printing its line;
   11. the MoE family (`moe_paths`, the counts reset just before and read
-     just after; K1-K5 must run): Qwen3-30B-A3B's published widths (48
-     layers, 128 experts, top 8) with random bf16 weights from a seeded
+     just after; K1-K5 must run): Qwen3-30B-A3B's published widths (128
+     experts, top 8) at 24 of its 48 layers (MOE_LAYERS: the depth cut
+     that keeps the script in its time limit beside phase 12), with random
+     bf16 weights from a seeded
      torch.Generator, built layer by layer on the card (RTN W4 g128, the
      experts through quantize_experts_rtn, a W4 lm_head, merged
      projections; its seconds and peak bytes); the Generator (quant_mode
@@ -221,14 +223,36 @@ Phases, each printing one or more lines:
      the kernel path's teacher-forced logits against "xla" + einsum within
      TOL_E2E; the Engine (8 slots, pages of 128, spec_k 4, bf16 pool) over
      eight greedy requests, each one's logprobs within TOL_LOGPROB of one
-     contiguous prefill; at 2 of the 48 layers a PARO-TPU directory
+     contiguous prefill; at 2 layers a PARO-TPU directory
      (stacked experts) and an AWQ one (per-expert), each loaded to the
      in-memory model's logits and tokens bit for bit; GPTQ of one layer at
      this width over 4 x 512 tokens (its seconds, each projection's error
      below RTN's); and a 1-layer tiny-moe calibration on the card within
      the CPU tests' tolerance of the same one on the host;
-  12. a `phase_seconds` line after each phase, the `kernels` JSON line,
-     then the result line.
+  12. the qwen3_next hybrid (`hybrid_paths`, the counts reset just before
+     and read just after; K1-K4 must run, K3 on its f32-query instance):
+     Qwen3-Next-80B-A3B's published widths (every fourth layer full
+     attention with a gated q, the others gated delta-net; 512 experts of
+     512, top 10, a shared expert) at 36 of its 48 layers (HYBRID_LAYERS:
+     the depth cut that keeps the script in its time limit) with random
+     bf16 weights, built as in phase 11; the Generator over four greedy
+     requests, its decode step under sync debug mode "error" and profiled;
+     the kernel path's teacher-forced logits against the same computation
+     with each kernel's plain version, routing pinned, within TOL_E2E on
+     the first 4 layers and recorded at all 36 beside the noise floor; the
+     Engine (8 slots, no speculation) over eight greedy requests at 36
+     layers, and its
+     logprobs within TOL_LOGPROB of one contiguous prefill on the first 4
+     layers (W4A16); the paged step at 6 slots under sync debug mode
+     "error"; PARO-TPU and AWQ directories at 4 layers loaded bit for bit;
+     GPTQ of a delta-net and a full-attention layer below RTN's error; and
+     a 1-layer hybrid calibrated on the card within the CPU tests'
+     tolerance of the host's. K1/K2 with f32 inputs at the hybrid's decode
+     shapes, K3's f32-query instance and K4's SIMT instance for f32
+     queries join phase 3's kernel checks;
+  13. a `phase_seconds` line after each phase, the `kernels` JSON line
+     (each kernel's `hybrid_paths_launches` beside its launches), then the
+     result line.
 It imports nothing of JAX, catches no failure of the port (only a library
 yardstick's refusal of a shape, `int_mm_yardstick`), and exits non-zero without
 printing a result when CUDA is missing or the package is not beside it.
@@ -245,7 +269,8 @@ import time
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}  # dense tensor-core rates, H100 SXM
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12,  # dense tensor-core rates, H100 SXM
+            "f32": 67e12}  # float32 outside the tensor cores
 FLUSH_BYTES = 256 << 20  # > the 50 MB L2
 KERNEL_REPS, PLAIN_REPS = 30, 5
 TOL_KERNEL = 2e-2  # max abs error / max |plain output|; for K4/K5 per query row (slot, w, head)
@@ -462,6 +487,65 @@ def check_matmuls(flush, gen, dev):
     return rows
 
 
+# the hybrid's K1/K2 calls at decode, whose x is f32 after the first delta-net
+# layer (Qwen3-Next-80B-A3B): name, kernel, I, splits, a8 (what `auto` takes at
+# M <= 16: W4A8 where K x N >= 8M)
+HYBRID_MATMULS = [
+    ("in_proj_qkvz", "rot_w4_matmul", 2048, (12288,), True),
+    ("out_proj/o_proj", "rot_w4_matmul", 4096, (2048,), True),
+    ("qkv_proj (gated q)", "merged_rot_w4_matmul", 2048, (8192, 512, 512), True),
+    ("shared_expert.gate_up_proj", "merged_rot_w4_matmul", 2048, (512, 512), False),
+    ("shared_expert.down_proj", "rot_w4_matmul", 512, (2048,), False),
+    ("lm_head", "rot_w4_matmul", 2048, (151936,), True),
+]
+
+
+def check_hybrid_matmuls(flush, gen, dev):
+    """K1/K2 with f32 x at the hybrid's decode shapes, M 1 and 8 (the
+    Engine's step): each against its plain version within TOL_KERNEL of max
+    |y|, its route, timed beside the plain version and `torch.matmul` on the
+    pre-rotated effective weight (bf16, x cast)."""
+    import torch
+
+    from paroquant_tpu_torch.kernels import rot_matmul as rm
+
+    rows = []
+    for layer, kernel, I, splits, a8 in HYBRID_MATMULS:
+        rot, qweight, scales, zeros, w_eff = random_merged(I, splits, gen, dev)
+        O, P, G = sum(splits), len(splits), I // 128
+        for M in (1, 8):
+            x = torch.randn(M, I, generator=gen, device=dev)
+            if kernel == "rot_w4_matmul":
+                run = lambda: rm.rot_w4_matmul(x, rot[0], qweight, scales, zeros, a8=a8)
+                plain = lambda: rm.rot_w4_matmul_plain(x, rot[0], qweight, scales, zeros, a8=a8)
+            else:
+                run = lambda: rm.merged_rot_w4_matmul(x, rot, qweight, scales, zeros,
+                                                      out_splits=splits, a8=a8)
+                plain = lambda: rm.merged_rot_w4_matmul_plain(x, rot, qweight, scales, zeros,
+                                                              out_splits=splits, a8=a8)
+            y, route = routed(rm, run)
+            y, y_ref = y.float(), plain().float()
+            torch.cuda.synchronize()
+            err = (y - y_ref).abs().max().item()
+            tol = TOL_KERNEL * y_ref.abs().max().item()
+            ms = median_ms(run, KERNEL_REPS, flush)
+            plain_ms = median_ms(plain, PLAIN_REPS, flush)
+            xb = x.to(torch.bfloat16)
+            lib_ms = median_ms(lambda: torch.matmul(xb, w_eff), KERNEL_REPS, flush)
+            nbytes = M * I * 4 + P * G * 128 * 128 * 2 + I * O // 2 + 2 * G * O * 2 + M * O * 4
+            b_ms, b_by = bound(nbytes, 2 * M * I * O + 2 * P * M * I * 128, "int8" if a8 else "bf16")
+            row = dict(kernel=kernel, layer=layer, M=M, a8=a8, x="f32", route=route,
+                       max_abs_err=err, tol=tol,
+                       rel_fro_err=((y - y_ref).norm() / y_ref.norm()).item(), us=ms * 1e3,
+                       plain_us=plain_ms * 1e3, library_us=lib_ms * 1e3, bound_us=b_ms * 1e3,
+                       bound_by=b_by, ok=err <= tol and bool(torch.isfinite(y).all()))
+            emit({"phase": "kernel_check", **row})
+            rows.append(row)
+        del rot, qweight, scales, zeros, w_eff
+        torch.cuda.empty_cache()
+    return rows
+
+
 def sdpa_mask(T, S, q_offset, window, dev):
     import torch
 
@@ -621,6 +705,63 @@ def flash_edges(gen, dev, record):
         check("many_blocks", 2, 16, 8, D, 640, 640, (640, 600), (0, 0), dts=(torch.bfloat16,))
     if not {1, 2} <= groups:
         raise SystemExit(f"K3's edges ran key groups {sorted(groups)}, not both 1 and 2")
+
+
+# the hybrid's K3 instance: f32 q over a bf16 cache (after its first delta-net
+# layer a bf16 hybrid's residual stream is f32, as JAX's), at Qwen3-Next-80B-A3B's
+# full-attention shape (Hq 16, Hkv 2, D 256): T 512 from offset 0 and from 256
+FLASH_MIXED_CASES = {"f32q_offset0": (512, 512, 0), "f32q_offset256": (512, 768, 256)}
+TOL_F32_ATTN = 1e-4  # per query row, of its max |y|: f32 arithmetic on both sides
+
+
+def check_flash_mixed(flush, gen, dev):
+    """K3's f32-query instance over bf16 k/v against its plain version (each
+    query row to its own scale, within TOL_F32_ATTN), two calls bitwise
+    equal, timed beside the plain version and SDPA on k/v cast to f32 (the
+    cast inside the timed call); the bound counts f32 q and output, bf16
+    k/v, and the valid pairs' operations at the f32 (SIMT) peak."""
+    import torch
+
+    from paroquant_tpu_torch.kernels import attention as at
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, Hq, Hkv, D = 1, 16, 2, 256
+    rows = []
+    for case, (T, S, q_off) in FLASH_MIXED_CASES.items():
+        kv_len = q_off + T
+        q = torch.randn(B, Hq, T, D, generator=gen, device=dev)
+        k = torch.randn(B, Hkv, S, D, generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn(B, Hkv, S, D, generator=gen, device=dev).to(torch.bfloat16)
+        lens = torch.full((B,), kv_len, dtype=torch.int32, device=dev)
+        kw = dict(scale=D**-0.5, q_offset=torch.full((B,), q_off, dtype=torch.int32, device=dev))
+        before = at.flash_kinds["f32_q_bf16_kv"]
+        run = lambda: at.flash_attention(q, k, v, lens, **kw)
+        plain = lambda: at.flash_attention_plain(q, k, v, lens, **kw)
+        y, y_ref = run(), plain()
+        torch.cuda.synchronize()
+        ratio = row_err_ratio(y, y_ref, 3)
+        same = torch.equal(run(), run())
+        instance_ok = at.flash_kinds["f32_q_bf16_kv"] == before + 3 and y.dtype == torch.float32
+        ms = median_ms(run, KERNEL_REPS, flush)
+        plain_ms = median_ms(plain, PLAIN_REPS, flush)
+        mask = sdpa_mask(T, S, q_off, None, dev)
+        lib_ms = median_ms(lambda: sdpa(q, k.float(), v.float(), attn_mask=mask, scale=D**-0.5,
+                                        enable_gqa=True), KERNEL_REPS, flush)
+        pairs = sum(q_off + t + 1 for t in range(T))
+        nbytes = 4 * 2 * B * Hq * T * D + 2 * 2 * B * Hkv * kv_len * D
+        b_ms, b_by = bound(nbytes, 4 * B * Hq * pairs * D, "f32")
+        row = dict(kernel="flash_attention", case=case, instance="f32_q_bf16_kv", Hq=Hq, Hkv=Hkv,
+                   D=D, T=T, S=S, q_offset=q_off, kv_len=kv_len,
+                   max_abs_err=(y - y_ref).abs().max().item(), row_err_ratio=ratio,
+                   tol=TOL_F32_ATTN, bitwise_equal=same, us=ms * 1e3, plain_us=plain_ms * 1e3,
+                   library_us=lib_ms * 1e3, library="sdpa(enable_gqa) on k/v cast to f32, "
+                   "the cast timed, mask tensor", bound_us=b_ms * 1e3, bound_by=b_by,
+                   ok=(ratio <= TOL_F32_ATTN and same and instance_ok
+                       and bool(torch.isfinite(y).all())))
+        emit({"phase": "kernel_check", **row})
+        rows.append(row)
+        del q, k, v, mask
+    return rows
 
 
 SZ_EDGE_DTYPES = ("float32", "bfloat16", "float16", "uint8")
@@ -2761,6 +2902,48 @@ def check_paged_step(flush, gen, dev):
     return [row]
 
 
+def check_paged_f32_queries(flush, gen, dev):
+    """K4 with f32 queries over a bf16 pool, the hybrid Engine's step
+    (Qwen3-Next-80B-A3B: 8 slots, Hq 16, Hkv 2, D 256, pages of 128, maxP 8,
+    PAGED_LENS' first 8 lengths clamped to 1024): the SIMT instance
+    (`paged_simt_kernel`; the tensor-core one takes bf16 queries), held to
+    TOL_F32_ATTN per query row; SDPA on the gathered pages is the library
+    call (bf16, as `paged_sdpa` gives it)."""
+    import torch
+
+    from paroquant_tpu_torch.kernels import attention as at
+
+    shp = dict(B=8, Hq=16, Hkv=2, D=256, ps=128, maxP=8)
+    B, Hq, D = shp["B"], shp["Hq"], shp["D"]
+    table, k, v, _, _ = paged_inputs(gen, dev, quant=False, **shp)
+    seq = torch.tensor([min(n, 1024) for n in PAGED_LENS], dtype=torch.int32, device=dev)
+    q = torch.randn(B, Hq, D, generator=gen, device=dev)
+    before = dict(at.paged_instances["paged_decode_attention"])
+    run = lambda: at.paged_decode_attention(q, k, v, table, seq, scale=D**-0.5)
+    plain = lambda: at.paged_decode_attention_plain(q, k, v, table, seq, scale=D**-0.5)
+    y, y_ref = run(), plain()
+    torch.cuda.synchronize()
+    simt = at.paged_instances["paged_decode_attention"]["simt"] - before["simt"]
+    ratio = row_err_ratio(y, y_ref, 2)
+    ms = median_ms(run, KERNEL_REPS, flush)
+    plain_ms = median_ms(plain, PLAIN_REPS, flush)
+    lib_ms = median_ms(paged_sdpa(q[:, None], table, k, v, None, None, seq - 1, dev),
+                       KERNEL_REPS, flush)
+    rows_kv = sum(seq.tolist())
+    nbytes = rows_kv * shp["Hkv"] * 2 * D * 2 + 2 * B * Hq * D * 4 + B * shp["maxP"] * 4 + B * 4
+    b_ms, b_by = bound(nbytes, 4 * Hq * D * rows_kv, "f32")
+    row = dict(kernel="paged_decode_attention", case="hybrid step 8 slots f32 q, bf16 pool",
+               instance="paged_simt_kernel" if simt == 1 else f"{simt} SIMT launches of 1",
+               B=B, W=1, Hq=Hq, Hkv=shp["Hkv"], D=D, maxP=shp["maxP"],
+               split=at.paged_split(B, shp["Hkv"], 1, shp["maxP"], shp["ps"]),
+               max_abs_err=(y - y_ref).abs().max().item(), row_err_ratio=ratio, tol=TOL_F32_ATTN,
+               us=ms * 1e3, plain_us=plain_ms * 1e3, library_us=lib_ms * 1e3,
+               bound_us=b_ms * 1e3, bound_by=b_by,
+               ok=ratio <= TOL_F32_ATTN and simt == 1 and bool(torch.isfinite(y).all()))
+    emit({"phase": "kernel_check", **row})
+    return [row]
+
+
 def check_paged_rows(flush, gen, dev):
     """K5 at 16 query heads per kv head (Hq 32, Hkv 2, D 128, bf16 pool,
     PAGED_LENS): a window of 4 (64 rows, one chunk per slot and kv head)
@@ -3126,16 +3309,16 @@ def check_paged_logits(qparams, cfg, dev):
             raise SystemExit(f"paged kernel-path logits disagree with the plain path ({kv_quant})")
 
 
-def check_paged_decode_has_no_sync(qparams, cfg, dev):
-    """Two paged_decode_steps at B = 8 (and the engine's sampler after each)
-    under torch's sync debug mode "error"."""
+def check_paged_decode_has_no_sync(qparams, cfg, dev, B=8):
+    """Two paged_decode_steps at B slots (and the engine's sampler after
+    each) under torch's sync debug mode "error"."""
     import torch
 
     from paroquant_tpu_torch.serve.paged import PagedKVCache, paged_decode_step
     from paroquant_tpu_torch.serve.sampling import sample_batch
 
-    B, ps, maxP = 8, 128, 4
-    cache = PagedKVCache.create(cfg, B * maxP + 1, ps, torch.bfloat16, device=dev)
+    ps, maxP = 128, 4
+    cache = PagedKVCache.create(cfg, B * maxP + 1, ps, torch.bfloat16, device=dev, batch=B)
     table = torch.arange(B * maxP, dtype=torch.int32, device=dev).reshape(B, maxP)
     lens = torch.full((B,), 200, dtype=torch.int32, device=dev)
     toks = torch.ones(B, dtype=torch.int32, device=dev)
@@ -3157,7 +3340,8 @@ def check_paged_decode_has_no_sync(qparams, cfg, dev):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    emit({"phase": "paged_decode_no_sync", "batch": B, "steps": 2, "sampler": True, "ok": True})
+    emit({"phase": "paged_decode_no_sync", "model_type": cfg.model_type, "batch": B, "steps": 2,
+          "sampler": True, "ok": True})
 
 
 # ---------------------------------------------------------------------------
@@ -4008,7 +4192,10 @@ def model_from_exports(params, exports, fmt, dev):
     bf16), theta and channel scales to f16, and the AWQ format's scales to
     f16 (the PARO-TPU format keeps them f32). A sparse layer's router (and
     an untied lm_head) are dense; its stacked experts come from the
-    "mlp.experts" export through `quantized_moe_from_export`."""
+    "mlp.experts" export through `quantized_moe_from_export`, a shared
+    expert from its exports and its gate dense. A delta-net layer's linears
+    come from their exports where exported, else dense; conv_w, dt_bias and
+    A_log stay f32 as the file holds them."""
     import torch
 
     from paroquant_tpu_torch.models import DenseLinear
@@ -4039,10 +4226,23 @@ def model_from_exports(params, exports, fmt, dev):
         out["lm_head"] = DenseLinear(f16(params["lm_head"].w))
     for lp, exp in zip(params["layers"], exports):
         nlp = {k: f16(v) for k, v in lp.items() if k.endswith("norm")}
-        nlp.update({k: qlin(exp[k]) for k in ("q_proj", "k_proj", "v_proj", "o_proj")})
+        if "linear_attn" in lp:
+            la = lp["linear_attn"]
+            nlp["linear_attn"] = {
+                **{n: qlin(exp[f"linear_attn.{n}"]) if f"linear_attn.{n}" in exp
+                   else DenseLinear(f16(la[n].w)) for n in ("in_proj_qkvz", "in_proj_ba", "out_proj")},
+                **{n: la[n].to(torch.float32) for n in ("conv_w", "dt_bias", "A_log")},
+                "norm": f16(la["norm"])}
+        else:
+            nlp.update({k: qlin(exp[k]) for k in ("q_proj", "k_proj", "v_proj", "o_proj")})
         if "mlp.experts" in exp:
             nlp["mlp"] = {"router": DenseLinear(f16(lp["mlp"]["router"].w)),
                           "experts": experts(exp["mlp.experts"])}
+            if "shared_expert" in lp["mlp"]:
+                nlp["mlp"]["shared_expert"] = {k: qlin(exp[f"mlp.shared_expert.{k}"])
+                                               for k in ("gate_proj", "up_proj", "down_proj")}
+                nlp["mlp"]["shared_expert_gate"] = DenseLinear(
+                    f16(lp["mlp"]["shared_expert_gate"].w))
         else:
             nlp["mlp"] = {k: qlin(exp[f"mlp.{k}"]) for k in ("gate_proj", "up_proj", "down_proj")}
         out["layers"].append(nlp)
@@ -4234,7 +4434,8 @@ def calib_exports_close(a, b) -> dict:
 
 def small_calibration_on_both(dev, preset="tiny", calib=SMALL_CALIB) -> None:
     """The port's 1-layer calibration of a small preset (hidden 256, outlier
-    input channels) on the card against the same calibration on the host."""
+    input channels), or of a ModelConfig given as `preset`, on the card
+    against the same calibration on the host."""
     import dataclasses
 
     import numpy as np
@@ -4245,7 +4446,9 @@ def small_calibration_on_both(dev, preset="tiny", calib=SMALL_CALIB) -> None:
     from paroquant_tpu_torch.models.decoder import model_forward
     from paroquant_tpu_torch.optim import CalibConfig, calibrate_model
 
-    cfg = dataclasses.replace(PRESETS[preset], num_hidden_layers=1)
+    base = PRESETS[preset] if isinstance(preset, str) else preset
+    cfg = dataclasses.replace(base, num_hidden_layers=1)
+    preset = preset if isinstance(preset, str) else base.model_type
     cpu = torch.device("cpu")
     params = inject_outlier_channels(init_params(cfg, 5, torch.float32, cpu), cfg, scale=6.0,
                                      frac=0.03)
@@ -4432,7 +4635,7 @@ QWEN3_30B_A3B = dict(model_type="qwen3_moe", vocab_size=151936, hidden_size=2048
                      moe_intermediate_size=768, norm_topk_prob=True, decoder_sparse_step=1,
                      mlp_only_layers=[], rope_theta=1e6, rms_norm_eps=1e-6,
                      tie_word_embeddings=False)
-MOE_LAYERS = 48  # the served model's depth (all of Qwen3-30B-A3B's)
+MOE_LAYERS = 24  # the served model's depth: 24 of Qwen3-30B-A3B's 48, to leave room for hybrid_paths
 MOE_CKPT_LAYERS = 2  # the checkpoints' depth
 MOE_PROMPTS = (16, 128, 256, 512)  # the Generator's requests, MOE_NEW_TOKENS each
 MOE_NEW_TOKENS = 32
@@ -4527,20 +4730,13 @@ def moe_generator(qparams, cfg, dev):
     moe_logits_check(qparams, cfg, tokens, len(prompts[2]), dev)
 
 
-def moe_logits_check(qparams, cfg, tokens, n, dev):
-    """The kernel path's teacher-forced logits (a prefill of n tokens, then
-    a decode step a token) against quant_mode "xla" with the einsum
-    attention. An expert choice is a discontinuous function of the router's
-    inputs, so where the two paths' hidden states differ in their last bits
-    a token near a routing tie takes another expert in one path only, and
-    the change flows through the later layers. So the kernel path runs
-    twice: free (its own routing; its error and the share of routed rows
-    whose expert set differs from the reference's are recorded) and pinned
-    to the reference's routing (each MoE block given the reference's expert
-    choices and gates, in call order), which holds the kernels' numerics:
-    the pinned error must stay within TOL_E2E."""
-    import torch
-
+def pinned_runs(ref, kern, *pinned_only):
+    """ref() and kern() each compute logits through the MoE blocks; ref runs
+    once with each `moe_apply` call's routing (ids and gates) recorded, kern
+    runs free (its own routing) and pinned (given ref's routing, in call
+    order). Returns (ref logits, free, pinned, routed rows whose expert set
+    differs between ref and the free run, routed rows), then the logits of
+    each further function of `pinned_only`, run pinned to ref's routing."""
     from paroquant_tpu_torch.ops import moe as moe_ops
 
     plain = moe_ops.moe_apply
@@ -4555,18 +4751,27 @@ def moe_logits_check(qparams, cfg, tokens, n, dev):
 
     moe_ops.moe_apply = routed
     try:
-        ref = teacher_forced(qparams, cfg, tokens, n, "xla", "einsum", dev)
+        ref_logits = ref()
         ref_routes, routes = routes, []
-        free = teacher_forced(qparams, cfg, tokens, n, "auto", "flash", dev)
-        replay[:] = ref_routes
-        pinned = teacher_forced(qparams, cfg, tokens, n, "auto", "flash", dev)
-        if replay:
-            raise SystemExit(f"moe: {len(replay)} recorded routings were not replayed")
+        free = kern()
+        flips = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                    for (a, _), (b, _) in zip(ref_routes, routes))
+        others = []
+        for fn in (kern, *pinned_only):
+            replay[:] = ref_routes
+            others.append(fn())
+            if replay:
+                raise SystemExit(f"{len(replay)} recorded routings were not replayed")
     finally:
         moe_ops.moe_apply = plain
-    flips = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
-                for (a, _), (b, _) in zip(ref_routes, routes))
-    rows = sum(a.shape[0] for a, _ in ref_routes)
+    return (ref_logits, free, others[0], flips, sum(a.shape[0] for a, _ in ref_routes),
+            *others[1:])
+
+
+def logits_rows(phase, ref, free, pinned, flips, rows, n_steps, cfg, **extra):
+    """The line of a pinned logits check: each row's relative Frobenius error
+    (pinned, and free beside it); raises past TOL_E2E or on a bad shape."""
+    import torch
 
     def rel(x):
         return ((x - ref).norm(dim=-1) / ref.norm(dim=-1)).tolist()
@@ -4574,14 +4779,132 @@ def moe_logits_check(qparams, cfg, tokens, n, dev):
     finite = bool(torch.isfinite(pinned).all() and torch.isfinite(free).all()
                   and torch.isfinite(ref).all())
     agree = sum(int(a) == int(b) for a, b in zip(pinned.argmax(-1), ref.argmax(-1)))
-    row = {"phase": "moe_logits_check", "rel_fro_err": rel(pinned), "bound": TOL_E2E,
-           "routing": "pinned to the reference's", "free_rel_fro_err": rel(free),
-           "free_routed_rows_flipped": flips, "routed_rows": rows, "finite": finite,
-           "argmax_agree": agree, "steps": pinned.shape[0], "shape": list(pinned.shape)}
+    row = {"phase": phase, **extra, "rel_fro_err": rel(pinned), "bound": TOL_E2E,
+           "free_rel_fro_err": rel(free), "free_routed_rows_flipped": flips, "routed_rows": rows,
+           "finite": finite, "argmax_agree": agree, "steps": pinned.shape[0],
+           "shape": list(pinned.shape)}
     emit(row)
     if (not finite or max(row["rel_fro_err"]) > TOL_E2E
-            or pinned.shape != (tokens.shape[1] - n + 1, cfg.vocab_size)):
-        raise SystemExit("moe: kernel-path logits disagree with the reference path")
+            or pinned.shape != (n_steps, cfg.vocab_size)):
+        raise SystemExit(f"{phase}: kernel-path logits disagree with the reference path")
+    return row
+
+
+def moe_logits_check(qparams, cfg, tokens, n, dev, phase="moe_logits_check"):
+    """The kernel path's teacher-forced logits (a prefill of n tokens, then
+    a decode step a token) against quant_mode "xla" with the einsum
+    attention. An expert choice is a discontinuous function of the router's
+    inputs, so where the two paths' hidden states differ in their last bits
+    a token near a routing tie takes another expert in one path only, and
+    the change flows through the later layers. So the kernel path runs
+    twice: free (its own routing; its error and the share of routed rows
+    whose expert set differs from the reference's are recorded) and pinned
+    to the reference's routing (each MoE block given the reference's expert
+    choices and gates, in call order), which holds the kernels' numerics:
+    the pinned error must stay within TOL_E2E."""
+    runs = pinned_runs(lambda: teacher_forced(qparams, cfg, tokens, n, "xla", "einsum", dev),
+                       lambda: teacher_forced(qparams, cfg, tokens, n, "auto", "flash", dev))
+    logits_rows(phase, *runs, tokens.shape[1] - n + 1, cfg,
+                routing="pinned to the reference's")
+
+
+def plain_kernels(perturb=0.0):
+    """A context in which K1, K2 and K3's wrappers run their plain versions
+    on the card (`rot_w4_matmul_plain`, `merged_rot_w4_matmul_plain`,
+    `flash_attention_plain`): the kernel path's own computation, every
+    choice of `auto` (W4A8 for the large matrices at M <= 16, the one
+    launch for the others, the M cut) and of the flash gate kept, with each
+    kernel replaced by its plain version. perturb > 0 multiplies each K1/K2
+    input by (1 + perturb * N(0, 1)) first: the plain path's sensitivity
+    to f32 rounding noise."""
+    import contextlib
+
+    import torch
+
+    from paroquant_tpu_torch.kernels import attention as at, rot_matmul as rm
+
+    def noisy(fn):
+        if not perturb:
+            return fn
+        return lambda x, *a, **k: fn(x * (1 + perturb * torch.randn_like(x)), *a, **k)
+
+    @contextlib.contextmanager
+    def ctx():
+        swaps = [(rm, "rot_w4_matmul", noisy(rm.rot_w4_matmul_plain)),
+                 (rm, "merged_rot_w4_matmul", noisy(rm.merged_rot_w4_matmul_plain)),
+                 (at, "flash_attention", at.flash_attention_plain)]
+        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+        try:
+            for mod, name, fn in swaps:
+                setattr(mod, name, fn)
+            yield
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+
+    return ctx()
+
+
+def first_layers(qparams, cfg, n):
+    """The model's first n layers with its embedding, final norm and lm_head."""
+    import dataclasses
+
+    return ({**qparams, "layers": qparams["layers"][:n]},
+            dataclasses.replace(cfg, num_hidden_layers=n, layer_types=cfg.layer_types[:n]))
+
+
+HYBRID_NOISE = 1e-7  # relative noise on K1/K2's inputs: the size of an f32 rounding
+
+
+def hybrid_logits_check(qparams, cfg, tokens, n, dev):
+    """The hybrid's teacher-forced logits (a prefill of n tokens, then a
+    decode step a token), routing pinned as in `moe_logits_check`: the
+    kernel path ("auto", flash: K1/K2 on RA8 for the large matrices at
+    decode, the one launch for the others, K3 over f32 queries) against the
+    same computation with each kernel replaced by its plain version
+    (`plain_kernels`). Held within TOL_E2E on the served model's first
+    HYBRID_CHECK_LAYERS layers (3 delta-net layers and a full-attention
+    one: every kernel of the path); recorded at all HYBRID_LAYERS. Beside each,
+    the noise floor: the plain path against itself with every K1/K2 input
+    perturbed by HYBRID_NOISE relative. W4A8 rounds each large matrix's
+    activations to int8 at decode, so noise at the size of an f32 rounding
+    flips some int8 values and moves a random hybrid's decode logits by
+    percents; the floor grows with the depth, and the kernel path, whose
+    f32 sums are ordered apart from the plain version's, sits at it.
+    Recorded, not held: the kernel path against quant_mode "xla" with the
+    einsum attention, free (W4A16 against W4A8, and the routing flips)."""
+    def check(params, config, phase, hold):
+        def tf():
+            return teacher_forced(params, config, tokens, n, "auto", "flash", dev)
+
+        def plain_ref(perturb=0.0):
+            with plain_kernels(perturb):
+                return tf()
+
+        ref, free, pinned, flips, rows, noisy = pinned_runs(
+            plain_ref, tf, lambda: plain_ref(HYBRID_NOISE))
+
+        def rel(x):
+            return ((x - ref).norm(dim=-1) / ref.norm(dim=-1)).tolist()
+
+        extra = dict(layers=config.num_hidden_layers, held=hold, kernel_path="auto, flash",
+                     reference="the same with each kernel's plain version",
+                     routing="pinned to the reference's", noise_floor_rel_fro_err=rel(noisy),
+                     noise=HYBRID_NOISE)
+        if hold:
+            logits_rows(phase, ref, free, pinned, flips, rows, tokens.shape[1] - n + 1, config,
+                        **extra)
+        else:
+            emit({"phase": phase, **extra, "rel_fro_err": rel(pinned), "free_rel_fro_err": rel(free),
+                  "free_routed_rows_flipped": flips, "routed_rows": rows})
+        return free
+
+    check(*first_layers(qparams, cfg, HYBRID_CHECK_LAYERS), "hybrid_logits_check", True)
+    auto = check(qparams, cfg, "hybrid_logits_all_layers", False)
+    xla = teacher_forced(qparams, cfg, tokens, n, "xla", "einsum", dev)
+    emit({"phase": "hybrid_logits_auto_vs_xla", "layers": cfg.num_hidden_layers, "held": False,
+          "routing": "free",
+          "rel_fro_err": ((auto - xla).norm(dim=-1) / xla.norm(dim=-1)).tolist()})
 
 
 class RoutingLog:
@@ -4694,11 +5017,14 @@ class RoutingLog:
         return scores, routing
 
 
-def moe_engine(qparams, cfg, dev):
+def moe_engine(qparams, cfg, dev, spec_k=4, phase="moe_serve", score=True, quant_mode="auto"):
     """The Engine (8 slots, pages of 128, chunked prefill, prompt-lookup
     speculation k 4, bf16 pool, quant_mode "auto") over eight greedy
     requests of 16-512 prompt tokens (three of them repeated blocks, so that
-    drafts are found): every request returns its tokens. Each one's
+    drafts are found): every request returns its tokens. With spec_k 0 (the
+    hybrid, which JAX keeps off speculation) no speculative window is run;
+    with score=False the requests are served and their tokens checked only.
+    quant_mode is the Engine's (and so score_sync's). Each one's
     logprobs against one contiguous prefill of its sequence
     (Engine.score_sync): free, and with the prefill's routing pinned to the
     Engine's (`RoutingLog`), which must lie within TOL_LOGPROB (routing
@@ -4713,7 +5039,7 @@ def moe_engine(qparams, cfg, dev):
     from paroquant_tpu_torch.serve import Engine, SamplingParams
 
     eng = Engine(qparams, cfg, max_batch=8, max_len=1024, page_size=128, prefill_chunk=256,
-                 quant_mode="auto", decode_burst=8, spec_k=4, device=dev)
+                 quant_mode=quant_mode, decode_burst=8, spec_k=spec_k, device=dev)
     g = torch.Generator().manual_seed(42)
 
     def rand(n):
@@ -4738,7 +5064,7 @@ def moe_engine(qparams, cfg, dev):
             ticks += 1
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        emit({"phase": "moe_serve", "requests": len(prompts), "wall_s": wall, "ticks": ticks,
+        emit({"phase": phase, "requests": len(prompts), "wall_s": wall, "ticks": ticks,
               "generated_tok_s": eng.metrics["tokens_generated"] / wall,
               "timing": "routing recorded (a host copy of each MoE block's routing)",
               "metrics": eng.metrics, "ttft": eng.ttft_stats(), "step_time": eng.step_time_stats()})
@@ -4750,10 +5076,12 @@ def moe_engine(qparams, cfg, dev):
                 if kind == "token":
                     toks.append(t)
             if len(toks) != MOE_NEW_TOKENS or not all(0 <= t < cfg.vocab_size for t in toks):
-                raise SystemExit(f"moe_serve: a {len(p)}-token prompt returned {len(toks)} tokens")
+                raise SystemExit(f"{phase}: a {len(p)}-token prompt returned {len(toks)} tokens")
             outs.append(toks)
-        if eng.metrics["spec_windows"] <= 0:
-            raise SystemExit(f"moe_serve: no speculative window: {eng.metrics}")
+        if spec_k and eng.metrics["spec_windows"] <= 0:
+            raise SystemExit(f"{phase}: no speculative window: {eng.metrics}")
+        if not score:
+            return
         free, pinned, flips, scored = [], [], 0, 0
         for rid, (r, p, toks) in enumerate(zip(reqs, prompts, outs)):
             seq = p + toks
@@ -4773,14 +5101,16 @@ def moe_engine(qparams, cfg, dev):
     ref = eng.score_sync(p + toks)[len(p):]
     moved = eng.score_sync(wrong.tolist() + p[half:] + toks)[len(p):]
     context_move = statistics.mean(abs(a - b) for a, b in zip(ref, moved))
-    row = {"phase": "moe_serve_logprob_check", "requests": len(prompts),
+    row = {"phase": f"{phase}_logprob_check", "layers": cfg.num_hidden_layers,
+           "quant_mode": quant_mode,
+           "requests": len(prompts),
            "worst_gap": max(pinned), "gaps": pinned, "routing": "pinned to the Engine's",
            "free_worst_gap": max(free), "free_gaps": free, "bound": TOL_LOGPROB,
            "routed_rows_flipped": flips, "routed_rows": scored,
            "wrong_context_mean_move": context_move}
     emit(row)
     if max(pinned) > TOL_LOGPROB or context_move <= TOL_LOGPROB or not scored:
-        raise SystemExit(f"moe_serve: engine logprobs off the contiguous prefill's: {row}")
+        raise SystemExit(f"{phase}: engine logprobs off the contiguous prefill's: {row}")
     del eng
     torch.cuda.empty_cache()
 
@@ -4920,7 +5250,7 @@ def moe_gptq(dev):
 
 def moe_paths(tmp, dev):
     """The MoE family at Qwen3-30B-A3B's full width (`moe_model`): the
-    Generator (`moe_generator`) and the Engine (`moe_engine`) at all 48
+    Generator (`moe_generator`) and the Engine (`moe_engine`) at MOE_LAYERS
     layers, the checkpoints (`moe_checkpoints`), GPTQ of one layer
     (`moe_gptq`) and the card-against-host calibration of tiny-moe's
     experts. Counts reset just before, read just after: K1-K5 must run."""
@@ -4950,6 +5280,385 @@ def moe_paths(tmp, dev):
     if missing:
         raise SystemExit(f"moe_paths: kernels not launched: {missing}")
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the qwen3_next hybrid family at Qwen3-Next-80B-A3B's full width
+# ---------------------------------------------------------------------------
+
+# Qwen3-Next-80B-A3B-Instruct's config.json
+# (huggingface.co/Qwen/Qwen3-Next-80B-A3B-Instruct/blob/main/config.json): 48
+# layers, every fourth one full attention (gated q, head_dim 256, partial
+# rotary 0.25), the rest gated delta-net; every layer's MLP 512 experts of 512
+# (top 10) and a shared expert of 512
+QWEN3_NEXT_80B_A3B = dict(
+    model_type="qwen3_next", vocab_size=151936, hidden_size=2048, intermediate_size=5120,
+    num_hidden_layers=48, full_attention_interval=4, num_attention_heads=16,
+    num_key_value_heads=2, head_dim=256, partial_rotary_factor=0.25, rope_theta=1e7,
+    linear_num_key_heads=16, linear_num_value_heads=32, linear_key_head_dim=128,
+    linear_value_head_dim=128, linear_conv_kernel_dim=4, num_experts=512,
+    num_experts_per_tok=10, moe_intermediate_size=512, shared_expert_intermediate_size=512,
+    norm_topk_prob=True, decoder_sparse_step=1, mlp_only_layers=[], rms_norm_eps=1e-6,
+    tie_word_embeddings=False)
+HYBRID_LAYERS = 36  # the served model's depth: 36 of Qwen3-Next-80B-A3B's 48 (27 delta-net,
+# 9 full attention), the cut that keeps the script within its time limit
+HYBRID_CKPT_LAYERS = 4  # the checkpoints' depth: 3 delta-net layers and 1 full attention
+HYBRID_SYNC_BATCH = 6  # the paged step's sync check: 6 slots x top 10 <= 64, the gather path
+HYBRID_CHECK_LAYERS = 4  # the held logits and Engine checks: the served model's first 4 layers
+# a 1-layer hybrid (one delta-net layer, a dense MLP) calibrated on card and host
+TINY_HYBRID = dict(model_type="qwen3_next", vocab_size=512, hidden_size=256,
+                   intermediate_size=512, num_hidden_layers=1, num_attention_heads=4,
+                   num_key_value_heads=2, head_dim=64, linear_num_key_heads=2,
+                   linear_num_value_heads=4, linear_key_head_dim=64, linear_value_head_dim=64,
+                   linear_conv_kernel_dim=4, tie_word_embeddings=False)
+
+
+def hybrid_config(layers, **kw):
+    from paroquant_tpu_torch.models import from_hf_dict
+
+    return from_hf_dict(dict(QWEN3_NEXT_80B_A3B, num_hidden_layers=layers, **kw))
+
+
+class MoePaths:
+    """Counts `ops.moe`'s dispatch paths (gather at T x top-k <= 64, ragged
+    above) while installed, by the label set in `step`."""
+
+    def __init__(self):
+        self.counts, self.step, self.saved = {}, None, None
+
+    def __enter__(self):
+        from paroquant_tpu_torch.ops import moe as moe_ops
+
+        self.saved = (moe_ops._moe_gather, moe_ops._moe_ragged)
+
+        def counted(path, fn):
+            def call(*a, **k):
+                key = f"{self.step}:{path}"
+                self.counts[key] = self.counts.get(key, 0) + 1
+                return fn(*a, **k)
+            return call
+
+        moe_ops._moe_gather = counted("gather", self.saved[0])
+        moe_ops._moe_ragged = counted("ragged", self.saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        from paroquant_tpu_torch.ops import moe as moe_ops
+
+        moe_ops._moe_gather, moe_ops._moe_ragged = self.saved
+
+
+def hybrid_model(dev, layers):
+    """Qwen3-Next-80B-A3B at full width, built layer by layer on the card from
+    a seeded torch.Generator: random bf16 weights, Hadamard RTN W4 g128 of
+    the attention, in_proj_qkvz, out_proj and the shared expert (in_proj_ba,
+    the router and the shared expert's gate dense; the 512 experts through
+    quantize_experts_rtn, identity rotations), a W4 lm_head, merged
+    projections (the gated QKV 2048 -> 8192 | 512 | 512). Emits the build's
+    seconds, peak bytes and the model's bytes."""
+    import dataclasses
+
+    import torch
+
+    from paroquant_tpu_torch.convert.rtn import quantize_model_rtn
+    from paroquant_tpu_torch.models import init_params, merge_projections
+    from paroquant_tpu_torch.models.decoder import _init_layer
+
+    cfg = hybrid_config(layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(50)
+    outer = dataclasses.replace(cfg, num_hidden_layers=0, layer_types=())
+    qparams = quantize_model_rtn(init_params(outer, gen, torch.bfloat16, dev), outer,
+                                 hadamard=True, quantize_lm_head=True, device=dev)
+    layers_q = []
+    for i in range(cfg.num_hidden_layers):
+        lp = _init_layer(cfg, gen, i, torch.bfloat16, dev)
+        layers_q.append(quantize_model_rtn({"layers": [lp]}, cfg, hadamard=True,
+                                           device=dev)["layers"][0])
+        del lp
+    qparams["layers"] = layers_q
+    qparams = merge_projections(qparams, cfg)
+    torch.cuda.synchronize()
+    qkv = next(lp["qkv_proj"] for lp in qparams["layers"] if "qkv_proj" in lp)
+    emit({"phase": "hybrid_model", "config": "Qwen3-Next-80B-A3B", "layers": cfg.num_hidden_layers,
+          "cut": None if layers == 48 else f"depth {layers} of 48",
+          "linear_layers": cfg.num_linear_layers, "full_layers": cfg.num_full_attn_layers,
+          "experts": cfg.num_experts, "top_k": cfg.num_experts_per_tok,
+          "qkv_out_splits": list(qkv.out_splits), "build_s": time.perf_counter() - t0,
+          "model_bytes": torch.cuda.memory_allocated(dev) - base,
+          "peak_bytes": torch.cuda.max_memory_allocated(dev) - base, "card": card()})
+    if list(qkv.out_splits) != [8192, 512, 512]:
+        raise SystemExit(f"hybrid: the gated QKV splits {qkv.out_splits}")
+    return qparams, cfg
+
+
+def hybrid_generator(qparams, cfg, dev, paths):
+    """The Generator (quant_mode "auto", flash) over MOE_PROMPTS, greedy, 32
+    new tokens each; the decode step under sync debug mode "error";
+    profile_decode's busy ms, idle share and launches a step; then the
+    teacher-forced logits (prefill of 256 + 8 steps) of the kernel path
+    against the plain path, routing pinned, within TOL_E2E
+    (`hybrid_logits_check`)."""
+    import torch
+
+    from paroquant_tpu_torch.serve import Generator, SamplingParams
+    from paroquant_tpu_torch.utils.profiling import profile_decode
+
+    gen = Generator(qparams, cfg, max_len=1024, quant_mode="auto", attn_mode="flash", device=dev)
+    g = torch.Generator().manual_seed(51)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist() for n in MOE_PROMPTS]
+    gen.generate(prompts[0], SamplingParams(max_tokens=4, temperature=0.0))  # warm-up
+    results = []
+    for p in prompts:
+        torch.cuda.synchronize()
+        paths.step = f"generator_{len(p)}"
+        res = gen.generate(p, SamplingParams(max_tokens=MOE_NEW_TOKENS, temperature=0.0))
+        toks = res.token_ids
+        ok = len(toks) == MOE_NEW_TOKENS and all(0 <= t < cfg.vocab_size for t in toks)
+        emit({"phase": "hybrid_request", "prompt_tokens": len(p), "new_tokens": len(toks),
+              "prefill_ms": res.stats.ttft * 1e3, "decode_tok_s": res.stats.tokens_per_second,
+              "decode_ms_per_step": 1e3 / res.stats.tokens_per_second, "ok": ok,
+              "first_tokens": toks[:8]})
+        if not ok:
+            raise SystemExit(f"hybrid: a {len(p)}-token prompt returned {len(toks)} tokens")
+        results.append(res)
+    paths.step = "generator_no_sync"
+    check_decode_has_no_sync({"qwen3-next-80b-a3b": (qparams, cfg)}, dev)
+    paths.step = "profile_decode"
+    prof = profile_decode(qparams, cfg, prompt_len=256, steps=8, device=dev)
+    emit({"phase": "hybrid_decode_profile", "prompt_tokens": 256, "quant_mode": "auto",
+          "card": card(), **prof})
+    paths.step = "logits_check"
+    tokens = torch.tensor([prompts[2] + results[2].token_ids[:8]], dtype=torch.int32, device=dev)
+    hybrid_logits_check(qparams, cfg, tokens, len(prompts[2]), dev)
+
+
+def hybrid_exports(params, cfg):
+    """Exports of every quantized linear of a random hybrid: rtn_export_model's
+    attention (Hadamard RTN), in_proj_qkvz, out_proj and the shared expert's
+    projections by rtn_export_linear, and the experts' export of pseudo
+    experts with random shared rotations (`export_quantized_moe`)."""
+    import torch
+
+    from paroquant_tpu_torch.convert import rtn_export_model
+    from paroquant_tpu_torch.convert.rtn import rtn_export_linear
+    from paroquant_tpu_torch.ops import rotation as rot_ops
+    from paroquant_tpu_torch.optim.pseudo_moe import export_quantized_moe, make_pseudo_moe
+
+    exports = rtn_export_model(params, cfg, hadamard=True)
+    g = torch.Generator(device=params["embed_tokens"].device).manual_seed(53)
+    for li, lp in enumerate(params["layers"]):
+        if "linear_attn" in lp:
+            for name in ("in_proj_qkvz", "out_proj"):
+                exports[li][f"linear_attn.{name}"] = rtn_export_linear(lp["linear_attn"][name],
+                                                                      hadamard=True)
+        for name, lin in lp["mlp"]["shared_expert"].items():
+            exports[li][f"mlp.shared_expert.{name}"] = rtn_export_linear(lin, hadamard=True)
+        ex = lp["mlp"]["experts"]
+        H, I = ex["gate_proj"].shape[1:]
+        pm = make_pseudo_moe(ex, rot_ops.make_rotation_params(H, 128, 8, li),
+                             rot_ops.make_rotation_params(I, 128, 8, li + 1000))
+        with torch.no_grad():
+            for side in ("gate_up", "down"):
+                th = getattr(pm, f"{side}_theta")
+                th.copy_(0.1 * torch.randn(th.shape, generator=g, device=th.device))
+        exports[li]["mlp.experts"] = export_quantized_moe(pm)
+        del pm
+    return exports
+
+
+def hybrid_checkpoints(tmp, dev):
+    """Qwen3-Next-80B-A3B at HYBRID_CKPT_LAYERS layers (random bf16 weights,
+    `hybrid_exports`) written as a PARO-TPU and an AWQ directory; each loads
+    to the logits and greedy tokens, bit for bit, of the model built in
+    memory from the same exports rounded as the file rounds them. The
+    config.json, as JAX's, does not carry shared_expert_intermediate_size
+    (the loader reads the shared expert from its tensors), so the loaded
+    config is compared without it."""
+    import dataclasses
+
+    import torch
+
+    from paroquant_tpu_torch.convert import load_checkpoint, save_awq_checkpoint, save_paro_checkpoint
+    from paroquant_tpu_torch.models import init_params
+
+    cfg = hybrid_config(HYBRID_CKPT_LAYERS)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(52), torch.bfloat16, dev)
+    exports = hybrid_exports(params, cfg)
+    timings = {"export_s": time.perf_counter() - t0}
+    for fmt, save in (("paro", save_paro_checkpoint), ("awq", save_awq_checkpoint)):
+        d = tmp / f"qwen3-next-80b-a3b-{fmt}"
+        t = time.perf_counter()
+        save(d, params, cfg, exports)
+        timings[f"save_{fmt}_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        loaded, lcfg = load_checkpoint(d, device=dev)
+        timings[f"load_{fmt}_s"] = time.perf_counter() - t
+        inmem = model_from_exports(params, exports, fmt, dev)
+        (la, lt), (ma, mt) = prefill_and_decode(loaded, lcfg, dev), prefill_and_decode(inmem, cfg, dev)
+        same_cfg = dataclasses.replace(
+            lcfg, quantization_items=None,
+            shared_expert_intermediate_size=cfg.shared_expert_intermediate_size) == cfg
+        types = sorted({type(v).__name__ for lp in loaded["layers"] if "linear_attn" in lp
+                        for k, v in lp["linear_attn"].items() if k.startswith(("in_", "out_"))})
+        row = {"phase": f"hybrid_{fmt}_check", "layers": HYBRID_CKPT_LAYERS,
+               "layer_types": list(lcfg.layer_types),
+               "file_bytes": (d / "model.safetensors").stat().st_size, "config_equal": same_cfg,
+               "linear_attn_types": types,
+               "max_abs_err": (la - ma).abs().max().item(), "bound": 0.0,
+               "tokens_equal": torch.equal(lt, mt), "finite": bool(torch.isfinite(la).all())}
+        emit(row)
+        if (row["max_abs_err"] != 0.0 or not row["tokens_equal"] or not row["finite"]
+                or not same_cfg or types != ["DenseLinear", "QuantizedLinear"]):
+            raise SystemExit(f"hybrid: the {fmt} directory loads to another model: {row}")
+        del loaded, inmem
+        torch.cuda.empty_cache()
+    emit({"phase": "hybrid_checkpoint_seconds", **timings})
+    del params, exports
+    torch.cuda.empty_cache()
+
+
+def hybrid_gptq(dev):
+    """gptq_quantize_model on one delta-net layer and one full-attention layer
+    at full width (random bf16 weights) over MOE_GPTQ_TOKENS synthetic
+    tokens: its seconds, and each projection's output error on the inputs
+    GPTQ saw (the second layer's: the quantized first layer's outputs),
+    tr(D^T H D) with D the weight's error and H its input's Hessian (the
+    experts': the shared Hessian), below RTN's."""
+    import numpy as np
+    import torch
+
+    from paroquant_tpu_torch.convert.gptq import (_hybrid_layer_apply, _hybrid_tap_hessians,
+                                                  _tap_hessians, gptq_quantize_model)
+    from paroquant_tpu_torch.convert.rtn import quantize_experts_rtn, quantize_linear_rtn
+    from paroquant_tpu_torch.models import init_params
+    from paroquant_tpu_torch.models.decoder import embed, rope_tables_per_layer
+    from paroquant_tpu_torch.ops.moe import _dequant_stacked
+    from paroquant_tpu_torch.ops.qlinear import effective_weight
+
+    cfg = hybrid_config(2, full_attention_interval=2)  # a delta-net layer, then full attention
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(54), torch.bfloat16, dev)
+    N, T = MOE_GPTQ_TOKENS
+    tokens = np.random.default_rng(54).integers(0, cfg.vocab_size, (N, T)).astype(np.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qp, exports = gptq_quantize_model(params, cfg, tokens, batch_size=N, device=dev)
+    torch.cuda.synchronize()
+    gptq_s = time.perf_counter() - t0
+
+    def err(w, we, h):  # w, we [..., I, O]: sum of (w - we)^T H (w - we)'s trace
+        d = (we - w.to(torch.float32))
+        return float(((h @ d) * d).sum())
+
+    def experts_eff(q):  # the shared rotation applied back: M^T per group
+        outs = []
+        for p, rot in (("gate", q.gate_up_rot), ("up", q.gate_up_rot), ("down", q.down_rot)):
+            wd = _dequant_stacked(getattr(q, f"{p}_qweight"), getattr(q, f"{p}_scales"),
+                                  getattr(q, f"{p}_zeros"), q.group_size)
+            E, I, O = wd.shape
+            G, S, _ = rot.shape
+            outs.append(torch.einsum("gji,egjo->egio", rot.to(torch.float32),
+                                     wd.reshape(E, G, S, O)).reshape(E, I, O))
+        return outs
+
+    rows = []
+    with torch.no_grad():
+        x = embed(params, cfg, torch.from_numpy(tokens).to(dev))
+        pos = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(N, T)
+        for li, (lp, qlp) in enumerate(zip(params["layers"], qp["layers"])):
+            if cfg.layer_is_linear(li):
+                _, hs = _hybrid_tap_hessians(lp, x, cfg, li)
+                named = [(f"linear_attn.{n}", lp["linear_attn"][n], qlp["linear_attn"][n], tap)
+                         for n, tap in (("in_proj_qkvz", "la_qkvz"), ("out_proj", "la_out"))]
+            else:
+                cos, sin = rope_tables_per_layer(pos, cfg)[li]
+                _, hs = _tap_hessians(lp, x, cfg, li, cos, sin, pos)
+                named = [(n, lp[n], qlp[n], tap) for n, tap in
+                         (("q_proj", "qkv"), ("k_proj", "qkv"), ("v_proj", "qkv"), ("o_proj", "o"))]
+            se, qse = lp["mlp"]["shared_expert"], qlp["mlp"]["shared_expert"]
+            named += [(f"shared_expert.{n}", se[n], qse[n], tap) for n, tap in
+                      (("gate_proj", "mlp"), ("up_proj", "mlp"), ("down_proj", "shared_down"))]
+            for name, lin, qlin, tap in named:
+                rows.append({"layer": li, "projection": name,
+                             "gptq": err(lin.w, effective_weight(qlin), hs[tap]),
+                             "rtn": err(lin.w, effective_weight(quantize_linear_rtn(lin)), hs[tap])})
+            ex = lp["mlp"]["experts"]
+            got, ref = experts_eff(qlp["mlp"]["experts"]), experts_eff(quantize_experts_rtn(ex))
+            for (p, tap), g_, r_ in zip((("gate_proj", "mlp"), ("up_proj", "mlp"),
+                                         ("down_proj", "moe_down")), got, ref):
+                rows.append({"layer": li, "projection": f"experts.{p}",
+                             "gptq": err(ex[p], g_, hs[tap]), "rtn": err(ex[p], r_, hs[tap])})
+            del got, ref, hs
+            if li == 0:  # the next layer's inputs, as GPTQ computed them
+                x = _hybrid_layer_apply(qlp, x, cfg, li)
+    worse = [(r["layer"], r["projection"]) for r in rows if not r["gptq"] < r["rtn"]]
+    row = {"phase": "hybrid_gptq_check", "layers": 2, "layer_types": list(cfg.layer_types),
+           "tokens": [N, T], "s": gptq_s, "exported": [sorted(e) for e in exports],
+           "errors": rows, "worse_than_rtn": worse, "card": card()}
+    emit(row)
+    if worse or "linear_attn.in_proj_qkvz" not in exports[0] or "q_proj" not in exports[1]:
+        raise SystemExit(f"hybrid: GPTQ {row}")
+    del params, qp, exports, x
+    torch.cuda.empty_cache()
+
+
+def hybrid_paths(tmp, dev):
+    """The qwen3_next hybrid at Qwen3-Next-80B-A3B's full width
+    (`hybrid_model`): the Generator (`hybrid_generator`), the Engine (8
+    slots, no speculation, `moe_engine`) and the paged step's sync check at
+    HYBRID_SYNC_BATCH slots at HYBRID_LAYERS layers, the Engine's logprob check on
+    the first HYBRID_CHECK_LAYERS layers; the checkpoints
+    (`hybrid_checkpoints`), GPTQ of a delta-net and a full-attention layer
+    (`hybrid_gptq`) and the card-against-host calibration of TINY_HYBRID.
+    Counts reset just before, read just after: K1-K4 must run. Each step
+    type's MoE dispatch path is recorded (`MoePaths`)."""
+    import torch
+
+    from paroquant_tpu_torch.kernels import attention as at, rot_matmul as rm
+    from paroquant_tpu_torch.models import from_hf_dict
+
+    reset_counts()
+    t0 = time.perf_counter()
+    qparams, cfg = hybrid_model(dev, HYBRID_LAYERS)
+    with MoePaths() as paths:
+        hybrid_generator(qparams, cfg, dev, paths)
+        paths.step = "engine"
+        moe_engine(qparams, cfg, dev, spec_k=0, phase="hybrid_serve", score=False)
+        paths.step = f"paged_step_b{HYBRID_SYNC_BATCH}"
+        check_paged_decode_has_no_sync(qparams, cfg, dev, B=HYBRID_SYNC_BATCH)
+    routes = check_routes(rm, "hybrid_paths", need=("ra8",))
+    # the Engine's logprobs held against one contiguous prefill: the first
+    # layers, W4A16 ("fused") at decode as at prefill (under auto a decode
+    # step's W4A8 rounding alone moves a random hybrid's logprobs from the
+    # prefill's W4A16 ones by 0.14-0.31 nats at these 4 layers); after
+    # check_routes, as fused's W4A16 lm_head takes the passes at M <= 16
+    moe_engine(*first_layers(qparams, cfg, HYBRID_CHECK_LAYERS), dev, spec_k=0,
+               phase="hybrid_serve_4_layers", quant_mode="fused")
+    emit({"phase": "hybrid_moe_paths", "calls_by_step_and_path": paths.counts})
+    if not paths.counts.get(f"paged_step_b{HYBRID_SYNC_BATCH}:gather"):
+        raise SystemExit(f"hybrid: the paged step at {HYBRID_SYNC_BATCH} slots missed the "
+                         f"gather path: {paths.counts}")
+    kinds = {"flash": dict(at.flash_kinds), "paged": {k: dict(v) for k, v in
+                                                      at.paged_instances.items()}}
+    del qparams
+    torch.cuda.empty_cache()
+    hybrid_checkpoints(tmp, dev)
+    hybrid_gptq(dev)
+    small_calibration_on_both(dev, from_hf_dict(TINY_HYBRID), SMALL_CALIB)
+    launched = port_launches()
+    emit({"phase": "hybrid_paths_launches", **launched, "instances": kinds,
+          "routes_checked": routes, "s": time.perf_counter() - t0})
+    missing = [k for k in ("rot_w4_matmul", "merged_rot_w4_matmul", "flash_attention",
+                           "paged_decode_attention") if not launched["counts"].get(k)]
+    if missing or not kinds["flash"]["f32_q_bf16_kv"]:
+        raise SystemExit(f"hybrid_paths: kernels not launched: {missing}, K3 by instance "
+                         f"{kinds['flash']}")
+    torch.cuda.empty_cache()
+    return launched["counts"]
 
 
 def http_call(url, method, path, body=None, stream=False):
@@ -5369,10 +6078,10 @@ def main() -> int:
 
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(123)
-    mm_rows = check_matmuls(flush, gen, dev)
-    fa_rows = check_flash(flush, gen, dev)
+    mm_rows = check_matmuls(flush, gen, dev) + check_hybrid_matmuls(flush, gen, dev)
+    fa_rows = check_flash(flush, gen, dev) + check_flash_mixed(flush, gen, dev)
     pa_rows = (check_paged(flush, gen, dev) + check_paged_step(flush, gen, dev)
-               + check_paged_rows(flush, gen, dev))
+               + check_paged_rows(flush, gen, dev) + check_paged_f32_queries(flush, gen, dev))
     w4_rows = check_w4_variants(flush, gen, dev)
     w4x_rows = check_w4_experiments(flush, gen, dev)
     i8_rows = check_int8_probe(flush, gen, dev)
@@ -5423,6 +6132,8 @@ def main() -> int:
         mark("calibrate_paths")
         moe_paths(Path(tmp), dev)  # the MoE family at Qwen3-30B-A3B width
         mark("moe_paths")
+        hybrid_counts = hybrid_paths(Path(tmp), dev)  # the qwen3_next hybrid at Qwen3-Next-80B-A3B width
+        mark("hybrid_paths")
 
     counts.update({k: bench_counts[k] for k in W4_VARIANTS})  # their launches: the kernel_bench phase
     counts.update({k: exp_counts[k] for k in W4_EXPERIMENTS})  # and the w4_experiments phase
@@ -5436,6 +6147,7 @@ def main() -> int:
                 "ms": row["us"] / 1e3, "plain_ms": row["plain_us"] / 1e3,
                 "bound_ms": row["bound_us"] / 1e3, "bound_by": row["bound_by"],
                 "library_ms": None if lib_us is None else lib_us / 1e3,
+                "hybrid_paths_launches": hybrid_counts.get(name, 0),
                 "at": {k: row[k] for k in ("layer", "M", "a8", "route", "sz", "case", "T", "S", "B",
                                            "W", "Gb", "block_m", "KS", "tile") if k in row}}
 

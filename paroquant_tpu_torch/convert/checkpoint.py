@@ -1,5 +1,5 @@
 """Checkpoint I/O: PARO-TPU, AWQ-format PARO and HF-dense directories of
-the dense and MoE families.
+the dense, MoE and qwen3_next hybrid families.
 
 Counterpart of `paroquant_tpu/convert/checkpoint.py`: the save side
 (`hf_prefix`, `save_paro_checkpoint`, `save_awq_checkpoint`, :55-453) and
@@ -28,8 +28,11 @@ channel_scales}`) or the reference's per-expert AWQ layout
 `{side}_weight_*`); dense experts are per-expert HF weights, and the HF
 Mixtral layout (`block_sparse_moe.gate`, `experts.{e}.{w1,w3,w2}`) loads
 into stacked dense experts. A shared expert is saved like any GLU and its
-gate dense. The gemma3n and linear-attention families refuse (ROADMAP
-§A 5).
+gate dense. A hybrid's delta-net layers: `linear_attn.{in_proj_qkvz,
+in_proj_ba, out_proj}` (each quantized where exported, else a dense f16
+weight), `conv1d.weight` f32 [conv_dim, Kc], `dt_bias` and `A_log` f32,
+`norm.weight` f16; its config.json carries `layer_types` and the
+linear-attention widths. The gemma3n family refuses (ROADMAP §A 5).
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ _DTYPES = {
 
 _ATTN = ("q_proj", "k_proj", "v_proj", "o_proj")
 _MLP = ("gate_proj", "up_proj", "down_proj")
+_LINEAR_ATTN = ("in_proj_qkvz", "in_proj_ba", "out_proj")  # a gated delta-net layer's linears
 # a shared expert is quantized like any GLU; only its sigmoid gate stays dense
 _SHARED_EXPERT = tuple(sorted(f"mlp.shared_expert.{m}" for m in _MLP))
 _PROJ = {"gate": "gate_proj", "up": "up_proj", "down": "down_proj"}
@@ -115,6 +119,11 @@ def _layer_dense_tensors(tensors: dict, li: int, lp: dict) -> None:
     for name in ("q_norm", "k_norm"):
         if name in lp:
             tensors[f"model.layers.{li}.self_attn.{name}.weight"] = _to_f16(lp[name])
+    if "linear_attn" in lp:  # a gated delta-net layer's extras (conv_w as [C, Kc])
+        la, lab = lp["linear_attn"], f"model.layers.{li}.linear_attn"
+        for key, name in (("conv1d.weight", "conv_w"), ("dt_bias", "dt_bias"), ("A_log", "A_log")):
+            tensors[f"{lab}.{key}"] = _host(la[name], torch.float32)
+        tensors[f"{lab}.norm.weight"] = _to_f16(la["norm"])
 
 
 def _layer_linears(tensors: dict, li: int, lp: dict, exp_layer: dict, quant_tensors) -> tuple:
@@ -123,7 +132,8 @@ def _layer_linears(tensors: dict, li: int, lp: dict, exp_layer: dict, quant_tens
     export's (n_bits, group_size, krot), or None when the layer exported
     nothing."""
     meta = None
-    for name in list(_ATTN) + [f"mlp.{m}" for m in _MLP] + list(_SHARED_EXPERT):
+    for name in (list(_ATTN) + [f"linear_attn.{n}" for n in _LINEAR_ATTN]
+                 + [f"mlp.{m}" for m in _MLP] + list(_SHARED_EXPERT)):
         holder, base = _holder_for(lp, name)
         if holder is None:
             continue
@@ -203,7 +213,7 @@ def _moe_tensors(tensors: dict, li: int, mlp: dict, exp_layer: dict, awq: bool) 
 
 def _save(path, params, config, layer_exports, hf_config, quant_tensors, qconfig,
           awq: bool) -> None:
-    _unsupported(config)  # gemma3n and linear attention: ROADMAP §A 5
+    _unsupported(config)  # gemma3n: ROADMAP §A 5
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
     tensors = _dense_tensors(params)
@@ -261,14 +271,29 @@ def save_awq_checkpoint(
 ) -> None:
     """Write the reference's AWQ-packed layout: qweight int32 [I, O//8]
     nibble-reordered, qzeros int32 [G, O//8], scales f16 [G, O], and
-    theta / pairs / channel_scales as in the PARO-TPU format."""
+    theta / pairs / channel_scales as in the PARO-TPU format. A hybrid's
+    delta-net layers are written as in the PARO-TPU format (their linears
+    AWQ-packed where exported): JAX's AWQ writer leaves them out, so its
+    hybrid directory loads in neither package; every tensor it does write,
+    the port writes with the same bytes."""
     _save(path, params, config, layer_exports, hf_config, _awq_tensors,
           {"quant_method": "paroquant"}, awq=True)
 
 
 def _config_to_hf(config: ModelConfig) -> dict[str, Any]:
-    """config.json of a dense- or MoE-family config (JAX's keys, in JAX's order)."""
+    """config.json of a dense-, MoE- or hybrid-family config (JAX's keys, in
+    JAX's order)."""
     out: dict[str, Any] = {}
+    if config.layer_types is not None:  # the hybrid (gated delta-net) family
+        out.update(
+            layer_types=list(config.layer_types),
+            partial_rotary_factor=config.partial_rotary_factor,
+            linear_num_value_heads=config.linear_num_value_heads,
+            linear_num_key_heads=config.linear_num_key_heads,
+            linear_key_head_dim=config.linear_key_head_dim,
+            linear_value_head_dim=config.linear_value_head_dim,
+            linear_conv_kernel_dim=config.linear_conv_kernel_dim,
+        )
     if config.is_moe:
         out.update(
             num_experts=config.num_experts,
@@ -374,7 +399,7 @@ def load_checkpoint(
     model_dir: str | Path, rot_dtype=torch.bfloat16, dtype=torch.bfloat16, device="cuda",
 ) -> tuple[dict[str, Any], ModelConfig]:
     """Load a PARO-TPU, AWQ-format PARO or plain HF-dense model directory
-    (dense or MoE family, and HF Mixtral) onto `device`."""
+    (dense, MoE or hybrid family, and HF Mixtral) onto `device`."""
     dev = resolve_device(device)
     model_dir = Path(model_dir)
     config = from_hf_dict(json.loads((model_dir / "config.json").read_text()))
@@ -509,8 +534,23 @@ def load_checkpoint(
         for name in ("q_norm", "k_norm"):
             if f"{lbase}.self_attn.{name}.weight" in tensors:
                 lp[name] = dense(f"{lbase}.self_attn.{name}.weight")
-        for name in _ATTN:
-            lp[name] = pick_linear(f"{lbase}.self_attn.{name}")
+        if config.layer_is_linear(li):
+            la = f"{lbase}.linear_attn"
+
+            def f32(name):
+                return tensors[name].to(device=dev, dtype=torch.float32)
+
+            lp["linear_attn"] = {
+                **{name: pick_linear(f"{la}.{name}") for name in _LINEAR_ATTN},
+                "conv_w": f32(f"{la}.conv1d.weight").reshape(
+                    config.linear_conv_dim, config.linear_conv_kernel_dim),
+                "dt_bias": f32(f"{la}.dt_bias"),
+                "A_log": f32(f"{la}.A_log"),
+                "norm": dense(f"{la}.norm.weight"),
+            }
+        else:
+            for name in _ATTN:
+                lp[name] = pick_linear(f"{lbase}.self_attn.{name}")
         if f"{lbase}.block_sparse_moe.gate.weight" in tensors:
             lp["mlp"] = mixtral_mlp(f"{lbase}.block_sparse_moe")
         elif f"{lbase}.mlp.gate.weight" in tensors:

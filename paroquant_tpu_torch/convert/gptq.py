@@ -1,6 +1,6 @@
 """GPTQ baseline: Hessian-compensated round-to-nearest W4 quantization.
 
-Counterpart of `paroquant_tpu/convert/gptq.py` for the dense and MoE families:
+Counterpart of `paroquant_tpu/convert/gptq.py` for the dense, MoE and hybrid families:
 classic GPTQ (Frantar et al., arXiv 2210.17323). Per output row, input
 channels are quantized in order and each column's rounding error is
 compensated into the columns not yet quantized through the upper Cholesky
@@ -34,8 +34,12 @@ checkpoints load through the standard loaders.
   expert is GPTQ'd as a standard GLU; the router and the shared expert's
   gate stay dense.
 
-gemma3n and the hybrid delta-net layers raise NotImplementedError in
-`gptq_quantize_model` (ROADMAP §A 5).
+- A hybrid's delta-net layers (`_hybrid_tap_hessians`, JAX's
+  `_hybrid_layer_body`): in_proj_qkvz and out_proj are GPTQ'd against the
+  Hessians of their inputs, the taps "la_qkvz" and "la_out"; in_proj_ba
+  stays dense, and the layer's MLP or MoE block is GPTQ'd as on any layer.
+
+gemma3n raises NotImplementedError in `gptq_quantize_model` (ROADMAP §A 5).
 """
 
 from __future__ import annotations
@@ -48,7 +52,8 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from ..models.decoder import DenseLinear, _unsupported, embed, layer_forward, rope_tables_per_layer
+from ..models.decoder import (DenseLinear, _unsupported, embed, layer_forward, linear_layer_forward,
+                              rope_tables_per_layer)
 from ..ops import quant, rotation as rot_ops
 from ..ops.moe import QuantizedMoEExperts
 from ..ops.qlinear import QuantizedLinear, make_quantized_linear
@@ -149,6 +154,15 @@ _TAP_LINEARS = {
 }
 
 
+def _hessians(taps: dict) -> dict:
+    """Each tap's X^T X (f32)."""
+    hs = {}
+    for name, tap in taps.items():
+        xt = tap.reshape(-1, tap.shape[-1]).to(torch.float32)
+        hs[name] = xt.T @ xt
+    return hs
+
+
 @torch.no_grad()
 def _tap_hessians(lp, x, config, layer_idx, cos, sin, positions):
     """One layer forward (dense weights) returning each tap's X^T X and the
@@ -156,11 +170,22 @@ def _tap_hessians(lp, x, config, layer_idx, cos, sin, positions):
     zero = torch.zeros((), dtype=torch.int32, device=x.device)
     out, _, taps = layer_forward(lp, x, config, layer_idx, cos, sin, positions, None, zero,
                                  "xla", return_taps=True)
-    hs = {}
-    for name, tap in taps.items():
-        xt = tap.reshape(-1, tap.shape[-1]).to(torch.float32)
-        hs[name] = xt.T @ xt
-    return out, hs
+    return out, _hessians(taps)
+
+
+@torch.no_grad()
+def _hybrid_tap_hessians(lp, x, config, layer_idx):
+    """A delta-net layer's forward (dense weights, states from zero): the
+    output and each tap's X^T X ("la_qkvz", "la_out", "mlp", "down" /
+    "moe_down" / "shared_down")."""
+    out, _, _, taps = linear_layer_forward(lp, x, config, layer_idx, None, None, "xla",
+                                           return_taps=True)
+    return out, _hessians(taps)
+
+
+@torch.no_grad()
+def _hybrid_layer_apply(lp, x, config, layer_idx):
+    return linear_layer_forward(lp, x, config, layer_idx, None, None, "xla")[0]
 
 
 @torch.no_grad()
@@ -295,7 +320,7 @@ def gptq_quantize_model(
     Returns (quantized runtime params on `device`, per-layer export dicts
     for save_paro_checkpoint: the schema of convert/rtn.py::rtn_export_model).
     """
-    _unsupported(config)  # gemma3n and hybrid layers: ROADMAP §A 5
+    _unsupported(config)  # gemma3n: ROADMAP §A 5
     dev = resolve_device(device)
     params = _to_device(params, dev)
     tokens = np.asarray(tokens, np.int32)
@@ -313,12 +338,16 @@ def gptq_quantize_model(
     out_layers: list[dict[str, Any]] = []
     exports: list[dict[str, Any]] = []
     for li, lp in enumerate(params["layers"]):
+        is_linear = config.layer_is_linear(li)
         # 1) each tap's Hessian, with the dense layer
         hs_acc: dict[str, torch.Tensor] | None = None
         for x in xs:
-            positions, rope_by_layer = rope_by_bs[x.shape[0]]
-            cos, sin = rope_by_layer[li]
-            _, hs = _tap_hessians(lp, x, config, li, cos, sin, positions)
+            if is_linear:
+                _, hs = _hybrid_tap_hessians(lp, x, config, li)
+            else:
+                positions, rope_by_layer = rope_by_bs[x.shape[0]]
+                cos, sin = rope_by_layer[li]
+                _, hs = _tap_hessians(lp, x, config, li, cos, sin, positions)
             hs_acc = hs if hs_acc is None else {k: hs_acc[k] + hs[k] for k in hs_acc}
 
         # 2) GPTQ every eligible linear of this layer
@@ -344,6 +373,17 @@ def gptq_quantize_model(
                 )
         kw = dict(n_bits=n_bits, group_size=group_size, percdamp=percdamp,
                   rot_dtype=rot_dtype, hadamard=hadamard)
+        # a delta-net layer: in_proj_qkvz and out_proj; in_proj_ba (the
+        # decay/gate projection) stays dense
+        if is_linear and "linear_attn" in nlp:
+            la = dict(nlp["linear_attn"])
+            for name, hkey in (("in_proj_qkvz", "la_qkvz"), ("out_proj", "la_out")):
+                lin = la.get(name)
+                if (not isinstance(lin, DenseLinear) or lin.w.shape[0] % group_size
+                        or hkey not in hs_acc):
+                    continue
+                la[name], exp[f"linear_attn.{name}"] = _gptq_linear(lin, hs_acc[hkey], **kw)
+            nlp["linear_attn"] = la
         # MoE: the routed experts, one shared Hessian per projection
         if isinstance(mlp.get("experts"), dict) and "moe_down" in hs_acc:
             mlp["experts"], exp["mlp.experts"] = _gptq_moe(
@@ -364,8 +404,11 @@ def gptq_quantize_model(
         exports.append(exp)
 
         # 3) feed the next layer the quantized layer's outputs
-        xs = [_layer_apply(nlp, x, config, li, *rope_by_bs[x.shape[0]][1][li],
-                           rope_by_bs[x.shape[0]][0]) for x in xs]
+        if is_linear:
+            xs = [_hybrid_layer_apply(nlp, x, config, li) for x in xs]
+        else:
+            xs = [_layer_apply(nlp, x, config, li, *rope_by_bs[x.shape[0]][1][li],
+                               rope_by_bs[x.shape[0]][0]) for x in xs]
         if log_fn is not None:
             log_fn(f"gptq layer {li}: quantized {sorted(exp)}")
 

@@ -5,15 +5,18 @@
 `DenseLinear`, `QuantizedLinear` or `MergedQuantizedLinear` objects with
 numpy leaves; a sparse layer's router and shared-expert gate are
 `DenseLinear`s, its experts a dict of stacked arrays or a
-`QuantizedMoEExperts`. The classes are recognised by name, so this module
+`QuantizedMoEExperts`; a hybrid's delta-net layer a `linear_attn` dict of
+linears and arrays. The classes are recognised by name, so this module
 imports nothing of JAX and both packages can compute from the same
 weights. bf16
 leaves arrive as numpy arrays of the ml_dtypes `bfloat16` type and are
 reinterpreted bit for bit.
 
 `paged_cache_from_jax(cache, device)` does the same for a JAX serving
-`PagedKVCache` (as numpy), so that both packages can start from the same
-page pool.
+`PagedKVCache` (as numpy; a hybrid's per-slot `conv` / `rec` states too),
+so that both packages can start from the same page pool, and
+`kv_cache_from_jax(cache, device)` for a contiguous `KVCache` with its
+`LinearAttnStates`.
 
 `w4_i4_from_jax(qweight, device)` takes the numpy view of the weight of
 JAX's native-int4 kernel (`jnp.uint4 [I, O]`, one ml_dtypes `uint4` per
@@ -73,8 +76,8 @@ def _convert(node, dev):
 
 
 def params_from_jax(tree: dict[str, Any], config: ModelConfig, device="cuda") -> dict[str, Any]:
-    """The port's params dict for a JAX param tree of numpy leaves (the dense
-    and MoE families)."""
+    """The port's params dict for a JAX param tree of numpy leaves (the dense,
+    MoE and hybrid families)."""
     _unsupported(config)
     return _convert(tree, resolve_device(device))
 
@@ -82,15 +85,32 @@ def params_from_jax(tree: dict[str, Any], config: ModelConfig, device="cuda") ->
 def paged_cache_from_jax(cache, device="cuda"):
     """The port's PagedKVCache holding the same pool as a JAX PagedKVCache
     whose leaves are numpy arrays (k/v [Lf, P, ps, Hkv, D], int8 scales
-    [Lf, P, Hkv, ps]). Hybrid (delta-net) slot states are a later slice."""
+    [Lf, P, Hkv, ps]; a hybrid's slot states conv [Ll, B, conv_dim, Kc-1]
+    and rec [Ll, B, Hv, dk, dv])."""
     from ..serve.paged import PagedKVCache
 
-    if getattr(cache, "conv", None) is not None or getattr(cache, "rec", None) is not None:
-        raise NotImplementedError("hybrid (qwen3_next) paged caches come with slice 3 of the port")
     dev = resolve_device(device)
-    ks = None if cache.k_scale is None else to_torch(cache.k_scale, dev)
-    vs = None if cache.v_scale is None else to_torch(cache.v_scale, dev)
-    return PagedKVCache(to_torch(cache.k, dev), to_torch(cache.v, dev), ks, vs)
+
+    def opt(a):
+        return None if a is None else to_torch(a, dev)
+
+    return PagedKVCache(to_torch(cache.k, dev), to_torch(cache.v, dev), opt(cache.k_scale),
+                        opt(cache.v_scale), opt(getattr(cache, "conv", None)),
+                        opt(getattr(cache, "rec", None)))
+
+
+def kv_cache_from_jax(cache, device="cuda"):
+    """The port's KVCache holding a JAX KVCache whose leaves are numpy arrays
+    (per-layer k/v [B, Hkv, S, D], the length, a hybrid's `linear` states)."""
+    from ..models.decoder import KVCache
+    from ..models.linear_attn import LinearAttnStates
+
+    dev = resolve_device(device)
+    linear = None
+    if cache.linear is not None:
+        linear = LinearAttnStates(to_torch(cache.linear.conv, dev), to_torch(cache.linear.rec, dev))
+    return KVCache(tuple(to_torch(k, dev) for k in cache.k), tuple(to_torch(v, dev) for v in cache.v),
+                   to_torch(np.asarray(cache.length, np.int32), dev), linear)
 
 
 def w4_i4_from_jax(qweight, device="cuda") -> torch.Tensor:

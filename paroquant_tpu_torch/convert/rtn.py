@@ -7,14 +7,15 @@ ops/qlinear.py. MoE layers: `quantize_experts_rtn` quantizes the stacked
 experts with identity shared rotations into `ops/moe.py::
 QuantizedMoEExperts` (every expert at once: the quantizer works row by
 row, so this is JAX's per-expert loop); a shared expert is quantized like
-any GLU, the router and the shared expert's gate stay dense.
+any GLU, the router and the shared expert's gate stay dense. A hybrid's
+delta-net layers get W4 in_proj_qkvz and out_proj; in_proj_ba stays dense.
 `quantize_model_rtn` runs on the device it is given (the card by default);
 only the pair tables are built on the host.
 `rtn_export_linear` / `rtn_export_model` give the same quantization as
 checkpoint interchange dicts (numpy, JAX's keys) for
 `convert/checkpoint.py::save_paro_checkpoint` / `save_awq_checkpoint`: the
 RTN and Hadamard-RTN (QuaRot-style) baselines; as in JAX, they leave MoE
-experts dense. They run on the device the weights lie on.
+experts and the delta-net projections dense. They run on the device the weights lie on.
 """
 
 from __future__ import annotations
@@ -174,6 +175,15 @@ def quantize_model_rtn(
         for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
             if name in lp and lp[name].w.shape[0] % group_size == 0:
                 nlp[name] = quantize_linear_rtn(lp[name], seed=seed + i, **kw)
+        if "linear_attn" in lp:
+            # a gated delta-net layer: in_proj_qkvz and out_proj to W4; the
+            # decay/gate projection in_proj_ba stays dense, as the reference
+            # skips it (4bit_moe.sh --skipped-modules linear_attn.in_proj_a/b)
+            la = dict(lp["linear_attn"])
+            for name in ("in_proj_qkvz", "out_proj"):
+                if la[name].w.shape[0] % group_size == 0:
+                    la[name] = quantize_linear_rtn(la[name], seed=seed + i, **kw)
+            nlp["linear_attn"] = la
         mlp = dict(lp["mlp"])
         if "experts" in mlp and not isinstance(mlp["experts"], QuantizedMoEExperts):
             if config.moe_intermediate_size % group_size == 0:

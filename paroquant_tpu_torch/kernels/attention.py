@@ -9,7 +9,11 @@ sliding window and tanh softcap, GQA h -> h // (Hq // Hkv), f32 softmax,
 output in q.dtype. A query row with no valid key gives 0, as the TPU
 kernel's does. bf16 inputs run on the tensor cores (mma.sync), with P
 rounded to bf16 for the PV product; f32 inputs on the SIMT units in f32.
-Both walk the key tiles `flash_live_tiles` gives.
+f32 q over bf16 k/v (a hybrid model's f32 residual stream over its bf16
+cache) takes the SIMT kernel too, with k/v widened to f32 and an f32
+output, as the TPU kernel casts each block to f32 and writes q's dtype.
+All walk the key tiles `flash_live_tiles` gives. `flash_kinds` counts
+K3's calls by instance ("bf16", "f32", "f32_q_bf16_kv").
 
 K4, `paged_decode_attention`, and K5, `paged_window_attention_kernel`
 (csrc/paged_attention.cu), port the functions of the same names: one query
@@ -50,8 +54,17 @@ NEG_INF = -1e30
 
 launch_counts = {"flash_attention": 0, "paged_decode_attention": 0,
                  "paged_window_attention_kernel": 0}
+# K3's calls by q and k/v dtypes (the instance it launches)
+FLASH_KINDS = {(torch.float32, torch.float32): (0, "f32"),
+               (torch.bfloat16, torch.bfloat16): (1, "bf16"),
+               (torch.float32, torch.bfloat16): (2, "f32_q_bf16_kv")}
+flash_kinds = {name: 0 for _, name in FLASH_KINDS.values()}
 # per-variant split of the paged kernels' counts: [float pool, int8 pool]
 variant_counts = {"paged_decode_attention": [0, 0], "paged_window_attention_kernel": [0, 0]}
+# K4/K5's calls by instance: bf16 queries over a bf16 or int8 pool take the
+# tensor-core `paged_mma_kernel`, everything else (f32 queries, as a hybrid
+# model's f32 stream gives) the SIMT `paged_simt_kernel`
+paged_instances = {name: {"mma": 0, "simt": 0} for name in variant_counts}
 
 
 def reset_launch_counts() -> None:
@@ -59,6 +72,9 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
     for name in variant_counts:
         variant_counts[name] = [0, 0]
+        paged_instances[name] = {"mma": 0, "simt": 0}
+    for name in flash_kinds:
+        flash_kinds[name] = 0
 
 
 def _check_head_dim(D: int) -> None:
@@ -159,7 +175,8 @@ def flash_attention(
     q, k, v, kv_lens, *, scale: float, q_offset=0, sliding_window: int | None = None,
     logit_softcap: float | None = None, causal: bool = True,
 ) -> torch.Tensor:
-    """K3: q [B, Hq, T, D], k/v [B, Hkv, S, D] -> [B, Hq, T, D] in q.dtype."""
+    """K3: q [B, Hq, T, D], k/v [B, Hkv, S, D] -> [B, Hq, T, D] in q.dtype;
+    q/k/v all f32, all bf16, or f32 q over bf16 k/v."""
     if q.device.type == "cpu":
         return flash_attention_plain(
             q, k, v, kv_lens, scale=scale, q_offset=q_offset,
@@ -168,8 +185,10 @@ def flash_attention(
     B, Hq, T, D = q.shape
     Hkv, S_ = k.shape[1], k.shape[2]
     _check_head_dim(D)
-    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"q/k/v must share dtype float32 or bfloat16: {q.dtype} {k.dtype} {v.dtype}")
+    kind = FLASH_KINDS.get((q.dtype, k.dtype)) if v.dtype == k.dtype else None
+    if kind is None:
+        raise TypeError("q/k/v must be all float32, all bfloat16, or float32 q over bfloat16 "
+                        f"k/v: {q.dtype} {k.dtype} {v.dtype}")
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D or Hq % Hkv:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     dev = q.device
@@ -181,13 +200,14 @@ def flash_attention(
     out = torch.empty_like(q)
     err = _lib_fn()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lens.data_ptr(),
-        qoff.data_ptr(), int(q.dtype == torch.bfloat16), B, Hq, Hkv, T, S_, D,
+        qoff.data_ptr(), kind[0], B, Hq, Hkv, T, S_, D,
         float(scale), float(logit_softcap or 0.0), int(sliding_window or 0), int(causal),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed with CUDA error {err}")
     launch_counts["flash_attention"] += 1
+    flash_kinds[kind[1]] += 1
     return out
 
 
@@ -420,6 +440,7 @@ def _paged_launch(name, q4, k_pages, v_pages, page_table, seq_lens, scale, slidi
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     launch_counts[name] += 1
     variant_counts[name][int(quant)] += 1
+    paged_instances[name]["mma" if q_bf16 and kind else "simt"] += 1
     return out
 
 

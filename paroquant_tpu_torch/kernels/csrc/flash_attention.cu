@@ -70,8 +70,10 @@
 // 64 * MSTAGES * KG) rows of dp bf16 (+ 16 bytes when not swizzled):
 // 147,456 B at D 128 and KG 2, 81,920 B at KG 1, 163,840 B at D 256.
 //
-// f32 q/k/v: the SIMT kernel (flash_kernel), f32 arithmetic throughout and
-// no TF32. One block per (q tile of 64 rows, head, batch), 256 threads; a
+// f32 q/k/v, and f32 q over bf16 k/v (the hybrid models' f32 residual
+// stream over a bf16 cache, as JAX's kernel casts each block to f32): the
+// SIMT kernel (flash_kernel), f32 arithmetic throughout and no TF32; k/v
+// are widened to f32 as they land in shared memory, the output is f32. One block per (q tile of 64 rows, head, batch), 256 threads; a
 // thread keeps the output dims tx + 16 c (c < DB / 16) of its rows in
 // registers (the dims tx + 16 c >= D of a ragged last half-tile are masked).
 // Shared memory is sized by the runtime D: 4 B * (64 (D+1) + 64 (D+1) + 64 D
@@ -95,10 +97,11 @@ size_t smem_bytes(int D) {
   return sizeof(float) * ((size_t)TQ * (D + 1) + TK * (D + 1) + (size_t)TK * D + TQ * (TK + 1) + 3 * TQ);
 }
 
-// DB: the head-dim bucket (a multiple of 16); EXACT: D == DB, fixed at compile time
-template <typename T, int DB, bool EXACT>
+// T: q's and o's type, KV: k's and v's; DB: the head-dim bucket (a multiple
+// of 16); EXACT: D == DB, fixed at compile time
+template <typename T, typename KV, int DB, bool EXACT>
 __global__ void __launch_bounds__(THREADS) flash_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ q, const KV* __restrict__ k, const KV* __restrict__ v,
     T* __restrict__ o, const int* __restrict__ kv_lens, const int* __restrict__ q_off,
     int Hq, int Hkv, int T_, int S_, int d_rt, float scale, float softcap, int window, int causal) {
   constexpr int NC = DB / 16;  // output dims per thread and row
@@ -122,8 +125,8 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
   const int q_last = qo + min(q0 + TQ, T_) - 1;
 
   const T* qp = q + ((size_t)b * Hq + h) * (size_t)T_ * D;
-  const T* kp = k + ((size_t)b * Hkv + hk) * (size_t)S_ * D;
-  const T* vp = v + ((size_t)b * Hkv + hk) * (size_t)S_ * D;
+  const KV* kp = k + ((size_t)b * Hkv + hk) * (size_t)S_ * D;
+  const KV* vp = v + ((size_t)b * Hkv + hk) * (size_t)S_ * D;
 
   for (int e = tid; e < TQ * D; e += THREADS) {
     const int r = e / D, d = e % D;
@@ -259,32 +262,32 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
   }
 }
 
-template <typename T, int DB, bool EXACT>
+template <typename T, typename KV, int DB, bool EXACT>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, const int* kv_lens,
                    const int* q_off, int B, int Hq, int Hkv, int T_, int S_, int D, float scale,
                    float softcap, int window, int causal, cudaStream_t st) {
   const size_t smem = smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(flash_kernel<T, DB, EXACT>,
+  cudaError_t err = cudaFuncSetAttribute(flash_kernel<T, KV, DB, EXACT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((T_ + TQ - 1) / TQ, Hq, B);
-  flash_kernel<T, DB, EXACT><<<grid, THREADS, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, kv_lens, q_off, Hq, Hkv, T_, S_, D, scale,
+  flash_kernel<T, KV, DB, EXACT><<<grid, THREADS, smem, st>>>(
+      (const T*)q, (const KV*)k, (const KV*)v, (T*)o, kv_lens, q_off, Hq, Hkv, T_, S_, D, scale,
       softcap, window, causal);
   return cudaGetLastError();
 }
 
 // the smallest bucket that holds D; its exact instance when D fills it
-template <typename T>
+template <typename T, typename KV>
 cudaError_t by_dim(const void* q, const void* k, const void* v, void* o, const int* kl,
                    const int* qo, int B, int Hq, int Hkv, int T_, int S_, int D, float scale,
                    float softcap, int window, int causal, cudaStream_t st) {
 #define PARO_FLASH_BUCKET(DB)                                                                     \
   if (D <= DB)                                                                                    \
-    return D == DB ? launch<T, DB, true>(q, k, v, o, kl, qo, B, Hq, Hkv, T_, S_, D, scale,       \
-                                         softcap, window, causal, st)                             \
-                   : launch<T, DB, false>(q, k, v, o, kl, qo, B, Hq, Hkv, T_, S_, D, scale,      \
-                                          softcap, window, causal, st);
+    return D == DB ? launch<T, KV, DB, true>(q, k, v, o, kl, qo, B, Hq, Hkv, T_, S_, D, scale,   \
+                                             softcap, window, causal, st)                         \
+                   : launch<T, KV, DB, false>(q, k, v, o, kl, qo, B, Hq, Hkv, T_, S_, D, scale,  \
+                                              softcap, window, causal, st);
   PARO_FLASH_BUCKET(32)
   PARO_FLASH_BUCKET(64)
   PARO_FLASH_BUCKET(128)
@@ -681,12 +684,12 @@ extern "C" int paro_flash_key_groups(int B, int Hq, int T_, int D) {
   return key_groups(B, Hq, T_, D, &kg) == cudaSuccess ? kg : -1;
 }
 
-// q/o [B, Hq, T, D], k/v [B, Hkv, S, D], contiguous (bf16: 16-byte aligned),
-// all f32 or all bf16; kv_lens and q_off int32 [B] on the device. D is a
-// multiple of 8 from 8 to 256. softcap <= 0 and window <= 0 mean none.
-// Returns the first CUDA error (0 on success).
+// q/o [B, Hq, T, D], k/v [B, Hkv, S, D], contiguous (bf16: 16-byte aligned);
+// kind 0: all f32, 1: all bf16, 2: f32 q/o over bf16 k/v. kv_lens and q_off
+// int32 [B] on the device. D is a multiple of 8 from 8 to 256. softcap <= 0
+// and window <= 0 mean none. Returns the first CUDA error (0 on success).
 extern "C" int paro_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                    const void* kv_lens, const void* q_off, int is_bf16, int B,
+                                    const void* kv_lens, const void* q_off, int kind, int B,
                                     int Hq, int Hkv, int T_, int S_, int D, float scale,
                                     float softcap, int window, int causal, void* stream) {
   if (Hkv < 1 || Hq % Hkv != 0 || B < 1 || T_ < 1 || S_ < 1 || D < 8 || D > 256 || D % 8 != 0)
@@ -694,9 +697,13 @@ extern "C" int paro_flash_attention(const void* q, const void* k, const void* v,
   cudaStream_t st = (cudaStream_t)stream;
   const int* kl = (const int*)kv_lens;
   const int* qo = (const int*)q_off;
-  if (!is_bf16)
-    return (int)by_dim<float>(q, k, v, o, kl, qo, B, Hq, Hkv, T_, S_, D, scale, softcap, window,
-                              causal, st);
+  if (kind == 0)
+    return (int)by_dim<float, float>(q, k, v, o, kl, qo, B, Hq, Hkv, T_, S_, D, scale, softcap,
+                                     window, causal, st);
+  if (kind == 2)
+    return (int)by_dim<float, bf16>(q, k, v, o, kl, qo, B, Hq, Hkv, T_, S_, D, scale, softcap,
+                                    window, causal, st);
+  if (kind != 1) return (int)cudaErrorInvalidValue;
   int kg = 0;
   const cudaError_t err = key_groups(B, Hq, T_, D, &kg);
   if (err != cudaSuccess) return (int)err;

@@ -1,5 +1,5 @@
-"""Decoder (Llama / Qwen2 / Qwen3 / Gemma-class, and the Qwen3-MoE /
-Qwen2-MoE / Mixtral MoE family) in torch.
+"""Decoder (Llama / Qwen2 / Qwen3 / Gemma-class, the Qwen3-MoE /
+Qwen2-MoE / Mixtral MoE family, and the qwen3_next hybrid) in torch.
 
 Counterpart of `paroquant_tpu/models/decoder.py:38-680, 693-843`: plain
 functions over a params dict, with the same names, so each JAX function
@@ -9,16 +9,22 @@ ops/qlinear.py, or calibration's `optim/pseudo.py::PseudoQuantLinear`
 `moe_forward`: an f32 router, top-k routing and the experts of
 `ops/moe.py` (dense stacks, `QuantizedMoEExperts`, or calibration's
 `optim/pseudo_moe.py::PseudoQuantMoEExperts`), plus an optional
-sigmoid-gated shared expert.
+sigmoid-gated shared expert. A qwen3_next model interleaves gated
+delta-net layers (`models/linear_attn.py`, run by `linear_layer_forward`)
+with full-attention layers whose q_proj also emits a sigmoid output gate
+(`attn_gate`); the delta-net layers' conv windows and recurrent states ride
+in `KVCache.linear`. As in JAX, a delta-net layer returns f32, so after the
+first one a bf16 model's residual stream, its later activations and its
+logits are f32.
 
 The decode step makes no host sync: the cache length is a 0-d device
 tensor, new K/V rows are written with `index_copy_` at that position, and
 the masks are built from it. (A later change can capture the step in a CUDA
 graph, the counterpart of JAX's one-dispatch `greedy_decode_scan`.) The KV
-cache buffers are updated in place.
+cache buffers and the delta-net states are updated in place.
 
-Linear attention (qwen3_next), gemma3n and the VLM path are later slices
-of the port and raise NotImplementedError.
+gemma3n and the VLM path are later slices of the port and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -74,10 +80,6 @@ def merged_forward_parts(layer: MergedQuantizedLinear, x: torch.Tensor, quant_mo
 def _unsupported(config: ModelConfig) -> None:
     if config.is_gemma3n:
         raise NotImplementedError("gemma3n models are not ported yet (ROADMAP §A 5: models/gemma3n.py)")
-    if config.num_linear_layers or config.attn_gate:
-        raise NotImplementedError(
-            "linear-attention (qwen3_next) models are not ported yet "
-            "(ROADMAP §A 5: models/linear_attn.py)")
 
 
 # ---------------------------------------------------------------------------
@@ -141,12 +143,16 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 @dataclass
 class KVCache:
     """Uniform-length KV cache: k/v are tuples of per-layer head-major
-    buffers [B, Hkv, S, D]; `length` is a 0-d int32 device tensor (tokens
-    already cached). The buffers are written in place."""
+    buffers [B, Hkv, S, D], one per full-attention layer; `length` is a 0-d
+    int32 device tensor (tokens already cached). A hybrid model's delta-net
+    layers keep their conv windows and recurrent states in `linear`
+    (`LinearAttnStates`; its conv window in f32, as JAX's). The buffers are
+    written in place."""
 
     k: tuple
     v: tuple
     length: torch.Tensor
+    linear: Any = None
 
     @classmethod
     def create(cls, config: ModelConfig, batch: int, max_len: int,
@@ -155,10 +161,16 @@ class KVCache:
         dev = resolve_device(device)
         shape = (batch, config.num_key_value_heads, max_len, config.head_dim)
         n = config.num_full_attn_layers
+        linear = None
+        if config.num_linear_layers:
+            from .linear_attn import LinearAttnStates
+
+            linear = LinearAttnStates.create(config, batch, device=dev)
         return cls(
             k=tuple(torch.zeros(shape, dtype=dtype, device=dev) for _ in range(n)),
             v=tuple(torch.zeros(shape, dtype=dtype, device=dev) for _ in range(n)),
             length=torch.zeros((), dtype=torch.int32, device=dev),
+            linear=linear,
         )
 
 
@@ -226,7 +238,9 @@ def mlp_forward(p: dict, x: torch.Tensor, quant_mode: str, act: str = "silu",
 
 
 def qkv_forward(p: dict, h: torch.Tensor, config: ModelConfig, quant_mode: str):
-    """q/k/v projections, through the merged layer when present."""
+    """q/k/v projections, through the merged layer when present, and the
+    attention output gate [B, T, Hq * D] or None: with `attn_gate`
+    (qwen3_next) q_proj emits (query, gate) per head."""
     B, T, _ = h.shape
     Hq, Hkv, D = config.num_attention_heads, config.num_key_value_heads, config.head_dim
     if "qkv_proj" in p:
@@ -235,7 +249,12 @@ def qkv_forward(p: dict, h: torch.Tensor, config: ModelConfig, quant_mode: str):
         q = apply_linear(p["q_proj"], h, quant_mode=quant_mode)
         k = apply_linear(p["k_proj"], h, quant_mode=quant_mode)
         v = apply_linear(p["v_proj"], h, quant_mode=quant_mode)
-    return q.reshape(B, T, Hq, D), k.reshape(B, T, Hkv, D), v.reshape(B, T, Hkv, D)
+    gate = None
+    if config.attn_gate:
+        qg = q.reshape(B, T, Hq, 2 * D)
+        q = qg[..., :D]
+        gate = qg[..., D:].reshape(B, T, Hq * D)
+    return q.reshape(B, T, Hq, D), k.reshape(B, T, Hkv, D), v.reshape(B, T, Hkv, D), gate
 
 
 def merge_projections(params: dict, config: ModelConfig) -> dict:
@@ -266,17 +285,17 @@ def merge_projections(params: dict, config: ModelConfig) -> dict:
 def qkv_rope(p: dict, x: torch.Tensor, config: ModelConfig, cos, sin, quant_mode: str,
              taps: dict | None = None):
     """Input norm, q/k/v projections, qk-norm and RoPE of one layer:
-    q [B, T, Hq, D], k/v [B, T, Hkv, D]. `taps` (a dict) receives the
-    projections' input as "qkv"."""
+    q [B, T, Hq, D], k/v [B, T, Hkv, D] and the output gate (None without
+    `attn_gate`). `taps` (a dict) receives the projections' input as "qkv"."""
     norm, eps = config.zero_centered_norm, config.rms_norm_eps
     h = rms_norm(x, p["input_layernorm"], eps, norm)
     if taps is not None:
         taps["qkv"] = h
-    q, k, v = qkv_forward(p, h, config, quant_mode)
+    q, k, v, gate = qkv_forward(p, h, config, quant_mode)
     if config.qk_norm:
         q = rms_norm(q, p["q_norm"], eps, norm)
         k = rms_norm(k, p["k_norm"], eps, norm)
-    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v, gate
 
 
 def moe_forward(p: dict, x: torch.Tensor, config: ModelConfig, quant_mode: str,
@@ -321,14 +340,36 @@ def moe_forward(p: dict, x: torch.Tensor, config: ModelConfig, quant_mode: str,
     return (y, act, shared_act) if return_act else y
 
 
+def _mlp_block(p: dict, h2: torch.Tensor, config: ModelConfig, layer_idx: int,
+               quant_mode: str, taps: dict | None) -> torch.Tensor:
+    """A layer's MLP on its normed input h2 (the MoE block on a sparse
+    layer), with the taps "mlp", "down" / "moe_down" and "shared_down"."""
+    if taps is not None:
+        taps["mlp"] = h2
+    if config.layer_is_sparse(layer_idx) and taps is not None:
+        mlp_out, taps["moe_down"], shared_act = moe_forward(p["mlp"], h2, config, quant_mode,
+                                                            return_act=True)
+        if shared_act is not None:
+            taps["shared_down"] = shared_act
+        return mlp_out
+    if config.layer_is_sparse(layer_idx):
+        return moe_forward(p["mlp"], h2, config, quant_mode)
+    return mlp_forward(p["mlp"], h2, quant_mode, config.hidden_act, taps)
+
+
 def layer_tail(p: dict, x: torch.Tensor, attn_out: torch.Tensor, config: ModelConfig,
-               layer_idx: int, quant_mode: str, taps: dict | None = None) -> torch.Tensor:
-    """o_proj, residuals, norms and MLP (the MoE block on a sparse layer)
-    after a layer's attention output attn_out [B, T, Hq * D]. `taps` (a
-    dict) receives the inputs of o_proj ("o"), of gate/up or the router and
-    experts ("mlp"), and of down_proj ("down"; on a sparse layer the routed
-    experts' "moe_down" and a shared expert's "shared_down")."""
+               layer_idx: int, quant_mode: str, taps: dict | None = None,
+               gate: torch.Tensor | None = None) -> torch.Tensor:
+    """The output gate (attn_out * sigmoid(gate), in f32, where `gate` is
+    given), o_proj, residuals, norms and MLP (the MoE block on a sparse
+    layer) after a layer's attention output attn_out [B, T, Hq * D]. `taps`
+    (a dict) receives the inputs of o_proj ("o"), of gate/up or the router
+    and experts ("mlp"), and of down_proj ("down"; on a sparse layer the
+    routed experts' "moe_down" and a shared expert's "shared_down")."""
     norm, eps = config.zero_centered_norm, config.rms_norm_eps
+    if gate is not None:
+        attn_out = (attn_out.to(torch.float32) * torch.sigmoid(gate.to(torch.float32))).to(
+            attn_out.dtype)
     if taps is not None:
         taps["o"] = attn_out
     attn_out = apply_linear(p["o_proj"], attn_out, quant_mode=quant_mode)
@@ -339,17 +380,7 @@ def layer_tail(p: dict, x: torch.Tensor, attn_out: torch.Tensor, config: ModelCo
     else:
         x = x + attn_out
         h2 = rms_norm(x, p["post_attention_layernorm"], eps, norm)
-    if taps is not None:
-        taps["mlp"] = h2
-    if config.layer_is_sparse(layer_idx) and taps is not None:
-        mlp_out, taps["moe_down"], shared_act = moe_forward(p["mlp"], h2, config, quant_mode,
-                                                            return_act=True)
-        if shared_act is not None:
-            taps["shared_down"] = shared_act
-    elif config.layer_is_sparse(layer_idx):
-        mlp_out = moe_forward(p["mlp"], h2, config, quant_mode)
-    else:
-        mlp_out = mlp_forward(p["mlp"], h2, quant_mode, config.hidden_act, taps)
+    mlp_out = _mlp_block(p, h2, config, layer_idx, quant_mode, taps)
     if config.post_norms:
         mlp_out = rms_norm(mlp_out, p["post_feedforward_layernorm"], eps, norm)
     return x + mlp_out
@@ -376,7 +407,7 @@ def layer_forward(
     B, T, _ = x.shape
     Hq, D = config.num_attention_heads, config.head_dim
     taps = {} if return_taps else None
-    q, k, v = qkv_rope(p, x, config, cos, sin, quant_mode, taps)
+    q, k, v, gate = qkv_rope(p, x, config, cos, sin, quant_mode, taps)
 
     kh = k.transpose(1, 2)
     vh = v.transpose(1, 2)
@@ -419,8 +450,38 @@ def layer_forward(
             q, k_all, v_all, q_positions, valid, scale=config.attn_scale,
             sliding_window=window, logit_softcap=config.attn_logit_softcap,
         )
-    out = layer_tail(p, x, attn_out.reshape(B, T, Hq * D), config, layer_idx, quant_mode, taps)
+    out = layer_tail(p, x, attn_out.reshape(B, T, Hq * D), config, layer_idx, quant_mode, taps,
+                     gate)
     return (out, new_cache, taps) if return_taps else (out, new_cache)
+
+
+def linear_layer_forward(p: dict, x: torch.Tensor, config: ModelConfig, layer_idx: int,
+                         conv_state, rec_state, quant_mode: str, valid_len=None,
+                         return_taps: bool = False):
+    """One gated delta-net (linear-attention) layer of a hybrid model: input
+    norm, `delta_net_forward`, residual, norm, MLP (or MoE block), residual,
+    the branch JAX's model_forward, paged step, GPTQ and calibration each
+    spell out. Returns (output, conv state, rec state), or with
+    return_taps=True also the taps "la_qkvz" (in_proj's input), "la_out"
+    (out_proj's input), "mlp" and "down" / "moe_down" / "shared_down"."""
+    from .linear_attn import delta_net_forward
+
+    norm, eps = config.zero_centered_norm, config.rms_norm_eps
+    taps = {} if return_taps else None
+    h = rms_norm(x, p["input_layernorm"], eps, norm)
+    if taps is not None:
+        taps["la_qkvz"] = h
+        attn_out, conv_state, rec_state, la_taps = delta_net_forward(
+            p["linear_attn"], h, config, conv_state, rec_state, quant_mode,
+            valid_len=valid_len, return_taps=True)
+        taps["la_out"] = la_taps["la_out"]
+    else:
+        attn_out, conv_state, rec_state = delta_net_forward(
+            p["linear_attn"], h, config, conv_state, rec_state, quant_mode, valid_len=valid_len)
+    x = x + attn_out
+    h2 = rms_norm(x, p["post_attention_layernorm"], eps, norm)
+    out = x + _mlp_block(p, h2, config, layer_idx, quant_mode, taps)
+    return (out, conv_state, rec_state, taps) if return_taps else (out, conv_state, rec_state)
 
 
 # ---------------------------------------------------------------------------
@@ -461,6 +522,7 @@ def model_forward(
     *,
     quant_mode: str = "xla",
     attn_mode: str | Callable = "einsum",
+    linear_valid_len=None,
     return_hidden: bool = False,
 ):
     """Returns (logits [B, T, V] f32, or final hidden [B, T, H] with
@@ -468,7 +530,9 @@ def model_forward(
     where the prefill fits its tiles), a callable taking q [B, T, Hq, D],
     head-major k/v [B, Hkv, S, D], the query positions and the valid kv
     length (plus scale=, sliding_window=, logit_softcap=), or any other
-    string for the einsum attention."""
+    string for the einsum attention. linear_valid_len (a hybrid model's
+    zero-padded prefill bucket; a Python int or a 0-d tensor): the true
+    length, past which the delta-net layers leave their states untouched."""
     _unsupported(config)
     B, T = tokens.shape
     x = embed(params, config, tokens)
@@ -481,7 +545,18 @@ def model_forward(
 
     new_k, new_v = [], []
     for i, layer_params in enumerate(params["layers"]):
-        layer_cache = None if cache is None else (cache.k[i], cache.v[i])
+        if config.layer_is_linear(i):
+            ll = config.linear_layer_index(i)
+            conv = None if cache is None else cache.linear.conv[ll]
+            rec = None if cache is None else cache.linear.rec[ll]
+            x, conv, rec = linear_layer_forward(layer_params, x, config, i, conv, rec, quant_mode,
+                                                valid_len=linear_valid_len)
+            if cache is not None:
+                cache.linear.conv[ll].copy_(conv)
+                cache.linear.rec[ll].copy_(rec)
+            continue
+        ki = config.kv_layer_index(i)
+        layer_cache = None if cache is None else (cache.k[ki], cache.v[ki])
         cos, sin = rope_by_layer[i]
         x, updated = layer_forward(
             layer_params, x, config, i, cos, sin, positions, layer_cache, offset,
@@ -494,7 +569,7 @@ def model_forward(
     x = rms_norm(x, params["norm"], config.rms_norm_eps, config.zero_centered_norm)
     out = x if return_hidden else lm_head_logits(params, config, x, quant_mode)
     if cache is not None:
-        cache = KVCache(tuple(new_k), tuple(new_v), offset + T)
+        cache = KVCache(tuple(new_k), tuple(new_v), offset + T, cache.linear)
     return out, cache
 
 
@@ -530,14 +605,37 @@ def init_params(config: ModelConfig, generator: torch.Generator | int = 0,
 
 
 def _init_layer(config: ModelConfig, gen: torch.Generator, i: int, dtype, dev) -> dict[str, Any]:
-    """Random weights of decoder layer i (its MLP from `_init_mlp`)."""
+    """Random weights of decoder layer i (its MLP from `_init_mlp`): a
+    gated delta-net layer where config.layer_is_linear(i) (conv_w, dt_bias
+    and A_log in f32, as JAX's), else attention (q_proj of 2 Hq D outputs
+    with `attn_gate`)."""
     H, D = config.hidden_size, config.head_dim
     Hq, Hkv = config.num_attention_heads, config.num_key_value_heads
     ones = functools.partial(torch.ones, dtype=dtype, device=dev)
+    if config.layer_is_linear(i):
+        Hk_l, Hv_l = config.linear_num_key_heads, config.linear_num_value_heads
+        dk_l, dv_l = config.linear_key_head_dim, config.linear_value_head_dim
+        f32 = dict(dtype=torch.float32, device=dev)
+        return {
+            "input_layernorm": ones(H),
+            "post_attention_layernorm": ones(H),
+            "linear_attn": {
+                "in_proj_qkvz": _dense(gen, H, 2 * Hk_l * dk_l + 2 * Hv_l * dv_l, dtype, dev),
+                "in_proj_ba": _dense(gen, H, 2 * Hv_l, dtype, dev),
+                "conv_w": torch.randn(config.linear_conv_dim, config.linear_conv_kernel_dim,
+                                      generator=gen, **f32) * 0.3,
+                "dt_bias": torch.ones(Hv_l, **f32),
+                "A_log": torch.log(torch.rand(Hv_l, generator=gen, **f32) * (16.0 - 1e-2) + 1e-2),
+                "norm": ones(dv_l),
+                "out_proj": _dense(gen, Hv_l * dv_l, H, dtype, dev),
+            },
+            "mlp": _init_mlp(config, gen, i, dtype, dev),
+        }
+    q_out = 2 * Hq * D if config.attn_gate else Hq * D
     lp: dict[str, Any] = {
         "input_layernorm": ones(H),
         "post_attention_layernorm": ones(H),
-        "q_proj": _dense(gen, H, Hq * D, dtype, dev, config.attention_bias),
+        "q_proj": _dense(gen, H, q_out, dtype, dev, config.attention_bias),
         "k_proj": _dense(gen, H, Hkv * D, dtype, dev, config.attention_bias),
         "v_proj": _dense(gen, H, Hkv * D, dtype, dev, config.attention_bias),
         "o_proj": _dense(gen, Hq * D, H, dtype, dev),

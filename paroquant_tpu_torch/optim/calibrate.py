@@ -27,10 +27,15 @@ Activations stay on the device while a layer's set (inputs and teacher
 targets) fits `resident_act_bytes`; past it they are staged on the host and
 each batch is copied to the device when a step takes it.
 
-The gemma3n and delta-net (qwen3_next) branches and a data-parallel `mesh`
-raise NotImplementedError (ROADMAP §A 5, §A 7). GPTQ init re-initializes
-the standard linears only (the experts and a shared expert keep the plain
-init), as JAX's does.
+A hybrid's delta-net layers run through `models/decoder.py::
+linear_layer_forward` (JAX's delta-net layer body); their in_proj_qkvz and
+out_proj are calibrated, in_proj_ba is skipped by default (`CalibConfig.
+skip`, the reference's `--skipped-modules`). The gemma3n branch and a
+data-parallel `mesh` raise NotImplementedError (ROADMAP §A 5, §A 7). GPTQ
+init re-initializes the standard linears only (the experts, a shared expert
+and the delta-net projections keep the plain init), as JAX's does; on a
+delta-net layer its Hessians come from that layer's own taps (JAX's init
+there calls the attention layer's forward and fails).
 """
 
 from __future__ import annotations
@@ -47,7 +52,8 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from ..models.decoder import DenseLinear, _unsupported, layer_forward, layer_rope_theta, rope_tables
+from ..models.decoder import (DenseLinear, _unsupported, layer_forward, layer_rope_theta,
+                              linear_layer_forward, rope_tables)
 from ..ops import rotation as rot_ops
 from ..ops.butterfly import make_butterfly_params
 from ..convert.rtn import _to_device
@@ -245,10 +251,6 @@ def _refuse(config: ModelConfig, mesh) -> None:
         raise NotImplementedError(
             "gemma3n calibration (AltUp stack, per-layer inputs, shared KV) needs "
             "models/gemma3n.py, which the port has not yet (ROADMAP §A 5)")
-    if config.num_linear_layers:
-        raise NotImplementedError(
-            "delta-net (qwen3_next) calibration needs models/linear_attn.py, which the port "
-            "has not yet (ROADMAP §A 5)")
     _unsupported(config)
 
 
@@ -325,12 +327,26 @@ def _calibrate(params, config, token_batches, cfg, output_dir, resume, progress_
         t_start = time.time()
         names = _layer_linear_names(lp, cfg.skip)
         cos, sin = rope_tables(positions, config.rotary_dim, layer_rope_theta(config, li))
+        is_linear = config.layer_is_linear(li)
 
         def _batch_in(i):
             return xs[i].to(dev)
 
+        def layer_taps(lp_, x):
+            """(output, taps) of one decoder layer, dense or substituted params
+            (no cache): a delta-net layer through linear_layer_forward."""
+            if is_linear:
+                y, _, _, taps = linear_layer_forward(lp_, x, config, li, None, None, "xla",
+                                                     return_taps=True)
+                return y, taps
+            y, _, taps = layer_forward(lp_, x, config, li, cos, sin, positions, None, zero, "xla",
+                                       return_taps=True)
+            return y, taps
+
         def apply_with(lp_, x):
             """One decoder layer, dense or substituted params (no cache)."""
+            if is_linear:
+                return linear_layer_forward(lp_, x, config, li, None, None, "xla")[0]
             y, _ = layer_forward(lp_, x, config, li, cos, sin, positions, None, zero, "xla")
             return y
 
@@ -409,8 +425,7 @@ def _calibrate(params, config, token_batches, cfg, output_dir, resume, progress_
                         None if l2.bias is None else l2.bias.detach()))
                 hs = None
                 for i2 in range(N):
-                    _, _, taps = layer_forward(eff, _batch_in(i2), config, li, cos, sin,
-                                               positions, None, zero, "xla", return_taps=True)
+                    _, taps = layer_taps(eff, _batch_in(i2))
                     h_i = {}
                     for k, t in taps.items():
                         tt = t.reshape(-1, t.shape[-1]).to(torch.float32)

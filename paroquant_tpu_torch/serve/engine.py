@@ -22,6 +22,15 @@ The JAX engine's jitted pieces map to plain torch: prefill is the port's
 `sample_batch`, and the prefill finish is a few torch ops. Per-slot draws
 hash (the request's seed, its step), so a request's tokens do not depend on
 the batch; they differ from the JAX engine's `jax.random` draws.
+
+A hybrid (qwen3_next) model's slots carry delta-net states in the pool
+(`PagedKVCache.conv` / `.rec`), installed when a prefill finishes. Its
+padded prefill bucket, and the padded last chunk of a chunked prefill,
+pass the true length as `linear_valid_len` (a host int: no device read),
+so the states are those of the unpadded prompt. A chunked prefill carries
+the states from chunk to chunk (JAX's chunked prefill drops them and fails
+on a hybrid). As in JAX, hybrids get no prefix caching (the recurrent
+state at a prefix's end is not page-resident) and `spec_k > 0` raises.
 Tensor-parallel serving (a mesh) and images (`pixel_values`) are later
 slices and raise NotImplementedError.
 """
@@ -177,7 +186,7 @@ class Engine:
         # one extra "trash" page absorbs the KV writes of inactive slots
         self.trash_page = num_pages
         self.cache = PagedKVCache.create(config, num_pages + 1, page_size, cache_dtype,
-                                         kv_quant=kv_quant, device=self.device)
+                                         kv_quant=kv_quant, device=self.device, batch=max_batch)
         self.free_pages: list[int] = list(range(num_pages))
         self.slots = [_Slot() for _ in range(max_batch)]
         self.waiting: "queue.SimpleQueue[Request]" = queue.SimpleQueue()
@@ -189,6 +198,10 @@ class Engine:
         self.decode_burst = max(1, decode_burst)
         self.prefix_caching = prefix_caching
         self.spec_k = max(0, spec_k)
+        if self.spec_k and config.num_linear_layers:
+            raise ValueError(
+                "spec_k: speculative decoding supports standard-attention families only "
+                "(delta-net recurrent state cannot roll back rejected drafts)")
         self.prefix_map: dict[int, int] = {}  # cumulative hash -> page id
         self.page_key: dict[int, int] = {}  # registered page -> its hash
         self.page_refs: dict[int, int] = {}  # registered page -> active refs
@@ -394,7 +407,9 @@ class Engine:
             need_pages = (T + req.sampling.max_tokens + self.page_size - 1) // self.page_size
             matched: list[int] = []
             reg_keys: tuple = ()
-            if self.prefix_caching:
+            # hybrids excluded: the delta-net state at a prefix's end is not
+            # page-resident, so a prefix hit could not resume it
+            if self.prefix_caching and not self.config.num_linear_layers:
                 matched, reg_keys = self._match_prefix(req.prompt_tokens)
             if need_pages - len(matched) > self._num_free_pages():
                 return  # wait for pages to free up
@@ -452,10 +467,11 @@ class Engine:
         if chunk_np.shape[1] < C:  # pad to the chunk width
             chunk_np = np.pad(chunk_np, ((0, 0), (0, C - chunk_np.shape[1])))
         cache = KVCache(st.cache.k, st.cache.v,
-                        torch.full((), st.offset, dtype=torch.int32, device=self.device))
+                        torch.full((), st.offset, dtype=torch.int32, device=self.device),
+                        st.cache.linear)
         logits, st.cache = model_forward(
             self.params, self.config, self._dev(chunk_np), cache, quant_mode=self.quant_mode,
-            attn_mode=self.prefill_attn)
+            attn_mode=self.prefill_attn, linear_valid_len=min(max(T - st.offset, 0), C))
         st.offset += C
         if st.offset >= T:  # the last chunk reached the final prompt token
             last_in_chunk = (T - 1) - (st.offset - C)
@@ -479,7 +495,8 @@ class Engine:
         toks[0, :T] = req.prompt_tokens
         cache = KVCache.create(self.config, 1, bucket, self.prefill_dtype, self.device)
         logits, cache = model_forward(self.params, self.config, self._dev(toks), cache,
-                                      quant_mode=self.quant_mode, attn_mode=self.prefill_attn)
+                                      quant_mode=self.quant_mode, attn_mode=self.prefill_attn,
+                                      linear_valid_len=T)
         self._finish_prefill(slot_id, req, cache, logits[:, T - 1, :], self._alloc_pages(req),
                              reg_keys=reg_keys)
 
@@ -504,6 +521,9 @@ class Engine:
         layer_k = torch.stack([k[0].transpose(0, 1)[:max_rows] for k in cache.k])
         layer_v = torch.stack([v[0].transpose(0, 1)[:max_rows] for v in cache.v])
         scatter_prefill_kv(self.config, self.cache, layer_k, layer_v, self._dev(scat_vec))
+        if cache.linear is not None:  # a hybrid: the slot's delta-net states
+            self.cache.conv[:, slot_id] = cache.linear.conv[:, 0].to(self.cache.conv.dtype)
+            self.cache.rec[:, slot_id] = cache.linear.rec[:, 0]
         if self.prefix_caching:
             self._register_prefix(pages, reg_keys, n_matched, req.prompt_tokens)
         sp = req.sampling
@@ -787,7 +807,8 @@ class Engine:
         toks[0, :T] = prompt_tokens
         cache = KVCache.create(self.config, 1, bucket, self.prefill_dtype, self.device)
         logits, _ = model_forward(self.params, self.config, self._dev(toks), cache,
-                                  quant_mode=self.quant_mode, attn_mode=self.prefill_attn)
+                                  quant_mode=self.quant_mode, attn_mode=self.prefill_attn,
+                                  linear_valid_len=T)
         lp = torch.log_softmax(logits[0, : T - 1].to(torch.float32), dim=-1)
         idx = self._dev(np.asarray(prompt_tokens[1:], np.int64))
         vals = lp.gather(1, idx[:, None])[:, 0]

@@ -145,9 +145,10 @@ class Generator:
     speculation with k-token drafts: greedy requests get the tokens of the
     sequential greedy loop under the verify forward's numerics, sampled ones
     tokens of the same distribution. Requests with a repetition penalty, or
-    whose prompt, max_tokens and k do not fit max_len, take the normal path.
-    Families with recurrent state (and gemma3n), which JAX also keeps off
-    speculation, are refused by the decoder as a whole in this port.
+    whose prompt, max_tokens and k do not fit max_len, take the normal path,
+    as do hybrid (delta-net) models, whose recurrent state cannot roll back
+    rejected drafts (JAX keeps them and gemma3n off speculation too); their
+    steps and bursts carry the delta-net states in the cache.
     """
 
     def __init__(
@@ -207,6 +208,7 @@ class Generator:
         # a penalty changes the counts inside a window, which the one-shot
         # accept/reject cannot follow; the last window needs k rows of slack
         return (self.lookup_spec_k > 0 and sp.repetition_penalty == 1.0
+                and self.config.num_linear_layers == 0
                 and n_prompt + sp.max_tokens + self.lookup_spec_k <= self.max_len)
 
     @torch.no_grad()

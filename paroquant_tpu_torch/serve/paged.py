@@ -1,28 +1,33 @@
 """Paged KV cache, paged decode step and speculative verify step.
 
-Counterpart of `paroquant_tpu/serve/paged.py` for the dense and MoE
-families (a sparse layer's MoE block runs in `layer_tail`):
+Counterpart of `paroquant_tpu/serve/paged.py` for the dense, MoE and
+qwen3_next hybrid families (a sparse layer's MoE block runs in
+`layer_tail`):
 
 - a global page pool k/v [Lf, P, page_size, Hkv, D] (with kv_quant="int8",
   int8 pools plus per-(token, head) scales k_scale/v_scale [Lf, P, Hkv, ps]
-  f32, the page size last as in JAX). The pools are updated IN PLACE by
-  every function here: JAX needs buffer donation for the same effect, torch
-  writes the rows where they are;
+  f32, the page size last as in JAX), and for a hybrid model per-slot
+  delta-net states conv [Ll, max_batch, conv_dim, Kc-1] (in the pool's
+  dtype, as JAX's) and rec [Ll, max_batch, Hv, dk, dv] f32. The pools are
+  updated IN PLACE by every function here: JAX needs buffer donation for
+  the same effect, torch writes the rows where they are;
 - per-slot page tables [max_batch, maxP] int32 and lengths [max_batch];
 - `paged_decode_step`: one token per slot, its K/V row written at
   (page_table[b, len // ps], len % ps), attention over the slot's pages with
   seq_lens + 1. On CUDA it runs K4 (`kernels/attention.py::
-  paged_decode_attention`), on the CPU that kernel's plain version; it makes
-  no host sync, so a CUDA graph can capture it;
+  paged_decode_attention`), on the CPU that kernel's plain version; a
+  hybrid's delta-net layers take their O(1) recurrent step on the slots'
+  states. It makes no host sync, so a CUDA graph can capture it;
 - `paged_verify_step`: a window of W tokens per slot (speculative verify)
-  through K5, positions past the table redirected to the trash page.
+  through K5, positions past the table redirected to the trash page; for
+  standard-attention families only, as in JAX (a recurrent state cannot
+  roll back rejected drafts).
 
 attn_mode "kernel" (the default) goes through the K4/K5 wrappers;
 "einsum" runs the einsum references `paged_attention` /
 `paged_window_attention` over the gathered pages on any device, as JAX's
-CPU path does. Tensor-parallel head sharding (`_headshard_attn`), hybrid
-(qwen3_next) and gemma3n models are later slices and raise
-NotImplementedError.
+CPU path does. Tensor-parallel head sharding (`_headshard_attn`) and
+gemma3n models are later slices and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from ..models.decoder import (
     _unsupported,
     embed,
     layer_tail,
+    linear_layer_forward,
     lm_head_logits,
     qkv_rope,
     rms_norm,
@@ -63,12 +69,16 @@ def _no_mesh(mesh) -> None:
 @dataclasses.dataclass
 class PagedKVCache:
     """Paged pool for the attention layers: k/v [Lf, P, ps, Hkv, D]; with
-    int8 KV, k_scale/v_scale [Lf, P, Hkv, ps] f32. Updated in place."""
+    int8 KV, k_scale/v_scale [Lf, P, Hkv, ps] f32. A hybrid model's slots
+    keep their delta-net states in conv [Ll, B, conv_dim, Kc-1] and rec
+    [Ll, B, Hv, dk, dv] f32. Updated in place."""
 
     k: torch.Tensor
     v: torch.Tensor
     k_scale: torch.Tensor | None = None
     v_scale: torch.Tensor | None = None
+    conv: torch.Tensor | None = None
+    rec: torch.Tensor | None = None
 
     @property
     def page_size(self) -> int:
@@ -85,11 +95,20 @@ class PagedKVCache:
     @classmethod
     def create(cls, config: ModelConfig, num_pages: int, page_size: int = 128,
                dtype=torch.bfloat16, kv_quant: str | None = None,
-               device="cuda") -> "PagedKVCache":
+               device="cuda", batch: int | None = None) -> "PagedKVCache":
+        """batch: the engine's slots, which a hybrid model's states need."""
         _unsupported(config)
         dev = resolve_device(device)
         shape = (config.num_full_attn_layers, num_pages, page_size,
                  config.num_key_value_heads, config.head_dim)
+        conv = rec = None
+        if config.num_linear_layers:
+            if batch is None:
+                raise ValueError("a hybrid model's paged cache needs batch (max_batch)")
+            from ..models.linear_attn import LinearAttnStates
+
+            states = LinearAttnStates.create(config, batch, dtype, dev)
+            conv, rec = states.conv, states.rec
         ks = vs = None
         if kv_quant is not None:
             if kv_quant != "int8":
@@ -99,7 +118,7 @@ class PagedKVCache:
             ks = torch.zeros(sshape, dtype=torch.float32, device=dev)
             vs = torch.zeros(sshape, dtype=torch.float32, device=dev)
         return cls(torch.zeros(shape, dtype=dtype, device=dev),
-                   torch.zeros(shape, dtype=dtype, device=dev), ks, vs)
+                   torch.zeros(shape, dtype=dtype, device=dev), ks, vs, conv, rec)
 
 
 def kv_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -156,9 +175,17 @@ def paged_decode_step(params: dict[str, Any], config: ModelConfig, tokens, seq_l
     offset = pos % ps
     lens_incl = seq_lens + 1
     for li, lp in enumerate(params["layers"]):
+        if config.layer_is_linear(li):
+            # a hybrid's delta-net layer: the O(1) recurrent step on the slots' states
+            ll = config.linear_layer_index(li)
+            x, conv, rec = linear_layer_forward(lp, x, config, li, cache.conv[ll], cache.rec[ll],
+                                                quant_mode)
+            cache.conv[ll].copy_(conv)
+            cache.rec[ll].copy_(rec)
+            continue
         kv_li = config.kv_layer_index(li)
         cos, sin = rope_by_layer[li]
-        q, k, v = qkv_rope(lp, x, config, cos, sin, quant_mode)
+        q, k, v, gate = qkv_rope(lp, x, config, cos, sin, quant_mode)
         q, k, v = q[:, 0], k[:, 0], v[:, 0]  # [B, H*, D]
         _write_rows(cache, kv_li, page_idx, offset, k, v)
         kw = dict(scale=config.attn_scale, sliding_window=config.layer_sliding_window(li),
@@ -172,7 +199,8 @@ def paged_decode_step(params: dict[str, Any], config: ModelConfig, tokens, seq_l
             attn = paged_attention(q, k_pages, v_pages, lens_incl, **kw)
         else:
             raise ValueError(f"unknown attn_mode {attn_mode!r}")
-        x = layer_tail(lp, x, attn.to(x.dtype).reshape(B, 1, Hq * D), config, li, quant_mode)
+        x = layer_tail(lp, x, attn.to(x.dtype).reshape(B, 1, Hq * D), config, li, quant_mode,
+                       gate=gate)
     x = rms_norm(x[:, 0], params["norm"], config.rms_norm_eps, config.zero_centered_norm)
     return lm_head_logits(params, config, x, quant_mode), cache
 
@@ -186,9 +214,14 @@ def paged_verify_step(params: dict[str, Any], config: ModelConfig, windows, seq_
     at positions past maxP * ps go to `trash_page`. Returns (greedy tokens
     [B, W] int32, their raw logprobs [B, W], the window-row-0 logits [B, V],
     cache). Rejected drafts' rows need no rollback: the next window writes
-    over them before attention can reach them."""
+    over them before attention can reach them. Standard-attention families
+    only: a hybrid's recurrent state would have to roll back."""
     _unsupported(config)
     _no_mesh(attn_mesh)
+    if config.num_linear_layers:
+        raise ValueError("paged_verify_step: speculative verify supports standard-attention "
+                         "families only (the delta-net recurrent state cannot roll back "
+                         "rejected drafts)")
     attn_mode = attn_mode or "kernel"
     B, W = windows.shape
     ps = cache.page_size
@@ -207,7 +240,7 @@ def paged_verify_step(params: dict[str, Any], config: ModelConfig, windows, seq_
     for li, lp in enumerate(params["layers"]):
         kv_li = config.kv_layer_index(li)
         cos, sin = rope_by_layer[li]
-        q, k, v = qkv_rope(lp, x, config, cos, sin, quant_mode)
+        q, k, v, gate = qkv_rope(lp, x, config, cos, sin, quant_mode)
         _write_rows(cache, kv_li, page_idx, offset, k, v)
         kw = dict(scale=config.attn_scale, sliding_window=config.layer_sliding_window(li),
                   logit_softcap=config.attn_logit_softcap)
@@ -220,7 +253,8 @@ def paged_verify_step(params: dict[str, Any], config: ModelConfig, windows, seq_
             attn = paged_window_attention(q, k_pages, v_pages, positions, **kw)
         else:
             raise ValueError(f"unknown attn_mode {attn_mode!r}")
-        x = layer_tail(lp, x, attn.to(x.dtype).reshape(B, W, Hq * D), config, li, quant_mode)
+        x = layer_tail(lp, x, attn.to(x.dtype).reshape(B, W, Hq * D), config, li, quant_mode,
+                       gate=gate)
     x = rms_norm(x, params["norm"], config.rms_norm_eps, config.zero_centered_norm)
     logits = lm_head_logits(params, config, x, quant_mode)  # [B, W, V] f32
     toks = torch.argmax(logits, dim=-1)

@@ -44,6 +44,7 @@ import pytest
 import torch
 
 from paroquant_tpu.models import PRESETS as J_PRESETS
+from paroquant_tpu.models import from_hf_dict as j_from_hf_dict
 from paroquant_tpu.models import init_params as j_init_params
 from paroquant_tpu.ops import quant as jq
 from paroquant_tpu.ops import rotation as jrot
@@ -608,6 +609,29 @@ def test_unported_branches_raise(kind):
         assert exps[0]["mlp.experts"]["moe"] and exps[0]["mlp.experts"]["gate"]["q"].shape == (
             cfg.num_experts, cfg.moe_intermediate_size, cfg.hidden_size)
         assert type(q["layers"][0]["mlp"]["experts"]).__name__ == "QuantizedMoEExperts"
+        return
+    if kind == "delta_net":
+        # ported: a one-layer hybrid (a delta-net layer) calibrates in_proj_qkvz,
+        # out_proj and its MLP; in_proj_ba stays dense by CalibConfig.skip's default
+        # (tests/test_torch_qwen3_next_convert.py holds the calibration against JAX's)
+        cfg = from_hf_dict(dict(HYBRID, num_hidden_layers=1))
+        assert cfg.layer_is_linear(0)
+        jcfg = j_from_hf_dict(dict(HYBRID, num_hidden_layers=1))
+        jp = j_init_params(jcfg, jax.random.PRNGKey(1), dtype=jnp.float32)
+        tp = params_from_jax(jax.tree.map(np.asarray, jp), cfg, "cpu")
+        tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 1, 8)).astype(np.int32)
+        q, exps = calibrate_model(tp, cfg, tokens, CalibConfig(
+            group_size=32, num_rotations=4, stages=(({"channel_scales": 5e-3}, 1),)), device="cpu")
+        assert sorted(exps[0]) == ["linear_attn.in_proj_qkvz", "linear_attn.out_proj",
+                                   "mlp.down_proj", "mlp.gate_proj", "mlp.up_proj"]
+        assert exps[0]["linear_attn.in_proj_qkvz"]["q"].shape == (
+            2 * cfg.linear_num_key_heads * cfg.linear_key_head_dim
+            + 2 * cfg.linear_num_value_heads * cfg.linear_value_head_dim, cfg.hidden_size)
+        la = q["layers"][0]["linear_attn"]
+        assert type(la["in_proj_qkvz"]).__name__ == type(la["out_proj"]).__name__ == "QuantizedLinear"
+        assert type(la["in_proj_ba"]).__name__ == "DenseLinear"
+        test = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 8)))
+        assert torch.isfinite(model_forward(q, cfg, test)[0]).all()
         return
     where = "§A 7" if kind == "mesh" else "§A 5"
     with pytest.raises(NotImplementedError, match=where):

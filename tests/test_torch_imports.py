@@ -46,6 +46,7 @@ EXPERIMENT_MODULES = (
     "paroquant_tpu_torch.optim.calibrate", "paroquant_tpu_torch.cli.optimize",
     "paroquant_tpu_torch.cli.convert", "paroquant_tpu_torch.scripts.bench_calibration",
     "paroquant_tpu_torch.ops.moe", "paroquant_tpu_torch.optim.pseudo_moe",
+    "paroquant_tpu_torch.models.linear_attn",
 )
 
 
@@ -78,8 +79,10 @@ def test_sources_import_nothing_forbidden():
 def _entry_points():
     from paroquant_tpu_torch.convert.checkpoint import load_checkpoint
     from paroquant_tpu_torch.convert.rtn import quantize_model_rtn
-    from paroquant_tpu_torch.models import PRESETS, KVCache, init_params
-    from paroquant_tpu_torch.convert.interop import paged_cache_from_jax, w4_i4_from_jax
+    from paroquant_tpu_torch.models import PRESETS, KVCache, from_hf_dict, init_params
+    from paroquant_tpu_torch.convert.interop import (kv_cache_from_jax, paged_cache_from_jax,
+                                                     w4_i4_from_jax)
+    from paroquant_tpu_torch.models.linear_attn import LinearAttnStates
     from paroquant_tpu_torch.experiments import plot_kernel_speedup
     from paroquant_tpu_torch.scripts import (kernel_bench3, kernel_bench4, kernel_dma_pipeline,
                                              kernel_edge_test, kernel_int8_probe, kernel_tune,
@@ -109,6 +112,7 @@ def _entry_points():
                                                      profile_prefill)
 
     cfg = PRESETS["tiny"]
+    hybrid = from_hf_dict(dict(model_type="qwen3_next", num_hidden_layers=4))
     return {
         "resolve_device": lambda: resolve_device(),
         "init_params": lambda: init_params(cfg, 0),
@@ -170,6 +174,9 @@ def _entry_points():
         "cli.convert.main": lambda: cli_convert.main(["--model", "preset:tiny", "--results",
                                                       "/nonexistent", "--output", "/nonexistent"]),
         "bench_calibration.main": lambda: bench_calibration.main([]),
+        "LinearAttnStates.create": lambda: LinearAttnStates.create(hybrid, 1),
+        "kv_cache_from_jax": lambda: kv_cache_from_jax(
+            type("C", (), dict(k=(), v=(), length=np.int32(0), linear=None))()),
     }
 
 
@@ -189,7 +196,7 @@ def _entry_points():
      "cli.evaluate.main", "cli.chat.main", "bench_longcontext.main", "bench_longcontext.build_w4",
      "cli.serve.main", "cli.serve.build", "rtn_baseline.main", "gptq_baseline.main",
      "gptq_quantize_model", "calibrate_model", "cli.optimize.main", "cli.convert.main",
-     "bench_calibration.main"],
+     "bench_calibration.main", "LinearAttnStates.create", "kv_cache_from_jax"],
 )
 def test_cuda_default_raises_without_cuda(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
