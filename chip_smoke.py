@@ -174,7 +174,7 @@ Phases, each printing one or more lines:
      window held against its plain version on one kv head's group, and K4
      over one slot of 32768 keys, each timed beside SDPA; then
      bench_longcontext's ttft16k at its defaults (K3 on every chunk of
-     every layer, K4), gen32k at --gen-total 384 (352 tokens, "done";
+     every layer, K4), gen32k at --gen-total 256 (224 tokens, "done";
      K4) and ppl16k at qwen3-8b width cut to 2 layers over the 16384-token
      window (K3; PPL and peak bytes finite);
   9. the conversion and HTTP serving paths, each with the counts reset
@@ -211,8 +211,8 @@ Phases, each printing one or more lines:
      --tokens 2048`, each printing its line;
   11. the MoE family (`moe_paths`, the counts reset just before and read
      just after; K1-K5 must run): Qwen3-30B-A3B's published widths (128
-     experts, top 8) at 24 of its 48 layers (MOE_LAYERS: the depth cut
-     that keeps the script in its time limit beside phase 12), with random
+     experts, top 8) at 8 of its 48 layers (MOE_LAYERS: the depth cut
+     that keeps the script in its time limit beside phases 12-13), with random
      bf16 weights from a seeded
      torch.Generator, built layer by layer on the card (RTN W4 g128, the
      experts through quantize_experts_rtn, a W4 lm_head, merged
@@ -233,26 +233,49 @@ Phases, each printing one or more lines:
      and read just after; K1-K4 must run, K3 on its f32-query instance):
      Qwen3-Next-80B-A3B's published widths (every fourth layer full
      attention with a gated q, the others gated delta-net; 512 experts of
-     512, top 10, a shared expert) at 36 of its 48 layers (HYBRID_LAYERS:
+     512, top 10, a shared expert) at 8 of its 48 layers (HYBRID_LAYERS:
      the depth cut that keeps the script in its time limit) with random
      bf16 weights, built as in phase 11; the Generator over four greedy
      requests, its decode step under sync debug mode "error" and profiled;
      the kernel path's teacher-forced logits against the same computation
      with each kernel's plain version, routing pinned, within TOL_E2E on
-     the first 4 layers and recorded at all 36 beside the noise floor; the
-     Engine (8 slots, no speculation) over eight greedy requests at 36
+     the first 4 layers and recorded at all 8 beside the noise floor; the
+     Engine (8 slots, no speculation) over eight greedy requests at 8
      layers, and its
      logprobs within TOL_LOGPROB of one contiguous prefill on the first 4
      layers (W4A16); the paged step at 6 slots under sync debug mode
-     "error"; PARO-TPU and AWQ directories at 4 layers loaded bit for bit;
+     "error"; PARO-TPU and AWQ directories at 2 layers (a delta-net and a
+     full-attention layer) loaded bit for bit;
      GPTQ of a delta-net and a full-attention layer below RTN's error; and
      a 1-layer hybrid calibrated on the card within the CPU tests'
      tolerance of the host's. K1/K2 with f32 inputs at the hybrid's decode
      shapes, K3's f32-query instance and K4's SIMT instance for f32
      queries join phase 3's kernel checks;
-  13. a `phase_seconds` line after each phase, the `kernels` JSON line
-     (each kernel's `hybrid_paths_launches` beside its launches), then the
-     result line.
+  13. the gemma3n family (`gemma3n_paths`, the counts reset just before
+     and read just after; K1-K4 must run, K3 and K4 on their tensor-core
+     instances): Gemma 3n E4B's published widths (GEMMA3N_E4B: AltUp of 4,
+     LAuReL, per-layer inputs of 256 over a 262144 vocab, 4 sliding layers
+     of window 512 to 1 full, a 15-layer shared-KV tail, a tied 262400
+     vocab) at all 35 layers, random bf16 weights built layer by layer
+     (q_norm / k_norm at head_dim ** -0.25, `gemma3n_random_init`), RTN W4
+     g128, a W4 lm_head from the tied table, merged projections; the
+     Generator over four greedy requests, its decode step under sync debug
+     mode "error" and profiled; the Engine (8 slots, chunked prefill,
+     prefix caching, no speculation) over eight greedy requests with a
+     prefix hit; the paged step at 8 slots under sync debug mode "error";
+     the teacher-forced logits (the `auto` kernel path against the same
+     computation on each kernel's plain version) and the Engine's logprobs
+     held within TOL_E2E and TOL_LOGPROB on a 6-layer model with a tail
+     layer (`auto` against "xla" + einsum recorded there), recorded at 35
+     layers beside the noise floor; PARO-TPU and AWQ directories at 3
+     layers (a source layer and its tail) loaded bit for bit; a source
+     layer and its tail calibrated on card and host. K1/K2
+     at E4B's decode shapes (M 1 and 8), K3 at D 256 with a window of 512
+     from offset 0 and 256, and K4 at the Engine's step with the window
+     join phase 3's kernel checks;
+  14. a `phase_seconds` line after each phase, the `kernels` JSON line
+     (each kernel's `hybrid_paths_launches` and `gemma3n_paths_launches`
+     beside its launches), then the result line.
 It imports nothing of JAX, catches no failure of the port (only a library
 yardstick's refusal of a shape, `int_mm_yardstick`), and exits non-zero without
 printing a result when CUDA is missing or the package is not beside it.
@@ -487,34 +510,50 @@ def check_matmuls(flush, gen, dev):
     return rows
 
 
-# the hybrid's K1/K2 calls at decode, whose x is f32 after the first delta-net
-# layer (Qwen3-Next-80B-A3B): name, kernel, I, splits, a8 (what `auto` takes at
-# M <= 16: W4A8 where K x N >= 8M)
-HYBRID_MATMULS = [
+# a model's K1/K2 calls at decode: (the dtype of x, [(name, kernel, I, splits,
+# a8)]), a8 what `auto` takes at M <= 16 (W4A8 where K x N >= 8M). The
+# hybrid's (Qwen3-Next-80B-A3B), whose x is f32 after the first delta-net layer
+HYBRID_MATMULS = ("f32", [
     ("in_proj_qkvz", "rot_w4_matmul", 2048, (12288,), True),
     ("out_proj/o_proj", "rot_w4_matmul", 4096, (2048,), True),
     ("qkv_proj (gated q)", "merged_rot_w4_matmul", 2048, (8192, 512, 512), True),
     ("shared_expert.gate_up_proj", "merged_rot_w4_matmul", 2048, (512, 512), False),
     ("shared_expert.down_proj", "rot_w4_matmul", 512, (2048,), False),
     ("lm_head", "rot_w4_matmul", 2048, (151936,), True),
-]
+])
 
 
-def check_hybrid_matmuls(flush, gen, dev):
-    """K1/K2 with f32 x at the hybrid's decode shapes, M 1 and 8 (the
-    Engine's step): each against its plain version within TOL_KERNEL of max
-    |y|, its route, timed beside the plain version and `torch.matmul` on the
-    pre-rotated effective weight (bf16, x cast)."""
+# Gemma 3n E4B's (bf16 x): the merged QKV before the tail, the tail's own
+# q_proj, o_proj, the merged gate-up, down_proj and the W4 lm_head from the
+# tied table
+GEMMA3N_MATMULS = ("bf16", [
+    ("qkv_proj", "merged_rot_w4_matmul", 2048, (2048, 512, 512), False),
+    ("q_proj (shared-KV tail)", "rot_w4_matmul", 2048, (2048,), False),
+    ("o_proj", "rot_w4_matmul", 2048, (2048,), False),
+    ("gate_up_proj", "merged_rot_w4_matmul", 2048, (16384, 16384), True),
+    ("down_proj", "rot_w4_matmul", 16384, (2048,), True),
+    ("lm_head", "rot_w4_matmul", 2048, (262400,), True),
+])
+
+
+def check_decode_matmuls(flush, gen, dev, model, matmuls):
+    """K1/K2 at a model's decode shapes (`matmuls`: HYBRID_MATMULS,
+    GEMMA3N_MATMULS), M 1 and 8 (the Engine's step): each against its plain
+    version within TOL_KERNEL of max |y|, its route, timed beside the plain
+    version and `torch.matmul` on the pre-rotated effective weight (bf16, x
+    cast)."""
     import torch
 
     from paroquant_tpu_torch.kernels import rot_matmul as rm
 
+    x_dtype, shapes = matmuls
+    xt = {"f32": torch.float32, "bf16": torch.bfloat16}[x_dtype]
     rows = []
-    for layer, kernel, I, splits, a8 in HYBRID_MATMULS:
+    for layer, kernel, I, splits, a8 in shapes:
         rot, qweight, scales, zeros, w_eff = random_merged(I, splits, gen, dev)
         O, P, G = sum(splits), len(splits), I // 128
         for M in (1, 8):
-            x = torch.randn(M, I, generator=gen, device=dev)
+            x = torch.randn(M, I, generator=gen, device=dev).to(xt)
             if kernel == "rot_w4_matmul":
                 run = lambda: rm.rot_w4_matmul(x, rot[0], qweight, scales, zeros, a8=a8)
                 plain = lambda: rm.rot_w4_matmul_plain(x, rot[0], qweight, scales, zeros, a8=a8)
@@ -532,9 +571,10 @@ def check_hybrid_matmuls(flush, gen, dev):
             plain_ms = median_ms(plain, PLAIN_REPS, flush)
             xb = x.to(torch.bfloat16)
             lib_ms = median_ms(lambda: torch.matmul(xb, w_eff), KERNEL_REPS, flush)
-            nbytes = M * I * 4 + P * G * 128 * 128 * 2 + I * O // 2 + 2 * G * O * 2 + M * O * 4
+            xe = x.element_size()
+            nbytes = M * I * xe + P * G * 128 * 128 * 2 + I * O // 2 + 2 * G * O * 2 + M * O * xe
             b_ms, b_by = bound(nbytes, 2 * M * I * O + 2 * P * M * I * 128, "int8" if a8 else "bf16")
-            row = dict(kernel=kernel, layer=layer, M=M, a8=a8, x="f32", route=route,
+            row = dict(kernel=kernel, model=model, layer=layer, M=M, a8=a8, x=x_dtype, route=route,
                        max_abs_err=err, tol=tol,
                        rel_fro_err=((y - y_ref).norm() / y_ref.norm()).item(), us=ms * 1e3,
                        plain_us=plain_ms * 1e3, library_us=lib_ms * 1e3, bound_us=b_ms * 1e3,
@@ -574,9 +614,16 @@ LONG_FLASH_CASES = {
     "window16k": (32, 8, 16384, 16384, 0, None, True),
 }
 LONG_REPS = 5  # timed calls of K3 at the 16k shapes
+# Gemma 3n E4B's prefill (Hq 8, Hkv 2, D 256, scale 1.0) on a sliding layer
+# (window 512), from offset 0 and from 256; a tail layer calls it the same way
+# over its source layer's cache
+GEMMA3N_FLASH_CASES = {
+    "gemma3n_window512": (8, 2, 512, 512, 0, 512, False),
+    "gemma3n_window512_offset256": (8, 2, 512, 768, 256, 512, False),
+}
 
 
-def check_flash(flush, gen, dev, cases=FLASH_CASES):
+def check_flash(flush, gen, dev, cases=FLASH_CASES, D=128, scale=None):
     """K3 on each case: each query row (batch, head, row) held to its own
     output's scale against the plain version, on the same inputs sliced to
     one kv head's group (the Hq/Hkv query heads and that kv head) where the
@@ -585,13 +632,15 @@ def check_flash(flush, gen, dev, cases=FLASH_CASES):
     a tensor and, from offset 0 without a window, SDPA with is_causal=True
     and no mask tensor (what a user would call). For the held cases SDPA
     takes K/V expanded to the query heads beforehand (not timed), and no
-    [T, S] mask tensor where is_causal is the same mask."""
+    [T, S] mask tensor where is_causal is the same mask. D and scale (by
+    default D ** -0.5): the head dim and softmax scale of every case."""
     import torch
 
     from paroquant_tpu_torch.kernels import attention as at
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    B, D = 1, 128
+    B = 1
+    scale = D**-0.5 if scale is None else scale
     rows = []
     for case, (Hq, Hkv, T, S, q_off, window, held) in cases.items():
         kv_len = q_off + T
@@ -601,7 +650,7 @@ def check_flash(flush, gen, dev, cases=FLASH_CASES):
         v = torch.randn(B, Hkv, S, D, generator=gen, device=dev).to(torch.bfloat16)
         lens = torch.full((B,), kv_len, dtype=torch.int32, device=dev)
         qo = torch.full((B,), q_off, dtype=torch.int32, device=dev)
-        kw = dict(scale=D**-0.5, q_offset=qo, sliding_window=window)
+        kw = dict(scale=scale, q_offset=qo, sliding_window=window)
         qg, kg, vg = ((q[:, :Hq // Hkv].contiguous(), k[:, :1].contiguous(), v[:, :1].contiguous())
                       if held else (q, k, v))
         run = lambda: at.flash_attention(q, k, v, lens, **kw)
@@ -631,18 +680,19 @@ def check_flash(flush, gen, dev, cases=FLASH_CASES):
         lib_causal_ms = lib_mask_ms = None
         if causal:
             lib_causal_ms = median_ms(
-                lambda: sdpa(q, ke, ve, is_causal=True, scale=D**-0.5, **gqa), reps, flush)
+                lambda: sdpa(q, ke, ve, is_causal=True, scale=scale, **gqa), reps, flush)
         if not (held and causal):
             mask = sdpa_mask(T, ke.shape[2], q_off, window, dev)
             lib_mask_ms = median_ms(
-                lambda: sdpa(q, ke, ve, attn_mask=mask, scale=D**-0.5, **gqa), reps, flush)
+                lambda: sdpa(q, ke, ve, attn_mask=mask, scale=scale, **gqa), reps, flush)
             del mask
         del ke, ve
         # the (query, key) pairs this input needs: every key up to the row's position, in its window
         pairs = sum(min(q_off + t + 1, window or S) for t in range(T))
         nbytes = 2 * (2 * B * Hq * T * D + 2 * B * Hkv * kv_len * D)
         b_ms, b_by = bound(nbytes, 4 * B * Hq * pairs * D, "bf16")
-        row = dict(kernel="flash_attention", case=case, Hq=Hq, Hkv=Hkv, T=T, S=S, q_offset=q_off,
+        row = dict(kernel="flash_attention", case=case, Hq=Hq, Hkv=Hkv, D=D, scale=scale, T=T, S=S,
+                   q_offset=q_off, window=window,
                    kv_len=kv_len, key_groups=at.flash_key_groups(B, Hq, T, D, dev),
                    held_on="one kv head's group" if held else "the whole call",
                    max_abs_err=err, row_err_ratio=ratio, tol=TOL_KERNEL, bitwise_equal=same,
@@ -2745,10 +2795,11 @@ def paged_inputs(gen, dev, *, B, Hq, Hkv, D, ps, maxP, quant, dtype=None, n_spar
     return table, k, v, None, None
 
 
-def paged_sdpa(q4, table, k, v, ks, vs, base, dev):
+def paged_sdpa(q4, table, k, v, ks, vs, base, dev, scale=None, window=None):
     """The library yardstick: K/V gathered to contiguous [B, Hkv, S, D] bf16
     BEFORE the timed call (the gather is not timed), then one
-    scaled_dot_product_attention with enable_gqa and a boolean mask."""
+    scaled_dot_product_attention with enable_gqa and a boolean mask (causal,
+    and within `window` keys of each query where given)."""
     import torch
 
     B, W, Hq, D = q4.shape
@@ -2763,9 +2814,13 @@ def paged_sdpa(q4, table, k, v, ks, vs, base, dev):
     vc = vg.reshape(B, S, Hkv, D).transpose(1, 2).to(torch.bfloat16).contiguous()
     qc = q4.transpose(1, 2).to(torch.bfloat16).contiguous()  # [B, Hq, W, D]
     qpos = base.long()[:, None] + torch.arange(W, device=dev)[None, :]
-    mask = (torch.arange(S, device=dev)[None, None, :] <= qpos[:, :, None])[:, None]  # [B,1,W,S]
+    kpos = torch.arange(S, device=dev)[None, None, :]
+    mask = kpos <= qpos[:, :, None]
+    if window:
+        mask &= kpos > qpos[:, :, None] - window
+    mask = mask[:, None]  # [B, 1, W, S]
     return lambda: torch.nn.functional.scaled_dot_product_attention(
-        qc, kc, vc, attn_mask=mask, scale=D**-0.5, enable_gqa=True)
+        qc, kc, vc, attn_mask=mask, scale=D**-0.5 if scale is None else scale, enable_gqa=True)
 
 
 def row_err_ratio(y, y_ref, lead):
@@ -2783,16 +2838,18 @@ def row_err_ratio(y, y_ref, lead):
     return ratio.max().item()
 
 
-def paged_bound(lens_keys, W, quant, *, B, Hq, Hkv, D, ps, maxP):
+def paged_bound(lens_keys, W, quant, *, B, Hq, Hkv, D, ps, maxP, window=None):
     """Bytes of the K/V rows the function needs (each slot's keys below its
-    length, clamped to maxP * ps, plus their int8 scales), q, the output and
-    the table, over the HBM rate; operations of the valid (query, key) pairs
-    over the bf16 peak."""
+    length, clamped to maxP * ps, and within the window of its queries, plus
+    their int8 scales), q, the output and the table, over the HBM rate;
+    operations of the valid (query, key) pairs over the bf16 peak."""
     elem = 1 if quant else 2
-    rows = sum(min(n, maxP * ps) for n in lens_keys)
+    span = window + W - 1 if window else maxP * ps
+    rows = sum(min(n, maxP * ps, span) for n in lens_keys)
     nbytes = rows * Hkv * (2 * D * elem + (2 * 4 if quant else 0))
     nbytes += 2 * B * W * Hq * D * 2 + B * maxP * 4 + B * 4
-    pairs = sum(min(n - W + 1 + w, maxP * ps) for n in lens_keys for w in range(W))
+    pairs = sum(min(n - W + 1 + w, maxP * ps, window or maxP * ps)
+                for n in lens_keys for w in range(W))
     return bound(nbytes, 4 * Hq * D * pairs, "bf16")
 
 
@@ -2803,39 +2860,47 @@ PAGED_CASES = {"bf16": (PAGED, PAGED_LENS, False, BOTH_PAGED),
 # gen32k's one slot at its last step, 32768 keys (Qwen3-0.6B heads, pages of 128)
 SLOT32K = {"slot32k": (dict(B=1, Hq=16, Hkv=8, D=128, ps=128, maxP=256), (32768,), False,
                        ("paged_decode_attention",))}
+# Gemma 3n E4B's paged step in gemma3n_paths' Engine (8 slots, max_len 1024,
+# pages of 128): Hq 8 Hkv 2 D 256, scale 1.0, a sliding layer's window of
+# 512; (pool, lengths with the current token, int8, kernels, window, scale)
+GEMMA3N_PAGED_CASES = {
+    "gemma3n_window512": (dict(B=8, Hq=8, Hkv=2, D=256, ps=128, maxP=8),
+                          (17, 130, 300, 513, 600, 640, 64, 1000), False,
+                          ("paged_decode_attention",), 512, 1.0)}
 
 
 def check_paged(flush, gen, dev, cases=PAGED_CASES):
     """K4 (one query row a slot) and K5 (a window of PAGED_W rows ending at
     each slot's current token) on each case's pool: each query row held to
     its own scale against the plain version, two calls bitwise equal, timed
-    beside the plain version and SDPA on the K/V gathered beforehand."""
+    beside the plain version and SDPA on the K/V gathered beforehand. A case
+    may end with a sliding window and a softmax scale (default D ** -0.5)."""
     import torch
 
     from paroquant_tpu_torch.kernels import attention as at
 
     rows = []
-    for case, (shp, slot_lens, quant, kernels) in cases.items():
+    for case, (shp, slot_lens, quant, kernels, *extra) in cases.items():
         B, Hq, D = shp["B"], shp["Hq"], shp["D"]
+        window, scale = (extra + [None, None])[:2]
+        scale = D**-0.5 if scale is None else scale
+        kw = dict(scale=scale, sliding_window=window, k_scales=None, v_scales=None)
         lens = torch.tensor(slot_lens, dtype=torch.int32, device=dev)
         table, k, v, ks, vs = paged_inputs(gen, dev, quant=quant, **shp)
+        kw.update(k_scales=ks, v_scales=vs)
         for kernel in kernels:
             W = 1 if kernel == "paged_decode_attention" else PAGED_W
             if W == 1:
                 q = torch.randn(B, Hq, D, generator=gen, device=dev).to(torch.bfloat16)
                 seq = lens
-                run = lambda: at.paged_decode_attention(q, k, v, table, seq, scale=D**-0.5,
-                                                        k_scales=ks, v_scales=vs)
-                plain = lambda: at.paged_decode_attention_plain(q, k, v, table, seq, scale=D**-0.5,
-                                                                k_scales=ks, v_scales=vs)
+                run = lambda: at.paged_decode_attention(q, k, v, table, seq, **kw)
+                plain = lambda: at.paged_decode_attention_plain(q, k, v, table, seq, **kw)
                 q4, base = q[:, None], seq - 1
             else:
                 q = torch.randn(B, W, Hq, D, generator=gen, device=dev).to(torch.bfloat16)
                 seq = lens - 1  # the window starts at the current token
-                run = lambda: at.paged_window_attention_kernel(q, k, v, table, seq, scale=D**-0.5,
-                                                               k_scales=ks, v_scales=vs)
-                plain = lambda: at.paged_window_attention_plain(q, k, v, table, seq, scale=D**-0.5,
-                                                                k_scales=ks, v_scales=vs)
+                run = lambda: at.paged_window_attention_kernel(q, k, v, table, seq, **kw)
+                plain = lambda: at.paged_window_attention_plain(q, k, v, table, seq, **kw)
                 q4, base = q, seq
             y, y_ref = run().float(), plain().float()
             torch.cuda.synchronize()
@@ -2849,10 +2914,12 @@ def check_paged(flush, gen, dev, cases=PAGED_CASES):
                 raise SystemExit(f"{kernel}: two calls on the same inputs differ")
             ms = median_ms(run, KERNEL_REPS, flush)
             plain_ms = median_ms(plain, PLAIN_REPS, flush)
-            lib_ms = median_ms(paged_sdpa(q4, table, k, v, ks, vs, base, dev), KERNEL_REPS, flush)
+            lib_ms = median_ms(paged_sdpa(q4, table, k, v, ks, vs, base, dev, scale, window),
+                               KERNEL_REPS, flush)
             n_keys = [int(n) + W for n in base.tolist()]
-            b_ms, b_by = paged_bound(n_keys, W, quant, **shp)
-            row = dict(kernel=kernel, case=case, B=B, W=W,
+            b_ms, b_by = paged_bound(n_keys, W, quant, window=window, **shp)
+            row = dict(kernel=kernel, case=case, B=B, W=W, Hq=Hq, Hkv=shp["Hkv"], D=D,
+                       window=window, scale=scale,
                        lens=list(slot_lens), split=at.paged_split(B, shp["Hkv"], 1, shp["maxP"],
                                                                   shp["ps"]),
                        max_abs_err=err, row_err_ratio=ratio,
@@ -3132,7 +3199,7 @@ def serve_requests(cfg, quick=False):
     ]
 
 
-def check_logprobs(eng, greedy, cfg, phase, context_bound=TOL_LOGPROB):
+def check_logprobs(eng, greedy, cfg, phase, context_bound=TOL_LOGPROB, hold=True):
     """Hold each greedy request's per-token logprobs (its first token from
     the prefill, prefix-hit rows gathered from the pool included; the rest
     from burst decode through K4 and verify windows through K5, each fed the
@@ -3144,7 +3211,9 @@ def check_logprobs(eng, greedy, cfg, phase, context_bound=TOL_LOGPROB):
     average, or the check could not see a misread context. `greedy` holds
     (request, prompt, tokens). context_bound None: the wrong context must
     move the scores by more than the worst gap (the small random models of
-    serve_head_dims move them by only a few tenths of a nat)."""
+    serve_head_dims move them by only a few tenths of a nat). hold=False
+    records the gaps without holding them; the wrong-context check holds at
+    any depth."""
     import torch
 
     gaps = []
@@ -3160,8 +3229,8 @@ def check_logprobs(eng, greedy, cfg, phase, context_bound=TOL_LOGPROB):
     moved = eng.score_sync(wrong.tolist() + p[half:] + toks)[len(p):]
     context_move = statistics.mean(abs(a - b) for a, b in zip(ref, moved))
     emit({"phase": f"{phase}_logprob_check", "requests": len(greedy), "worst_gap": max(gaps),
-          "gaps": gaps, "bound": TOL_LOGPROB, "wrong_context_mean_move": context_move})
-    if max(gaps) > TOL_LOGPROB or context_move <= (context_bound or max(gaps)):
+          "gaps": gaps, "bound": TOL_LOGPROB, "held": hold, "wrong_context_mean_move": context_move})
+    if (hold and max(gaps) > TOL_LOGPROB) or context_move <= (context_bound or max(gaps)):
         raise SystemExit(f"{phase}: engine logprobs off the contiguous prefill's by {max(gaps)} "
                          f"(bound {TOL_LOGPROB}, a wrong context moves them {context_move})")
 
@@ -3427,7 +3496,7 @@ def bench_phase(root, dev):
         reset_counts()
         secs, toks = bench.make_decode_runner(p, cfg, mode, dev, n_long=8)(8)
         arm_launched = port_launches()
-        prof = profile_decode(p, cfg, prompt_len=bench.PROMPT_LEN, steps=8, quant_mode=mode,
+        prof = profile_decode(p, cfg, prompt_len=bench.PROMPT_LEN, steps=4, quant_mode=mode,
                               device=dev)
         emit({"phase": "bench_arm", "arm": arm, "quant_mode": mode, "chain_tokens": 8,
               "chain_s": secs, "tokens_in_range": bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
@@ -4085,7 +4154,7 @@ def long_attention(dev):
     return rows
 
 
-GEN32K_TOTAL = 384  # gen32k's context: its 32-token prompt and 352 generated
+GEN32K_TOTAL = 256  # gen32k's context: its 32-token prompt and 224 generated
 
 
 def bench_longcontext_phase(dev):
@@ -4172,10 +4241,10 @@ def user_paths(dev):
 # GPTQ's depth, cut from Qwen3-0.6B's 28 layers (never the width): at 28 the
 # step took 85.2 s of GPTQ alone in one run on an NVIDIA H100 80GB HBM3 at
 # 700.00 W, over the ~90 s it may take
-GPTQ_LAYERS = 4
+GPTQ_LAYERS = 2
 GPTQ_SAMPLES, GPTQ_SEQLEN = 8, 512
 HTTP_TIMEOUT = 120.0  # seconds a client call may take; an engine thread that died shows here
-HTTP_NEW_TOKENS = 32  # each greedy completion of serve_http's rounds
+HTTP_NEW_TOKENS = 16  # each greedy completion of serve_http's rounds
 # nats: a served token may sit this far below its prefix's top token in a
 # prefill of the whole sequence (a near-tie that batching's arithmetic may
 # flip): two steps of these bf16 logits (0.03125 at magnitudes 4-8), one for
@@ -4195,7 +4264,9 @@ def model_from_exports(params, exports, fmt, dev):
     "mlp.experts" export through `quantized_moe_from_export`, a shared
     expert from its exports and its gate dense. A delta-net layer's linears
     come from their exports where exported, else dense; conv_w, dt_bias and
-    A_log stay f32 as the file holds them."""
+    A_log stay f32 as the file holds them. A gemma3n model's per-layer
+    embedding module, AltUp, LAuReL and per-layer input linears are dense,
+    correct_output_scale f32."""
     import torch
 
     from paroquant_tpu_torch.models import DenseLinear
@@ -4221,11 +4292,30 @@ def model_from_exports(params, exports, fmt, dev):
                       for p in ("gate", "up", "down")})
         return quantized_moe_from_export(e, torch.bfloat16, dev)
 
+    def dense(lin):
+        return DenseLinear(f16(lin.w))
+
     out = {"embed_tokens": f16(params["embed_tokens"]), "norm": f16(params["norm"]), "layers": []}
     if "lm_head" in params:
-        out["lm_head"] = DenseLinear(f16(params["lm_head"].w))
+        out["lm_head"] = dense(params["lm_head"])
+    if "altup_projections" in params:  # gemma3n's per-layer embedding module and AltUp
+        out["embed_tokens_per_layer"] = f16(params["embed_tokens_per_layer"])
+        out["per_layer_model_projection"] = dense(params["per_layer_model_projection"])
+        out["per_layer_projection_norm"] = f16(params["per_layer_projection_norm"])
+        for key in ("altup_projections", "altup_unembed_projections"):
+            out[key] = [dense(lin) for lin in params[key]]
     for lp, exp in zip(params["layers"], exports):
         nlp = {k: f16(v) for k, v in lp.items() if k.endswith("norm")}
+        if "altup" in lp:  # a gemma3n layer's dense modules (correct_output_scale f32)
+            ap, lau = lp["altup"], lp["laurel"]
+            nlp["altup"] = {"correct_output_scale": ap["correct_output_scale"].to(torch.float32),
+                            "router_norm": f16(ap["router_norm"]),
+                            **{n: dense(ap[n]) for n in ("correction_coefs", "prediction_coefs",
+                                                         "modality_router")}}
+            nlp["laurel"] = {"linear_left": dense(lau["linear_left"]),
+                             "linear_right": dense(lau["linear_right"]),
+                             "post_laurel_norm": f16(lau["post_laurel_norm"])}
+            nlp.update({n: dense(lp[n]) for n in ("per_layer_input_gate", "per_layer_projection")})
         if "linear_attn" in lp:
             la = lp["linear_attn"]
             nlp["linear_attn"] = {
@@ -4432,10 +4522,12 @@ def calib_exports_close(a, b) -> dict:
     return worst
 
 
-def small_calibration_on_both(dev, preset="tiny", calib=SMALL_CALIB) -> None:
-    """The port's 1-layer calibration of a small preset (hidden 256, outlier
-    input channels), or of a ModelConfig given as `preset`, on the card
-    against the same calibration on the host."""
+def small_calibration_inputs(preset, layers, prepare=None):
+    """(cfg, params, tokens, test) of the small calibration check: a small
+    preset's first `layers` layers, or those of a ModelConfig given as
+    `preset` (f32 on the host, outlier input channels), 4 x 2 x 16
+    calibration tokens and a 16-token test sequence. prepare(params, cfg,
+    generator), where given, adjusts the random weights first."""
     import dataclasses
 
     import numpy as np
@@ -4443,28 +4535,43 @@ def small_calibration_on_both(dev, preset="tiny", calib=SMALL_CALIB) -> None:
 
     from paroquant_tpu_torch.experiments.baselines.quality_ladder import inject_outlier_channels
     from paroquant_tpu_torch.models import PRESETS, init_params
+
+    base = PRESETS[preset] if isinstance(preset, str) else preset
+    cfg = dataclasses.replace(base, num_hidden_layers=layers)
+    params = init_params(cfg, 5, torch.float32, torch.device("cpu"))
+    if prepare is not None:
+        prepare(params, cfg, torch.Generator().manual_seed(5))
+    params = inject_outlier_channels(params, cfg, scale=6.0, frac=0.03)
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, cfg.vocab_size, (4, 2, 16)).astype(np.int32)
+    return cfg, params, tokens, torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 16)))
+
+
+def small_calibration(cfg, params, tokens, test, calib, device):
+    """The port's calibration of params on `device`: (exports, the
+    calibrated model's f32 logits of `test`, on the host)."""
+    import torch
+
     from paroquant_tpu_torch.models.decoder import model_forward
     from paroquant_tpu_torch.optim import CalibConfig, calibrate_model
 
-    base = PRESETS[preset] if isinstance(preset, str) else preset
-    cfg = dataclasses.replace(base, num_hidden_layers=1)
-    preset = preset if isinstance(preset, str) else base.model_type
-    cpu = torch.device("cpu")
-    params = inject_outlier_channels(init_params(cfg, 5, torch.float32, cpu), cfg, scale=6.0,
-                                     frac=0.03)
-    rng = np.random.default_rng(5)
-    tokens = rng.integers(0, cfg.vocab_size, (4, 2, 16)).astype(np.int32)
-    test = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 16)))
-    out = []  # (exports, logits) on the host, then on the card
-    for d in (cpu, dev):
-        q, exps = calibrate_model(params, cfg, tokens, CalibConfig(**calib), device=d)
-        with torch.no_grad():
-            out.append((exps, model_forward(q, cfg, test.to(d))[0].float().cpu()))
-    (host_exps, host), (card_exps, card_logits) = out
+    q, exps = calibrate_model(params, cfg, tokens, CalibConfig(**calib), device=device)
+    with torch.no_grad():
+        return exps, model_forward(q, cfg, test.to(device))[0].float().cpu()
+
+
+def small_calibration_on_both(dev, preset="tiny", calib=SMALL_CALIB, layers=1,
+                              prepare=None) -> None:
+    """The port's calibration of `small_calibration_inputs` on the card
+    against the same calibration on the host."""
+    cfg, params, tokens, test = small_calibration_inputs(preset, layers, prepare)
+    preset = preset if isinstance(preset, str) else cfg.model_type
+    host_exps, host = small_calibration(cfg, params, tokens, test, calib, "cpu")
+    card_exps, card_logits = small_calibration(cfg, params, tokens, test, calib, dev)
     worst = calib_exports_close(host_exps, card_exps)
     err = ((card_logits - host).abs().max() / host.abs().max()).item()
     moved = max(float(abs(e["theta"]).max()) for e in linear_exports(host_exps[0]).values())
-    row = {"phase": "calibrate_card_vs_host", "preset": preset, "layers": 1,
+    row = {"phase": "calibrate_card_vs_host", "preset": preset, "layers": layers,
            "hidden": cfg.hidden_size, "stages": [[g, e] for g, e in calib["stages"]], **worst,
            "logits_rel_max_err": err, "bound": 0.02, "host_theta_max": moved}
     emit(row)
@@ -4635,7 +4742,7 @@ QWEN3_30B_A3B = dict(model_type="qwen3_moe", vocab_size=151936, hidden_size=2048
                      moe_intermediate_size=768, norm_topk_prob=True, decoder_sparse_step=1,
                      mlp_only_layers=[], rope_theta=1e6, rms_norm_eps=1e-6,
                      tie_word_embeddings=False)
-MOE_LAYERS = 24  # the served model's depth: 24 of Qwen3-30B-A3B's 48, to leave room for hybrid_paths
+MOE_LAYERS = 8  # the served model's depth: 8 of Qwen3-30B-A3B's 48, to leave room for the later phases
 MOE_CKPT_LAYERS = 2  # the checkpoints' depth
 MOE_PROMPTS = (16, 128, 256, 512)  # the Generator's requests, MOE_NEW_TOKENS each
 MOE_NEW_TOKENS = 32
@@ -4723,7 +4830,7 @@ def moe_generator(qparams, cfg, dev):
             raise SystemExit(f"moe: a {len(p)}-token prompt returned {len(toks)} tokens")
         results.append(res)
     check_decode_has_no_sync({"qwen3-30b-a3b": (qparams, cfg)}, dev)
-    prof = profile_decode(qparams, cfg, prompt_len=256, steps=8, device=dev)
+    prof = profile_decode(qparams, cfg, prompt_len=256, steps=4, device=dev)
     emit({"phase": "moe_decode_profile", "prompt_tokens": 256, "quant_mode": "auto",
           "card": card(), **prof})
     tokens = torch.tensor([prompts[2] + results[2].token_ids[:8]], dtype=torch.int32, device=dev)
@@ -5300,9 +5407,9 @@ QWEN3_NEXT_80B_A3B = dict(
     num_experts_per_tok=10, moe_intermediate_size=512, shared_expert_intermediate_size=512,
     norm_topk_prob=True, decoder_sparse_step=1, mlp_only_layers=[], rms_norm_eps=1e-6,
     tie_word_embeddings=False)
-HYBRID_LAYERS = 36  # the served model's depth: 36 of Qwen3-Next-80B-A3B's 48 (27 delta-net,
-# 9 full attention), the cut that keeps the script within its time limit
-HYBRID_CKPT_LAYERS = 4  # the checkpoints' depth: 3 delta-net layers and 1 full attention
+HYBRID_LAYERS = 8  # the served model's depth: 8 of Qwen3-Next-80B-A3B's 48 (6 delta-net,
+# 2 full attention), the cut that keeps the script within its time limit
+HYBRID_CKPT_LAYERS = 2  # the checkpoints' depth: a delta-net layer, then full attention
 HYBRID_SYNC_BATCH = 6  # the paged step's sync check: 6 slots x top 10 <= 64, the gather path
 HYBRID_CHECK_LAYERS = 4  # the held logits and Engine checks: the served model's first 4 layers
 # a 1-layer hybrid (one delta-net layer, a dense MLP) calibrated on card and host
@@ -5428,7 +5535,7 @@ def hybrid_generator(qparams, cfg, dev, paths):
     paths.step = "generator_no_sync"
     check_decode_has_no_sync({"qwen3-next-80b-a3b": (qparams, cfg)}, dev)
     paths.step = "profile_decode"
-    prof = profile_decode(qparams, cfg, prompt_len=256, steps=8, device=dev)
+    prof = profile_decode(qparams, cfg, prompt_len=256, steps=4, device=dev)
     emit({"phase": "hybrid_decode_profile", "prompt_tokens": 256, "quant_mode": "auto",
           "card": card(), **prof})
     paths.step = "logits_check"
@@ -5485,7 +5592,7 @@ def hybrid_checkpoints(tmp, dev):
     from paroquant_tpu_torch.convert import load_checkpoint, save_awq_checkpoint, save_paro_checkpoint
     from paroquant_tpu_torch.models import init_params
 
-    cfg = hybrid_config(HYBRID_CKPT_LAYERS)
+    cfg = hybrid_config(HYBRID_CKPT_LAYERS, full_attention_interval=HYBRID_CKPT_LAYERS)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(52), torch.bfloat16, dev)
     exports = hybrid_exports(params, cfg)
@@ -5657,6 +5764,371 @@ def hybrid_paths(tmp, dev):
     if missing or not kinds["flash"]["f32_q_bf16_kv"]:
         raise SystemExit(f"hybrid_paths: kernels not launched: {missing}, K3 by instance "
                          f"{kinds['flash']}")
+    torch.cuda.empty_cache()
+    return launched["counts"]
+
+
+# ---------------------------------------------------------------------------
+# the gemma3n family at Gemma 3n E4B's full width
+# ---------------------------------------------------------------------------
+
+# google/gemma-3n-E4B's text config (transformers' Gemma3nTextConfig defaults,
+# transformers/models/gemma3n/configuration_gemma3n.py): 35 layers, 4 sliding
+# (window 512) to 1 full, the last 15 a shared-KV tail; AltUp of 4, LAuReL
+# rank 64, per-layer inputs of 256 over a per-layer vocab of 262144; MLP
+# 16384 with activation sparsity 0.95 on layers 0-9; softcap 30, tied
+# embeddings of 262400
+GEMMA3N_E4B = dict(
+    model_type="gemma3n_text", vocab_size=262400, vocab_size_per_layer_input=262144,
+    hidden_size=2048, hidden_size_per_layer_input=256, num_hidden_layers=35,
+    num_attention_heads=8, num_key_value_heads=2, head_dim=256, rms_norm_eps=1e-6,
+    rope_theta=1_000_000.0, rope_local_base_freq=10_000.0, sliding_window=512,
+    num_kv_shared_layers=15, altup_num_inputs=4, altup_active_idx=0, altup_coef_clip=120.0,
+    altup_correct_scale=True, laurel_rank=64, final_logit_softcapping=30.0,
+    hidden_activation="gelu_pytorch_tanh", tie_word_embeddings=True, attention_bias=False,
+    max_position_embeddings=32768)
+GEMMA3N_PATTERN = ("sliding_attention",) * 4 + ("full_attention",)
+
+
+def gemma3n_config(layers, shared=None, **kw):
+    """Gemma 3n E4B at `layers` layers: the first `layers` entries of its
+    layer types, MLP widths and sparsity, and `shared` tail layers (15 at
+    35 layers, else 15 * layers // 35 unless given)."""
+    from paroquant_tpu_torch.models import from_hf_dict
+
+    if shared is None:
+        shared = 15 * layers // 35
+    return from_hf_dict(dict(
+        GEMMA3N_E4B, num_hidden_layers=layers, num_kv_shared_layers=shared,
+        layer_types=[GEMMA3N_PATTERN[i % 5] for i in range(layers)],
+        intermediate_size=[16384] * layers,
+        activation_sparsity_pattern=[0.95 if i < 10 else 0.0 for i in range(layers)], **kw))
+
+
+GEMMA3N_LAYERS = 35  # the served model's depth: all of Gemma 3n E4B's
+# the held logits and Engine checks' depth and tail: layers 0-4, then layer 5
+# reading layer 3 (at 35 layers a random model's noise floor passes TOL_E2E)
+GEMMA3N_CHECK = (6, 1)
+GEMMA3N_CKPT = (3, 1)  # the checkpoints' depth and tail: layers 0-1, then layer 2 reading layer 1
+GEMMA3N_NOISE = 2.0 ** -8  # relative noise on K1/K2's inputs: the size of a bf16 rounding
+# a source layer and its tail (layer 1 reads layer 0's k/v), calibrated on card and
+# host, one epoch a stage: at SMALL_CALIB's 4+2 epochs two host runs with the
+# embedding table one ulp apart already leave the check's rule on the tail
+# (tests/test_torch_gemma3n_calibrate.py::test_small_calibration_one_ulp_apart)
+GEMMA3N_CALIB = dict(n_bits=4, group_size=64, num_rotations=6,
+                     stages=(({"channel_scales": 5e-3, "angles": 5e-3}, 1),
+                             ({"weight": 1e-5, "quantizer": 1e-6}, 1)))
+TINY_GEMMA3N = dict(
+    model_type="gemma3n_text", vocab_size=512, vocab_size_per_layer_input=512, hidden_size=256,
+    hidden_size_per_layer_input=32, intermediate_size=[512, 512], num_hidden_layers=2,
+    num_attention_heads=4, num_key_value_heads=2, head_dim=64, sliding_window=16,
+    layer_types=["sliding_attention", "sliding_attention"], num_kv_shared_layers=1,
+    laurel_rank=16, activation_sparsity_pattern=[0.95, 0.0], final_logit_softcapping=30.0,
+    hidden_activation="gelu_pytorch_tanh", tie_word_embeddings=True)
+
+
+def gemma3n_random_init(params, cfg, gen):
+    """The random model's two choices beside init_params, in place: each
+    layer's altup.correct_output_scale (zeros at init, which would shut the
+    per-layer input gate) to 1 + 0.1 N(0, 1) in f32, and q_norm and k_norm
+    to head_dim ** -0.25. gemma3n scores q.k at scale 1.0 on q and k normed
+    to unit RMS: random unit norms give scores of std sqrt(head_dim) (16 at
+    E4B), a near-hard softmax under which a random model's logits
+    decorrelate from any rounding; at head_dim ** -0.25 the scores have std
+    1, the temperature of scaled dot-product attention."""
+    import torch
+
+    for lp in params["layers"]:
+        s = lp["altup"]["correct_output_scale"]
+        lp["altup"]["correct_output_scale"] = 1.0 + 0.1 * torch.randn(
+            s.shape, generator=gen, device=s.device)
+        for n in ("q_norm", "k_norm"):
+            lp[n] = lp[n] * cfg.head_dim ** -0.25
+
+
+def gemma3n_model(dev, layers, shared=None):
+    """Gemma 3n E4B at full width, built layer by layer on the card from a
+    seeded torch.Generator: random bf16 weights, Hadamard RTN W4 g128 of
+    q/k/v/o and the MLP (the tail's unused k/v too; the AltUp, LAuReL and
+    per-layer linears dense), a W4 lm_head from the tied table, merged
+    projections (QKV 2048 -> 2048 | 512 | 512 before the tail, gate-up
+    2048 -> 16384 | 16384). Emits the build's seconds, peak bytes and the
+    model's bytes. `shared`: the tail's length (gemma3n_config's default
+    unless given)."""
+    import torch
+
+    from paroquant_tpu_torch.convert.rtn import quantize_model_rtn
+    from paroquant_tpu_torch.models import merge_projections
+    from paroquant_tpu_torch.models.gemma3n import init_gemma3n_layer, init_gemma3n_shared
+
+    cfg = gemma3n_config(layers, shared)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(60)
+    qparams = quantize_model_rtn(init_gemma3n_shared(cfg, gen, torch.bfloat16, dev), cfg,
+                                 hadamard=True, quantize_lm_head=True, device=dev)
+    for i in range(cfg.num_hidden_layers):
+        lp = {"layers": [init_gemma3n_layer(cfg, gen, i, torch.bfloat16, dev)]}
+        gemma3n_random_init(lp, cfg, gen)
+        qparams["layers"].append(quantize_model_rtn(lp, cfg, hadamard=True,
+                                                    device=dev)["layers"][0])
+        del lp
+    qparams = merge_projections(qparams, cfg)
+    torch.cuda.synchronize()
+    qkv = qparams["layers"][0]["qkv_proj"]
+    tail = [i for i, lp in enumerate(qparams["layers"]) if "q_proj" in lp]
+    emit({"phase": "gemma3n_model", "config": "Gemma 3n E4B", "layers": cfg.num_hidden_layers,
+          "cut": None if layers == 35 else f"depth {layers} of 35",
+          "shared_kv_layers": cfg.num_kv_shared_layers, "kv_pool_layers": cfg.num_full_attn_layers,
+          "qkv_out_splits": list(qkv.out_splits), "unmerged_q_layers": tail,
+          "build_s": time.perf_counter() - t0,
+          "model_bytes": torch.cuda.memory_allocated(dev) - base,
+          "peak_bytes": torch.cuda.max_memory_allocated(dev) - base, "card": card()})
+    kv = cfg.num_key_value_heads * cfg.head_dim
+    if list(qkv.out_splits) != [cfg.num_attention_heads * cfg.head_dim, kv, kv] or tail != list(
+            range(cfg.first_kv_shared_layer, layers)):
+        raise SystemExit(f"gemma3n: merged QKV {qkv.out_splits}, unmerged q_proj at {tail}")
+    return qparams, cfg
+
+
+def gemma3n_generator(qparams, cfg, dev):
+    """The Generator (quant_mode "auto", flash) over MOE_PROMPTS, greedy, 32
+    new tokens each (lookup speculation is off for gemma3n, as in JAX); the
+    decode step under sync debug mode "error"; profile_decode's busy ms,
+    idle share and launches a step. Returns the tokens of
+    `gemma3n_logits_check`: the 256-token prompt and 8 of its tokens."""
+    import torch
+
+    from paroquant_tpu_torch.serve import Generator, SamplingParams
+    from paroquant_tpu_torch.utils.profiling import profile_decode
+
+    gen = Generator(qparams, cfg, max_len=1024, quant_mode="auto", attn_mode="flash", device=dev)
+    g = torch.Generator().manual_seed(61)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist() for n in MOE_PROMPTS]
+    gen.generate(prompts[0], SamplingParams(max_tokens=4, temperature=0.0))  # warm-up
+    results = []
+    for p in prompts:
+        torch.cuda.synchronize()
+        res = gen.generate(p, SamplingParams(max_tokens=MOE_NEW_TOKENS, temperature=0.0))
+        toks = res.token_ids
+        ok = len(toks) == MOE_NEW_TOKENS and all(0 <= t < cfg.vocab_size for t in toks)
+        emit({"phase": "gemma3n_request", "prompt_tokens": len(p), "new_tokens": len(toks),
+              "prefill_ms": res.stats.ttft * 1e3, "decode_tok_s": res.stats.tokens_per_second,
+              "decode_ms_per_step": 1e3 / res.stats.tokens_per_second, "ok": ok,
+              "first_tokens": toks[:8]})
+        if not ok:
+            raise SystemExit(f"gemma3n: a {len(p)}-token prompt returned {len(toks)} tokens")
+        results.append(res)
+    check_decode_has_no_sync({"gemma-3n-e4b": (qparams, cfg)}, dev)
+    prof = profile_decode(qparams, cfg, prompt_len=256, steps=4, device=dev)
+    emit({"phase": "gemma3n_decode_profile", "prompt_tokens": 256, "quant_mode": "auto",
+          "card": card(), **prof})
+    return torch.tensor([prompts[2] + results[2].token_ids[:8]], dtype=torch.int32, device=dev)
+
+
+def gemma3n_logits_check(qparams, cfg, tokens, n, dev, hold=True):
+    """The teacher-forced logits (a prefill of n tokens, then a decode step a
+    token), each row's relative Frobenius error: held within TOL_E2E (with
+    `hold`; else recorded), the `auto` kernel path (flash: K3; K1/K2 with
+    W4A8 for the matrices of K x N >= 8M at decode, W4A16 elsewhere)
+    against the same computation with each kernel's plain version
+    (`plain_kernels`); recorded beside it, the noise floor (the plain
+    `auto` path against itself with every K1/K2 input perturbed by
+    GEMMA3N_NOISE relative) and, where held, `auto` against quant_mode
+    "xla" with the einsum attention (other roundings, and W4A8's int8
+    activations, which no kernel causes). Row 0 is the prefill's, where
+    `auto` (M > 128) calls no K1/K2, so the noise leaves it alone."""
+    import torch
+
+    def tf(mode, attn="flash"):
+        return teacher_forced(qparams, cfg, tokens, n, mode, attn, dev)
+
+    def rel(x, ref):
+        return ((x - ref).norm(dim=-1) / ref.norm(dim=-1)).tolist()
+
+    auto = tf("auto")
+    with plain_kernels():
+        plain = tf("auto")
+    with plain_kernels(GEMMA3N_NOISE):
+        noisy = tf("auto")
+    held = {"auto_vs_plain_kernels": rel(auto, plain)}
+    row = {"phase": "gemma3n_logits_check", "layers": cfg.num_hidden_layers, "held": hold,
+           "tail": [i for i in range(cfg.num_hidden_layers) if cfg.kv_share_source(i) is not None],
+           "steps": auto.shape[0], "shape": list(auto.shape), **held, "bound": TOL_E2E,
+           "noise_floor_rel_fro_err": rel(noisy, plain), "noise": GEMMA3N_NOISE}
+    outs = [auto, plain]
+    if hold:
+        xla = tf("xla", "einsum")
+        outs.append(xla)
+        row.update(auto_vs_xla=rel(auto, xla), argmax_agree_auto_xla=sum(
+            int(a) == int(b) for a, b in zip(auto.argmax(-1), xla.argmax(-1))))
+    finite = all(bool(torch.isfinite(x).all()) for x in outs)
+    row["finite"] = finite
+    emit(row)
+    if not finite or tuple(auto.shape) != (tokens.shape[1] - n + 1, cfg.vocab_size) or (
+            hold and max(max(v) for v in held.values()) > TOL_E2E):
+        raise SystemExit(f"gemma3n: kernel-path logits disagree with the reference path: {row}")
+
+
+def gemma3n_engine(qparams, cfg, dev, hold=True):
+    """The Engine (8 slots, pages of 128, chunked prefill of 256, prefix
+    caching, no speculation, bf16 pool) over eight greedy requests of
+    16-600 prompt tokens, 32 new each; two share a 256-token prefix, the
+    second submitted once the first has prefilled, so that it takes its
+    pages from the prefix cache; one is longer than the chunk. Every
+    request returns its tokens, the prefix cache is hit, and each request's
+    logprobs lie within TOL_LOGPROB of one contiguous prefill
+    (`check_logprobs`; with hold=False recorded, not held)."""
+    import torch
+
+    from paroquant_tpu_torch.serve import Engine, SamplingParams
+
+    eng = Engine(qparams, cfg, max_batch=8, max_len=1024, page_size=128, prefill_chunk=256,
+                 quant_mode="auto", decode_burst=8, prefix_caching=True, device=dev)
+    g = torch.Generator().manual_seed(62)
+
+    def rand(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+
+    shared = rand(256)
+    first = [shared + rand(40), rand(16), rand(100), rand(600), rand(300), rand(64)]
+    late = [shared + rand(90), rand(200)]
+    sp = SamplingParams(max_tokens=MOE_NEW_TOKENS, temperature=0.0)
+    eng.generate_sync(rand(40), SamplingParams(max_tokens=4, temperature=0.0))  # warm-up
+    for key in eng.metrics:
+        eng.metrics[key] = 0
+    eng._ttfts.clear()
+    eng._step_samples.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pairs = [(eng.submit(p, sp), p) for p in first]
+    ticks = 0
+    while eng.step() or ticks < 8:
+        ticks += 1
+        if ticks == 8:  # by now the shared prefix's pages are registered
+            pairs += [(eng.submit(p, sp), p) for p in late]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    greedy = []
+    for r, p in pairs:
+        toks = []
+        while not r.out_queue.empty():
+            kind, t = r.out_queue.get_nowait()
+            if kind == "token":
+                toks.append(t)
+        if len(toks) != MOE_NEW_TOKENS or not all(0 <= t < cfg.vocab_size for t in toks):
+            raise SystemExit(f"gemma3n_serve: a {len(p)}-token prompt returned {len(toks)} tokens")
+        greedy.append((r, p, toks))
+    emit({"phase": "gemma3n_serve", "layers": cfg.num_hidden_layers, "quant_mode": "auto",
+          "requests": len(pairs),
+          "wall_s": wall, "ticks": ticks,
+          "generated_tok_s": eng.metrics["tokens_generated"] / wall, "metrics": eng.metrics,
+          "ttft": eng.ttft_stats(), "step_time": eng.step_time_stats()})
+    if eng.metrics["prefix_hit_tokens"] <= 0:
+        raise SystemExit(f"gemma3n_serve: no prefix hit: {eng.metrics}")
+    # a random model's flat attention (gemma3n_random_init) moves the scores under a
+    # wrong context by a few tenths of a nat at 6 layers: held against the worst gap
+    check_logprobs(eng, greedy, cfg, f"gemma3n_serve_{cfg.num_hidden_layers}_layers",
+                   context_bound=None, hold=hold)
+    del eng
+    torch.cuda.empty_cache()
+
+
+def gemma3n_checkpoints(tmp, dev):
+    """Gemma 3n E4B at GEMMA3N_CKPT's depth (a source layer and its shared-KV
+    tail; random bf16 weights, rtn_export_model's Hadamard RTN exports of
+    q/k/v/o and the MLP) written as a PARO-TPU and an AWQ directory; each
+    loads to the logits and greedy tokens, bit for bit, of the model built
+    in memory from the same exports rounded as the file rounds them."""
+    import dataclasses
+
+    import torch
+
+    from paroquant_tpu_torch.convert import load_checkpoint, save_awq_checkpoint, save_paro_checkpoint
+    from paroquant_tpu_torch.convert.rtn import rtn_export_model
+    from paroquant_tpu_torch.models import init_params
+
+    cfg = gemma3n_config(*GEMMA3N_CKPT)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(63)
+    params = init_params(cfg, gen, torch.bfloat16, dev)
+    gemma3n_random_init(params, cfg, gen)
+    exports = rtn_export_model(params, cfg, hadamard=True)
+    timings = {"export_s": time.perf_counter() - t0}
+    for fmt, save in (("paro", save_paro_checkpoint), ("awq", save_awq_checkpoint)):
+        d = tmp / f"gemma-3n-e4b-{fmt}"
+        t = time.perf_counter()
+        save(d, params, cfg, exports)
+        timings[f"save_{fmt}_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        loaded, lcfg = load_checkpoint(d, device=dev)
+        timings[f"load_{fmt}_s"] = time.perf_counter() - t
+        inmem = model_from_exports(params, exports, fmt, dev)
+        (la, lt), (ma, mt) = prefill_and_decode(loaded, lcfg, dev), prefill_and_decode(inmem, cfg, dev)
+        row = {"phase": f"gemma3n_{fmt}_check", "layers": cfg.num_hidden_layers,
+               "tail": [i for i in range(cfg.num_hidden_layers) if cfg.kv_share_source(i) is not None],
+               "file_bytes": (d / "model.safetensors").stat().st_size,
+               "config_equal": dataclasses.replace(lcfg, quantization_items=None) == cfg,
+               "max_abs_err": (la - ma).abs().max().item(), "bound": 0.0,
+               "tokens_equal": torch.equal(lt, mt), "finite": bool(torch.isfinite(la).all())}
+        emit(row)
+        if (row["max_abs_err"] != 0.0 or not row["tokens_equal"] or not row["finite"]
+                or not row["config_equal"] or not row["tail"]):
+            raise SystemExit(f"gemma3n: the {fmt} directory loads to another model: {row}")
+        del loaded, inmem
+        torch.cuda.empty_cache()
+    emit({"phase": "gemma3n_checkpoint_seconds", **timings})
+    del params, exports
+    torch.cuda.empty_cache()
+
+
+def gemma3n_paths(tmp, dev):
+    """The gemma3n family at Gemma 3n E4B's full width (`gemma3n_model`, all
+    GEMMA3N_LAYERS layers): the Generator (`gemma3n_generator`), the Engine
+    (`gemma3n_engine`) and the paged step's sync check at 8 slots; the
+    checkpoints (`gemma3n_checkpoints`) and the card-against-host
+    calibration of TINY_GEMMA3N (a source layer and its tail). The logits
+    and the Engine's logprobs are held on a second model at GEMMA3N_CHECK's
+    depth (a tail layer included) and recorded at all 35 layers, where a
+    random model's noise floor passes TOL_E2E. Counts reset just before,
+    read just after: K1-K4 must run, K3 and K4 on their tensor-core
+    instances."""
+    import torch
+
+    from paroquant_tpu_torch.kernels import attention as at, rot_matmul as rm
+    from paroquant_tpu_torch.models import from_hf_dict
+
+    reset_counts()
+    t0 = time.perf_counter()
+    qparams, cfg = gemma3n_model(dev, GEMMA3N_LAYERS)
+    tokens = gemma3n_generator(qparams, cfg, dev)
+    gemma3n_engine(qparams, cfg, dev, hold=False)
+    check_paged_decode_has_no_sync(qparams, cfg, dev, B=8)
+    # at this width `auto` gives the MLP and the lm_head int8 activations (K x N
+    # >= AUTO_W4A8_MIN_KN): K1/K2 take RA8 there and the one launch elsewhere
+    routes = check_routes(rm, "gemma3n_paths")
+    gemma3n_logits_check(qparams, cfg, tokens, tokens.shape[1] - 8, dev, hold=False)
+    kinds = {"flash": dict(at.flash_kinds), "paged": {k: dict(v) for k, v in
+                                                      at.paged_instances.items()}}
+    del qparams
+    torch.cuda.empty_cache()
+    qparams, cfg = gemma3n_model(dev, *GEMMA3N_CHECK)
+    gemma3n_logits_check(qparams, cfg, tokens, tokens.shape[1] - 8, dev)
+    gemma3n_engine(qparams, cfg, dev)
+    del qparams
+    torch.cuda.empty_cache()
+    gemma3n_checkpoints(tmp, dev)
+    small_calibration_on_both(dev, from_hf_dict(TINY_GEMMA3N), GEMMA3N_CALIB, layers=2,
+                              prepare=gemma3n_random_init)
+    launched = port_launches()
+    emit({"phase": "gemma3n_paths_launches", **launched, "instances": kinds,
+          "routes_checked": routes, "s": time.perf_counter() - t0})
+    missing = [k for k in ("rot_w4_matmul", "merged_rot_w4_matmul", "flash_attention",
+                           "paged_decode_attention") if not launched["counts"].get(k)]
+    if missing or not kinds["flash"]["bf16"] or not kinds["paged"]["paged_decode_attention"]["mma"]:
+        raise SystemExit(f"gemma3n_paths: kernels not launched: {missing}, by instance {kinds}")
     torch.cuda.empty_cache()
     return launched["counts"]
 
@@ -6078,10 +6550,14 @@ def main() -> int:
 
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(123)
-    mm_rows = check_matmuls(flush, gen, dev) + check_hybrid_matmuls(flush, gen, dev)
-    fa_rows = check_flash(flush, gen, dev) + check_flash_mixed(flush, gen, dev)
+    mm_rows = (check_matmuls(flush, gen, dev)
+               + check_decode_matmuls(flush, gen, dev, "hybrid", HYBRID_MATMULS)
+               + check_decode_matmuls(flush, gen, dev, "gemma-3n-e4b", GEMMA3N_MATMULS))
+    fa_rows = (check_flash(flush, gen, dev) + check_flash_mixed(flush, gen, dev)
+               + check_flash(flush, gen, dev, GEMMA3N_FLASH_CASES, D=256, scale=1.0))
     pa_rows = (check_paged(flush, gen, dev) + check_paged_step(flush, gen, dev)
-               + check_paged_rows(flush, gen, dev) + check_paged_f32_queries(flush, gen, dev))
+               + check_paged_rows(flush, gen, dev) + check_paged_f32_queries(flush, gen, dev)
+               + check_paged(flush, gen, dev, GEMMA3N_PAGED_CASES))
     w4_rows = check_w4_variants(flush, gen, dev)
     w4x_rows = check_w4_experiments(flush, gen, dev)
     i8_rows = check_int8_probe(flush, gen, dev)
@@ -6134,6 +6610,8 @@ def main() -> int:
         mark("moe_paths")
         hybrid_counts = hybrid_paths(Path(tmp), dev)  # the qwen3_next hybrid at Qwen3-Next-80B-A3B width
         mark("hybrid_paths")
+        gemma3n_counts = gemma3n_paths(Path(tmp), dev)  # the gemma3n family at Gemma 3n E4B width
+        mark("gemma3n_paths")
 
     counts.update({k: bench_counts[k] for k in W4_VARIANTS})  # their launches: the kernel_bench phase
     counts.update({k: exp_counts[k] for k in W4_EXPERIMENTS})  # and the w4_experiments phase
@@ -6148,6 +6626,7 @@ def main() -> int:
                 "bound_ms": row["bound_us"] / 1e3, "bound_by": row["bound_by"],
                 "library_ms": None if lib_us is None else lib_us / 1e3,
                 "hybrid_paths_launches": hybrid_counts.get(name, 0),
+                "gemma3n_paths_launches": gemma3n_counts.get(name, 0),
                 "at": {k: row[k] for k in ("layer", "M", "a8", "route", "sz", "case", "T", "S", "B",
                                            "W", "Gb", "block_m", "KS", "tile") if k in row}}
 

@@ -1,5 +1,5 @@
 """Checkpoint I/O: PARO-TPU, AWQ-format PARO and HF-dense directories of
-the dense, MoE and qwen3_next hybrid families.
+the dense, MoE, qwen3_next hybrid and gemma3n families.
 
 Counterpart of `paroquant_tpu/convert/checkpoint.py`: the save side
 (`hf_prefix`, `save_paro_checkpoint`, `save_awq_checkpoint`, :55-453) and
@@ -32,7 +32,12 @@ gate dense. A hybrid's delta-net layers: `linear_attn.{in_proj_qkvz,
 in_proj_ba, out_proj}` (each quantized where exported, else a dense f16
 weight), `conv1d.weight` f32 [conv_dim, Kc], `dt_bias` and `A_log` f32,
 `norm.weight` f16; its config.json carries `layer_types` and the
-linear-attention widths. The gemma3n family refuses (ROADMAP §A 5).
+linear-attention widths. A gemma3n model's per-layer embedding, its
+projection and norm, the AltUp projections and each layer's `altup.*`,
+`laurel.*` and per-layer input linears are dense f16 (`altup.
+correct_output_scale` f32), as JAX's `_save_gemma3n_shared` /
+`_save_gemma3n_layer` write them; its config.json carries the AltUp,
+LAuReL, per-layer and shared-KV keys.
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig, from_hf_dict
-from ..models.decoder import DenseLinear, _unsupported
+from ..models.decoder import DenseLinear
 from ..ops.moe import QuantizedMoEExperts, pack_stacked, shared_rotation
 from ..ops.packing import pack_awq, pack_wq_tpu, unpack_awq, unpack_w4_tpu
 from ..ops.qlinear import make_quantized_linear
@@ -124,6 +129,33 @@ def _layer_dense_tensors(tensors: dict, li: int, lp: dict) -> None:
         for key, name in (("conv1d.weight", "conv_w"), ("dt_bias", "dt_bias"), ("A_log", "A_log")):
             tensors[f"{lab}.{key}"] = _host(la[name], torch.float32)
         tensors[f"{lab}.norm.weight"] = _to_f16(la["norm"])
+
+
+def _gemma3n_shared_tensors(tensors: dict, params: dict) -> None:
+    """A gemma3n model's per-layer embedding module and AltUp projections (dense)."""
+    tensors["model.embed_tokens_per_layer.weight"] = _to_f16(params["embed_tokens_per_layer"])
+    tensors["model.per_layer_model_projection.weight"] = _to_f16(
+        params["per_layer_model_projection"].w.T)
+    tensors["model.per_layer_projection_norm.weight"] = _to_f16(params["per_layer_projection_norm"])
+    for key in ("altup_projections", "altup_unembed_projections"):
+        for i, lin in enumerate(params[key]):
+            tensors[f"model.{key}.{i}.weight"] = _to_f16(lin.w.T)
+
+
+def _gemma3n_layer_tensors(tensors: dict, li: int, lp: dict) -> None:
+    """A gemma3n layer's AltUp, LAuReL and per-layer input modules (dense)."""
+    base = f"model.layers.{li}"
+    ap, lau = lp["altup"], lp["laurel"]
+    tensors[f"{base}.altup.correct_output_scale"] = _host(ap["correct_output_scale"], torch.float32)
+    for n in ("correction_coefs", "prediction_coefs", "modality_router"):
+        tensors[f"{base}.altup.{n}.weight"] = _to_f16(ap[n].w.T)
+    tensors[f"{base}.altup.router_norm.weight"] = _to_f16(ap["router_norm"])
+    for n in ("linear_left", "linear_right"):
+        tensors[f"{base}.laurel.{n}.weight"] = _to_f16(lau[n].w.T)
+    tensors[f"{base}.laurel.post_laurel_norm.weight"] = _to_f16(lau["post_laurel_norm"])
+    for n in ("per_layer_input_gate", "per_layer_projection"):
+        tensors[f"{base}.{n}.weight"] = _to_f16(lp[n].w.T)
+    tensors[f"{base}.post_per_layer_input_norm.weight"] = _to_f16(lp["post_per_layer_input_norm"])
 
 
 def _layer_linears(tensors: dict, li: int, lp: dict, exp_layer: dict, quant_tensors) -> tuple:
@@ -213,13 +245,16 @@ def _moe_tensors(tensors: dict, li: int, mlp: dict, exp_layer: dict, awq: bool) 
 
 def _save(path, params, config, layer_exports, hf_config, quant_tensors, qconfig,
           awq: bool) -> None:
-    _unsupported(config)  # gemma3n: ROADMAP §A 5
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
     tensors = _dense_tensors(params)
+    if config.is_gemma3n:
+        _gemma3n_shared_tensors(tensors, params)
     n_bits, group_size, krot = 4, 128, 8
     for li, lp in enumerate(params["layers"]):
         exp_layer = layer_exports[li] if li < len(layer_exports) else {}
+        if config.is_gemma3n:
+            _gemma3n_layer_tensors(tensors, li, lp)
         _layer_dense_tensors(tensors, li, lp)
         for meta in (_moe_tensors(tensors, li, lp.get("mlp", {}), exp_layer, awq),
                      _layer_linears(tensors, li, lp, exp_layer, quant_tensors)):
@@ -281,8 +316,9 @@ def save_awq_checkpoint(
 
 
 def _config_to_hf(config: ModelConfig) -> dict[str, Any]:
-    """config.json of a dense-, MoE- or hybrid-family config (JAX's keys, in
-    JAX's order)."""
+    """config.json of a dense-, MoE-, hybrid- or gemma3n-family config (JAX's
+    keys, in JAX's order; gemma3n's layer_types bring the hybrid's keys too,
+    as in JAX)."""
     out: dict[str, Any] = {}
     if config.layer_types is not None:  # the hybrid (gated delta-net) family
         out.update(
@@ -302,6 +338,25 @@ def _config_to_hf(config: ModelConfig) -> dict[str, Any]:
             norm_topk_prob=config.norm_topk_prob,
             decoder_sparse_step=config.decoder_sparse_step,
         )
+    if config.is_gemma3n:
+        out.update(
+            altup_num_inputs=config.altup_num_inputs,
+            altup_active_idx=config.altup_active_idx,
+            altup_correct_scale=config.altup_correct_scale,
+            laurel_rank=config.laurel_rank,
+            hidden_size_per_layer_input=config.hidden_size_per_layer_input,
+            vocab_size_per_layer_input=config.vocab_size_per_layer_input,
+            num_kv_shared_layers=config.num_kv_shared_layers,
+            sliding_window=config.sliding_window,
+            rope_local_base_freq=config.rope_local_theta,
+            final_logit_softcapping=config.logit_softcap,
+            hidden_activation=config.hidden_act,
+        )
+        if config.activation_sparsity is not None:
+            out["activation_sparsity_pattern"] = list(config.activation_sparsity)
+        if config.intermediate_sizes is not None:
+            out["intermediate_size"] = list(config.intermediate_sizes)
+    # the family's keys win (gemma3n's per-layer intermediate_size list)
     return {
         "model_type": config.model_type,
         "vocab_size": config.vocab_size,
@@ -399,11 +454,10 @@ def load_checkpoint(
     model_dir: str | Path, rot_dtype=torch.bfloat16, dtype=torch.bfloat16, device="cuda",
 ) -> tuple[dict[str, Any], ModelConfig]:
     """Load a PARO-TPU, AWQ-format PARO or plain HF-dense model directory
-    (dense, MoE or hybrid family, and HF Mixtral) onto `device`."""
+    (dense, MoE, hybrid or gemma3n family, and HF Mixtral) onto `device`."""
     dev = resolve_device(device)
     model_dir = Path(model_dir)
     config = from_hf_dict(json.loads((model_dir / "config.json").read_text()))
-    _unsupported(config)
     if config.is_vlm:
         raise NotImplementedError("VLM checkpoints come with slice 3 of the port")
     tensors = _open_all(model_dir)
@@ -522,6 +576,13 @@ def load_checkpoint(
     }
     if "lm_head.weight" in tensors:
         params["lm_head"] = dense_linear("lm_head")
+    if config.is_gemma3n:  # the per-layer embedding module and the AltUp projections
+        params["embed_tokens_per_layer"] = dense("model.embed_tokens_per_layer.weight")
+        params["per_layer_model_projection"] = dense_linear("model.per_layer_model_projection")
+        params["per_layer_projection_norm"] = dense("model.per_layer_projection_norm.weight")
+        for key in ("altup_projections", "altup_unembed_projections"):
+            params[key] = [dense_linear(f"model.{key}.{i}")
+                           for i in range(config.altup_num_inputs - 1)]
     for li in range(config.num_hidden_layers):
         lbase = f"model.layers.{li}"
         lp: dict[str, Any] = {
@@ -551,6 +612,23 @@ def load_checkpoint(
         else:
             for name in _ATTN:
                 lp[name] = pick_linear(f"{lbase}.self_attn.{name}")
+        if config.is_gemma3n:
+            ab = f"{lbase}.altup"
+            lp["altup"] = {
+                "correct_output_scale": tensors[f"{ab}.correct_output_scale"].to(
+                    device=dev, dtype=torch.float32),
+                **{n: dense_linear(f"{ab}.{n}")
+                   for n in ("correction_coefs", "prediction_coefs", "modality_router")},
+                "router_norm": dense(f"{ab}.router_norm.weight"),
+            }
+            lp["laurel"] = {
+                "linear_left": dense_linear(f"{lbase}.laurel.linear_left"),
+                "linear_right": dense_linear(f"{lbase}.laurel.linear_right"),
+                "post_laurel_norm": dense(f"{lbase}.laurel.post_laurel_norm.weight"),
+            }
+            for n in ("per_layer_input_gate", "per_layer_projection"):
+                lp[n] = dense_linear(f"{lbase}.{n}")
+            lp["post_per_layer_input_norm"] = dense(f"{lbase}.post_per_layer_input_norm.weight")
         if f"{lbase}.block_sparse_moe.gate.weight" in tensors:
             lp["mlp"] = mixtral_mlp(f"{lbase}.block_sparse_moe")
         elif f"{lbase}.mlp.gate.weight" in tensors:

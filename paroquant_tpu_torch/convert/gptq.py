@@ -39,7 +39,8 @@ checkpoints load through the standard loaders.
   Hessians of their inputs, the taps "la_qkvz" and "la_out"; in_proj_ba
   stays dense, and the layer's MLP or MoE block is GPTQ'd as on any layer.
 
-gemma3n raises NotImplementedError in `gptq_quantize_model` (ROADMAP §A 5).
+gemma3n raises JAX's NotImplementedError in `gptq_quantize_model`: JAX's
+GPTQ baseline does not support that family either.
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from ..models.decoder import (DenseLinear, _unsupported, embed, layer_forward, linear_layer_forward,
+from ..models.decoder import (DenseLinear, embed, layer_forward, linear_layer_forward,
                               rope_tables_per_layer)
 from ..ops import quant, rotation as rot_ops
 from ..ops.moe import QuantizedMoEExperts
@@ -320,7 +321,8 @@ def gptq_quantize_model(
     Returns (quantized runtime params on `device`, per-layer export dicts
     for save_paro_checkpoint: the schema of convert/rtn.py::rtn_export_model).
     """
-    _unsupported(config)  # gemma3n: ROADMAP §A 5
+    if config.is_gemma3n:
+        raise NotImplementedError("GPTQ baseline does not support gemma3n")
     dev = resolve_device(device)
     params = _to_device(params, dev)
     tokens = np.asarray(tokens, np.int32)

@@ -6,7 +6,8 @@
 numpy leaves; a sparse layer's router and shared-expert gate are
 `DenseLinear`s, its experts a dict of stacked arrays or a
 `QuantizedMoEExperts`; a hybrid's delta-net layer a `linear_attn` dict of
-linears and arrays. The classes are recognised by name, so this module
+linears and arrays; a gemma3n tree its `altup_projections` /
+`altup_unembed_projections` lists and each layer's `altup` / `laurel` dicts. The classes are recognised by name, so this module
 imports nothing of JAX and both packages can compute from the same
 weights. bf16
 leaves arrive as numpy arrays of the ml_dtypes `bfloat16` type and are
@@ -32,7 +33,7 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from ..models.decoder import DenseLinear, _unsupported
+from ..models.decoder import DenseLinear
 from ..ops.moe import QuantizedMoEExperts
 from ..ops.packing import pack_w4_i4
 from ..ops.qlinear import MergedQuantizedLinear, QuantizedLinear
@@ -77,8 +78,7 @@ def _convert(node, dev):
 
 def params_from_jax(tree: dict[str, Any], config: ModelConfig, device="cuda") -> dict[str, Any]:
     """The port's params dict for a JAX param tree of numpy leaves (the dense,
-    MoE and hybrid families)."""
-    _unsupported(config)
+    MoE, hybrid and gemma3n families)."""
     return _convert(tree, resolve_device(device))
 
 

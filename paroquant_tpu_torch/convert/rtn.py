@@ -9,6 +9,9 @@ QuantizedMoEExperts` (every expert at once: the quantizer works row by
 row, so this is JAX's per-expert loop); a shared expert is quantized like
 any GLU, the router and the shared expert's gate stay dense. A hybrid's
 delta-net layers get W4 in_proj_qkvz and out_proj; in_proj_ba stays dense.
+A gemma3n model gets W4 q/k/v/o (the shared-KV tail's unused k/v too, as
+JAX's) and MLP; its AltUp, LAuReL and per-layer linears stay dense, and a
+W4 lm_head comes from the tied table.
 `quantize_model_rtn` runs on the device it is given (the card by default);
 only the pair tables are built on the host.
 `rtn_export_linear` / `rtn_export_model` give the same quantization as
@@ -27,7 +30,7 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from ..models.decoder import DenseLinear, _unsupported
+from ..models.decoder import DenseLinear
 from ..ops import quant, rotation as rot_ops
 from ..ops.butterfly import make_butterfly_params
 from ..ops.moe import QuantizedMoEExperts, pack_stacked
@@ -158,7 +161,6 @@ def quantize_model_rtn(
     embeddings a separate W4 head copy is made and the bf16 table stays
     for the input lookup.
     """
-    _unsupported(config)
     params = _to_device(params, resolve_device(device))
     out = dict(params)
     kw = dict(n_bits=n_bits, group_size=group_size, num_rotations=num_rotations,
@@ -245,7 +247,6 @@ def rtn_export_model(
     (the RTN baseline). hadamard=True rotates each group by the
     Hadamard-equivalent butterfly before quantizing (QuaRot/SpinQuant-style
     no-training baseline)."""
-    _unsupported(config)
     kw = dict(n_bits=n_bits, group_size=group_size, hadamard=hadamard)
     exports: list[dict[str, Any]] = []
     for lp in params["layers"]:

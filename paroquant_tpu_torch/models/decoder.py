@@ -1,5 +1,6 @@
 """Decoder (Llama / Qwen2 / Qwen3 / Gemma-class, the Qwen3-MoE /
-Qwen2-MoE / Mixtral MoE family, and the qwen3_next hybrid) in torch.
+Qwen2-MoE / Mixtral MoE family, the qwen3_next hybrid; gemma3n through
+`models/gemma3n.py`) in torch.
 
 Counterpart of `paroquant_tpu/models/decoder.py:38-680, 693-843`: plain
 functions over a params dict, with the same names, so each JAX function
@@ -23,8 +24,8 @@ the masks are built from it. (A later change can capture the step in a CUDA
 graph, the counterpart of JAX's one-dispatch `greedy_decode_scan`.) The KV
 cache buffers and the delta-net states are updated in place.
 
-gemma3n and the VLM path are later slices of the port and raise
-NotImplementedError.
+`model_forward` and `init_params` hand a gemma3n config to
+`models/gemma3n.py`, as JAX's do; the VLM path is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -75,11 +76,6 @@ def merged_forward_parts(layer: MergedQuantizedLinear, x: torch.Tensor, quant_mo
     """Per-partition outputs of a merged projection."""
     y = merged_linear_forward(layer, x, mode=quant_mode)
     return tuple(torch.split(y, layer.out_splits, dim=-1))
-
-
-def _unsupported(config: ModelConfig) -> None:
-    if config.is_gemma3n:
-        raise NotImplementedError("gemma3n models are not ported yet (ROADMAP §A 5: models/gemma3n.py)")
 
 
 # ---------------------------------------------------------------------------
@@ -143,7 +139,8 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 @dataclass
 class KVCache:
     """Uniform-length KV cache: k/v are tuples of per-layer head-major
-    buffers [B, Hkv, S, D], one per full-attention layer; `length` is a 0-d
+    buffers [B, Hkv, S, D], one per full-attention layer (gemma3n: one per
+    layer before the shared-KV tail, which reads those); `length` is a 0-d
     int32 device tensor (tokens already cached). A hybrid model's delta-net
     layers keep their conv windows and recurrent states in `linear`
     (`LinearAttnStates`; its conv window in f32, as JAX's). The buffers are
@@ -157,7 +154,6 @@ class KVCache:
     @classmethod
     def create(cls, config: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda") -> "KVCache":
-        _unsupported(config)
         dev = resolve_device(device)
         shape = (batch, config.num_key_value_heads, max_len, config.head_dim)
         n = config.num_full_attn_layers
@@ -532,8 +528,15 @@ def model_forward(
     length (plus scale=, sliding_window=, logit_softcap=), or any other
     string for the einsum attention. linear_valid_len (a hybrid model's
     zero-padded prefill bucket; a Python int or a 0-d tensor): the true
-    length, past which the delta-net layers leave their states untouched."""
-    _unsupported(config)
+    length, past which the delta-net layers leave their states untouched.
+    A gemma3n config runs `models/gemma3n.py::gemma3n_forward`."""
+    if config.is_gemma3n:
+        if return_hidden:
+            raise NotImplementedError("return_hidden is not plumbed through the gemma3n forward")
+        from .gemma3n import gemma3n_forward
+
+        return gemma3n_forward(params, config, tokens, cache, quant_mode=quant_mode,
+                               attn_mode=attn_mode)
     B, T = tokens.shape
     x = embed(params, config, tokens)
     if cache is not None:
@@ -588,8 +591,12 @@ def init_params(config: ModelConfig, generator: torch.Generator | int = 0,
                 dtype=torch.bfloat16, device="cuda") -> dict[str, Any]:
     """Random weights from an explicit torch.Generator (or a seed for one on
     `device`). Not the JAX package's numbers: tests hand both packages the
-    same weights through convert/interop.py instead."""
-    _unsupported(config)
+    same weights through convert/interop.py instead. A gemma3n config takes
+    `models/gemma3n.py::init_gemma3n_params`."""
+    if config.is_gemma3n:
+        from .gemma3n import init_gemma3n_params
+
+        return init_gemma3n_params(config, generator, dtype, device)
     dev = resolve_device(device)
     if isinstance(generator, int):
         generator = torch.Generator(device=dev).manual_seed(generator)

@@ -1,4 +1,4 @@
-"""Layer-wise calibration of the dense and MoE decoders, in torch.
+"""Layer-wise calibration of the dense, MoE, hybrid and gemma3n decoders, in torch.
 
 Counterpart of `paroquant_tpu/optim/calibrate.py`:
   1. embed the calibration token batches once
@@ -30,10 +30,15 @@ each batch is copied to the device when a step takes it.
 A hybrid's delta-net layers run through `models/decoder.py::
 linear_layer_forward` (JAX's delta-net layer body); their in_proj_qkvz and
 out_proj are calibrated, in_proj_ba is skipped by default (`CalibConfig.
-skip`, the reference's `--skipped-modules`). The gemma3n branch and a
-data-parallel `mesh` raise NotImplementedError (ROADMAP §A 5, §A 7). GPTQ
-init re-initializes the standard linears only (the experts, a shared expert
-and the delta-net projections keep the plain init), as JAX's does; on a
+skip`, the reference's `--skipped-modules`). A gemma3n layer's input is
+the AltUp stack [A, B, T, H] (its batch on axis 1) with its slice of the
+per-layer inputs; its q/k/v/o and MLP are calibrated (the AltUp, LAuReL
+and per-layer linears stay dense), a shared-KV tail layer skips k_proj and
+v_proj (never applied) and attends over the (k, v) that its source layer's
+quantized student emitted, as JAX's branch does. A data-parallel `mesh`
+raises NotImplementedError (ROADMAP §A 7). GPTQ init re-initializes the
+standard linears only, as JAX's does (the experts, a shared expert, the
+delta-net projections and every gemma3n layer keep the plain init); on a
 delta-net layer its Hessians come from that layer's own taps (JAX's init
 there calls the attention layer's forward and fails).
 """
@@ -52,7 +57,7 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from ..models.decoder import (DenseLinear, _unsupported, layer_forward, layer_rope_theta,
+from ..models.decoder import (DenseLinear, apply_linear, layer_forward, layer_rope_theta,
                               linear_layer_forward, rope_tables)
 from ..ops import rotation as rot_ops
 from ..ops.butterfly import make_butterfly_params
@@ -247,11 +252,6 @@ def _refuse(config: ModelConfig, mesh) -> None:
         raise NotImplementedError(
             "data-parallel calibration over a mesh needs parallel/, which the port has not "
             "yet (ROADMAP §A 7)")
-    if config.is_gemma3n:
-        raise NotImplementedError(
-            "gemma3n calibration (AltUp stack, per-layer inputs, shared KV) needs "
-            "models/gemma3n.py, which the port has not yet (ROADMAP §A 5)")
-    _unsupported(config)
 
 
 # which tap (the input of a layer's linears) feeds each standard linear
@@ -278,8 +278,9 @@ def calibrate_model(
     log_fn: Callable[[dict, int], None] | None = None,
     device="cuda",
 ) -> tuple[dict[str, Any], list[dict[str, Any]]]:
-    """Calibrate and quantize a dense or MoE model on `device` (params are
-    copied there). Returns (quantized params, per-layer export dicts).
+    """Calibrate and quantize a dense, MoE, hybrid or gemma3n model on
+    `device` (params are copied there). Returns (quantized params, per-layer
+    export dicts).
 
     With output_dir, each layer's results are written as
     `{layer_idx}.{name}.npz`, and with resume=True a layer whose files are
@@ -302,7 +303,9 @@ def _calibrate(params, config, token_batches, cfg, output_dir, resume, progress_
     adt = cfg.act_dtype
     itemsize = torch.empty((), dtype=adt).element_size()
     H = config.hidden_size
-    on_device = N * B * T * H * itemsize * 2 <= cfg.resident_act_bytes
+    is_g3n = config.is_gemma3n
+    x_mult = 2 * config.altup_num_inputs if is_g3n else 2  # inputs and targets: the AltUp stack
+    on_device = N * B * T * H * itemsize * x_mult <= cfg.resident_act_bytes
 
     def _stage(a):
         """Device activation -> staging (on the device, or on the host)."""
@@ -313,6 +316,22 @@ def _calibrate(params, config, token_batches, cfg, output_dir, resume, progress_
     with torch.no_grad():
         xs = [_stage(embed[torch.from_numpy(tb).to(dev).long()].to(torch.float32) * scale)
               for tb in token_batches]
+    if is_g3n:
+        # a gemma3n layer takes the AltUp stack and its slice of the per-layer
+        # inputs; a shared-KV tail layer also takes its source layer's (k, v),
+        # emitted by the source's quantized student (`shared_store`)
+        from ..models.gemma3n import _magnitude_match, gemma3n_layer, per_layer_inputs
+
+        with torch.no_grad():
+            plis = []
+            for i, tb in enumerate(token_batches):
+                x0 = xs[i].to(dev)
+                plis.append(_stage(per_layer_inputs(params, config, torch.from_numpy(tb).to(dev),
+                                                    x0)))
+                xs[i] = _stage(torch.stack([x0] + [_magnitude_match(apply_linear(p, x0), x0)
+                                                   for p in params["altup_projections"]]))
+        shared_store: dict[int, list] = {}
+        srcs_needed = {config.kv_share_source(j) for j in range(config.num_hidden_layers)} - {None}
 
     positions = torch.arange(T, dtype=torch.int32, device=dev)[None, :].expand(B, T)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
@@ -328,9 +347,20 @@ def _calibrate(params, config, token_batches, cfg, output_dir, resume, progress_
         names = _layer_linear_names(lp, cfg.skip)
         cos, sin = rope_tables(positions, config.rotary_dim, layer_rope_theta(config, li))
         is_linear = config.layer_is_linear(li)
+        src = config.kv_share_source(li)
+        if src is not None:  # the shared-KV tail never applies its k/v projections
+            names = [n for n in names if n not in ("k_proj", "v_proj")]
 
         def _batch_in(i):
-            return xs[i].to(dev)
+            if not is_g3n:
+                return xs[i].to(dev)
+            shared = None if src is None else tuple(a.to(dev) for a in shared_store[src][i])
+            return xs[i].to(dev), plis[i][:, :, li].to(dev), shared
+
+        def g3n_layer(lp_, x):
+            h, pli_l, shared = x
+            return gemma3n_layer(lp_, h, pli_l, config, li, cos, sin, positions, None, zero,
+                                 shared, "xla")
 
         def layer_taps(lp_, x):
             """(output, taps) of one decoder layer, dense or substituted params
@@ -345,6 +375,8 @@ def _calibrate(params, config, token_batches, cfg, output_dir, resume, progress_
 
         def apply_with(lp_, x):
             """One decoder layer, dense or substituted params (no cache)."""
+            if is_g3n:
+                return g3n_layer(lp_, x)[0]
             if is_linear:
                 return linear_layer_forward(lp_, x, config, li, None, None, "xla")[0]
             y, _ = layer_forward(lp_, x, config, li, cos, sin, positions, None, zero, "xla")
@@ -438,7 +470,7 @@ def _calibrate(params, config, token_batches, cfg, output_dir, resume, progress_
 
             step = 0
             for si, (stage_groups, epochs) in enumerate(cfg.stages):
-                if (cfg.gptq_init and si == len(cfg.stages) - 1
+                if (cfg.gptq_init and si == len(cfg.stages) - 1 and not is_g3n
                         and ("weight" in stage_groups or "quantizer" in stage_groups)):
                     _gptq_init_all(linears)
                 stage_log = None if log_fn is None else functools.partial(
@@ -468,7 +500,13 @@ def _calibrate(params, config, token_batches, cfg, output_dir, resume, progress_
         # the student's outputs feed the next layer
         qlp = layers[li]
         with torch.no_grad():
-            xs = [_stage(apply_with(qlp, _batch_in(i))) for i in range(N)]
+            if is_g3n and li in srcs_needed:  # a source layer: its (k, v) for the tail
+                outs = [g3n_layer(qlp, _batch_in(i)) for i in range(N)]
+                xs = [_stage(o) for o, _, _ in outs]
+                shared_store[li] = [tuple(_stage(a) for a in kv) for _, _, kv in outs]
+                del outs
+            else:
+                xs = [_stage(apply_with(qlp, _batch_in(i))) for i in range(N)]
         results.append(layer_result)
         if progress_fn:
             progress_fn(li, len(layers), {"seconds": time.time() - t_start})

@@ -31,6 +31,8 @@ so the states are those of the unpadded prompt. A chunked prefill carries
 the states from chunk to chunk (JAX's chunked prefill drops them and fails
 on a hybrid). As in JAX, hybrids get no prefix caching (the recurrent
 state at a prefix's end is not page-resident) and `spec_k > 0` raises.
+A gemma3n model's pool holds the layers before its shared-KV tail, which
+the paged step reads; as in JAX, `spec_k > 0` and `kv_quant` raise for it.
 Tensor-parallel serving (a mesh) and images (`pixel_values`) are later
 slices and raise NotImplementedError.
 """
@@ -49,7 +51,7 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from ..models.decoder import KVCache, _unsupported, model_forward
+from ..models.decoder import KVCache, model_forward
 from ..utils.device import resolve_device
 from .generator import _lookup_draft
 from .paged import (
@@ -166,7 +168,6 @@ class Engine:
         max_queue: int | None = None,
         device="cuda",
     ):
-        _unsupported(config)
         _no_mesh(mesh)
         self.device = resolve_device(device)
         on_cuda = self.device.type == "cuda"
@@ -181,6 +182,9 @@ class Engine:
             num_pages = max_batch * self.max_pages_per_seq
         # "auto" (the kernels at decode-sized M) on CUDA, "xla" on the CPU
         self.quant_mode = quant_mode or ("auto" if on_cuda else "xla")
+        if kv_quant is not None and config.is_gemma3n:
+            raise ValueError("kv_quant is not supported for gemma3n (shared-KV tail reads"
+                             " the source layer's pages directly)")
         self.kv_quant = kv_quant
         self.prefill_dtype = cache_dtype
         # one extra "trash" page absorbs the KV writes of inactive slots
@@ -198,10 +202,11 @@ class Engine:
         self.decode_burst = max(1, decode_burst)
         self.prefix_caching = prefix_caching
         self.spec_k = max(0, spec_k)
-        if self.spec_k and config.num_linear_layers:
+        if self.spec_k and (config.num_linear_layers or config.is_gemma3n):
             raise ValueError(
                 "spec_k: speculative decoding supports standard-attention families only "
-                "(delta-net recurrent state cannot roll back rejected drafts)")
+                "(delta-net recurrent state and the gemma3n decode path cannot roll back "
+                "rejected drafts)")
         self.prefix_map: dict[int, int] = {}  # cumulative hash -> page id
         self.page_key: dict[int, int] = {}  # registered page -> its hash
         self.page_refs: dict[int, int] = {}  # registered page -> active refs

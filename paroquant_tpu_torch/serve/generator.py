@@ -147,8 +147,8 @@ class Generator:
     tokens of the same distribution. Requests with a repetition penalty, or
     whose prompt, max_tokens and k do not fit max_len, take the normal path,
     as do hybrid (delta-net) models, whose recurrent state cannot roll back
-    rejected drafts (JAX keeps them and gemma3n off speculation too); their
-    steps and bursts carry the delta-net states in the cache.
+    rejected drafts, and gemma3n models (JAX keeps both off speculation);
+    a hybrid's steps and bursts carry the delta-net states in the cache.
     """
 
     def __init__(
@@ -208,7 +208,7 @@ class Generator:
         # a penalty changes the counts inside a window, which the one-shot
         # accept/reject cannot follow; the last window needs k rows of slack
         return (self.lookup_spec_k > 0 and sp.repetition_penalty == 1.0
-                and self.config.num_linear_layers == 0
+                and self.config.num_linear_layers == 0 and not self.config.is_gemma3n
                 and n_prompt + sp.max_tokens + self.lookup_spec_k <= self.max_len)
 
     @torch.no_grad()

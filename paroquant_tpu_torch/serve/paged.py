@@ -1,7 +1,7 @@
 """Paged KV cache, paged decode step and speculative verify step.
 
-Counterpart of `paroquant_tpu/serve/paged.py` for the dense, MoE and
-qwen3_next hybrid families (a sparse layer's MoE block runs in
+Counterpart of `paroquant_tpu/serve/paged.py` for the dense, MoE,
+qwen3_next hybrid and gemma3n families (a sparse layer's MoE block runs in
 `layer_tail`):
 
 - a global page pool k/v [Lf, P, page_size, Hkv, D] (with kv_quant="int8",
@@ -17,7 +17,10 @@ qwen3_next hybrid families (a sparse layer's MoE block runs in
   seq_lens + 1. On CUDA it runs K4 (`kernels/attention.py::
   paged_decode_attention`), on the CPU that kernel's plain version; a
   hybrid's delta-net layers take their O(1) recurrent step on the slots'
-  states. It makes no host sync, so a CUDA graph can capture it;
+  states. A gemma3n model runs `_gemma3n_paged_decode`: its pool holds the
+  layers before the shared-KV tail, and a tail layer attends over its
+  source layer's pages, which already hold this step's row. It makes no
+  host sync, so a CUDA graph can capture it;
 - `paged_verify_step`: a window of W tokens per slot (speculative verify)
   through K5, positions past the table redirected to the trash page; for
   standard-attention families only, as in JAX (a recurrent state cannot
@@ -26,8 +29,8 @@ qwen3_next hybrid families (a sparse layer's MoE block runs in
 attn_mode "kernel" (the default) goes through the K4/K5 wrappers;
 "einsum" runs the einsum references `paged_attention` /
 `paged_window_attention` over the gathered pages on any device, as JAX's
-CPU path does. Tensor-parallel head sharding (`_headshard_attn`) and
-gemma3n models are later slices and raise NotImplementedError.
+CPU path does. Tensor-parallel head sharding (`_headshard_attn`) is a
+later slice and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -47,13 +50,14 @@ from ..kernels.attention import (
 )
 from ..models.config import ModelConfig
 from ..models.decoder import (
-    _unsupported,
+    apply_linear,
     embed,
     layer_tail,
     linear_layer_forward,
     lm_head_logits,
     qkv_rope,
     rms_norm,
+    rope_tables,
     rope_tables_per_layer,
 )
 from ..utils.device import resolve_device
@@ -97,7 +101,6 @@ class PagedKVCache:
                dtype=torch.bfloat16, kv_quant: str | None = None,
                device="cuda", batch: int | None = None) -> "PagedKVCache":
         """batch: the engine's slots, which a hybrid model's states need."""
-        _unsupported(config)
         dev = resolve_device(device)
         shape = (config.num_full_attn_layers, num_pages, page_size,
                  config.num_key_value_heads, config.head_dim)
@@ -151,6 +154,61 @@ def _layer_pool(cache: PagedKVCache, li: int) -> tuple:
     return cache.k[li], cache.v[li], None, None
 
 
+def _paged_attn(cache: PagedKVCache, row: int, q, page_table, lens_incl, attn_mode: str, **kw):
+    """One query a slot (q [B, Hq, D]) over pool row `row`'s pages: K4, or
+    the einsum reference over the gathered pages."""
+    kp, vp, ks, vs = _layer_pool(cache, row)
+    if attn_mode == "kernel":
+        return paged_decode_attention(q, kp, vp, page_table, lens_incl, k_scales=ks, v_scales=vs,
+                                      **kw)
+    if attn_mode == "einsum":
+        k_pages, v_pages = gather_pages(kp, vp, page_table, ks, vs)
+        return paged_attention(q, k_pages, v_pages, lens_incl, **kw)
+    raise ValueError(f"unknown attn_mode {attn_mode!r}")
+
+
+def _gemma3n_paged_decode(params: dict[str, Any], config: ModelConfig, tokens, seq_lens,
+                          page_table, cache: PagedKVCache, page_idx, offset, *,
+                          quant_mode: str, attn_mode: str):
+    """The gemma3n paged step (JAX's `_gemma3n_paged_decode`): the AltUp
+    stack, LAuReL and per-layer inputs of `models/gemma3n.py`, whose
+    `gemma3n_layer_core` takes this attention. A layer before the tail
+    writes its row at (page_idx, offset) and attends over its own pages; a
+    tail layer projects no k/v and attends over its source layer's pages,
+    written earlier in this step. The attention's output is cast to the
+    stream's dtype before o_proj, as the other paged steps do (JAX's einsum
+    path would carry f32 on from there)."""
+    from ..models.gemma3n import (altup_expand, altup_unembed, embed_gemma3n, gemma3n_layer_core,
+                                  gemma3n_qkv, per_layer_inputs)
+
+    B = tokens.shape[0]
+    x0 = embed_gemma3n(params, config, tokens)[:, None, :]  # [B, 1, H]
+    pli = per_layer_inputs(params, config, tokens[:, None], x0)  # [B, 1, L, P]
+    positions = seq_lens[:, None]
+    rope_global = rope_tables(positions, config.head_dim, config.rope_theta)
+    rope_local = rope_tables(positions, config.head_dim,
+                             config.rope_local_theta or config.rope_theta)
+    lens_incl = seq_lens + 1
+    hidden = altup_expand(params, x0)  # [A, B, 1, H]
+    for i, lp in enumerate(params["layers"]):
+        window = config.layer_sliding_window(i)
+        cos, sin = rope_local if window is not None else rope_global
+        src = config.kv_share_source(i)
+
+        def attn_fn(h, i=i, lp=lp, cos=cos, sin=sin, src=src, window=window):
+            q, k, v = gemma3n_qkv(lp, h, config, cos, sin, quant_mode, need_kv=src is None)
+            if src is None:
+                _write_rows(cache, i, page_idx, offset, k[:, 0], v[:, 0])
+            attn = _paged_attn(cache, i if src is None else src, q[:, 0], page_table, lens_incl,
+                               attn_mode, scale=config.attn_scale, sliding_window=window)
+            return apply_linear(lp["o_proj"], attn.to(h.dtype).reshape(B, 1, -1),
+                                quant_mode=quant_mode)
+
+        hidden = gemma3n_layer_core(lp, hidden, pli[:, :, i], config, i, attn_fn, quant_mode)
+    x = altup_unembed(params, config, hidden)[:, 0]
+    return lm_head_logits(params, config, x, quant_mode), cache
+
+
 @torch.no_grad()
 def paged_decode_step(params: dict[str, Any], config: ModelConfig, tokens, seq_lens, page_table,
                       cache: PagedKVCache, *, quant_mode: str = "xla", attn_mode: str | None = None,
@@ -160,19 +218,21 @@ def paged_decode_step(params: dict[str, Any], config: ModelConfig, tokens, seq_l
     cache's device. Returns (logits [B, V] f32, cache), the cache written in
     place. A position past the table writes to the slot's last table entry
     (the engine never lets a slot get there)."""
-    _unsupported(config)
     _no_mesh(attn_mesh)
     attn_mode = attn_mode or "kernel"
     B = tokens.shape[0]
     ps = cache.page_size
     maxP = page_table.shape[1]
     Hq, D = config.num_attention_heads, config.head_dim
-
-    x = embed(params, config, tokens)[:, None, :]  # [B, 1, H]
-    rope_by_layer = rope_tables_per_layer(seq_lens[:, None], config)
     pos = seq_lens.to(torch.int64)
     page_idx = page_table.to(torch.int64).gather(1, (pos // ps).clamp(max=maxP - 1)[:, None])[:, 0]
     offset = pos % ps
+    if config.is_gemma3n:
+        return _gemma3n_paged_decode(params, config, tokens, seq_lens, page_table, cache,
+                                     page_idx, offset, quant_mode=quant_mode, attn_mode=attn_mode)
+
+    x = embed(params, config, tokens)[:, None, :]  # [B, 1, H]
+    rope_by_layer = rope_tables_per_layer(seq_lens[:, None], config)
     lens_incl = seq_lens + 1
     for li, lp in enumerate(params["layers"]):
         if config.layer_is_linear(li):
@@ -188,17 +248,10 @@ def paged_decode_step(params: dict[str, Any], config: ModelConfig, tokens, seq_l
         q, k, v, gate = qkv_rope(lp, x, config, cos, sin, quant_mode)
         q, k, v = q[:, 0], k[:, 0], v[:, 0]  # [B, H*, D]
         _write_rows(cache, kv_li, page_idx, offset, k, v)
-        kw = dict(scale=config.attn_scale, sliding_window=config.layer_sliding_window(li),
-                  logit_softcap=config.attn_logit_softcap)
-        kp, vp, ks, vs = _layer_pool(cache, kv_li)
-        if attn_mode == "kernel":
-            attn = paged_decode_attention(q, kp, vp, page_table, lens_incl, k_scales=ks,
-                                          v_scales=vs, **kw)
-        elif attn_mode == "einsum":
-            k_pages, v_pages = gather_pages(kp, vp, page_table, ks, vs)
-            attn = paged_attention(q, k_pages, v_pages, lens_incl, **kw)
-        else:
-            raise ValueError(f"unknown attn_mode {attn_mode!r}")
+        attn = _paged_attn(cache, kv_li, q, page_table, lens_incl, attn_mode,
+                           scale=config.attn_scale,
+                           sliding_window=config.layer_sliding_window(li),
+                           logit_softcap=config.attn_logit_softcap)
         x = layer_tail(lp, x, attn.to(x.dtype).reshape(B, 1, Hq * D), config, li, quant_mode,
                        gate=gate)
     x = rms_norm(x[:, 0], params["norm"], config.rms_norm_eps, config.zero_centered_norm)
@@ -215,13 +268,15 @@ def paged_verify_step(params: dict[str, Any], config: ModelConfig, windows, seq_
     [B, W] int32, their raw logprobs [B, W], the window-row-0 logits [B, V],
     cache). Rejected drafts' rows need no rollback: the next window writes
     over them before attention can reach them. Standard-attention families
-    only: a hybrid's recurrent state would have to roll back."""
-    _unsupported(config)
+    only: a hybrid's recurrent state would have to roll back, and a gemma3n
+    model has no verify path (JAX's Engine refuses speculation for both;
+    JAX's verify step would run a gemma3n model through the standard
+    layers)."""
     _no_mesh(attn_mesh)
-    if config.num_linear_layers:
+    if config.num_linear_layers or config.is_gemma3n:
         raise ValueError("paged_verify_step: speculative verify supports standard-attention "
-                         "families only (the delta-net recurrent state cannot roll back "
-                         "rejected drafts)")
+                         "families only (the delta-net recurrent state and the gemma3n "
+                         "decode path cannot roll back rejected drafts)")
     attn_mode = attn_mode or "kernel"
     B, W = windows.shape
     ps = cache.page_size

@@ -633,10 +633,32 @@ def test_unported_branches_raise(kind):
         test = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 8)))
         assert torch.isfinite(model_forward(q, cfg, test)[0]).all()
         return
-    where = "§A 7" if kind == "mesh" else "§A 5"
-    with pytest.raises(NotImplementedError, match=where):
+    if kind == "gemma3n":
+        # ported: tiny-gemma3n cut to a source layer and its shared-KV tail
+        # calibrates both; the tail skips its unused k/v projections and
+        # attends over the source student's (k, v)
+        # (tests/test_torch_gemma3n_convert.py holds the calibration against JAX's)
+        cut = dict(num_hidden_layers=2, num_kv_shared_layers=1, layer_types=cfg.layer_types[:2],
+                   activation_sparsity=cfg.activation_sparsity[:2])
+        cfg = dataclasses.replace(cfg, **cut)
+        assert cfg.kv_share_source(1) == 0
+        jp = j_init_params(dataclasses.replace(J_PRESETS["tiny-gemma3n"], **cut),
+                           jax.random.PRNGKey(1), dtype=jnp.float32)
+        tp = params_from_jax(jax.tree.map(np.asarray, jp), cfg, "cpu")
+        tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 1, 8)).astype(np.int32)
+        q, exps = calibrate_model(tp, cfg, tokens, CalibConfig(
+            group_size=64, num_rotations=4, stages=(({"channel_scales": 5e-3}, 1),)), device="cpu")
+        mlp = ["mlp.down_proj", "mlp.gate_proj", "mlp.up_proj"]
+        assert sorted(exps[0]) == ["k_proj", *mlp, "o_proj", "q_proj", "v_proj"]
+        assert sorted(exps[1]) == [*mlp, "o_proj", "q_proj"]
+        assert type(q["layers"][1]["k_proj"]).__name__ == "DenseLinear"
+        assert type(q["layers"][1]["q_proj"]).__name__ == "QuantizedLinear"
+        test = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 8)))
+        assert torch.isfinite(model_forward(q, cfg, test)[0]).all()
+        return
+    with pytest.raises(NotImplementedError, match="§A 7"):
         calibrate_model({"layers": []}, cfg, np.zeros((1, 1, 8), np.int32), CalibConfig(),
-                        mesh=object() if kind == "mesh" else None, device="cpu")
+                        mesh=object(), device="cpu")
 
 
 def test_moe_quantizer_init_raises():

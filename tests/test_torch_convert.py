@@ -236,17 +236,26 @@ def test_layer_taps_match_jax(name):
 
 
 def test_moe_and_gemma3n_are_refused(tmp_path):
-    """gemma3n still refuses every save and RTN export (ROADMAP §A 5). The
-    MoE family, refused before, is ported: an MoE layer's taps (router and
+    """Both families, refused before, are ported. gemma3n: tiny-gemma3n's RTN
+    exports are JAX's (q/k/v/o, the tail's unused k/v too, and the MLP), and
+    both writers' directories load back to its config with its AltUp,
+    LAuReL and per-layer modules (tests/test_torch_gemma3n_convert.py holds
+    the bytes against JAX's). MoE: an MoE layer's taps (router and
     experts' input "mlp", the routed down_proj inputs "moe_down", a shared
     expert's "shared_down") match JAX's, and its RTN exports (experts left
     dense, as JAX's) are JAX's."""
     name = "tiny-gemma3n"
+    gp = jd.init_params(J_PRESETS[name], jax.random.PRNGKey(7), dtype=jnp.float32)
+    gt = params_from_jax(jax.tree.map(np.asarray, gp), PRESETS[name], "cpu")
+    g_exp = rtn_export_model(gt, PRESETS[name])
+    assert [sorted(e) for e in g_exp] == [sorted(e) for e in j_export(gp, J_PRESETS[name])]
+    assert all("k_proj" in e and "mlp.down_proj" in e for e in g_exp)
     for save in (save_paro_checkpoint, save_awq_checkpoint):
-        with pytest.raises(NotImplementedError, match="§A 5"):
-            save(tmp_path / name, {"layers": []}, PRESETS[name], [])
-    with pytest.raises(NotImplementedError, match="§A 5"):
-        rtn_export_model({"layers": []}, PRESETS[name])
+        save(tmp_path / save.__name__, gt, PRESETS[name], g_exp)
+        loaded, lcfg = load_checkpoint(tmp_path / save.__name__, dtype=torch.float32, device="cpu")
+        assert dataclasses.replace(lcfg, quantization_items=None) == PRESETS[name]
+        assert len(loaded["altup_projections"]) == 3 and "laurel" in loaded["layers"][5]
+        assert type(loaded["layers"][5]["k_proj"]).__name__ == "QuantizedLinear"
     cfg = dataclasses.replace(PRESETS["tiny-moe"], shared_expert_intermediate_size=256)
     jcfg = dataclasses.replace(J_PRESETS["tiny-moe"], shared_expert_intermediate_size=256)
     jp = jd.init_params(jcfg, jax.random.PRNGKey(8), dtype=jnp.float32)

@@ -223,12 +223,13 @@ def test_merged_projections_are_left_dense_and_logged(tiny):
 
 @pytest.mark.parametrize("name", ("tiny-moe", "tiny-gemma3n"))
 def test_moe_and_gemma3n_are_refused(name):
-    """gemma3n still refuses (ROADMAP §A 5). tiny-moe, refused before, is
+    """gemma3n raises JAX's own NotImplementedError (JAX's GPTQ baseline does
+    not support the family). tiny-moe, refused before, is
     ported: each layer's experts are GPTQ'd into QuantizedMoEExperts with an
     "mlp.experts" export (tests/test_torch_moe_convert.py holds the codes
     against JAX's)."""
     if name == "tiny-gemma3n":
-        with pytest.raises(NotImplementedError, match="§A 5"):
+        with pytest.raises(NotImplementedError, match="^GPTQ baseline does not support gemma3n$"):
             gptq_quantize_model({"layers": []}, PRESETS[name], np.zeros((1, 8), np.int32),
                                 device="cpu")
         return

@@ -46,7 +46,7 @@ EXPERIMENT_MODULES = (
     "paroquant_tpu_torch.optim.calibrate", "paroquant_tpu_torch.cli.optimize",
     "paroquant_tpu_torch.cli.convert", "paroquant_tpu_torch.scripts.bench_calibration",
     "paroquant_tpu_torch.ops.moe", "paroquant_tpu_torch.optim.pseudo_moe",
-    "paroquant_tpu_torch.models.linear_attn",
+    "paroquant_tpu_torch.models.linear_attn", "paroquant_tpu_torch.models.gemma3n",
 )
 
 
@@ -82,6 +82,7 @@ def _entry_points():
     from paroquant_tpu_torch.models import PRESETS, KVCache, from_hf_dict, init_params
     from paroquant_tpu_torch.convert.interop import (kv_cache_from_jax, paged_cache_from_jax,
                                                      w4_i4_from_jax)
+    from paroquant_tpu_torch.models.gemma3n import init_gemma3n_params
     from paroquant_tpu_torch.models.linear_attn import LinearAttnStates
     from paroquant_tpu_torch.experiments import plot_kernel_speedup
     from paroquant_tpu_torch.scripts import (kernel_bench3, kernel_bench4, kernel_dma_pipeline,
@@ -175,6 +176,7 @@ def _entry_points():
                                                       "/nonexistent", "--output", "/nonexistent"]),
         "bench_calibration.main": lambda: bench_calibration.main([]),
         "LinearAttnStates.create": lambda: LinearAttnStates.create(hybrid, 1),
+        "init_gemma3n_params": lambda: init_gemma3n_params(PRESETS["tiny-gemma3n"]),
         "kv_cache_from_jax": lambda: kv_cache_from_jax(
             type("C", (), dict(k=(), v=(), length=np.int32(0), linear=None))()),
     }
@@ -196,7 +198,8 @@ def _entry_points():
      "cli.evaluate.main", "cli.chat.main", "bench_longcontext.main", "bench_longcontext.build_w4",
      "cli.serve.main", "cli.serve.build", "rtn_baseline.main", "gptq_baseline.main",
      "gptq_quantize_model", "calibrate_model", "cli.optimize.main", "cli.convert.main",
-     "bench_calibration.main", "LinearAttnStates.create", "kv_cache_from_jax"],
+     "bench_calibration.main", "LinearAttnStates.create", "kv_cache_from_jax",
+     "init_gemma3n_params"],
 )
 def test_cuda_default_raises_without_cuda(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
