@@ -211,7 +211,7 @@ Phases, each printing one or more lines:
      --tokens 2048`, each printing its line;
   11. the MoE family (`moe_paths`, the counts reset just before and read
      just after; K1-K5 must run): Qwen3-30B-A3B's published widths (128
-     experts, top 8) at 8 of its 48 layers (MOE_LAYERS: the depth cut
+     experts, top 8) at 6 of its 48 layers (MOE_LAYERS: the depth cut
      that keeps the script in its time limit beside phases 12-13), with random
      bf16 weights from a seeded
      torch.Generator, built layer by layer on the card (RTN W4 g128, the
@@ -256,7 +256,9 @@ Phases, each printing one or more lines:
      instances): Gemma 3n E4B's published widths (GEMMA3N_E4B: AltUp of 4,
      LAuReL, per-layer inputs of 256 over a 262144 vocab, 4 sliding layers
      of window 512 to 1 full, a 15-layer shared-KV tail, a tied 262400
-     vocab) at all 35 layers, random bf16 weights built layer by layer
+     vocab) at 8 of its 35 layers (GEMMA3N_LAYERS: the depth cut that
+     keeps the script in its time limit beside phase 14), random bf16
+     weights built layer by layer
      (q_norm / k_norm at head_dim ** -0.25, `gemma3n_random_init`), RTN W4
      g128, a W4 lm_head from the tied table, merged projections; the
      Generator over four greedy requests, its decode step under sync debug
@@ -266,16 +268,43 @@ Phases, each printing one or more lines:
      the teacher-forced logits (the `auto` kernel path against the same
      computation on each kernel's plain version) and the Engine's logprobs
      held within TOL_E2E and TOL_LOGPROB on a 6-layer model with a tail
-     layer (`auto` against "xla" + einsum recorded there), recorded at 35
+     layer (`auto` against "xla" + einsum recorded there), recorded at 8
      layers beside the noise floor; PARO-TPU and AWQ directories at 3
      layers (a source layer and its tail) loaded bit for bit; a source
      layer and its tail calibrated on card and host. K1/K2
      at E4B's decode shapes (M 1 and 8), K3 at D 256 with a window of 512
      from offset 0 and 256, and K4 at the Engine's step with the window
      join phase 3's kernel checks;
-  14. a `phase_seconds` line after each phase, the `kernels` JSON line
-     (each kernel's `hybrid_paths_launches` and `gemma3n_paths_launches`
-     beside its launches), then the result line.
+  14. the Gemma 3 VLM (`vlm_paths`, the counts reset just before and read
+     just after; K1, K2 and K4 must run): Gemma 3 4B's widths (GEMMA3_4B,
+     every width written out: a 34-layer LM of 2560, 5 sliding layers of
+     window 1024 to 1 full, a tied 262208 vocab; a 27-layer SigLIP tower of
+     1152 over 896 x 896 images in 14 x 14 patches, pooled to 256 soft
+     tokens) at all layers, random bf16 weights (q_norm / k_norm at 1 + w
+     = 1), Hadamard RTN W4 g128 on the LM with a W4 lm_head, the tower
+     dense bf16, f32 pixels from a seeded generator; a profiled VLM
+     prefill of one image and 64 text tokens (wall, device-busy ms,
+     launches, the tower's device ms beside its f32 bound); the
+     teacher-forced logits (a VLM prefill, then 8 decode steps) of the
+     `auto` kernel path against each kernel's plain version, beside the
+     noise floor (K1/K2 inputs perturbed by a bf16 rounding): held within
+     TOL_E2E at 34 layers unless that floor passes TOL_E2E / 2, then on
+     the first VLM_CHECK_LAYERS layers (34 recorded); a second image moving
+     those logits by more than the kernel path's error; the Generator over
+     requests with one and with two images (32 new tokens: TTFT, tok/s);
+     the Engine (8 slots, chunked prefill, prefix caching) over 4 image and
+     4 text requests (TTFT p50/p99 by kind, tok/s), no prefix hit on an
+     image request, each image request's logprobs within TOL_LOGPROB of
+     one contiguous VLM prefill at the held depth, and a wrong image moving
+     them further than that at all 34 layers; one raw `pixel_values` request through the port's
+     `Server` (its tokens the Engine's; the seconds its JSON body takes to
+     parse); an HF-named directory (the LM at 2 layers, the whole tower)
+     loaded through load_checkpoint to the in-memory model's logits bit
+     for bit. K1/K2 at Gemma 3 4B's decode shapes (M 1 and 8) and K4 at the
+     Engine's step with the window of 1024 join phase 3's kernel checks;
+  15. a `phase_seconds` line after each phase, the `kernels` JSON line
+     (each kernel's `hybrid_paths_launches`, `gemma3n_paths_launches` and
+     `vlm_paths_launches` beside its launches), then the result line.
 It imports nothing of JAX, catches no failure of the port (only a library
 yardstick's refusal of a shape, `int_mm_yardstick`), and exits non-zero without
 printing a result when CUDA is missing or the package is not beside it.
@@ -536,9 +565,21 @@ GEMMA3N_MATMULS = ("bf16", [
 ])
 
 
+# Gemma 3 4B's (bf16 x): the merged QKV and gate-up, o_proj, down_proj and
+# the W4 lm_head from the tied table; o_proj (K x N 5.2M) is the one below
+# AUTO_W4A8_MIN_KN
+GEMMA3_MATMULS = ("bf16", [
+    ("qkv_proj", "merged_rot_w4_matmul", 2560, (2048, 1024, 1024), True),
+    ("o_proj", "rot_w4_matmul", 2048, (2560,), False),
+    ("gate_up_proj", "merged_rot_w4_matmul", 2560, (10240, 10240), True),
+    ("down_proj", "rot_w4_matmul", 10240, (2560,), True),
+    ("lm_head", "rot_w4_matmul", 2560, (262208,), True),
+])
+
+
 def check_decode_matmuls(flush, gen, dev, model, matmuls):
     """K1/K2 at a model's decode shapes (`matmuls`: HYBRID_MATMULS,
-    GEMMA3N_MATMULS), M 1 and 8 (the Engine's step): each against its plain
+    GEMMA3N_MATMULS, GEMMA3_MATMULS), M 1 and 8 (the Engine's step): each against its plain
     version within TOL_KERNEL of max |y|, its route, timed beside the plain
     version and `torch.matmul` on the pre-rotated effective weight (bf16, x
     cast)."""
@@ -2869,6 +2910,15 @@ GEMMA3N_PAGED_CASES = {
                           ("paged_decode_attention",), 512, 1.0)}
 
 
+# Gemma 3 4B's paged step in vlm_paths' Engine (8 slots, pages of 128): Hq 8
+# Hkv 4 D 256, scale 256^-0.5, a sliding layer's window of 1024, lengths up
+# to 2048 (so the window cuts the longest)
+GEMMA3_PAGED_CASES = {
+    "gemma3_window1024": (dict(B=8, Hq=8, Hkv=4, D=256, ps=128, maxP=16),
+                          (17, 300, 1025, 1100, 1500, 2048, 64, 700), False,
+                          ("paged_decode_attention",), 1024, 256 ** -0.5)}
+
+
 def check_paged(flush, gen, dev, cases=PAGED_CASES):
     """K4 (one query row a slot) and K5 (a window of PAGED_W rows ending at
     each slot's current token) on each case's pool: each query row held to
@@ -4742,7 +4792,7 @@ QWEN3_30B_A3B = dict(model_type="qwen3_moe", vocab_size=151936, hidden_size=2048
                      moe_intermediate_size=768, norm_topk_prob=True, decoder_sparse_step=1,
                      mlp_only_layers=[], rope_theta=1e6, rms_norm_eps=1e-6,
                      tie_word_embeddings=False)
-MOE_LAYERS = 8  # the served model's depth: 8 of Qwen3-30B-A3B's 48, to leave room for the later phases
+MOE_LAYERS = 6  # the served model's depth: 6 of Qwen3-30B-A3B's 48, to leave room for the later phases
 MOE_CKPT_LAYERS = 2  # the checkpoints' depth
 MOE_PROMPTS = (16, 128, 256, 512)  # the Generator's requests, MOE_NEW_TOKENS each
 MOE_NEW_TOKENS = 32
@@ -5805,7 +5855,7 @@ def gemma3n_config(layers, shared=None, **kw):
         activation_sparsity_pattern=[0.95 if i < 10 else 0.0 for i in range(layers)], **kw))
 
 
-GEMMA3N_LAYERS = 35  # the served model's depth: all of Gemma 3n E4B's
+GEMMA3N_LAYERS = 8  # the served model's depth: 8 of Gemma 3n E4B's 35, to leave room for the VLM
 # the held logits and Engine checks' depth and tail: layers 0-4, then layer 5
 # reading layer 3 (at 35 layers a random model's noise floor passes TOL_E2E)
 GEMMA3N_CHECK = (6, 1)
@@ -6085,13 +6135,13 @@ def gemma3n_checkpoints(tmp, dev):
 
 
 def gemma3n_paths(tmp, dev):
-    """The gemma3n family at Gemma 3n E4B's full width (`gemma3n_model`, all
+    """The gemma3n family at Gemma 3n E4B's full width (`gemma3n_model`,
     GEMMA3N_LAYERS layers): the Generator (`gemma3n_generator`), the Engine
     (`gemma3n_engine`) and the paged step's sync check at 8 slots; the
     checkpoints (`gemma3n_checkpoints`) and the card-against-host
     calibration of TINY_GEMMA3N (a source layer and its tail). The logits
     and the Engine's logprobs are held on a second model at GEMMA3N_CHECK's
-    depth (a tail layer included) and recorded at all 35 layers, where a
+    depth (a tail layer included) and recorded at GEMMA3N_LAYERS, where a
     random model's noise floor passes TOL_E2E. Counts reset just before,
     read just after: K1-K4 must run, K3 and K4 on their tensor-core
     instances."""
@@ -6129,6 +6179,609 @@ def gemma3n_paths(tmp, dev):
                            "paged_decode_attention") if not launched["counts"].get(k)]
     if missing or not kinds["flash"]["bf16"] or not kinds["paged"]["paged_decode_attention"]["mma"]:
         raise SystemExit(f"gemma3n_paths: kernels not launched: {missing}, by instance {kinds}")
+    torch.cuda.empty_cache()
+    return launched["counts"]
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the Gemma 3 VLM at Gemma 3 4B width
+# ---------------------------------------------------------------------------
+
+
+# Gemma 3 4B (google/gemma-3-4b-it): its config.json's text fields and the
+# rest of Gemma3TextConfig's defaults, its SigLIP tower and the merge's
+# tokens, every width written out (the card has no transformers to fill the
+# defaults in). Its rope_scaling (linear, 8) is read by neither package.
+GEMMA3_4B = dict(
+    model_type="gemma3", mm_tokens_per_image=256, image_token_index=262144,
+    boi_token_index=255999, eoi_token_index=256000,
+    text_config=dict(
+        model_type="gemma3_text", vocab_size=262208, hidden_size=2560, intermediate_size=10240,
+        num_hidden_layers=34, num_attention_heads=8, num_key_value_heads=4, head_dim=256,
+        query_pre_attn_scalar=256, rope_theta=1_000_000.0, rope_local_base_freq=10_000.0,
+        sliding_window=1024, rms_norm_eps=1e-6, max_position_embeddings=131072,
+        layer_types=["full_attention" if i % 6 == 5 else "sliding_attention" for i in range(34)],
+        hidden_activation="gelu_pytorch_tanh", attention_bias=False, tie_word_embeddings=True,
+        final_logit_softcapping=None, attn_logit_softcapping=None),
+    vision_config=dict(
+        model_type="siglip_vision_model", hidden_size=1152, intermediate_size=4304,
+        num_hidden_layers=27, num_attention_heads=16, image_size=896, patch_size=14,
+        num_channels=3, layer_norm_eps=1e-6))
+VLM_LAYERS = 34  # the served model's depth: all of Gemma 3 4B's
+# the held checks' depth where the noise floor at VLM_LAYERS passes TOL_E2E / 2:
+# layers 0-5, full layer 5 included
+VLM_CHECK_LAYERS = 6
+VLM_CKPT_LAYERS = 2  # the checkpoint's LM depth (its tower whole)
+VLM_NOISE = 2.0 ** -8  # relative noise on K1/K2's inputs: the size of a bf16 rounding
+VLM_TEXT = 64  # text tokens after the image in the profiled and checked prompts
+VLM_SEED = 70
+
+
+def vlm_config(layers):
+    """Gemma 3 4B with its LM cut to `layers` layers (the tower whole)."""
+    from paroquant_tpu_torch.models import from_hf_dict
+
+    text = GEMMA3_4B["text_config"]
+    return from_hf_dict(dict(GEMMA3_4B, text_config=dict(
+        text, num_hidden_layers=layers, layer_types=text["layer_types"][:layers])))
+
+
+def vlm_tower(cfg, gen, dev):
+    """Random SigLIP tower and projector weights in models/vision.py's
+    layout: bf16 weights of fan-in scale, the residual branches' out_proj
+    and fc2 also by 1 / sqrt(2 L) (GPT-2's init; at fan-in scale alone 27
+    random layers collapse every patch of every image onto one direction,
+    so that two images' soft tokens lie at cosine 0.93 and an image hardly
+    moves the LM), f32 biases of std 0.02, unit layer norms, position
+    embeddings of std 0.02, the projector's norm at 1 + w = 1."""
+    import math
+
+    import torch
+
+    from paroquant_tpu_torch.models import DenseLinear
+    from paroquant_tpu_torch.models.vision import VisionConfig
+
+    vc = VisionConfig.from_hf_dict(cfg.vision)
+    D, F, cpp = vc.hidden_size, vc.intermediate_size, vc.num_channels * vc.patch_size ** 2
+    bf16 = dict(dtype=torch.bfloat16, device=dev)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def dense(i, o, branch=1.0):
+        return DenseLinear((randn(i, o) * (branch / math.sqrt(i))).to(torch.bfloat16),
+                           randn(o) * 0.02)
+
+    branch = (2 * vc.num_hidden_layers) ** -0.5
+
+    vision = {"patch_embed_w": (randn(cpp, D) / math.sqrt(cpp)).to(torch.bfloat16),
+              "patch_embed_b": randn(D) * 0.02,
+              "pos_embed": (randn(vc.num_patches, D) * 0.02).to(torch.bfloat16),
+              "post_ln_w": torch.ones(D, **bf16), "post_ln_b": torch.zeros(D, **bf16),
+              "layers": []}
+    for _ in range(vc.num_hidden_layers):
+        vision["layers"].append({
+            "ln1_w": torch.ones(D, **bf16), "ln1_b": torch.zeros(D, **bf16),
+            "ln2_w": torch.ones(D, **bf16), "ln2_b": torch.zeros(D, **bf16),
+            **{n: dense(D, D) for n in ("q_proj", "k_proj", "v_proj")},
+            "out_proj": dense(D, D, branch), "fc1": dense(D, F), "fc2": dense(F, D, branch)})
+    projector = {"mm_input_projection": (randn(D, cfg.hidden_size) / math.sqrt(D)).to(torch.bfloat16),
+                 "mm_soft_emb_norm": torch.zeros(D, **bf16)}
+    return {"vision": vision, "projector": projector}
+
+
+def vlm_dense(cfg, seed, dev):
+    """A dense bf16 Gemma 3 VLM from a seeded generator: init_params' LM with
+    q_norm and k_norm at 1 + w = 1 (scores of std 1 at scale 256^-0.5 on
+    unit-RMS q and k; init_params' ones give 1 + w = 2, a sharp softmax under
+    which a random model's logits decorrelate from a rounding), and
+    `vlm_tower`."""
+    import torch
+
+    from paroquant_tpu_torch.models import init_params
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params(cfg, gen, torch.bfloat16, dev)
+    for lp in params["layers"]:
+        lp["q_norm"], lp["k_norm"] = torch.zeros_like(lp["q_norm"]), torch.zeros_like(lp["k_norm"])
+    params.update(vlm_tower(cfg, gen, dev))
+    return params
+
+
+def vlm_model(dev, layers):
+    """Gemma 3 4B at full width: `vlm_dense`, then Hadamard RTN W4 g128 of
+    the LM's q/k/v/o and MLP with a W4 lm_head from the tied table, merged
+    projections (QKV 2560 -> 2048 | 1024 | 1024, gate-up 2560 -> 10240 |
+    10240); the tower stays dense bf16. Emits the build's seconds, the
+    model's and the tower's bytes and the peak."""
+    import torch
+
+    from paroquant_tpu_torch.convert.rtn import quantize_model_rtn
+    from paroquant_tpu_torch.models import merge_projections
+
+    cfg = vlm_config(layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    dense = vlm_dense(cfg, VLM_SEED, dev)
+    qparams = merge_projections(quantize_model_rtn(dense, cfg, hadamard=True, quantize_lm_head=True,
+                                                   device=dev), cfg)
+    del dense
+    torch.cuda.synchronize()
+
+    def nbytes(tree):
+        if isinstance(tree, dict):
+            return sum(nbytes(v) for v in tree.values())
+        if isinstance(tree, list):
+            return sum(nbytes(v) for v in tree)
+        if isinstance(tree, torch.Tensor):
+            return tree.numel() * tree.element_size()
+        return sum(b.numel() * b.element_size() for b in tree.buffers())
+
+    qkv = qparams["layers"][0]["qkv_proj"]
+    emit({"phase": "vlm_model", "config": "Gemma 3 4B", "layers": layers,
+          "cut": None if layers == 34 else f"depth {layers} of 34",
+          "full_layers": [i for i in range(layers) if cfg.layer_sliding_window(i) is None],
+          "qkv_out_splits": list(qkv.out_splits), "build_s": time.perf_counter() - t0,
+          "model_bytes": torch.cuda.memory_allocated(dev) - base,
+          "tower_bytes": nbytes(qparams["vision"]) + nbytes(qparams["projector"]),
+          "peak_bytes": torch.cuda.max_memory_allocated(dev) - base, "card": card()})
+    kv = cfg.num_key_value_heads * cfg.head_dim
+    if list(qkv.out_splits) != [cfg.num_attention_heads * cfg.head_dim, kv, kv] or (
+            "gate_up_proj" not in qparams["layers"][0]["mlp"]):
+        raise SystemExit(f"vlm: merged QKV {qkv.out_splits}")
+    return qparams, cfg
+
+
+def vlm_text(gen, n):
+    """n random text tokens (below the image markers' ids)."""
+    import torch
+
+    return torch.randint(0, GEMMA3_4B["boi_token_index"], (n,), generator=gen).tolist()
+
+
+def vlm_prompt(cfg, gen, texts):
+    """BOI, mm_tokens_per_image image tokens and EOI, then n text tokens,
+    for each n of `texts` (one image each)."""
+    out = []
+    for n in texts:
+        out += ([GEMMA3_4B["boi_token_index"]] + [cfg.image_token_id] * cfg.mm_tokens_per_image
+                + [GEMMA3_4B["eoi_token_index"]] + vlm_text(gen, n))
+    return out
+
+
+def vlm_pixels(gen, n, dev):
+    """n f32 images [n, 3, 896, 896] of N(0, 1) values from `gen`."""
+    import torch
+
+    return torch.randn(n, 3, 896, 896, generator=gen).to(dev)
+
+
+def vlm_teacher_forced(params, cfg, tokens, pixels, n_prompt, quant_mode, dev):
+    """The VLM prefill's last-position logits, then one row per
+    teacher-forced decode step (the text path)."""
+    import torch
+
+    from paroquant_tpu_torch.models.decoder import KVCache, decode_step
+    from paroquant_tpu_torch.models.vision import vlm_prefill_step
+
+    cache = KVCache.create(cfg, 1, tokens.shape[1], torch.bfloat16, dev)
+    logits, cache = vlm_prefill_step(params, cfg, tokens[:, :n_prompt], pixels, cache,
+                                     quant_mode=quant_mode)
+    out = [logits]
+    for i in range(n_prompt, tokens.shape[1]):
+        logits, cache = decode_step(params, cfg, tokens[:, i : i + 1], cache, quant_mode=quant_mode)
+        out.append(logits)
+    return torch.cat(out).float()
+
+
+def vlm_prefill_profile(qparams, cfg, tokens, pixels, dev):
+    """One image plus VLM_TEXT text tokens prefilled (`vlm_prefill_step`,
+    quant_mode "auto") under `profiling._profile`: wall and device-busy ms,
+    launches and the top kernels; then the tower and projector alone, whose
+    device ms stand beside their f32 bound (the FLOPs of its linears and
+    attention over PEAK_OPS["f32"]). The record of an image request's
+    time to first token."""
+    import torch
+
+    from paroquant_tpu_torch.models.decoder import KVCache
+    from paroquant_tpu_torch.models.vision import (VisionConfig, gemma3_project, siglip_encode,
+                                                   vlm_prefill_step)
+    from paroquant_tpu_torch.utils.profiling import _profile
+
+    cache = KVCache.create(cfg, 1, tokens.shape[1], torch.bfloat16, dev)
+    vc = VisionConfig.from_hf_dict(cfg.vision)
+
+    def prefill(n):
+        for _ in range(n):
+            vlm_prefill_step(qparams, cfg, tokens, pixels, cache, quant_mode="auto")
+        torch.cuda.synchronize(dev)
+
+    def tower(n):
+        with torch.no_grad():
+            for _ in range(n):
+                gemma3_project(qparams["projector"], siglip_encode(qparams["vision"], vc, pixels), vc,
+                               cfg.mm_tokens_per_image, vc.layer_norm_eps)
+        torch.cuda.synchronize(dev)
+
+    P, D, F = vc.num_patches, vc.hidden_size, vc.intermediate_size
+    flops = vc.num_hidden_layers * (2 * P * (4 * D * D + 2 * D * F) + 4 * P * P * D)
+    flops += 2 * P * vc.num_channels * vc.patch_size ** 2 * D
+    pre = _profile(prefill, 2, 8)
+    tw = _profile(tower, 2, 8)
+    emit({"phase": "vlm_prefill_profile", "prompt_tokens": tokens.shape[1], "images": 1,
+          "quant_mode": "auto", **pre,
+          "tower_device_ms": tw["device_busy_ms_per_step"], "tower_wall_ms": tw["wall_ms_per_step"],
+          "tower_launches": tw["launches_per_step"], "tower_top_kernels": tw["top_kernels"],
+          "tower_flops": flops, "tower_bound_ms": flops / PEAK_OPS["f32"] * 1e3,
+          "tower_dtype": str(pixels.dtype), "card": card()})
+
+
+def vlm_logits_check(qparams, cfg, tokens, pixels, n, dev):
+    """The teacher-forced logits (a VLM prefill of n tokens, one image, then
+    8 decode steps), each row's relative Frobenius error: the `auto` kernel
+    path (K1/K2 at decode: RA8 for QKV, gate-up, down and the lm_head, the
+    one launch for o_proj; the prefill at M > 128 on the plain path, the
+    einsum attention with the image run attended both ways) against the
+    same computation with each kernel's plain version (`plain_kernels`),
+    beside the noise floor (the plain path against itself with every
+    K1/K2 input perturbed by VLM_NOISE relative). Held within TOL_E2E at
+    VLM_LAYERS where that floor stays within TOL_E2E / 2, else recorded
+    there and held on the first VLM_CHECK_LAYERS layers; `auto` against
+    quant_mode "xla" recorded at the held depth. Returns (params, config)
+    of the held depth and the kernel path's worst row there."""
+    import torch
+
+    def run(params, config, perturb=None, mode="auto", px=pixels):
+        if perturb is None:
+            return vlm_teacher_forced(params, config, tokens, px, n, mode, dev)
+        with plain_kernels(perturb):
+            return vlm_teacher_forced(params, config, tokens, px, n, mode, dev)
+
+    def rel(x, ref):
+        return ((x - ref).norm(dim=-1) / ref.norm(dim=-1)).tolist()
+
+    def check(params, config, hold):
+        auto, plain = run(params, config), run(params, config, 0.0)
+        noisy = run(params, config, VLM_NOISE)
+        err, floor = rel(auto, plain), rel(noisy, plain)
+        if hold is None:
+            hold = max(floor) <= TOL_E2E / 2
+        row = {"phase": "vlm_logits_check", "layers": config.num_hidden_layers,
+               "held": hold, "steps": auto.shape[0], "shape": list(auto.shape),
+               "auto_vs_plain_kernels": err, "bound": TOL_E2E,
+               "noise_floor_rel_fro_err": floor, "noise": VLM_NOISE}
+        outs = [auto, plain, noisy]
+        if hold:
+            xla = run(params, config, mode="xla")
+            outs.append(xla)
+            row.update(auto_vs_xla=rel(auto, xla), argmax_agree_auto_xla=sum(
+                int(a) == int(b) for a, b in zip(auto.argmax(-1), xla.argmax(-1))))
+        row["finite"] = all(bool(torch.isfinite(x).all()) for x in outs)
+        emit(row)
+        if not row["finite"] or tuple(auto.shape) != (tokens.shape[1] - n + 1, cfg.vocab_size) or (
+                hold and max(err) > TOL_E2E):
+            raise SystemExit(f"vlm: kernel-path logits disagree with their plain version: {row}")
+        return hold, max(err), auto
+
+    held = (qparams, cfg)
+    hold, err, auto = check(qparams, cfg, None)
+    if not hold:
+        held = first_layers(qparams, cfg, VLM_CHECK_LAYERS)
+        _, err, auto = check(*held, True)
+    return held, err, auto
+
+
+def vlm_image_check(params, cfg, tokens, other, n, err, auto, dev):
+    """At the held depth: the teacher-forced logits with another image must
+    move every row (the prefill's last position and the 8 decode steps,
+    all after the image) by more than the kernel path's worst error `err`,
+    or the check above could not see an image that never reached the LM."""
+    moved = vlm_teacher_forced(params, cfg, tokens, other, n, "auto", dev)
+    rel = ((moved - auto).norm(dim=-1) / auto.norm(dim=-1)).tolist()
+    emit({"phase": "vlm_image_check", "layers": cfg.num_hidden_layers, "rel_fro_move": rel,
+          "kernel_path_worst_err": err})
+    if min(rel) <= err:
+        raise SystemExit(f"vlm: another image moves the logits by {min(rel)}, within the kernel "
+                         f"path's error {err}")
+
+
+def vlm_request(qparams, cfg, gen, dev):
+    """The Generator (quant_mode "auto", decode through K1/K2) over a request
+    with one image and one with two, 32 new tokens each: TTFT (the VLM
+    prefill and the first sample) and decode tok/s."""
+    import torch
+
+    from paroquant_tpu_torch.serve import Generator, SamplingParams
+
+    g = Generator(qparams, cfg, max_len=1024, quant_mode="auto", attn_mode="flash", device=dev)
+    g.generate(vlm_prompt(cfg, gen, [8]), SamplingParams(max_tokens=4, temperature=0.0),
+               pixel_values=vlm_pixels(gen, 1, dev))  # warm-up
+    for texts in ([VLM_TEXT], [32, 32]):
+        prompt, px = vlm_prompt(cfg, gen, texts), vlm_pixels(gen, len(texts), dev)
+        torch.cuda.synchronize()
+        res = g.generate(prompt, SamplingParams(max_tokens=MOE_NEW_TOKENS, temperature=0.0),
+                         pixel_values=px)
+        toks = res.token_ids
+        ok = len(toks) == MOE_NEW_TOKENS and all(0 <= t < cfg.vocab_size for t in toks)
+        emit({"phase": "vlm_request", "images": len(texts), "prompt_tokens": len(prompt),
+              "new_tokens": len(toks), "ttft_ms": res.stats.ttft * 1e3,
+              "decode_tok_s": res.stats.tokens_per_second, "ok": ok, "first_tokens": toks[:8]})
+        if not ok:
+            raise SystemExit(f"vlm: a {len(texts)}-image request returned {len(toks)} tokens")
+
+
+def vlm_logprobs(params, cfg, prompt, toks, pixels, dev):
+    """Each generated token's logprob in one contiguous VLM prefill of the
+    prompt and the tokens (quant_mode "auto": the plain W4A16 path at M >
+    128)."""
+    import torch
+
+    from paroquant_tpu_torch.models.vision import vlm_prefill
+
+    seq = torch.tensor([prompt + toks], dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        logits, _ = vlm_prefill(params, cfg, seq, pixels, quant_mode="auto")
+    lp = torch.log_softmax(logits[0, len(prompt) - 1 : -1].float(), dim=-1)
+    return lp.gather(-1, torch.tensor(toks, device=dev)[:, None])[:, 0].tolist()
+
+
+def vlm_serve(qparams, cfg, gen, dev, hold_gaps, hold_move):
+    """The Engine (8 slots, pages of 128, chunked prefill of 256, decode
+    bursts of 8, prefix caching, bf16 pool) over 4 image requests (one
+    image and 16-200 text tokens: each longer than the chunk, so prefilled
+    whole; two share their tokens and differ by their image; sampled at
+    temperature 1 from seeds, since a random model's greedy decode locks
+    onto one repeated token whose logprob hardly depends on the context)
+    and 4 greedy text requests of 16-512 tokens, 32 new tokens each,
+    submitted together: tok/s and TTFT p50/p99 by kind. No prefix hit may
+    fall on an image request. Each image request's logprobs lie within
+    TOL_LOGPROB of `vlm_logprobs` (held with `hold_gaps`: at the logits
+    check's depth) and a wrong image moves them by more than TOL_LOGPROB on
+    average over the 4 requests (held with `hold_move`: at the served
+    depth; a random LM's first 6 layers read an image too weakly, 0.02-0.10
+    nats, for the move to show there). Each is recorded where not held.
+    Returns the Engine and one image request's (prompt, pixels, tokens)."""
+    import numpy as np
+    import torch
+
+    from paroquant_tpu_torch.serve import Engine, SamplingParams
+
+    eng = Engine(qparams, cfg, max_batch=8, max_len=1024, page_size=128, prefill_chunk=256,
+                 quant_mode="auto", decode_burst=8, prefix_caching=True, device=dev)
+    twin = vlm_prompt(cfg, gen, [64])
+    images = [(vlm_prompt(cfg, gen, [16]), vlm_pixels(gen, 1, dev)), (twin, vlm_pixels(gen, 1, dev)),
+              (vlm_prompt(cfg, gen, [200]), vlm_pixels(gen, 1, dev)), (twin, vlm_pixels(gen, 1, dev))]
+    texts = [(vlm_text(gen, n), None) for n in (16, 100, 300, 512)]
+    sp = SamplingParams(max_tokens=MOE_NEW_TOKENS, temperature=0.0)
+    eng.generate_sync(vlm_prompt(cfg, gen, [8]), SamplingParams(max_tokens=4, temperature=0.0),
+                      pixel_values=vlm_pixels(gen, 1, dev))  # warm-up
+    eng.generate_sync(vlm_text(gen, 200), SamplingParams(max_tokens=4, temperature=0.0))
+    for key in eng.metrics:
+        eng.metrics[key] = 0
+    eng._ttfts.clear()
+    eng._step_samples.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    jobs = [(eng.submit(p, SamplingParams(max_tokens=MOE_NEW_TOKENS, temperature=1.0, seed=i),
+                        pixel_values=px), p, px) for i, (p, px) in enumerate(images)]
+    jobs += [(eng.submit(p, sp), p, None) for p, _ in texts]
+    ticks = 0
+    while eng.step():
+        ticks += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = []
+    for r, p, px in jobs:
+        toks = []
+        while not r.out_queue.empty():
+            kind, t = r.out_queue.get_nowait()
+            if kind == "token":
+                toks.append(t)
+        if len(toks) != MOE_NEW_TOKENS or not all(0 <= t < cfg.vocab_size for t in toks):
+            raise SystemExit(f"vlm_serve: a {len(p)}-token prompt returned {len(toks)} tokens")
+        out.append((r, p, px, toks))
+
+    def ms(rs):
+        a = [r.ttft * 1e3 for r, *_ in rs]
+        return {"p50": statistics.median(a), "p99": float(np.percentile(a, 99)), "all": a}
+
+    emit({"phase": "vlm_serve", "layers": cfg.num_hidden_layers, "quant_mode": "auto",
+          "requests": len(jobs), "image_requests": len(images), "wall_s": wall, "ticks": ticks,
+          "generated_tok_s": eng.metrics["tokens_generated"] / wall, "metrics": eng.metrics,
+          "ttft_image_ms": ms(out[:4]), "ttft_text_ms": ms(out[4:]),
+          "prompt_tokens": [len(p) for _, p, _, _ in out], "step_time": eng.step_time_stats()})
+    if eng.metrics["prefix_hit_tokens"]:
+        raise SystemExit(f"vlm_serve: a prefix-cache hit with no text prompt sharing a page: "
+                         f"{eng.metrics}")
+    gaps, moves = [], []
+    for r, p, px, toks in out[:4]:
+        if len(r.logprobs) != len(toks):
+            raise SystemExit(f"vlm_serve: {len(r.logprobs)} logprobs for {len(toks)} tokens")
+        ref = vlm_logprobs(qparams, cfg, p, toks, px, dev)
+        gaps.append(max(abs(a - b) for a, b in zip(r.logprobs, ref)))
+        wrong = vlm_logprobs(qparams, cfg, p, toks, vlm_pixels(gen, 1, dev), dev)
+        moves.append(statistics.mean(abs(a - b) for a, b in zip(ref, wrong)))
+    emit({"phase": f"vlm_serve_{cfg.num_hidden_layers}_layers_logprob_check", "requests": 4,
+          "worst_gap": max(gaps), "gaps": gaps, "bound": TOL_LOGPROB, "held": hold_gaps,
+          "wrong_image_mean_move": moves, "move_held": hold_move})
+    if (hold_gaps and max(gaps) > TOL_LOGPROB) or (
+            hold_move and statistics.mean(moves) <= TOL_LOGPROB):
+        raise SystemExit(f"vlm_serve: image requests' logprobs off the contiguous prefill's by "
+                         f"{max(gaps)} (bound {TOL_LOGPROB}; a wrong image moves them {moves})")
+    r, p, px, toks = out[0]
+    return eng, (p, px, toks)
+
+
+def vlm_http(eng, request, dev):
+    """One raw `pixel_values` request (prompt_token_ids and the image as
+    nested JSON lists, about 2.4 M numbers) through the port's `Server`
+    over the Engine, on its own thread: its tokens must be the Engine's
+    for the same request (`generate_sync` before the thread starts, the
+    same 8-slot step). Records the body's bytes, the seconds json.loads and
+    the float32 array take on it, and the request's wall seconds."""
+    import numpy as np
+
+    from paroquant_tpu_torch.serve import SamplingParams
+    from paroquant_tpu_torch.serve.api import Server
+
+    prompt, px, _ = request
+    sp = SamplingParams(max_tokens=HTTP_NEW_TOKENS, temperature=0.0)
+    want = eng.generate_sync(prompt, sp, pixel_values=px)
+    t0 = time.perf_counter()
+    body = json.dumps({"prompt_token_ids": prompt, "pixel_values": px.cpu().numpy().tolist(),
+                       "max_tokens": HTTP_NEW_TOKENS, "temperature": 0.0}).encode()
+    dump_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parsed = json.loads(body)
+    loads_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    arr = np.asarray(parsed["pixel_values"], np.float32)
+    array_s = time.perf_counter() - t0
+    same_pixels = bool(np.array_equal(arr, px.cpu().numpy()))
+    del parsed, arr
+    server = Server(eng, "gemma-3-4b")
+    eng.start()
+    try:
+        t0 = time.perf_counter()
+        resp = server.handle("POST", "/v1/completions", body)
+        wall = time.perf_counter() - t0
+    finally:
+        eng.stop()
+    got = json.loads(resp.body)["choices"][0]["token_ids"] if resp.status == 200 else None
+    emit({"phase": "vlm_http", "status": resp.status, "body_bytes": len(body),
+          "numbers": int(px.numel()) + len(prompt), "json_dumps_s": dump_s,
+          "json_loads_s": loads_s, "float32_array_s": array_s, "request_wall_s": wall,
+          "tokens_equal": got == want, "same_pixels": same_pixels, "tokens": got})
+    if resp.status != 200 or got != want or not same_pixels:
+        raise SystemExit(f"vlm_http: {resp.status}, tokens {got} against the Engine's {want}")
+
+
+def vlm_hf_tensors(params, cfg):
+    """A dense VLM's params under transformers' Gemma3ForConditionalGeneration
+    names (the LM under model.language_model, [out, in] weights, the patch
+    embedding [D, C, p, p]); tied embeddings, so no lm_head."""
+    from paroquant_tpu_torch.models.vision import VisionConfig
+
+    lm, t = "model.language_model", {}
+    t[f"{lm}.embed_tokens.weight"] = params["embed_tokens"]
+    t[f"{lm}.norm.weight"] = params["norm"]
+    for i, lp in enumerate(params["layers"]):
+        b = f"{lm}.layers.{i}"
+        for n in ("input_layernorm", "post_attention_layernorm", "pre_feedforward_layernorm",
+                  "post_feedforward_layernorm"):
+            t[f"{b}.{n}.weight"] = lp[n]
+        for n in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            t[f"{b}.self_attn.{n}.weight"] = lp[n].w.T
+        for n in ("q_norm", "k_norm"):
+            t[f"{b}.self_attn.{n}.weight"] = lp[n]
+        for n in ("gate_proj", "up_proj", "down_proj"):
+            t[f"{b}.mlp.{n}.weight"] = lp["mlp"][n].w.T
+    vc, v = VisionConfig.from_hf_dict(cfg.vision), params["vision"]
+    vt = "model.vision_tower.vision_model"
+    t[f"{vt}.embeddings.patch_embedding.weight"] = v["patch_embed_w"].T.reshape(
+        vc.hidden_size, vc.num_channels, vc.patch_size, vc.patch_size)
+    t[f"{vt}.embeddings.patch_embedding.bias"] = v["patch_embed_b"]
+    t[f"{vt}.embeddings.position_embedding.weight"] = v["pos_embed"]
+    t[f"{vt}.post_layernorm.weight"], t[f"{vt}.post_layernorm.bias"] = v["post_ln_w"], v["post_ln_b"]
+    for i, lp in enumerate(v["layers"]):
+        b = f"{vt}.encoder.layers.{i}"
+        for j in (1, 2):
+            t[f"{b}.layer_norm{j}.weight"], t[f"{b}.layer_norm{j}.bias"] = lp[f"ln{j}_w"], lp[f"ln{j}_b"]
+        for n, name in (("q_proj", "self_attn.q_proj"), ("k_proj", "self_attn.k_proj"),
+                        ("v_proj", "self_attn.v_proj"), ("out_proj", "self_attn.out_proj"),
+                        ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
+            t[f"{b}.{name}.weight"], t[f"{b}.{name}.bias"] = lp[n].w.T, lp[n].b
+    mp = "model.multi_modal_projector"
+    t[f"{mp}.mm_input_projection_weight"] = params["projector"]["mm_input_projection"]
+    t[f"{mp}.mm_soft_emb_norm.weight"] = params["projector"]["mm_soft_emb_norm"]
+    return t
+
+
+def vlm_checkpoint(tmp, gen, dev):
+    """A dense bf16 Gemma 3 4B at VLM_CKPT_LAYERS LM layers with its whole
+    tower (`vlm_dense`), written as an HF-named directory (`write_safetensors`,
+    the nested config.json) and loaded through load_checkpoint: the same
+    config, and the VLM prefill's logits of the in-memory model bit for bit."""
+    import torch
+
+    from paroquant_tpu_torch.convert import load_checkpoint
+    from paroquant_tpu_torch.convert.checkpoint import write_safetensors
+    from paroquant_tpu_torch.models.vision import vlm_prefill
+
+    cfg = vlm_config(VLM_CKPT_LAYERS)
+    params = vlm_dense(cfg, VLM_SEED + 1, dev)
+    d = tmp / "gemma-3-4b-hf"
+    d.mkdir()
+    t0 = time.perf_counter()
+    write_safetensors(d / "model.safetensors", vlm_hf_tensors(params, cfg))
+    text = dict(GEMMA3_4B["text_config"], num_hidden_layers=VLM_CKPT_LAYERS,
+                layer_types=GEMMA3_4B["text_config"]["layer_types"][:VLM_CKPT_LAYERS])
+    (d / "config.json").write_text(json.dumps(dict(GEMMA3_4B, text_config=text)))
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded, lcfg = load_checkpoint(d, device=dev)
+    load_s = time.perf_counter() - t0
+    tokens = torch.tensor([vlm_prompt(cfg, gen, [VLM_TEXT])], dtype=torch.int32, device=dev)
+    px = vlm_pixels(gen, 1, dev)
+    with torch.no_grad():
+        la, _ = vlm_prefill(loaded, lcfg, tokens, px, quant_mode="xla")
+        ma, _ = vlm_prefill(params, cfg, tokens, px, quant_mode="xla")
+    row = {"phase": "vlm_checkpoint", "layers": VLM_CKPT_LAYERS,
+           "tower_layers": len(loaded.get("vision", {}).get("layers", [])),
+           "file_bytes": (d / "model.safetensors").stat().st_size, "save_s": save_s,
+           "load_s": load_s, "config_equal": lcfg == cfg,
+           "max_abs_err": (la - ma).abs().max().item(), "bound": 0.0,
+           "finite": bool(torch.isfinite(la).all())}
+    emit(row)
+    if row["max_abs_err"] != 0.0 or not row["finite"] or not row["config_equal"] or (
+            row["tower_layers"] != GEMMA3_4B["vision_config"]["num_hidden_layers"]):
+        raise SystemExit(f"vlm: the HF directory loads to another model: {row}")
+    del params, loaded
+    torch.cuda.empty_cache()
+
+
+def vlm_paths(tmp, dev):
+    """The Gemma 3 VLM at Gemma 3 4B's full width (`vlm_model`, all
+    VLM_LAYERS layers and the 27-layer tower): the profiled VLM prefill,
+    the logits and image checks, the Generator's image requests, the
+    Engine's mix of image and text requests (its logprobs held at the
+    logits check's depth), a raw `pixel_values` request over the HTTP
+    server, and the HF directory's load. Counts reset just before, read
+    just after: K1, K2 and K4 must run."""
+    import torch
+
+    from paroquant_tpu_torch.kernels import rot_matmul as rm
+
+    reset_counts()
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(VLM_SEED)
+    qparams, cfg = vlm_model(dev, VLM_LAYERS)
+    prompt = vlm_prompt(cfg, gen, [VLM_TEXT])
+    px, other = vlm_pixels(gen, 1, dev), vlm_pixels(gen, 1, dev)
+    tokens = torch.tensor([prompt + vlm_text(gen, 8)], dtype=torch.int32, device=dev)
+    vlm_prefill_profile(qparams, cfg, tokens[:, : len(prompt)], px, dev)
+    (hp, hcfg), err, auto = vlm_logits_check(qparams, cfg, tokens, px, len(prompt), dev)
+    vlm_image_check(hp, hcfg, tokens, other, len(prompt), err, auto, dev)
+    vlm_request(qparams, cfg, gen, dev)
+    held = hcfg.num_hidden_layers == cfg.num_hidden_layers
+    eng, request = vlm_serve(qparams, cfg, gen, dev, hold_gaps=held, hold_move=True)
+    vlm_http(eng, request, dev)
+    del eng
+    if not held:
+        vlm_serve(hp, hcfg, gen, dev, hold_gaps=True, hold_move=False)
+    routes = check_routes(rm, "vlm_paths")
+    del qparams, hp
+    torch.cuda.empty_cache()
+    vlm_checkpoint(tmp, gen, dev)
+    launched = port_launches()
+    emit({"phase": "vlm_paths_launches", **launched, "routes_checked": routes,
+          "s": time.perf_counter() - t0})
+    missing = [k for k in ("rot_w4_matmul", "merged_rot_w4_matmul", "paged_decode_attention")
+               if not launched["counts"].get(k)]
+    if missing:
+        raise SystemExit(f"vlm_paths: kernels not launched: {missing}")
     torch.cuda.empty_cache()
     return launched["counts"]
 
@@ -6552,12 +7205,14 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(123)
     mm_rows = (check_matmuls(flush, gen, dev)
                + check_decode_matmuls(flush, gen, dev, "hybrid", HYBRID_MATMULS)
-               + check_decode_matmuls(flush, gen, dev, "gemma-3n-e4b", GEMMA3N_MATMULS))
+               + check_decode_matmuls(flush, gen, dev, "gemma-3n-e4b", GEMMA3N_MATMULS)
+               + check_decode_matmuls(flush, gen, dev, "gemma-3-4b", GEMMA3_MATMULS))
     fa_rows = (check_flash(flush, gen, dev) + check_flash_mixed(flush, gen, dev)
                + check_flash(flush, gen, dev, GEMMA3N_FLASH_CASES, D=256, scale=1.0))
     pa_rows = (check_paged(flush, gen, dev) + check_paged_step(flush, gen, dev)
                + check_paged_rows(flush, gen, dev) + check_paged_f32_queries(flush, gen, dev)
-               + check_paged(flush, gen, dev, GEMMA3N_PAGED_CASES))
+               + check_paged(flush, gen, dev, GEMMA3N_PAGED_CASES)
+               + check_paged(flush, gen, dev, GEMMA3_PAGED_CASES))
     w4_rows = check_w4_variants(flush, gen, dev)
     w4x_rows = check_w4_experiments(flush, gen, dev)
     i8_rows = check_int8_probe(flush, gen, dev)
@@ -6612,6 +7267,8 @@ def main() -> int:
         mark("hybrid_paths")
         gemma3n_counts = gemma3n_paths(Path(tmp), dev)  # the gemma3n family at Gemma 3n E4B width
         mark("gemma3n_paths")
+        vlm_counts = vlm_paths(Path(tmp), dev)  # the Gemma 3 VLM at Gemma 3 4B width
+        mark("vlm_paths")
 
     counts.update({k: bench_counts[k] for k in W4_VARIANTS})  # their launches: the kernel_bench phase
     counts.update({k: exp_counts[k] for k in W4_EXPERIMENTS})  # and the w4_experiments phase
@@ -6627,6 +7284,7 @@ def main() -> int:
                 "library_ms": None if lib_us is None else lib_us / 1e3,
                 "hybrid_paths_launches": hybrid_counts.get(name, 0),
                 "gemma3n_paths_launches": gemma3n_counts.get(name, 0),
+                "vlm_paths_launches": vlm_counts.get(name, 0),
                 "at": {k: row[k] for k in ("layer", "M", "a8", "route", "sz", "case", "T", "S", "B",
                                            "W", "Gb", "block_m", "KS", "tile") if k in row}}
 

@@ -6,7 +6,10 @@
 arguments); `main` builds and serves until interrupted. On CUDA the default
 quant mode is "auto" and the decode burst 8; on the CPU (`--device cpu`)
 "xla" and 1. `--dp N` serves N Engine replicas, one a CUDA device, behind an
-EngineRouter; tensor parallelism (`--tp` > 1) is not ported yet.
+EngineRouter; tensor parallelism (`--tp` > 1) is not ported yet. A VLM
+checkpoint gets its directory's transformers AutoProcessor for chat
+messages with images, where that package and the processor's files are
+there; raw `pixel_values` are served without it.
 """
 
 from __future__ import annotations
@@ -126,8 +129,17 @@ def build(argv=None):
                 e.generate_sync(rng.integers(0, vocab, L - 1).tolist(),
                                 SamplingParams(max_tokens=warm_toks, temperature=0.0))
             L *= 2
+    processor = None
+    if replicas[0].config.is_vlm:  # image templating and pixel preprocessing for chat images
+        try:
+            from transformers import AutoProcessor
+
+            processor = AutoProcessor.from_pretrained(str(args.model))
+        except Exception:
+            print("VLM checkpoint without loadable processor; chat image "
+                  "content disabled (raw pixel_values still accepted)")
     name = args.served_model_name or str(args.model).rstrip("/").split("/")[-1]
-    return Server(engine, name), args
+    return Server(engine, name, processor), args
 
 
 def main(argv=None):

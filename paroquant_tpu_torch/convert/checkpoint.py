@@ -38,6 +38,15 @@ projection and norm, the AltUp projections and each layer's `altup.*`,
 correct_output_scale` f32), as JAX's `_save_gemma3n_shared` /
 `_save_gemma3n_layer` write them; its config.json carries the AltUp,
 LAuReL, per-layer and shared-KV keys.
+
+A VLM directory (Gemma3 image-text, config.json with `text_config` and
+`vision_config`) also loads the SigLIP tower and the projector from their
+HF names (`model.vision_tower.vision_model.*`,
+`model.multi_modal_projector.*`), dense whatever the LM's format, as JAX's
+loader does: the patch embedding's [D, C, p, p] weight flattened and
+transposed to [C*p*p, D], the tower's biases and the patch embedding's in
+f32. The writers, as JAX's, save no tower: a quantized VLM directory takes
+the tower's HF tensors beside the LM's.
 """
 
 from __future__ import annotations
@@ -450,16 +459,53 @@ def _open_all(model_dir: Path) -> dict[str, torch.Tensor]:
     return {k.replace("language_model.", ""): v for k, v in tensors.items()}
 
 
+def _vision_params(tensors: dict, vt: str, dtype, dev) -> dict[str, Any]:
+    """The SigLIP tower (`vision`) and the Gemma3 projector (`projector`)
+    from HF-named tensors, in models/vision.py's layout: weights in `dtype`,
+    biases in f32."""
+    def dense(name):
+        return tensors[name].to(device=dev, dtype=dtype)
+
+    def dense_linear(prefix):
+        b = tensors.get(f"{prefix}.bias")
+        return DenseLinear(tensors[f"{prefix}.weight"].T.contiguous().to(device=dev, dtype=dtype),
+                           None if b is None else b.to(device=dev, dtype=torch.float32))
+
+    pe = tensors[f"{vt}.embeddings.patch_embedding.weight"]  # [D, C, p, p]
+    vision: dict[str, Any] = {
+        "patch_embed_w": pe.reshape(pe.shape[0], -1).T.contiguous().to(device=dev, dtype=dtype),
+        "patch_embed_b": tensors[f"{vt}.embeddings.patch_embedding.bias"].to(
+            device=dev, dtype=torch.float32),
+        "pos_embed": dense(f"{vt}.embeddings.position_embedding.weight"),
+        "post_ln_w": dense(f"{vt}.post_layernorm.weight"),
+        "post_ln_b": dense(f"{vt}.post_layernorm.bias"),
+        "layers": [],
+    }
+    while f"{vt}.encoder.layers.{len(vision['layers'])}.layer_norm1.weight" in tensors:
+        vb = f"{vt}.encoder.layers.{len(vision['layers'])}"
+        vision["layers"].append({
+            **{f"ln{i}_{wb}": dense(f"{vb}.layer_norm{i}.{name}")
+               for i in (1, 2) for wb, name in (("w", "weight"), ("b", "bias"))},
+            **{n: dense_linear(f"{vb}.self_attn.{n}") for n in ("q_proj", "k_proj", "v_proj",
+                                                               "out_proj")},
+            "fc1": dense_linear(f"{vb}.mlp.fc1"),
+            "fc2": dense_linear(f"{vb}.mlp.fc2"),
+        })
+    mp = "model.multi_modal_projector"
+    projector = {"mm_input_projection": dense(f"{mp}.mm_input_projection_weight"),
+                 "mm_soft_emb_norm": dense(f"{mp}.mm_soft_emb_norm.weight")}
+    return {"vision": vision, "projector": projector}
+
+
 def load_checkpoint(
     model_dir: str | Path, rot_dtype=torch.bfloat16, dtype=torch.bfloat16, device="cuda",
 ) -> tuple[dict[str, Any], ModelConfig]:
     """Load a PARO-TPU, AWQ-format PARO or plain HF-dense model directory
-    (dense, MoE, hybrid or gemma3n family, and HF Mixtral) onto `device`."""
+    (dense, MoE, hybrid or gemma3n family, HF Mixtral, and a Gemma3 VLM's
+    tower and projector) onto `device`."""
     dev = resolve_device(device)
     model_dir = Path(model_dir)
     config = from_hf_dict(json.loads((model_dir / "config.json").read_text()))
-    if config.is_vlm:
-        raise NotImplementedError("VLM checkpoints come with slice 3 of the port")
     tensors = _open_all(model_dir)
 
     qc = config.quantization or {}
@@ -576,6 +622,9 @@ def load_checkpoint(
     }
     if "lm_head.weight" in tensors:
         params["lm_head"] = dense_linear("lm_head")
+    vt = "model.vision_tower.vision_model"
+    if config.is_vlm and f"{vt}.post_layernorm.weight" in tensors:
+        params.update(_vision_params(tensors, vt, dtype, dev))
     if config.is_gemma3n:  # the per-layer embedding module and the AltUp projections
         params["embed_tokens_per_layer"] = dense("model.embed_tokens_per_layer.weight")
         params["per_layer_model_projection"] = dense_linear("model.per_layer_model_projection")

@@ -7,7 +7,10 @@ numpy leaves; a sparse layer's router and shared-expert gate are
 `DenseLinear`s, its experts a dict of stacked arrays or a
 `QuantizedMoEExperts`; a hybrid's delta-net layer a `linear_attn` dict of
 linears and arrays; a gemma3n tree its `altup_projections` /
-`altup_unembed_projections` lists and each layer's `altup` / `laurel` dicts. The classes are recognised by name, so this module
+`altup_unembed_projections` lists and each layer's `altup` / `laurel` dicts;
+a VLM tree its `vision` dict (the SigLIP tower: arrays, a list of layer
+dicts of `DenseLinear`s with biases) and its `projector` dict, carried as
+they are. The classes are recognised by name, so this module
 imports nothing of JAX and both packages can compute from the same
 weights. bf16
 leaves arrive as numpy arrays of the ml_dtypes `bfloat16` type and are
@@ -78,7 +81,7 @@ def _convert(node, dev):
 
 def params_from_jax(tree: dict[str, Any], config: ModelConfig, device="cuda") -> dict[str, Any]:
     """The port's params dict for a JAX param tree of numpy leaves (the dense,
-    MoE, hybrid and gemma3n families)."""
+    MoE, hybrid and gemma3n families, and a VLM's tower and projector)."""
     return _convert(tree, resolve_device(device))
 
 

@@ -25,7 +25,11 @@ graph, the counterpart of JAX's one-dispatch `greedy_decode_scan`.) The KV
 cache buffers and the delta-net states are updated in place.
 
 `model_forward` and `init_params` hand a gemma3n config to
-`models/gemma3n.py`, as JAX's do; the VLM path is a later slice of the port.
+`models/gemma3n.py`, as JAX's do. The VLM prefill (`models/vision.py`)
+enters `model_forward` with `input_embeds` (the merged text and image
+embeddings) and `bidir_groups` (each image run's id), under which a layer
+lets a run's tokens attend to each other both ways and takes the einsum
+attention, as JAX's flash gate does.
 """
 
 from __future__ import annotations
@@ -180,13 +184,16 @@ def attention_kvmajor(
     scale: float,
     sliding_window: int | None = None,
     logit_softcap: float | None = None,
+    bidir_groups: tuple | None = None,
 ) -> torch.Tensor:
     """Causal GQA attention over a partly filled head-major kv buffer.
 
     As in JAX, the dots take operands in the stored kv dtype and accumulate
     in f32 (here: the operands are rounded to that dtype, then multiplied in
     f32, where products of bf16 values are exact); probs are rounded to that
-    dtype for the PV dot."""
+    dtype for the PV dot. bidir_groups: (q_groups [B, T], kv_groups [B, S])
+    int32 ids; positions that share a non-negative id attend to each other
+    both ways (the Gemma3 VLM's image runs, HF's token_type_ids mask)."""
     B, T, Hq, D = q.shape
     Hkv, S_ = k.shape[1], k.shape[2]
     group = Hq // Hkv
@@ -200,6 +207,10 @@ def attention_kvmajor(
     mask = (kv_pos <= qp) & (kv_pos < kv_valid_len)
     if sliding_window is not None:
         mask = mask & (kv_pos > qp - sliding_window)
+    if bidir_groups is not None:
+        qg, kg = bidir_groups
+        same = (qg[:, :, None] >= 0) & (qg[:, :, None] == kg[:, None, :])
+        mask = mask | (same & (kv_pos < kv_valid_len))
     scores = torch.where(mask[:, None, None], scores, torch.full_like(scores, -1e30))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum(
@@ -394,12 +405,15 @@ def layer_forward(
     cache_offset: torch.Tensor,
     quant_mode: str,
     attn_mode: str | Callable = "einsum",
+    bidir_groups: torch.Tensor | None = None,
     return_taps: bool = False,
 ):
     """One decoder layer: (output, updated kv), or with return_taps=True
     (output, updated kv, taps): the inputs of the layer's linears, "qkv",
     "o", "mlp" and "down" (a sparse layer: "moe_down" and, with a shared
-    expert, "shared_down"), which GPTQ's Hessians are built from."""
+    expert, "shared_down"), which GPTQ's Hessians are built from.
+    bidir_groups [B, T]: the queries' image-run ids (VLM prefill), which
+    take the einsum attention."""
     B, T, _ = x.shape
     Hq, D = config.num_attention_heads, config.head_dim
     taps = {} if return_taps else None
@@ -424,7 +438,8 @@ def layer_forward(
     # the same gate as the JAX decoder: whole buffer when small, else a
     # 128-multiple kv tile that divides it
     block_k = next((b for b in (256, 128) if S_kv % b == 0), S_kv if S_kv <= 256 else None)
-    flash_ok = attn_mode == "flash" and T >= 128 and T % 128 == 0 and block_k is not None
+    flash_ok = (attn_mode == "flash" and T >= 128 and T % 128 == 0 and block_k is not None
+                and bidir_groups is None)
     window = config.layer_sliding_window(layer_idx)
     if flash_ok:
         from ..kernels.attention import flash_attention
@@ -437,14 +452,24 @@ def layer_forward(
     elif callable(attn_mode):
         # an injected attention (bench ablations, later the parallel paths):
         # q [B, T, Hq, D] and head-major k/v [B, Hkv, S, D], the cache layout
+        if bidir_groups is not None:
+            raise NotImplementedError("bidir (VLM) blocks under SP prefill")
         attn_out = attn_mode(
             q, k_all, v_all, q_positions, valid, scale=config.attn_scale,
             sliding_window=window, logit_softcap=config.attn_logit_softcap,
         )
     else:
+        bg = None
+        if bidir_groups is not None:
+            # the keys' ids: the queries' at their cache rows, -1 elsewhere
+            kv_groups = torch.full((B, S_kv), -1, dtype=torch.int32, device=x.device)
+            cols = (cache_offset.to(torch.int64) if kv_cache_layer is not None else 0) + torch.arange(
+                T, device=x.device)
+            kv_groups.index_copy_(1, cols, bidir_groups.to(torch.int32))
+            bg = (bidir_groups, kv_groups)
         attn_out = attention_kvmajor(
             q, k_all, v_all, q_positions, valid, scale=config.attn_scale,
-            sliding_window=window, logit_softcap=config.attn_logit_softcap,
+            sliding_window=window, logit_softcap=config.attn_logit_softcap, bidir_groups=bg,
         )
     out = layer_tail(p, x, attn_out.reshape(B, T, Hq * D), config, layer_idx, quant_mode, taps,
                      gate)
@@ -518,6 +543,8 @@ def model_forward(
     *,
     quant_mode: str = "xla",
     attn_mode: str | Callable = "einsum",
+    input_embeds: torch.Tensor | None = None,
+    bidir_groups: torch.Tensor | None = None,
     linear_valid_len=None,
     return_hidden: bool = False,
 ):
@@ -526,7 +553,10 @@ def model_forward(
     where the prefill fits its tiles), a callable taking q [B, T, Hq, D],
     head-major k/v [B, Hkv, S, D], the query positions and the valid kv
     length (plus scale=, sliding_window=, logit_softcap=), or any other
-    string for the einsum attention. linear_valid_len (a hybrid model's
+    string for the einsum attention. input_embeds [B, T, H]: the decoder's
+    input in place of the token embeddings (the VLM's merged text and image
+    rows); bidir_groups [B, T]: image-run ids, attended both ways (VLM
+    prefill; the einsum attention). linear_valid_len (a hybrid model's
     zero-padded prefill bucket; a Python int or a 0-d tensor): the true
     length, past which the delta-net layers leave their states untouched.
     A gemma3n config runs `models/gemma3n.py::gemma3n_forward`."""
@@ -536,9 +566,9 @@ def model_forward(
         from .gemma3n import gemma3n_forward
 
         return gemma3n_forward(params, config, tokens, cache, quant_mode=quant_mode,
-                               attn_mode=attn_mode)
+                               attn_mode=attn_mode, input_embeds=input_embeds)
     B, T = tokens.shape
-    x = embed(params, config, tokens)
+    x = embed(params, config, tokens) if input_embeds is None else input_embeds
     if cache is not None:
         offset = cache.length
     else:
@@ -563,7 +593,7 @@ def model_forward(
         cos, sin = rope_by_layer[i]
         x, updated = layer_forward(
             layer_params, x, config, i, cos, sin, positions, layer_cache, offset,
-            quant_mode, attn_mode,
+            quant_mode, attn_mode, bidir_groups,
         )
         if updated is not None:
             new_k.append(updated[0])

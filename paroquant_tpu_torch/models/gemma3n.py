@@ -323,12 +323,13 @@ def embed_gemma3n(params: dict, config: ModelConfig, tokens: torch.Tensor) -> to
 
 def gemma3n_forward(params: dict, config: ModelConfig, tokens: torch.Tensor,
                     cache: KVCache | None = None, *, quant_mode: str = "xla",
-                    attn_mode: str = "einsum"):
+                    attn_mode: str = "einsum", input_embeds: torch.Tensor | None = None):
     """Returns (logits [B, T, V] f32, the updated cache). The shared-KV tail
     always reads its source layer's (k, v): the trained semantic, which HF
-    takes whenever a cache is present."""
+    takes whenever a cache is present. input_embeds [B, T, H] replaces the
+    scaled token embeddings; the per-layer inputs still read `tokens`."""
     B, T = tokens.shape
-    x0 = embed_gemma3n(params, config, tokens)
+    x0 = embed_gemma3n(params, config, tokens) if input_embeds is None else input_embeds
     pli = per_layer_inputs(params, config, tokens, x0)  # [B, T, L, P]
     if cache is not None:
         offset = cache.length

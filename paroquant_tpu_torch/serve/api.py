@@ -20,10 +20,13 @@ all on the default stream of the current device, so the kernels' launches
 stay in stream order. If the Engine's thread dies, the requests it holds
 wait forever: a client sets its own timeout.
 
-Differences from the JAX server: a raw `pixel_values` body gets 501, since
-the port has no VLM prefill (and so no processor for chat image parts,
-which get JAX's 400); a body that is not a JSON object gets 400 (aiohttp
-answers 500).
+Images, as in JAX: `/v1/completions` takes a raw `pixel_values` array
+([N_img, C, H, W], beside `prompt_token_ids` whose image_token_id runs mark
+the images), and chat messages with image parts go through the `processor`
+given to the Server (a transformers AutoProcessor: its chat template and
+pixel preprocessing); without one they get 400. The difference from the
+JAX server: a body that is not a JSON object gets 400 (aiohttp answers
+500).
 """
 
 from __future__ import annotations
@@ -40,11 +43,10 @@ from http import HTTPStatus
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Iterator
 
+import numpy as np
+
 from .engine import Engine, EngineOverloaded
 from .sampling import SamplingParams
-
-NO_VLM = ("image prompts need the VLM prefill, which the port has not yet "
-          "(ROADMAP §A 5: models/vision.py)")
 
 
 def _sampling_from_body(body: dict[str, Any], engine: Engine, prompt_len: int = 0) -> SamplingParams:
@@ -117,9 +119,13 @@ def json_response(payload: Any) -> Response:
 
 
 class Server:
-    def __init__(self, engine: Engine, model_name: str = "paroquant-tpu"):
+    def __init__(self, engine: Engine, model_name: str = "paroquant-tpu", processor: Any = None):
+        # `processor` (a transformers AutoProcessor, optional) serves chat
+        # messages with image parts: the model's image templating and pixel
+        # preprocessing
         self.engine = engine
         self.model_name = model_name
+        self.processor = processor
         # handler threads submit one request's choices at a time, as JAX's
         # event loop does (the Engine's counters are not thread-safe)
         self._submit_lock = threading.Lock()
@@ -183,14 +189,21 @@ class Server:
         if "messages" not in body:
             raise HTTPError(400, "missing 'messages'")
         messages = body["messages"]
+        pixel_values = None
         if self._has_image_parts(messages):
-            raise HTTPError(400, "image content requires a vision processor "
-                                 "(serve a VLM checkpoint with processor files)")
-        tok = self.engine.tokenizer
-        if tok is None:
-            raise HTTPError(400, "server has no tokenizer loaded")
-        prompt = tok.apply_chat_template(messages, add_generation_prompt=True)
-        return self._run(body, prompt, chat=True)
+            if self.processor is None:
+                raise HTTPError(400, "image content requires a vision processor "
+                                     "(serve a VLM checkpoint with processor files)")
+            enc = self.processor.apply_chat_template(
+                messages, add_generation_prompt=True, tokenize=True, return_dict=True)
+            prompt = list(map(int, enc["input_ids"][0]))
+            pixel_values = np.asarray(enc["pixel_values"], np.float32)
+        else:
+            tok = self.engine.tokenizer
+            if tok is None:
+                raise HTTPError(400, "server has no tokenizer loaded")
+            prompt = tok.apply_chat_template(messages, add_generation_prompt=True)
+        return self._run(body, prompt, chat=True, pixel_values=pixel_values)
 
     def completions(self, body: dict) -> Response:
         tok = self.engine.tokenizer
@@ -200,8 +213,9 @@ class Server:
             prompt = tok.encode(body["prompt"])
         else:
             raise HTTPError(400, "missing 'prompt'")
+        pixel_values = None
         if "pixel_values" in body:  # raw engine-level image input
-            raise HTTPError(501, NO_VLM)
+            pixel_values = np.asarray(body["pixel_values"], np.float32)
         if body.get("echo"):
             # prompt scoring (echo + logprobs + max_tokens=0): the lm_eval /
             # OpenAI loglikelihood protocol; echo with generation is refused
@@ -225,19 +239,20 @@ class Server:
                 "usage": {"prompt_tokens": len(prompt), "completion_tokens": 0,
                           "total_tokens": len(prompt)},
             })
-        return self._run(body, prompt, chat=False)
+        return self._run(body, prompt, chat=False, pixel_values=pixel_values)
 
-    def _submit_all(self, prompt: list[int], sp: SamplingParams, n: int) -> list:
+    def _submit_all(self, prompt: list[int], sp: SamplingParams, n: int, pixel_values=None) -> list:
         """Submit the n choices up front, so they decode concurrently; on a
         refusal, cancel those already submitted."""
         reqs = []
         try:
             with self._submit_lock:
-                reqs.append(self.engine.submit(prompt, sp))
+                reqs.append(self.engine.submit(prompt, sp, pixel_values=pixel_values))
                 for i in range(1, n):
                     # distinct sampling streams per choice: shift an explicit seed
                     seed = (sp.seed + i) if sp.seed is not None else None
-                    reqs.append(self.engine.submit(prompt, dataclasses.replace(sp, seed=seed)))
+                    reqs.append(self.engine.submit(prompt, dataclasses.replace(sp, seed=seed),
+                                                   pixel_values=pixel_values))
         except EngineOverloaded as e:
             for r in reqs:
                 self.engine.cancel(r)
@@ -248,12 +263,12 @@ class Server:
             raise HTTPError(400, str(e)) from None
         return reqs
 
-    def _run(self, body: dict, prompt: list[int], chat: bool) -> Response:
+    def _run(self, body: dict, prompt: list[int], chat: bool, pixel_values=None) -> Response:
         sp = _sampling_from_body(body, self.engine, len(prompt))
         n = max(int(body.get("n") or 1), 1)
         if n > 1 and body.get("stream"):
             raise HTTPError(400, "n>1 with stream is not supported")
-        reqs = self._submit_all(prompt, sp, n)
+        reqs = self._submit_all(prompt, sp, n, pixel_values)
         created = int(time.time())
         rid = f"chatcmpl-{uuid.uuid4().hex[:12]}" if chat else f"cmpl-{uuid.uuid4().hex[:12]}"
         if body.get("stream"):

@@ -33,8 +33,12 @@ on a hybrid). As in JAX, hybrids get no prefix caching (the recurrent
 state at a prefix's end is not page-resident) and `spec_k > 0` raises.
 A gemma3n model's pool holds the layers before its shared-KV tail, which
 the paged step reads; as in JAX, `spec_k > 0` and `kv_quant` raise for it.
-Tensor-parallel serving (a mesh) and images (`pixel_values`) are later
-slices and raise NotImplementedError.
+An image request (`submit(..., pixel_values=)`, a VLM model) is prefilled
+whole by `models/vision.py::vlm_prefill` on its padded bucket, even past
+`prefill_chunk` (its image runs attend both ways, so they must be in one
+forward), takes no prefix-cache pages and registers none; its decode is
+the text path's. Tensor-parallel serving (a mesh) is a later slice and
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -73,6 +77,9 @@ class Request:
     out_queue: "queue.SimpleQueue[tuple[str, int | None]]" = dataclasses.field(
         default_factory=queue.SimpleQueue
     )
+    # VLM: the [N_img, C, H, W] pixel batch of a prompt whose image_token_id
+    # runs mark the image positions
+    pixel_values: Any = None
     enqueue_time: float = dataclasses.field(default_factory=time.perf_counter)
     # set when the scheduler admits the request: TTFT = queue wait (enqueue ->
     # here) + prefill service (here -> first token)
@@ -251,8 +258,10 @@ class Engine:
 
     def submit(self, prompt_tokens: list[int], sampling: SamplingParams,
                pixel_values=None) -> Request:
-        if pixel_values is not None:
-            raise NotImplementedError("image prompts (VLM prefill) come with slice 3 of the port")
+        """Queue a request; `pixel_values` [N_img, C, H, W] (numpy or a
+        tensor) makes it an image request."""
+        if pixel_values is not None and self.config.vision is None:
+            raise ValueError("model has no vision tower; cannot serve images")
         if len(prompt_tokens) + sampling.max_tokens > self.max_len:
             raise ValueError(
                 f"prompt+max_tokens {len(prompt_tokens)}+{sampling.max_tokens} "
@@ -261,7 +270,8 @@ class Engine:
         if self.max_queue is not None and self.waiting.qsize() + len(self._pending) >= self.max_queue:
             self.metrics["rejected"] += 1
             raise EngineOverloaded(f"queue full ({self.max_queue} requests waiting); retry later")
-        req = Request(f"req-{next(self._id_counter)}", list(prompt_tokens), sampling)
+        req = Request(f"req-{next(self._id_counter)}", list(prompt_tokens), sampling,
+                      pixel_values=pixel_values)
         self.waiting.put(req)
         self.metrics["requests"] += 1
         return req
@@ -413,14 +423,17 @@ class Engine:
             matched: list[int] = []
             reg_keys: tuple = ()
             # hybrids excluded: the delta-net state at a prefix's end is not
-            # page-resident, so a prefix hit could not resume it
-            if self.prefix_caching and not self.config.num_linear_layers:
+            # page-resident, so a prefix hit could not resume it; image
+            # requests too: their KV depends on the pixels as well
+            image = req.pixel_values is not None
+            if self.prefix_caching and not self.config.num_linear_layers and not image:
                 matched, reg_keys = self._match_prefix(req.prompt_tokens)
             if need_pages - len(matched) > self._num_free_pages():
                 return  # wait for pages to free up
             self._pending.pop(0)
             slot_id = free_slots[0]
-            if T > self.prefill_chunk or matched:
+            # an image prompt is prefilled whole, its image runs in one forward
+            if (T > self.prefill_chunk or matched) and not image:
                 st = self._start_chunked_prefill(slot_id, req, matched, reg_keys)
                 if matched and T - len(matched) * self.page_size <= self.prefill_chunk:
                     # a prefix hit with a one-chunk suffix finishes this tick
@@ -499,9 +512,20 @@ class Engine:
         toks = np.zeros((1, bucket), np.int32)
         toks[0, :T] = req.prompt_tokens
         cache = KVCache.create(self.config, 1, bucket, self.prefill_dtype, self.device)
-        logits, cache = model_forward(self.params, self.config, self._dev(toks), cache,
-                                      quant_mode=self.quant_mode, attn_mode=self.prefill_attn,
-                                      linear_valid_len=T)
+        if req.pixel_values is not None:
+            # the tower, the soft tokens' merge and the decoder with image runs
+            # attended both ways; the bucket's padding is causal and masked by
+            # seq_lens in the decode that follows
+            from ..models.vision import vlm_prefill
+
+            logits, cache = vlm_prefill(
+                self.params, self.config, self._dev(toks),
+                torch.as_tensor(req.pixel_values, device=self.device), cache,
+                quant_mode=self.quant_mode)
+        else:
+            logits, cache = model_forward(self.params, self.config, self._dev(toks), cache,
+                                          quant_mode=self.quant_mode, attn_mode=self.prefill_attn,
+                                          linear_valid_len=T)
         self._finish_prefill(slot_id, req, cache, logits[:, T - 1, :], self._alloc_pages(req),
                              reg_keys=reg_keys)
 
@@ -529,7 +553,7 @@ class Engine:
         if cache.linear is not None:  # a hybrid: the slot's delta-net states
             self.cache.conv[:, slot_id] = cache.linear.conv[:, 0].to(self.cache.conv.dtype)
             self.cache.rec[:, slot_id] = cache.linear.rec[:, 0]
-        if self.prefix_caching:
+        if self.prefix_caching and req.pixel_values is None:
             self._register_prefix(pages, reg_keys, n_matched, req.prompt_tokens)
         sp = req.sampling
         seed = sp.seed if sp.seed is not None else abs(hash(req.request_id)) % (1 << 31)
@@ -820,10 +844,10 @@ class Engine:
         return [None] + vals.cpu().tolist()
 
     def generate_sync(self, prompt_tokens: list[int], sampling: SamplingParams,
-                      timeout: float = 300.0) -> list[int]:
+                      timeout: float = 300.0, pixel_values=None) -> list[int]:
         """Submit one request and return its tokens, stepping the engine
         itself unless a background thread runs it."""
-        req = self.submit(prompt_tokens, sampling)
+        req = self.submit(prompt_tokens, sampling, pixel_values=pixel_values)
         out: list[int] = []
         deadline = time.time() + timeout
         driving = self._thread is None

@@ -9,8 +9,9 @@ speculation (`_verify_window`, `_verify_window_sampled`,
 `create_generator`, and the prompt-lookup drafter `_lookup_draft`, which
 the engine's speculative ticks use too. JAX's burst is one `lax.scan`
 dispatch; here it is a loop of the same steps that the host does not wait
-on. The VLM prefill (`pixel_values`) waits for a later slice and raises.
-The tokenizer is optional.
+on. `pixel_values` runs the VLM prefill (`models/vision.py::
+vlm_prefill_step`) in place of the text prefill; decoding goes on through
+the text path. The tokenizer is optional.
 """
 
 from __future__ import annotations
@@ -217,10 +218,12 @@ class Generator:
         generator: torch.Generator | None = None, pixel_values=None,
     ) -> Iterator[int]:
         """Yield token ids. `generator` draws the samples; by default one on
-        the model's device seeded with sp.seed (0 when None)."""
-        if pixel_values is not None:
-            raise NotImplementedError("the VLM prefill (pixel_values) comes with a later slice "
-                                      "of the port (models/vision.py)")
+        the model's device seeded with sp.seed (0 when None). `pixel_values`
+        [N_img, C, H, W] (numpy or a tensor, in the dtype the tower is to
+        run in) takes the image-text path: the prompt's image_token_id runs
+        are replaced by the images' soft tokens in the prefill."""
+        if pixel_values is not None and self.config.vision is None:
+            raise ValueError("model has no vision tower; cannot take images")
         if generator is None:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(sp.seed if sp.seed is not None else 0)
@@ -235,10 +238,17 @@ class Generator:
         if sp.repetition_penalty != 1.0:
             counts = torch.zeros((1, self.config.vocab_size), dtype=torch.int32, device=self.device)
             counts[0].index_add_(0, toks[0].long(), torch.ones_like(toks[0]))
-        logits, cache = prefill(
-            self.params, self.config, toks, cache,
-            quant_mode=self.quant_mode, attn_mode=self.attn_mode,
-        )
+        if pixel_values is not None:
+            from ..models.vision import vlm_prefill_step
+
+            logits, cache = vlm_prefill_step(
+                self.params, self.config, toks, torch.as_tensor(pixel_values, device=self.device),
+                cache, quant_mode=self.quant_mode)
+        else:
+            logits, cache = prefill(
+                self.params, self.config, toks, cache,
+                quant_mode=self.quant_mode, attn_mode=self.attn_mode,
+            )
         stop = set(sp.stop_token_ids)
         if self.tokenizer is not None and getattr(self.tokenizer, "eos_token_id", None) is not None:
             stop.add(int(self.tokenizer.eos_token_id))

@@ -66,8 +66,8 @@ from ..utils.device import resolve_device
 def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "tensor-parallel serving (a mesh, head-sharded paged attention) comes with "
-            "slice 5 of the port (parallel/)")
+            "tensor-parallel serving (a mesh, head-sharded paged attention) needs "
+            "parallel/, which the port has not yet (ROADMAP §A 7)")
 
 
 @dataclasses.dataclass

@@ -357,10 +357,13 @@ def test_sampled_lengths_match_jax_and_seed_repeats(servers, transport):
 
 
 def test_image_prompts_get_501(servers):
+    """Images reach the Engine now (tests/test_torch_vlm_serve.py serves
+    them); this text model has no vision tower, so its Engine refuses them
+    with JAX's ValueError, which the server answers with 400."""
     _, ts, _ = servers["tok"]
     body = {"prompt_token_ids": [1, 2], "pixel_values": [[0.0]]}
     r = ts.handle("POST", "/v1/completions", json.dumps(body).encode())
-    assert r.status == 501 and b"models/vision.py" in r.body
+    assert r.status == 400 and b"no vision tower" in r.body
 
 
 @pytest.mark.parametrize("body", (b"[1, 2]", b"{not json"))

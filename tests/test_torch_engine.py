@@ -268,9 +268,10 @@ def test_submit_rejects_oversized_and_later_slices():
     eng = _port_engine(max_batch=1, max_len=32)
     with pytest.raises(ValueError):
         eng.submit(list(range(30)), SamplingParams(max_tokens=10))
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    # a model with no vision tower refuses images with JAX's ValueError
+    with pytest.raises(ValueError, match="no vision tower"):
         eng.submit([1, 2], SamplingParams(max_tokens=2), pixel_values=np.zeros((1, 3, 4, 4)))
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(NotImplementedError, match="§A 7"):
         _port_engine(mesh=object())
 
 

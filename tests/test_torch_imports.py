@@ -47,6 +47,7 @@ EXPERIMENT_MODULES = (
     "paroquant_tpu_torch.cli.convert", "paroquant_tpu_torch.scripts.bench_calibration",
     "paroquant_tpu_torch.ops.moe", "paroquant_tpu_torch.optim.pseudo_moe",
     "paroquant_tpu_torch.models.linear_attn", "paroquant_tpu_torch.models.gemma3n",
+    "paroquant_tpu_torch.models.vision",
 )
 
 

@@ -484,7 +484,7 @@ def test_paged_cache_create_and_unsupported():
     with pytest.raises(ValueError):
         tpg.PagedKVCache.create(CFG, 5, 8, kv_quant="fp8", device="cpu")
     jp, tp = _models()
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(NotImplementedError, match="§A 7"):
         tpg.paged_decode_step(tp, CFG, torch.zeros(1, dtype=torch.int32),
                               torch.zeros(1, dtype=torch.int32),
                               torch.zeros((1, 1), dtype=torch.int32), c, attn_mesh=object())

@@ -224,7 +224,8 @@ def test_sampled_speculation_runs_reproducibly():
 
 
 def test_pixel_values_and_backend():
-    with pytest.raises(NotImplementedError, match="VLM"):
+    # a model with no vision tower refuses images with JAX's ValueError
+    with pytest.raises(ValueError, match="no vision tower"):
         next(_gen().stream_generate([1, 2, 3], SamplingParams(max_tokens=2), None,
                                     np.zeros((1, 3, 8, 8), np.float32)))
     assert detect_backend() == ("cuda" if torch.cuda.is_available() else "cpu")
